@@ -1,0 +1,263 @@
+"""Fused small-K dense group-by: the CUDA kernel's wrapper and its plain
+PyTorch version.
+
+Port of ``spark_druid_olap_tpu/ops/pallas_groupby.py``, whose Pallas TPU
+kernel (``_make_kernel``, launched by ``pallas_dense_groupby``) becomes the
+hand-written Hopper kernel in ``csrc/dense_groupby.cu``. The TPU kernel
+kept per-lane f32 Neumaier pairs and needed exactness gates
+(``maxabs * block_rows < 2^24``); Hopper has native int64 and float64, so
+the kernel emits the x64 routes directly: counts and integer sums in
+int64, float sums in float64, min / max in the value's own 64-bit type
+with ``INT64_MAX`` / ``INT64_MIN`` / +-inf empty-group sentinels. No gate
+remains.
+
+:func:`dense_groupby_kernel` launches the kernel for CUDA tensors, once per
+group of at most :data:`MAX_AGGS` aggregates, and raises on anything the
+kernel does not take; for CPU tensors it computes the same function with
+:func:`dense_groupby_reference`, the plain version that the tests and
+``chip_smoke.py`` hold the kernel against, and which
+``ops/groupby.dense_groupby`` also runs as its scatter tier for more keys
+than the kernel takes. The kernel is built with ``nvcc`` at first use into
+``build/torch_ext/`` and bound with ``ctypes`` (no PyTorch headers, so the
+build takes seconds).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Sequence
+
+import torch
+
+KINDS = ("count", "sum", "min", "max")
+MAX_AGGS = 16                      # kMaxAggs in the CUDA source
+MAX_BLOCKS = 1024                  # fixed cap: results never depend on the card
+MIN_ROWS_PER_BLOCK = 4096
+SMEM_LIMIT = 227 * 1024 - 1024     # opt-in shared memory, less the static part
+I64_MAX = 2**63 - 1
+I64_MIN = -(2**63)
+
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "dense_groupby.cu"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
+
+_KIND_CODE = {"count": 0, "sum": 1, "min": 2, "max": 3}
+_DTYPE_CODE = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
+               torch.float64: 3}
+
+#: kernel launches made by :func:`dense_groupby_kernel`: one per group of
+#: at most :data:`MAX_AGGS` aggregates, each the partials kernel plus its
+#: block-order reduction
+launches = 0
+#: what the last build did: {"seconds": float, "log": str, "cached": bool}
+build_info: Dict[str, object] = {}
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the dense_groupby kernel is built "
+                       "from csrc/dense_groupby.cu on a machine with the "
+                       "CUDA toolkit")
+
+
+def library() -> ctypes.CDLL:
+    """Build (once per source version) and load the kernel library."""
+    global _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        import time
+        src = SOURCE.read_bytes()
+        digest = hashlib.sha256(src).hexdigest()[:12]
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        so = BUILD_DIR / f"libdense_groupby_{digest}.so"
+        t0 = time.perf_counter()
+        log = ""
+        cached = so.exists()
+        if not cached:
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                   "-std=c++17", "-O3", "-Xptxas=-v", "-shared",
+                   "-Xcompiler", "-fPIC", "-o", str(tmp), str(SOURCE)]
+            r = subprocess.run(cmd, capture_output=True, text=True)
+            log = r.stdout + r.stderr
+            if r.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({r.returncode}):\n{log}")
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(str(so))
+        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.sdot_dense_groupby.argtypes = [
+            vp, ll, i, i, ctypes.POINTER(i), ctypes.POINTER(i),
+            ctypes.POINTER(ctypes.c_ulonglong),
+            ctypes.POINTER(ctypes.c_ulonglong), ll, i, vp, vp, vp]
+        lib.sdot_dense_groupby.restype = i
+        lib.sdot_dense_groupby_smem_bytes.argtypes = [i, i]
+        lib.sdot_dense_groupby_smem_bytes.restype = ll
+        lib.sdot_dense_groupby_max_aggs.restype = i
+        if lib.sdot_dense_groupby_max_aggs() != MAX_AGGS:
+            raise RuntimeError("csrc/dense_groupby.cu disagrees on MAX_AGGS")
+        build_info.update(seconds=time.perf_counter() - t0, log=log,
+                          cached=cached)
+        _lib = lib
+        return lib
+
+
+def _is_float(values) -> bool:
+    return values is not None and values.dtype.is_floating_point
+
+
+def dense_groupby_reference(key: torch.Tensor, n_keys: int,
+                            inputs: Sequence) -> Dict[str, torch.Tensor]:
+    """Plain PyTorch version of the kernel (same inputs, same outputs):
+    one scatter per aggregate into an overflow-slotted ``[n_keys + 1]``
+    accumulator.
+
+    ``key``: int [N], rows outside ``[0, n_keys)`` (the filtered-out
+    sentinel ``n_keys``) match no group. ``inputs``: objects with ``name``,
+    ``kind`` in :data:`KINDS`, ``values`` ([N] int32/int64/float32/float64,
+    None for count) and ``mask`` ([N] bool/uint8 or None). Returns name ->
+    [n_keys] tensor: int64 counts and integer aggregates, float64 float
+    aggregates, min/max empty groups at ``INT64_MAX``/``INT64_MIN``/+-inf;
+    a NaN value makes its group's float min, max and sum NaN.
+    """
+    key = key.reshape(-1).long()
+    live = (key >= 0) & (key < n_keys)
+    out = {}
+    for a in inputs:
+        eff = live if a.mask is None else live & (a.mask.reshape(-1) != 0)
+        k = torch.where(eff, key, n_keys)
+        if a.kind == "count":
+            acc = torch.zeros(n_keys + 1, dtype=torch.int64,
+                              device=key.device)
+            acc.index_add_(0, k, eff.long())
+        else:
+            flt = _is_float(a.values)
+            v = a.values.reshape(-1).to(torch.float64 if flt
+                                        else torch.int64)
+            if a.kind == "sum":
+                acc = torch.zeros(n_keys + 1, dtype=v.dtype,
+                                  device=key.device)
+                acc.index_add_(0, k, torch.where(eff, v, 0))
+            else:
+                if flt:
+                    sent = float("inf") if a.kind == "min" \
+                        else float("-inf")
+                else:
+                    sent = I64_MAX if a.kind == "min" else I64_MIN
+                acc = torch.full((n_keys + 1,), sent, dtype=v.dtype,
+                                 device=key.device)
+                acc.scatter_reduce_(0, k, torch.where(eff, v, sent),
+                                    "amin" if a.kind == "min" else "amax")
+        out[a.name] = acc[:n_keys]
+    return out
+
+
+def _check(key: torch.Tensor, n_keys: int, inputs: Sequence,
+           max_keys: int) -> None:
+    if key.dtype != torch.int32 or key.dim() != 1 \
+            or not key.is_contiguous():
+        raise ValueError("dense_groupby: key must be a contiguous 1-D int32 "
+                         "tensor")
+    if not 1 <= n_keys <= max_keys:
+        raise ValueError(f"dense_groupby: {n_keys} keys outside [1, "
+                         f"{max_keys}] (sdot.engine.groupby.pallas.max.keys)")
+    if not inputs:
+        raise ValueError("dense_groupby: no aggregates")
+    n = key.numel()
+    for a in inputs:
+        if a.kind not in KINDS:
+            raise ValueError(f"dense_groupby: aggregate kind {a.kind!r}")
+        for what, t, ok in (("values", a.values, tuple(_DTYPE_CODE)),
+                            ("mask", a.mask, (torch.bool, torch.uint8))):
+            if t is None:
+                if what == "values" and a.kind != "count":
+                    raise ValueError(f"dense_groupby: {a.name} has no values")
+                continue
+            if t.device != key.device or t.dtype not in ok \
+                    or t.dim() != 1 or t.numel() != n \
+                    or not t.is_contiguous():
+                raise ValueError(
+                    f"dense_groupby: {a.name} {what} must be a contiguous "
+                    f"[{n}] tensor on {key.device} with dtype in {ok}, got "
+                    f"{tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def _launch(lib, key: torch.Tensor, n_keys: int, inputs: Sequence,
+            rows_per_block: int, n_blocks: int,
+            scratch: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """One launch of the kernel over at most :data:`MAX_AGGS` aggregates."""
+    global launches
+    m = len(inputs)
+    out = torch.empty((n_keys, m), dtype=torch.int64, device=key.device)
+    ints = ctypes.c_int * m
+    ptrs = ctypes.c_ulonglong * m
+    kinds = ints(*[_KIND_CODE[a.kind] for a in inputs])
+    dtypes = ints(*[_DTYPE_CODE[a.values.dtype] if a.values is not None
+                    else _DTYPE_CODE[torch.int64] for a in inputs])
+    vals = ptrs(*[a.values.data_ptr() if a.values is not None else 0
+                  for a in inputs])
+    masks = ptrs(*[a.mask.data_ptr() if a.mask is not None else 0
+                   for a in inputs])
+    with torch.cuda.device(key.device):
+        stream = torch.cuda.current_stream(key.device).cuda_stream
+        err = lib.sdot_dense_groupby(
+            key.data_ptr(), key.numel(), n_keys, m, kinds, dtypes, vals,
+            masks, rows_per_block, n_blocks, scratch.data_ptr(),
+            out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"dense_groupby kernel launch failed: CUDA error "
+                           f"{err}")
+    launches += 1
+    as_f64 = out.view(torch.float64)
+    return {a.name: (as_f64 if _is_float(a.values) else out)[:, j]
+            for j, a in enumerate(inputs)}
+
+
+def dense_groupby_kernel(key: torch.Tensor, n_keys: int, inputs: Sequence,
+                         max_keys: int) -> Dict[str, torch.Tensor]:
+    """Fused dense group-by over every aggregate in ``inputs``.
+
+    Same contract as :func:`dense_groupby_reference`. A CPU ``key`` is
+    computed by that plain version; a CUDA ``key`` launches the kernel or
+    raises — there is no fallback. Each launch reads the key once and takes
+    as many aggregates as its shared memory holds, at most
+    :data:`MAX_AGGS`.
+    """
+    if key.device.type != "cuda":
+        return dense_groupby_reference(key, n_keys, inputs)
+    _check(key, n_keys, inputs, max_keys)
+    lib = library()
+    per_launch = min(MAX_AGGS, len(inputs))
+    while per_launch and lib.sdot_dense_groupby_smem_bytes(
+            n_keys, per_launch) > SMEM_LIMIT:
+        per_launch -= 1
+    if not per_launch:
+        raise ValueError(f"dense_groupby: {n_keys} keys need "
+                         f"{lib.sdot_dense_groupby_smem_bytes(n_keys, 1)} B "
+                         f"of shared memory per aggregate (limit "
+                         f"{SMEM_LIMIT})")
+    n = key.numel()
+    n_blocks = max(1, min(MAX_BLOCKS, -(-n // MIN_ROWS_PER_BLOCK)))
+    per_block = -(-max(n, 1) // n_blocks)
+    rows_per_block = -(-per_block // 32) * 32        # whole warps
+    n_blocks = max(1, -(-n // rows_per_block))
+    # one scratch for every launch: they run in order on one stream
+    scratch = torch.empty(n_blocks * n_keys * per_launch, dtype=torch.int64,
+                          device=key.device)
+    out: Dict[str, torch.Tensor] = {}
+    for lo in range(0, len(inputs), per_launch):
+        out.update(_launch(lib, key, n_keys, inputs[lo:lo + per_launch],
+                           rows_per_block, n_blocks, scratch))
+    return out

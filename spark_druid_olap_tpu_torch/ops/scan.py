@@ -1,0 +1,126 @@
+"""Scan context: the bridge between host-side metadata (dictionaries, column
+kinds) and the device tensors a query scans.
+
+Port of ``spark_druid_olap_tpu/ops/scan.py`` (``ScanContext``,
+``array_names``, ``array_dtype``, ``build_array``; no compacted view, no
+tiered or multi-host builders). The tensors it holds live on the engine's
+device; the dictionaries and cardinalities it consults stay on the host,
+so no string ever reaches the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from spark_druid_olap_tpu_torch.segment.column import ColumnKind
+from spark_druid_olap_tpu_torch.segment.store import Datasource
+
+TIME_MS_KEY = "__time_ms__"
+ROW_VALID_KEY = "__rows__"
+NULL_VALID_PREFIX = "__nulls__"
+
+_NARROW_INTS = (torch.int8, torch.int16, torch.uint8)
+
+
+@dataclasses.dataclass
+class ScanContext:
+    """Host metadata + bound device tensors for one scan."""
+
+    ds: Datasource
+    arrays: Dict[str, torch.Tensor]    # name -> [S, R] tensor
+    min_day: int                       # over the selected segments
+    max_day: int
+    tz: str = "UTC"                    # session timezone (instants shift)
+
+    @property
+    def device(self) -> torch.device:
+        return self.arrays[ROW_VALID_KEY].device
+
+    # -- device array access --------------------------------------------------
+    def col(self, name: str) -> torch.Tensor:
+        if name not in self.arrays:
+            raise KeyError(
+                f"column {name!r} not bound into this scan "
+                f"(bound: {sorted(self.arrays)})")
+        arr = self.arrays[name]
+        if arr.dtype in _NARROW_INTS:
+            # narrow storage (i8/i16 codes and small longs) widens on
+            # read: device memory holds the narrow bytes, kernels see i32
+            arr = arr.to(torch.int32)
+        return arr
+
+    def row_valid(self) -> torch.Tensor:
+        return self.arrays[ROW_VALID_KEY]
+
+    def time_ms(self) -> Optional[torch.Tensor]:
+        return self.arrays.get(TIME_MS_KEY)
+
+    def null_valid(self, name: str) -> Optional[torch.Tensor]:
+        """Validity mask for a nullable column, or None if non-nullable."""
+        return self.arrays.get(NULL_VALID_PREFIX + name)
+
+    # -- host metadata --------------------------------------------------------
+    def kind(self, name: str) -> ColumnKind:
+        return self.ds.column_kind(name)
+
+    def dictionary(self, name: str) -> np.ndarray:
+        return self.ds.dims[name].dictionary
+
+
+def array_names(ds: Datasource, columns, need_time_ms: bool):
+    """The array keys a scan over ``columns`` binds."""
+    names = list(columns)
+    for name in columns:
+        col = ds.dims.get(name) or ds.metrics.get(name)
+        if col is not None and col.has_nulls():
+            names.append(NULL_VALID_PREFIX + name)
+    if need_time_ms and ds.time is not None:
+        names.append(TIME_MS_KEY)
+    names.append(ROW_VALID_KEY)
+    return names
+
+
+def array_dtype(ds: Datasource, key: str):
+    """Host dtype of one stacked array."""
+    if key == ROW_VALID_KEY or key.startswith(NULL_VALID_PREFIX):
+        return np.bool_
+    if key == TIME_MS_KEY:
+        return ds.time.ms_dtype()
+    if key in ds.dims:
+        return ds.dims[key].data_dtype()
+    if key in ds.metrics:
+        return ds.metrics[key].data_dtype()
+    if ds.time is not None and key == ds.time.name:
+        return ds.time.data_dtype()
+    return np.int32
+
+
+def _stacked_by_key(ds: Datasource, key: str) -> np.ndarray:
+    """The [S, R] stacked array behind one array key."""
+    if key == ROW_VALID_KEY:
+        return ds.stacked_row_validity()
+    if key == TIME_MS_KEY:
+        return ds.stacked_time_ms()
+    if key.startswith(NULL_VALID_PREFIX):
+        return ds.stacked_null_validity(key[len(NULL_VALID_PREFIX):])
+    return ds.stacked(key)
+
+
+def build_array(ds: Datasource, key: str,
+                segment_indices: Optional[np.ndarray] = None) -> np.ndarray:
+    """Materialize one host-side stacked array by key over the (pruned)
+    ``segment_indices``. Unlike the JAX engine, which pads the segment
+    axis to a power of two for its compile cache, the port binds exactly
+    the selected segments: eager PyTorch has no compiled shape to keep
+    stable."""
+    arr = _stacked_by_key(ds, key)
+    if segment_indices is not None and (
+            len(segment_indices) != ds.num_segments
+            or not np.array_equal(segment_indices,
+                                  np.arange(ds.num_segments))):
+        arr = arr[segment_indices]
+    return arr

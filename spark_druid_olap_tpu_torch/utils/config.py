@@ -1,0 +1,101 @@
+"""Session configuration.
+
+Port of ``spark_druid_olap_tpu/utils/config.py``: the ``Config`` class and
+only the registry entries the port reads. Keys keep the JAX package's
+names, so one settings dict configures both engines; unknown ``sdot.*``
+keys are accepted, as there.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class ConfigEntry:
+    key: str
+    default: Any
+    doc: str
+    parse: Callable[[str], Any] = lambda s: s
+
+
+def _parse_bool(s: str) -> bool:
+    return str(s).strip().lower() in ("1", "true", "yes", "on")
+
+
+_REGISTRY: Dict[str, ConfigEntry] = {}
+
+
+def _entry(key: str, default: Any, doc: str, parse=None) -> ConfigEntry:
+    if parse is None:
+        if isinstance(default, bool):
+            parse = _parse_bool
+        elif isinstance(default, int):
+            parse = int
+        elif isinstance(default, float):
+            parse = float
+        else:
+            parse = lambda s: s
+    e = ConfigEntry(key, default, doc, parse)
+    _REGISTRY[key] = e
+    return e
+
+
+TZ_ID = _entry(
+    "sdot.timezone", "UTC",
+    "Timezone for time bucketing and interval arithmetic.")
+SEGMENT_ROWS = _entry(
+    "sdot.segment.target.rows", 1 << 20,
+    "Target rows per time-sharded segment at ingest.")
+GROUPBY_PALLAS_MAX_KEYS = _entry(
+    "sdot.engine.groupby.pallas.max.keys", 64,
+    "Dense group-by runs the fused single-pass kernel "
+    "(ops/cuda_groupby.py) when the fused key cardinality is at most "
+    "this; above it, the scatter path. 0 disables the kernel. The key "
+    "keeps the JAX package's name so one setting drives both engines.")
+GROUPBY_DENSE_MAX_KEYS = _entry(
+    "sdot.engine.groupby.dense.max.keys", 1 << 22,
+    "Max fused key cardinality for the dense device group-by; above it "
+    "the JAX engine switches to the hashed group-by, which the port does "
+    "not have yet.")
+DEVICE_CACHE_BYTES = _entry(
+    "sdot.engine.device.cache.bytes", 8 << 30,
+    "Budget for device-resident bound column arrays (host-side bytes "
+    "tracked per upload). When a new binding would exceed it the whole "
+    "array cache is dropped and rebuilt on demand.")
+TOPN_DEVICE_MIN_KEYS = _entry(
+    "sdot.engine.topn.device.min.keys", 8192,
+    "Min fused key cardinality at which the JAX engine runs an ordered "
+    "limit's top-k selection on the device; the port refuses such "
+    "queries until that epilogue is ported.")
+HAVING_DEVICE_MIN_KEYS = _entry(
+    "sdot.engine.having.device.min.keys", 1 << 16,
+    "Min fused key cardinality at which the JAX engine evaluates an "
+    "exact-comparable HAVING on the device; the port refuses such "
+    "queries until that epilogue is ported.")
+
+
+class Config:
+    """A mutable key-value session config over the registered entries."""
+
+    def __init__(self, overrides: Optional[Dict[str, Any]] = None):
+        self._values: Dict[str, Any] = {}
+        if overrides:
+            for k, v in overrides.items():
+                self.set(k, v)
+
+    def set(self, key: str, value: Any) -> None:
+        entry = _REGISTRY.get(key)
+        if entry is not None and isinstance(value, str) \
+                and not isinstance(entry.default, str):
+            value = entry.parse(value)
+        self._values[key] = value
+
+    def get(self, entry_or_key) -> Any:
+        if isinstance(entry_or_key, ConfigEntry):
+            return self._values.get(entry_or_key.key, entry_or_key.default)
+        entry = _REGISTRY.get(entry_or_key)
+        if entry is not None:
+            return self._values.get(entry.key, entry.default)
+        return self._values.get(entry_or_key)
