@@ -48,7 +48,7 @@ def nvidia_smi() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-# -- kernel vs plain version ---------------------------------------------------
+# -- kernel vs plain version --------------------------------------------------
 
 def compare(case, got, want, inputs):
     """Exact for integers, counts and min/max; float sums to rtol 1e-9;
@@ -215,7 +215,7 @@ def kernel_cases(CG, dev):
     return cases, worst
 
 
-# -- timing --------------------------------------------------------------------
+# -- timing -------------------------------------------------------------------
 
 _flush_buf = None
 
@@ -291,11 +291,17 @@ def timed_execute(ctx, spec) -> float:
 def profile_query(ctx, spec) -> dict:
     """One warm run under torch.profiler: device busy time by kernel, and
     the device's idle share of the profiled wall time."""
+    return profile_run(lambda: timed_execute(ctx, spec))
+
+
+def profile_run(run) -> dict:
+    """``run()`` (which returns its host wall ms) once to warm up, then
+    once under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
-    timed_execute(ctx, spec)
+    run()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall_ms = timed_execute(ctx, spec)
+        wall_ms = run()
 
     def dev_us(e):
         v = getattr(e, "self_device_time_total", None)
@@ -309,7 +315,7 @@ def profile_query(ctx, spec) -> dict:
                      "device_ms": dev_us(e) / 1e3} for e in events[:10]]}
 
 
-# -- the main path ---------------------------------------------------------------
+# -- the main path ------------------------------------------------------------
 
 def ms_of(day: str) -> int:
     return int(np.datetime64(day, "ms").astype(np.int64))
@@ -469,6 +475,389 @@ def check_q1(got, want):
             err_msg=avg)
 
 
+# -- the wave kernel vs its plain version -------------------------------------
+
+def synthetic_store(n, rng):
+    """``n`` rows over 1995-1996 with int32, int64, float32 and float64
+    metrics (the float64 one with NaNs; the int64 one large enough that a
+    group's sum passes 2^53), two dimensions and a time column. Carried in
+    with ``datasource_from_arrays``, which keeps the float64 column."""
+    from spark_druid_olap_tpu_torch.segment.store import (
+        datasource_from_arrays)
+    f64 = rng.normal(0.0, 1000.0, n)
+    f64[rng.random(n) < 1e-3] = np.nan
+    seg = 1 << 20
+
+    def dim(card, prefix):
+        return {"kind": "dimension", "validity": None,
+                "values": rng.integers(0, card, n).astype(np.int32),
+                "dictionary": [f"{prefix}{i:02d}" for i in range(card)]}
+
+    def met(kind, values):
+        return {"kind": kind, "values": values, "validity": None}
+
+    return datasource_from_arrays("synth", {
+        "time": {"name": "ts", "millis": np.sort(rng.integers(
+            ms_of("1995-01-01"), ms_of("1997-01-01"), n))},
+        "segments": [(lo, min(lo + seg, n)) for lo in range(0, n, seg)],
+        "columns": {
+            "k6": dim(6, "a"), "k16": dim(16, "g"),
+            "i32": met("long", rng.integers(-10**6, 10**6, n,
+                                            dtype=np.int32)),
+            "i64": met("long", rng.integers(0, 2**62 // n, n,
+                                            dtype=np.int64)),
+            "f32": met("double", rng.normal(0.0, 100.0, n)
+                       .astype(np.float32)),
+            "f64": met("double", f64)}})
+
+
+def wave_specs(S, E, n_lanes):
+    """``n_lanes`` distinct lanes over the synthetic store: every
+    aggregate kind on every column type, dimension and granularity keys,
+    selector / bound / expression / logical / interval filters, filtered
+    aggregates, and one lane whose filter no row passes."""
+    C, L = E.Column, E.Literal
+    aggs = (S.AggregationSpec("count", "n"),
+            S.AggregationSpec("longsum", "s64", field="i64"),
+            S.AggregationSpec("longsum", "s32", field="i32"),
+            S.AggregationSpec("doublesum", "sf32", field="f32"),
+            S.AggregationSpec("doublesum", "sf64", field="f64"),
+            S.AggregationSpec("doublemin", "mn64", field="f64"),
+            S.AggregationSpec("doublemax", "mx64", field="f64"),
+            S.AggregationSpec("doublemin", "mn32", field="f32"),
+            S.AggregationSpec("longmin", "mni", field="i32"),
+            S.AggregationSpec("longmax", "mxi", field="i64"),
+            S.AggregationSpec("doublesum", "sf_pos", field="f64",
+                              filter=S.BoundFilter("i32", lower=0,
+                                                   numeric=True)),
+            S.AggregationSpec("count", "n_c", filter=S.SelectorFilter(
+                "k6", "a02")))
+    filters = [
+        None,
+        S.BoundFilter("f32", lower=0, numeric=True),
+        S.SelectorFilter("k6", "a03"),
+        S.ExprFilter(E.Comparison("=", E.BinaryOp("%", C("i32"), L(3)),
+                                  L(0))),
+        S.LogicalFilter("or", (S.BoundFilter("f64", upper=-100,
+                                             numeric=True),
+                               S.SelectorFilter("k16", "g03"))),
+        S.ExprFilter(E.Comparison(">", C("f32"), C("f32"))),  # no row
+        S.LogicalFilter("not", (S.SelectorFilter("k16", "g07"),)),
+        S.ExprFilter(E.Comparison("<", E.BinaryOp(
+            "*", C("f32"), E.BinaryOp("-", L(1), C("f64"))), L(50.0)))]
+    keys = [((S.DimensionSpec("k6", "k6"),), S.GRAN_ALL),
+            ((S.DimensionSpec("k16", "k16"),), S.GRAN_ALL),
+            ((), S.Granularity("month")),
+            ((S.DimensionSpec("k6", "k6"),), S.Granularity("year"))]
+    window = ((ms_of("1995-06-01"), ms_of("1996-02-15")),)
+    out = []
+    for i in range(n_lanes):
+        dims, gran = keys[(i // 2) % len(keys)]
+        out.append(S.GroupByQuerySpec(
+            "synth", dims, aggs, filter=filters[i % len(filters)],
+            granularity=gran, intervals=window if i >= 8 else None))
+    return out
+
+
+def compile_specs(eng, ds, specs, CW, FU):
+    """Plan ``specs`` as one fused group of ``eng``'s coalescer and compile
+    its lane program; returns (program, layout, flat columns)."""
+    co = eng.sharedscan
+    plans, seg_u, min_day, max_day = co._plan_members(ds, specs)
+    if seg_u is None or any(p is None for p in plans):
+        raise AssertionError("a synthetic lane did not plan")
+    by_sig = {}
+    for lp in plans:
+        by_sig.setdefault(lp.sig, lp)
+    lanes = [by_sig[k] for k in sorted(by_sig)]
+    cols, names = co._union(ds, lanes)
+    fplan = FU.plan_lanes(
+        [(lp.q.filter, lp.q.intervals, tuple(a.filter for a in lp.aggs))
+         for lp in lanes], [len(lp.needed) for lp in lanes], len(cols))
+    program, layout = CW.compile_wave(ds, lanes, min_day, max_day, fplan,
+                                      union_names=names, tz="UTC")
+    if CW.smem_bytes(program, layout) > CW.SMEM_LIMIT:
+        raise AssertionError("a synthetic group needs more shared memory "
+                             "than the wave kernel has")
+    arrays = eng._bind_arrays(ds, names, seg_u)
+    return program, layout, [arrays[k].reshape(-1) for k in program.columns]
+
+
+def compare_wave(case, got, want, layout):
+    """Exact for integers, counts and min/max; float sums to rtol 1e-9;
+    NaN in the same groups on both sides. Returns the largest absolute
+    float-sum difference."""
+    worst = 0.0
+    for li, (g_lane, w_lane, ls) in enumerate(zip(got, want, layout.lanes)):
+        for name, kind, flt, _, _ in ls.aggs:
+            g, w = g_lane[name], w_lane[name]
+            what = f"{case}/lane{li}/{name}"
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise AssertionError(f"{what}: {g.dtype}{tuple(g.shape)} "
+                                     f"vs {w.dtype}{tuple(w.shape)}")
+            if g.dtype.is_floating_point:
+                nan = torch.isnan(w)
+                if not torch.equal(torch.isnan(g), nan):
+                    raise AssertionError(f"{what}: NaN in other groups "
+                                         f"than the plain version's")
+                g, w = g[~nan], w[~nan]
+            if kind == "sum" and flt:
+                err = (g - w).abs()
+                worst = max(worst, float(err.max()) if err.numel() else 0.0)
+                if not bool((err <= FLOAT_SUM_RTOL_KERNEL * w.abs()).all()):
+                    raise AssertionError(f"{what}: float sums differ "
+                                         f"beyond rtol "
+                                         f"{FLOAT_SUM_RTOL_KERNEL}")
+            elif not torch.equal(g, w):
+                raise AssertionError(f"{what}: kernel and plain version "
+                                     f"differ")
+    return worst
+
+
+def bits(lanes):
+    return [{k: v.view(torch.int64) if v.dtype == torch.float64 else v
+             for k, v in d.items()} for d in lanes]
+
+
+def wave_cases(sdt, S, E, CW, FU):
+    """The wave kernel against its plain version over the contract's sizes,
+    lane counts, column types and edge cases; returns (cases run, largest
+    float-sum difference, [checks that ran])."""
+    rng = np.random.default_rng(SEED + 1)
+    eng = sdt.Context().engine
+    cases, worst, checks = 0, 0.0, []
+    for n in (1000, 70_000, 6_000_000):
+        ds = synthetic_store(n, rng)
+        eng.store.register(ds)
+        for n_lanes in (1, 4, 16):
+            specs = wave_specs(S, E, n_lanes)
+            program, layout, cols = compile_specs(eng, ds, specs, CW, FU)
+            got = CW.wave_groupby(program, layout, cols)
+            torch.cuda.synchronize()
+            want = CW.wave_reference(program, cols, layout)
+            torch.cuda.synchronize()
+            case = f"n{n}_lanes{n_lanes}"
+            worst = max(worst, compare_wave(case, got, want, layout))
+            cases += 1
+            if n_lanes == 16:
+                from spark_druid_olap_tpu_torch.parallel.sharedscan import (
+                    _cache_repr)
+                no_row = wave_specs(S, E, 6)[5].filter
+                empty = [d for d, sp in zip(got, sorted(specs,
+                                                        key=_cache_repr))
+                         if sp.filter == no_row]
+                for d in empty:
+                    if int(d["__rows__"].sum()) != 0 \
+                            or float(d["sf32"].abs().sum()) != 0.0 \
+                            or not bool((d["mn64"] == float("inf")).all()) \
+                            or not bool((d["mxi"] == CW.CG.I64_MIN).all()):
+                        raise AssertionError(f"{case}: the all-masked lane "
+                                             f"is not empty")
+                if not empty:
+                    raise AssertionError(f"{case}: no all-masked lane")
+                checks.append(f"{case}: all-masked lanes empty")
+                nan_groups = sum(int(torch.isnan(d["mn64"]).sum())
+                                 for d in got)
+                if n >= 70_000 and nan_groups == 0:
+                    raise AssertionError(f"{case}: no NaN reached a float "
+                                         f"min")
+                big = max(int(d["s64"].max()) for d in got)
+                if big <= 2**53:
+                    raise AssertionError(f"{case}: no int sum past 2^53")
+                checks.append(f"{case}: {nan_groups} NaN min groups, int "
+                              f"sum {big} > 2^53")
+                again = CW.wave_groupby(program, layout, cols)
+                torch.cuda.synchronize()
+                if any(not torch.equal(a[k], b[k]) for a, b in
+                       zip(bits(got), bits(again)) for k in a):
+                    raise AssertionError(f"{case}: two launches differ")
+                checks.append(f"{case}: two launches bit-identical")
+    return cases, worst, checks
+
+
+# -- the storm: 8 concurrent dashboard queries over SF1 lineitem --------------
+
+STORM_CONFIG = {
+    "sdot.sharedscan.enabled": True, "sdot.sharedscan.max.queries": 8,
+    # the group closes as soon as the 8th query joins; the window only
+    # has to outlast the threads' start skew
+    "sdot.wlm.batch.window.ms": 2000.0,
+    # the monthly lane groups by month over the group's whole day basis
+    # (84 months at SF1), above the default 64-key tier of the fused
+    # group-by kernel that wave lanes must ride
+    "sdot.engine.groupby.pallas.max.keys": 128}
+
+
+def storm_specs(S, E):
+    """One dashboard over lineitem: 8 QuerySpecs that share the Q6
+    discount bound (lanes 2, 5, 8) and ``l_returnflag = 'R'`` (4, 7)."""
+    C = E.Column
+    disc = S.BoundFilter("l_discount", lower=0.05, upper=0.07, numeric=True)
+    rflag = S.SelectorFilter("l_returnflag", "R")
+    q1_dims = (S.DimensionSpec("l_returnflag", "l_returnflag"),
+               S.DimensionSpec("l_linestatus", "l_linestatus"))
+    year = lambda y: ((ms_of(f"{y}-01-01"), ms_of(f"{y + 1}-01-01")),)
+    return {
+        "q1": q1_spec(S, E),
+        "q6": q6_spec(S, E),
+        "q1_mail_ship": S.GroupByQuerySpec(
+            "lineitem", q1_dims,
+            (S.AggregationSpec("longsum", "sum_qty", field="l_quantity"),
+             S.AggregationSpec("doublesum", "sum_base_price",
+                               field="l_extendedprice"),
+             S.AggregationSpec("count", "n")),
+            filter=S.LogicalFilter("or", (
+                S.SelectorFilter("l_shipmode", "MAIL"),
+                S.SelectorFilter("l_shipmode", "SHIP")))),
+        "mode_year_r": S.GroupByQuerySpec(
+            "lineitem", (S.DimensionSpec("l_shipmode", "l_shipmode"),),
+            (S.AggregationSpec("count", "n"),
+             S.AggregationSpec("longsum", "qty", field="l_quantity"),
+             S.AggregationSpec("doublesum", "price",
+                               field="l_extendedprice")),
+            granularity=S.Granularity("year"), filter=rflag),
+        "top_mode_1995": S.TopNQuerySpec(
+            "lineitem", S.DimensionSpec("l_shipmode", "l_shipmode"),
+            "revenue", 3,
+            (S.AggregationSpec("doublesum", "revenue", expr=E.BinaryOp(
+                "*", C("l_extendedprice"), C("l_discount"))),
+             S.AggregationSpec("count", "n")),
+            filter=disc, intervals=year(1995)),
+        "monthly_1996": S.TimeseriesQuerySpec(
+            "lineitem",
+            (S.AggregationSpec("doublemin", "min_disc", field="l_discount"),
+             S.AggregationSpec("doublemax", "max_disc", field="l_discount"),
+             S.AggregationSpec("longmin", "min_qty", field="l_quantity"),
+             S.AggregationSpec("longmax", "max_qty", field="l_quantity"),
+             S.AggregationSpec("count", "n")),
+            granularity=S.Granularity("month"), intervals=year(1996)),
+        "status_r_dip": S.GroupByQuerySpec(
+            "lineitem", (S.DimensionSpec("l_linestatus", "l_linestatus"),),
+            (S.AggregationSpec("count", "n"),
+             S.AggregationSpec("longsum", "qty", field="l_quantity")),
+            filter=S.LogicalFilter("and", (rflag, S.SelectorFilter(
+                "l_shipinstruct", "DELIVER IN PERSON")))),
+        "flag_big_disc": S.GroupByQuerySpec(
+            "lineitem", (S.DimensionSpec("l_returnflag", "l_returnflag"),),
+            (S.AggregationSpec("count", "n"),),
+            filter=S.LogicalFilter("and", (
+                S.BoundFilter("l_quantity", lower=25, numeric=True),
+                disc)))}
+
+
+def storm_oracles(df):
+    """pandas answers for :func:`storm_specs` on the same frame (keys,
+    columns), each sorted by its keys."""
+    sd = df["l_shipdate"]
+    disc = (df["l_discount"] >= 0.05) & (df["l_discount"] <= 0.07)
+    r = df["l_returnflag"] == "R"
+    in_year = lambda y: (sd >= np.datetime64(f"{y}-01-01")) \
+        & (sd < np.datetime64(f"{y + 1}-01-01"))
+    q1k = ["l_returnflag", "l_linestatus"]
+    out = {}
+    d = df[df["l_shipmode"].isin(["MAIL", "SHIP"])]
+    out["q1_mail_ship"] = (q1k, d.groupby(q1k).agg(
+        sum_qty=("l_quantity", "sum"),
+        sum_base_price=("l_extendedprice", "sum"),
+        n=("l_quantity", "size")).reset_index())
+    d = df[r].assign(timestamp=sd[r].dt.to_period("Y").dt.start_time
+                     .astype("datetime64[ms]"))
+    out["mode_year_r"] = (["timestamp", "l_shipmode"], d.groupby(
+        ["timestamp", "l_shipmode"]).agg(
+        n=("l_quantity", "size"), qty=("l_quantity", "sum"),
+        price=("l_extendedprice", "sum")).reset_index())
+    d = df[disc & in_year(1995)]
+    top = d.assign(revenue=d["l_extendedprice"] * d["l_discount"]) \
+        .groupby("l_shipmode").agg(revenue=("revenue", "sum"),
+                                   n=("l_quantity", "size")) \
+        .reset_index().sort_values("revenue", ascending=False).head(3)
+    out["top_mode_1995"] = (None, top.reset_index(drop=True))
+    d = df[in_year(1996)]
+    d = d.assign(timestamp=d["l_shipdate"].dt.to_period("M").dt.start_time
+                 .astype("datetime64[ms]"))
+    out["monthly_1996"] = (["timestamp"], d.groupby("timestamp").agg(
+        min_disc=("l_discount", "min"), max_disc=("l_discount", "max"),
+        min_qty=("l_quantity", "min"), max_qty=("l_quantity", "max"),
+        n=("l_quantity", "size")).reset_index())
+    d = df[r & (df["l_shipinstruct"] == "DELIVER IN PERSON")]
+    out["status_r_dip"] = (["l_linestatus"], d.groupby("l_linestatus").agg(
+        n=("l_quantity", "size"), qty=("l_quantity", "sum")).reset_index())
+    d = df[(df["l_quantity"] >= 25) & disc]
+    out["flag_big_disc"] = (["l_returnflag"], d.groupby("l_returnflag").agg(
+        n=("l_quantity", "size")).reset_index())
+    return out
+
+
+def check_frame(name, got, want, keys, rtol):
+    """``want``'s columns in ``got``: keys and integers exact, floats to
+    ``rtol`` (NaN where the other side has NaN)."""
+    if keys:
+        got = got.sort_values(keys).reset_index(drop=True)
+        want = want.sort_values(keys).reset_index(drop=True)
+    if len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} rows, want {len(want)}")
+    for c in want.columns:
+        if c not in got.columns:
+            raise AssertionError(f"{name}: no column {c}")
+        g, w = got[c].to_numpy(), want[c].to_numpy()
+        if w.dtype.kind == "M":
+            g, w = g.astype("datetime64[ms]"), w.astype("datetime64[ms]")
+        if w.dtype.kind == "f" or g.dtype.kind == "f":
+            np.testing.assert_allclose(g.astype(np.float64),
+                                       w.astype(np.float64), rtol=rtol,
+                                       equal_nan=True, err_msg=f"{name} {c}")
+        elif not np.array_equal(g, w):
+            raise AssertionError(f"{name} {c}: {g[:5]} vs {w[:5]}")
+
+
+def run_storm(ctx, specs):
+    """Fire every spec at once from its own thread (barrier start); returns
+    the frames, the ms from the first thread's start to the last answer,
+    and the group's host phases (the leader's ``sharedscan`` stats)."""
+    import threading
+    n = len(specs)
+    res, errs, stats = [None] * n, [None] * n, [None] * n
+    starts, ends = [0.0] * n, [0.0] * n
+    bar = threading.Barrier(n)
+
+    def worker(i):
+        bar.wait()
+        starts[i] = time.perf_counter()
+        try:
+            res[i] = ctx.execute(specs[i]).to_pandas()
+            stats[i] = dict(ctx.engine.last_stats)
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errs[i] = e
+        ends[i] = time.perf_counter()
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        if t.is_alive():
+            raise AssertionError("storm: a query thread never finished")
+    for e in errs:
+        if e is not None:
+            raise e
+    leader = [st["sharedscan"] for st in stats
+              if st.get("sharedscan", {}).get("role") == "leader"]
+    phases = dict(leader[0]["phases_ms"], held_ms=leader[0]["held_ms"]) \
+        if leader else None
+    return res, (max(ends) - min(starts)) * 1e3, phases
+
+
+def wave_work(program, layout, columns):
+    """(bytes, operations) of one wave: each union column read once, each
+    slot written once; per row, the program's instructions and a select
+    and a combine per lane aggregate."""
+    nbytes = sum(c.numel() * c.element_size() for c in columns) \
+        + layout.n_slots * 8
+    n = columns[0].numel()
+    aggs = sum(ls.n_aggs for ls in layout.lanes)
+    return nbytes, n * (len(program.instrs) + 2 * aggs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -478,6 +867,8 @@ def main() -> int:
     from spark_druid_olap_tpu_torch.ir import expr as E
     from spark_druid_olap_tpu_torch.ir import spec as S
     from spark_druid_olap_tpu_torch.ops import cuda_groupby as CG
+    from spark_druid_olap_tpu_torch.ops import cuda_wave as CW
+    from spark_druid_olap_tpu_torch.planner import fusion as FU
     from spark_druid_olap_tpu_torch.tools.tpch import generate
 
     t_start = time.perf_counter()
@@ -489,13 +880,19 @@ def main() -> int:
          cuda=torch.version.cuda, python=sys.version.split()[0])
     dev = torch.device("cuda")
 
-    # 2. build every kernel of the path from this checkout's sources
+    # 2. build every kernel of the path from this checkout's sources, one
+    # nvcc per source, all at once
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    CG.library()
-    emit("build", kernel="dense_groupby", source=str(CG.SOURCE.name),
-         seconds=time.perf_counter() - t0, cached=CG.build_info["cached"],
-         ptxas=[ln for ln in str(CG.build_info["log"]).splitlines()
-                if "registers" in ln or "smem" in ln])
+    with ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(m.library) for m in (CG, CW)]:
+            f.result()
+    for name, m in (("dense_groupby", CG), ("wave", CW)):
+        emit("build", kernel=name, source=str(m.SOURCE.name),
+             seconds=m.build_info["seconds"], cached=m.build_info["cached"],
+             wall_s=time.perf_counter() - t0,
+             ptxas=[ln for ln in str(m.build_info["log"]).splitlines()
+                    if "registers" in ln or "smem" in ln])
 
     # 3. kernel vs plain version on the card
     t0 = time.perf_counter()
@@ -503,6 +900,12 @@ def main() -> int:
     emit("kernel_check", kernel="dense_groupby", cases=n_cases,
          max_abs_err=worst, seconds=time.perf_counter() - t0,
          tolerance="ints/counts/min/max exact; float sums rtol 1e-9")
+    t0 = time.perf_counter()
+    w_cases, w_worst, w_checks = wave_cases(sdt, S, E, CW, FU)
+    emit("wave_kernel", kernel="wave", cases=w_cases, max_abs_err=w_worst,
+         checks=w_checks, seconds=time.perf_counter() - t0,
+         tolerance="ints/counts/min/max exact; float sums rtol 1e-9; NaN "
+                   "in the same groups; two launches bit-identical")
 
     # 4. the main path at SF1
     t0 = time.perf_counter()
@@ -557,6 +960,76 @@ def main() -> int:
                 "float min/max rtol 1e-6",
          route=ctx.engine.last_stats.get("route"))
 
+    # 4b. the storm: 8 concurrent queries coalesced into one wave launch
+    ds = ctx.store.get("lineitem")
+    storm = sdt.Context(STORM_CONFIG)
+    storm.store.register(ds)
+    sspecs = storm_specs(S, E)
+    snames, slist = list(sspecs), list(sspecs.values())
+    real_wave = CW.wave_groupby
+
+    def wave_spy(program, layout, columns):
+        captured["storm"] = (program, layout,
+                             [c.reshape(-1) for c in columns])
+        return real_wave(program, layout, columns)
+
+    st0 = storm.engine.sharedscan.stats()
+    CW.wave_groupby = wave_spy
+    try:
+        CG.launches = 0
+        CW.launches = 0
+        sres, cold_storm_ms, cold_phases = run_storm(storm, slist)
+        torch.cuda.synchronize()
+        storm_launches, storm_b1 = CW.launches, CG.launches
+    finally:
+        CW.wave_groupby = real_wave
+    st1 = storm.engine.sharedscan.stats()
+    delta = {k: st1[k] - st0[k] for k in ("queries_coalesced",
+                                          "wave_launches", "wave_fallbacks",
+                                          "groups_coalesced", "fallbacks")}
+    fusion = {k: st1["fusion"][k] - st0["fusion"][k] for k in st1["fusion"]}
+    if delta["queries_coalesced"] != 8 or delta["wave_launches"] != 1 \
+            or delta["wave_fallbacks"] != 0 or storm_launches != 1 \
+            or storm_b1 != 0 or "storm" not in captured:
+        raise AssertionError(f"storm: not 8 queries in one wave launch: "
+                             f"{delta}, wave kernel launches "
+                             f"{storm_launches}, dense_groupby launches "
+                             f"{storm_b1}, reasons "
+                             f"{st1['wave_fallback_reasons']}")
+    if fusion["shared_predicates"] < 2:
+        raise AssertionError(f"storm: fusion shared {fusion}")
+    got = dict(zip(snames, sres))
+    check_q1(got["q1"], q1_oracle(df))
+    np.testing.assert_allclose(got["q6"]["revenue"].to_numpy(), [rev],
+                               rtol=FLOAT_SUM_RTOL_ORACLE)
+    for name, (keys, want) in storm_oracles(df).items():
+        check_frame(f"storm {name} vs pandas", got[name], want, keys,
+                    FLOAT_SUM_RTOL_ORACLE)
+    solo = {name: ctx.execute(q).to_pandas() for name, q in sspecs.items()}
+    for name in snames:
+        if list(got[name].columns) != list(solo[name].columns):
+            raise AssertionError(f"storm {name}: columns differ from solo")
+        check_frame(f"storm {name} vs solo", got[name], solo[name], None,
+                    FLOAT_SUM_RTOL_KERNEL)
+    program, layout, scols = captured["storm"]
+    sgot = real_wave(program, layout, scols)
+    swant = CW.wave_reference(program, scols, layout)
+    torch.cuda.synchronize()
+    w_worst = max(w_worst, compare_wave("storm", sgot, swant, layout))
+    emit("storm", queries=snames, coalescer=delta, fusion=fusion,
+         wave_kernel_launches=storm_launches,
+         dense_groupby_launches=storm_b1, cold_storm_ms=cold_storm_ms,
+         cold_phases_ms=cold_phases,
+         program={"instructions": len(program.instrs),
+                  "registers": program.n_regs,
+                  "columns": program.columns, "lanes": len(layout.lanes),
+                  "slots": layout.n_slots,
+                  "smem_bytes": CW.smem_bytes(program, layout)},
+         rows={n: len(f) for n, f in got.items()},
+         oracle="pandas on the same frame (ints exact, floats rtol 1e-6) "
+                "and the port's solo answers (floats rtol 1e-9); the "
+                "storm's own program: kernel vs plain version")
+
     # 5. timings, beside the card's name and power limit
     ds = ctx.store.get("lineitem")
     per_query = {}
@@ -599,7 +1072,35 @@ def main() -> int:
         total["plain_ms"] += p_ms
         total["bound_ms"] += b_ms
         total["library_ms"] += l_ms
+    warm = [run_storm(storm, slist)[1:] for _ in range(REPEATS)]
+    storm_ms = [ms for ms, _ in warm]
+    storm_phases = {k: statistics.median(ph[k] for _, ph in warm)
+                    for k in warm[0][1]}
+    solo_ms = []
+    for _ in range(REPEATS):
+        t = time.perf_counter()
+        for q in slist:
+            ctx.execute(q).to_pandas()
+        torch.cuda.synchronize()
+        solo_ms.append((time.perf_counter() - t) * 1e3)
+    wk_ms = device_ms(lambda: real_wave(program, layout, scols))
+    wp_ms = device_ms(lambda: CW.wave_reference(program, scols, layout))
+    w_bytes, w_ops = wave_work(program, layout, scols)
+    wb_bytes = w_bytes / HBM_BYTES_PER_S * 1e3
+    wb_ops = w_ops / FP32_OPS_PER_S * 1e3
+    wave_timing = dict(
+        warm_storm_median_ms=statistics.median(storm_ms),
+        warm_storm_min_ms=min(storm_ms), warm_storm_max_ms=max(storm_ms),
+        warm_storm_phases_median_ms=storm_phases,
+        solo_sequence_median_ms=statistics.median(solo_ms),
+        solo_sequence_min_ms=min(solo_ms), solo_sequence_max_ms=max(solo_ms),
+        kernel_ms=wk_ms, plain_ms=wp_ms, bound_ms=max(wb_bytes, wb_ops),
+        bound_bytes_ms=wb_bytes, bound_ops_ms=wb_ops,
+        bound_by="bytes" if wb_bytes >= wb_ops else "operations",
+        union_bytes=w_bytes, rows=int(scols[0].numel()),
+        kernel_gb_per_s=w_bytes / wk_ms / 1e6)
     emit("timing", card=smi, repeats=REPEATS, queries=per_query,
+         storm=wave_timing,
          note="device times: CUDA events, median, L2 flushed before each "
               "call; query times: host wall clock to synchronize, cold = "
               "device column cache dropped before each run")
@@ -607,7 +1108,8 @@ def main() -> int:
     # 6. where a warm query's time goes: torch.profiler over one run each
     emit("profile", card=smi, queries={name: profile_query(ctx, spec)
                                        for name, spec in (("q1", q1),
-                                                          ("q6", q6))})
+                                                          ("q6", q6))},
+         storm=profile_run(lambda: run_storm(storm, slist)[1]))
 
     # 7. every ported kernel with its check result
     print(json.dumps({"kernels": [{
@@ -618,7 +1120,14 @@ def main() -> int:
         "ms": total["ms"], "plain_ms": total["plain_ms"],
         "bound_ms": total["bound_ms"],
         "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
-        "library_ms": total["library_ms"]}]}), flush=True)
+        "library_ms": total["library_ms"]}, {
+        "name": "wave", "route": "cuda",
+        "source": "spark_druid_olap_tpu_torch/csrc/wave.cu",
+        "replaces": "spark_druid_olap_tpu/ops/pallas_wave.py:371",
+        "launches": storm_launches, "max_abs_err": w_worst,
+        "ms": wk_ms, "plain_ms": wp_ms, "bound_ms": wave_timing["bound_ms"],
+        "bound_by": wave_timing["bound_by"], "library_ms": None}]}),
+        flush=True)
     emit("done", seconds=time.perf_counter() - t_start, card=smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -19,6 +19,7 @@
 //     a NaN value makes its group's float min / max NaN, as a NaN makes
 //     its float sum NaN;
 //   * no atomics and no float reassociation that depends on scheduling:
+//     the fold of groupby_fold.cuh (shared with the wave kernel, wave.cu):
 //     each block owns a fixed contiguous row range; inside a warp, rows of
 //     one key are folded by that key's lowest lane in lane order into a
 //     warp-private partial in shared memory; a block folds its warps in
@@ -35,14 +36,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "groupby_fold.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxAggs = 16;
-constexpr unsigned kFull = 0xffffffffu;
+using sdot_fold::Acc;
+using sdot_fold::combine;
+using sdot_fold::identity;
+using sdot_fold::kCount;
+using sdot_fold::kFull;
+using sdot_fold::kThreads;
+using sdot_fold::kWarps;
 
-enum Kind : int { kCount = 0, kSum = 1, kMin = 2, kMax = 3 };
+constexpr int kMaxAggs = 16;
+
 enum DType : int { kI32 = 0, kI64 = 1, kF32 = 2, kF64 = 3 };
 
 struct AggDesc {
@@ -61,44 +68,18 @@ struct Params {
   AggDesc aggs[kMaxAggs];
 };
 
-union Acc {
-  long long i;
-  double f;
-};
-
 __device__ __forceinline__ bool is_float(int dtype) { return dtype >= kF32; }
 
-__device__ __forceinline__ Acc identity(int kind, bool flt) {
-  Acc a;
-  if (kind == kMin) {
-    if (flt) a.f = __longlong_as_double(0x7ff0000000000000ll);   // +inf
-    else a.i = 0x7fffffffffffffffll;
-  } else if (kind == kMax) {
-    if (flt) a.f = __longlong_as_double((long long)0xfff0000000000000ull);
-    else a.i = (long long)0x8000000000000000ull;
-  } else if (flt) {
-    a.f = 0.0;
-  } else {
-    a.i = 0;
+// slot k * n_aggs + m takes aggregate m's kind and type
+struct AggSlots {
+  const AggDesc* aggs;
+  int n_aggs;
+  __device__ void operator()(int slot, int& kind, bool& flt) const {
+    const AggDesc& a = aggs[slot % n_aggs];
+    kind = a.kind;
+    flt = is_float(a.dtype);
   }
-  return a;
-}
-
-__device__ __forceinline__ Acc combine(int kind, bool flt, Acc a, Acc b) {
-  Acc r;
-  if (kind == kMin) {
-    if (flt) r.f = (isnan(b.f) || b.f < a.f) ? b.f : a.f;
-    else r.i = b.i < a.i ? b.i : a.i;
-  } else if (kind == kMax) {
-    if (flt) r.f = (isnan(b.f) || b.f > a.f) ? b.f : a.f;
-    else r.i = b.i > a.i ? b.i : a.i;
-  } else if (flt) {
-    r.f = a.f + b.f;
-  } else {
-    r.i = a.i + b.i;
-  }
-  return r;
-}
+};
 
 __device__ __forceinline__ Acc load_value(const AggDesc& a, long long row) {
   Acc v;
@@ -127,11 +108,8 @@ dense_groupby_partials(const Params p, Acc* __restrict__ block_out) {
   __shared__ AggDesc aggs[kMaxAggs];
   if (threadIdx.x < kMaxAggs) aggs[threadIdx.x] = p.aggs[threadIdx.x];
   __syncthreads();
-
-  for (int idx = threadIdx.x; idx < kWarps * KM; idx += kThreads) {
-    const AggDesc& a = aggs[idx % M];
-    warp_part[idx] = identity(a.kind, is_float(a.dtype));
-  }
+  const AggSlots slots{aggs, M};
+  sdot_fold::init_warps(warp_part, KM, slots);
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
@@ -166,49 +144,20 @@ dense_groupby_partials(const Params p, Acc* __restrict__ block_out) {
       } else {
         v = identity(a.kind, flt);
       }
-      my_stage[lane] = v;
-      __syncwarp();
-      if (leader) {
-        Acc acc = my_part[k * M + m];
-        unsigned bits = peers;
-        while (bits) {
-          const int j = __ffs(bits) - 1;
-          bits &= bits - 1;
-          acc = combine(a.kind, flt, acc, my_stage[j]);
-        }
-        my_part[k * M + m] = acc;
-      }
-      __syncwarp();
+      sdot_fold::warp_fold(my_stage, lane, v, leader, peers,
+                           my_part + (live ? k : 0) * M + m, a.kind, flt);
     }
   }
   __syncthreads();
-
-  // fold the warps' partials in warp order
-  for (int idx = threadIdx.x; idx < KM; idx += kThreads) {
-    const AggDesc& a = aggs[idx % M];
-    const bool flt = is_float(a.dtype);
-    Acc acc = identity(a.kind, flt);
-    for (int w = 0; w < kWarps; ++w) {
-      acc = combine(a.kind, flt, acc, warp_part[w * KM + idx]);
-    }
-    block_out[(long long)blockIdx.x * KM + idx] = acc;
-  }
+  sdot_fold::fold_warps(warp_part, KM, slots, block_out);
 }
 
 // Pass 2: fold the per-block partials in block order.
 __global__ void __launch_bounds__(kThreads)
 dense_groupby_reduce(const Params p, const Acc* __restrict__ block_out,
                      int n_blocks, Acc* __restrict__ out) {
-  const int KM = p.n_keys * p.n_aggs;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= KM) return;
-  const AggDesc& a = p.aggs[idx % p.n_aggs];
-  const bool flt = is_float(a.dtype);
-  Acc acc = identity(a.kind, flt);
-  for (int b = 0; b < n_blocks; ++b) {
-    acc = combine(a.kind, flt, acc, block_out[(long long)b * KM + idx]);
-  }
-  out[idx] = acc;
+  sdot_fold::fold_blocks(block_out, n_blocks, p.n_keys * p.n_aggs,
+                         AggSlots{p.aggs, p.n_aggs}, out);
 }
 
 }  // namespace

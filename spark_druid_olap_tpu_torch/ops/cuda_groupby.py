@@ -18,22 +18,20 @@ kernel does not take; for CPU tensors it computes the same function with
 ``chip_smoke.py`` hold the kernel against, and which
 ``ops/groupby.dense_groupby`` also runs as its scatter tier for more keys
 than the kernel takes. The kernel is built with ``nvcc`` at first use into
-``build/torch_ext/`` and bound with ``ctypes`` (no PyTorch headers, so the
-build takes seconds).
+``build/torch_ext/`` and bound with ``ctypes`` (``ops/cuda_build.py``: no
+PyTorch headers, so the build takes seconds); its fold is
+``csrc/groupby_fold.cuh``, shared with the wave kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-from pathlib import Path
 from typing import Dict, Sequence
 
 import torch
+
+from spark_druid_olap_tpu_torch.ops import cuda_build as CB
 
 KINDS = ("count", "sum", "min", "max")
 MAX_AGGS = 16                      # kMaxAggs in the CUDA source
@@ -43,8 +41,7 @@ SMEM_LIMIT = 227 * 1024 - 1024     # opt-in shared memory, less the static part
 I64_MAX = 2**63 - 1
 I64_MIN = -(2**63)
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "dense_groupby.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
+SOURCE = CB.CSRC / "dense_groupby.cu"
 
 _KIND_CODE = {"count": 0, "sum": 1, "min": 2, "max": 3}
 _DTYPE_CODE = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
@@ -61,42 +58,13 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the dense_groupby kernel is built "
-                       "from csrc/dense_groupby.cu on a machine with the "
-                       "CUDA toolkit")
-
-
 def library() -> ctypes.CDLL:
     """Build (once per source version) and load the kernel library."""
     global _lib
     with _lib_lock:
         if _lib is not None:
             return _lib
-        import time
-        src = SOURCE.read_bytes()
-        digest = hashlib.sha256(src).hexdigest()[:12]
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        so = BUILD_DIR / f"libdense_groupby_{digest}.so"
-        t0 = time.perf_counter()
-        log = ""
-        cached = so.exists()
-        if not cached:
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-Xptxas=-v", "-shared",
-                   "-Xcompiler", "-fPIC", "-o", str(tmp), str(SOURCE)]
-            r = subprocess.run(cmd, capture_output=True, text=True)
-            log = r.stdout + r.stderr
-            if r.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({r.returncode}):\n{log}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
+        lib, info = CB.build(SOURCE)
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.sdot_dense_groupby.argtypes = [
             vp, ll, i, i, ctypes.POINTER(i), ctypes.POINTER(i),
@@ -108,8 +76,7 @@ def library() -> ctypes.CDLL:
         lib.sdot_dense_groupby_max_aggs.restype = i
         if lib.sdot_dense_groupby_max_aggs() != MAX_AGGS:
             raise RuntimeError("csrc/dense_groupby.cu disagrees on MAX_AGGS")
-        build_info.update(seconds=time.perf_counter() - t0, log=log,
-                          cached=cached)
+        build_info.update(info)
         _lib = lib
         return lib
 
@@ -225,6 +192,17 @@ def _launch(lib, key: torch.Tensor, n_keys: int, inputs: Sequence,
             for j, a in enumerate(inputs)}
 
 
+def launch_geometry(n: int):
+    """(rows per block, blocks) for ``n`` rows: fixed contiguous ranges of
+    whole warps, at most :data:`MAX_BLOCKS` blocks. It depends on ``n``
+    alone, so a float sum's fold order never depends on the card. The wave
+    kernel (``ops/cuda_wave.py``) cuts its rows the same way."""
+    n_blocks = max(1, min(MAX_BLOCKS, -(-n // MIN_ROWS_PER_BLOCK)))
+    per_block = -(-max(n, 1) // n_blocks)
+    rows_per_block = -(-per_block // 32) * 32        # whole warps
+    return rows_per_block, max(1, -(-n // rows_per_block))
+
+
 def dense_groupby_kernel(key: torch.Tensor, n_keys: int, inputs: Sequence,
                          max_keys: int) -> Dict[str, torch.Tensor]:
     """Fused dense group-by over every aggregate in ``inputs``.
@@ -248,11 +226,7 @@ def dense_groupby_kernel(key: torch.Tensor, n_keys: int, inputs: Sequence,
                          f"{lib.sdot_dense_groupby_smem_bytes(n_keys, 1)} B "
                          f"of shared memory per aggregate (limit "
                          f"{SMEM_LIMIT})")
-    n = key.numel()
-    n_blocks = max(1, min(MAX_BLOCKS, -(-n // MIN_ROWS_PER_BLOCK)))
-    per_block = -(-max(n, 1) // n_blocks)
-    rows_per_block = -(-per_block // 32) * 32        # whole warps
-    n_blocks = max(1, -(-n // rows_per_block))
+    rows_per_block, n_blocks = launch_geometry(key.numel())
     # one scratch for every launch: they run in order on one stream
     scratch = torch.empty(n_blocks * n_keys * per_launch, dtype=torch.int64,
                           device=key.device)

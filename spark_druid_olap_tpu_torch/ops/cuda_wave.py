@@ -1,0 +1,881 @@
+"""Wave kernel: one launch of a hand-written Hopper kernel per fused
+shared-scan wave.
+
+Port of ``spark_druid_olap_tpu/ops/pallas_wave.py``, whose Pallas TPU
+kernel (``build_wave_fn``'s inner ``kernel``) becomes the CUDA C++ kernel
+``csrc/wave.cu``. As there, the kernel re-schedules the engine's lowering
+and never re-implements query semantics: each lane's parts — ``base =
+row_valid & filter & interval``, the fused group key and every dense
+aggregate's values and mask (:func:`_lane_parts`) — are built by the
+engine's own builders over a ``ScanContext``, with the fusion plan's
+``CSECache`` so shared predicates lower once.
+
+Where the TPU kernel traced those builders inside its body, the port
+traces them once on the host: ``make_fx`` over fake ``[1, 8]`` probe
+tiles records the aten ops they run, and :func:`compile_wave` translates
+that graph into a flat register program (opcode, dtype, destination,
+operands, immediate), deduplicated, pruned and register-allocated. The
+counterpart of the JAX package's ``make_jaxpr`` + ``_check_jaxpr`` and its
+``_SAFE_PRIMS`` whitelist: comparisons, boolean and bitwise ops, ``where``,
+add / sub / mul / div / remainder / floor division, neg / abs / floor /
+ceil / round / trunc, minimum / maximum / clamp, casts, 0-d constants and
+shape no-ops on a row. Anything else — a gather or LUT (``take1d``), a
+non-UTC timezone's day-offset table, a non-scalar tensor constant, a
+trace that needs data (``.item()``) — raises :class:`WaveFallback` naming
+the op, and so does a program over the kernel's instruction, register or
+column caps or a scratch over its shared-memory budget. The caller then
+runs the group lane by lane (``parallel/sharedscan.py``); a WaveFallback
+is only ever raised at build time.
+
+Every thread of ``csrc/wave.cu`` runs the program over its rows, with
+registers typed as traced, then folds every lane's aggregates with the
+deterministic fold of the fused dense group-by kernel. The plain version,
+:func:`wave_reference`, interprets the same program with one PyTorch op
+per instruction and runs each lane through
+``cuda_groupby.dense_groupby_reference``. :func:`wave_groupby` takes that
+plain version for CPU tensors only; on CUDA tensors it launches the kernel
+or raises. Scope of this slice: dense count / sum / min / max lanes whose
+group-by rides the fused kernel's tier. The TPU kernel's in-kernel theta
+stripe and its HLL / KLL / wide-theta epilogue wait with the sketches
+(ROADMAP A.3).
+
+Accumulators are int64 / float64 slots (B1's identities, no Neumaier
+pairs, no f32 sentinels): per lane and key one slot per dense aggregate
+plus the lane's ``__rows__`` count, in the route's type.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import heapq
+import threading
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from spark_druid_olap_tpu_torch.ops import cuda_build as CB
+from spark_druid_olap_tpu_torch.ops import cuda_groupby as CG
+from spark_druid_olap_tpu_torch.ops import filters as F
+from spark_druid_olap_tpu_torch.ops import groupby as G
+from spark_druid_olap_tpu_torch.ops.scan import ScanContext, array_dtype
+from spark_druid_olap_tpu_torch.planner import fusion as FU
+
+SOURCE = CB.CSRC / "wave.cu"
+
+# the kernel's caps (kMaxInstrs, kMaxRegs, kMaxCols in csrc/wave.cu)
+MAX_INSTRS = 1024
+MAX_REGS = 128
+MAX_COLS = 64
+NONE = 255
+THREADS = 256
+WARPS = THREADS // 32
+SMEM_LIMIT = CG.SMEM_LIMIT         # opt-in shared memory, less the static part
+PROBE_SHAPE = (1, 8)
+
+#: register dtypes, by code (``DType`` in csrc/wave.cu)
+DTYPES = (torch.bool, torch.int8, torch.int16, torch.int32, torch.int64,
+          torch.uint8, torch.float32, torch.float64)
+DT = {d: i for i, d in enumerate(DTYPES)}
+#: opcodes, by code (``Op`` in csrc/wave.cu)
+OPS = ("load", "const", "cast", "add", "sub", "mul", "div", "floordiv",
+       "truncdiv", "rem", "neg", "abs", "floor", "ceil", "round", "trunc",
+       "minimum", "maximum", "eq", "ne", "lt", "le", "gt", "ge", "and", "or",
+       "xor", "not", "where")
+OP = {n: i for i, n in enumerate(OPS)}
+_UNARY = ("neg", "abs", "floor", "ceil", "round", "trunc", "not")
+_CMP = ("eq", "ne", "lt", "le", "gt", "ge")
+
+INSTR = np.dtype([("op", "u1"), ("dt", "u1"), ("src", "u1"), ("dst", "u1"),
+                  ("a", "u1"), ("b", "u1"), ("c", "u1"), ("pad", "u1"),
+                  ("imm", "<i8")])
+LANE = np.dtype([("base_reg", "<i4"), ("key_reg", "<i4"),
+                 ("n_keys", "<i4"), ("n_aggs", "<i4"),
+                 ("agg_start", "<i4"), ("slot_off", "<i4")])
+AGG = np.dtype([("kind", "u1"), ("flt", "u1"), ("val_reg", "u1"),
+                ("val_dt", "u1"), ("mask_reg", "u1"), ("pad", "u1", (3,))])
+
+#: kernel launches made by :func:`wave_groupby` (each the partials kernel
+#: plus its block-order reduction)
+launches = 0
+#: what the last build did: {"seconds": float, "log": str, "cached": bool}
+build_info: Dict[str, object] = {}
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+class WaveFallback(Exception):
+    """Raised at build time when a fused group cannot run as one wave
+    kernel; the caller runs the group lane by lane."""
+
+
+# =============================================================================
+# eligibility
+# =============================================================================
+
+def wave_decline(lanes, max_lanes: int, max_keys: int) -> Optional[str]:
+    """Why a fused group does not take the wave kernel, from plan metadata
+    alone, or None when it does. The counterpart of the JAX package's
+    ``wave_eligible``: there every sum / count route had to be ``ffl``
+    (the Pallas group-by's tier); here every lane's dense aggregates must
+    ride the fused group-by kernel's tier (``ops/groupby.use_kernel``:
+    ``0 < n_keys <= sdot.engine.groupby.pallas.max.keys``, kinds in
+    ``cuda_groupby.KINDS``), and the group must be within the lane cap."""
+    if max_lanes <= 0 or len(lanes) > max_lanes:
+        return (f"{len(lanes)} lanes exceed sdot.pallas.wave.max.lanes="
+                f"{max_lanes}")
+    for lp in lanes:
+        if not G.use_kernel(lp.n_keys, lp.agg_plans, max_keys):
+            return (f"a lane with {lp.n_keys} keys and kinds "
+                    f"{sorted({p.kind for p in lp.agg_plans})} is outside "
+                    f"the fused group-by tier (sdot.engine.groupby.pallas."
+                    f"max.keys={max_keys})")
+    return None
+
+
+def wave_eligible(lanes, max_lanes: int, max_keys: int) -> bool:
+    """Static precheck, callable on every fused execution (warm program
+    cache included), so the program signature and the dispatch agree."""
+    return wave_decline(lanes, max_lanes, max_keys) is None
+
+
+def _lane_parts(lp, ctx: ScanContext, cse: Optional[FU.CSECache]):
+    """One lane's parts over ``ctx`` — the engine's own builders, as the
+    lane-by-lane program (``parallel/sharedscan.py``) composes them:
+    ``(base, key, dense)`` with ``dense`` a list of ``(kind, name, values,
+    mask)``, values already in their route's dtype, ending with the lane's
+    ``__rows__`` count."""
+    base = ctx.row_valid()
+    fm = cse.lower(lp.q.filter) if cse is not None \
+        else F.lower_filter(lp.q.filter, ctx)
+    if fm is not None:
+        base = base & fm
+    im = cse.interval(lp.q.intervals) if cse is not None \
+        else F.interval_mask(lp.q.intervals, ctx)
+    if im is not None:
+        base = base & im
+    if lp.dim_plans:
+        codes = [p.build(ctx) for p in lp.dim_plans]
+        key, _ = G.fuse_keys(codes, [p.card for p in lp.dim_plans])
+    else:
+        key = torch.zeros_like(base, dtype=torch.int32)
+    dense = []
+    for p in lp.agg_plans:
+        name = p.spec.name
+        vals = None
+        if p.kind != "count":
+            vals = p.build_values(ctx)
+            vals = vals.to(G._value_dtype(lp.routes[name], vals))
+        dense.append((p.kind, name, vals, p.build_mask(ctx, cse=cse)))
+    dense.append(("count", "__rows__", None, None))
+    return base, key, dense
+
+
+# =============================================================================
+# the lane-program compiler
+# =============================================================================
+
+@dataclasses.dataclass
+class LaneProgram:
+    """A register program. ``instrs`` rows are ``(op, dt, src, dst, a, b,
+    c, imm)`` (codes of :data:`OPS` / :data:`DTYPES`; ``imm`` is a column
+    index for ``load``, the value for ``const``: an int, or a float already
+    rounded to ``dt``). ``columns`` are the union arrays the loads read;
+    ``outputs`` the registers holding the traced outputs after the last
+    instruction."""
+
+    instrs: List[tuple]
+    columns: List[str]
+    column_dtypes: List[torch.dtype]
+    outputs: List[int]
+    output_dtypes: List[torch.dtype]
+    n_regs: int
+    _blobs: Dict[object, torch.Tensor] = dataclasses.field(
+        default_factory=dict, repr=False)
+
+
+@dataclasses.dataclass
+class LaneSlots:
+    """One lane's part of the wave: its program outputs and its slots."""
+
+    n_keys: int
+    base: int                       # output index of the lane's bool base
+    key: int                        # output index of its int32 key
+    # (name, kind, flt, values output index or None, mask output or None)
+    aggs: List[tuple]
+    slot_off: int
+
+    @property
+    def n_aggs(self) -> int:
+        return len(self.aggs)
+
+
+@dataclasses.dataclass
+class WaveLayout:
+    lanes: List[LaneSlots]
+    n_slots: int
+
+
+class _Val:
+    """A traced value: virtual register, dtype, 0-d (for promotion)."""
+    __slots__ = ("v", "dt", "scalar")
+
+    def __init__(self, v: int, dt: torch.dtype, scalar: bool):
+        self.v, self.dt, self.scalar = v, dt, scalar
+
+
+class _Big:
+    """A non-scalar tensor constant (a LUT): refused where it is used."""
+    __slots__ = ("shape",)
+
+    def __init__(self, shape):
+        self.shape = tuple(shape)
+
+
+_SHAPE_OPS = frozenset({"view", "_unsafe_view", "reshape", "expand",
+                        "squeeze", "unsqueeze", "flatten", "clone", "alias",
+                        "detach", "lift_fresh_copy", "contiguous"})
+_FILL_OPS = frozenset({"zeros_like", "ones_like", "full_like",
+                       "scalar_tensor"})
+# the aten op packets the compiler translates (the wave kernel's whitelist)
+_KNOWN = _SHAPE_OPS | _FILL_OPS | frozenset(_CMP) | frozenset({
+    "add", "sub", "mul", "rsub", "div", "floor_divide", "remainder",
+    "minimum", "maximum", "clamp", "clamp_min", "clamp_max", "bitwise_and",
+    "bitwise_or", "bitwise_xor", "logical_and", "logical_or", "logical_xor",
+    "bitwise_not", "logical_not", "neg", "abs", "floor", "ceil", "round",
+    "trunc", "where", "_to_copy"})
+
+
+def _const_imm(value, dt: torch.dtype) -> int:
+    if dt.is_floating_point:
+        v = np.float32(value) if dt == torch.float32 else np.float64(value)
+        return int(np.float64(v).view(np.int64))
+    if dt == torch.bool:
+        return int(bool(value))
+    v = int(value)
+    info = torch.iinfo(dt)
+    if not info.min <= v <= info.max:
+        raise WaveFallback(f"constant {value!r} outside {dt}")
+    return v
+
+
+def _imm_value(imm: int, dt: torch.dtype):
+    if dt.is_floating_point:
+        return float(np.int64(imm).view(np.float64))
+    return bool(imm) if dt == torch.bool else int(imm)
+
+
+class _Compiler:
+    """Translates one ``make_fx`` graph into a deduplicated instruction
+    list over virtual registers."""
+
+    def __init__(self, gm, n_rows: int):
+        self.gm = gm
+        self.n_rows = n_rows
+        self.code: List[list] = []
+        self.memo: Dict[tuple, int] = {}
+
+    def emit(self, op: str, dt: torch.dtype, a=NONE, b=NONE, c=NONE,
+             src=0, imm=0) -> int:
+        key = (OP[op], DT[dt], src, a, b, c, imm)
+        v = self.memo.get(key)
+        if v is None:
+            v = len(self.code)
+            self.code.append([OP[op], DT[dt], src, v, a, b, c, imm])
+            self.memo[key] = v
+        return v
+
+    def const(self, value, dt: torch.dtype, scalar=True) -> _Val:
+        return _Val(self.emit("const", dt, imm=_const_imm(value, dt)), dt,
+                    scalar)
+
+    def as_dt(self, x, dt: torch.dtype) -> int:
+        if not isinstance(x, _Val):
+            return self.const(x, dt).v
+        if x.dt == dt:
+            return x.v
+        return self.emit("cast", dt, a=x.v, src=DT[x.dt])
+
+    @staticmethod
+    def _example(x):
+        if isinstance(x, _Val):
+            return torch.empty(() if x.scalar else (1,), dtype=x.dt)
+        return x
+
+    def promote(self, a, b) -> torch.dtype:
+        return torch.result_type(self._example(a), self._example(b))
+
+    @staticmethod
+    def _agree(node, dt, out_dt):
+        """The dtype the kernel computes in must be the one the trace
+        recorded: a promotion rule the compiler got wrong declines the
+        wave instead of computing in the wrong type."""
+        if dt != out_dt:
+            raise WaveFallback(f"{node.target}: computes in {dt}, the trace "
+                               f"gives {out_dt}")
+
+    def binary(self, node, op, a, b, dt, out_dt, scalar):
+        self._agree(node, torch.bool if op in _CMP else dt, out_dt)
+        return _Val(self.emit(op, dt, self.as_dt(a, dt), self.as_dt(b, dt)),
+                    out_dt, scalar)
+
+    def translate(self, node, args, kwargs):
+        name = node.target.overloadpacket.__name__
+        if name not in _KNOWN:
+            raise WaveFallback(f"lane lowering traces {node.target}, which "
+                               f"is not an elementwise op the wave kernel "
+                               f"runs")
+        if name in _SHAPE_OPS and isinstance(args[0], _Big):
+            return _Big(node.meta["val"].shape)   # refused where it is used
+        out = node.meta.get("val")
+        if not isinstance(out, torch.Tensor):
+            raise WaveFallback(f"{node.target} gives no tensor")
+        odt, scalar = out.dtype, out.dim() == 0
+        if odt not in DT:
+            raise WaveFallback(f"{node.target} gives dtype {odt}")
+        vals = [x for x in list(args) + list(kwargs.values())
+                if isinstance(x, (_Val, _Big))]
+        for x in vals:
+            if isinstance(x, _Big):
+                raise WaveFallback(f"{node.target} uses a non-scalar tensor "
+                                   f"constant of shape {x.shape}")
+        if out.numel() == 1 and any(not x.scalar for x in vals) \
+                and name not in _SHAPE_OPS:
+            raise WaveFallback(f"{node.target} reduces rows")
+        if out.numel() not in (1, self.n_rows):
+            raise WaveFallback(f"{node.target} changes the row count")
+        if name in ("add", "sub", "mul", "rsub"):
+            if kwargs.get("alpha", 1) != 1:
+                raise WaveFallback(f"{node.target} with alpha")
+            a, b = args[0], args[1]
+            if name == "rsub":
+                a, b, name = b, a, "sub"
+            dt = self.promote(a, b)
+            return self.binary(node, name, a, b, dt, odt, scalar)
+        if name in ("div", "floor_divide", "remainder"):
+            a, b = args[0], args[1]
+            dt = self.promote(a, b)
+            mode = kwargs.get("rounding_mode", args[2] if len(args) > 2
+                              else None) if name == "div" else name
+            if mode is None:
+                if not dt.is_floating_point:
+                    dt = torch.get_default_dtype()
+                return self.binary(node, "div", a, b, dt, odt, scalar)
+            op = {"floor": "floordiv", "floor_divide": "floordiv",
+                  "trunc": "truncdiv", "remainder": "rem"}[mode]
+            return self.binary(node, op, a, b, dt, odt, scalar)
+        if name in ("minimum", "maximum"):
+            return self.binary(node, name, args[0], args[1],
+                               self.promote(args[0], args[1]), odt, scalar)
+        if name in ("clamp", "clamp_min", "clamp_max"):
+            x = args[0]
+            lo = kwargs.get("min", args[1] if len(args) > 1 else None)
+            hi = kwargs.get("max", args[2] if len(args) > 2 else None)
+            if name == "clamp_max":
+                lo, hi = None, lo
+            v = _Val(self.as_dt(x, odt), odt, scalar)
+            if lo is not None:
+                v = self.binary(node, "maximum", v, lo, odt, odt, scalar)
+            if hi is not None:
+                v = self.binary(node, "minimum", v, hi, odt, odt, scalar)
+            return v
+        if name in _CMP:
+            return self.binary(node, name, args[0], args[1],
+                               self.promote(args[0], args[1]), odt, scalar)
+        if name in ("bitwise_and", "bitwise_or", "bitwise_xor"):
+            dt = self.promote(args[0], args[1])
+            if dt.is_floating_point:
+                raise WaveFallback(f"{node.target} on floats")
+            return self.binary(node, name[len("bitwise_"):], args[0],
+                               args[1], dt, odt, scalar)
+        if name in ("logical_and", "logical_or", "logical_xor"):
+            return self.binary(node, name[len("logical_"):], args[0],
+                               args[1], torch.bool, odt, scalar)
+        if name in ("bitwise_not", "logical_not"):
+            x = args[0]
+            dt = torch.bool if name == "logical_not" else x.dt
+            if dt.is_floating_point:
+                raise WaveFallback(f"{node.target} on floats")
+            self._agree(node, dt, odt)
+            return _Val(self.emit("not", dt, self.as_dt(x, dt)), odt,
+                        scalar)
+        if name in ("neg", "abs", "floor", "ceil", "round", "trunc"):
+            x = args[0]
+            if len(args) > 1 or kwargs:
+                raise WaveFallback(f"{node.target} with arguments")
+            self._agree(node, x.dt, odt)
+            if not x.dt.is_floating_point and name not in ("neg", "abs"):
+                return x                  # rounding an integer is a copy
+            return _Val(self.emit(name, x.dt, x.v), odt, scalar)
+        if name == "where":
+            cond, a, b = args[0], args[1], args[2]
+            dt = self.promote(a, b)
+            self._agree(node, dt, odt)
+            return _Val(self.emit("where", dt, self.as_dt(cond, torch.bool),
+                                  self.as_dt(a, dt), self.as_dt(b, dt)),
+                        odt, scalar)
+        if name == "_to_copy":
+            x = args[0]
+            return _Val(self.as_dt(x, odt), odt, scalar)
+        if name in _SHAPE_OPS:
+            x = args[0]
+            if not isinstance(x, _Val):
+                raise WaveFallback(f"{node.target} of a non-tensor")
+            src = node.args[0].meta["val"]
+            if src.numel() != out.numel() and src.numel() != 1:
+                raise WaveFallback(f"{node.target} changes the row count")
+            return _Val(x.v, x.dt, scalar)
+        if name in _FILL_OPS:
+            fill = {"zeros_like": 0, "ones_like": 1,
+                    "full_like": args[1] if len(args) > 1 else None,
+                    "scalar_tensor": args[0]}[name]
+            if isinstance(fill, (_Val, _Big)):
+                raise WaveFallback(f"{node.target} of a tensor")
+            return self.const(fill, odt, scalar)
+        raise AssertionError(name)
+
+    def run(self, n_inputs: int):
+        env = {}
+        placeholders = 0
+        outputs = None
+
+        def arg(x):
+            if isinstance(x, torch.fx.Node):
+                return env[x]
+            if isinstance(x, (list, tuple)):
+                return type(x)(arg(y) for y in x)
+            return x
+
+        for node in self.gm.graph.nodes:
+            if node.op == "placeholder":
+                t = node.meta["val"]
+                if t.dtype not in DT:
+                    raise WaveFallback(f"column dtype {t.dtype}")
+                env[node] = _Val(self.emit("load", t.dtype,
+                                           imm=placeholders), t.dtype, False)
+                placeholders += 1
+            elif node.op == "get_attr":
+                t = getattr(self.gm, node.target)
+                if t.numel() == 1 and t.dtype in DT:
+                    env[node] = self.const(t.item(), t.dtype, t.dim() == 0)
+                else:
+                    env[node] = _Big(t.shape)
+            elif node.op == "call_function":
+                if not hasattr(node.target, "overloadpacket"):
+                    raise WaveFallback(f"lane lowering traces {node.target}")
+                env[node] = self.translate(node, arg(node.args),
+                                           arg(node.kwargs))
+            elif node.op == "output":
+                outputs = [env[x] for x in node.args[0]]
+            else:
+                raise WaveFallback(f"trace node {node.op}")
+        assert placeholders == n_inputs
+        for o in outputs:
+            if not isinstance(o, _Val):
+                raise WaveFallback("a lane output is a tensor constant")
+        return outputs
+
+
+def _operands(ins) -> tuple:
+    op = OPS[ins[0]]
+    if op in ("load", "const"):
+        return ()
+    if op == "where":
+        return (ins[4], ins[5], ins[6])
+    if op == "cast" or op in _UNARY:
+        return (ins[4],)
+    return (ins[4], ins[5])
+
+
+def _finish(code: List[list], outs: List[_Val], names, dtypes
+            ) -> LaneProgram:
+    """Dead-code elimination, column compaction and register allocation
+    (linear scan, lowest free register first; outputs stay live to the
+    end)."""
+    out_vregs = [o.v for o in outs]
+    live = set(out_vregs)
+    keep = []
+    for ins in reversed(code):
+        if ins[3] in live:
+            keep.append(list(ins))
+            live.update(_operands(ins))
+    keep.reverse()
+    cols: List[int] = []
+    for ins in keep:
+        if ins[0] == OP["load"]:
+            if ins[7] not in cols:
+                cols.append(ins[7])
+            ins[7] = cols.index(ins[7])
+    last: Dict[int, float] = {}
+    for i, ins in enumerate(keep):
+        for o in _operands(ins):
+            last[o] = i
+    for o in out_vregs:
+        last[o] = float("inf")
+    phys: Dict[int, int] = {}
+    free: List[int] = []
+    n_regs = 0
+    for i, ins in enumerate(keep):
+        ops = _operands(ins)
+        for o in set(ops):
+            if last[o] == i:
+                heapq.heappush(free, phys[o])
+        if free:
+            r = heapq.heappop(free)
+        else:
+            r = n_regs
+            n_regs += 1
+        for j, o in zip((4, 5, 6), ops):
+            ins[j] = phys[o]
+        phys[ins[3]] = r
+        ins[3] = r
+    if len(keep) > MAX_INSTRS:
+        raise WaveFallback(f"lane program of {len(keep)} instructions "
+                           f"exceeds the kernel's {MAX_INSTRS}")
+    if n_regs > MAX_REGS:
+        raise WaveFallback(f"lane program needs {n_regs} registers, over "
+                           f"the kernel's {MAX_REGS}")
+    if len(cols) > MAX_COLS:
+        raise WaveFallback(f"lane program reads {len(cols)} columns, over "
+                           f"the kernel's {MAX_COLS}")
+    return LaneProgram([tuple(i) for i in keep], [names[c] for c in cols],
+                       [dtypes[c] for c in cols],
+                       [phys[o] for o in out_vregs], [o.dt for o in outs],
+                       n_regs)
+
+
+def _column_dtype(ds, name: str) -> torch.dtype:
+    dt = np.dtype(array_dtype(ds, name))
+    return torch.bool if dt == np.bool_ else getattr(torch, dt.name)
+
+
+def compile_wave(ds, lanes, min_day: int, max_day: int, fplan, *,
+                 union_names, tz: str):
+    """Trace every lane of a fused group over probe tiles and compile the
+    trace into ``(LaneProgram, WaveLayout)``. Raises :class:`WaveFallback`
+    with the reason when a lane does not lower to the kernel's ops."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+    names = list(union_names)
+    dtypes = [_column_dtype(ds, k) for k in names]
+    structure: List[tuple] = []
+
+    def probe(*tiles):
+        ctx = ScanContext(ds, dict(zip(names, tiles)), min_day, max_day,
+                          tz=tz)
+        cse = FU.CSECache(ctx)
+        if fplan is not None:
+            cse.prelower(fplan)
+        outs = []
+        structure.clear()
+
+        def put(t):
+            if t is None:
+                return None
+            outs.append(t)
+            return len(outs) - 1
+
+        for lp in lanes:
+            base, key, dense = _lane_parts(lp, ctx, cse)
+            structure.append((put(base), put(key),
+                              [(kind, name, put(v), put(m))
+                               for kind, name, v, m in dense]))
+        return outs
+
+    tiles = [torch.zeros(PROBE_SHAPE, dtype=d) for d in dtypes]
+    try:
+        gm = make_fx(probe, tracing_mode="fake")(*tiles)
+    except WaveFallback:
+        raise
+    except Exception as e:  # noqa: BLE001 — the reason names what failed
+        raise WaveFallback(f"lane trace failed: {type(e).__name__}: "
+                           f"{e}") from e
+    comp = _Compiler(gm, int(np.prod(PROBE_SHAPE)))
+    outs = comp.run(len(names))
+    for lp, (b, k, dense) in zip(lanes, structure):
+        if outs[b].dt != torch.bool or outs[k].dt != torch.int32:
+            raise WaveFallback("a lane's base is not bool or its key not "
+                               "int32")
+    program = _finish(comp.code, outs, names, dtypes)
+
+    slot = 0
+    slots = []
+    for lp, (b, k, dense) in zip(lanes, structure):
+        aggs = [(name, kind, lp.routes[name].tag == "f64", v, m)
+                for kind, name, v, m in dense]
+        slots.append(LaneSlots(lp.n_keys, b, k, aggs, slot))
+        slot += lp.n_keys * len(aggs)
+    layout = WaveLayout(slots, slot)
+    for ls in slots:
+        for name, kind, flt, v, m in ls.aggs:
+            if v is not None:
+                vdt = outs[v].dt
+                if vdt.is_floating_point != flt:
+                    raise WaveFallback(f"{name}: values of {vdt} on a "
+                                       f"{'f64' if flt else 'i64'} route")
+            if m is not None and outs[m].dt != torch.bool:
+                raise WaveFallback(f"{name}: mask of {outs[m].dt}")
+    return program, layout
+
+
+# =============================================================================
+# the plain version
+# =============================================================================
+
+_TORCH_BINARY = {
+    "add": torch.add, "sub": torch.sub, "mul": torch.mul, "div": torch.div,
+    "floordiv": lambda a, b: torch.div(a, b, rounding_mode="floor"),
+    "truncdiv": lambda a, b: torch.div(a, b, rounding_mode="trunc"),
+    "rem": torch.remainder, "minimum": torch.minimum,
+    "maximum": torch.maximum, "eq": torch.eq, "ne": torch.ne,
+    "lt": torch.lt, "le": torch.le, "gt": torch.gt, "ge": torch.ge,
+    "and": torch.bitwise_and, "or": torch.bitwise_or,
+    "xor": torch.bitwise_xor}
+_TORCH_UNARY = {"neg": torch.neg, "abs": torch.abs, "floor": torch.floor,
+                "ceil": torch.ceil, "round": torch.round,
+                "trunc": torch.trunc, "not": torch.bitwise_not}
+
+
+def run_program(program: LaneProgram, columns: Sequence[torch.Tensor]
+                ) -> List[torch.Tensor]:
+    """Interpret ``program`` over flat ``columns`` with one PyTorch op per
+    instruction; returns the output registers (a 0-d tensor where an
+    output is constant)."""
+    dev = columns[0].device if columns else torch.device("cpu")
+    regs: List[Optional[torch.Tensor]] = [None] * program.n_regs
+    for op, dt, src, dst, a, b, c, imm in program.instrs:
+        name, t = OPS[op], DTYPES[dt]
+        if name == "load":
+            r = columns[imm].reshape(-1)
+        elif name == "const":
+            r = torch.tensor(_imm_value(imm, t), dtype=t, device=dev)
+        elif name == "cast":
+            r = regs[a].to(t)
+        elif name == "where":
+            r = torch.where(regs[a], regs[b], regs[c])
+        elif name in _TORCH_UNARY:
+            r = _TORCH_UNARY[name](regs[a])
+        else:
+            r = _TORCH_BINARY[name](regs[a], regs[b])
+        regs[dst] = r
+    return [regs[o] for o in program.outputs]
+
+
+def _flat(t: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.broadcast_to(t.reshape(-1), (n,)).contiguous() \
+        if t.numel() == 1 else t.reshape(-1)
+
+
+def wave_reference(program: LaneProgram, columns: Sequence[torch.Tensor],
+                   layout: WaveLayout) -> List[Dict[str, torch.Tensor]]:
+    """Plain PyTorch version of the kernel (same inputs, same outputs): the
+    program through :func:`run_program`, then per lane the fused group-by's
+    plain version over ``where(base, key, n_keys)``. Returns one dict per
+    lane: aggregate name (and ``__rows__``) -> ``[n_keys]`` int64 or
+    float64 tensor, as ``ops/groupby.dense_groupby`` returns."""
+    outs = run_program(program, columns)
+    n = columns[0].numel()
+    res = []
+    for ls in layout.lanes:
+        base = _flat(outs[ls.base], n)
+        key = torch.where(base, _flat(outs[ls.key], n), ls.n_keys)
+        inputs = [G.AggInput(name, kind,
+                             None if v is None else _flat(outs[v], n),
+                             None if m is None else _flat(outs[m], n))
+                  for name, kind, flt, v, m in ls.aggs]
+        res.append(CG.dense_groupby_reference(key, ls.n_keys, inputs))
+    return res
+
+
+# =============================================================================
+# the kernel
+# =============================================================================
+
+def _pad8(b: bytes) -> bytes:
+    return b + bytes(-len(b) % 8)
+
+
+def blob_bytes(program: LaneProgram, layout: WaveLayout) -> bytes:
+    """The kernel's program blob: instructions, lane and aggregate
+    descriptors and slot kinds, each section padded to 8 bytes."""
+    ins = np.zeros(len(program.instrs), INSTR)
+    for i, (op, dt, src, dst, a, b, c, imm) in enumerate(program.instrs):
+        ins[i] = (op, dt, src, dst, a, b, c, 0, imm)
+    lanes = np.zeros(len(layout.lanes), LANE)
+    aggs = np.zeros(sum(ls.n_aggs for ls in layout.lanes), AGG)
+    kinds = np.zeros(layout.n_slots, np.uint8)
+    j = 0
+    for li, ls in enumerate(layout.lanes):
+        reg = program.outputs
+        lanes[li] = (reg[ls.base], reg[ls.key], ls.n_keys, ls.n_aggs, j,
+                     ls.slot_off)
+        for m, (name, kind, flt, v, mk) in enumerate(ls.aggs):
+            code = CG._KIND_CODE[kind]
+            aggs[j] = (code, int(flt), NONE if v is None else reg[v],
+                       0 if v is None else DT[program.output_dtypes[v]],
+                       NONE if mk is None else reg[mk], (0, 0, 0))
+            j += 1
+            for k in range(ls.n_keys):
+                kinds[ls.slot_off + k * ls.n_aggs + m] = code | int(flt) << 2
+    return b"".join(_pad8(x.tobytes()) for x in (ins, lanes, aggs, kinds))
+
+
+def _blob_len(n_instr: int, n_lanes: int, n_aggs: int, n_slots: int) -> int:
+    pad = lambda b: -(-b // 8) * 8
+    return pad(INSTR.itemsize * n_instr) + pad(LANE.itemsize * n_lanes) \
+        + pad(AGG.itemsize * n_aggs) + pad(n_slots)
+
+
+def _smem(n_instr: int, n_lanes: int, n_aggs: int, n_slots: int) -> int:
+    """Dynamic shared memory of the kernel's first pass (mirrors
+    ``sdot_wave_smem_bytes``): the per-warp partials, the warp staging
+    area and the program blob."""
+    return 8 * (WARPS * n_slots + THREADS) \
+        + _blob_len(n_instr, n_lanes, n_aggs, n_slots)
+
+
+def smem_bytes(program: LaneProgram, layout: WaveLayout) -> int:
+    return _smem(len(program.instrs), len(layout.lanes),
+                 sum(ls.n_aggs for ls in layout.lanes), layout.n_slots)
+
+
+def library() -> ctypes.CDLL:
+    """Build (once per source version) and load the kernel library."""
+    global _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        lib, info = CB.build(SOURCE, ["-fmad=false"])
+        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.sdot_wave.argtypes = [vp, i, i, i, i,
+                                  ctypes.POINTER(ctypes.c_ulonglong), i, ll,
+                                  ll, i, vp, vp, vp]
+        lib.sdot_wave.restype = i
+        lib.sdot_wave_smem_bytes.argtypes = [i, i, i, i]
+        lib.sdot_wave_smem_bytes.restype = ll
+        lib.sdot_wave_blob_bytes.argtypes = [i, i, i, i]
+        lib.sdot_wave_blob_bytes.restype = ll
+        for fn, want in (("sdot_wave_max_instrs", MAX_INSTRS),
+                         ("sdot_wave_max_regs", MAX_REGS),
+                         ("sdot_wave_max_cols", MAX_COLS),
+                         ("sdot_wave_record_bytes",
+                          INSTR.itemsize * 10000 + LANE.itemsize * 100
+                          + AGG.itemsize)):
+            getattr(lib, fn).restype = i
+            if getattr(lib, fn)() != want:
+                raise RuntimeError(f"csrc/wave.cu disagrees with "
+                                   f"ops/cuda_wave.py on {fn}")
+        if lib.sdot_wave_smem_bytes(3, 2, 5, 17) != _smem(3, 2, 5, 17):
+            raise RuntimeError("csrc/wave.cu disagrees with "
+                               "ops/cuda_wave.py on shared memory")
+        build_info.update(info)
+        _lib = lib
+        return lib
+
+
+def _check(program: LaneProgram, columns: Sequence[torch.Tensor]) -> None:
+    if len(columns) != len(program.columns):
+        raise ValueError(f"wave: {len(columns)} columns for a program "
+                         f"that reads {len(program.columns)}")
+    dev, n = columns[0].device, columns[0].numel()
+    for name, want, t in zip(program.columns, program.column_dtypes,
+                             columns):
+        if t.device != dev or t.dtype != want or t.numel() != n \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"wave: column {name} must be a contiguous {want} tensor of "
+                f"{n} rows on {dev}, got {tuple(t.shape)} {t.dtype} on "
+                f"{t.device}")
+
+
+def _split(layout: WaveLayout, words: torch.Tensor
+           ) -> List[Dict[str, torch.Tensor]]:
+    res = []
+    for ls in layout.lanes:
+        block = words[ls.slot_off: ls.slot_off + ls.n_keys * ls.n_aggs] \
+            .view(ls.n_keys, ls.n_aggs)
+        as_f64 = block.view(torch.float64)
+        res.append({name: (as_f64 if flt else block)[:, m]
+                    for m, (name, kind, flt, v, mk) in enumerate(ls.aggs)})
+    return res
+
+
+def wave_groupby(program: LaneProgram, layout: WaveLayout,
+                 columns: Sequence[torch.Tensor]
+                 ) -> List[Dict[str, torch.Tensor]]:
+    """Run one wave: ``columns`` are the program's columns, flat or
+    ``[S, R]``. CPU tensors take :func:`wave_reference`; CUDA tensors
+    launch the kernel once or raise — there is no fallback."""
+    global launches
+    if not columns or columns[0].device.type != "cuda":
+        return wave_reference(program, columns, layout)
+    columns = [c.reshape(-1) for c in columns]
+    _check(program, columns)
+    lib = library()
+    dev = columns[0].device
+    blob = program._blobs.get(dev)
+    if blob is None:
+        raw = blob_bytes(program, layout)
+        blob = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(dev)
+        program._blobs[dev] = blob
+    n = columns[0].numel()
+    rows_per_block, n_blocks = CG.launch_geometry(n)
+    scratch = torch.empty(n_blocks * layout.n_slots, dtype=torch.int64,
+                          device=dev)
+    out = torch.empty(layout.n_slots, dtype=torch.int64, device=dev)
+    ptrs = (ctypes.c_ulonglong * max(1, len(columns)))(
+        *[c.data_ptr() for c in columns])
+    n_aggs = sum(ls.n_aggs for ls in layout.lanes)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.sdot_wave(blob.data_ptr(), len(program.instrs),
+                            len(layout.lanes), n_aggs, layout.n_slots, ptrs,
+                            len(columns), n, rows_per_block, n_blocks,
+                            scratch.data_ptr(), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"wave kernel launch failed: CUDA error {err}")
+    launches += 1
+    return _split(layout, out)
+
+
+# =============================================================================
+# program build
+# =============================================================================
+
+def build_wave_fn(ds, lanes, min_day: int, max_day: int, fplan, *,
+                  union_names, tz: str, n_rows: int, max_lanes: int,
+                  scratch_bytes: int = SMEM_LIMIT):
+    """Lower a fused group to the wave kernel.
+
+    Returns ``(wave_fn, info)``: ``wave_fn(arrays)`` maps the wave's bind
+    (union name -> ``[S, R]`` tensor) to one route-conformant output dict
+    per lane, exactly what the lane-by-lane program's ``dense_groupby``
+    calls give, so ``_finals_from_out`` and the decode downstream are
+    untouched; ``info`` carries the launch accounting (blocks for the
+    wave's ``n_rows``, scratch slots, program length, registers, shared
+    memory). Raises :class:`WaveFallback` when the group cannot lower.
+    """
+    if max_lanes <= 0 or len(lanes) > max_lanes:
+        raise WaveFallback(f"{len(lanes)} lanes exceed "
+                           f"sdot.pallas.wave.max.lanes={max_lanes}")
+    program, layout = compile_wave(ds, lanes, min_day, max_day, fplan,
+                                   union_names=union_names, tz=tz)
+    smem = smem_bytes(program, layout)
+    limit = min(int(scratch_bytes), SMEM_LIMIT)
+    if smem > limit:
+        raise WaveFallback(f"wave scratch of {layout.n_slots} slots needs "
+                           f"{smem} B of shared memory, over "
+                           f"sdot.cuda.wave.scratch.bytes ({limit} B)")
+
+    def wave_fn(arrays):
+        return wave_groupby(program, layout,
+                            [arrays[k] for k in program.columns])
+
+    rows_per_block, blocks = CG.launch_geometry(n_rows)
+    info = {"blocks": blocks, "rows_per_block": rows_per_block,
+            "scratch_slots": layout.n_slots,
+            "program_length": len(program.instrs),
+            "registers": program.n_regs, "columns": len(program.columns),
+            "smem_bytes": smem, "lanes": len(lanes)}
+    return wave_fn, info

@@ -23,6 +23,7 @@ overflow path, with identical answers.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time as _time
 from typing import Dict, List, Optional
 
@@ -306,11 +307,15 @@ class AggPlan:
             return EC._as_num(EC.compile_expr(a.expr, ctx), ctx).arr
         return None
 
-    def build_mask(self, ctx: ScanContext):
+    def build_mask(self, ctx: ScanContext, cse=None):
+        """The aggregate's own filter and its columns' validity; ``cse``
+        (a ``planner/fusion.CSECache`` over ``ctx``) memoizes the filter
+        across a fused group's lanes."""
         a = self.spec
         masks = []
         if a.filter is not None:
-            m = F.lower_filter(a.filter, ctx)
+            m = cse.lower(a.filter) if cse is not None \
+                else F.lower_filter(a.filter, ctx)
             if m is not None:
                 masks.append(m)
         cols = [a.field] if a.field is not None else []
@@ -436,18 +441,39 @@ def _topk_slack(limit: S.LimitSpec) -> int:
 class QueryEngine:
     def __init__(self, store: SegmentStore, config: Optional[Config] = None,
                  device="cuda"):
+        from spark_druid_olap_tpu_torch.parallel.sharedscan import (
+            SharedScanCoalescer)
         self.store = store
         self.config = config or Config()
         self.device = torch.device(device)
         self._device_arrays: Dict[tuple, torch.Tensor] = {}
         self._device_bytes = 0
-        self.last_stats: Dict[str, object] = {}
+        self._bind_lock = threading.Lock()
+        self._tls = threading.local()
+        # fused shared-scan programs by signature, built once each
+        self._programs: Dict[tuple, object] = {}
+        self._compiling: Dict[tuple, threading.Event] = {}
+        self._compile_lock = threading.Lock()
+        self.sharedscan = SharedScanCoalescer(self)
+
+    @property
+    def last_stats(self) -> Dict[str, object]:
+        """Stats of the calling thread's last query (concurrent queries
+        each keep their own)."""
+        d = getattr(self._tls, "stats", None)
+        if d is None:
+            d = self._tls.stats = {}
+        return d
 
     # -- public ---------------------------------------------------------------
     def execute(self, q: S.QuerySpec) -> QueryResult:
         t0 = _time.perf_counter()
-        self.last_stats = {}
+        self.last_stats.clear()
         try:
+            if self.sharedscan.should_try(q):
+                # coalesce with concurrent eligible queries on the same
+                # datasource (parallel/sharedscan.py)
+                return self.sharedscan.run(q, t0)
             return self._execute_inner(q, t0)
         except EC.Unsupported as e:
             # an expression or filter the device path cannot compile:
@@ -690,6 +716,35 @@ class QueryEngine:
 
         return core
 
+    def _cached_program(self, sig, build):
+        """Program-cache fetch with per-signature build ownership: a
+        second thread wanting the same signature waits for the owner's
+        build instead of building twice; different signatures build at
+        once."""
+        prog = self._programs.get(sig)
+        while prog is None:
+            with self._compile_lock:
+                prog = self._programs.get(sig)
+                if prog is not None:
+                    break
+                ev = self._compiling.get(sig)
+                owner = ev is None
+                if owner:
+                    ev = self._compiling[sig] = threading.Event()
+            if owner:
+                try:
+                    prog = build()
+                    with self._compile_lock:
+                        self._programs[sig] = prog
+                finally:
+                    with self._compile_lock:
+                        self._compiling.pop(sig, None)
+                    ev.set()
+                break
+            ev.wait()
+            prog = self._programs.get(sig)
+        return prog
+
     def _bind_arrays(self, ds, names, seg_idx):
         """Fetch-or-build the device tensors a scan binds, cached per
         (datasource, array, segment selection) so repeated queries never
@@ -703,6 +758,10 @@ class QueryEngine:
         if total > cap:
             raise not_ported(f"multi-wave binding ({total} B > "
                              f"sdot.engine.device.cache.bytes {cap})", "A.5")
+        with self._bind_lock:
+            return self._bind_locked(ds, names, seg_idx, seg_sig, cap)
+
+    def _bind_locked(self, ds, names, seg_idx, seg_sig, cap):
         out = {}
         for k in names:
             key = (id(ds), k, seg_sig)

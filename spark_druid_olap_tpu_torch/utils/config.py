@@ -75,6 +75,59 @@ HAVING_DEVICE_MIN_KEYS = _entry(
     "exact-comparable HAVING on the device; the port refuses such "
     "queries until that epilogue is ported.")
 
+# --- shared-scan multi-query execution (parallel/sharedscan.py) --------------
+SHAREDSCAN_ENABLED = _entry(
+    "sdot.sharedscan.enabled", False,
+    "Coalesce concurrent eligible queries (GroupBy / Timeseries / TopN) "
+    "over the same datasource into ONE fused wave: the column union binds "
+    "once, every constituent's filter and aggregation lanes run against "
+    "the shared bind, and results demultiplex per query. Off by default: "
+    "solo workloads pay the hold window for nothing.")
+WLM_BATCH_WINDOW_MS = _entry(
+    "sdot.wlm.batch.window.ms", 8.0,
+    "Micro-batch hold window for the shared-scan tier: the first "
+    "eligible query on a datasource holds this long for companions "
+    "before dispatching (group-commit semantics). The window closes early "
+    "when sdot.sharedscan.max.queries constituents have joined.", float)
+SHAREDSCAN_MAX_QUERIES = _entry(
+    "sdot.sharedscan.max.queries", 8,
+    "Constituent cap per coalesced group: the hold window closes early "
+    "at this size, bounding the fused program's width.")
+SHAREDSCAN_FUSION_ENABLED = _entry(
+    "sdot.sharedscan.fusion.enabled", True,
+    "Cross-lane fusion planner (planner/fusion.py): each distinct "
+    "sub-predicate of a fused group lowers ONCE (shared masks first, then "
+    "per-lane base = row_valid & shared & residual). Bit-identical answers "
+    "by construction; a planning error falls back to unfused lowering.")
+SHAREDSCAN_FUSION_MAX_NODES = _entry(
+    "sdot.sharedscan.fusion.max.nodes", 512,
+    "Planner cost guard: per-group cap on distinct predicate nodes the "
+    "fusion analysis canonicalizes; a group over the cap plans unfused. "
+    "0 = uncapped.")
+PALLAS_WAVE_ENABLED = _entry(
+    "sdot.pallas.wave.enabled", True,
+    "Shared-scan fused groups run each wave as ONE launch of the wave "
+    "kernel (ops/cuda_wave.py, csrc/wave.cu) when every lane's dense "
+    "aggregates ride the fused group-by kernel's tier: union columns are "
+    "read once per row, shared predicates evaluate once per row, and all "
+    "lanes' filtered aggregates accumulate in one launch. False runs the "
+    "fused group lane by lane through ops/groupby.dense_groupby (kill "
+    "switch). The key keeps the JAX package's name.")
+PALLAS_WAVE_MAX_LANES = _entry(
+    "sdot.pallas.wave.max.lanes", 16,
+    "Max fused lanes (distinct constituent plans) one wave kernel "
+    "launch accumulates; wider groups run lane by lane.", int)
+CUDA_WAVE_SCRATCH_BYTES = _entry(
+    "sdot.cuda.wave.scratch.bytes", 227 * 1024 - 1024,
+    "Shared-memory budget (bytes) of one wave kernel block: the lane "
+    "program and its descriptors, the per-warp partials of every lane's "
+    "[n_keys x (dense aggregates + 1)] scratch slots (8 bytes each, 8 "
+    "warps) and the warp staging area. A group that needs more is "
+    "declined at build time (WaveFallback) and runs lane by lane. The "
+    "port's counterpart of the JAX package's TPU VMEM budget "
+    "sdot.pallas.wave.tile.bytes; values above the card's 227 KB opt-in "
+    "limit less the static part are clamped to it.", int)
+
 
 class Config:
     """A mutable key-value session config over the registered entries."""

@@ -57,6 +57,23 @@ def test_no_jax_imports_in_port_sources():
     assert not bad, bad
 
 
+# the shared-scan slice's modules, by exact name: each must be found by the
+# package walk below and import nothing of JAX or of the JAX package
+SHAREDSCAN_MODULES = ["planner.fusion", "ops.cuda_build", "ops.cuda_wave",
+                      "parallel.sharedscan"]
+
+
+@pytest.mark.parametrize("module", SHAREDSCAN_MODULES)
+def test_sharedscan_slice_modules_are_checked(module):
+    import pkgutil
+    prefix = "spark_druid_olap_tpu_torch."
+    name = prefix + module
+    walked = {m.name for m in pkgutil.walk_packages(tsdot.__path__, prefix)}
+    assert name in walked
+    path = PORT.joinpath(*module.split(".")).with_suffix(".py")
+    assert not _forbidden_imports(path)
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"

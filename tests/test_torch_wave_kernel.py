@@ -1,0 +1,433 @@
+"""The wave kernel's lane-program compiler and plain version
+(``ops/cuda_wave.py``), on the CPU.
+
+For every filter, key and aggregate shape the port lowers, a group of
+lanes is traced and compiled into the kernel's register program; the
+program, interpreted by ``run_program`` over the bound columns, must give
+bit for bit the tensors the engine's own lowering (``_lane_parts`` over a
+``ScanContext``) gives, and ``wave_reference`` must give exactly what the
+lane-by-lane fused group-by gives. Shapes the kernel does not run must be
+declined at build time with a named reason (``WaveFallback``). The
+kernel's host-side layout (program blob, shared memory, output split) is
+checked against the same program. The kernel itself runs only on the card
+(``chip_smoke.py`` holds it against ``wave_reference`` there).
+"""
+
+import numpy as np
+import pandas as pd
+import pytest
+import torch
+
+import chip_smoke
+import spark_druid_olap_tpu_torch as tsdot
+from spark_druid_olap_tpu_torch.ir import expr as E
+from spark_druid_olap_tpu_torch.ir import spec as S
+from spark_druid_olap_tpu_torch.ops import cuda_groupby as CG
+from spark_druid_olap_tpu_torch.ops import cuda_wave as CW
+from spark_druid_olap_tpu_torch.ops import groupby as G
+from spark_druid_olap_tpu_torch.ops.scan import ScanContext
+from spark_druid_olap_tpu_torch.planner import fusion as FU
+from spark_druid_olap_tpu_torch.segment.store import datasource_from_arrays
+from spark_druid_olap_tpu_torch.tools.tpch import generate
+
+C, L = E.Column, E.Literal
+N = 20_000
+
+
+def _ms(day: str) -> int:
+    return int(pd.Timestamp(day).value // 10**6)
+
+
+@pytest.fixture(scope="module")
+def ctx():
+    """A seeded frame with narrow, int32 and int64 longs, f32 doubles, a
+    date, string dims (one nullable) and sub-day timestamps across 1969-75
+    (negative day numbers exercise floor division and remainder)."""
+    r = np.random.default_rng(11)
+    ts = (np.datetime64("1969-03-01")
+          + r.integers(0, 2400, N).astype("timedelta64[D]")
+          + r.integers(0, 86_400_000, N).astype("timedelta64[ms]"))
+    df = pd.DataFrame({
+        "ts": ts.astype("datetime64[ns]"),
+        "region": r.choice(["east", "west", "north", "south"], N),
+        "product": r.choice([f"p{i:02d}" for i in range(12)], N),
+        "tag": r.choice(["a", "b", None], N),
+        "qty": r.integers(1, 51, N).astype(np.int64),
+        "b": r.integers(-50_000, 50_000, N).astype(np.int64),
+        "a": r.integers(-2**40, 2**40, N),
+        "price": np.round(r.uniform(-100.0, 1000.0, N), 2),
+        "disc": np.round(r.uniform(0.0, 0.1, N), 2),
+        "due": (ts + r.integers(5, 60, N).astype("timedelta64[D]"))
+        .astype("datetime64[D]").astype("datetime64[ns]"),
+    })
+    c = tsdot.Context(device="cpu")
+    c.ingest_dataframe("t", df, time_column="ts", target_rows=4096)
+    return c
+
+
+@pytest.fixture(scope="module")
+def f64_ctx():
+    """float64 and int64 metrics with NaNs, carried in unconverted."""
+    r = np.random.default_rng(12)
+    n = 5000
+    f64 = r.normal(0.0, 100.0, n)
+    f64[r.random(n) < 0.01] = np.nan
+    c = tsdot.Context(device="cpu")
+    c.store.register(datasource_from_arrays("w", {
+        "time": {"name": "ts", "millis": np.sort(r.integers(
+            _ms("1999-01-01"), _ms("2001-01-01"), n))},
+        "segments": [(0, 2500), (2500, n)],
+        "columns": {
+            "k": {"kind": "dimension", "validity": None,
+                  "values": r.integers(0, 5, n).astype(np.int32),
+                  "dictionary": list("vwxyz")},
+            "f64": {"kind": "double", "values": f64, "validity": None},
+            "i64": {"kind": "long", "validity": None,
+                    "values": r.integers(0, 2**58, n, dtype=np.int64)}}}))
+    return c
+
+
+def plan(ctx, specs, fusion=True):
+    """Plan ``specs`` as one fused group; (lanes, day basis, union names,
+    fusion plan, bound arrays)."""
+    eng = ctx.engine
+    ds = ctx.store.get(specs[0].datasource)
+    plans, seg_u, lo, hi = eng.sharedscan._plan_members(ds, specs)
+    assert all(p is not None for p in plans)
+    by_sig = {}
+    for lp in plans:
+        by_sig.setdefault(lp.sig, lp)
+    lanes = [by_sig[k] for k in sorted(by_sig)]
+    cols, names = eng.sharedscan._union(ds, lanes)
+    fplan = FU.plan_lanes(
+        [(lp.q.filter, lp.q.intervals, tuple(a.filter for a in lp.aggs))
+         for lp in lanes], [len(lp.needed) for lp in lanes],
+        len(cols)) if fusion else None
+    return ds, lanes, lo, hi, names, fplan, eng._bind_arrays(ds, names,
+                                                             seg_u)
+
+
+def same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype != b.dtype:
+        return False
+    a, b = a.reshape(-1).numpy(), b.reshape(-1).numpy()
+    a, b = np.broadcast_arrays(a, b)
+    return bool(np.array_equal(a, b, equal_nan=a.dtype.kind == "f"))
+
+
+def check_group(ctx, specs, fusion=True):
+    """Program == direct lowering, bit for bit; wave_reference == the
+    lane-by-lane fused group-by, exactly."""
+    ds, lanes, lo, hi, names, fplan, arrays = plan(ctx, specs, fusion)
+    program, layout = CW.compile_wave(ds, lanes, lo, hi, fplan,
+                                      union_names=names, tz="UTC")
+    cols = [arrays[k] for k in program.columns]
+    outs = CW.run_program(program, cols)
+    sctx = ScanContext(ds, arrays, lo, hi)
+    cse = None
+    if fplan is not None:
+        cse = FU.CSECache(sctx)
+        cse.prelower(fplan)
+    got = CW.wave_reference(program, cols, layout)
+    for li, (lp, ls) in enumerate(zip(lanes, layout.lanes)):
+        base, key, dense = CW._lane_parts(lp, sctx, cse)
+        assert same(outs[ls.base], base), f"lane {li} base"
+        assert same(outs[ls.key], key), f"lane {li} key"
+        for (name, kind, flt, v, m), (_, _, vals, mask) in zip(ls.aggs,
+                                                               dense):
+            if v is not None:
+                assert same(outs[v], vals), f"lane {li} {name} values"
+            if m is not None:
+                assert same(outs[m], mask), f"lane {li} {name} mask"
+        inputs = [G.AggInput(name, kind, vals, mask)
+                  for kind, name, vals, mask in dense]
+        want = G.dense_groupby(key, base, lp.n_keys, inputs, lp.routes, 0)
+        assert set(got[li]) == set(want)
+        for name in want:
+            assert same(got[li][name], want[name]), f"lane {li} {name}"
+    return program, layout, cols, got
+
+
+AGGS = (S.AggregationSpec("count", "n"),
+        S.AggregationSpec("longsum", "q", field="qty"),
+        S.AggregationSpec("doublesum", "p", field="price"),
+        S.AggregationSpec("doublemin", "pmin", field="price"),
+        S.AggregationSpec("longmax", "amax", field="a"))
+
+
+def gb(*dims, aggs=AGGS, **kw):
+    return S.GroupByQuerySpec(
+        "t", tuple(S.DimensionSpec(d, d) for d in dims), aggs, **kw)
+
+
+def expr_aggs(*exprs):
+    return tuple(S.AggregationSpec("doublesum" if i % 2 else "doublemax",
+                                   f"e{i}", expr=x)
+                 for i, x in enumerate(exprs))
+
+
+def time_dim(field, out):
+    return S.DimensionSpec("ts", out, extraction=S.TimeExtraction(field))
+
+
+SHAPES = {
+    "selector_dim": [gb("product", filter=S.SelectorFilter("region",
+                                                             "east"))],
+    "selector_long_and_absent": [
+        gb("region", filter=S.SelectorFilter("qty", "7")),
+        gb("region", filter=S.SelectorFilter("product", "nope"))],
+    "selector_time": [gb("region", filter=S.SelectorFilter(
+        "ts", "1970-03-04T05:06:07"))],
+    "bound_numeric": [
+        gb("region", filter=S.BoundFilter("price", lower=10.5, upper=500,
+                                          upper_strict=True, numeric=True)),
+        gb("region", filter=S.BoundFilter("b", lower=-7, numeric=True))],
+    "bound_string_codes": [gb("region", filter=S.BoundFilter(
+        "product", lower="p03", upper="p09", lower_strict=True))],
+    "bound_date_and_time": [
+        gb("region", filter=S.BoundFilter("due", lower="1971-02-03")),
+        gb("region", filter=S.BoundFilter("ts", lower="1970-01-01T12:00:00",
+                                          upper="1973-06-30"))],
+    "intervals": [gb("region", intervals=(
+        (_ms("1969-06-01"), _ms("1970-02-01")),
+        (_ms("1972-01-01T06:00:00"), _ms("1974-01-01"))))],
+    "logical_and_or_not": [gb("region", filter=S.LogicalFilter("or", (
+        S.LogicalFilter("and", (S.SelectorFilter("product", "p01"),
+                                S.BoundFilter("qty", upper=20,
+                                              numeric=True))),
+        S.LogicalFilter("not", (S.SelectorFilter("region", "west"),)))))],
+    "null_filters": [
+        gb("region", filter=S.NullFilter("tag")),
+        gb("tag", filter=S.SelectorFilter("tag", None)),
+        gb("region", filter=S.NullFilter("tag", negated=True))],
+    "expression_filter": [gb("region", filter=S.ExprFilter(E.And((
+        E.Comparison(">", E.BinaryOp("*", C("price"), C("disc")), L(3.5)),
+        E.Not(E.Comparison("=", E.BinaryOp("%", C("b"), L(7)), L(2)))))))],
+    "arithmetic_case_casts": [gb("region", aggs=expr_aggs(
+        E.BinaryOp("*", C("price"), E.BinaryOp("-", L(1), C("disc"))),
+        E.BinaryOp("%", C("b"), L(7)),
+        E.BinaryOp("%", C("b"), L(-3)),
+        E.BinaryOp("/", C("b"), L(3)),
+        E.BinaryOp("%", C("price"), L(3.5)),
+        E.BinaryOp("-", C("a"), E.BinaryOp("*", C("qty"), L(3))),
+        E.Cast(C("price"), "long"),
+        E.Cast(C("qty"), "double"),
+        E.Case(((E.Comparison(">", C("price"), L(0)), C("b")),
+                (E.Comparison("<", C("disc"), L(0.05)), L(2))), L(-1)),
+        E.Between(C("qty"), L(10), L(20)),
+        E.InList(C("qty"), (3, 5, 8))))],
+    "granularity_keys": [
+        S.TimeseriesQuerySpec("t", AGGS, granularity=S.Granularity(g))
+        for g in ("day", "week", "month", "quarter", "year")] + [
+        S.TimeseriesQuerySpec("t", AGGS, granularity=S.Granularity("hour"),
+                              intervals=((_ms("1970-01-01"),
+                                          _ms("1970-01-03")),))],
+    "time_extraction_keys": [
+        S.GroupByQuerySpec("t", (time_dim(f, f),), AGGS)
+        for f in ("year", "month", "quarter", "day", "dow", "doy", "hour",
+                  "minute", "second", "trunc_month", "trunc_week")],
+    "two_dims_and_dates": [
+        S.GroupByQuerySpec("t", (S.DimensionSpec("region", "region"),
+                                 time_dim("quarter", "q")), AGGS),
+        S.GroupByQuerySpec("t", (S.DimensionSpec(
+            "due", "dm", extraction=S.TimeExtraction("month")),), AGGS)],
+    "filtered_aggregates": [gb("product", aggs=(
+        S.AggregationSpec("count", "n_east",
+                          filter=S.SelectorFilter("region", "east")),
+        S.AggregationSpec("doublesum", "p_big", field="price",
+                          filter=S.BoundFilter("qty", lower=40,
+                                               numeric=True)),
+        S.AggregationSpec("longmin", "b_min", field="b",
+                          filter=S.ExprFilter(E.Comparison(
+                              ">=", E.BinaryOp("%", C("a"), L(5)), L(2)))),
+        S.AggregationSpec("longsum", "tagged", field="qty",
+                          filter=S.NullFilter("tag", negated=True))))],
+}
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_program_matches_direct_lowering(shape, ctx):
+    check_group(ctx, SHAPES[shape])
+
+
+def test_whole_group_with_fusion_plan(ctx):
+    """Every shape's lanes in one group, shared predicates lowered once:
+    the program still equals the lowering lane for lane."""
+    specs = [q for qs in SHAPES.values() for q in qs
+             if not isinstance(q, S.TimeseriesQuerySpec)
+             or q.granularity.kind != "hour"][:16]
+    program, layout, _, _ = check_group(ctx, specs)
+    assert len(layout.lanes) == 16
+    unfused, _, _, _ = check_group(ctx, specs, fusion=False)
+    assert len(program.instrs) <= len(unfused.instrs)
+
+
+def test_float64_columns_nan_and_wide_sums(f64_ctx):
+    aggs = (S.AggregationSpec("doublemin", "mn", field="f64"),
+            S.AggregationSpec("doublemax", "mx", field="f64"),
+            S.AggregationSpec("doublesum", "s", field="f64"),
+            S.AggregationSpec("longsum", "si", field="i64"),
+            S.AggregationSpec("count", "n"))
+    specs = [S.GroupByQuerySpec("w", (S.DimensionSpec("k", "k"),), aggs),
+             S.TimeseriesQuerySpec(
+                 "w", aggs, granularity=S.Granularity("month"),
+                 filter=S.BoundFilter("f64", lower=-50, numeric=True))]
+    program, layout, _, got = check_group(f64_ctx, specs)
+    assert torch.float64 in program.column_dtypes
+    by_k = got[[ls.n_keys for ls in layout.lanes].index(5)]
+    assert bool(torch.isnan(by_k["mn"]).all())       # NaN in every group
+    assert int(by_k["si"].max()) > 2**53
+
+
+def test_chip_smoke_storm_program(ctx):
+    """The 8-query dashboard of chip_smoke.py, at a small scale factor."""
+    df = generate(0.01)["lineitem"]
+    c = tsdot.Context(dict(chip_smoke.STORM_CONFIG), device="cpu")
+    c.ingest_dataframe("lineitem", df, time_column="l_shipdate",
+                       target_rows=1 << 14)
+    program, layout, _, _ = check_group(
+        c, list(chip_smoke.storm_specs(S, E).values()))
+    assert len(layout.lanes) == 8
+
+
+# -- declines -----------------------------------------------------------------
+
+def build(ctx, specs, tz="UTC", max_lanes=16, scratch=CW.SMEM_LIMIT):
+    ds, lanes, lo, hi, names, fplan, _ = plan(ctx, specs)
+    return CW.build_wave_fn(ds, lanes, lo, hi, fplan, union_names=names,
+                            tz=tz, n_rows=ds.num_rows, max_lanes=max_lanes,
+                            scratch_bytes=scratch)
+
+
+def test_dim_in_filter_lut_declines(ctx):
+    with pytest.raises(CW.WaveFallback, match=r"aten\.index\.Tensor"):
+        build(ctx, [gb("region", filter=S.InFilter("product",
+                                                    ("p01", "p02")))])
+
+
+def test_string_comparison_lut_declines(ctx):
+    with pytest.raises(CW.WaveFallback, match=r"aten\.index\.Tensor"):
+        build(ctx, [gb("region", filter=S.ExprFilter(
+            E.Comparison(">", C("product"), L("p04"))))])
+
+
+def test_pattern_filter_declines(ctx, monkeypatch):
+    """The coalescer sends a lane the port cannot lower solo at plan time;
+    the build declines it too, naming the error."""
+    spec = gb("region", filter=S.PatternFilter("product", "like", "p0%"))
+    ds = ctx.store.get("t")
+    assert ctx.engine.sharedscan._plan_members(ds, [spec])[0] == [None]
+    monkeypatch.setattr(type(ctx.engine.sharedscan), "_lowers",
+                        lambda *a: True)
+    with pytest.raises(CW.WaveFallback,
+                       match="lane trace failed: NotImplementedError"):
+        build(ctx, [spec])
+
+
+def test_non_utc_timezone_declines(ctx):
+    tz = "America/New_York"
+    local = tsdot.Context({"sdot.timezone": tz}, device="cpu")
+    local.store.register(ctx.store.get("t"))
+    with pytest.raises(CW.WaveFallback, match=r"aten\.index\.Tensor"):
+        build(local, [S.TimeseriesQuerySpec(
+            "t", AGGS, granularity=S.Granularity("month"))], tz=tz)
+
+
+def test_too_many_lanes_decline(ctx):
+    specs = SHAPES["time_extraction_keys"][1:4]
+    with pytest.raises(CW.WaveFallback,
+                       match="3 lanes exceed sdot.pallas.wave.max.lanes=2"):
+        build(ctx, specs, max_lanes=2)
+    ds, lanes, *_ = plan(ctx, specs)
+    assert CW.wave_decline(lanes, 2, 64) == \
+        "3 lanes exceed sdot.pallas.wave.max.lanes=2"
+    assert CW.wave_decline(lanes, 16, 64) is None
+    assert CW.wave_eligible(lanes, 16, 64)
+    assert "outside the fused group-by tier" in CW.wave_decline(lanes, 16, 4)
+    assert not CW.wave_eligible(lanes, 16, 4)
+
+
+@pytest.mark.parametrize("cap,value,reason", [
+    ("MAX_INSTRS", 4, "instructions exceeds the kernel's 4"),
+    ("MAX_REGS", 3, "registers, over the kernel's 3"),
+    ("MAX_COLS", 2, "columns, over the kernel's 2")])
+def test_kernel_caps_decline(cap, value, reason, ctx, monkeypatch):
+    monkeypatch.setattr(CW, cap, value)
+    with pytest.raises(CW.WaveFallback, match=reason):
+        build(ctx, SHAPES["logical_and_or_not"])
+
+
+def test_scratch_over_budget_declines(ctx):
+    wave_fn, info = build(ctx, SHAPES["time_extraction_keys"][:2])
+    assert info["smem_bytes"] > 4096
+    with pytest.raises(CW.WaveFallback, match="sdot.cuda.wave.scratch"):
+        build(ctx, SHAPES["time_extraction_keys"][:2], scratch=4096)
+
+
+# -- the kernel's host-side layout --------------------------------------------
+
+def test_blob_layout_and_shared_memory(ctx):
+    program, layout, _, _ = check_group(ctx, SHAPES["filtered_aggregates"]
+                                        + SHAPES["null_filters"])
+    blob = CW.blob_bytes(program, layout)
+    n_aggs = sum(ls.n_aggs for ls in layout.lanes)
+    assert len(blob) == CW._blob_len(len(program.instrs), len(layout.lanes),
+                                     n_aggs, layout.n_slots)
+    assert CW.smem_bytes(program, layout) == len(blob) + 8 * (
+        CW.WARPS * layout.n_slots + CW.THREADS)
+    ins = np.frombuffer(blob, CW.INSTR, len(program.instrs))
+    assert [tuple(int(x) for x in r)[:7] + (int(r["imm"]),) for r in ins] \
+        == [tuple(i[:7]) + (i[7],) for i in program.instrs]
+    off = -(-ins.nbytes // 8) * 8
+    lanes = np.frombuffer(blob, CW.LANE, len(layout.lanes), off)
+    off += -(-lanes.nbytes // 8) * 8
+    aggs = np.frombuffer(blob, CW.AGG, n_aggs, off)
+    off += -(-aggs.nbytes // 8) * 8
+    kinds = np.frombuffer(blob, np.uint8, layout.n_slots, off)
+    j = 0
+    for lane, ls in zip(lanes, layout.lanes):
+        assert lane["base_reg"] == program.outputs[ls.base]
+        assert lane["key_reg"] == program.outputs[ls.key]
+        assert (lane["n_keys"], lane["n_aggs"], lane["agg_start"],
+                lane["slot_off"]) == (ls.n_keys, ls.n_aggs, j, ls.slot_off)
+        for m, (name, kind, flt, v, mk) in enumerate(ls.aggs):
+            a = aggs[j + m]
+            assert a["kind"] == CG._KIND_CODE[kind] and a["flt"] == flt
+            assert a["val_reg"] == (CW.NONE if v is None
+                                    else program.outputs[v])
+            assert a["mask_reg"] == (CW.NONE if mk is None
+                                     else program.outputs[mk])
+            slots = kinds[ls.slot_off + m: ls.slot_off + ls.n_keys
+                          * ls.n_aggs: ls.n_aggs]
+            assert (slots == (CG._KIND_CODE[kind] | int(flt) << 2)).all()
+        j += ls.n_aggs
+    # every register index fits the kernel's byte fields
+    assert program.n_regs <= CW.MAX_REGS < CW.NONE
+
+
+def test_split_reads_the_kernel_output_layout(ctx):
+    """Slots packed as the kernel writes them ([slot_off + k * n_aggs + m],
+    int64 or float64 bits) split back into the plain version's dicts."""
+    program, layout, cols, want = check_group(
+        ctx, SHAPES["granularity_keys"][:3] + SHAPES["selector_dim"])
+    words = torch.empty(layout.n_slots, dtype=torch.int64)
+    for ls, w in zip(layout.lanes, want):
+        for m, (name, kind, flt, v, mk) in enumerate(ls.aggs):
+            t = w[name].view(torch.int64) if flt else w[name]
+            words[ls.slot_off + m: ls.slot_off + ls.n_keys * ls.n_aggs:
+                  ls.n_aggs] = t
+    got = CW._split(layout, words)
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for name in w:
+            assert same(g[name], w[name]), name
+
+
+def test_cpu_tensors_take_the_plain_version(ctx):
+    program, layout, cols, want = check_group(ctx, SHAPES["intervals"])
+    before = CW.launches
+    got = CW.wave_groupby(program, layout, cols)
+    assert CW.launches == before
+    for g, w in zip(got, want):
+        for name in w:
+            assert same(g[name], w[name])
