@@ -7,11 +7,16 @@ Drives the port's main path — ``Context()`` -> ``ingest_dataframe`` ->
 SF1 lineitem (~6M rows, generated from a seed by the port's own
 ``tools/tpch.py``), with TPC-H Q1 and Q6 written as QuerySpecs, and Q1's
 grouping with 17 aggregates (more than one kernel launch takes), each checked
-against a pandas oracle on the same frame. Before that it builds every
-kernel of the path from the sources in this checkout and holds each against
-its plain PyTorch version on the card. Each phase prints one JSON line; the
-``kernels`` line and the card's ``nvidia-smi`` name and power limit come
-before the last line, which is ``{"ok": true, "device": {...}}``.
+against a pandas oracle on the same frame, then the 8-query storm that the
+shared-scan tier coalesces into one launch of the wave kernel. Before that
+it builds every kernel of the path from the sources in this checkout and
+holds each against its plain PyTorch version on the card: the dense
+group-by in each fold tier that holds a case, the wave kernel in each
+register-file layout that fits, every case launched twice and required
+bit-identical. Each phase prints one JSON line (``timing`` holds each
+pass's device time); the ``kernels`` line and the card's ``nvidia-smi``
+name and power limit come before the last line, which is
+``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; so does a machine without CUDA. The
 script imports nothing of JAX or of the JAX package.
@@ -35,6 +40,7 @@ FP32_OPS_PER_S = 67e12           # H100 SXM data-sheet fp32 rate (no tensor core
 FLOAT_SUM_RTOL_KERNEL = 1e-9     # both sides sum in f64; only the order differs
 FLOAT_SUM_RTOL_ORACLE = 1e-6     # float metric columns are stored f32
 REPEATS = 7
+SLEEP_CYCLES = 4_000_000         # ~2 ms of sleep kernel at the H100's clock
 
 
 def emit(phase: str, **fields) -> None:
@@ -78,24 +84,45 @@ def compare(case, got, want, inputs):
     return worst
 
 
+def same_bits(a, b) -> bool:
+    """Two outputs (name -> tensor) equal bit for bit."""
+    return a.keys() == b.keys() and all(
+        torch.equal(a[k].view(torch.int64) if a[k].is_floating_point()
+                    else a[k], b[k].view(torch.int64)
+                    if b[k].is_floating_point() else b[k]) for k in a)
+
+
 def kernel_cases(CG, dev):
-    """Kernel vs plain version over the sizes, key counts and edge cases
-    of the contract; returns (cases run, largest float difference)."""
+    """Kernel vs plain version over the sizes, key counts, fold tiers and
+    edge cases of the contract, each case launched twice (bit-identical);
+    returns (cases run, largest float difference, tiers per case)."""
     from spark_druid_olap_tpu_torch.ops.groupby import AggInput as Agg
     rng = np.random.default_rng(SEED)
-    cases, worst = 0, 0.0
+    cases, worst, tiers = 0, 0.0, {}
 
-    def run(name, key, n_keys, inputs, check=None):
+    def run(name, key, n_keys, inputs, check=None, max_keys=128):
+        """Every tier that holds the launch's slots, against one plain
+        version; each tier twice."""
         nonlocal cases, worst
-        got = CG.dense_groupby_kernel(key, n_keys, inputs, 64)
-        torch.cuda.synchronize()
         want = CG.dense_groupby_reference(key, n_keys, inputs)
-        torch.cuda.synchronize()
-        worst = max(worst, compare(name, got, want, inputs))
-        if check is not None:
-            check(got)
+        per_launch, chosen = CG.plan_launches(n_keys, len(inputs))
+        ran = [t for t in CG.TIERS
+               if CG.smem_bytes(n_keys * per_launch, t) <= CG.SMEM_LIMIT]
+        for tier in ran:
+            got = CG.dense_groupby_kernel(key, n_keys, inputs, max_keys,
+                                          tier)
+            again = CG.dense_groupby_kernel(key, n_keys, inputs, max_keys,
+                                            tier)
+            torch.cuda.synchronize()
+            what = f"{name}[{tier}]"
+            if not same_bits(got, again):
+                raise AssertionError(f"{what}: two launches differ")
+            worst = max(worst, compare(what, got, want, inputs))
+            if check is not None:
+                check(got)
+        tiers[name] = {"chosen": chosen, "ran": ran}
         cases += 1
-        return got
+        return want
 
     def on(x):
         return torch.from_numpy(x).to(dev)
@@ -196,23 +223,53 @@ def kernel_cases(CG, dev):
     wide = [Agg(f"{kind}{j}", kind, None if kind == "count"
                 else (f32 if j % 2 else i32), m if j % 3 == 0 else None)
             for j in range(6) for kind in CG.KINDS]
-    before = CG.launches
     run("wide_24_aggs", key, 6, wide)
+    before = CG.launches
+    CG.dense_groupby_kernel(key, 6, wide, 64)
     want_launches = -(-len(wide) // CG.MAX_AGGS)
     if CG.launches - before != want_launches:
         raise AssertionError(f"{len(wide)} aggregates took "
                              f"{CG.launches - before} launches, not "
                              f"{want_launches}")
 
-    # the same input gives bit-identical float sums on every run
-    key = on(rng.integers(0, 7, n, dtype=np.int32))
-    inputs = [Agg("s", "sum", on(rng.random(n, dtype=np.float32)))]
-    a = CG.dense_groupby_kernel(key, 6, inputs, 64)["s"].clone()
-    b = CG.dense_groupby_kernel(key, 6, inputs, 64)["s"]
-    torch.cuda.synchronize()
-    if not torch.equal(a, b):
-        raise AssertionError("kernel float sums are not deterministic")
-    return cases, worst
+    # the tiers' edges: one key for every row; every lane of a warp its
+    # own key (K = 32 in both tiers, K = 64 with 16 aggregates in the warp
+    # tier); K = 128 with 16 aggregates; row counts that are no multiple
+    # of 256, below one block and below one warp
+    def mixed(n, m):
+        f = on(rng.normal(0.0, 100.0, n).astype(np.float32))
+        d = on(rng.normal(0.0, 1e6, n))
+        i = on(rng.integers(-10**6, 10**6, n, dtype=np.int32))
+        mask = on(rng.random(n) < 0.6)
+        pool = [Agg("n", "count"), Agg("nm", "count", mask=mask),
+                Agg("sf", "sum", f), Agg("sd", "sum", d, mask),
+                Agg("si", "sum", i), Agg("mnf", "min", f, mask),
+                Agg("mxd", "max", d), Agg("mni", "min", i),
+                Agg("mxi", "max", i, mask), Agg("sf2", "sum", f, mask),
+                Agg("mnd", "min", d), Agg("mxf", "max", f),
+                Agg("sd2", "sum", d), Agg("si2", "sum", i, mask),
+                Agg("nm2", "count", mask=on(rng.random(n) < 0.1)),
+                Agg("__rows__", "count")]
+        return pool[:m - 1] + [pool[-1]]
+
+    n = 6_000_000
+    run("one_key_every_row", on(np.zeros(n, np.int32)), 1, mixed(n, 8))
+    run("one_key_k6_every_row", on(np.full(n, 4, np.int32)), 6,
+        mixed(n, 16))
+    lane_keys = on((np.arange(n) % 32).astype(np.int32))
+    run("warp_lanes_distinct_k32", lane_keys, 32, mixed(n, 3))
+    lane_keys = on((np.arange(n) % 64).astype(np.int32))
+    run("warp_lanes_distinct_k64_16aggs", lane_keys, 64, mixed(n, 16))
+    if CG.plan_launches(64, 16) != (16, "warps"):
+        raise AssertionError("K = 64 with 16 aggregates left the warp tier")
+    run("k128_16aggs", on(rng.integers(0, 129, n, dtype=np.int32)), 128,
+        mixed(n, 16))
+    for rows in (100_003, 3001, 100, 31):
+        run(f"n{rows}_k6", on(rng.integers(0, 7, rows, dtype=np.int32)), 6,
+            mixed(rows, 12))
+        run(f"n{rows}_k64", on(rng.integers(0, 65, rows, dtype=np.int32)),
+            64, mixed(rows, 16))
+    return cases, worst, tiers
 
 
 # -- timing -------------------------------------------------------------------
@@ -229,14 +286,20 @@ def flush_l2():
     _flush_buf.zero_()
 
 
-def device_ms(fn, repeats=REPEATS) -> float:
+def device_ms(fn, repeats=REPEATS, host_gap=False) -> float:
     """Median device time of ``fn`` over ``repeats`` cold-L2 calls, from
-    CUDA events."""
+    CUDA events. A sleep kernel queued before the start event keeps the card
+    busy while the host enqueues ``fn``'s launches, so the events span the
+    device work; ``host_gap=True`` leaves it out (the method of the
+    kernel's earlier numbers in PERF.md), and the span then also holds the
+    host's enqueue time."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(repeats):
         flush_l2()
+        if not host_gap:
+            torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -294,6 +357,33 @@ def profile_query(ctx, spec) -> dict:
     return profile_run(lambda: timed_execute(ctx, spec))
 
 
+def dev_us(e) -> float:
+    """A profiler event's own device time, in us."""
+    v = getattr(e, "self_device_time_total", None)
+    return float(v if v is not None else e.self_cuda_time_total)
+
+
+def pass_ms(fn, repeats=REPEATS) -> dict:
+    """Device ms per launch of each pass (kernel) that ``fn`` launches:
+    torch.profiler over ``repeats`` calls, L2 flushed before each; the
+    flush itself is left out."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            flush_l2()
+            fn()
+        torch.cuda.synchronize()
+    import re
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"(dense_groupby_\w+|wave_\w+)(<[^>]*>)?", e.key)
+        if m and dev_us(e) > 0:
+            out[m.group(0)] = dev_us(e) / 1e3 / e.count
+    return out
+
+
 def profile_run(run) -> dict:
     """``run()`` (which returns its host wall ms) once to warm up, then
     once under torch.profiler."""
@@ -302,10 +392,6 @@ def profile_run(run) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall_ms = run()
-
-    def dev_us(e):
-        v = getattr(e, "self_device_time_total", None)
-        return float(v if v is not None else e.self_cuda_time_total)
     events = sorted((e for e in prof.key_averages() if dev_us(e) > 0),
                     key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in events) / 1e3
@@ -561,7 +647,8 @@ def wave_specs(S, E, n_lanes):
 
 def compile_specs(eng, ds, specs, CW, FU):
     """Plan ``specs`` as one fused group of ``eng``'s coalescer and compile
-    its lane program; returns (program, layout, flat columns)."""
+    its lane program with its register-file layout, as the coalescer's
+    build does; returns (program, layout, flat columns)."""
     co = eng.sharedscan
     plans, seg_u, min_day, max_day = co._plan_members(ds, specs)
     if seg_u is None or any(p is None for p in plans):
@@ -576,7 +663,8 @@ def compile_specs(eng, ds, specs, CW, FU):
          for lp in lanes], [len(lp.needed) for lp in lanes], len(cols))
     program, layout = CW.compile_wave(ds, lanes, min_day, max_day, fplan,
                                       union_names=names, tz="UTC")
-    if CW.smem_bytes(program, layout) > CW.SMEM_LIMIT:
+    layout.file = CW.register_file(program, layout)
+    if layout.file is None:
         raise AssertionError("a synthetic group needs more shared memory "
                              "than the wave kernel has")
     arrays = eng._bind_arrays(ds, names, seg_u)
@@ -619,6 +707,29 @@ def bits(lanes):
              for k, v in d.items()} for d in lanes]
 
 
+def wave_checked(CW, case, program, layout, cols, want):
+    """The wave kernel in every register-file layout that fits, each
+    launched twice (the two bit-identical), each against the plain
+    version's ``want``. Returns the answer in the layout the wave was built
+    with and the largest float-sum difference."""
+    default = layout.file
+    worst, answer = 0.0, None
+    for file in CW.FILE_LAYOUTS:
+        if CW.smem_bytes(program, layout, file) > CW.SMEM_LIMIT:
+            continue
+        got = CW.wave_groupby(program, layout, cols, file)
+        again = CW.wave_groupby(program, layout, cols, file)
+        torch.cuda.synchronize()
+        what = f"{case}[{file[0]} rows, {'shared' if file[1] else 'local'}]"
+        if any(not torch.equal(a[k], b[k]) for a, b in
+               zip(bits(got), bits(again)) for k in a):
+            raise AssertionError(f"{what}: two launches differ")
+        worst = max(worst, compare_wave(what, got, want, layout))
+        if file == default:
+            answer = got
+    return answer, worst
+
+
 def wave_cases(sdt, S, E, CW, FU):
     """The wave kernel against its plain version over the contract's sizes,
     lane counts, column types and edge cases; returns (cases run, largest
@@ -632,12 +743,10 @@ def wave_cases(sdt, S, E, CW, FU):
         for n_lanes in (1, 4, 16):
             specs = wave_specs(S, E, n_lanes)
             program, layout, cols = compile_specs(eng, ds, specs, CW, FU)
-            got = CW.wave_groupby(program, layout, cols)
-            torch.cuda.synchronize()
-            want = CW.wave_reference(program, cols, layout)
-            torch.cuda.synchronize()
             case = f"n{n}_lanes{n_lanes}"
-            worst = max(worst, compare_wave(case, got, want, layout))
+            want = CW.wave_reference(program, cols, layout)
+            got, err = wave_checked(CW, case, program, layout, cols, want)
+            worst = max(worst, err)
             cases += 1
             if n_lanes == 16:
                 from spark_druid_olap_tpu_torch.parallel.sharedscan import (
@@ -666,12 +775,9 @@ def wave_cases(sdt, S, E, CW, FU):
                     raise AssertionError(f"{case}: no int sum past 2^53")
                 checks.append(f"{case}: {nan_groups} NaN min groups, int "
                               f"sum {big} > 2^53")
-                again = CW.wave_groupby(program, layout, cols)
-                torch.cuda.synchronize()
-                if any(not torch.equal(a[k], b[k]) for a, b in
-                       zip(bits(got), bits(again)) for k in a):
-                    raise AssertionError(f"{case}: two launches differ")
-                checks.append(f"{case}: two launches bit-identical")
+    checks.append("every case in every register-file layout the shared "
+                  "memory allows: two launches bit-identical, and equal to "
+                  "the plain version")
     return cases, worst, checks
 
 
@@ -891,15 +997,18 @@ def main() -> int:
         emit("build", kernel=name, source=str(m.SOURCE.name),
              seconds=m.build_info["seconds"], cached=m.build_info["cached"],
              wall_s=time.perf_counter() - t0,
-             ptxas=[ln for ln in str(m.build_info["log"]).splitlines()
-                    if "registers" in ln or "smem" in ln])
+             ptxas=[ln.strip() for ln in str(m.build_info["log"])
+                    .splitlines() if any(w in ln for w in (
+                        "Compiling entry", "registers", "stack frame"))])
 
     # 3. kernel vs plain version on the card
     t0 = time.perf_counter()
-    n_cases, worst = kernel_cases(CG, dev)
+    n_cases, worst, tiers = kernel_cases(CG, dev)
     emit("kernel_check", kernel="dense_groupby", cases=n_cases,
-         max_abs_err=worst, seconds=time.perf_counter() - t0,
-         tolerance="ints/counts/min/max exact; float sums rtol 1e-9")
+         max_abs_err=worst, seconds=time.perf_counter() - t0, tiers=tiers,
+         tolerance="ints/counts/min/max exact; float sums rtol 1e-9; NaN "
+                   "in the same groups; every tier that fits, each launched "
+                   "twice, bit-identical")
     t0 = time.perf_counter()
     w_cases, w_worst, w_checks = wave_cases(sdt, S, E, CW, FU)
     emit("wave_kernel", kernel="wave", cases=w_cases, max_abs_err=w_worst,
@@ -1012,10 +1121,9 @@ def main() -> int:
         check_frame(f"storm {name} vs solo", got[name], solo[name], None,
                     FLOAT_SUM_RTOL_KERNEL)
     program, layout, scols = captured["storm"]
-    sgot = real_wave(program, layout, scols)
     swant = CW.wave_reference(program, scols, layout)
-    torch.cuda.synchronize()
-    w_worst = max(w_worst, compare_wave("storm", sgot, swant, layout))
+    w_worst = max(w_worst, wave_checked(CW, "storm", program, layout, scols,
+                                        swant)[1])
     emit("storm", queries=snames, coalescer=delta, fusion=fusion,
          wave_kernel_launches=storm_launches,
          dense_groupby_launches=storm_b1, cold_storm_ms=cold_storm_ms,
@@ -1024,7 +1132,9 @@ def main() -> int:
                   "registers": program.n_regs,
                   "columns": program.columns, "lanes": len(layout.lanes),
                   "slots": layout.n_slots,
-                  "smem_bytes": CW.smem_bytes(program, layout)},
+                  "register_bytes": CW.register_width(program),
+                  "register_file": layout.file,
+                  "smem_bytes": CW.smem_bytes(program, layout, layout.file)},
          rows={n: len(f) for n, f in got.items()},
          oracle="pandas on the same frame (ints exact, floats rtol 1e-6) "
                 "and the port's solo answers (floats rtol 1e-9); the "
@@ -1045,11 +1155,14 @@ def main() -> int:
         rows = sum(ds.segments[int(i)].num_rows
                    for i in ds.prune_segments(spec.intervals, spec.filter))
         key, n_keys, inputs, max_keys = captured[name]
+        per_launch = CG.plan_launches(n_keys, len(inputs))[0]
         got = real_kernel(key, n_keys, inputs, max_keys)
         want = CG.dense_groupby_reference(key, n_keys, inputs)
         torch.cuda.synchronize()
         worst = max(worst, compare(name, got, want, inputs))
         k_ms = device_ms(lambda: real_kernel(key, n_keys, inputs, max_keys))
+        k_host_ms = device_ms(lambda: real_kernel(key, n_keys, inputs,
+                                                  max_keys), host_gap=True)
         p_ms = device_ms(lambda: CG.dense_groupby_reference(key, n_keys,
                                                             inputs))
         l_ms = device_ms(lambda: library_call(key, n_keys, inputs))
@@ -1064,8 +1177,17 @@ def main() -> int:
             warm_min_ms=min(warm), warm_max_ms=max(warm),
             rows_scanned=rows, rows_per_s=rows / warm_ms * 1e3,
             kernel_rows=int(key.numel()), n_keys=n_keys,
-            n_aggs=len(inputs), kernel_ms=k_ms, plain_ms=p_ms,
+            n_aggs=len(inputs), kernel_ms=k_ms,
+            kernel_ms_with_host_gap=k_host_ms, plain_ms=p_ms,
             library_ms=l_ms, bound_ms=b_ms, kernel_bytes=nbytes,
+            tiers=[CG.fold_tier(n_keys * len(inputs[lo:lo + per_launch]))
+                   for lo in range(0, len(inputs), per_launch)],
+            tier_ms={t: device_ms(lambda: real_kernel(key, n_keys, inputs,
+                                                      max_keys, t))
+                     for t in CG.TIERS if CG.smem_bytes(
+                         n_keys * per_launch, t) <= CG.SMEM_LIMIT},
+            passes_ms=pass_ms(lambda: real_kernel(key, n_keys, inputs,
+                                                  max_keys)),
             kernel_gb_per_s=nbytes / k_ms / 1e6,
             share_of_3_35_tb_per_s=nbytes / (k_ms * 1e-3) / HBM_BYTES_PER_S)
         total["ms"] += k_ms
@@ -1084,6 +1206,8 @@ def main() -> int:
         torch.cuda.synchronize()
         solo_ms.append((time.perf_counter() - t) * 1e3)
     wk_ms = device_ms(lambda: real_wave(program, layout, scols))
+    wk_host_ms = device_ms(lambda: real_wave(program, layout, scols),
+                           host_gap=True)
     wp_ms = device_ms(lambda: CW.wave_reference(program, scols, layout))
     w_bytes, w_ops = wave_work(program, layout, scols)
     wb_bytes = w_bytes / HBM_BYTES_PER_S * 1e3
@@ -1094,7 +1218,10 @@ def main() -> int:
         warm_storm_phases_median_ms=storm_phases,
         solo_sequence_median_ms=statistics.median(solo_ms),
         solo_sequence_min_ms=min(solo_ms), solo_sequence_max_ms=max(solo_ms),
-        kernel_ms=wk_ms, plain_ms=wp_ms, bound_ms=max(wb_bytes, wb_ops),
+        kernel_ms=wk_ms, kernel_ms_with_host_gap=wk_host_ms,
+        register_file=layout.file,
+        plain_ms=wp_ms, bound_ms=max(wb_bytes, wb_ops),
+        passes_ms=pass_ms(lambda: real_wave(program, layout, scols)),
         bound_bytes_ms=wb_bytes, bound_ops_ms=wb_ops,
         bound_by="bytes" if wb_bytes >= wb_ops else "operations",
         union_bytes=w_bytes, rows=int(scols[0].numel()),
@@ -1102,8 +1229,12 @@ def main() -> int:
     emit("timing", card=smi, repeats=REPEATS, queries=per_query,
          storm=wave_timing,
          note="device times: CUDA events, median, L2 flushed before each "
-              "call; query times: host wall clock to synchronize, cold = "
-              "device column cache dropped before each run")
+              "call, a sleep kernel ahead so the events span device work "
+              "only (kernel_ms_with_host_gap: without it, the earlier "
+              "method); "
+              "passes_ms: torch.profiler, mean per call; query times: host "
+              "wall clock to synchronize, cold = device column cache "
+              "dropped before each run")
 
     # 6. where a warm query's time goes: torch.profiler over one run each
     emit("profile", card=smi, queries={name: profile_query(ctx, spec)

@@ -20,14 +20,17 @@ kernel does not take; for CPU tensors it computes the same function with
 than the kernel takes. The kernel is built with ``nvcc`` at first use into
 ``build/torch_ext/`` and bound with ``ctypes`` (``ops/cuda_build.py``: no
 PyTorch headers, so the build takes seconds); its fold is
-``csrc/groupby_fold.cuh``, shared with the wave kernel.
+``csrc/groupby_fold.cuh``, shared with the wave kernel. The fold has two
+tiers, and :func:`fold_tier` picks one per launch on the host: the
+thread-private tier while two blocks of a ``[slot][thread]`` array of the
+launch's slots fit on an SM, the warp-parallel tier above that.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -35,9 +38,15 @@ from spark_druid_olap_tpu_torch.ops import cuda_build as CB
 
 KINDS = ("count", "sum", "min", "max")
 MAX_AGGS = 16                      # kMaxAggs in the CUDA source
+THREADS = 256                      # kThreads in csrc/groupby_fold.cuh
+WARPS = THREADS // 32
+#: fold tiers, by code (``Tier`` in csrc/groupby_fold.cuh)
+TIERS = ("threads", "warps")
 MAX_BLOCKS = 1024                  # fixed cap: results never depend on the card
 MIN_ROWS_PER_BLOCK = 4096
 SMEM_LIMIT = 227 * 1024 - 1024     # opt-in shared memory, less the static part
+SM_SMEM_BYTES = 228 * 1024         # shared memory of one H100 SM
+BLOCK_SMEM_RESERVED = 1024         # what the card keeps per resident block
 I64_MAX = 2**63 - 1
 I64_MIN = -(2**63)
 
@@ -49,7 +58,7 @@ _DTYPE_CODE = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
 
 #: kernel launches made by :func:`dense_groupby_kernel`: one per group of
 #: at most :data:`MAX_AGGS` aggregates, each the partials kernel plus its
-#: block-order reduction
+#: block fold
 launches = 0
 #: what the last build did: {"seconds": float, "log": str, "cached": bool}
 build_info: Dict[str, object] = {}
@@ -69,13 +78,21 @@ def library() -> ctypes.CDLL:
         lib.sdot_dense_groupby.argtypes = [
             vp, ll, i, i, ctypes.POINTER(i), ctypes.POINTER(i),
             ctypes.POINTER(ctypes.c_ulonglong),
-            ctypes.POINTER(ctypes.c_ulonglong), ll, i, vp, vp, vp]
+            ctypes.POINTER(ctypes.c_ulonglong), ll, i, i, vp, vp, vp]
         lib.sdot_dense_groupby.restype = i
-        lib.sdot_dense_groupby_smem_bytes.argtypes = [i, i]
+        lib.sdot_dense_groupby_smem_bytes.argtypes = [i, i, i]
         lib.sdot_dense_groupby_smem_bytes.restype = ll
         lib.sdot_dense_groupby_max_aggs.restype = i
-        if lib.sdot_dense_groupby_max_aggs() != MAX_AGGS:
-            raise RuntimeError("csrc/dense_groupby.cu disagrees on MAX_AGGS")
+        lib.sdot_dense_groupby_threads.restype = i
+        if lib.sdot_dense_groupby_max_aggs() != MAX_AGGS \
+                or lib.sdot_dense_groupby_threads() != THREADS:
+            raise RuntimeError("csrc/dense_groupby.cu disagrees on MAX_AGGS "
+                               "or THREADS")
+        for t, tier in enumerate(TIERS):
+            if lib.sdot_dense_groupby_smem_bytes(7, 3, t) != \
+                    smem_bytes(21, tier):
+                raise RuntimeError("csrc/dense_groupby.cu disagrees on the "
+                                   f"{tier} tier's shared memory")
         build_info.update(info)
         _lib = lib
         return lib
@@ -161,8 +178,51 @@ def _check(key: torch.Tensor, n_keys: int, inputs: Sequence,
                     f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
+def smem_bytes(n_slots: int, tier: str) -> int:
+    """Dynamic shared memory of the partials pass (mirrors
+    ``sdot_dense_groupby_smem_bytes``): a ``[slot][thread]`` array in the
+    thread-private tier, ``[warp][slot]`` in the warp-parallel tier, of
+    8-byte words."""
+    return 8 * n_slots * (THREADS if tier == "threads" else WARPS)
+
+
+def blocks_per_sm(smem: int) -> int:
+    """Blocks of :data:`THREADS` threads that one SM holds at ``smem``
+    bytes of dynamic shared memory each (at most 8: 2048 threads)."""
+    return max(0, min(8, SM_SMEM_BYTES // (smem + BLOCK_SMEM_RESERVED)))
+
+
+def fold_tier(n_slots: int, smem_limit: int = SMEM_LIMIT) -> Optional[str]:
+    """The fold tier for a launch of ``n_slots`` (key, aggregate) slots:
+    ``"threads"`` while two blocks of its ``[slot][thread]`` array fit on
+    an SM (each thread then folds its own rows with no warp-level step; at
+    one block per SM it waits on memory too long), ``"warps"`` while one
+    partial per warp fits, else None."""
+    threads = smem_bytes(n_slots, "threads")
+    if threads <= smem_limit and blocks_per_sm(threads) >= 2:
+        return "threads"
+    if smem_bytes(n_slots, "warps") <= smem_limit:
+        return "warps"
+    return None
+
+
+def plan_launches(n_keys: int, n_aggs: int, smem_limit: int = SMEM_LIMIT):
+    """``(aggregates per launch, tier of a full launch)``: as many
+    aggregates as one launch takes (at most :data:`MAX_AGGS`) whose slots
+    some tier holds; a last, smaller launch takes its own
+    :func:`fold_tier`. Raises ``ValueError`` when not even one aggregate
+    fits."""
+    for per_launch in range(min(MAX_AGGS, n_aggs), 0, -1):
+        tier = fold_tier(n_keys * per_launch, smem_limit)
+        if tier is not None:
+            return per_launch, tier
+    raise ValueError(f"dense_groupby: {n_keys} keys need "
+                     f"{smem_bytes(n_keys, TIERS[-1])} B of shared memory "
+                     f"per aggregate (limit {smem_limit})")
+
+
 def _launch(lib, key: torch.Tensor, n_keys: int, inputs: Sequence,
-            rows_per_block: int, n_blocks: int,
+            rows_per_block: int, n_blocks: int, tier: str,
             scratch: torch.Tensor) -> Dict[str, torch.Tensor]:
     """One launch of the kernel over at most :data:`MAX_AGGS` aggregates."""
     global launches
@@ -181,8 +241,8 @@ def _launch(lib, key: torch.Tensor, n_keys: int, inputs: Sequence,
         stream = torch.cuda.current_stream(key.device).cuda_stream
         err = lib.sdot_dense_groupby(
             key.data_ptr(), key.numel(), n_keys, m, kinds, dtypes, vals,
-            masks, rows_per_block, n_blocks, scratch.data_ptr(),
-            out.data_ptr(), stream)
+            masks, rows_per_block, n_blocks, TIERS.index(tier),
+            scratch.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"dense_groupby kernel launch failed: CUDA error "
                            f"{err}")
@@ -204,34 +264,35 @@ def launch_geometry(n: int):
 
 
 def dense_groupby_kernel(key: torch.Tensor, n_keys: int, inputs: Sequence,
-                         max_keys: int) -> Dict[str, torch.Tensor]:
+                         max_keys: int, tier: Optional[str] = None
+                         ) -> Dict[str, torch.Tensor]:
     """Fused dense group-by over every aggregate in ``inputs``.
 
     Same contract as :func:`dense_groupby_reference`. A CPU ``key`` is
     computed by that plain version; a CUDA ``key`` launches the kernel or
     raises — there is no fallback. Each launch reads the key once and takes
-    as many aggregates as its shared memory holds, at most
-    :data:`MAX_AGGS`.
+    as many aggregates as :func:`plan_launches` gives it, at most
+    :data:`MAX_AGGS`, in the tier :func:`fold_tier` picks for its slots;
+    ``tier`` forces one of :data:`TIERS` on every launch instead (both give
+    the same answers; ``chip_smoke.py`` holds each against the plain
+    version).
     """
     if key.device.type != "cuda":
         return dense_groupby_reference(key, n_keys, inputs)
     _check(key, n_keys, inputs, max_keys)
     lib = library()
-    per_launch = min(MAX_AGGS, len(inputs))
-    while per_launch and lib.sdot_dense_groupby_smem_bytes(
-            n_keys, per_launch) > SMEM_LIMIT:
-        per_launch -= 1
-    if not per_launch:
-        raise ValueError(f"dense_groupby: {n_keys} keys need "
-                         f"{lib.sdot_dense_groupby_smem_bytes(n_keys, 1)} B "
-                         f"of shared memory per aggregate (limit "
-                         f"{SMEM_LIMIT})")
+    per_launch, _ = plan_launches(n_keys, len(inputs))
+    if tier is not None and (tier not in TIERS or smem_bytes(
+            n_keys * per_launch, tier) > SMEM_LIMIT):
+        raise ValueError(f"dense_groupby: tier {tier!r} does not hold "
+                         f"{n_keys * per_launch} slots")
     rows_per_block, n_blocks = launch_geometry(key.numel())
     # one scratch for every launch: they run in order on one stream
     scratch = torch.empty(n_blocks * n_keys * per_launch, dtype=torch.int64,
                           device=key.device)
     out: Dict[str, torch.Tensor] = {}
     for lo in range(0, len(inputs), per_launch):
-        out.update(_launch(lib, key, n_keys, inputs[lo:lo + per_launch],
-                           rows_per_block, n_blocks, scratch))
+        group = inputs[lo:lo + per_launch]
+        out.update(_launch(lib, key, n_keys, group, rows_per_block, n_blocks,
+                           tier or fold_tier(n_keys * len(group)), scratch))
     return out

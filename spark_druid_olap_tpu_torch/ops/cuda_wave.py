@@ -27,9 +27,15 @@ column caps or a scratch over its shared-memory budget. The caller then
 runs the group lane by lane (``parallel/sharedscan.py``); a WaveFallback
 is only ever raised at build time.
 
-Every thread of ``csrc/wave.cu`` runs the program over its rows, with
-registers typed as traced, then folds every lane's aggregates with the
-deterministic fold of the fused dense group-by kernel. The plain version,
+Every thread of ``csrc/wave.cu`` runs the program over two rows at once,
+with registers typed as traced in a file sized by the program (4-byte words
+when no register is wider, :func:`register_width`), in shared memory where
+it fits, else over one row from local memory (:func:`register_file`). Each
+instruction carries a specialised
+handler where its (op, dtype) has one (:func:`fast_code`), and constants
+become immediate operands. Then every lane's aggregates fold with the
+warp-parallel tier of the fused dense group-by kernel's deterministic fold.
+The plain version,
 :func:`wave_reference`, interprets the same program with one PyTorch op
 per instruction and runs each lane through
 ``cuda_groupby.dense_groupby_reference``. :func:`wave_groupby` takes that
@@ -69,9 +75,14 @@ MAX_INSTRS = 1024
 MAX_REGS = 128
 MAX_COLS = 64
 NONE = 255
-THREADS = 256
-WARPS = THREADS // 32
+IMM = 254                          # operand b is the instruction's immediate
+THREADS = CG.THREADS
+WARPS = CG.WARPS
 SMEM_LIMIT = CG.SMEM_LIMIT         # opt-in shared memory, less the static part
+#: the kernel's register-file layouts: (rows each thread runs the program
+#: over at once, file in shared memory); the local-memory file takes no
+#: shared memory and serves where the shared one does not fit
+FILE_LAYOUTS = ((2, True), (1, False))
 PROBE_SHAPE = (1, 8)
 
 #: register dtypes, by code (``DType`` in csrc/wave.cu)
@@ -86,10 +97,32 @@ OPS = ("load", "const", "cast", "add", "sub", "mul", "div", "floordiv",
 OP = {n: i for i, n in enumerate(OPS)}
 _UNARY = ("neg", "abs", "floor", "ceil", "round", "trunc", "not")
 _CMP = ("eq", "ne", "lt", "le", "gt", "ge")
+# binary ops whose constant operand may become an immediate; the second map
+# swaps a constant first operand to second (a + c == c + a bit for bit, and
+# c < a is a > c)
+_IMM_OPS = frozenset(("add", "sub", "mul", "div", "floordiv", "truncdiv",
+                      "rem", "minimum", "maximum", "and", "or", "xor")
+                     + _CMP)
+_SWAP = {"add": "add", "mul": "mul", "and": "and", "or": "or", "xor": "xor",
+         "eq": "eq", "ne": "ne", "lt": "gt", "gt": "lt", "le": "ge",
+         "ge": "le"}
 
 INSTR = np.dtype([("op", "u1"), ("dt", "u1"), ("src", "u1"), ("dst", "u1"),
-                  ("a", "u1"), ("b", "u1"), ("c", "u1"), ("pad", "u1"),
+                  ("a", "u1"), ("b", "u1"), ("c", "u1"), ("fast", "u1"),
                   ("imm", "<i8")])
+#: the kernel's specialised handlers, by code (``Fast`` in
+#: csrc/wave_program.cuh); :func:`fast_code` picks one per instruction
+FAST = ("generic", "const_int", "load_bool", "load_i8", "load_u8",
+        "load_i16", "load_i32", "load_f32", "add_i32", "sub_i32", "mul_i32",
+        "floordiv_i32", "eq_int", "ne_int", "lt_int", "le_int", "gt_int",
+        "ge_int", "eq_f32", "ne_f32", "lt_f32", "le_f32", "gt_f32", "ge_f32",
+        "add_f32", "sub_f32", "mul_f32", "div_f32", "and_int", "or_int",
+        "xor_int", "not_bool", "where", "cast_i32", "cast_f32")
+_INT_DTYPES = (torch.bool, torch.int8, torch.int16, torch.int32, torch.int64,
+               torch.uint8)
+_LOAD_FAST = {torch.bool: "load_bool", torch.int8: "load_i8",
+              torch.uint8: "load_u8", torch.int16: "load_i16",
+              torch.int32: "load_i32", torch.float32: "load_f32"}
 LANE = np.dtype([("base_reg", "<i4"), ("key_reg", "<i4"),
                  ("n_keys", "<i4"), ("n_aggs", "<i4"),
                  ("agg_start", "<i4"), ("slot_off", "<i4")])
@@ -97,7 +130,7 @@ AGG = np.dtype([("kind", "u1"), ("flt", "u1"), ("val_reg", "u1"),
                 ("val_dt", "u1"), ("mask_reg", "u1"), ("pad", "u1", (3,))])
 
 #: kernel launches made by :func:`wave_groupby` (each the partials kernel
-#: plus its block-order reduction)
+#: plus its block fold)
 launches = 0
 #: what the last build did: {"seconds": float, "log": str, "cached": bool}
 build_info: Dict[str, object] = {}
@@ -181,8 +214,10 @@ def _lane_parts(lp, ctx: ScanContext, cse: Optional[FU.CSECache]):
 class LaneProgram:
     """A register program. ``instrs`` rows are ``(op, dt, src, dst, a, b,
     c, imm)`` (codes of :data:`OPS` / :data:`DTYPES`; ``imm`` is a column
-    index for ``load``, the value for ``const``: an int, or a float already
-    rounded to ``dt``). ``columns`` are the union arrays the loads read;
+    index for ``load``, the value for ``const`` — an int, or a float already
+    rounded to ``dt`` — and for a binary op whose ``b`` is :data:`IMM`, its
+    constant second operand). ``columns`` are the union arrays the loads
+    read;
     ``outputs`` the registers holding the traced outputs after the last
     instruction."""
 
@@ -216,6 +251,9 @@ class LaneSlots:
 class WaveLayout:
     lanes: List[LaneSlots]
     n_slots: int
+    #: the kernel's register-file layout (an entry of FILE_LAYOUTS), chosen
+    #: by :func:`register_file` when the wave is built
+    file: Optional[tuple] = None
 
 
 class _Val:
@@ -484,16 +522,41 @@ def _operands(ins) -> tuple:
         return ()
     if op == "where":
         return (ins[4], ins[5], ins[6])
-    if op == "cast" or op in _UNARY:
+    if op == "cast" or op in _UNARY or ins[5] == IMM:
         return (ins[4],)
     return (ins[4], ins[5])
 
 
+def _immediates(code: List[list]) -> None:
+    """A binary op whose second operand is a constant of its dtype takes the
+    constant as an immediate (operand b = :data:`IMM`, the value in imm); a
+    constant first operand of a commutative op or a comparison is swapped
+    to second first. The constants no op reads any more die with the next
+    dead-code pass."""
+    consts = {ins[3]: ins for ins in code if ins[0] == OP["const"]}
+
+    def const_of(v, dt):
+        c = consts.get(v)
+        return c if c is not None and c[1] == dt else None
+
+    for ins in code:
+        name = OPS[ins[0]]
+        if name not in _IMM_OPS:
+            continue
+        if const_of(ins[5], ins[1]) is None and name in _SWAP \
+                and const_of(ins[4], ins[1]) is not None:
+            ins[0] = OP[_SWAP[name]]
+            ins[4], ins[5] = ins[5], ins[4]
+        c = const_of(ins[5], ins[1])
+        if c is not None and const_of(ins[4], ins[1]) is None:
+            ins[5], ins[7] = IMM, c[7]
+
+
 def _finish(code: List[list], outs: List[_Val], names, dtypes
             ) -> LaneProgram:
-    """Dead-code elimination, column compaction and register allocation
-    (linear scan, lowest free register first; outputs stay live to the
-    end)."""
+    """Dead-code elimination, immediates, column compaction and register
+    allocation (linear scan, lowest free register first; outputs stay live
+    to the end)."""
     out_vregs = [o.v for o in outs]
     live = set(out_vregs)
     keep = []
@@ -502,6 +565,12 @@ def _finish(code: List[list], outs: List[_Val], names, dtypes
             keep.append(list(ins))
             live.update(_operands(ins))
     keep.reverse()
+    _immediates(keep)
+    live = set(out_vregs)
+    for ins in reversed(keep):
+        if ins[3] in live:
+            live.update(_operands(ins))
+    keep = [ins for ins in keep if ins[3] in live]
     cols: List[int] = []
     for ins in keep:
         if ins[0] == OP["load"]:
@@ -657,7 +726,9 @@ def run_program(program: LaneProgram, columns: Sequence[torch.Tensor]
         elif name in _TORCH_UNARY:
             r = _TORCH_UNARY[name](regs[a])
         else:
-            r = _TORCH_BINARY[name](regs[a], regs[b])
+            rhs = torch.tensor(_imm_value(imm, t), dtype=t, device=dev) \
+                if b == IMM else regs[b]
+            r = _TORCH_BINARY[name](regs[a], rhs)
         regs[dst] = r
     return [regs[o] for o in program.outputs]
 
@@ -692,6 +763,35 @@ def wave_reference(program: LaneProgram, columns: Sequence[torch.Tensor],
 # the kernel
 # =============================================================================
 
+def fast_code(op: int, dt: int, src: int) -> int:
+    """The kernel's specialised handler for one instruction (an index of
+    :data:`FAST`; 0 = its generic path). A handler computes exactly what the
+    generic path computes for its (op, dtype): comparisons and bitwise ops
+    of any integer dtype act on the sign-extended 64-bit values, int32
+    arithmetic wraps to int32, float32 arithmetic is one rounded op."""
+    name, t = OPS[op], DTYPES[dt]
+    key = None
+    if name == "const" and not t.is_floating_point:
+        key = "const_int"
+    elif name == "load":
+        key = _LOAD_FAST.get(t)
+    elif name in ("add", "sub", "mul", "floordiv") and t == torch.int32:
+        key = f"{name}_i32"
+    elif name in _CMP and t in _INT_DTYPES:
+        key = f"{name}_int"
+    elif name in _CMP + ("add", "sub", "mul", "div") and t == torch.float32:
+        key = f"{name}_f32"
+    elif name in ("and", "or", "xor") and t in _INT_DTYPES:
+        key = f"{name}_int"
+    elif name == "not" and t == torch.bool:
+        key = "not_bool"
+    elif name == "where":
+        key = "where"
+    elif name == "cast" and DTYPES[src] in _INT_DTYPES:
+        key = {torch.int32: "cast_i32", torch.float32: "cast_f32"}.get(t)
+    return FAST.index(key) if key else 0
+
+
 def _pad8(b: bytes) -> bytes:
     return b + bytes(-len(b) % 8)
 
@@ -701,7 +801,7 @@ def blob_bytes(program: LaneProgram, layout: WaveLayout) -> bytes:
     descriptors and slot kinds, each section padded to 8 bytes."""
     ins = np.zeros(len(program.instrs), INSTR)
     for i, (op, dt, src, dst, a, b, c, imm) in enumerate(program.instrs):
-        ins[i] = (op, dt, src, dst, a, b, c, 0, imm)
+        ins[i] = (op, dt, src, dst, a, b, c, fast_code(op, dt, src), imm)
     lanes = np.zeros(len(layout.lanes), LANE)
     aggs = np.zeros(sum(ls.n_aggs for ls in layout.lanes), AGG)
     kinds = np.zeros(layout.n_slots, np.uint8)
@@ -727,17 +827,44 @@ def _blob_len(n_instr: int, n_lanes: int, n_aggs: int, n_slots: int) -> int:
         + pad(AGG.itemsize * n_aggs) + pad(n_slots)
 
 
-def _smem(n_instr: int, n_lanes: int, n_aggs: int, n_slots: int) -> int:
+def register_width(program: LaneProgram) -> int:
+    """Bytes per register word: 4 when no instruction computes in a 64-bit
+    dtype (every register then holds 32 bits or fewer, and the kernel keeps
+    them in 4-byte words), else 8."""
+    wide = (DT[torch.int64], DT[torch.float64])
+    return 8 if any(ins[1] in wide for ins in program.instrs) else 4
+
+
+def _smem(n_instr: int, n_lanes: int, n_aggs: int, n_slots: int,
+          n_regs: int, rows: int, width: int, shared: bool) -> int:
     """Dynamic shared memory of the kernel's first pass (mirrors
-    ``sdot_wave_smem_bytes``): the per-warp partials, the warp staging
-    area and the program blob."""
-    return 8 * (WARPS * n_slots + THREADS) \
+    ``sdot_wave_smem_bytes``): the per-warp partials, the program blob and,
+    in shared memory, the register file (``n_regs`` x ``rows`` x
+    :data:`THREADS` words of ``width`` bytes)."""
+    return 8 * WARPS * n_slots \
+        + (n_regs * rows * THREADS * width if shared else 0) \
         + _blob_len(n_instr, n_lanes, n_aggs, n_slots)
 
 
-def smem_bytes(program: LaneProgram, layout: WaveLayout) -> int:
+def smem_bytes(program: LaneProgram, layout: WaveLayout, file) -> int:
+    """Shared memory of one launch with register-file layout ``file``
+    (an entry of :data:`FILE_LAYOUTS`)."""
+    rows, shared = file
     return _smem(len(program.instrs), len(layout.lanes),
-                 sum(ls.n_aggs for ls in layout.lanes), layout.n_slots)
+                 sum(ls.n_aggs for ls in layout.lanes), layout.n_slots,
+                 program.n_regs, rows, register_width(program), shared)
+
+
+def register_file(program: LaneProgram, layout: WaveLayout,
+                  limit: int = SMEM_LIMIT) -> Optional[tuple]:
+    """The kernel's register-file layout for this wave: the first of
+    :data:`FILE_LAYOUTS` whose shared memory fits ``limit`` (two rows from
+    shared memory, else one row from local memory); None when not even the
+    partials and the program fit."""
+    for file in FILE_LAYOUTS:
+        if smem_bytes(program, layout, file) <= limit:
+            return file
+    return None
 
 
 def library() -> ctypes.CDLL:
@@ -748,17 +875,18 @@ def library() -> ctypes.CDLL:
             return _lib
         lib, info = CB.build(SOURCE, ["-fmad=false"])
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.sdot_wave.argtypes = [vp, i, i, i, i,
+        lib.sdot_wave.argtypes = [vp, i, i, i, i, i, i, i, i,
                                   ctypes.POINTER(ctypes.c_ulonglong), i, ll,
                                   ll, i, vp, vp, vp]
         lib.sdot_wave.restype = i
-        lib.sdot_wave_smem_bytes.argtypes = [i, i, i, i]
+        lib.sdot_wave_smem_bytes.argtypes = [i, i, i, i, i, i, i, i]
         lib.sdot_wave_smem_bytes.restype = ll
         lib.sdot_wave_blob_bytes.argtypes = [i, i, i, i]
         lib.sdot_wave_blob_bytes.restype = ll
         for fn, want in (("sdot_wave_max_instrs", MAX_INSTRS),
                          ("sdot_wave_max_regs", MAX_REGS),
                          ("sdot_wave_max_cols", MAX_COLS),
+                         ("sdot_wave_fast_handlers", len(FAST)),
                          ("sdot_wave_record_bytes",
                           INSTR.itemsize * 10000 + LANE.itemsize * 100
                           + AGG.itemsize)):
@@ -766,7 +894,9 @@ def library() -> ctypes.CDLL:
             if getattr(lib, fn)() != want:
                 raise RuntimeError(f"csrc/wave.cu disagrees with "
                                    f"ops/cuda_wave.py on {fn}")
-        if lib.sdot_wave_smem_bytes(3, 2, 5, 17) != _smem(3, 2, 5, 17):
+        if any(lib.sdot_wave_smem_bytes(3, 2, 5, 17, 7, 2, 4, shared)
+               != _smem(3, 2, 5, 17, 7, 2, 4, bool(shared))
+               for shared in (0, 1)):
             raise RuntimeError("csrc/wave.cu disagrees with "
                                "ops/cuda_wave.py on shared memory")
         build_info.update(info)
@@ -802,16 +932,24 @@ def _split(layout: WaveLayout, words: torch.Tensor
 
 
 def wave_groupby(program: LaneProgram, layout: WaveLayout,
-                 columns: Sequence[torch.Tensor]
+                 columns: Sequence[torch.Tensor], file: Optional[tuple] = None
                  ) -> List[Dict[str, torch.Tensor]]:
     """Run one wave: ``columns`` are the program's columns, flat or
     ``[S, R]``. CPU tensors take :func:`wave_reference`; CUDA tensors
-    launch the kernel once or raise — there is no fallback."""
+    launch the kernel once or raise — there is no fallback. ``file`` is the
+    register-file layout (default the one the layout was built with)."""
     global launches
     if not columns or columns[0].device.type != "cuda":
         return wave_reference(program, columns, layout)
     columns = [c.reshape(-1) for c in columns]
     _check(program, columns)
+    if file is None:
+        file = layout.file
+    if file not in FILE_LAYOUTS \
+            or smem_bytes(program, layout, file) > SMEM_LIMIT:
+        raise ValueError(f"wave: register file {file} is not one of the "
+                         f"kernel's layouts within its shared memory")
+    rows, shared = file
     lib = library()
     dev = columns[0].device
     blob = program._blobs.get(dev)
@@ -821,7 +959,7 @@ def wave_groupby(program: LaneProgram, layout: WaveLayout,
         program._blobs[dev] = blob
     n = columns[0].numel()
     rows_per_block, n_blocks = CG.launch_geometry(n)
-    scratch = torch.empty(n_blocks * layout.n_slots, dtype=torch.int64,
+    scratch = torch.empty(layout.n_slots * n_blocks, dtype=torch.int64,
                           device=dev)
     out = torch.empty(layout.n_slots, dtype=torch.int64, device=dev)
     ptrs = (ctypes.c_ulonglong * max(1, len(columns)))(
@@ -830,8 +968,10 @@ def wave_groupby(program: LaneProgram, layout: WaveLayout,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sdot_wave(blob.data_ptr(), len(program.instrs),
-                            len(layout.lanes), n_aggs, layout.n_slots, ptrs,
-                            len(columns), n, rows_per_block, n_blocks,
+                            len(layout.lanes), n_aggs, layout.n_slots,
+                            program.n_regs, rows, register_width(program),
+                            int(shared), ptrs, len(columns), n,
+                            rows_per_block, n_blocks,
                             scratch.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"wave kernel launch failed: CUDA error {err}")
@@ -854,19 +994,22 @@ def build_wave_fn(ds, lanes, min_day: int, max_day: int, fplan, *,
     calls give, so ``_finals_from_out`` and the decode downstream are
     untouched; ``info`` carries the launch accounting (blocks for the
     wave's ``n_rows``, scratch slots, program length, registers, shared
-    memory). Raises :class:`WaveFallback` when the group cannot lower.
+    memory, register-file layout). Raises :class:`WaveFallback` when the
+    group cannot lower.
     """
     if max_lanes <= 0 or len(lanes) > max_lanes:
         raise WaveFallback(f"{len(lanes)} lanes exceed "
                            f"sdot.pallas.wave.max.lanes={max_lanes}")
     program, layout = compile_wave(ds, lanes, min_day, max_day, fplan,
                                    union_names=union_names, tz=tz)
-    smem = smem_bytes(program, layout)
     limit = min(int(scratch_bytes), SMEM_LIMIT)
-    if smem > limit:
+    file = layout.file = register_file(program, layout, limit)
+    if file is None:
         raise WaveFallback(f"wave scratch of {layout.n_slots} slots needs "
-                           f"{smem} B of shared memory, over "
+                           f"{smem_bytes(program, layout, FILE_LAYOUTS[-1])}"
+                           f" B of shared memory, over "
                            f"sdot.cuda.wave.scratch.bytes ({limit} B)")
+    smem = smem_bytes(program, layout, file)
 
     def wave_fn(arrays):
         return wave_groupby(program, layout,
@@ -877,5 +1020,8 @@ def build_wave_fn(ds, lanes, min_day: int, max_day: int, fplan, *,
             "scratch_slots": layout.n_slots,
             "program_length": len(program.instrs),
             "registers": program.n_regs, "columns": len(program.columns),
-            "smem_bytes": smem, "lanes": len(lanes)}
+            "register_bytes": register_width(program),
+            "rows_per_thread": file[0], "register_file_shared": file[1],
+            "smem_bytes": smem,
+            "lanes": len(lanes)}
     return wave_fn, info

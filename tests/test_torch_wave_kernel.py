@@ -290,6 +290,165 @@ def test_chip_smoke_storm_program(ctx):
     assert len(layout.lanes) == 8
 
 
+# -- the kernel's interpreter, built with the host compiler ---------------------
+
+HOST_HARNESS = r"""
+#include <vector>
+#include "wave_program.cuh"
+using namespace sdot_wave_program;
+
+template <int R, typename Word>
+static void run(const Instr* prog, int n_instr, const void* const* cols,
+                long long n, int n_regs, const int* outs, int n_outs,
+                long long* out) {
+  std::vector<Word> words((size_t)n_regs * R);
+  const RegFile<R, Word> f{words.data(), 1, 0};
+  for (long long base = 0; base < n; base += R) {
+    long long rows[R];
+    for (int r = 0; r < R; ++r) rows[r] = base + r < n ? base + r : n - 1;
+    run_rows<R>(prog, n_instr, cols, rows, f);
+    for (int o = 0; o < n_outs; ++o)
+      for (int r = 0; r < R && base + r < n; ++r)
+        out[o * n + base + r] = f.get(outs[o], r).i;
+  }
+}
+
+extern "C" int sdot_test_run(const Instr* prog, int n_instr,
+                             const void* const* cols, long long n, int n_regs,
+                             int rows, int word, const int* outs, int n_outs,
+                             long long* out) {
+  if (word == 8 && rows == 0) {            // run_program, row by row
+    std::vector<Reg> regs((size_t)n_regs);
+    for (long long row = 0; row < n; ++row) {
+      run_program(prog, n_instr, cols, row, regs.data());
+      for (int o = 0; o < n_outs; ++o) out[o * n + row] = regs[outs[o]].i;
+    }
+  } else if (word == 8) {
+    if (rows == 1) run<1, long long>(prog, n_instr, cols, n, n_regs, outs,
+                                     n_outs, out);
+    else run<2, long long>(prog, n_instr, cols, n, n_regs, outs, n_outs, out);
+  } else {
+    if (rows == 1) run<1, int32_t>(prog, n_instr, cols, n, n_regs, outs,
+                                   n_outs, out);
+    else run<2, int32_t>(prog, n_instr, cols, n, n_regs, outs, n_outs, out);
+  }
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_interpreter(tmp_path_factory):
+    """``csrc/wave_program.cuh`` built with the host C++ compiler: the
+    kernel's interpreter (generic and specialised paths, one or two rows at
+    once as the kernel's local and shared register files run it, 8- and
+    4-byte words), with no CUDA; ``rows = 0`` runs ``run_program`` row by
+    row."""
+    import ctypes
+    import shutil
+    import subprocess
+    cxx = shutil.which("g++") or shutil.which("c++") or shutil.which("clang++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the interpreter with")
+    d = tmp_path_factory.mktemp("wave_program")
+    (d / "harness.cpp").write_text(HOST_HARNESS)
+    so = d / "libharness.so"
+    subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared",
+                    "-fPIC", "-I", str(CW.CB.CSRC), "-o", str(so),
+                    str(d / "harness.cpp")], check=True)
+    lib = ctypes.CDLL(str(so))
+    lib.sdot_test_run.restype = ctypes.c_int
+    return lib
+
+
+def run_host(lib, program, layout, cols, rows, word, fast):
+    """The host-built interpreter over ``cols``: each output register of
+    ``program`` as [n] int64 Reg words."""
+    import ctypes
+    ins = np.frombuffer(CW.blob_bytes(program, layout), CW.INSTR,
+                        len(program.instrs)).copy()
+    if not fast:
+        ins["fast"] = 0
+    arrays = [np.ascontiguousarray(c.reshape(-1).numpy()) for c in cols]
+    n = arrays[0].size
+    ptrs = (ctypes.c_void_p * len(arrays))(*[a.ctypes.data for a in arrays])
+    outs = np.asarray(program.outputs, np.int32)
+    out = np.zeros((len(outs), n), np.int64)
+    lib.sdot_test_run(ins.ctypes.data_as(ctypes.c_void_p),
+                      ctypes.c_int(len(ins)), ptrs, ctypes.c_longlong(n),
+                      ctypes.c_int(program.n_regs), ctypes.c_int(rows),
+                      ctypes.c_int(word), outs.ctypes.data_as(ctypes.c_void_p),
+                      ctypes.c_int(len(outs)),
+                      out.ctypes.data_as(ctypes.c_void_p))
+    return out
+
+
+def reg_values(words: np.ndarray, dtype: torch.dtype) -> np.ndarray:
+    """Reg words as the values of ``dtype`` (a float32 sits in the low
+    word)."""
+    if dtype == torch.float32:
+        return (words & 0xffffffff).astype(np.uint32).view(np.float32)
+    if dtype == torch.float64:
+        return words.view(np.float64)
+    return words
+
+
+@pytest.mark.parametrize("shape", ["arithmetic_case_casts",
+                                   "time_extraction_keys", "null_filters",
+                                   "expression_filter", "bound_date_and_time"])
+@pytest.mark.parametrize("rows,word,fast", [(0, 8, False), (0, 8, True),
+                                            (1, 8, True), (2, 8, True),
+                                            (2, 4, True)])
+def test_host_built_interpreter_matches_plain_version(
+        shape, rows, word, fast, ctx, host_interpreter):
+    """The kernel's C++ interpreter, host-built, gives every output
+    register the plain version's values bit for bit: ``run_program`` row by
+    row, generic and specialised handlers, 1 / 2 rows per step, and the
+    4-byte file on every program that :func:`cuda_wave.register_width`
+    gives it."""
+    ds, lanes, lo, hi, names, fplan, arrays = plan(ctx, SHAPES[shape])
+    program, layout = CW.compile_wave(ds, lanes, lo, hi, fplan,
+                                      union_names=names, tz="UTC")
+    word = max(word, CW.register_width(program))   # as the kernel keeps it
+    cols = [arrays[k] for k in program.columns]
+    got = run_host(host_interpreter, program, layout, cols, rows, word, fast)
+    want = CW.run_program(program, cols)
+    n = cols[0].numel()
+    for j, (w, dt) in enumerate(zip(want, program.output_dtypes)):
+        w = np.broadcast_to(w.reshape(-1).numpy(), (n,))
+        g = reg_values(got[j], dt)
+        assert np.array_equal(g, w.astype(g.dtype), equal_nan=dt in (
+            torch.float32, torch.float64)), f"output {j} ({dt})"
+
+
+def test_host_built_interpreter_runs_the_storm(host_interpreter):
+    """chip_smoke.py's storm program, at a small scale factor: every
+    instruction but the float constants takes a specialised handler, the
+    4-byte file holds it, and the host-built interpreter equals the plain
+    version."""
+    df = generate(0.01)["lineitem"]
+    c = tsdot.Context(dict(chip_smoke.STORM_CONFIG), device="cpu")
+    c.ingest_dataframe("lineitem", df, time_column="l_shipdate",
+                       target_rows=1 << 14)
+    ds, lanes, lo, hi, names, fplan, arrays = plan(
+        c, list(chip_smoke.storm_specs(S, E).values()))
+    program, layout = CW.compile_wave(ds, lanes, lo, hi, fplan,
+                                      union_names=names, tz="UTC")
+    generic = [i for i in program.instrs if CW.fast_code(*i[:3]) == 0]
+    assert all(CW.OPS[i[0]] == "const" and CW.DTYPES[i[1]].is_floating_point
+               for i in generic)
+    assert CW.register_width(program) == 4
+    cols = [arrays[k] for k in program.columns]
+    want = CW.run_program(program, cols)
+    n = cols[0].numel()
+    for rows in (1, 2):
+        got = run_host(host_interpreter, program, layout, cols, rows, 4, True)
+        for j, (w, dt) in enumerate(zip(want, program.output_dtypes)):
+            w = np.broadcast_to(w.reshape(-1).numpy(), (n,))
+            g = reg_values(got[j], dt)
+            assert np.array_equal(g, w.astype(g.dtype), equal_nan=True), j
+
+
 # -- declines -----------------------------------------------------------------
 
 def build(ctx, specs, tz="UTC", max_lanes=16, scratch=CW.SMEM_LIMIT):
@@ -364,6 +523,22 @@ def test_scratch_over_budget_declines(ctx):
         build(ctx, SHAPES["time_extraction_keys"][:2], scratch=4096)
 
 
+def test_scratch_budget_below_the_shared_file_takes_the_local_file(ctx):
+    """A budget one byte short of the two-row shared register file builds
+    the wave with the one-row local file, and records the choice."""
+    specs = SHAPES["time_extraction_keys"][:2]
+    _, info = build(ctx, specs)
+    assert (info["rows_per_thread"], info["register_file_shared"]) \
+        == (2, True)
+    _, info = build(ctx, specs, scratch=info["smem_bytes"] - 1)
+    assert (info["rows_per_thread"], info["register_file_shared"]) \
+        == (1, False)
+    ds, lanes, lo, hi, names, fplan, _ = plan(ctx, specs)
+    program, layout = CW.compile_wave(ds, lanes, lo, hi, fplan,
+                                      union_names=names, tz="UTC")
+    assert info["smem_bytes"] == CW.smem_bytes(program, layout, (1, False))
+
+
 # -- the kernel's host-side layout --------------------------------------------
 
 def test_blob_layout_and_shared_memory(ctx):
@@ -373,11 +548,18 @@ def test_blob_layout_and_shared_memory(ctx):
     n_aggs = sum(ls.n_aggs for ls in layout.lanes)
     assert len(blob) == CW._blob_len(len(program.instrs), len(layout.lanes),
                                      n_aggs, layout.n_slots)
-    assert CW.smem_bytes(program, layout) == len(blob) + 8 * (
-        CW.WARPS * layout.n_slots + CW.THREADS)
+    width = CW.register_width(program)
+    assert width == (8 if any(CW.DTYPES[i[1]] in (torch.int64, torch.float64)
+                              for i in program.instrs) else 4)
+    for rows, shared in CW.FILE_LAYOUTS:
+        assert CW.smem_bytes(program, layout, (rows, shared)) == len(blob) \
+            + 8 * CW.WARPS * layout.n_slots \
+            + shared * program.n_regs * rows * CW.THREADS * width
     ins = np.frombuffer(blob, CW.INSTR, len(program.instrs))
     assert [tuple(int(x) for x in r)[:7] + (int(r["imm"]),) for r in ins] \
         == [tuple(i[:7]) + (i[7],) for i in program.instrs]
+    assert [int(r["fast"]) for r in ins] == [CW.fast_code(*i[:3])
+                                             for i in program.instrs]
     off = -(-ins.nbytes // 8) * 8
     lanes = np.frombuffer(blob, CW.LANE, len(layout.lanes), off)
     off += -(-lanes.nbytes // 8) * 8
