@@ -8,7 +8,12 @@ SF1 lineitem (~6M rows, generated from a seed by the port's own
 ``tools/tpch.py``), with TPC-H Q1 and Q6 written as QuerySpecs, and Q1's
 grouping with 17 aggregates (more than one kernel launch takes), each checked
 against a pandas oracle on the same frame, then the 8-query storm that the
-shared-scan tier coalesces into one launch of the wave kernel. Before that
+shared-scan tier coalesces into one launch of the wave kernel. Its phase
+``sql`` flattens the SF1 star (``tools/tpch.flatten``, 68 columns) and runs
+eight TPC-H statements through ``Context.sql`` in engine mode against
+pandas, four of them at once under shared scan (one wave launch), and a
+census of the other benchmark statements (each one's mode, or the ROADMAP
+item its ``NotImplementedError`` names). Before that
 it builds every kernel of the path from the sources in this checkout and
 holds each against its plain PyTorch version on the card: the dense
 group-by in each fold tier that holds a case, the wave kernel in each
@@ -25,6 +30,7 @@ script imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -351,10 +357,10 @@ def timed_execute(ctx, spec) -> float:
     return (time.perf_counter() - t) * 1e3
 
 
-def profile_query(ctx, spec) -> dict:
+def profile_query(ctx, spec, counted) -> dict:
     """One warm run under torch.profiler: device busy time by kernel, and
     the device's idle share of the profiled wall time."""
-    return profile_run(lambda: timed_execute(ctx, spec))
+    return profile_run(lambda: timed_execute(ctx, spec), counted)
 
 
 def dev_us(e) -> float:
@@ -375,7 +381,6 @@ def pass_ms(fn, repeats=REPEATS) -> dict:
             flush_l2()
             fn()
         torch.cuda.synchronize()
-    import re
     out = {}
     for e in prof.key_averages():
         m = re.search(r"(dense_groupby_\w+|wave_\w+)(<[^>]*>)?", e.key)
@@ -384,21 +389,66 @@ def pass_ms(fn, repeats=REPEATS) -> dict:
     return out
 
 
-def profile_run(run) -> dict:
-    """``run()`` (which returns its host wall ms) once to warm up, then
-    once under torch.profiler."""
+def on_device(e) -> bool:
+    """A profiler event that ran on the card (a kernel, copy or memset),
+    not the host-side operator that launched it: an operator carries its
+    kernels' device time too, so summing both counts it twice."""
+    return str(getattr(e, "device_type", "")).rsplit(".", 1)[-1] == "CUDA"
+
+
+def profiled(fn):
+    """``fn()`` under torch.profiler (host and card); its result and the
+    events that ran on the card, by their own device time."""
     from torch.profiler import ProfilerActivity, profile
-    run()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall_ms = run()
-    events = sorted((e for e in prof.key_averages() if dev_us(e) > 0),
-                    key=dev_us, reverse=True)
-    busy_ms = sum(dev_us(e) for e in events) / 1e3
+        out = fn()
+        torch.cuda.synchronize()
+    timed = [e for e in prof.key_averages() if dev_us(e) > 0]
+    events = sorted((e for e in timed if on_device(e)), key=dev_us,
+                    reverse=True)
+    if timed and not events:
+        raise AssertionError("profiler: device time but no device events")
+    return out, events
+
+
+def shows(events, kernel) -> bool:
+    """Whether a kernel whose names start with ``kernel`` is among the
+    events."""
+    return any(re.search(rf"\b{kernel}_\w+", e.key) for e in events)
+
+
+def profile_run(run, counted) -> dict:
+    """``run()`` (which returns its host wall ms) once to warm up, then
+    once under torch.profiler; device busy time sums the events that ran
+    on the card. ``counted`` maps each kernel's name prefix to the module
+    whose ``launches`` counts it. A profile with no device events, or
+    without a kernel the run launched (named in ``missing_kernels``), lost
+    device work: torch.profiler drops device records, PyTorch's own kernels
+    too, in most profiles once a process has run for minutes
+    (``scripts/torch_profiler_probe.py --wait 240``). Its busy time and
+    idle share are then null; where they are not, the busy time is still a
+    lower bound."""
+    run()
+    before = {k: m.launches for k, m in counted.items()}
+    wall_ms, events = profiled(run)
+    launched = {k: m.launches - before[k] for k, m in counted.items()}
+    missing = [k for k, n in launched.items() if n and not shows(events, k)]
+    busy_ms = None if missing or not events \
+        else sum(dev_us(e) for e in events) / 1e3
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
+            "device_idle_share": 1.0 - busy_ms / wall_ms
+            if wall_ms and busy_ms is not None else None,
+            "launches": launched, "missing_kernels": missing,
             "top": [{"name": e.key[:80], "calls": e.count,
                      "device_ms": dev_us(e) / 1e3} for e in events[:10]]}
+
+
+def profiler_sees(probe, kernel, profiles=3) -> int:
+    """Of ``profiles`` profiles of ``probe()``, how many show ``kernel``
+    among the device events: taken at points along the run, it shows how
+    far torch.profiler still records the card's work there."""
+    return sum(shows(profiled(probe)[1], kernel) for _ in range(profiles))
 
 
 # -- the main path ------------------------------------------------------------
@@ -916,10 +966,12 @@ def check_frame(name, got, want, keys, rtol):
             raise AssertionError(f"{name} {c}: {g[:5]} vs {w[:5]}")
 
 
-def run_storm(ctx, specs):
-    """Fire every spec at once from its own thread (barrier start); returns
-    the frames, the ms from the first thread's start to the last answer,
-    and the group's host phases (the leader's ``sharedscan`` stats)."""
+def run_storm(ctx, specs, call=None):
+    """Fire every spec (or, with ``call=ctx.sql``, every statement) at
+    once from its own thread (barrier start); returns the frames, the ms
+    from the first thread's start to the last answer, and the group's
+    host phases (the leader's ``sharedscan`` stats)."""
+    call = call or ctx.execute
     import threading
     n = len(specs)
     res, errs, stats = [None] * n, [None] * n, [None] * n
@@ -930,7 +982,7 @@ def run_storm(ctx, specs):
         bar.wait()
         starts[i] = time.perf_counter()
         try:
-            res[i] = ctx.execute(specs[i]).to_pandas()
+            res[i] = call(specs[i]).to_pandas()
             stats[i] = dict(ctx.engine.last_stats)
         except BaseException as e:  # noqa: BLE001 — raised below
             errs[i] = e
@@ -962,6 +1014,416 @@ def wave_work(program, layout, columns):
     n = columns[0].numel()
     aggs = sum(ls.n_aggs for ls in layout.lanes)
     return nbytes, n * (len(program.instrs) + 2 * aggs)
+
+
+def bound(nbytes, ops):
+    """(bound ms, what bounds it): the larger of the bytes over the memory
+    rate and the operations over the fp32 rate."""
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = ops / FP32_OPS_PER_S * 1e3
+    return max(b_bytes, b_ops), "bytes" if b_bytes >= b_ops else "operations"
+
+
+def b1_checked(CG, case, calls) -> dict:
+    """Each call a path made to the B1 wrapper, held against the plain
+    version on the same inputs (launched twice, bit-identical) and timed as
+    phase ``timing`` times the main path's queries; the sums and each
+    call's shape and times."""
+    out = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+           "library_ms": 0.0, "calls": []}
+    for i, (key, n_keys, inputs, max_keys) in enumerate(calls):
+        what = f"{case}[{i}]"
+
+        def kernel():
+            return CG.dense_groupby_kernel(key, n_keys, inputs, max_keys)
+
+        def plain():
+            return CG.dense_groupby_reference(key, n_keys, inputs)
+        want = plain()
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        if not same_bits(got, again):
+            raise AssertionError(f"{what}: two launches differ")
+        err = compare(what, got, want, inputs)
+        k_ms, p_ms = device_ms(kernel), device_ms(plain)
+        l_ms = device_ms(lambda: library_call(key, n_keys, inputs))
+        nbytes, ops = kernel_work(key, n_keys, inputs)
+        b_ms, b_by = bound(nbytes, ops)
+        per_launch = CG.plan_launches(n_keys, len(inputs))[0]
+        out["calls"].append(dict(
+            rows=int(key.numel()), n_keys=n_keys, n_aggs=len(inputs),
+            aggs=sorted({a.kind for a in inputs}),
+            masked=sum(a.mask is not None for a in inputs),
+            launches=-(-len(inputs) // per_launch), max_abs_err=err,
+            kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+            bound_by=b_by, kernel_bytes=nbytes))
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["ms"] += k_ms
+        out["plain_ms"] += p_ms
+        out["bound_ms"] += b_ms
+        out["library_ms"] += l_ms
+    return out
+
+
+def wave_timed(CW, case, program, layout, cols) -> dict:
+    """A wave launch a path made, held against the plain version on the
+    same inputs in every register-file layout that fits (each twice,
+    bit-identical) and timed as phase ``timing`` times the storm's."""
+    want = CW.wave_reference(program, cols, layout)
+    err = wave_checked(CW, case, program, layout, cols, want)[1]
+    nbytes, ops = wave_work(program, layout, cols)
+    b_ms, b_by = bound(nbytes, ops)
+    return dict(
+        rows=int(cols[0].numel()), lanes=len(layout.lanes),
+        instructions=len(program.instrs), registers=program.n_regs,
+        columns=program.columns, register_file=layout.file,
+        max_abs_err=err,
+        ms=device_ms(lambda: CW.wave_groupby(program, layout, cols)),
+        plain_ms=device_ms(lambda: CW.wave_reference(program, cols, layout)),
+        bound_ms=b_ms, bound_by=b_by, union_bytes=nbytes)
+
+
+# -- the SQL front end (phase "sql") ------------------------------------------
+
+SQL_MAIN = ["shipdate_range", "q1", "q5", "q6", "q7", "q8", "q12", "q14"]
+SQL_ORDERED = {"q1", "q5", "q7", "q8", "q12"}
+# statements whose fused key space is above the dense group-by kernel's
+# tier (sdot.engine.groupby.pallas.max.keys, 64; q7 groups 25 x 25 nations
+# by 7 years): they take the plain scatter tier, as the JAX engine takes
+# its XLA scatter above its Pallas tier, and launch no kernel
+SQL_SCATTER = {"q7"}
+SQL_STORM = ["q1", "q6", "shipdate_range", "q12"]
+SQL_STORM_CONFIG = {
+    "sdot.sharedscan.enabled": True, "sdot.sharedscan.max.queries": 4,
+    # closes as soon as the 4th statement joins; the window only has to
+    # outlast the threads' start skew and their planning
+    "sdot.wlm.batch.window.ms": 2000.0}
+ROADMAP_ITEM = r"not ported yet \(ROADMAP (A\.\d+)"
+
+
+def _rev(df):
+    return df.l_extendedprice * (1 - df.l_discount)
+
+
+def sql_oracles(t, nr):
+    """Pandas answers of the SQL phase's statements over the generator's
+    tables (the forms of tests/test_tpch.py), by name."""
+    import pandas as pd
+    ts = pd.Timestamp
+    li = t["lineitem"]
+    out = {}
+    d = li[(li.l_shipdate >= ts("1994-01-01"))
+           & (li.l_shipdate <= ts("1997-01-01"))]
+    out["shipdate_range"] = d.groupby(["l_returnflag", "l_linestatus"]) \
+        .size().reset_index(name="count_order")
+    d = li[li.l_shipdate <= ts("1998-12-01") - pd.Timedelta(days=90)]
+    disc = _rev(d)
+    d = d.assign(disc_price=disc, charge=disc * (1 + d.l_tax))
+    out["q1"] = d.groupby(["l_returnflag", "l_linestatus"],
+                          as_index=False).agg(
+        sum_qty=("l_quantity", "sum"),
+        sum_base_price=("l_extendedprice", "sum"),
+        sum_disc_price=("disc_price", "sum"), sum_charge=("charge", "sum"),
+        avg_qty=("l_quantity", "mean"),
+        avg_price=("l_extendedprice", "mean"),
+        avg_disc=("l_discount", "mean"),
+        count_order=("l_quantity", "size")) \
+        .sort_values(["l_returnflag", "l_linestatus"]).reset_index(drop=True)
+    d = (t["customer"]
+         .merge(t["orders"], left_on="c_custkey", right_on="o_custkey")
+         .merge(li, left_on="o_orderkey", right_on="l_orderkey")
+         .merge(t["supplier"], left_on="l_suppkey", right_on="s_suppkey")
+         .merge(nr["suppnation"], left_on="s_nationkey",
+                right_on="sn_nationkey")
+         .merge(nr["suppregion"], left_on="sn_regionkey",
+                right_on="sr_regionkey"))
+    d = d[(d.sr_name == "ASIA") & (d.o_orderdate >= ts("1994-01-01"))
+          & (d.o_orderdate < ts("1995-01-01"))]
+    out["q5"] = d.assign(revenue=_rev(d)).groupby(
+        "sn_name", as_index=False).revenue.sum() \
+        .sort_values("revenue", ascending=False).reset_index(drop=True)
+    d = li[(li.l_shipdate >= ts("1994-01-01"))
+           & (li.l_shipdate < ts("1995-01-01"))
+           & (li.l_discount >= 0.05) & (li.l_discount <= 0.07)
+           & (li.l_quantity < 24)]
+    out["q6"] = pd.DataFrame(
+        {"revenue": [(d.l_extendedprice * d.l_discount).sum()]})
+    d = (t["supplier"]
+         .merge(li, left_on="s_suppkey", right_on="l_suppkey")
+         .merge(t["orders"], left_on="l_orderkey", right_on="o_orderkey")
+         .merge(t["customer"], left_on="o_custkey", right_on="c_custkey")
+         .merge(nr["suppnation"], left_on="s_nationkey",
+                right_on="sn_nationkey")
+         .merge(nr["custnation"], left_on="c_nationkey",
+                right_on="cn_nationkey"))
+    d = d[(((d.sn_name == "FRANCE") & (d.cn_name == "GERMANY"))
+           | ((d.sn_name == "GERMANY") & (d.cn_name == "FRANCE")))
+          & (d.l_shipdate >= ts("1995-01-01"))
+          & (d.l_shipdate <= ts("1996-12-31"))]
+    out["q7"] = d.assign(l_year=d.l_shipdate.dt.year, revenue=_rev(d)) \
+        .groupby(["sn_name", "cn_name", "l_year"], as_index=False) \
+        .revenue.sum().sort_values(["sn_name", "cn_name", "l_year"]) \
+        .reset_index(drop=True)
+    d = (t["part"]
+         .merge(li, left_on="p_partkey", right_on="l_partkey")
+         .merge(t["supplier"], left_on="l_suppkey", right_on="s_suppkey")
+         .merge(t["orders"], left_on="l_orderkey", right_on="o_orderkey")
+         .merge(t["customer"], left_on="o_custkey", right_on="c_custkey")
+         .merge(nr["custnation"], left_on="c_nationkey",
+                right_on="cn_nationkey")
+         .merge(nr["custregion"], left_on="cn_regionkey",
+                right_on="cr_regionkey")
+         .merge(nr["suppnation"], left_on="s_nationkey",
+                right_on="sn_nationkey"))
+    d = d[(d.cr_name == "AMERICA") & (d.o_orderdate >= ts("1995-01-01"))
+          & (d.o_orderdate <= ts("1996-12-31"))
+          & (d.p_type == "ECONOMY ANODIZED STEEL")]
+    rev = _rev(d)
+    out["q8"] = d.assign(o_year=d.o_orderdate.dt.year, total_rev=rev,
+                         brazil_rev=rev.where(d.sn_name == "BRAZIL", 0.0)) \
+        .groupby("o_year", as_index=False).agg(
+            brazil_rev=("brazil_rev", "sum"),
+            total_rev=("total_rev", "sum")) \
+        .sort_values("o_year").reset_index(drop=True)
+    d = t["orders"].merge(li, left_on="o_orderkey", right_on="l_orderkey")
+    d = d[d.l_shipmode.isin(["MAIL", "SHIP"])
+          & (d.l_receiptdate >= ts("1994-01-01"))
+          & (d.l_receiptdate < ts("1995-01-01"))]
+    high = d.o_orderpriority.isin(["1-URGENT", "2-HIGH"])
+    out["q12"] = d.assign(high_line_count=high.astype(np.int64),
+                          low_line_count=(~high).astype(np.int64)) \
+        .groupby("l_shipmode", as_index=False).agg(
+            high_line_count=("high_line_count", "sum"),
+            low_line_count=("low_line_count", "sum")) \
+        .sort_values("l_shipmode").reset_index(drop=True)
+    d = li.merge(t["part"], left_on="l_partkey", right_on="p_partkey")
+    d = d[(d.l_shipdate >= ts("1995-09-01"))
+          & (d.l_shipdate < ts("1995-10-01"))]
+    rev = _rev(d)
+    promo = rev.where(d.p_type.str.startswith("PROMO"), 0.0).sum()
+    out["q14"] = pd.DataFrame({"promo_revenue": [100.0 * promo / rev.sum()]})
+    return out
+
+
+def check_sql(name, got, want):
+    """Columns in order; rows in order where the statement orders them,
+    else sorted by the non-float columns; ints exact, floats rtol 1e-6."""
+    if list(got.columns) != list(want.columns):
+        raise AssertionError(f"sql {name}: columns {list(got.columns)}, "
+                             f"want {list(want.columns)}")
+    keys = None if name in SQL_ORDERED else [
+        c for c in want.columns if want[c].dtype.kind != "f"]
+    check_frame(f"sql {name} vs pandas", got, want, keys,
+                FLOAT_SUM_RTOL_ORACLE)
+
+
+def timed_sql(ctx, sql):
+    """Host wall-clock ms of one statement, to its frame on the host, and
+    the statement's stats."""
+    t = time.perf_counter()
+    ctx.sql(sql).to_pandas()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3, ctx.history.entries()[-1].stats
+
+
+def plan_ms(stats) -> dict:
+    """The statement's parse and plan.* host phases, ms."""
+    return {k: v for k, v in (stats.get("phases") or {}).items()
+            if k == "parse" or k.startswith("plan.")}
+
+
+def engine_spent(ctx):
+    """Host ms spent inside ``ctx.engine.execute`` (planning of the
+    spec, bind, launches, decode and epilogue, to numpy on the host),
+    appended per call until the returned ``stop()``."""
+    spent, real = [], ctx.engine.execute
+
+    def timed(q):
+        t = time.perf_counter()
+        try:
+            return real(q)
+        finally:
+            spent.append((time.perf_counter() - t) * 1e3)
+    ctx.engine.execute = timed
+    return spent, lambda: delattr(ctx.engine, "execute")
+
+
+def sql_phase(sdt, tables, lineitem_ds, CG, CW, smi):
+    """TPC-H SF1 through ``Context.sql`` over the flattened star: the main
+    statements (engine mode, B1 launches, pandas oracles, latencies and
+    plan phases), four of them concurrently under shared scan (B2), and a
+    census of the other queries once the base tables are in. Returns the
+    B1 and B2 launches of its runs."""
+    from spark_druid_olap_tpu_torch.tools import tpch
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    flat = tpch.flatten(tables)
+    t_flat = time.perf_counter() - t0
+    ctx = sdt.Context()
+    t0 = time.perf_counter()
+    ctx.ingest_dataframe("tpch_flat", flat, time_column="l_shipdate",
+                         target_rows=1 << 20)
+    t_ingest = time.perf_counter() - t0
+    ctx.register_star_schema(tpch.star_schema("tpch_flat"))
+    nr = tpch.nation_region_views(tables)
+    oracles = sql_oracles(tables, nr)
+    rows, flat_cols = len(flat), flat.shape[1]
+    del flat
+
+    b1 = b2 = 0
+    stmts = {}
+    real_kernel = CG.dense_groupby_kernel
+    b1_calls = {}        # statement -> the B1 wrapper's inputs, per call
+    for name in SQL_MAIN:
+        sql = tpch.QUERIES[name]
+        calls = b1_calls[name] = []
+
+        def spy(key, n_keys, inputs, max_keys, calls=calls):
+            calls.append((key, n_keys, list(inputs), max_keys))
+            return real_kernel(key, n_keys, inputs, max_keys)
+        CG.dense_groupby_kernel = spy
+        try:
+            CG.launches = 0
+            cold_ms, st = timed_sql(ctx, sql)
+            launched = CG.launches
+        finally:
+            CG.dense_groupby_kernel = real_kernel
+        b1 += launched
+        route = "scatter" if name in SQL_SCATTER else "kernel"
+        if st["mode"] != "engine" or st.get("route") != route \
+                or (launched < 1) == (route == "kernel") \
+                or bool(calls) != (route == "kernel"):
+            raise AssertionError(f"sql {name}: mode {st['mode']!r}, route "
+                                 f"{st.get('route')!r} (want {route}), "
+                                 f"{launched} dense_groupby launches")
+        check_sql(name, ctx.sql(sql).to_pandas(), oracles[name])
+        spent, stop = engine_spent(ctx)
+        warm = [timed_sql(ctx, sql) for _ in range(REPEATS)]
+        stop()
+        stmts[name] = dict(cold_ms=cold_ms, cold_plan_ms=plan_ms(st),
+                           warm_median_ms=statistics.median(
+                               ms for ms, _ in warm),
+                           warm_engine_median_ms=statistics.median(spent),
+                           warm_plan_ms=plan_ms(warm[-1][1]),
+                           dense_groupby_launches=launched, route=route,
+                           groups=st.get("groups"))
+    # planning cost with no memo and no plan cache, columns on the card
+    ctx.config.set("sdot.plan.memo.enabled", False)
+    ctx.config.set("sdot.plan.cache.enabled", False)
+    for name in SQL_MAIN:
+        runs = [timed_sql(ctx, tpch.QUERIES[name]) for _ in range(REPEATS)]
+        phases = sorted({k for _, st in runs for k in plan_ms(st)})
+        stmts[name]["replan_median_ms"] = statistics.median(
+            ms for ms, _ in runs)
+        stmts[name]["replan_plan_ms"] = {
+            k: statistics.median(plan_ms(st).get(k, 0.0) for _, st in runs)
+            for k in phases}
+    ctx.config.set("sdot.plan.memo.enabled", True)
+    ctx.config.set("sdot.plan.cache.enabled", True)
+    for name in SQL_MAIN:
+        prof = profile_run(lambda: timed_sql(ctx, tpch.QUERIES[name])[0],
+                           {"dense_groupby": CG})
+        stmts[name]["device_busy_ms"] = prof["device_busy_ms"]
+        stmts[name]["device_idle_share"] = prof["device_idle_share"]
+        stmts[name]["profiled_wall_ms"] = prof["wall_ms"]
+
+    # four statements at once, coalesced by the shared-scan tier
+    solo = {n: ctx.sql(tpch.QUERIES[n]).to_pandas() for n in SQL_STORM}
+    for k, v in SQL_STORM_CONFIG.items():
+        ctx.config.set(k, v)
+    queries = [tpch.QUERIES[n] for n in SQL_STORM]
+    run_storm(ctx, queries, call=ctx.sql)    # plans the statements once
+    st0 = ctx.engine.sharedscan.stats()
+    real_wave, waves = CW.wave_groupby, []
+
+    def wave_spy(program, layout, columns):
+        waves.append((program, layout, [c.reshape(-1) for c in columns]))
+        return real_wave(program, layout, columns)
+    CW.wave_groupby = wave_spy
+    try:
+        CW.launches = 0
+        CG.launches = 0
+        res, storm_ms, storm_phases = run_storm(ctx, queries, call=ctx.sql)
+        torch.cuda.synchronize()
+    finally:
+        CW.wave_groupby = real_wave
+    got = dict(zip(SQL_STORM, res))
+    modes = [r.stats["mode"] for r in ctx.history.entries()[-len(queries):]]
+    b2 += CW.launches
+    b1 += CG.launches
+    st1 = ctx.engine.sharedscan.stats()
+    storm = {k: st1[k] - st0[k] for k in ("queries_coalesced",
+                                          "wave_launches", "wave_fallbacks")}
+    storm["wave_fallback_reasons"] = st1["wave_fallback_reasons"]
+    storm.update(wave_kernel_launches=CW.launches,
+                 dense_groupby_launches=CG.launches, wall_ms=storm_ms,
+                 phases_ms=storm_phases, modes=modes)
+    if storm["queries_coalesced"] != len(SQL_STORM) \
+            or storm["wave_launches"] != 1 or CW.launches != 1 \
+            or len(waves) != 1 or modes != ["engine"] * len(queries):
+        raise AssertionError(f"sql storm: not {len(SQL_STORM)} statements "
+                             f"in one wave launch: {storm}")
+    for n in SQL_STORM:
+        check_frame(f"sql storm {n} vs solo", got[n], solo[n], None,
+                    FLOAT_SUM_RTOL_KERNEL)
+    ctx.config.set("sdot.sharedscan.enabled", False)
+
+    # the kernels at the shapes this phase gave them, against their plain
+    # versions on the same inputs (launches here are not counted above)
+    kernels = {"dense_groupby": {name: b1_checked(CG, f"sql {name}", calls)
+                                 for name, calls in b1_calls.items()
+                                 if calls},
+               "wave": {"storm": wave_timed(CW, "sql storm", *waves[0])}}
+
+    # census: every other query once, over the whole star (the base
+    # tables name what the flat table alone cannot resolve)
+    t0 = time.perf_counter()
+    ctx.store.register(lineitem_ds)
+    for name, df in tables.items():
+        if name not in ("nation", "region", "lineitem"):
+            ctx.ingest_dataframe(
+                name, df, time_column="o_orderdate" if name == "orders"
+                else None, target_rows=1 << 20)
+    for name, df in nr.items():
+        ctx.ingest_dataframe(name, df, target_rows=1 << 20)
+    ctx.ingest_dataframe("partsupp_flat", tpch.flatten_partsupp(tables),
+                         target_rows=1 << 20)
+    ctx.register_star_schema(tpch.partsupp_star_schema("partsupp_flat"))
+    # re-registering drops the star's functional-dependency graph, built
+    # before the dimension tables were in (setup_context registers last)
+    ctx.register_star_schema(tpch.star_schema("tpch_flat"))
+    t_base = time.perf_counter() - t0
+    census = {}
+    for name, sql in tpch.QUERIES.items():
+        if name in SQL_MAIN:
+            continue
+        t0 = time.perf_counter()
+        try:
+            ctx.sql(sql).to_pandas()
+            outcome = ctx.history.entries()[-1].stats["mode"]
+        except NotImplementedError as e:
+            m = re.search(ROADMAP_ITEM, str(e))
+            if m is None:
+                raise
+            outcome = f"refused: {m.group(1)} ({e})"
+        census[name] = {"outcome": outcome,
+                        "ms": (time.perf_counter() - t0) * 1e3}
+    emit("sql", card=smi, sf=SF, flat_rows=rows, flat_columns=flat_cols,
+         flatten_s=t_flat, ingest_s=t_ingest, base_tables_ingest_s=t_base,
+         statements=stmts, storm=storm, census=census, kernels=kernels,
+         seconds=time.perf_counter() - t_phase,
+         oracle="pandas on the generator's tables: ints exact, floats rtol "
+                "1e-6; storm answers vs solo answers rtol 1e-9",
+         note="latency: host wall clock to the frame on the host; cold = "
+              "first statement (plan memo empty, columns uploaded); warm "
+              "= median of 7 (memo warm), warm_engine the part inside "
+              "engine.execute; replan = median of 7 with memo "
+              "and plan cache off (columns on the card); plan_ms from "
+              "utils/phases; device busy / idle: torch.profiler over one "
+              "warm run; kernels: each B1 call of a statement's cold run "
+              "and the storm's B2 launch, kernel vs plain version on the "
+              "same inputs, times as in phase timing")
+    return b1, b2, kernels
 
 
 def main() -> int:
@@ -1001,6 +1463,15 @@ def main() -> int:
                     .splitlines() if any(w in ln for w in (
                         "Compiling entry", "registers", "stack frame"))])
 
+    # a fixed B1 call: does torch.profiler record the port's kernels?
+    from spark_druid_olap_tpu_torch.ops.groupby import AggInput
+    pkey = torch.arange(1_000_000, device=dev, dtype=torch.int32) % 7
+    pin = [AggInput("n", "count")]
+
+    def probe():
+        CG.dense_groupby_kernel(pkey, 6, pin, 64)
+    sees = {"after_build": profiler_sees(probe, "dense_groupby")}
+
     # 3. kernel vs plain version on the card
     t0 = time.perf_counter()
     n_cases, worst, tiers = kernel_cases(CG, dev)
@@ -1018,7 +1489,8 @@ def main() -> int:
 
     # 4. the main path at SF1
     t0 = time.perf_counter()
-    df = generate(SF, seed=SEED)["lineitem"]
+    tables = generate(SF, seed=SEED)
+    df = tables["lineitem"]
     t_gen = time.perf_counter() - t0
     ctx = sdt.Context()
     t0 = time.perf_counter()
@@ -1026,6 +1498,11 @@ def main() -> int:
     t_ingest = time.perf_counter() - t0
     emit("ingest", sf=SF, rows=len(df), generate_s=t_gen, ingest_s=t_ingest,
          segments=ctx.store.get("lineitem").num_segments)
+
+    # 4a. the SQL front end over the flattened star
+    sql_b1, sql_b2, sql_k = sql_phase(sdt, tables, ctx.store.get("lineitem"),
+                                      CG, CW, smi)
+    sees["after_sql"] = profiler_sees(probe, "dense_groupby")
 
     captured = {}
     real_kernel = CG.dense_groupby_kernel
@@ -1068,6 +1545,8 @@ def main() -> int:
          oracle="pandas on the same frame: ints exact, float sums and "
                 "float min/max rtol 1e-6",
          route=ctx.engine.last_stats.get("route"))
+
+    sees["after_main_path"] = profiler_sees(probe, "dense_groupby")
 
     # 4b. the storm: 8 concurrent queries coalesced into one wave launch
     ds = ctx.store.get("lineitem")
@@ -1140,6 +1619,8 @@ def main() -> int:
                 "and the port's solo answers (floats rtol 1e-9); the "
                 "storm's own program: kernel vs plain version")
 
+    sees["after_storm"] = profiler_sees(probe, "dense_groupby")
+
     # 5. timings, beside the card's name and power limit
     ds = ctx.store.get("lineitem")
     per_query = {}
@@ -1167,10 +1648,8 @@ def main() -> int:
                                                             inputs))
         l_ms = device_ms(lambda: library_call(key, n_keys, inputs))
         nbytes, ops = kernel_work(key, n_keys, inputs)
-        b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        b_ops = ops / FP32_OPS_PER_S * 1e3
-        b_ms = max(b_bytes, b_ops)
-        bound_by.add("bytes" if b_bytes >= b_ops else "operations")
+        b_ms, b_by = bound(nbytes, ops)
+        bound_by.add(b_by)
         warm_ms = statistics.median(warm)
         per_query[name] = dict(
             cold_median_ms=statistics.median(cold), warm_median_ms=warm_ms,
@@ -1236,18 +1715,36 @@ def main() -> int:
               "wall clock to synchronize, cold = device column cache "
               "dropped before each run")
 
-    # 6. where a warm query's time goes: torch.profiler over one run each
-    emit("profile", card=smi, queries={name: profile_query(ctx, spec)
-                                       for name, spec in (("q1", q1),
-                                                          ("q6", q6))},
-         storm=profile_run(lambda: run_storm(storm, slist)[1]))
+    sees["after_timing"] = profiler_sees(probe, "dense_groupby")
 
-    # 7. every ported kernel with its check result
+    # 6. where a warm query's time goes: torch.profiler over one run each
+    counted = {"dense_groupby": CG, "wave": CW}
+    emit("profile", card=smi,
+         queries={name: profile_query(ctx, spec, counted)
+                  for name, spec in (("q1", q1), ("q6", q6))},
+         storm=profile_run(lambda: run_storm(storm, slist)[1], counted),
+         profiler_sees=dict(sees, profile=profiler_sees(probe,
+                                                        "dense_groupby")),
+         note="profiler_sees: of 3 profiles of one B1 call on 1,000,000 "
+              "synthetic rows, how many show the kernel, at points along "
+              "the run")
+
+    # 7. every ported kernel with its check result: the sums over the
+    # shapes the main path gave it (Q1, Q6, wide and the SQL statements
+    # for B1; the QuerySpec and SQL storms for B2)
+    for k in sql_k["dense_groupby"].values():
+        worst = max(worst, k["max_abs_err"])
+        for f in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            total[f] += k[f]
+        bound_by.update(c["bound_by"] for c in k["calls"])
+    sw = sql_k["wave"]["storm"]
+    w_worst = max(w_worst, sw["max_abs_err"])
+    w_bound_by = {wave_timing["bound_by"], sw["bound_by"]}
     print(json.dumps({"kernels": [{
         "name": "dense_groupby", "route": "cuda",
         "source": "spark_druid_olap_tpu_torch/csrc/dense_groupby.cu",
         "replaces": "spark_druid_olap_tpu/ops/pallas_groupby.py:205",
-        "launches": l1 + l6 + lw, "max_abs_err": worst,
+        "launches": l1 + l6 + lw + sql_b1, "max_abs_err": worst,
         "ms": total["ms"], "plain_ms": total["plain_ms"],
         "bound_ms": total["bound_ms"],
         "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
@@ -1255,9 +1752,11 @@ def main() -> int:
         "name": "wave", "route": "cuda",
         "source": "spark_druid_olap_tpu_torch/csrc/wave.cu",
         "replaces": "spark_druid_olap_tpu/ops/pallas_wave.py:371",
-        "launches": storm_launches, "max_abs_err": w_worst,
-        "ms": wk_ms, "plain_ms": wp_ms, "bound_ms": wave_timing["bound_ms"],
-        "bound_by": wave_timing["bound_by"], "library_ms": None}]}),
+        "launches": storm_launches + sql_b2, "max_abs_err": w_worst,
+        "ms": wk_ms + sw["ms"], "plain_ms": wp_ms + sw["plain_ms"],
+        "bound_ms": wave_timing["bound_ms"] + sw["bound_ms"],
+        "bound_by": "bytes" if w_bound_by == {"bytes"} else "operations",
+        "library_ms": None}]}),
         flush=True)
     emit("done", seconds=time.perf_counter() - t_start, card=smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,10 @@
 
 Port of ``spark_druid_olap_tpu/ops/filters.py``: ``lower_filter`` for
 selector, bound (string code ranges, numeric, date and time bounds), IN
-lists, null, logical and expression filters; ``interval_mask``;
-``columns_of_filter``. Pattern, spatial and large-integer-set filters raise
-``NotImplementedError``. Every filter lowers to a bool [S, R] mask over the
+lists and large integer IN sets, pattern (LIKE / contains / regex over the
+dictionary), null, logical and expression filters; ``interval_mask``;
+``columns_of_filter``. Spatial filters raise ``NotImplementedError``
+(ROADMAP A.1). Every filter lowers to a bool [S, R] mask over the
 stacked segment tensors; string predicates become integer tests on
 dictionary codes through ``encode/predicates.py``.
 """
@@ -25,11 +26,6 @@ from spark_druid_olap_tpu_torch.ops.scan import ScanContext
 from spark_druid_olap_tpu_torch.segment.column import ColumnKind
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} not ported yet (ROADMAP A.1: full filter lowering)")
-
-
 def lower_filter(f: Optional[S.FilterSpec], ctx: ScanContext):
     """Lower a FilterSpec to a bool mask (None -> None, meaning all-true)."""
     if f is None:
@@ -48,8 +44,11 @@ def lower_filter(f: Optional[S.FilterSpec], ctx: ScanContext):
         return _logical(f, ctx)
     if isinstance(f, S.ExprFilter):
         return EC._as_bool(EC.compile_expr(f.expr, ctx))
-    if isinstance(f, (S.PatternFilter, S.SpatialFilter)):
-        raise _not_ported(type(f).__name__)
+    if isinstance(f, S.PatternFilter):
+        return _pattern(f, ctx)
+    if isinstance(f, S.SpatialFilter):
+        raise NotImplementedError(
+            "SpatialFilter not ported yet (ROADMAP A.1)")
     raise EC.Unsupported(f"filter {type(f).__name__}")
 
 
@@ -164,10 +163,20 @@ def _time_bound(f: S.BoundFilter, ctx):
 def _in(f: S.InFilter, ctx):
     kind = ctx.kind(f.dimension)
     if isinstance(f.values, E.FrozenIntSet):
-        raise _not_ported("large integer IN set filter")
+        # semi-join-scale membership (EC.int_set_membership)
+        if kind not in (ColumnKind.LONG, ColumnKind.DATE):
+            raise EC.Unsupported("large integer IN set over non-integer")
+        vals = f.values.array
+        if len(vals) == 0:
+            return _false(ctx)
+        arr = ctx.col(f.dimension)
+        if arr.dtype != torch.int64 and (
+                int(vals[0]) < -(2**31) or int(vals[-1]) >= 2**31):
+            raise EC.Unsupported("IN-set values exceed 32-bit column range")
+        return _nullsafe(EC.int_set_membership(arr, vals), f.dimension, ctx)
     if kind == ColumnKind.DIM:
         mask = P.in_code_mask(ctx.dictionary(f.dimension), f.values)
-        return _nullsafe(EC.take1d(mask, ctx.col(f.dimension)),
+        return _nullsafe(EC.take_mask(mask, ctx.col(f.dimension)),
                          f.dimension, ctx)
     arr = ctx.col(f.dimension)
     out = None
@@ -181,6 +190,19 @@ def _in(f: S.InFilter, ctx):
         out = b if out is None else (out | b)
     return _nullsafe(out if out is not None else _false(ctx),
                      f.dimension, ctx)
+
+
+def _pattern(f: S.PatternFilter, ctx):
+    if ctx.kind(f.dimension) != ColumnKind.DIM:
+        raise EC.Unsupported("pattern filter on non-string column")
+    try:
+        mask = P.pattern_code_mask(ctx.dictionary(f.dimension), f.kind,
+                                   f.pattern,
+                                   like_to_regex=EC.like_to_regex)
+    except ValueError:
+        raise EC.Unsupported(f"pattern kind {f.kind}") from None
+    return _nullsafe(EC.take_mask(mask, ctx.col(f.dimension)), f.dimension,
+                     ctx)
 
 
 def _logical(f: S.LogicalFilter, ctx):

@@ -9,6 +9,8 @@ specs, on one device, in one wave, on the dense route. Planning
 materialization), the device-resident array cache (``_bind_arrays``),
 decode and the host epilogue (``_agg_epilogue``) mirror the JAX engine.
 
+Dimensions cover plain columns, time extractions, granularity buckets and
+the dictionary-functional lookup / regex / expression extractions.
 Ordering, limit and HAVING run on the host over the full ``[K]`` result,
 which is what the JAX engine does whenever it plans no device top-k or
 device HAVING, so the answers are the same. Every path the JAX engine would
@@ -257,16 +259,134 @@ def plan_granularity_dim(gran: S.Granularity, ds: Datasource, min_day: int,
     return DimPlan("timestamp", card, build, decode, (tname,))
 
 
+def _plan_expr_extraction(dspec: S.DimensionSpec, ds: Datasource) -> DimPlan:
+    ex = dspec.extraction
+    cols = sorted(E.columns_in(ex.expr))
+    # single string-dim expression: evaluate over the dictionary domain on
+    # host, factorize, remap codes through a LUT (dictionary-functional path)
+    if len(cols) == 1 and cols[0] in ds.dims:
+        dim = ds.dims[cols[0]]
+        try:
+            vals = host_eval.eval_expr(ex.expr, {cols[0]: dim.dictionary})
+        except host_eval.HostEvalError as e:
+            raise EngineFallback(str(e))
+        vals = np.asarray(vals)
+        if vals.shape != dim.dictionary.shape:
+            raise EngineFallback("non-elementwise dim expression")
+        uniq, remap = np.unique(vals.astype(object) if vals.dtype == object
+                                else vals, return_inverse=True)
+        lut = remap.astype(np.int32)
+        name = cols[0]
+        return DimPlan(dspec.output_name, len(uniq),
+                       lambda ctx: EC.take1d(lut, ctx.col(name)),
+                       lambda idx: uniq[np.asarray(idx, np.int64)],
+                       (name,))
+    # general expression: compiled on the device; needs a declared small
+    # integer range
+    card = ex.cardinality
+    if card is None:
+        raise EngineFallback(
+            "expression dimension without cardinality bound "
+            f"({E.to_sql(ex.expr)})")
+
+    def build(ctx):
+        v = EC.compile_expr(ex.expr, ctx)
+        if isinstance(v, EC.BoolValue):
+            return v.arr.to(torch.int32)
+        if isinstance(v, EC.NumValue) and not v.is_float:
+            return torch.clamp(v.arr, 0, card - 1)
+        raise EC.Unsupported("expression dimension must be int/bool")
+
+    return DimPlan(dspec.output_name, card, build,
+                   lambda idx: np.asarray(idx, np.int64), tuple(cols))
+
+
+def _plan_dict_transform(dspec: S.DimensionSpec, ds: Datasource,
+                         vals_fn) -> DimPlan:
+    """Dictionary-functional extraction: apply ``vals_fn`` to the dim's
+    dictionary on host (None entries = null), factorize, and remap codes
+    through a LUT on the device. Null output (and null input rows) land in
+    slot 0."""
+    name = dspec.dimension
+    if ds.column_kind(name) != ColumnKind.DIM:
+        raise EngineFallback("lookup/regex extraction over non-string column")
+    dim = ds.dims[name]
+    vals = vals_fn(dim.dictionary)
+    null_mask = np.array([v is None for v in vals], dtype=bool)
+    uniq = np.unique(np.asarray(
+        [str(v) for v, nm in zip(vals, null_mask) if not nm], dtype=object)) \
+        if (~null_mask).any() else np.empty(0, dtype=object)
+    pos = {v: j for j, v in enumerate(uniq)}
+    lut = np.array([0 if nm else 1 + pos[str(v)]
+                    for v, nm in zip(vals, null_mask)], dtype=np.int32)
+    has_nulls = dim.validity is not None
+
+    def build(ctx):
+        mapped = EC.take1d(lut, ctx.col(name))
+        if has_nulls:
+            mapped = torch.where(ctx.null_valid(name), mapped, 0)
+        return mapped
+
+    def decode(idx):
+        idx = np.asarray(idx, np.int64)
+        out = np.empty(len(idx), dtype=object)
+        out[:] = [None if i == 0 else uniq[i - 1] for i in idx]
+        return out
+
+    return DimPlan(dspec.output_name, len(uniq) + 1, build, decode, (name,))
+
+
+def _lookup_vals_fn(ex: S.LookupExtraction):
+    table = dict(ex.lookup)
+
+    def vals_fn(dictionary):
+        out = []
+        for s in dictionary:
+            if s in table:
+                out.append(table[s])
+            elif ex.retain_missing:
+                out.append(s)
+            else:
+                out.append(ex.replace_missing_with)
+        return out
+    return vals_fn
+
+
+def _regex_vals_fn(ex: S.RegexExtraction):
+    import re as _re
+    rx = _re.compile(ex.pattern)
+
+    def vals_fn(dictionary):
+        out = []
+        for s in dictionary:
+            m = rx.search(s) if s is not None else None
+            if m is not None:
+                out.append(m.group(ex.index))
+            elif ex.replace_missing:
+                out.append(ex.replace_missing_with)
+            else:
+                out.append(s)
+        return out
+    return vals_fn
+
+
 def plan_dimension(dspec: S.DimensionSpec, ds: Datasource, min_day: int,
                    max_day: int, tz: str = "UTC") -> DimPlan:
-    if dspec.extraction is None:
-        return _plan_plain(dspec.dimension, ds, dspec.output_name)
-    if isinstance(dspec.extraction, S.TimeExtraction):
-        return _plan_time_extraction(dspec, ds, min_day, max_day, tz)
-    if isinstance(dspec.extraction, (S.LookupExtraction, S.RegexExtraction,
-                                     S.ExprExtraction)):
-        raise not_ported(f"{type(dspec.extraction).__name__} dimensions",
-                         "A.1")
+    try:
+        if dspec.extraction is None:
+            return _plan_plain(dspec.dimension, ds, dspec.output_name)
+        if isinstance(dspec.extraction, S.TimeExtraction):
+            return _plan_time_extraction(dspec, ds, min_day, max_day, tz)
+        if isinstance(dspec.extraction, S.LookupExtraction):
+            return _plan_dict_transform(dspec, ds,
+                                        _lookup_vals_fn(dspec.extraction))
+        if isinstance(dspec.extraction, S.RegexExtraction):
+            return _plan_dict_transform(dspec, ds,
+                                        _regex_vals_fn(dspec.extraction))
+        if isinstance(dspec.extraction, S.ExprExtraction):
+            return _plan_expr_extraction(dspec, ds)
+    except EC.Unsupported as e:
+        raise EngineFallback(str(e))
     raise EngineFallback(f"extraction {type(dspec.extraction).__name__}")
 
 
@@ -847,6 +967,43 @@ def _decode_anyvalue(ds: Datasource, field: str, v: np.ndarray,
             return np.where(empty, np.nan, v).astype(np.float64)
         return np.rint(v).astype(np.int64)
     return np.where(empty, np.nan, v).astype(np.float64)
+
+
+def _host_column_values(ds: Datasource, name: str,
+                        idx: Optional[np.ndarray]):
+    """Decoded host values of a column (optionally a row subset), read
+    from the store's host copies and never from the device cache (the
+    JAX executor's ``_host_column_values`` on a complete store)."""
+    if name in ds.dims:
+        col = ds.dims[name]
+        codes = col.codes if idx is None else col.codes[idx]
+        vals = col.dictionary[codes.astype(np.int64)]
+        if col.validity is not None:
+            v = col.validity if idx is None else col.validity[idx]
+            vals = np.where(v, vals, None)
+        return vals
+    if name in ds.metrics:
+        m = ds.metrics[name]
+        vals = m.values if idx is None else m.values[idx]
+        if m.kind == ColumnKind.DATE:
+            return vals.astype("datetime64[D]")
+        if m.kind == ColumnKind.LONG:
+            out = vals.astype(np.int64)
+            if m.validity is not None:
+                v = m.validity if idx is None else m.validity[idx]
+                out = np.where(v, out.astype(np.float64), np.nan)
+            return out
+        # keep f32 (storage dtype): python-float literals then compare in
+        # f32 under NumPy weak promotion, as the device path does
+        out = vals
+        if m.validity is not None:
+            v = m.validity if idx is None else m.validity[idx]
+            out = np.where(v, out, np.float32(np.nan))
+        return out
+    if ds.time is not None and name == ds.time.name:
+        ms = ds.time.millis if idx is None else ds.time.millis[idx]
+        return ms.astype("datetime64[ms]")
+    raise KeyError(name)
 
 
 def _neg_key(k: np.ndarray):

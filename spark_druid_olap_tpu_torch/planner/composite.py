@@ -1,0 +1,314 @@
+"""Composite plans: engine-planned derived tables + a host finishing step.
+
+Port counterpart of ``spark_druid_olap_tpu/planner/composite.py``: a copy kept
+inside the PyTorch package, which imports nothing of the JAX package.
+
+The reference's execution shape for a query that does not rewrite whole-plan
+is a Spark plan whose *relational subtrees* still become DruidQuery scans,
+with Spark joins/aggregates above them (Catalyst plans each subtree
+independently, so a derived table over the fact table hits ``DruidStrategy``
+even when the outer join does not — see ``DruidStrategy.buildPlan:368-398``
+under a Spark ``SortMergeJoin``). A CompositePlan is that shape made
+explicit: every derived table in FROM is planned through the pushdown
+builder (device scans), and the outer statement — restricted to *dimension-
+scale* base tables — runs on the host over the small derived results.
+
+Two plan kinds:
+
+- :class:`CompositePlan` — derived tables -> engine plans, outer statement
+  host-executed with the results as temp frames (TPC-H q15 shape).
+- :class:`LeftJoinAggPlan` — ``A LEFT JOIN B ON A.k = B.fk [AND P(B)]``
+  aggregated by ``A.k`` with all aggregates over B: the engine computes the
+  B-side group-by; the host left-merges A's key column and zero-fills counts
+  (TPC-H q13 shape; count(col) over the null extension is 0, sums stay
+  NULL).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple, Union
+
+import numpy as np
+import pandas as pd
+
+from spark_druid_olap_tpu_torch.ir import expr as E
+from spark_druid_olap_tpu_torch.planner.plans import PlannedQuery, PlanUnsupported
+from spark_druid_olap_tpu_torch.sql import ast as A
+
+
+@dataclasses.dataclass
+class LeftJoinAggPlan:
+    left_table: str
+    left_key: str
+    out_key: str                       # output name of the key column
+    inner: PlannedQuery                # engine plan over the right side
+    fk_col: str                        # key output name in the inner result
+    agg_cols: List[Tuple[str, bool]]   # (output name, zero-fill?)
+
+
+@dataclasses.dataclass
+class CompositePlan:
+    sub_plans: List[Tuple[str, object]]  # (temp name, engine/leftjoin plan)
+    outer_stmt: A.SelectStmt
+
+
+SubPlan = Union[PlannedQuery, LeftJoinAggPlan, CompositePlan]
+
+
+def _chain(ctx, stmt: A.SelectStmt, execute: bool = True) -> A.SelectStmt:
+    """Rewrite pipeline ahead of the builder. ``execute=False`` (EXPLAIN)
+    skips the inlining passes, which RUN subqueries through the session —
+    explain must never dispatch engine queries or pollute the history."""
+    from spark_druid_olap_tpu_torch.planner.decorrelate import (
+        decorrelate_semijoins, inline_correlated_scalars,
+        inline_subqueries)
+    from spark_druid_olap_tpu_torch.planner.viewmerge import merge_derived
+    s = merge_derived(ctx, stmt)
+    s = decorrelate_semijoins(ctx, s)
+    if not execute:
+        return s
+    s = inline_correlated_scalars(ctx, s)
+    return inline_subqueries(ctx, s)
+
+
+def _build_sub(ctx, stmt: A.SelectStmt, execute: bool = True) -> SubPlan:
+    from spark_druid_olap_tpu_torch.planner import builder as B
+    if isinstance(stmt, A.UnionAll):
+        raise PlanUnsupported("union derived table (host tier handles)")
+    s = _chain(ctx, stmt, execute)
+    try:
+        return B.build(ctx, s)
+    except PlanUnsupported:
+        return _build_leftjoin_agg(ctx, s)
+
+
+def _fact_scale_tables(ctx) -> set:
+    """Datasources the host side must never scan raw in a composite: the
+    star flat indexes and their fact tables."""
+    out = set()
+    for star in ctx.catalog.star_schemas.values():
+        out.add(star.flat_datasource)
+        out.add(star.fact_table)
+    return out
+
+
+def build_composite(ctx, stmt: A.SelectStmt,
+                    execute: bool = True) -> CompositePlan:
+    """Plan the statement as engine-built derived tables + host finish.
+    Raises PlanUnsupported unless every derived table plans through the
+    engine and every remaining base table is dimension-scale."""
+    if stmt.relation is None:
+        raise PlanUnsupported("no FROM clause")
+    subs: List[Tuple[str, object]] = []
+    banned = _fact_scale_tables(ctx)
+
+    def walk(rel):
+        if isinstance(rel, A.TableRef):
+            if rel.name in banned:
+                raise PlanUnsupported(
+                    f"host join over fact-scale table {rel.name!r}")
+            return rel
+        if isinstance(rel, A.SubqueryRef):
+            sub = _build_sub(ctx, rel.query, execute)
+            name = f"__derived{len(subs)}"
+            subs.append((name, sub))
+            return A.TableRef(name)
+        if isinstance(rel, A.Join):
+            return dataclasses.replace(rel, left=walk(rel.left),
+                                       right=walk(rel.right))
+        raise PlanUnsupported(f"relation {type(rel).__name__}")
+
+    new_rel = walk(stmt.relation)
+    if not subs:
+        # Dim-only FROM whose WHERE still engages the fact table through
+        # subqueries (TPC-H q20: supplier x suppnation filtered by an IN
+        # chain whose correlated scalar scans lineitem): route every
+        # base-table scan through an engine Select so ALL data access
+        # stays on the engine path — the host joins the dim-scale
+        # results and resolves the subqueries (their fact scans run
+        # engine-assisted). ≈ the reference's DruidQuery-scans-under-
+        # Spark-join shape with dim relations as scans.
+        if not _subqueries_touch_fact(ctx, stmt, banned):
+            raise PlanUnsupported(
+                "no derived table to plan through the engine")
+        new_rel = _tables_to_engine_selects(ctx, stmt.relation, subs,
+                                            execute)
+    return CompositePlan(sub_plans=subs,
+                         outer_stmt=dataclasses.replace(stmt,
+                                                        relation=new_rel))
+
+
+def _subqueries_touch_fact(ctx, stmt: A.SelectStmt, banned: set) -> bool:
+    """Whether any subquery under the statement references a fact-scale
+    table (directly or in ITS nested subqueries/relations)."""
+    from spark_druid_olap_tpu_torch.planner.host_exec import _subquery_nodes
+
+    def rel_tables(rel, out):
+        if isinstance(rel, A.TableRef):
+            out.add(rel.name)
+        elif isinstance(rel, A.SubqueryRef):
+            stmt_tables(rel.query, out)
+        elif isinstance(rel, A.Join):
+            rel_tables(rel.left, out)
+            rel_tables(rel.right, out)
+
+    def stmt_tables(q, out):
+        parts = q.parts if isinstance(q, A.UnionAll) else (q,)
+        for p in parts:
+            if p.relation is not None:
+                rel_tables(p.relation, out)
+            for e in (p.where, p.having):
+                if e is not None:
+                    for n in _subquery_nodes(e):
+                        stmt_tables(n.query, out)
+
+    names: set = set()
+    for e in (stmt.where, stmt.having):
+        if e is not None:
+            for n in _subquery_nodes(e):
+                stmt_tables(n.query, names)
+    return bool(names & banned)
+
+
+def _tables_to_engine_selects(ctx, rel, subs, execute: bool):
+    """Replace each base TableRef with an engine full-table Select plan
+    registered as a temp frame (aliases preserved for the host join)."""
+    if isinstance(rel, A.TableRef):
+        sub = _build_sub(ctx, A.SelectStmt(
+            items=(A.SelectItem("*"),),
+            relation=A.TableRef(rel.name)), execute)
+        name = f"__dim{len(subs)}"
+        subs.append((name, sub))
+        return A.TableRef(name, alias=rel.alias or rel.name)
+    if isinstance(rel, A.Join):
+        return dataclasses.replace(
+            rel,
+            left=_tables_to_engine_selects(ctx, rel.left, subs, execute),
+            right=_tables_to_engine_selects(ctx, rel.right, subs, execute))
+    raise PlanUnsupported(f"relation {type(rel).__name__}")
+
+
+def _build_leftjoin_agg(ctx, stmt: A.SelectStmt) -> LeftJoinAggPlan:
+    """``SELECT A.k, agg(B...) FROM A LEFT JOIN B ON A.k = B.fk [AND P(B)]
+    GROUP BY A.k`` -> engine group-by on B + host left-merge of A's keys."""
+    from spark_druid_olap_tpu_torch.planner import builder as B
+    from spark_druid_olap_tpu_torch.planner.host_exec import relation_columns
+    rel = stmt.relation
+    if not (isinstance(rel, A.Join) and rel.kind == "left"
+            and isinstance(rel.left, A.TableRef)
+            and isinstance(rel.right, A.TableRef)):
+        raise PlanUnsupported("not a left-join aggregate")
+    if stmt.where is not None or stmt.having is not None or stmt.distinct \
+            or stmt.limit is not None:
+        raise PlanUnsupported("left-join aggregate with WHERE/HAVING/LIMIT")
+    left_cols = set(relation_columns(ctx, rel.left))
+    right_cols = set(relation_columns(ctx, rel.right))
+    from spark_druid_olap_tpu_torch.planner.decorrelate import _split_and
+
+    key = fk = None
+    right_preds = []
+    for c in _split_and(rel.condition):
+        if (key is None and isinstance(c, E.Comparison) and c.op == "="
+                and isinstance(c.left, E.Column)
+                and isinstance(c.right, E.Column)):
+            a, b = c.left.name, c.right.name
+            if a in left_cols and b in right_cols:
+                key, fk = a, b
+                continue
+            if b in left_cols and a in right_cols:
+                key, fk = b, a
+                continue
+        refs = E.columns_in(c)
+        if refs <= right_cols:
+            right_preds.append(c)
+        else:
+            raise PlanUnsupported("left-join ON not (equi + right-side)")
+    if key is None:
+        raise PlanUnsupported("left join without an equi key")
+    gb = stmt.group_by
+    if not (isinstance(gb, tuple) and len(gb) == 1
+            and isinstance(gb[0], E.Column) and gb[0].name == key):
+        raise PlanUnsupported("grouping is not the left join key")
+
+    out_key = None
+    inner_items = [A.SelectItem(E.Column(fk), alias=fk)]
+    agg_cols: List[Tuple[str, bool]] = []
+    for i, it in enumerate(stmt.items):
+        if isinstance(it.expr, E.Column) and it.expr.name == key:
+            out_key = it.alias or key
+            continue
+        if not isinstance(it.expr, E.AggCall):
+            raise PlanUnsupported("non-aggregate output in left-join agg")
+        call = it.expr
+        refs = E.columns_in(call)
+        if not refs or not refs <= right_cols:
+            # count(*) counts the null extension (1 per unmatched left
+            # row); only right-side aggregates translate
+            raise PlanUnsupported("aggregate not over the right side")
+        name = it.alias or f"_c{i}"
+        inner_items.append(A.SelectItem(call, alias=name))
+        agg_cols.append((name, call.fn == "count"))
+    if out_key is None:
+        raise PlanUnsupported("left-join agg must output the key")
+
+    inner_stmt = A.SelectStmt(
+        items=tuple(inner_items), relation=rel.right,
+        where=None if not right_preds else (
+            right_preds[0] if len(right_preds) == 1
+            else E.And(tuple(right_preds))),
+        group_by=(E.Column(fk),))
+    pq = B.build(ctx, _chain(ctx, inner_stmt))
+    return LeftJoinAggPlan(left_table=rel.left.name, left_key=key,
+                           out_key=out_key, inner=pq, fk_col=fk,
+                           agg_cols=agg_cols)
+
+
+def execute_composite(ctx, plan: SubPlan) -> pd.DataFrame:
+    from spark_druid_olap_tpu_torch.planner import host_exec
+    from spark_druid_olap_tpu_torch.sql.session import execute_planned
+    if isinstance(plan, PlannedQuery):
+        return execute_planned(ctx, plan)
+    if isinstance(plan, LeftJoinAggPlan):
+        left = host_exec.datasource_frame(ctx, plan.left_table,
+                                          columns={plan.left_key})
+        if left[plan.left_key].duplicated().any():
+            # duplicate left keys mean one output row per left ROW with
+            # per-key counts repeated; that is a plain host join, not this
+            # rewrite (checked before spending the engine execution)
+            raise host_exec.HostExecError(
+                f"left join key {plan.left_key!r} is not unique")
+        inner = execute_planned(ctx, plan.inner)
+        df = left.merge(inner, left_on=plan.left_key, right_on=plan.fk_col,
+                        how="left")
+        out = pd.DataFrame({plan.out_key: df[plan.left_key]})
+        for name, zero_fill in plan.agg_cols:
+            col = df[name]
+            out[name] = col.fillna(0).astype(np.int64) if zero_fill else col
+        return out
+    frames = {}
+    for name, sub in plan.sub_plans:
+        frames[name] = execute_composite(ctx, sub)
+    tls = host_exec.ctx_tls(ctx)
+    prev = getattr(tls, "temp_frames", None)
+    tls.temp_frames = {**(prev or {}), **frames}
+    try:
+        return host_exec.execute_select(ctx, plan.outer_stmt)
+    finally:
+        tls.temp_frames = prev
+
+
+def describe(plan: SubPlan, indent: str = "") -> str:
+    """Explain text for a composite plan."""
+    if isinstance(plan, PlannedQuery):
+        specs = ", ".join(type(q).__name__ for q in plan.specs)
+        return f"{indent}engine: {plan.datasource} [{specs}]"
+    if isinstance(plan, LeftJoinAggPlan):
+        return (f"{indent}left-join agg: host merge {plan.left_table}."
+                f"{plan.left_key} with\n"
+                + describe(plan.inner, indent + "  "))
+    lines = [f"{indent}composite: host finish over"]
+    for name, sub in plan.sub_plans:
+        lines.append(f"{indent}  {name} <-")
+        lines.append(describe(sub, indent + "    "))
+    return "\n".join(lines)

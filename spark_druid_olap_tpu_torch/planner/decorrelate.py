@@ -1,0 +1,596 @@
+"""Uncorrelated-subquery inlining.
+
+Port counterpart of ``spark_druid_olap_tpu/planner/decorrelate.py``: a copy
+kept inside the PyTorch package, which imports nothing of the JAX package,
+less the cache-hit provenance note it gives the JAX session.
+
+The reference leaves subqueries to Spark, which evaluates uncorrelated scalar
+subqueries before pushdown rewriting sees them — so queries like TPC-H Q11's
+``having sum(...) > (select ... )`` still hit the Druid path for both the
+inner and outer blocks. This pass reproduces that: each *uncorrelated*
+scalar / IN / EXISTS subquery in WHERE or HAVING is executed through the full
+session path (so the inner query itself gets engine pushdown!) and replaced
+by a literal / value list, leaving the outer block subquery-free for the
+builder. Correlated subqueries remain and route to the host executor.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import pandas as pd
+
+from spark_druid_olap_tpu_torch.ir import expr as E
+from spark_druid_olap_tpu_torch.sql import ast as A
+
+
+def _to_python(v):
+    if isinstance(v, np.generic):
+        return v.item()
+    if isinstance(v, (pd.Timestamp, np.datetime64)):
+        ts = pd.Timestamp(v)
+        return ts.to_pydatetime().date() if ts.tz is None else ts
+    return v
+
+
+def _is_correlated(ctx, q: A.SelectStmt) -> bool:
+    from spark_druid_olap_tpu_torch.planner.host_exec import _free_columns
+    try:
+        return bool(_free_columns(ctx, q))
+    except Exception:
+        return True  # unknown tables etc. — leave it to the host path
+
+
+def _split_and(e: Optional[E.Expr]):
+    if e is None:
+        return []
+    if isinstance(e, E.And):
+        out = []
+        for p in e.parts:
+            out.extend(_split_and(p))
+        return out
+    return [e]
+
+
+def _and_all(parts):
+    if not parts:
+        return None
+    return parts[0] if len(parts) == 1 else E.And(tuple(parts))
+
+
+def _column_non_null(ctx, rel, name: str) -> bool:
+    """True when ``name`` resolves to a provably non-nullable column of a
+    base table in ``rel``."""
+    tables = []
+
+    def walk(r):
+        if isinstance(r, A.TableRef):
+            tables.append(r.name)
+        elif isinstance(r, A.Join):
+            walk(r.left)
+            walk(r.right)
+    if rel is not None:
+        walk(rel)
+    for t in tables:
+        try:
+            ds = ctx.store.get(t)
+        except KeyError:
+            continue
+        if name in ds.dims:
+            return ds.dims[name].validity is None
+        if name in ds.metrics:
+            return ds.metrics[name].validity is None
+        if ds.time is not None and name == ds.time.name:
+            return True
+    return False
+
+
+def decorrelate_semijoins(ctx, stmt: A.SelectStmt) -> A.SelectStmt:
+    """Correlated EXISTS / NOT EXISTS with a single equi-correlation
+    conjunct -> uncorrelated IN / NOT IN subquery over the inner key
+    (semi/anti join), which `inline_subqueries` then evaluates through the
+    engine. ≈ Spark's RewritePredicateSubquery giving the reference a
+    pushable plan on both sides of TPC-H q4/q21/q22-style predicates.
+
+    NOT EXISTS additionally requires a provably non-null probe column (a
+    NULL probe makes NOT IN unknown where the anti join keeps the row).
+    """
+    if stmt.where is None:
+        return stmt
+    changed = False
+    conjs = []
+    for c in _split_and(stmt.where):
+        r = _try_semijoin(ctx, stmt, c)
+        if r is not None:
+            changed = True
+            conjs.append(r)
+        else:
+            conjs.append(c)
+    if not changed:
+        return stmt
+    return dataclasses.replace(stmt, where=_and_all(conjs))
+
+
+def _try_semijoin(ctx, outer: A.SelectStmt, c) -> Optional[E.Expr]:
+    negated = False
+    while isinstance(c, E.Not):      # parser may emit NOT Exists(...)
+        negated = not negated
+        c = c.child
+    if not isinstance(c, A.Exists):
+        return None
+    negated = negated != c.negated
+    q = c.query
+    if q.group_by is not None or q.having is not None \
+            or q.limit is not None or q.distinct:
+        return None
+    from spark_druid_olap_tpu_torch.planner.host_exec import _free_columns
+    try:
+        free = _free_columns(ctx, q)
+    except Exception:  # noqa: BLE001 — unknown tables etc.
+        return None
+    if len(free) != 1:
+        return None
+    (outer_col,) = free
+    inner_col = None
+    rest = []
+    for cj in _split_and(q.where):
+        if (inner_col is None and isinstance(cj, E.Comparison)
+                and cj.op == "=" and isinstance(cj.left, E.Column)
+                and isinstance(cj.right, E.Column)
+                and {cj.left.name, cj.right.name} & {outer_col}):
+            other = cj.right.name if cj.left.name == outer_col \
+                else cj.left.name
+            if other != outer_col:
+                inner_col = other
+                continue
+        rest.append(cj)
+    if inner_col is None:
+        return None
+    # the correlation must live ONLY in that conjunct
+    from spark_druid_olap_tpu_torch.planner.host_exec import _expr_refs
+    for cj in rest:
+        try:
+            if outer_col in _expr_refs(ctx, cj):
+                return None
+        except Exception:  # noqa: BLE001
+            return None
+    if negated and not _column_non_null(ctx, outer.relation, outer_col):
+        return None
+    inner = A.SelectStmt(
+        items=(A.SelectItem(E.Column(inner_col)),),
+        relation=q.relation, where=_and_all(rest), distinct=True)
+    return A.InSubquery(child=E.Column(outer_col), query=inner,
+                        negated=negated)
+
+
+def _classify_correlation(ctx, q, free, inner_cols, max_residuals,
+                          max_pairs=1):
+    """Split ``q.where`` into (pairs, rest, residuals): up to
+    ``max_pairs`` equality conjuncts each bind a DISTINCT free column to
+    an inner key expression; up to ``max_residuals`` further
+    free-referencing conjuncts may be min/max-decidable comparisons
+    (host_exec._residual_minmax); everything else must be inner-only.
+    Returns None when the correlation has any other shape. Shared by the
+    scalar and EXISTS inlining passes so their gating cannot diverge."""
+    from spark_druid_olap_tpu_torch.planner.host_exec import (
+        _expr_refs, _residual_minmax)
+    pairs = []               # (outer_col, inner_key_expr)
+    bound = set()
+    residuals = []
+    rest = []
+    for c in _split_and(q.where):
+        refs = _expr_refs(ctx, c)
+        if not (refs & free):
+            rest.append(c)
+            continue
+        if len(pairs) < max_pairs and isinstance(c, E.Comparison) \
+                and c.op == "=":
+            pair = None
+            for a, b in ((c.left, c.right), (c.right, c.left)):
+                if isinstance(a, E.Column) and a.name in free \
+                        and a.name not in bound:
+                    brefs = _expr_refs(ctx, b)
+                    if brefs and not (brefs & free) \
+                            and brefs <= inner_cols:
+                        pair = (a.name, b)
+                        break
+            if pair is not None:
+                pairs.append(pair)
+                bound.add(pair[0])
+                continue
+        if len(residuals) < max_residuals:
+            mm = _residual_minmax(ctx, c, free, inner_cols)
+            if mm is not None:
+                residuals.append(mm)
+                continue
+        return None
+    if not pairs:
+        return None
+    return pairs, rest, residuals
+
+
+def _numeric_series(s):
+    """The engine result column as float64, or None when it is not
+    numeric (string/timestamp aggregates must NOT silently coerce to
+    NULL)."""
+    if s.dtype == object or s.dtype.kind not in "biuf":
+        return None
+    return pd.to_numeric(s, errors="coerce").to_numpy(dtype=np.float64)
+
+
+def _cached_inner(ctx, q2, sql_tag):
+    """Run an inlined subquery through the full session path, cached per
+    (store version, statement): dashboard-repetitive statements re-plan
+    on every execution, and without this every warm run re-executed each
+    decorrelated inner (ingest bumps store.version, so results can never
+    go stale; bounded like the engine-assist cache).
+
+    Gated on ``sdot.plan.cache.enabled`` like the plan/cplan channels:
+    benchmarks disable that key expecting measured reps to pay the full
+    execute path, and an ungated subquery cache let nested-subquery
+    statements (TPC-H q20) report zero device dispatches on warm reps."""
+    from spark_druid_olap_tpu_torch.planner.host_exec import (result_cache,
+                                                        result_cache_put)
+    from spark_druid_olap_tpu_torch.utils.config import PLAN_CACHE_ENABLED
+    use_cache = bool(ctx.config.get(PLAN_CACHE_ENABLED))
+    if use_cache:
+        cache, key = result_cache(ctx, "subquery", q2)
+        hit = cache.get(key)
+        if hit is not None:
+            cache.move_to_end(key)           # keep hot entries resident
+            return hit
+    from spark_druid_olap_tpu_torch.sql.session import _run_select
+    df = _run_select(ctx, q2, sql=sql_tag).to_pandas()
+    if use_cache:
+        result_cache_put(cache, key, df)
+    return df
+
+
+def _run_grouped_inner(ctx, q, inner_keys, rest, value_items):
+    """Execute the decorrelated per-key aggregate through the full session
+    path (engine pushdown for the inner). Returns ([int64 key arrays],
+    [value arrays]) or None."""
+    q2 = A.SelectStmt(
+        items=tuple(A.SelectItem(k, f"__k{j}")
+                    for j, k in enumerate(inner_keys))
+        + tuple(A.SelectItem(e, f"__v{i}")
+                for i, e in enumerate(value_items)),
+        relation=q.relation, where=_and_all(rest),
+        group_by=tuple(inner_keys))
+    try:
+        df = _cached_inner(ctx, q2, "<correlated subquery>")
+    except Exception:  # noqa: BLE001 — leave to the host tier
+        return None
+    keep = np.ones(len(df), dtype=bool)
+    for j in range(len(inner_keys)):
+        keep &= df[f"__k{j}"].notna().to_numpy()
+    keys = []
+    for j in range(len(inner_keys)):
+        k = df[f"__k{j}"][keep]
+        if len(k) and np.asarray(k).dtype.kind not in "iu":
+            return None
+        keys.append(np.asarray(k, dtype=np.int64))
+    vals = []
+    for i in range(len(value_items)):
+        v = _numeric_series(df[f"__v{i}"][keep])
+        if v is None:
+            return None
+        vals.append(v)
+    return keys, vals
+
+
+_NAN_SAFE_CMP = ("=", "<", "<=", ">", ">=")
+
+
+def _cols_outside_lookups(e) -> set:
+    """Column names referenced by ``e`` OUTSIDE KeyedLookup subtrees (a
+    lookup's key column handles its own NULLs in lowering — miss value —
+    and must not be over-guarded: a NULL key with a count-default still
+    compares meaningfully)."""
+    out = set()
+
+    def rec(n):
+        if isinstance(n, (E.KeyedLookup, E.KeyedLookup2)):
+            return
+        if isinstance(n, E.Column):
+            out.add(n.name)
+        for c in n.children():
+            rec(c)
+
+    rec(e)
+    return out
+
+
+def _null_guarded(ctx, rel, cmp_expr):
+    """Device column payloads are zero-FILLED for NULL rows, so a pushed
+    comparison touching a nullable outer column needs explicit IS NOT
+    NULL guards to keep SQL's UNKNOWN-drops-row semantics (the host tier
+    gets them right via eval_pred3, the compiled path via the column
+    validity masks behind IsNull)."""
+    guards = tuple(
+        E.IsNull(E.Column(c), negated=True)
+        for c in sorted(_cols_outside_lookups(cmp_expr))
+        if not _column_non_null(ctx, rel, c))
+    if not guards:
+        return cmp_expr
+    return E.And(guards + (cmp_expr,))
+
+
+def inline_correlated_scalars(ctx, stmt: A.SelectStmt) -> A.SelectStmt:
+    """Correlated subqueries in WHERE -> :class:`E.KeyedLookup`
+    expressions over decorrelated per-key aggregates (executed ONCE
+    through the full session path, so the inner gets engine pushdown),
+    leaving the outer statement subquery-free and itself pushable — the
+    TPC-H q2/q17/q21 shapes run entirely on device as scan-collapsed
+    broadcast joins. ≈ Spark's RewriteCorrelatedScalarSubquery /
+    RewritePredicateSubquery followed by a broadcast hash join.
+
+    NULL discipline: a lookup miss is NaN-coded (or the aggregate's
+    non-NULL empty-group identity, e.g. count -> 0). NaN evaluates False
+    under {=, <, <=, >, >=} — exactly SQL's UNKNOWN-drops-row — but True
+    under IEEE !=, and NOT flips a spurious False into a spurious True.
+    The walker therefore tracks polarity and only inlines a scalar
+    subquery under an even number of NOTs inside one of the safe
+    comparison ops, reached through NaN-transparent arithmetic. EXISTS
+    rewrites are polarity-independent (EXISTS is never UNKNOWN; the
+    generated predicate is False on miss, which negation maps correctly).
+    """
+    if stmt.where is None:
+        return stmt
+    changed = [False]
+
+    def subst_scalar(n):
+        q = n.query
+        if q.relation is None or q.group_by is not None \
+                or q.having is not None or q.limit is not None \
+                or q.distinct or len(q.items) != 1 \
+                or q.items[0].expr == "*":
+            return None
+        from spark_druid_olap_tpu_torch.planner.host_exec import (
+            _empty_group_value, _expr_refs, _free_columns,
+            _relation_free_refs, relation_columns)
+        try:
+            free = _free_columns(ctx, q)
+            if not free or len(free) > 2:
+                return None
+            if _relation_free_refs(ctx, q.relation) & free:
+                return None
+            if _expr_refs(ctx, q.items[0].expr) & free:
+                return None
+            inner_cols = set(relation_columns(ctx, q.relation))
+            cl = _classify_correlation(ctx, q, free, inner_cols, 0,
+                                       max_pairs=len(free))
+        except Exception:  # noqa: BLE001 — unknown tables/columns
+            return None
+        if cl is None or not E.agg_calls_in(q.items[0].expr):
+            return None
+        pairs, rest, _ = cl
+        if len(pairs) != len(free):
+            return None              # a free column escaped the key pairs
+        r = _run_grouped_inner(ctx, q, [b for _, b in pairs], rest,
+                               [q.items[0].expr])
+        if r is None:
+            return None
+        keys, (varr,) = r
+        d = _empty_group_value(q.items[0].expr)
+        default = None
+        if isinstance(d, (int, float, np.number)) \
+                and not (isinstance(d, float) and np.isnan(d)):
+            default = float(d)
+        if len(pairs) == 1:
+            return E.KeyedLookup(E.Column(pairs[0][0]),
+                                 E.FrozenKeyedTable(keys[0], varr),
+                                 default)
+        # composite key: both key domains must fit int32 (the host packs
+        # pairs into one int64; the device compares i32 pairs)
+        for k in keys:
+            if len(k) and (k.min() < -(2**31) or k.max() >= 2**31):
+                return None
+        return E.KeyedLookup2(E.Column(pairs[0][0]), E.Column(pairs[1][0]),
+                              E.FrozenKeyedTable2(keys[0], keys[1], varr),
+                              default)
+
+    def val(e, allow):
+        """Value position: inline only when ``allow`` (reached from a
+        positively-oriented safe comparison through NaN-transparent
+        arithmetic)."""
+        if isinstance(e, A.ScalarSubquery) and allow:
+            r = subst_scalar(e)
+            if r is not None:
+                changed[0] = True
+                return r
+            return e
+        if isinstance(e, E.BinaryOp):
+            l2, r2 = val(e.left, allow), val(e.right, allow)
+            if l2 is e.left and r2 is e.right:
+                return e
+            return E.BinaryOp(e.op, l2, r2)
+        if isinstance(e, E.Cast):
+            c2 = val(e.child, allow)
+            return e if c2 is e.child else E.Cast(c2, e.to)
+        return e
+
+    def boolean(e, pos):
+        if isinstance(e, E.And):
+            return E.And(tuple(boolean(p, pos) for p in e.parts))
+        if isinstance(e, E.Or):
+            return E.Or(tuple(boolean(p, pos) for p in e.parts))
+        if isinstance(e, E.Not):
+            return E.Not(boolean(e.child, not pos))
+        if isinstance(e, A.Exists):
+            r = _minmax_exists(ctx, e, stmt.relation)
+            if r is not None:
+                changed[0] = True
+                return r
+            return e
+        if isinstance(e, E.Comparison):
+            allow = pos and e.op in _NAN_SAFE_CMP
+            out = E.Comparison(e.op, val(e.left, allow),
+                               val(e.right, allow))
+            if out.left is not e.left or out.right is not e.right:
+                return _null_guarded(ctx, stmt.relation, out)
+            return e
+        if isinstance(e, E.Between):
+            allow = pos and not e.negated
+            out = E.Between(val(e.child, allow), val(e.low, allow),
+                            val(e.high, allow), e.negated)
+            if out.child is not e.child or out.low is not e.low \
+                    or out.high is not e.high:
+                return _null_guarded(ctx, stmt.relation, out)
+            return e
+        return e
+
+    new_where = boolean(stmt.where, True)
+    if not changed[0]:
+        return stmt
+    return dataclasses.replace(stmt, where=new_where)
+
+
+def _minmax_exists(ctx, node, outer_rel=None) -> Optional[E.Expr]:
+    """EXISTS with one integer equi-correlation AND one comparison residual
+    against a second outer column -> an expression over per-key (min, max)
+    KeyedLookups: 'exists (inner.k = outer.k and inner.c <op> outer.c)'
+    is decidable from min(c)/max(c) per k, so the inner collapses to ONE
+    grouped aggregate (engine-executed here) and the outer stays pushable
+    — q21's shape runs on device end to end. NULL semantics: a missing
+    key gives NaN lookups whose ordered comparisons are false (EXISTS'
+    UNKNOWN-drops-row rule); '<>' adds explicit NOT-NULL guards because
+    IEEE NaN != x is true."""
+    from spark_druid_olap_tpu_torch.planner.host_exec import (
+        _free_columns, _relation_free_refs, relation_columns)
+    q = node.query
+    if q.relation is None or q.group_by is not None \
+            or q.having is not None or q.limit is not None or q.distinct:
+        return None
+    try:
+        free = _free_columns(ctx, q)
+        if not free or len(free) > 2:
+            return None
+        if _relation_free_refs(ctx, q.relation) & free:
+            return None
+        inner_cols = set(relation_columns(ctx, q.relation))
+        cl = _classify_correlation(ctx, q, free, inner_cols, 1)
+    except Exception:  # noqa: BLE001 — unknown tables/columns
+        return None
+    if cl is None or len(cl[2]) != 1:
+        return None
+    pairs, rest, (mm,) = cl
+    (kcol, inner_key), = pairs
+    op, inner_expr, ccol = mm
+    if ccol == kcol:
+        return None
+    r = _run_grouped_inner(ctx, q, [inner_key], rest,
+                           [E.AggCall("min", inner_expr),
+                            E.AggCall("max", inner_expr)])
+    if r is None:
+        return None
+    (karr,), (mnv, mxv) = r
+    mn = E.KeyedLookup(E.Column(kcol), E.FrozenKeyedTable(karr, mnv))
+    mx = E.KeyedLookup(E.Column(kcol), E.FrozenKeyedTable(karr, mxv))
+    c = E.Column(ccol)
+    if op == "<":
+        cond = E.Comparison("<", mn, c)
+    elif op == "<=":
+        cond = E.Comparison("<=", mn, c)
+    elif op == ">":
+        cond = E.Comparison(">", mx, c)
+    elif op == ">=":
+        cond = E.Comparison(">=", mx, c)
+    else:                                  # '<>'
+        cond = E.And((E.IsNull(mn, negated=True),
+                      E.IsNull(c, negated=True),
+                      E.Or((E.Comparison("!=", mn, c),
+                            E.Comparison("!=", mx, c)))))
+    if op != "<>" and not _column_non_null(ctx, outer_rel, ccol):
+        # NULL outer probe: every residual comparison is UNKNOWN, so the
+        # EXISTS is false — zero-filled device payloads need the guard
+        cond = E.And((E.IsNull(c, negated=True), cond))
+    return E.Not(cond) if node.negated else cond
+
+
+def stmt_has_subqueries(stmt: A.SelectStmt) -> bool:
+    """Any subquery node in WHERE or HAVING — the public hook for EXPLAIN,
+    which must DESCRIBE the execution-time inlining (inline_subqueries /
+    inline_correlated_scalars run real engine queries) without running
+    it."""
+    for e in (stmt.where, stmt.having):
+        if e is None:
+            continue
+        for n in E.walk(e):
+            if isinstance(n, (A.ScalarSubquery, A.InSubquery, A.Exists)):
+                return True
+    return False
+
+
+def build_in_list_expr(child: E.Expr, raw: pd.Series,
+                       negated: bool) -> E.Expr:
+    """An executed IN-subquery's value list -> the membership expr, with
+    SQL 3VL for NULL-bearing lists: membership in such a list is TRUE on
+    a match else UNKNOWN (never FALSE), so NOT IN can never be TRUE.
+    Encoded as Kleene 'inlist OR NULL', which eval_pred3 resolves
+    through the node's own negation AND any enclosing NOT. Null-free
+    lists keep the pushdown-friendly negated-InList shape (lowers to
+    the engine's InFilter). The ONE shared encoding of the uncorrelated
+    inline pass and the host executor."""
+    col = raw.dropna()
+    had_null = len(col) < len(raw)
+    if len(col) > 1024 and \
+            np.issubdtype(col.to_numpy().dtype, np.integer):
+        # semi-join-scale integer key list: O(1)-repr sorted set
+        base = E.InList(child, E.FrozenIntSet(col.to_numpy()),
+                        negated=False)
+    elif len(col):
+        base = E.InList(child, tuple(_to_python(v) for v in pd.unique(col)),
+                        negated=False)
+    else:
+        base = None                        # empty list matches nothing
+    if not had_null:
+        if base is None:
+            return E.Literal(bool(negated))
+        return dataclasses.replace(base, negated=negated)
+    base = E.Literal(None) if base is None \
+        else E.Or((base, E.Literal(None)))
+    return E.Not(base) if negated else base
+
+
+def inline_subqueries(ctx, stmt: A.SelectStmt) -> A.SelectStmt:
+    """Replace uncorrelated subquery nodes in WHERE/HAVING with literals."""
+
+    def run_inner(q: A.SelectStmt) -> pd.DataFrame:
+        return _cached_inner(ctx, q, "<subquery>")
+
+    changed = [False]
+
+    def resolve(e: Optional[E.Expr]) -> Optional[E.Expr]:
+        if e is None:
+            return None
+
+        def rep(n):
+            if isinstance(n, A.ScalarSubquery) and \
+                    not _is_correlated(ctx, n.query):
+                df = run_inner(n.query)
+                changed[0] = True
+                if len(df) == 0:
+                    return E.Literal(None)
+                return E.Literal(_to_python(df.iloc[0, 0]))
+            if isinstance(n, A.InSubquery) and \
+                    not _is_correlated(ctx, n.query):
+                df = run_inner(n.query)
+                changed[0] = True
+                return build_in_list_expr(n.child, df.iloc[:, 0],
+                                          n.negated)
+            if isinstance(n, A.Exists) and not _is_correlated(ctx, n.query):
+                df = run_inner(n.query)
+                changed[0] = True
+                return E.Literal((len(df) > 0) != n.negated)
+            return n
+
+        return E.transform(e, rep)
+
+    new_where = resolve(stmt.where)
+    new_having = resolve(stmt.having)
+    if not changed[0]:
+        return stmt
+    return dataclasses.replace(stmt, where=new_where, having=new_having)

@@ -72,6 +72,45 @@ class Datasource:
     def num_segments(self) -> int:
         return len(self.segments)
 
+    @property
+    def time_column(self) -> Optional[str]:
+        return self.time.name if self.time is not None else None
+
+    def interval(self) -> Tuple[int, int]:
+        """(min, max+1ms) millis over all segments (≈ datasource
+        intervals)."""
+        if not self.segments:
+            return (0, 0)
+        return (min(s.min_millis for s in self.segments),
+                max(s.max_millis for s in self.segments) + 1)
+
+    def column_names(self) -> List[str]:
+        out = list(self.dims) + list(self.metrics)
+        if self.time is not None:
+            out.append(self.time.name)
+        return out
+
+    def metadata(self) -> dict:
+        """Druid segmentMetadata-equivalent summary (reference:
+        ``MetadataResponse`` fields)."""
+        cols = {}
+        for d in self.dims.values():
+            cols[d.name] = {"type": "STRING", "cardinality": d.cardinality,
+                            "size": d.data_nbytes(),
+                            "hasNulls": d.has_nulls()}
+        for m in self.metrics.values():
+            cols[m.name] = {"type": "LONG" if m.kind == ColumnKind.LONG
+                            else "DOUBLE",
+                            "cardinality": None, "size": m.data_nbytes(),
+                            "hasNulls": m.has_nulls()}
+        if self.time is not None:
+            cols[self.time.name] = {"type": "TIME", "cardinality": None,
+                                    "size": self.time.footprint_nbytes(),
+                                    "hasNulls": False}
+        return {"datasource": self.name, "numRows": self.num_rows,
+                "numSegments": self.num_segments, "interval": self.interval(),
+                "columns": cols}
+
     def column_kind(self, name: str) -> ColumnKind:
         if self.time is not None and name == self.time.name:
             return ColumnKind.TIME
@@ -260,13 +299,24 @@ def datasource_from_arrays(name: str, arrays: dict) -> Datasource:
 
 
 class SegmentStore:
-    """Registry of ingested datasources."""
+    """Registry of ingested datasources. ``version`` is bumped on every
+    register or drop; plan and result caches key on it
+    (``planner/host_exec.result_cache``)."""
 
     def __init__(self):
         self._datasources: Dict[str, Datasource] = {}
+        self.version = 0
 
     def register(self, ds: Datasource) -> None:
         self._datasources[ds.name] = ds
+        self.version += 1
+
+    def drop(self, name: str) -> None:
+        self._datasources.pop(name, None)
+        self.version += 1
+
+    def names(self) -> List[str]:
+        return sorted(self._datasources)
 
     def get(self, name: str) -> Datasource:
         if name not in self._datasources:

@@ -1,0 +1,958 @@
+"""Recursive-descent SQL parser for the analytic subset the engine rewrites.
+
+Port counterpart of ``spark_druid_olap_tpu/sql/parser.py``: a copy kept
+inside the PyTorch package, which imports nothing of the JAX package.
+
+≈ the reference's parser layer: Spark's SQL parser for queries plus
+``SparklineDataParser.scala:105-124`` for the extension commands (``CLEAR
+METADATA``, ``EXPLAIN REWRITE <sql>``, ``ON DATASOURCE ds EXECUTE QUERY
+<json>``). Covers the TPC-H dialect: joins (ANSI + comma), scalar/IN/EXISTS
+subqueries, derived tables, CASE, CAST, EXTRACT, SUBSTRING, BETWEEN, LIKE,
+IN, date/timestamp/interval literals and arithmetic, grouping sets / cube /
+rollup, count(distinct), approx_count_distinct.
+
+Qualified column names are stored unqualified (``l.l_quantity`` ->
+``l_quantity``): the engine requires globally-unique column names across a
+star schema, exactly like the reference (``StarSchemaInfo.scala:127-165``).
+Table aliases are tracked on the relations themselves.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+from spark_druid_olap_tpu_torch.ir import expr as E
+from spark_druid_olap_tpu_torch.sql import ast as A
+from spark_druid_olap_tpu_torch.sql.lexer import SqlSyntaxError, Token, tokenize
+
+AGG_FUNCS = {"sum", "min", "max", "avg", "count"}
+
+
+def _substitute_ctes(node, ctes):
+    """Replace TableRef(name) with SubqueryRef(cte_query) everywhere a CTE
+    name is referenced — relations, derived tables, and subqueries in
+    expressions (≈ Spark's CTESubstitution)."""
+    if not ctes:
+        return node
+    import dataclasses
+
+    def sub_rel(rel):
+        if rel is None:
+            return None
+        if isinstance(rel, A.TableRef):
+            q = ctes.get(rel.name)
+            if q is not None:
+                return A.SubqueryRef(q, rel.alias or rel.name)
+            return rel
+        if isinstance(rel, A.SubqueryRef):
+            return dataclasses.replace(rel, query=sub_stmt(rel.query))
+        if isinstance(rel, A.Join):
+            return dataclasses.replace(rel, left=sub_rel(rel.left),
+                                       right=sub_rel(rel.right),
+                                       condition=sub_expr(rel.condition))
+        return rel
+
+    def sub_expr(e):
+        if e is None or isinstance(e, str):
+            return e
+
+        def rep(n):
+            if isinstance(n, (A.ScalarSubquery, A.Exists, A.InSubquery)):
+                return dataclasses.replace(n, query=sub_stmt(n.query))
+            return n
+
+        return E.transform(e, rep)
+
+    def sub_stmt(st):
+        if isinstance(st, A.UnionAll):
+            return dataclasses.replace(
+                st, parts=tuple(sub_stmt(p) for p in st.parts))
+        items = tuple(it if it.expr == "*"
+                      else dataclasses.replace(it, expr=sub_expr(it.expr))
+                      for it in st.items)
+        gb = st.group_by
+        if isinstance(gb, tuple):
+            gb = tuple(sub_expr(g) for g in gb)
+        ob = tuple(dataclasses.replace(o, expr=sub_expr(o.expr))
+                   for o in st.order_by)
+        return dataclasses.replace(
+            st, items=items, relation=sub_rel(st.relation),
+            where=sub_expr(st.where), having=sub_expr(st.having),
+            group_by=gb, order_by=ob)
+
+    return sub_stmt(node)
+
+
+class Parser:
+    def __init__(self, sql: str):
+        self.sql = sql
+        self.toks: List[Token] = tokenize(sql)
+        self.i = 0
+
+    # -- token helpers --------------------------------------------------------
+    def peek(self, k: int = 0) -> Token:
+        return self.toks[min(self.i + k, len(self.toks) - 1)]
+
+    def next(self) -> Token:
+        t = self.toks[self.i]
+        if t.kind != "eof":
+            self.i += 1
+        return t
+
+    def at_kw(self, *kws: str) -> bool:
+        t = self.peek()
+        return t.kind == "kw" and t.value in kws
+
+    def at_op(self, *ops: str) -> bool:
+        t = self.peek()
+        return t.kind == "op" and t.value in ops
+
+    def eat_kw(self, *kws: str) -> bool:
+        if self.at_kw(*kws):
+            self.next()
+            return True
+        return False
+
+    def expect_kw(self, kw: str):
+        if not self.eat_kw(kw):
+            t = self.peek()
+            raise SqlSyntaxError(
+                f"expected {kw.upper()} at {t.pos}, got {t.value!r}")
+
+    def expect_op(self, op: str):
+        if not self.at_op(op):
+            t = self.peek()
+            raise SqlSyntaxError(
+                f"expected {op!r} at {t.pos}, got {t.value!r}")
+        self.next()
+
+    # -- statements -----------------------------------------------------------
+    def parse_statement(self) -> A.Statement:
+        if self.at_kw("explain"):
+            self.next()
+            self.eat_kw("rewrite")
+            rest_pos = self.peek().pos
+            q = self.parse_with() if self.at_kw("with") \
+                else self.parse_select_or_union()
+            self._expect_eof()
+            return A.ExplainRewrite(q, self.sql[rest_pos:])
+        if self.at_kw("clear"):
+            self.next()
+            self.expect_kw("metadata")
+            ds = None
+            purge = False
+            if self.peek().kind == "ident":
+                w = self.next().value
+                # trailing soft word PURGE also deletes on-disk snapshots;
+                # a datasource literally named "purge" must be cleared via
+                # CLEAR METADATA purge PURGE
+                if w.lower() == "purge" and self.peek().kind == "eof":
+                    purge = True
+                else:
+                    ds = w
+                    if self._at_word("purge"):
+                        self.next()
+                        purge = True
+            self._expect_eof()
+            return A.ClearMetadata(ds, purge=purge)
+        if self._at_word("checkpoint") or self._at_word("restore"):
+            # soft-word-led persist commands (persist/): CHECKPOINT and
+            # RESTORE stay valid identifiers everywhere else
+            word = self.next().value.lower()
+            ds = None
+            if self.peek().kind != "eof":
+                ds = self._ident()
+            self._expect_eof()
+            return A.Checkpoint(ds) if word == "checkpoint" \
+                else A.Restore(ds)
+        if self.at_kw("create"):
+            self.next()
+            self.expect_kw("rollup")
+            name = self._ident()
+            self.expect_kw("on")
+            base = self._ident()
+            self._expect_word("dimensions")
+            dims = self._parse_paren_ident_list()
+            self._expect_word("aggregations")
+            aggs = self._parse_paren_expr_list()
+            gran = None
+            if self._at_word("granularity"):
+                self.next()
+                gran = self._ident().lower()
+            self._expect_eof()
+            return A.CreateRollup(name, base, dims, aggs, gran)
+        if self.at_kw("drop"):
+            self.next()
+            self.expect_kw("rollup")
+            name = self._ident()
+            self._expect_eof()
+            return A.DropRollup(name)
+        if self.at_kw("refresh"):
+            self.next()
+            self.expect_kw("rollup")
+            name = self._ident()
+            self._expect_eof()
+            return A.RefreshRollup(name)
+        t = self.peek()
+        if t.kind == "kw" and t.value == "with":
+            q = self.parse_with()
+            self._expect_eof()
+            return q
+        if (t.kind == "kw" and t.value == "select") or self.at_op("("):
+            q = self.parse_select_or_union()
+            self._expect_eof()
+            return q
+        raise SqlSyntaxError(f"cannot parse statement at {t.pos}: {t.value!r}")
+
+    # -- rollup DDL helpers (DIMENSIONS/AGGREGATIONS/GRANULARITY are soft
+    # words, not reserved keywords) -------------------------------------------
+    def _at_word(self, word: str) -> bool:
+        t = self.peek()
+        return t.kind == "ident" and t.value.lower() == word
+
+    def _expect_word(self, word: str):
+        if not self._at_word(word):
+            t = self.peek()
+            raise SqlSyntaxError(
+                f"expected {word.upper()} at {t.pos}, got {t.value!r}")
+        self.next()
+
+    def _parse_paren_ident_list(self):
+        self.expect_op("(")
+        out = []
+        if not self.at_op(")"):
+            out.append(self._ident())
+            while self.at_op(","):
+                self.next()
+                out.append(self._ident())
+        self.expect_op(")")
+        return tuple(out)
+
+    def _parse_paren_expr_list(self):
+        self.expect_op("(")
+        out = []
+        if not self.at_op(")"):
+            out.append(self.parse_expr())
+            while self.at_op(","):
+                self.next()
+                out.append(self.parse_expr())
+        self.expect_op(")")
+        return tuple(out)
+
+    def parse_with(self):
+        """WITH name AS (select), ... <select|union> — CTEs desugar to
+        derived tables wherever their name is referenced (the existing
+        view-merge / composite machinery then plans them; ≈ Spark's
+        CTESubstitution rule)."""
+        self.expect_kw("with")
+        ctes: dict = {}
+        while True:
+            name = self._ident()
+            self.expect_kw("as")
+            self.expect_op("(")
+            q = self.parse_select_or_union()
+            self.expect_op(")")
+            if name in ctes:
+                raise SqlSyntaxError(f"duplicate CTE name {name!r}")
+            # earlier CTEs are visible inside later ones
+            ctes[name] = _substitute_ctes(q, ctes)
+            if not self.at_op(","):
+                break
+            self.next()
+        return _substitute_ctes(self.parse_select_or_union(), ctes)
+
+    def parse_select_or_union(self):
+        first_paren = self.at_op("(")
+        q = self.parse_select()
+        if not self.at_kw("union"):
+            return q
+        parts = [q]
+        parens = [first_paren]
+        last_paren = False
+        while self.eat_kw("union"):
+            if not self.eat_kw("all"):
+                raise SqlSyntaxError(
+                    "only UNION ALL is supported (use SELECT DISTINCT "
+                    "over a derived union for UNION)")
+            last_paren = self.at_op("(")
+            parens.append(last_paren)
+            parts.append(self.parse_select())
+        for p, was_paren in zip(parts[:-1], parens[:-1]):
+            # standard SQL binds trailing clauses to the whole union; a
+            # bare non-final branch that consumed its own is ambiguous
+            if not was_paren and (p.order_by or p.limit is not None
+                                  or p.offset):
+                raise SqlSyntaxError(
+                    "ORDER BY/LIMIT/OFFSET on a non-final UNION ALL "
+                    "branch: parenthesize the branch to scope them to it")
+        if last_paren:
+            # '(select ... limit n)' keeps its own clauses; the union's
+            # trailing ORDER BY / LIMIT / OFFSET follow the parens
+            ob, lim, off = self._parse_trailing_clauses()
+        else:
+            # a bare last SELECT consumed the trailing clauses, which
+            # standard SQL binds to the WHOLE union — hoist them
+            import dataclasses
+            last = parts[-1]
+            ob, lim, off = last.order_by, last.limit, last.offset
+            parts[-1] = dataclasses.replace(last, order_by=(), limit=None,
+                                            offset=0)
+        return A.UnionAll(tuple(parts), ob, lim, off)
+
+    def _parse_trailing_clauses(self):
+        order_by: List[A.OrderItem] = []
+        if self.at_kw("order"):
+            self.next()
+            self.expect_kw("by")
+            order_by.append(self.parse_order_item())
+            while self.at_op(","):
+                self.next()
+                order_by.append(self.parse_order_item())
+        limit = None
+        if self.eat_kw("limit"):
+            t = self.next()
+            if t.kind != "number":
+                raise SqlSyntaxError(f"LIMIT expects a number at {t.pos}")
+            limit = int(t.value)
+        offset = 0
+        if self.eat_kw("offset"):
+            t = self.next()
+            if t.kind != "number":
+                raise SqlSyntaxError(f"OFFSET expects a number at {t.pos}")
+            offset = int(t.value)
+        return tuple(order_by), limit, offset
+
+    def _expect_eof(self):
+        t = self.peek()
+        if t.kind != "eof":
+            raise SqlSyntaxError(
+                f"unexpected trailing input at {t.pos}: {t.value!r}")
+
+    # -- select ---------------------------------------------------------------
+    def parse_select(self) -> A.SelectStmt:
+        if self.at_op("("):
+            self.next()
+            q = self.parse_select()
+            self.expect_op(")")
+            return q
+        self.expect_kw("select")
+        distinct = self.eat_kw("distinct")
+        self.eat_kw("all")
+        items = [self.parse_select_item()]
+        while self.at_op(","):
+            self.next()
+            items.append(self.parse_select_item())
+        relation = None
+        if self.eat_kw("from"):
+            relation = self.parse_relation()
+        where = None
+        if self.eat_kw("where"):
+            where = self.parse_expr()
+        group_by = None
+        if self.at_kw("group"):
+            self.next()
+            self.expect_kw("by")
+            group_by = self.parse_group_by()
+        having = None
+        if self.eat_kw("having"):
+            having = self.parse_expr()
+        order_by, limit, offset = self._parse_trailing_clauses()
+        return A.SelectStmt(tuple(items), relation, where, group_by, having,
+                            order_by, limit, distinct, offset)
+
+    def parse_select_item(self) -> A.SelectItem:
+        if self.at_op("*"):
+            self.next()
+            return A.SelectItem("*")
+        e = self.parse_expr()
+        alias = None
+        if self.eat_kw("as"):
+            alias = self._ident()
+        elif self.peek().kind == "ident":
+            alias = self.next().value
+        return A.SelectItem(e, alias)
+
+    def parse_order_item(self) -> A.OrderItem:
+        e = self.parse_expr()
+        asc = True
+        if self.eat_kw("desc"):
+            asc = False
+        else:
+            self.eat_kw("asc")
+        return A.OrderItem(e, asc)
+
+    def parse_group_by(self):
+        if self.at_kw("grouping"):
+            self.next()
+            self.expect_kw("sets")
+            self.expect_op("(")
+            sets = []
+            while True:
+                self.expect_op("(")
+                exprs = []
+                if not self.at_op(")"):
+                    exprs.append(self.parse_expr())
+                    while self.at_op(","):
+                        self.next()
+                        exprs.append(self.parse_expr())
+                self.expect_op(")")
+                sets.append(tuple(exprs))
+                if self.at_op(","):
+                    self.next()
+                    continue
+                break
+            self.expect_op(")")
+            return A.GroupingSets(tuple(sets))
+        if self.at_kw("cube", "rollup"):
+            kind = self.next().value
+            self.expect_op("(")
+            exprs = [self.parse_expr()]
+            while self.at_op(","):
+                self.next()
+                exprs.append(self.parse_expr())
+            self.expect_op(")")
+            if kind == "cube":
+                sets = []
+                for mask in range(1 << len(exprs)):
+                    sets.append(tuple(e for j, e in enumerate(exprs)
+                                      if mask & (1 << j)))
+            else:  # rollup
+                sets = [tuple(exprs[:k]) for k in range(len(exprs), -1, -1)]
+            return A.GroupingSets(tuple(sets))
+        exprs = [self.parse_expr()]
+        while self.at_op(","):
+            self.next()
+            exprs.append(self.parse_expr())
+        return tuple(exprs)
+
+    # -- relations ------------------------------------------------------------
+    def parse_relation(self) -> A.Relation:
+        rel = self.parse_relation_primary()
+        while True:
+            if self.at_op(","):
+                self.next()
+                right = self.parse_relation_primary()
+                rel = A.Join(rel, right, "cross", None)
+                continue
+            kind = None
+            if self.at_kw("join"):
+                kind = "inner"
+                self.next()
+            elif self.at_kw("inner"):
+                self.next()
+                self.expect_kw("join")
+                kind = "inner"
+            elif self.at_kw("left"):
+                self.next()
+                self.eat_kw("outer")
+                self.expect_kw("join")
+                kind = "left"
+            elif self.at_kw("cross"):
+                self.next()
+                self.expect_kw("join")
+                kind = "cross"
+            if kind is None:
+                return rel
+            right = self.parse_relation_primary()
+            cond = None
+            if self.eat_kw("on"):
+                cond = self.parse_expr()
+            rel = A.Join(rel, right, kind, cond)
+
+    def parse_relation_primary(self) -> A.Relation:
+        if self.at_op("("):
+            self.next()
+            if self.at_kw("select", "with"):
+                q = self.parse_with() if self.at_kw("with") \
+                    else self.parse_select_or_union()
+                self.expect_op(")")
+                alias = self._alias_required()
+                return A.SubqueryRef(q, alias)
+            rel = self.parse_relation()
+            self.expect_op(")")
+            return rel
+        name = self._ident()
+        # schema-qualified datasource: 'db.table' (reference works across
+        # non-default Hive databases, MultiDBTest.scala; here databases
+        # are dotted namespaces in one store)
+        while self.at_op("."):
+            self.next()
+            name = f"{name}.{self._ident()}"
+        alias = None
+        if self.eat_kw("as"):
+            alias = self._ident()
+        elif self.peek().kind == "ident":
+            alias = self.next().value
+        return A.TableRef(name, alias)
+
+    def _alias_required(self) -> str:
+        self.eat_kw("as")
+        t = self.peek()
+        if t.kind != "ident":
+            raise SqlSyntaxError(f"derived table needs an alias at {t.pos}")
+        return self.next().value
+
+    def _ident(self) -> str:
+        t = self.peek()
+        if t.kind == "ident":
+            return self.next().value
+        # permit non-reserved keywords as identifiers
+        if t.kind == "kw" and t.value in ("date", "timestamp", "query",
+                                          "metadata", "datasource"):
+            return self.next().value
+        raise SqlSyntaxError(f"expected identifier at {t.pos}, got {t.value!r}")
+
+    # -- expressions (precedence climbing) ------------------------------------
+    def parse_expr(self) -> E.Expr:
+        return self.parse_or()
+
+    def parse_or(self) -> E.Expr:
+        left = self.parse_and()
+        parts = [left]
+        while self.eat_kw("or"):
+            parts.append(self.parse_and())
+        return parts[0] if len(parts) == 1 else E.Or(tuple(parts))
+
+    def parse_and(self) -> E.Expr:
+        left = self.parse_not()
+        parts = [left]
+        while self.at_kw("and"):
+            self.next()
+            parts.append(self.parse_not())
+        return parts[0] if len(parts) == 1 else E.And(tuple(parts))
+
+    def parse_not(self) -> E.Expr:
+        if self.eat_kw("not"):
+            return E.Not(self.parse_not())
+        return self.parse_predicate()
+
+    def parse_predicate(self) -> E.Expr:
+        left = self.parse_additive()
+        while True:
+            if self.at_op("=", "!=", "<>", "<", "<=", ">", ">="):
+                op = self.next().value
+                if op == "<>":
+                    op = "!="
+                right = self.parse_additive()
+                left = E.Comparison(op, left, right)
+                continue
+            if self.at_kw("is"):
+                self.next()
+                neg = self.eat_kw("not")
+                self.expect_kw("null")
+                left = E.IsNull(left, negated=neg)
+                continue
+            neg = False
+            save = self.i
+            if self.at_kw("not"):
+                self.next()
+                neg = True
+            if self.at_kw("between"):
+                self.next()
+                lo = self.parse_additive()
+                self.expect_kw("and")
+                hi = self.parse_additive()
+                left = E.Between(left, lo, hi, negated=neg)
+                continue
+            if self.at_kw("in"):
+                self.next()
+                self.expect_op("(")
+                if self.at_kw("select"):
+                    q = self.parse_select()
+                    self.expect_op(")")
+                    left = A.InSubquery(left, q, negated=neg)
+                else:
+                    vals = [self._literal_value()]
+                    while self.at_op(","):
+                        self.next()
+                        vals.append(self._literal_value())
+                    self.expect_op(")")
+                    left = E.InList(left, tuple(vals), negated=neg)
+                continue
+            if self.at_kw("like"):
+                self.next()
+                t = self.next()
+                if t.kind != "string":
+                    raise SqlSyntaxError(f"LIKE expects string at {t.pos}")
+                left = E.Like(left, t.value, negated=neg)
+                continue
+            if neg:
+                self.i = save
+            break
+        return left
+
+    def _literal_value(self):
+        e = self.parse_additive()
+        if isinstance(e, E.Literal):
+            return e.value
+        raise SqlSyntaxError("IN list expects literal values")
+
+    def parse_additive(self) -> E.Expr:
+        left = self.parse_multiplicative()
+        while self.at_op("+", "-", "||"):
+            op = self.next().value
+            right = self.parse_multiplicative()
+            if op == "||":
+                left = E.Func("concat", (left, right))
+            else:
+                left = self._fold_interval(op, left, right)
+        return left
+
+    def _fold_interval(self, op: str, left: E.Expr, right: E.Expr) -> E.Expr:
+        """date +/- INTERVAL folding (TPC-H style constant arithmetic)."""
+        if isinstance(right, E.Func) and right.name == "__interval__":
+            n = right.args[0].value
+            unit = right.args[1].value
+            if op == "-":
+                n = -n
+            if unit == "day":
+                return E.Func("date_add", (left, E.Literal(n)))
+            return E.Func("add_months",
+                          (left, E.Literal(n * (12 if unit == "year" else 1))))
+        return E.BinaryOp(op, left, right)
+
+    def parse_multiplicative(self) -> E.Expr:
+        left = self.parse_unary()
+        while self.at_op("*", "/", "%"):
+            op = self.next().value
+            right = self.parse_unary()
+            left = E.BinaryOp(op, left, right)
+        return left
+
+    def parse_unary(self) -> E.Expr:
+        if self.at_op("-"):
+            self.next()
+            child = self.parse_unary()
+            if isinstance(child, E.Literal) and isinstance(
+                    child.value, (int, float)):
+                return E.Literal(-child.value)
+            return E.BinaryOp("-", E.Literal(0), child)
+        if self.at_op("+"):
+            self.next()
+            return self.parse_unary()
+        return self.parse_primary()
+
+    def parse_primary(self) -> E.Expr:
+        t = self.peek()
+        if t.kind == "number":
+            self.next()
+            v = float(t.value) if any(c in t.value for c in ".eE") \
+                else int(t.value)
+            return E.Literal(v)
+        if t.kind == "string":
+            self.next()
+            return E.Literal(t.value)
+        if self.at_kw("true"):
+            self.next()
+            return E.Literal(True)
+        if self.at_kw("false"):
+            self.next()
+            return E.Literal(False)
+        if self.at_kw("null"):
+            self.next()
+            return E.Literal(None)
+        if self.at_kw("date", "timestamp"):
+            kind = self.next().value
+            nt = self.peek()
+            if nt.kind == "string":
+                self.next()
+                import datetime as _dt
+                s = nt.value
+                if kind == "date":
+                    y, m, d = (int(x) for x in s[:10].split("-"))
+                    return E.Literal(_dt.date(y, m, d))
+                return E.Literal(
+                    _dt.datetime.fromisoformat(s.replace("Z", "+00:00")))
+            # bare keyword used as identifier (e.g. a column named date)
+            return E.Column(kind)
+        if self.at_kw("interval"):
+            self.next()
+            t2 = self.next()
+            if t2.kind == "string":
+                n = int(t2.value)
+            elif t2.kind == "number":
+                n = int(t2.value)
+            else:
+                raise SqlSyntaxError(f"INTERVAL expects quantity at {t2.pos}")
+            unit_t = self.next()
+            unit = unit_t.value.lower().rstrip("s")
+            if unit not in ("day", "month", "year"):
+                raise SqlSyntaxError(f"unsupported interval unit {unit!r}")
+            return E.Func("__interval__", (E.Literal(n), E.Literal(unit)))
+        if self.at_kw("case"):
+            return self.parse_case()
+        if self.at_kw("cast"):
+            self.next()
+            self.expect_op("(")
+            e = self.parse_expr()
+            self.expect_kw("as")
+            ty = self._type_name()
+            self.expect_op(")")
+            return E.Cast(e, ty)
+        if self.at_kw("extract"):
+            self.next()
+            self.expect_op("(")
+            field_t = self.next()
+            field = field_t.value.lower()
+            self.expect_kw("from")
+            e = self.parse_expr()
+            self.expect_op(")")
+            return E.Func(field, (e,))
+        if self.at_kw("substring"):
+            self.next()
+            self.expect_op("(")
+            e = self.parse_expr()
+            if self.eat_kw("from"):
+                start = self.parse_expr()
+                ln = None
+                if self.eat_kw("for"):
+                    ln = self.parse_expr()
+            else:
+                self.expect_op(",")
+                start = self.parse_expr()
+                ln = None
+                if self.at_op(","):
+                    self.next()
+                    ln = self.parse_expr()
+            self.expect_op(")")
+            args = (e, start) if ln is None else (e, start, ln)
+            return E.Func("substr", args)
+        if self.at_kw("exists"):
+            self.next()
+            self.expect_op("(")
+            q = self.parse_select()
+            self.expect_op(")")
+            return A.Exists(q)
+        if self.at_op("("):
+            self.next()
+            if self.at_kw("select"):
+                q = self.parse_select()
+                self.expect_op(")")
+                return A.ScalarSubquery(q)
+            e = self.parse_expr()
+            self.expect_op(")")
+            return e
+        if t.kind == "ident" or (t.kind == "kw" and t.value in
+                                 ("query", "metadata", "datasource")):
+            name = self.next().value
+            # qualified name: the engine binds by GLOBALLY-UNIQUE bare
+            # column names (≈ StarSchemaInfo.scala:127-165), but the
+            # qualifier is retained as metadata so the alias-scoping
+            # pass can resolve correlated self-references
+            qual = None
+            while self.at_op("."):
+                self.next()
+                nxt = self.peek()
+                if nxt.kind in ("ident", "kw"):
+                    qual = name
+                    name = self.next().value
+                elif nxt.kind == "op" and nxt.value == "*":
+                    self.next()
+                    return E.Column("*")
+                else:
+                    raise SqlSyntaxError(f"bad qualified name at {nxt.pos}")
+            if self.at_op("("):
+                call = self.parse_function_call(name)
+                if self._at_word("over"):
+                    return self.parse_over(call, name)
+                return call
+            return E.Column(name, qual=qual)
+        raise SqlSyntaxError(
+            f"unexpected token {t.value!r} at {t.pos}")
+
+    def _type_name(self) -> str:
+        t = self.next()
+        name = t.value.lower()
+        # decimal(p, s) etc.
+        if self.at_op("("):
+            self.next()
+            while not self.at_op(")"):
+                self.next()
+            self.next()
+        return name
+
+    def parse_case(self) -> E.Expr:
+        self.expect_kw("case")
+        operand = None
+        if not self.at_kw("when"):
+            operand = self.parse_expr()
+        branches = []
+        while self.eat_kw("when"):
+            cond = self.parse_expr()
+            if operand is not None:
+                cond = E.Comparison("=", operand, cond)
+            self.expect_kw("then")
+            val = self.parse_expr()
+            branches.append((cond, val))
+        otherwise = None
+        if self.eat_kw("else"):
+            otherwise = self.parse_expr()
+        self.expect_kw("end")
+        return E.Case(tuple(branches), otherwise)
+
+    def parse_function_call(self, name: str) -> E.Expr:
+        self.expect_op("(")
+        lname = name.lower()
+        distinct = False
+        if self.eat_kw("distinct"):
+            distinct = True
+        if self.at_op("*"):
+            self.next()
+            self.expect_op(")")
+            if lname == "count":
+                return E.AggCall("count", None)
+            raise SqlSyntaxError(f"{name}(*) unsupported")
+        args: List[E.Expr] = []
+        if not self.at_op(")"):
+            args.append(self.parse_expr())
+            while self.at_op(","):
+                self.next()
+                args.append(self.parse_expr())
+        self.expect_op(")")
+        if lname in AGG_FUNCS:
+            if lname == "count" and distinct:
+                return E.AggCall("count", args[0], distinct=True)
+            return E.AggCall(lname, args[0], distinct=distinct)
+        if lname in ("approx_count_distinct", "approx_distinct"):
+            return E.AggCall("count", args[0], distinct=True, approx=True)
+        if lname in ("approx_count_distinct_theta", "theta_sketch"):
+            return E.AggCall("theta", args[0])
+        if lname in ("percentile_approx", "approx_percentile",
+                     "approx_quantile"):
+            if len(args) != 2 or not isinstance(args[1], E.Literal) \
+                    or isinstance(args[1].value, bool) \
+                    or not isinstance(args[1].value, (int, float)):
+                raise SqlSyntaxError(
+                    f"{name}(value, fraction) expects a literal fraction")
+            frac = float(args[1].value)
+            if not 0.0 <= frac <= 1.0:
+                raise SqlSyntaxError(
+                    "percentile fraction must be in [0, 1]")
+            return E.AggCall("percentile", args[0], fraction=frac)
+        return E.Func(lname, tuple(args))
+
+    # -- window functions (OVER / PARTITION / ROWS etc. are soft words;
+    # ORDER, BY, BETWEEN, AND are real keywords) ------------------------------
+    _WINDOW_FUNCS = {"rank", "dense_rank", "row_number", "lag", "lead",
+                     "sum", "min", "max", "avg", "count"}
+
+    def parse_over(self, call: E.Expr, name: str) -> E.Expr:
+        self._expect_word("over")
+        self.expect_op("(")
+        partition: List[E.Expr] = []
+        if self._at_word("partition"):
+            self.next()
+            self.expect_kw("by")
+            partition.append(self.parse_expr())
+            while self.at_op(","):
+                self.next()
+                partition.append(self.parse_expr())
+        order: List = []
+        if self.at_kw("order"):
+            self.next()
+            self.expect_kw("by")
+            o = self.parse_order_item()
+            order.append((o.expr, o.ascending))
+            while self.at_op(","):
+                self.next()
+                o = self.parse_order_item()
+                order.append((o.expr, o.ascending))
+        frame = None
+        if self._at_word("rows"):
+            self.next()
+            if self.eat_kw("between"):
+                lo = self._parse_frame_bound()
+                self.expect_kw("and")
+                hi = self._parse_frame_bound()
+            else:
+                lo = self._parse_frame_bound()
+                hi = (0, 0)
+            frame = (self._frame_side(lo, start=True),
+                     self._frame_side(hi, start=False))
+        self.expect_op(")")
+        if isinstance(call, E.AggCall):
+            if call.distinct or call.approx or call.fraction is not None:
+                raise SqlSyntaxError(
+                    f"{call.fn} OVER does not support this aggregate form")
+            fn = call.fn
+            args = () if call.arg is None else (call.arg,)
+        elif isinstance(call, E.Func) and call.name in self._WINDOW_FUNCS:
+            fn = call.name
+            args = call.args
+        else:
+            raise SqlSyntaxError(f"{name} is not a window function")
+        if fn in ("rank", "dense_rank") and not order:
+            raise SqlSyntaxError(f"{fn}() OVER requires ORDER BY")
+        if fn in ("lag", "lead"):
+            if not 1 <= len(args) <= 3:
+                raise SqlSyntaxError(f"{fn} expects 1 to 3 arguments")
+            if not order:
+                raise SqlSyntaxError(f"{fn}() OVER requires ORDER BY")
+        return E.WindowCall(fn, tuple(args), tuple(partition), tuple(order),
+                            frame)
+
+    def _parse_frame_bound(self):
+        if self._at_word("unbounded"):
+            self.next()
+            if self._at_word("preceding"):
+                self.next()
+                return ("unbounded", -1)
+            self._expect_word("following")
+            return ("unbounded", 1)
+        if self._at_word("current"):
+            self.next()
+            self._expect_word("row")
+            return (0, 0)
+        t = self.next()
+        if t.kind != "number":
+            raise SqlSyntaxError(f"expected a ROWS frame bound at {t.pos}")
+        n = int(t.value)
+        if self._at_word("preceding"):
+            self.next()
+            return (n, -1)
+        self._expect_word("following")
+        return (n, 1)
+
+    @staticmethod
+    def _frame_side(bound, start: bool):
+        kind, sign = bound
+        if kind == "unbounded":
+            if (start and sign > 0) or (not start and sign < 0):
+                raise SqlSyntaxError("unsupported ROWS frame direction")
+            return None
+        if sign == 0:
+            return 0
+        if (start and sign > 0) or (not start and sign < 0):
+            raise SqlSyntaxError("unsupported ROWS frame direction")
+        return kind
+
+
+def parse_statement(sql: str) -> A.Statement:
+    p = Parser(sql)
+    # handle ON DATASOURCE command before general statement parsing
+    t0 = p.peek()
+    if (t0.kind == "kw" and t0.value == "on") or \
+            (t0.kind == "ident" and t0.value.lower() == "on"):
+        p.next()
+        if not p.eat_kw("datasource"):
+            p.eat_kw("druiddatasource")
+        ds = p._ident()
+        sharded = False
+        if p.eat_kw("using"):
+            mode = p.next().value.lower()
+            sharded = mode in ("sharded", "historical")
+        p.expect_kw("execute")
+        p.eat_kw("query")
+        qt = p.next()
+        if qt.kind != "string":
+            raise SqlSyntaxError("EXECUTE QUERY expects a quoted JSON string")
+        p._expect_eof()
+        return A.ExecuteRawQuery(ds, qt.value, sharded)
+    return p.parse_statement()
+
+
+def parse_select(sql: str) -> A.SelectStmt:
+    stmt = parse_statement(sql)
+    if not isinstance(stmt, A.SelectStmt):
+        raise SqlSyntaxError("expected a SELECT statement")
+    return stmt

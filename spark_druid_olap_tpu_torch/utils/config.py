@@ -18,6 +18,9 @@ class ConfigEntry:
     default: Any
     doc: str
     parse: Callable[[str], Any] = lambda s: s
+    #: semantic keys change query results or plans and belong in cache
+    #: fingerprints; operational keys (profiling, memo sizing) do not
+    semantic: bool = True
 
 
 def _parse_bool(s: str) -> bool:
@@ -27,7 +30,8 @@ def _parse_bool(s: str) -> bool:
 _REGISTRY: Dict[str, ConfigEntry] = {}
 
 
-def _entry(key: str, default: Any, doc: str, parse=None) -> ConfigEntry:
+def _entry(key: str, default: Any, doc: str, parse=None,
+           semantic: bool = True) -> ConfigEntry:
     if parse is None:
         if isinstance(default, bool):
             parse = _parse_bool
@@ -37,7 +41,7 @@ def _entry(key: str, default: Any, doc: str, parse=None) -> ConfigEntry:
             parse = float
         else:
             parse = lambda s: s
-    e = ConfigEntry(key, default, doc, parse)
+    e = ConfigEntry(key, default, doc, parse, semantic)
     _REGISTRY[key] = e
     return e
 
@@ -129,6 +133,76 @@ CUDA_WAVE_SCRATCH_BYTES = _entry(
     "limit less the static part are clamped to it.", int)
 
 
+# --- SQL front end (sql/session.py, planner/) --------------------------------
+DEBUG_TRANSFORMATIONS = _entry(
+    "sdot.debug.transformations", False,
+    "Log each planner transform's input and output (reference: "
+    "spark.sparklinedata.druid.debug.transformations).")
+NON_AGG_PUSHDOWN = _entry(
+    "sdot.nonagg.handling", "push_project_and_filters",
+    "Handling of non-aggregate queries: push_project_and_filters | "
+    "push_filters | push_none (reference: NonAggregateQueryHandling, "
+    "DruidRelationInfo.scala:27-32).")
+ALLOW_TOPN = _entry(
+    "sdot.querycostmodel.topn.allow", True,
+    "Allow rewriting single-dim ordered-limit group-bys to the topN path "
+    "(reference: spark.sparklinedata.druid.allow.topn).")
+TOPN_THRESHOLD = _entry(
+    "sdot.querycostmodel.topn.threshold", 100000,
+    "Max limit value eligible for the topN rewrite (reference: "
+    "spark.sparklinedata.druid.topn.threshold).")
+DATABASE_DEFAULT = _entry(
+    "sdot.database.default", "",
+    "Default database namespace: an unqualified table name that is not "
+    "registered resolves to '<default>.<name>' when that is. Databases "
+    "are dotted name prefixes in the one store; 'db.table' in FROM "
+    "always addresses explicitly.")
+JOIN_ENABLED = _entry(
+    "sdot.join.enabled", True,
+    "General (non-star) joins execute on the device join tier when the "
+    "statement shape qualifies; False routes every non-star join to the "
+    "host fallback. The port recognizes such joins (planner/joinplan.py) "
+    "and refuses to execute them until the join tier is ported.")
+JOIN_BROADCAST_MAX_BYTES = _entry(
+    "sdot.join.broadcast.max.bytes", 64 << 20,
+    "Build-side byte ceiling for the broadcast device join tier; a "
+    "bigger build side (with no cluster attached) goes to the host "
+    "fallback. The port applies the JAX cost model's decision before it "
+    "refuses the device tier.", int)
+JOIN_MODE = _entry(
+    "sdot.join.mode", "auto",
+    "Join-tier placement override: 'auto' (cost model picks), "
+    "'broadcast', 'partitioned', or 'host'.")
+PHASES_ENABLED = _entry(
+    "sdot.phases.enabled", True,
+    "Per-query host-path phase profiler (utils/phases.py): attribute host "
+    "time to named phases (parse, plan.*) emitted as stats[\"phases\"].",
+    semantic=False)
+PLAN_CACHE_ENABLED = _entry(
+    "sdot.plan.cache.enabled", True,
+    "Statement plan cache (pushdown + composite plans keyed on store "
+    "version and config fingerprint).")
+PLAN_MEMO_ENABLED = _entry(
+    "sdot.plan.memo.enabled", True,
+    "Memoize the planning-cascade outcome per canonical statement "
+    "(window extraction, resolution, rewrites, built plan, join "
+    "recognition, composite plan, negative outcomes included), keyed "
+    "like the plan cache plus a lookup-table fingerprint.",
+    semantic=False)
+PLAN_MEMO_ENTRIES = _entry(
+    "sdot.plan.memo.entries", 128,
+    "Max memoized planning-cascade outcomes; least-recently-used "
+    "statements evict past it.", int, semantic=False)
+QUERY_HISTORY = _entry(
+    "sdot.enable.query.history", True,
+    "Record executed statements with timings into the bounded history "
+    "queue (reference: spark.sparklinedata.enable.druid.query.history).")
+QUERY_HISTORY_SIZE = _entry(
+    "sdot.query.history.size", 500,
+    "Bounded size of the in-memory query history queue (reference: "
+    "DruidQueryHistory MAX_SIZE=500).")
+
+
 class Config:
     """A mutable key-value session config over the registered entries."""
 
@@ -144,6 +218,19 @@ class Config:
                 and not isinstance(entry.default, str):
             value = entry.parse(value)
         self._values[key] = value
+
+    def fingerprint(self) -> tuple:
+        """Hashable snapshot of the semantic overrides: plan and result
+        caches key on it, so a config change never serves a plan built
+        under the old settings. Operational keys (``semantic=False``) are
+        left out; unknown keys are kept."""
+        out = []
+        for k, v in self._values.items():
+            e = _REGISTRY.get(k)
+            if e is not None and not e.semantic:
+                continue
+            out.append((k, repr(v)))
+        return tuple(sorted(out))
 
     def get(self, entry_or_key) -> Any:
         if isinstance(entry_or_key, ConfigEntry):

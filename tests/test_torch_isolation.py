@@ -63,7 +63,18 @@ SHAREDSCAN_MODULES = ["planner.fusion", "ops.cuda_build", "ops.cuda_wave",
                       "parallel.sharedscan"]
 
 
-@pytest.mark.parametrize("module", SHAREDSCAN_MODULES)
+# the SQL front end's modules, by exact name (the ``sql``, ``planner``,
+# ``metadata`` prefixes are shared with the JAX package's own modules)
+SQL_MODULES = ["sql.lexer", "sql.ast", "sql.parser", "sql.session",
+               "planner.builder", "planner.scoping", "planner.plans",
+               "planner.host_exec", "planner.decorrelate",
+               "planner.viewmerge", "planner.composite", "planner.joinplan",
+               "metadata.star", "metadata.fd", "metadata.catalog",
+               "metadata.history", "ir.intervals", "ir.transforms",
+               "utils.phases"]
+
+
+@pytest.mark.parametrize("module", SHAREDSCAN_MODULES + SQL_MODULES)
 def test_sharedscan_slice_modules_are_checked(module):
     import pkgutil
     prefix = "spark_druid_olap_tpu_torch."

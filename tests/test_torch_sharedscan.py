@@ -300,16 +300,17 @@ def test_fused_path_error_reaches_every_member(sales, monkeypatch):
     assert st["fallbacks"] == 0 and st["queries_coalesced"] == 0
 
 
-@pytest.mark.parametrize("declined", ["sketch", "pattern_filter"])
+@pytest.mark.parametrize("declined", ["sketch", "spatial_filter"])
 def test_declined_member_runs_solo(declined, sales):
-    """A sketch aggregation or a pattern filter is not ported: its member
+    """A sketch aggregation or a spatial filter is not ported: its member
     leaves the group at plan time and raises on its own thread; the others
     still coalesce."""
     ctx = sales.storm_ctx()
     aggs = (TS.AggregationSpec("cardinality", "u", field="product"),) \
         if declined == "sketch" else _aggs(TS)
-    filt = TS.PatternFilter("product", "like", "p0%") \
-        if declined == "pattern_filter" else None
+    filt = TS.SpatialFilter("qty_price", ("qty", "price"), (1.0, 10.0),
+                            (20.0, 500.0)) \
+        if declined == "spatial_filter" else None
     specs = sales_batch(TS)[:3] + [TS.TimeseriesQuerySpec(
         "sales", aggs, filter=filt)]
     res, errs = run_concurrent(ctx.execute, specs)
@@ -320,6 +321,23 @@ def test_declined_member_runs_solo(declined, sales):
         assert_frames_match(got, sales.solo.execute(q).to_pandas())
     st = ctx.engine.sharedscan.stats()
     assert st["queries_coalesced"] == 3 and st["fallbacks"] == 1
+
+
+def test_pattern_filter_member_rides_the_wave(sales):
+    """A pattern filter lowers to compares over dictionary codes (a range
+    chain), so its member joins the group and the wave kernel's lane
+    program, and answers as it does solo."""
+    ctx = sales.storm_ctx()
+    specs = sales_batch(TS)[:3] + [TS.TimeseriesQuerySpec(
+        "sales", _aggs(TS), filter=TS.PatternFilter("product", "like",
+                                                    "p0%"))]
+    res, errs = run_concurrent(ctx.execute, specs)
+    assert not any(errs), errs
+    for got, q in zip(res, specs):
+        assert_frames_match(got, sales.solo.execute(q).to_pandas())
+    st = ctx.engine.sharedscan.stats()
+    assert st["queries_coalesced"] == 4 and st["fallbacks"] == 0
+    assert st["wave_launches"] == 1 and st["wave_fallbacks"] == 0
 
 
 def test_union_over_the_device_budget_is_not_ported(sales):

@@ -458,22 +458,43 @@ def build(ctx, specs, tz="UTC", max_lanes=16, scratch=CW.SMEM_LIMIT):
                             scratch_bytes=scratch)
 
 
-def test_dim_in_filter_lut_declines(ctx):
+@pytest.fixture
+def lut_gathers(monkeypatch):
+    """Code masks lower to range compares only up to EC._CHAIN_MAX_RANGES
+    runs, and to a gather from the per-code mask above; at 0 every mask
+    takes the gather, which the tests' 12-value dictionaries never reach
+    on their own."""
+    from spark_druid_olap_tpu_torch.ops import expr_compile as EC
+    monkeypatch.setattr(EC, "_CHAIN_MAX_RANGES", 0)
+
+
+def test_dim_in_filter_lut_declines(ctx, lut_gathers):
     with pytest.raises(CW.WaveFallback, match=r"aten\.index\.Tensor"):
         build(ctx, [gb("region", filter=S.InFilter("product",
                                                     ("p01", "p02")))])
 
 
-def test_string_comparison_lut_declines(ctx):
+def test_string_comparison_lut_declines(ctx, lut_gathers):
     with pytest.raises(CW.WaveFallback, match=r"aten\.index\.Tensor"):
         build(ctx, [gb("region", filter=S.ExprFilter(
             E.Comparison(">", C("product"), L("p04"))))])
 
 
-def test_pattern_filter_declines(ctx, monkeypatch):
+def test_pattern_filter_declines(ctx, lut_gathers):
+    """A pattern filter lowers (the coalescer plans its lane); when its
+    code mask takes the gather, the build declines it, naming the op."""
+    spec = gb("region", filter=S.PatternFilter("product", "like", "p0%"))
+    ds = ctx.store.get("t")
+    assert ctx.engine.sharedscan._plan_members(ds, [spec])[0] != [None]
+    with pytest.raises(CW.WaveFallback, match=r"aten\.index\.Tensor"):
+        build(ctx, [spec])
+
+
+def test_unported_filter_declines(ctx, monkeypatch):
     """The coalescer sends a lane the port cannot lower solo at plan time;
     the build declines it too, naming the error."""
-    spec = gb("region", filter=S.PatternFilter("product", "like", "p0%"))
+    spec = gb("region", filter=S.SpatialFilter(
+        "qty_price", ("qty", "price"), (1.0, 10.0), (20.0, 500.0)))
     ds = ctx.store.get("t")
     assert ctx.engine.sharedscan._plan_members(ds, [spec])[0] == [None]
     monkeypatch.setattr(type(ctx.engine.sharedscan), "_lowers",
@@ -481,6 +502,21 @@ def test_pattern_filter_declines(ctx, monkeypatch):
     with pytest.raises(CW.WaveFallback,
                        match="lane trace failed: NotImplementedError"):
         build(ctx, [spec])
+
+
+@pytest.mark.parametrize("filt", [
+    S.InFilter("product", ("p01", "p02", "p07")),
+    S.ExprFilter(E.Comparison(">", C("product"), L("p04"))),
+    S.PatternFilter("product", "like", "p0%"),
+    S.ExprFilter(E.Like(C("product"), "%1"))], ids=["in", "cmp", "pattern",
+                                                    "like"])
+def test_string_predicates_ride_the_wave_as_code_compares(ctx, filt):
+    """By default a code mask of few runs lowers to range compares (the
+    JAX compiler's ``_take_mask``), which the lane program runs: the wave
+    builds, and its program equals the direct lowering bit for bit."""
+    specs = [gb("region", filter=filt), gb("product")]
+    build(ctx, specs)
+    check_group(ctx, specs)
 
 
 def test_non_utc_timezone_declines(ctx):
