@@ -13,7 +13,13 @@ shared-scan tier coalesces into one launch of the wave kernel. Its phase
 eight TPC-H statements through ``Context.sql`` in engine mode against
 pandas, four of them at once under shared scan (one wave launch), and a
 census of the other benchmark statements (each one's mode, or the ROADMAP
-item its ``NotImplementedError`` names). Before that
+item its ``NotImplementedError`` names). Its phase ``hashed`` drives the
+wide-key path: the two unit costs the sorted-run gate compares, q7 on the
+sorted-run and the scatter tier, q3 over the flat star (hashed tier,
+device top-k) and ``basic_agg`` (9M keys, compacted table) against pandas,
+the full star's top-k statements against the engine-free host tier, Q1
+forced onto the hashed tier against its dense answer, and each step's
+device time. Before that
 it builds every kernel of the path from the sources in this checkout and
 holds each against its plain PyTorch version on the card: the dense
 group-by in each fold tier that holds a case, the wave kernel in each
@@ -42,6 +48,7 @@ import torch
 SEED = 20260729
 SF = 1.0
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data-sheet memory rate
+PCIE_BYTES_PER_S = 64e9          # PCIe Gen5 x16, one direction (data sheet)
 FP32_OPS_PER_S = 67e12           # H100 SXM data-sheet fp32 rate (no tensor cores)
 FLOAT_SUM_RTOL_KERNEL = 1e-9     # both sides sum in f64; only the order differs
 FLOAT_SUM_RTOL_ORACLE = 1e-6     # float metric columns are stored f32
@@ -1089,9 +1096,10 @@ SQL_MAIN = ["shipdate_range", "q1", "q5", "q6", "q7", "q8", "q12", "q14"]
 SQL_ORDERED = {"q1", "q5", "q7", "q8", "q12"}
 # statements whose fused key space is above the dense group-by kernel's
 # tier (sdot.engine.groupby.pallas.max.keys, 64; q7 groups 25 x 25 nations
-# by 7 years): they take the plain scatter tier, as the JAX engine takes
-# its XLA scatter above its Pallas tier, and launch no kernel
-SQL_SCATTER = {"q7"}
+# by 7 years): they launch no kernel and take the tier the sorted-run gate
+# picks for medium K (the sorted-run tier, else the scatter tier), as the
+# JAX engine does
+SQL_MEDIUM_K = {"q7"}
 SQL_STORM = ["q1", "q6", "shipdate_range", "q12"]
 SQL_STORM_CONFIG = {
     "sdot.sharedscan.enabled": True, "sdot.sharedscan.max.queries": 4,
@@ -1289,7 +1297,7 @@ def sql_phase(sdt, tables, lineitem_ds, CG, CW, smi):
         finally:
             CG.dense_groupby_kernel = real_kernel
         b1 += launched
-        route = "scatter" if name in SQL_SCATTER else "kernel"
+        route = st.get("route") if name in SQL_MEDIUM_K else "kernel"
         if st["mode"] != "engine" or st.get("route") != route \
                 or (launched < 1) == (route == "kernel") \
                 or bool(calls) != (route == "kernel"):
@@ -1375,6 +1383,9 @@ def sql_phase(sdt, tables, lineitem_ds, CG, CW, smi):
                                  if calls},
                "wave": {"storm": wave_timed(CW, "sql storm", *waves[0])}}
 
+    # the wide-key path over the flat star, before the base tables are in
+    hashed = hashed_flat(ctx, tables, nr, ctx.device)
+
     # census: every other query once, over the whole star (the base
     # tables name what the flat table alone cannot resolve)
     t0 = time.perf_counter()
@@ -1398,16 +1409,21 @@ def sql_phase(sdt, tables, lineitem_ds, CG, CW, smi):
         if name in SQL_MAIN:
             continue
         t0 = time.perf_counter()
+        st = {}
         try:
             ctx.sql(sql).to_pandas()
-            outcome = ctx.history.entries()[-1].stats["mode"]
+            st = ctx.history.entries()[-1].stats
+            outcome = st["mode"]
         except NotImplementedError as e:
             m = re.search(ROADMAP_ITEM, str(e))
             if m is None:
                 raise
             outcome = f"refused: {m.group(1)} ({e})"
         census[name] = {"outcome": outcome,
-                        "ms": (time.perf_counter() - t0) * 1e3}
+                        "ms": (time.perf_counter() - t0) * 1e3,
+                        **{k: st.get(k) for k in ("route", "hashed",
+                                                  "topk_device")}}
+    hashed.update(hashed_full(ctx, tables, census))
     emit("sql", card=smi, sf=SF, flat_rows=rows, flat_columns=flat_cols,
          flatten_s=t_flat, ingest_s=t_ingest, base_tables_ingest_s=t_base,
          statements=stmts, storm=storm, census=census, kernels=kernels,
@@ -1423,7 +1439,350 @@ def sql_phase(sdt, tables, lineitem_ds, CG, CW, smi):
               "warm run; kernels: each B1 call of a statement's cold run "
               "and the storm's B2 launch, kernel vs plain version on the "
               "same inputs, times as in phase timing")
-    return b1, b2, kernels
+    return b1, b2, kernels, hashed
+
+
+# -- the wide-key aggregation path (phase "hashed") --------------------------
+
+# Q1's 6 keys are above this dense ceiling: the QuerySpec goes hashed
+HASH_FORCED = {"sdot.engine.groupby.dense.max.keys": 4}
+HOST_ORACLE_BUDGET_S = 40.0      # host-tier checks of the full-star top-k
+HOST_CHECKED = ["q3", "q10", "q21"]
+
+
+def unit_costs(dev) -> dict:
+    """The unit costs ``parallel/cost.py`` holds for a cuda device,
+    measured again on this card (``cost.measure_unit_costs``: SF1
+    lineitem's row count, uniform random keys, the slope between 1 and 5
+    float64 sums), beside the held ones."""
+    from spark_druid_olap_tpu_torch.parallel import cost
+    return {"held": cost._CUDA_MEASURED,
+            "measured": cost.measure_unit_costs(dev, seed=SEED)}
+
+
+class HashSpy:
+    """Records the engine's group-by device calls (slot sort, sorted-run
+    or scatter aggregation, top-k gather, transfers) while it is
+    installed."""
+
+    def __init__(self):
+        from spark_druid_olap_tpu_torch.ops import groupby as G
+        from spark_druid_olap_tpu_torch.ops import hash_groupby as H
+        from spark_druid_olap_tpu_torch.ops import sorted_groupby as SG
+        from spark_druid_olap_tpu_torch.parallel import executor as X
+        self.sites = [(H, "live_rows"), (SG, "sorted_hash_groupby"),
+                      (H, "build_slots"),
+                      (G, "dense_groupby"), (X, "_hash_topk_gather"),
+                      (X, "_to_host")]
+        self.calls = []
+
+    def __enter__(self):
+        self.real = {}
+        for mod, name in self.sites:
+            real = self.real[name] = getattr(mod, name)
+
+            def spy(*args, _real=real, _name=name):
+                out = _real(*args)
+                self.calls.append((_name, args, out))
+                return out
+            setattr(mod, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name in self.sites:
+            setattr(mod, name, self.real[name])
+
+    def count(self, name) -> int:
+        return sum(c[0] == name for c in self.calls)
+
+    def counts(self) -> dict:
+        """Calls per device function during the spied run."""
+        return {name: self.count(name) for _, name in self.sites}
+
+
+def hash_steps(spy) -> list:
+    """Each hashed aggregation the spy saw, step by step on the card: the
+    dead rows' drop, the slot sort, the aggregation (sorted-run scans, or
+    slot scatter plus the scatter tier), the top-k gather and the one
+    device-to-host copy, each with its bound (bytes each step must move
+    over 3.35 TB/s; the copy's over PCIe's 64 GB/s)."""
+    from spark_druid_olap_tpu_torch.ops import groupby as G
+    from spark_druid_olap_tpu_torch.ops import hash_groupby as H
+    from spark_druid_olap_tpu_torch.ops import sorted_groupby as SG
+    from spark_druid_olap_tpu_torch.parallel import executor as X
+
+    def nb(ts):
+        return sum(t.numel() * t.element_size() for t in ts
+                   if t is not None)
+
+    def step(fn, nbytes):
+        return {"ms": device_ms(fn), "bound_ms":
+                nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
+    out = []
+    for name, args, res in spy.calls:
+        if name == "live_rows":
+            valid, cols = args
+            kept = res[0].numel()
+            out.append({"step": "live_rows", "rows": valid.numel(),
+                        "live": kept, **step(
+                            lambda: H.live_rows(valid, cols),
+                            nb([valid] + list(cols)) + sum(
+                                kept * t.element_size() for t in res[1]
+                                if t is not None))})
+            continue
+        if name == "sorted_hash_groupby":
+            khi, klo, base, T, inputs, routes = args
+            tier = "sorted"
+        elif name == "build_slots":
+            khi, klo, base, T = args
+            tier = "scatter"
+        else:
+            continue
+        n = base.numel()
+        key_bytes = nb([khi, klo, base])
+        sort_out = 8 * n + 8 * n + n + 4 * n     # packed, order, new, gid
+        rec = {"tier": tier, "rows": n, "slots": int(T),
+               "sort": step(lambda: H.sorted_keys(khi, klo, base),
+                            key_bytes + sort_out)}
+        if tier == "sorted":
+            ins = nb([t for a in inputs for t in (a.values, a.mask)])
+            tot = step(lambda: SG.sorted_hash_groupby(
+                khi, klo, base, T, inputs, routes),
+                key_bytes + ins + 8 * int(T) * (len(inputs) + 1))
+            rec["aggregates"] = len(inputs)
+            rec["aggregate"] = {"ms": tot["ms"] - rec["sort"]["ms"],
+                                "whole_ms": tot["ms"],
+                                "bound_ms": tot["bound_ms"]}
+        else:
+            rec["slots_step"] = step(lambda: H.build_slots(
+                khi, klo, base, T), key_bytes + 4 * n + 8 * int(T))
+            agg = next(c for c in spy.calls if c[0] == "dense_groupby"
+                       and c[1][0] is res[0])
+            slot, mask, _, inputs, routes, _ = agg[1]
+            ins = nb([t for a in inputs for t in (a.values, a.mask)])
+            rec["aggregates"] = len(inputs)
+            rec["aggregate"] = step(lambda: G.dense_groupby(
+                slot, mask, T, inputs, routes, 0),
+                nb([slot, mask]) + ins + 8 * int(T) * len(inputs))
+        out.append(rec)
+    slots = {id(c[2][0]) for c in spy.calls if c[0] == "build_slots"}
+    for name, args, res in spy.calls:
+        if name == "dense_groupby" and id(args[0]) not in slots:
+            key, mask, n_keys, inputs, routes, pallas_max = args
+            ins = nb([t for a in inputs for t in (a.values, a.mask)])
+            out.append({"tier": "dense", "rows": key.numel(),
+                        "n_keys": n_keys, "aggregates": len(inputs),
+                        "aggregate": step(lambda: G.dense_groupby(
+                            key, mask, n_keys, inputs, routes, pallas_max),
+                            nb([key, mask]) + ins
+                            + 8 * n_keys * len(inputs))})
+        if name == "_hash_topk_gather":
+            tbl, routes, topk, T = args
+            out.append({"step": "topk_gather", "slots": int(T),
+                        "k_sel": topk[1], **step(
+                            lambda: X._hash_topk_gather(tbl, routes, topk,
+                                                        T),
+                            nb(list(tbl.values())) + nb(list(res.values())))})
+    last = next((c for c in reversed(spy.calls) if c[0] == "_to_host"),
+                None)
+    if last is not None:
+        bufs = list(last[1][0].values())
+        rec = step(lambda: X._to_host(last[1][0]), nb(bufs))
+        rec["bound_ms"] = nb(bufs) / PCIE_BYTES_PER_S * 1e3
+        out.append({"step": "copy_to_host", "rows": bufs[0].numel(),
+                    **rec})
+    return out
+
+
+def spied_sql(ctx, sql):
+    """One run of a statement under a HashSpy: (frame, stats, spy)."""
+    with HashSpy() as spy:
+        got = ctx.sql(sql).to_pandas()
+    return got, ctx.history.entries()[-1].stats, spy
+
+
+SORTEDRUN = "sdot.engine.groupby.hash.sortedrun"
+
+
+def tier_choice(ctx, run, timed, check, repeats=REPEATS) -> dict:
+    """One statement under ``auto`` and on each tier (``on``: sorted-run,
+    ``off``: scatter), every answer held by ``check(mode, frame)``: per
+    tier the warm ms, stats and device steps; the tier ``auto`` picked and
+    whether it was the faster one. ``run()`` runs the statement once
+    under a HashSpy -> (frame, stats, spy); ``timed()`` -> (ms, stats)."""
+    out = {}
+    try:
+        for mode in ("auto", "on", "off"):
+            ctx.config.set(SORTEDRUN, mode)
+            got, st, spy = run()
+            check(mode, got)
+            rec = dict(route=st.get("route"), mode=st.get("mode"),
+                       hashed=bool(st.get("hashed")),
+                       hash_slots=st.get("hash_slots"),
+                       hash_compact_k=st.get("hash_compact_k"),
+                       topk_device=st.get("topk_device"),
+                       groups=st.get("groups"), calls=spy.counts())
+            if mode != "auto":
+                warm = [timed() for _ in range(repeats)]
+                rec.update(warm_median_ms=statistics.median(
+                    ms for ms, _ in warm), phases_ms=warm[-1][1].get(
+                        "phases"), steps=hash_steps(spy))
+            out[mode] = rec
+    finally:
+        ctx.config.set(SORTEDRUN, "auto")
+    if out["on"]["route"] != "sorted" or out["off"]["route"] != "scatter" \
+            or out["auto"]["route"] not in ("sorted", "scatter"):
+        raise AssertionError(f"tiers: {out}")
+    faster = "sorted" if out["on"]["warm_median_ms"] \
+        <= out["off"]["warm_median_ms"] else "scatter"
+    out.update(auto_picks=out["auto"]["route"], faster=faster,
+               auto_picked_faster=out["auto"]["route"] == faster)
+    return out
+
+
+def sql_tiers(ctx, sql, check, repeats=REPEATS) -> dict:
+    """tier_choice of a SQL statement, each run in engine mode."""
+    out = tier_choice(ctx, lambda: spied_sql(ctx, sql),
+                      lambda: timed_sql(ctx, sql), check, repeats)
+    if any(out[m]["mode"] != "engine" for m in ("auto", "on", "off")):
+        raise AssertionError(f"not in engine mode: {out}")
+    return out
+
+
+def hashed_flat(ctx, tables, nr, dev) -> dict:
+    """Phase ``hashed`` over the flat star, before the census brings the
+    base tables in: unit costs; q7 (4,375 keys: dense scatter or the
+    medium-K reroute) and q3 (3.6e9 keys: hashed, device top-k) under
+    ``auto`` and on both tiers, against each other and q3 against pandas,
+    with each step's device time."""
+    from spark_druid_olap_tpu_torch.tools import tpch
+    t0 = time.perf_counter()
+    out = {"unit_costs": unit_costs(dev)}
+    first = {}
+
+    def same_as_first(label):
+        def check(mode, got):
+            if label not in first:
+                first[label] = got
+            else:
+                check_frame(f"{label} ({mode}) vs auto", got, first[label],
+                            None, FLOAT_SUM_RTOL_KERNEL)
+        return check
+    out["q7"] = sql_tiers(ctx, tpch.QUERIES["q7"], same_as_first("q7"))
+    if not out["q7"]["on"]["hashed"] or out["q7"]["off"]["hashed"]:
+        raise AssertionError(f"q7: the reroute is hashed, the dense "
+                             f"scatter is not: {out['q7']}")
+    want = q3_oracle(tables)
+
+    def q3_check(mode, got):
+        check_frame(f"q3 (flat, {mode}) vs pandas", got, want, None,
+                    FLOAT_SUM_RTOL_ORACLE)
+    out["q3_flat"] = q3 = sql_tiers(ctx, tpch.QUERIES["q3"], q3_check)
+    for mode in ("auto", "on", "off"):
+        if not q3[mode]["hashed"] or not q3[mode]["topk_device"]:
+            raise AssertionError(f"q3 over the flat star ({mode}): {q3}")
+    out["flat_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def hashed_full(ctx, tables, census) -> dict:
+    """Phase ``hashed`` after the census: ``basic_agg`` (9M keys: hashed,
+    compacted) against pandas with its steps, and the full star's top-k
+    statements against the port's engine-free host tier while the budget
+    lasts."""
+    from spark_druid_olap_tpu_torch.planner import host_exec as TH
+    from spark_druid_olap_tpu_torch.sql.parser import parse_select
+    from spark_druid_olap_tpu_torch.tools import tpch
+    t_full = time.perf_counter()
+    out = {}
+    want = basic_agg_oracle(tables)
+
+    def check(mode, got):
+        check_frame(f"basic_agg ({mode}) vs pandas", got, want,
+                    ["l_returnflag", "l_linestatus"], FLOAT_SUM_RTOL_ORACLE)
+    out["basic_agg"] = ba = sql_tiers(ctx, tpch.QUERIES["basic_agg"], check,
+                                      repeats=3)
+    for mode in ("auto", "on", "off"):
+        if not ba[mode]["hashed"] or not ba[mode]["hash_compact_k"]:
+            raise AssertionError(f"basic_agg ({mode}): {ba}")
+    t0, checked = time.perf_counter(), {}
+    for name in HOST_CHECKED:
+        if census[name]["outcome"] != "engine":
+            raise AssertionError(f"{name}: {census[name]}")
+        if time.perf_counter() - t0 > HOST_ORACLE_BUDGET_S:
+            checked[name] = "not checked (host budget spent)"
+            continue
+        sql = tpch.QUERIES[name]
+        eng = ctx.sql(sql).to_pandas()
+        ctx.host_engine_assist = False
+        try:
+            t1 = time.perf_counter()
+            host = TH.execute_select(ctx, parse_select(sql))
+        finally:
+            ctx.host_engine_assist = True
+        check_frame(f"{name} engine vs host tier", eng, host, None,
+                    FLOAT_SUM_RTOL_ORACLE)
+        checked[name] = {"host_s": time.perf_counter() - t1}
+    out["full_star_topk"] = checked
+    out["full_seconds"] = time.perf_counter() - t_full
+    return out
+
+
+def q3_oracle(t):
+    import pandas as pd
+    df = (t["customer"]
+          .merge(t["orders"], left_on="c_custkey", right_on="o_custkey")
+          .merge(t["lineitem"], left_on="o_orderkey",
+                 right_on="l_orderkey"))
+    df = df[(df.c_mktsegment == "BUILDING")
+            & (df.o_orderdate < pd.Timestamp("1995-03-15"))
+            & (df.l_shipdate > pd.Timestamp("1995-03-15"))]
+    res = df.assign(revenue=_rev(df)).groupby(
+        ["o_orderkey", "o_orderdate", "o_shippriority"],
+        as_index=False).revenue.sum()
+    res = res.sort_values(["revenue", "o_orderdate"],
+                          ascending=[False, True]).head(10)
+    return res[["o_orderkey", "revenue", "o_orderdate",
+                "o_shippriority"]].reset_index(drop=True)
+
+
+def basic_agg_oracle(t):
+    df = (t["lineitem"]
+          .merge(t["orders"], left_on="l_orderkey", right_on="o_orderkey")
+          .merge(t["partsupp"], left_on=["l_partkey", "l_suppkey"],
+                 right_on=["ps_partkey", "ps_suppkey"]))
+    return df.groupby(["l_returnflag", "l_linestatus"], as_index=False).agg(
+        count_order=("l_orderkey", "size"), s=("l_extendedprice", "sum"),
+        m=("ps_supplycost", "max"), a=("ps_availqty", "mean"),
+        od=("o_orderkey", "nunique"))
+
+
+def hashed_q1(ctx, spec, dense) -> dict:
+    """Q1 as a QuerySpec forced onto the hashed tier (6 keys over 6M rows:
+    few groups, many rows each), under ``auto`` and on both tiers,
+    against the dense answer."""
+    for k, v in HASH_FORCED.items():
+        ctx.config.set(k, v)
+
+    def run():
+        with HashSpy() as spy:
+            got = ctx.execute(spec).to_pandas()
+        return got, ctx.engine.last_stats, spy
+
+    def timed():
+        return timed_execute(ctx, spec), ctx.engine.last_stats
+
+    def check(mode, got):
+        check_frame(f"Q1 hashed ({mode}) vs dense", got, dense, None,
+                    FLOAT_SUM_RTOL_KERNEL)
+    try:
+        out = tier_choice(ctx, run, timed, check)
+    finally:
+        ctx.config.set("sdot.engine.groupby.dense.max.keys", 1 << 22)
+    for mode in ("auto", "on", "off"):
+        if not out[mode]["hashed"]:
+            raise AssertionError(f"Q1 forced hashed ({mode}): {out}")
+    return out
 
 
 def main() -> int:
@@ -1500,8 +1859,8 @@ def main() -> int:
          segments=ctx.store.get("lineitem").num_segments)
 
     # 4a. the SQL front end over the flattened star
-    sql_b1, sql_b2, sql_k = sql_phase(sdt, tables, ctx.store.get("lineitem"),
-                                      CG, CW, smi)
+    sql_b1, sql_b2, sql_k, hashed = sql_phase(
+        sdt, tables, ctx.store.get("lineitem"), CG, CW, smi)
     sees["after_sql"] = profiler_sees(probe, "dense_groupby")
 
     captured = {}
@@ -1547,6 +1906,22 @@ def main() -> int:
          route=ctx.engine.last_stats.get("route"))
 
     sees["after_main_path"] = profiler_sees(probe, "dense_groupby")
+
+    # 4a'. the wide-key path: Q1 forced hashed, and what phase sql found
+    t0 = time.perf_counter()
+    hashed["q1_forced_hashed"] = hashed_q1(ctx, q1, r1)
+    emit("hashed", card=smi, **hashed,
+         q1_seconds=time.perf_counter() - t0,
+         oracle="q3 (flat) and basic_agg vs pandas (ints exact, floats "
+                "rtol 1e-6); q7 sorted vs scatter tier and Q1 hashed vs "
+                "dense (floats rtol 1e-9); q3 / q10 / q21 (full star) vs "
+                "the engine-free host tier while its budget lasts",
+         note="steps: device ms by CUDA events as in phase timing; "
+              "bound = bytes the step must move / 3.35 TB/s (the copy to "
+              "the host: / 64 GB/s, PCIe Gen5 x16); unit costs: s per row "
+              "per added aggregate, slope 1 -> 5 float64 sums, held = "
+              "parallel/cost.py's table; per statement: warm ms on each "
+              "tier, the tier auto picks and whether it is the faster")
 
     # 4b. the storm: 8 concurrent queries coalesced into one wave launch
     ds = ctx.store.get("lineitem")

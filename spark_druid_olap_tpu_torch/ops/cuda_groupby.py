@@ -15,9 +15,9 @@ remains.
 group of at most :data:`MAX_AGGS` aggregates, and raises on anything the
 kernel does not take; for CPU tensors it computes the same function with
 :func:`dense_groupby_reference`, the plain version that the tests and
-``chip_smoke.py`` hold the kernel against, and which
-``ops/groupby.dense_groupby`` also runs as its scatter tier for more keys
-than the kernel takes. The kernel is built with ``nvcc`` at first use into
+``chip_smoke.py`` hold the kernel against (the engine's scatter tier for
+more keys than the kernel takes is ``ops/groupby.scatter_groupby``). The
+kernel is built with ``nvcc`` at first use into
 ``build/torch_ext/`` and bound with ``ctypes`` (``ops/cuda_build.py``: no
 PyTorch headers, so the build takes seconds); its fold is
 ``csrc/groupby_fold.cuh``, shared with the wave kernel. The fold has two

@@ -13,11 +13,13 @@ are not ported.
 - ``K <= sdot.engine.groupby.pallas.max.keys``: the fused kernel
   (``ops/cuda_groupby.py``), one pass over the key and every aggregate —
   the counterpart of the JAX package's Pallas tier.
-- Larger ``K``: per-aggregate scatter (``index_add_`` / ``scatter_reduce_``),
-  the counterpart of the JAX package's ``_scatter_groupby`` (an XLA op
-  there, PyTorch ops here). It is the kernel's plain version,
-  ``cuda_groupby.dense_groupby_reference``, which computes the same
-  function.
+- Larger ``K``: :func:`scatter_groupby`, one scatter per aggregate
+  (``index_add_`` / ``scatter_reduce_``) over the rows of some group,
+  the counterpart of the JAX package's ``_scatter_groupby`` (XLA segment
+  ops there). The hashed tier (``ops/hash_groupby.py``) runs it too, with
+  the assigned slot as the key.
+- :func:`route_score` / :func:`route_null_mask` read a route's outputs on
+  the device for the top-k epilogues.
 """
 
 from __future__ import annotations
@@ -124,17 +126,89 @@ def dense_groupby(key: torch.Tensor, mask: torch.Tensor, n_keys: int,
     flat = [dataclasses.replace(
         a,
         values=None if a.values is None
-        else _flat(a.values, key).to(_value_dtype(routes[a.name], a.values)),
-        mask=None if a.mask is None else _flat(a.mask, key))
+        else flat_values(a.values, key).to(
+            _value_dtype(routes[a.name], a.values)),
+        mask=None if a.mask is None else flat_values(a.mask, key))
         for a in inputs]
     if use_kernel(n_keys, flat, pallas_max):
         return CG.dense_groupby_kernel(key, n_keys, flat, pallas_max)
-    return CG.dense_groupby_reference(key, n_keys, flat)
+    return scatter_groupby(key, n_keys, flat, routes)
 
 
-def _flat(t: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
-    return torch.broadcast_to(t, key.shape).contiguous() if t.dim() == 0 \
+def scatter_groupby(key: torch.Tensor, n_keys: int, inputs: List[AggInput],
+                    routes: Dict[str, Route]) -> Dict[str, torch.Tensor]:
+    """The scatter tier: one scatter per aggregate into an ``[n_keys]``
+    table (flat ``key``, flat inputs). Rows whose key lies outside
+    ``[0, n_keys)`` match no group and are dropped once, before the
+    scatters (XLA's segment ops drop them in the JAX package): scattered
+    into one spare slot instead, they would serialize on its atomics.
+    Counts and integer aggregates in int64, float ones in float64; empty
+    min/max groups keep ``INT64_MAX`` / ``INT64_MIN`` / +-inf, and a NaN
+    value makes its group's float sum, min and max NaN. On the card the
+    float ``index_add_`` is atomic, so its summation order varies from
+    run to run."""
+    k = key.reshape(-1).long()
+    idx = torch.nonzero((k >= 0) & (k < n_keys)).squeeze(1)
+    every = idx.numel() == k.numel()
+
+    def live(t):
+        return t if every else t[idx]
+    k = live(k)
+    out = {}
+    for a in inputs:
+        r = routes[a.name]
+        m = None if a.mask is None else live(a.mask) != 0
+        if a.kind == "count":
+            v = torch.ones_like(k) if m is None else m.long()
+        else:
+            v = live(a.values).to(torch.int64 if r.tag == "i64"
+                                  else torch.float64)
+        if a.kind in ("min", "max"):
+            sent = sentinel(r)
+            if m is not None:
+                v = torch.where(m, v, sent)
+            acc = torch.full((n_keys,), sent, dtype=v.dtype,
+                             device=k.device)
+            acc.scatter_reduce_(0, k, v,
+                                "amin" if a.kind == "min" else "amax")
+        else:
+            if m is not None and a.kind == "sum":
+                v = torch.where(m, v, 0)
+            acc = torch.zeros(n_keys, dtype=v.dtype, device=k.device)
+            acc.index_add_(0, k, v)
+        out[a.name] = acc
+    return out
+
+
+def route_score(route: Route, out: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Per-key value of one aggregation from its route output, as float64:
+    the selection score of the top-k epilogues (exact for ``f64``, and for
+    ``i64`` below 2^53; the exactness proof handles the rest)."""
+    return out[route.name].to(torch.float64)
+
+
+def route_null_mask(route: Route, out: Dict[str, torch.Tensor]):
+    """Bool mask of keys whose min/max metric is NULL (the empty-group
+    sentinel survived); None for sum and count routes, whose NULL identity
+    is 0."""
+    if route.kind not in ("min", "max"):
+        return None
+    return out[route.name] == sentinel(route)
+
+
+def sentinel(route: Route):
+    """The empty-group value of a min / max route: ``INT64_MAX`` /
+    ``INT64_MIN`` for ``i64``, +-inf for ``f64``."""
+    if route.tag == "i64":
+        return int(I64_MAX if route.kind == "min" else I64_MIN)
+    return float("inf") if route.kind == "min" else float("-inf")
+
+
+def flat_values(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` flattened to ``like``'s row count (a 0-d value broadcasts)."""
+    return torch.broadcast_to(t, like.shape).contiguous() if t.dim() == 0 \
         else t.reshape(-1).contiguous()
+
 
 
 def _value_dtype(route: Route, values: torch.Tensor) -> torch.dtype:

@@ -1,21 +1,28 @@
-"""Query executor: lowers a QuerySpec onto device tensors and the dense
-group-by routes.
+"""Query executor: lowers a QuerySpec onto device tensors and the group-by
+tiers.
 
 Port of ``spark_druid_olap_tpu/parallel/executor.py``: ``QueryEngine.execute``
 -> ``_execute_inner`` -> ``_run_agg`` for GroupBy, Timeseries and TopN
-specs, on one device, in one wave, on the dense route. Planning
-(``plan_dimension``, ``plan_aggregation`` / ``AggPlan``, ``_plan_agg``,
-``_plan_routes``), the scan core (``_make_core``, without late
-materialization), the device-resident array cache (``_bind_arrays``),
-decode and the host epilogue (``_agg_epilogue``) mirror the JAX engine.
+specs, on one device, in one wave. Planning (``plan_dimension``,
+``plan_aggregation`` / ``AggPlan``, ``_plan_agg``, ``_plan_routes``), the
+scan cores (``_make_core``, ``_hash_core``, without late materialization),
+the device-resident array cache (``_bind_arrays``), decode and the host
+epilogue (``_agg_epilogue``) mirror the JAX engine.
+
+Tiers, as the JAX engine picks them: the dense route up to
+``sdot.engine.groupby.dense.max.keys`` (the fused kernel for small K, the
+scatter tier above it); the hashed tier above that ceiling
+(``_run_agg_hashed``: one slot sort, then the sorted-run or the scatter
+aggregation, table compaction for large tables, a 4x retry on overflow);
+and the medium-K reroute of dense key spaces onto the sorted-run tier
+when the sorted-run gate says so. An ordered limit over a large key space
+selects its candidates on the device (device top-k, dense and hashed),
+and a GroupBy re-runs without it when the exactness proof fails.
 
 Dimensions cover plain columns, time extractions, granularity buckets and
 the dictionary-functional lookup / regex / expression extractions.
-Ordering, limit and HAVING run on the host over the full ``[K]`` result,
-which is what the JAX engine does whenever it plans no device top-k or
-device HAVING, so the answers are the same. Every path the JAX engine would
-take outside this slice — hashed / sorted tiers, sketches, device top-k and
-HAVING, multi-wave binding, select and search queries — raises
+Every path the JAX engine would take outside this slice — sketches,
+device HAVING, multi-wave binding, select and search queries — raises
 ``NotImplementedError`` naming its ROADMAP item; the engine never changes
 an answer to stay inside the slice. The JAX engine's late materialization
 (``compact_m``) is skipped: its uncompacted program is the JAX engine's own
@@ -37,6 +44,8 @@ from spark_druid_olap_tpu_torch.ir import spec as S
 from spark_druid_olap_tpu_torch.ops import expr_compile as EC
 from spark_druid_olap_tpu_torch.ops import filters as F
 from spark_druid_olap_tpu_torch.ops import groupby as G
+from spark_druid_olap_tpu_torch.ops import hash_groupby as H
+from spark_druid_olap_tpu_torch.ops import sorted_groupby as SG
 from spark_druid_olap_tpu_torch.ops import time_ops as T
 from spark_druid_olap_tpu_torch.ops import timezone as TZ
 from spark_druid_olap_tpu_torch.ops.scan import (
@@ -45,21 +54,29 @@ from spark_druid_olap_tpu_torch.ops.scan import (
     array_names,
     build_array,
 )
+from spark_druid_olap_tpu_torch.parallel.cost import unit_cost
 from spark_druid_olap_tpu_torch.result import QueryResult
 from spark_druid_olap_tpu_torch.segment.column import ColumnKind
 from spark_druid_olap_tpu_torch.segment.store import Datasource, SegmentStore
 from spark_druid_olap_tpu_torch.utils import host_eval
+from spark_druid_olap_tpu_torch.utils import phases as PH
 from spark_druid_olap_tpu_torch.utils.config import (
+    COST_SCATTER_UPDATE,
+    COST_SORT_PAYLOAD_ROW,
     Config,
     DEVICE_CACHE_BYTES,
     GROUPBY_DENSE_MAX_KEYS,
+    GROUPBY_HASH_COMPACT_MIN,
+    GROUPBY_HASH_MAX_SLOTS,
+    GROUPBY_HASH_MAX_SLOTS_CPU,
+    GROUPBY_HASH_SLOTS,
+    GROUPBY_HASH_SORTED,
     GROUPBY_PALLAS_MAX_KEYS,
+    GROUPBY_SORTED_MIN_KEYS,
     HAVING_DEVICE_MIN_KEYS,
     TOPN_DEVICE_MIN_KEYS,
     TZ_ID,
 )
-
-PART_LIMIT = 2**31 - 1     # widest LONG grouping range (ops/hash_groupby.py)
 
 
 class EngineFallback(Exception):
@@ -124,7 +141,7 @@ def _plan_plain(name: str, ds: Datasource, out: str) -> DimPlan:
             dec = lambda idx: (np.asarray(idx, np.int64) + lo) \
                 .astype("datetime64[D]")
         else:
-            if hi - lo + 1 >= PART_LIMIT:
+            if hi - lo + 1 >= H.PART_LIMIT:
                 raise EngineFallback(f"grouping on wide-range long {name}")
             dec = lambda idx: np.asarray(idx, np.int64) + lo
         build, decode, card = _with_null_slot(
@@ -548,7 +565,9 @@ def _dim_parses_numeric(ds: Datasource, field: str) -> bool:
 
 
 def _topk_slack(limit: S.LimitSpec) -> int:
-    """Candidate count the JAX engine's device top-k selects."""
+    """Candidate count for a device top-k selection. Secondary order
+    columns only reorder ties in the primary metric, so they widen the
+    slack."""
     if len(limit.columns) == 1:
         return int(max(2 * limit.limit, limit.limit + 64))
     return int(max(4 * limit.limit, limit.limit + 256))
@@ -623,7 +642,7 @@ class QueryEngine:
     # -- aggregation path -----------------------------------------------------
     def _run_agg(self, q, dimensions: List[S.DimensionSpec], aggregations,
                  post_aggregations, having, limit, granularity, filter_spec,
-                 intervals) -> QueryResult:
+                 intervals, no_topk: bool = False) -> QueryResult:
         ds = self.store.get(q.datasource)
         seg_idx = ds.prune_segments(intervals, filter_spec)
         gran_kind = granularity.kind if granularity else "all"
@@ -657,17 +676,37 @@ class QueryEngine:
             self._plan_agg(ds, seg_idx, dimensions, aggregations,
                            granularity, filter_spec, intervals)
         cards = [p.card for p in all_dim_plans]
-        if n_keys > self.config.get(GROUPBY_DENSE_MAX_KEYS):
-            raise not_ported(f"hashed group-by ({n_keys} keys)", "A.2")
-        epilogue = self._device_epilogue(limit, having, agg_plans, routes,
-                                         n_keys)
-        if epilogue is not None:
-            raise not_ported(epilogue, "A.4")
+        route_hashed = n_keys > self.config.get(GROUPBY_DENSE_MAX_KEYS)
+        if not route_hashed:
+            # medium-K reroute: the same gate as the sorted-run tier, so
+            # its 'off' switch also keeps medium-K queries dense
+            min_k = int(self.config.get(GROUPBY_SORTED_MIN_KEYS))
+            if min_k > 0 and n_keys >= min_k and self._sorted_run_wanted(
+                    _rows_of(ds, seg_idx), n_keys):
+                route_hashed = True
+        if route_hashed:
+            return self._run_agg_hashed(
+                q, ds, seg_idx, all_dim_plans, agg_plans, names, min_day,
+                max_day, post_aggregations, having, limit, filter_spec,
+                intervals, no_topk=no_topk)
+        if self._device_having(having, routes, n_keys):
+            raise not_ported("device HAVING", "A.4")
 
+        topk = None if no_topk else \
+            self._plan_device_topk(limit, having, agg_plans, n_keys)
+        n_out = topk[1] if topk else n_keys
+        t = _time.perf_counter()
         dev_arrays = self._bind_arrays(ds, names, seg_idx)
+        t = _phase("bind", t)
         core = self._make_core(ds, all_dim_plans, agg_plans, filter_spec,
                                intervals, min_day, max_day, n_keys, routes)
-        finals = _finals_from_out(core(dev_arrays), routes, n_keys)
+        out = core(dev_arrays)
+        if topk:
+            out = _topk_gather(out, routes, topk, n_keys)
+        host = _to_host(out)
+        t = _phase("dispatch", t)
+        finals = _finals_from_out(host, routes, n_out)
+        top_idx = host["__topk_idx__"].astype(np.int64) if topk else None
 
         # --- decode -----------------------------------------------------------
         rows = finals["__rows__"]
@@ -681,7 +720,8 @@ class QueryEngine:
         data: Dict[str, np.ndarray] = {}
         columns: List[str] = []
         if all_dim_plans:
-            code_lists = G.unfuse_key(sel, cards)
+            key_ids = top_idx[sel] if top_idx is not None else sel
+            code_lists = G.unfuse_key(key_ids, cards)
             for p, codes in zip(all_dim_plans, code_lists):
                 data[p.output_name] = p.decode(codes)
                 columns.append(p.output_name)
@@ -697,41 +737,251 @@ class QueryEngine:
 
         data = self._agg_epilogue(data, columns, post_aggregations, having,
                                   limit)
+        _phase("epilogue", t)
+        if topk and not isinstance(q, S.TopNQuerySpec):
+            # exact-contract GroupBy: prove the boundary row clears the
+            # cutoff of the device selection, or re-run without it
+            if not _topk_selection_exact(limit, topk, routes[topk[0]],
+                                         host["__topk_score__"], data):
+                return self._run_agg(q, dimensions, aggregations,
+                                     post_aggregations, having, limit,
+                                     granularity, filter_spec, intervals,
+                                     no_topk=True)
         self.last_stats.update({
             "datasource": ds.name, "segments": int(len(seg_idx)),
             "groups": int(len(sel)), "rows_scanned": int(ds.num_rows),
             "route": "kernel" if G.use_kernel(
                 n_keys, list(routes.values()),
-                self.config.get(GROUPBY_PALLAS_MAX_KEYS)) else "scatter"})
+                self.config.get(GROUPBY_PALLAS_MAX_KEYS)) else "scatter",
+            "topk_device": int(topk[1]) if topk else 0})
         return QueryResult(columns, data)
 
-    def _device_epilogue(self, limit, having, agg_plans, routes,
-                         n_keys) -> Optional[str]:
-        """The device epilogue the JAX engine would plan for this query
-        (its ``_plan_device_topk`` / ``_plan_device_having`` gates), or
-        None when it would order, limit and filter on the host as the port
-        does."""
-        if having is None and limit is not None and limit.limit is not None \
-                and limit.columns \
-                and n_keys >= self.config.get(TOPN_DEVICE_MIN_KEYS):
-            oc = limit.columns[0]
-            mplan = next((p for p in agg_plans if p.spec.name == oc.name),
-                         None)
-            if mplan is not None and not mplan.dim_codes \
-                    and min(n_keys, _topk_slack(limit)) * 4 < n_keys:
-                return "device top-k"
-        if having is not None \
-                and n_keys >= self.config.get(HAVING_DEVICE_MIN_KEYS):
-            e = having.expr
-            if isinstance(e, E.Comparison):
-                for a, b in ((e.left, e.right), (e.right, e.left)):
-                    if isinstance(a, E.Column) and a.name in routes \
-                            and isinstance(b, E.Literal) \
-                            and isinstance(b.value, (int, np.integer)) \
-                            and not isinstance(b.value, bool) \
-                            and -2**62 <= int(b.value) < 2**62:
-                        return "device HAVING"
-        return None
+    def _device_having(self, having, routes, n_keys) -> bool:
+        """Whether the JAX engine would evaluate this HAVING on the device
+        (its ``_plan_device_having`` gate): an integer literal compared
+        with an aggregate, over a key space of at least
+        ``sdot.engine.having.device.min.keys``."""
+        if having is None \
+                or n_keys < self.config.get(HAVING_DEVICE_MIN_KEYS):
+            return False
+        e = having.expr
+        if isinstance(e, E.Comparison):
+            for a, b in ((e.left, e.right), (e.right, e.left)):
+                if isinstance(a, E.Column) and a.name in routes \
+                        and isinstance(b, E.Literal) \
+                        and isinstance(b.value, (int, np.integer)) \
+                        and not isinstance(b.value, bool) \
+                        and -2**62 <= int(b.value) < 2**62:
+                    return True
+        return False
+
+    def _plan_device_topk(self, limit, having, agg_plans, n_keys):
+        """Whether the ordered limit selects its candidates on the device:
+        ``(metric, k_sel, ascending)`` or None. The selection scores each
+        key by its metric (``ops.groupby.route_score``) and only the best
+        ``k_sel`` rows travel; the host orders them exactly. Skipped under
+        HAVING, for a metric decoded from dictionary codes, and when
+        ``k_sel`` is a quarter of the key space or more."""
+        if having is not None or limit is None or limit.limit is None:
+            return None
+        if not limit.columns:
+            return None
+        if n_keys < self.config.get(TOPN_DEVICE_MIN_KEYS):
+            return None
+        oc = limit.columns[0]
+        mplan = next((p for p in agg_plans if p.spec.name == oc.name), None)
+        if mplan is None or mplan.dim_codes:
+            return None
+        k_sel = min(n_keys, _topk_slack(limit))
+        if k_sel * 4 >= n_keys:
+            return None              # full transfer is already cheap
+        return (oc.name, k_sel, bool(oc.ascending))
+
+    def _sorted_run_wanted(self, rows: int, key_space: int) -> bool:
+        """The one gate of the sorted-run tier and of the medium-K reroute
+        onto it: 'on' / 'off' win; 'auto' engages when riding one payload
+        through the slot sort costs less per row than one scatter update
+        on this engine's device (``parallel/cost.unit_cost``), the scatter
+        read at ``rows`` (the segment-pruned rows) over the groups they
+        can form, ``min(key_space, rows)``."""
+        mode = str(self.config.get(GROUPBY_HASH_SORTED))
+        if mode in ("on", "off"):
+            return mode == "on"
+        per_slot = rows / max(1, min(int(key_space), int(rows)))
+        return unit_cost(self.config, COST_SORT_PAYLOAD_ROW, self.device) \
+            < unit_cost(self.config, COST_SCATTER_UPDATE, self.device,
+                        rows_per_slot=per_slot)
+
+    # -- hashed high-cardinality aggregation path -----------------------------
+    def _run_agg_hashed(self, q, ds, seg_idx, dim_plans, agg_plans, names,
+                        min_day, max_day, post_aggregations, having, limit,
+                        filter_spec, intervals, no_topk: bool = False):
+        """Group-by above the dense key-space ceiling (and the medium-K
+        reroute): a table of ``T`` slots on the device
+        (``ops/hash_groupby.py``), read back by key. Overflow retries at
+        4x slots, then falls back."""
+        cards = [p.card for p in dim_plans]
+        try:
+            parts = H.split_parts(cards)
+        except H.KeySpaceTooWide as e:
+            raise EngineFallback(str(e)) from e
+        # the exact selected-row count bounds the group count
+        rows_sel = _rows_of(ds, seg_idx)
+        max_slots = int(self.config.get(GROUPBY_HASH_MAX_SLOTS))
+        if self.device.type == "cpu":
+            max_slots = min(max_slots, int(self.config.get(
+                GROUPBY_HASH_MAX_SLOTS_CPU)))
+        n_keys_total = 1
+        for c in cards:
+            n_keys_total *= int(c)
+        T = int(self.config.get(GROUPBY_HASH_SLOTS)) or H.initial_slots(
+            min(n_keys_total, rows_sel), hi=max_slots)
+        metas = [G.AggInput(p.spec.name, p.kind, is_int=p.is_int)
+                 for p in agg_plans]
+        topk_plan = None if no_topk else \
+            self._plan_device_topk_hashed(limit, having, agg_plans)
+        kg_used = 0
+        tk_scores = None
+        while True:
+            # k_sel * 4 <= T also bounds k_sel < T
+            topk = topk_plan if topk_plan and topk_plan[1] * 4 <= T \
+                else None
+            compact = topk is None \
+                and T >= self.config.get(GROUPBY_HASH_COMPACT_MIN)
+            sorted_run = self._sorted_run_wanted(rows_sel, n_keys_total)
+            routes = SG.plan_sorted_routes(metas) if sorted_run \
+                else G.plan_routes(metas)
+            core = self._hash_core(ds, dim_plans, parts, agg_plans,
+                                   filter_spec, intervals, min_day, max_day,
+                                   T, routes, sorted_run)
+            t = _time.perf_counter()
+            arrays = self._bind_arrays(ds, names, seg_idx)
+            t = _phase("bind", t)
+            out = core(arrays)
+            if compact:
+                # dispatch 1 of 2: the table stays on the device; only
+                # [unresolved, occupied] travel
+                occ = (out["__tkhi__"] != H.EMPTY).sum()
+                unresolved, occupied = (int(x) for x in torch.stack(
+                    [out.pop("__unres__")[0], occ]).cpu())
+                if not unresolved:
+                    # dispatch 2 of 2: the occupied slots are the table's
+                    # prefix [0, G); copy a power of two of them
+                    kg = min(T, 1 << max(6, (max(1, occupied) - 1)
+                                         .bit_length()))
+                    kg_used = max(kg_used, kg)
+                    raw = _to_host({k: v[:kg] for k, v in out.items()})
+                    k_out = kg
+            else:
+                if topk:
+                    unres = out.pop("__unres__")
+                    out = _hash_topk_gather(out, routes, topk, T)
+                    out["__unres__"] = unres
+                raw = _to_host(out)
+                unresolved = int(raw.pop("__unres__")[0])
+                k_out = topk[1] if topk else T
+                if topk:
+                    tk_scores = raw.pop("__topk_score__")
+            t = _phase("dispatch", t)
+            if not unresolved:
+                break
+            T *= 4
+            if T > max_slots:
+                raise EngineFallback(
+                    f"hashed group-by exceeded {max_slots} table slots")
+        keys, merged = _hash_rows(raw, routes, k_out)
+        data: Dict[str, np.ndarray] = {}
+        columns: List[str] = []
+        khi, klo = H.unpack_key(keys)
+        part_vals = [khi, klo]
+        dim_codes: Dict[int, np.ndarray] = {}
+        for pi, idxs in enumerate(parts):
+            for i, c in zip(idxs, H.unfuse_part(part_vals[pi], cards, idxs)):
+                dim_codes[i] = c
+        for i, p in enumerate(dim_plans):
+            data[p.output_name] = p.decode(dim_codes[i])
+            columns.append(p.output_name)
+        for p in agg_plans:
+            name = p.spec.name
+            data[name] = _decode_agg_value(ds, p, routes[name], merged[name])
+            columns.append(name)
+        data = self._agg_epilogue(data, columns, post_aggregations, having,
+                                  limit)
+        _phase("epilogue", t)
+        if topk and not isinstance(q, S.TopNQuerySpec):
+            # the dense epilogue's proof, over the table's slot scores
+            scores = np.sort(np.asarray(tk_scores, np.float64))[::-1]
+            if not _topk_selection_exact(limit, topk, routes[topk[0]],
+                                         scores, data):
+                return self._run_agg_hashed(
+                    q, ds, seg_idx, dim_plans, agg_plans, names, min_day,
+                    max_day, post_aggregations, having, limit, filter_spec,
+                    intervals, no_topk=True)
+        self.last_stats.update({
+            "datasource": ds.name, "segments": int(len(seg_idx)),
+            "groups": int(len(keys)), "rows_scanned": int(ds.num_rows),
+            "route": "sorted" if sorted_run else "scatter", "hashed": True,
+            "hash_slots": int(T), "hash_compact_k": int(kg_used),
+            "topk_device": int(topk[1]) if topk else 0})
+        return QueryResult(columns, data)
+
+    def _plan_device_topk_hashed(self, limit, having, agg_plans):
+        """Device top-k over the hash table: only the best ``k_sel`` slots
+        travel. The engine runs one device and one wave, so the table is
+        complete and the slot scores are global."""
+        if having is not None or limit is None or limit.limit is None:
+            return None
+        if not limit.columns:
+            return None
+        oc = limit.columns[0]
+        mplan = next((p for p in agg_plans if p.spec.name == oc.name), None)
+        if mplan is None or mplan.dim_codes:
+            return None
+        return (oc.name, _topk_slack(limit), bool(oc.ascending))
+
+    def _hash_core(self, ds, dim_plans, parts, agg_plans, filter_spec,
+                   intervals, min_day, max_day, T, routes, sorted_run):
+        """The hash scan body: scan -> filter -> per-dim codes -> two-part
+        key -> slot sort -> the sorted-run or the scatter aggregation into
+        [T] tables. Returns the route outputs, the '__tkhi__' /
+        '__tklo__' key tables and '__unres__' ([1])."""
+        cards = [p.card for p in dim_plans]
+        tz = self.config.get(TZ_ID)
+
+        def core(arrays):
+            ctx = ScanContext(ds, arrays, min_day, max_day, tz=tz)
+            base = ctx.row_valid()
+            fm = F.lower_filter(filter_spec, ctx)
+            if fm is not None:
+                base = base & fm
+            im = F.interval_mask(intervals, ctx)
+            if im is not None:
+                base = base & im
+            codes = [p.build(ctx) for p in dim_plans]
+            khi = H.fuse_part(codes, cards, parts[0])
+            klo = H.fuse_part(codes, cards, parts[1]) if len(parts) > 1 \
+                else torch.zeros_like(khi)
+            cols = [khi, klo]
+            for p in agg_plans:
+                cols += [p.build_values(ctx), p.build_mask(ctx)]
+            valid, cols = H.live_rows(base, cols)
+            khi, klo = cols[:2]
+            inputs = [G.AggInput(p.spec.name, p.kind, cols[2 + 2 * i],
+                                 cols[3 + 2 * i], is_int=p.is_int)
+                      for i, p in enumerate(agg_plans)]
+            if sorted_run:
+                return SG.sorted_hash_groupby(khi, klo, valid, T, inputs,
+                                              routes)
+            slot, tk_hi, tk_lo, unresolved = H.build_slots(
+                khi, klo, valid, T)
+            # pallas_max 0: the hashed tier always scatters, as in JAX
+            out = G.dense_groupby(slot, valid, T, inputs, routes, 0)
+            out["__tkhi__"] = tk_hi
+            out["__tklo__"] = tk_lo
+            out["__unres__"] = unresolved.reshape(1)
+            return out
+
+        return core
 
     def _agg_epilogue(self, data, columns, post_aggregations, having, limit):
         """Host epilogue: post aggregations, HAVING, ORDER BY + LIMIT."""
@@ -906,11 +1156,197 @@ class QueryEngine:
         self._device_bytes = 0
 
 
-def _finals_from_out(out, routes, n_keys):
-    """Route outputs -> exact final [n_keys] numpy arrays per aggregation."""
-    host = {name: t.cpu().numpy() for name, t in out.items()}
+def _rows_of(ds, seg_idx) -> int:
+    """Rows of the selected segments: what a scan can select at most."""
+    return int(sum(ds.segments[int(si)].num_rows for si in seg_idx))
+
+
+def _phase(name: str, t0: float) -> float:
+    """Charge the host time since ``t0`` to phase ``name``
+    (``utils/phases``); returns now."""
+    t = _time.perf_counter()
+    PH.add(name, t - t0)
+    return t
+
+
+def _to_host(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Device outputs -> numpy, in ONE device-to-host copy: every output
+    keeps its width and travels as bytes in one buffer (each part padded
+    to 8 bytes, so every numpy view is aligned), copied into pinned host
+    memory on the card, so a dispatch syncs once, not once per
+    aggregate."""
+    meta, parts, off = [], [], 0
+    for name, t in out.items():
+        # a one-element view may keep a stride other than 1 and still
+        # count as contiguous; a byte view needs stride 1
+        t = t.reshape(-1)
+        if t.stride(0) != 1:
+            t = t.clone(memory_format=torch.contiguous_format)
+        b = t.view(torch.uint8)
+        pad = -b.numel() % 8
+        meta.append((name, off, b.numel(), t.dtype))
+        parts += [b, b.new_zeros(pad)] if pad else [b]
+        off += b.numel() + pad
+    flat = torch.cat(parts)
+    if flat.is_cuda:
+        buf = torch.empty(flat.shape, dtype=torch.uint8, pin_memory=True)
+        buf.copy_(flat, non_blocking=True)
+        torch.cuda.current_stream(flat.device).synchronize()
+    else:
+        buf = flat
+    raw = buf.numpy()
+    return {name: raw[o: o + nbytes].view(_NP_DTYPE[dtype])
+            for name, o, nbytes, dtype in meta}
+
+
+_NP_DTYPE = {torch.int64: np.int64, torch.int32: np.int32,
+             torch.bool: np.bool_, torch.float64: np.float64,
+             torch.float32: np.float32}
+
+
+def _finals_from_out(host, routes, n_keys):
+    """Route outputs on the host -> exact final [n_keys] numpy arrays per
+    aggregation."""
     return {name: np.asarray(G.combine_route(r, host, n_keys))
             for name, r in routes.items()}
+
+
+def _top_k(score: torch.Tensor, k: int):
+    """The ``k`` largest scores and their indices, ties in index order
+    (the order of ``lax.top_k``): a stable descending sort."""
+    vals, idx = torch.sort(score, descending=True, stable=True)
+    return vals[:k], idx[:k]
+
+
+def _gather_rows(out, idx, n_keys):
+    """Gather every per-key output at ``idx``."""
+    return {name: t.reshape(n_keys, -1)[idx].reshape(-1)
+            for name, t in out.items()}
+
+
+def _topk_score(route, out, ascending, valid):
+    """The selection score of the dense and hashed top-k epilogues. Rank
+    order matches the host epilogue's: real scores, then occupied groups
+    whose metric is NULL (min/max sentinel), then invalid (unoccupied)
+    keys at -inf, so NULL-metric groups still fill an under-subscribed
+    LIMIT (nulls last)."""
+    sc = G.route_score(route, out)
+    if ascending:
+        sc = -sc
+    nm = G.route_null_mask(route, out)
+    if nm is not None:
+        sc = torch.where(nm, -torch.finfo(sc.dtype).max, sc)
+    return torch.where(valid, sc, float("-inf"))
+
+
+def _topk_gather(out, routes, topk, n_keys):
+    """Dense device top-k: select ``k_sel`` candidate keys of the groups
+    that hold rows by score and gather every output there, with the key
+    ids ('__topk_idx__') and the scores ('__topk_score__')."""
+    metric, k_sel, ascending = topk
+    sc = _topk_score(routes[metric], out, ascending, out["__rows__"] > 0)
+    vals, idx = _top_k(sc, k_sel)
+    g = _gather_rows(out, idx, n_keys)
+    g["__topk_idx__"] = idx
+    g["__topk_score__"] = vals
+    return g
+
+
+def _hash_topk_gather(out, routes, topk, T):
+    """Hashed device top-k: score the occupied slots, keep the best
+    ``k_sel`` (unoccupied slots at -inf fill any remainder and are
+    dropped by the host occupancy filter)."""
+    metric, k_sel, ascending = topk
+    occ = out["__tkhi__"] != H.EMPTY
+    sc = _topk_score(routes[metric], out, ascending, occ)
+    vals, idx = _top_k(sc, k_sel)
+    g = _gather_rows(out, idx, T)
+    g["__topk_score__"] = vals
+    return g
+
+
+def _score_cast_exact(route, vlo: float, vhi: float) -> bool:
+    """True when route_score is bit-exact for every metric value in
+    [vlo, vhi] and no value outside that range can round onto a value
+    inside it (strict bounds: a boundary tie in score space is then a
+    true value tie)."""
+    if route.tag == "f64":
+        return True
+    if route.tag == "i64":
+        return -(2.0 ** 53) < vlo and vhi < 2.0 ** 53
+    return False
+
+
+def _topk_selection_exact(limit, topk, route, scores, data) -> bool:
+    """True when the device candidate selection provably contains the
+    exact ordered-limit result; an exact-contract GroupBy re-runs without
+    the device epilogue when this is False (a TopN never checks: its
+    contract is approximate, like Druid's topN engine).
+
+    Every key the device did not transfer scored at most the ``k_sel``-th
+    best score (the cutoff), and its exact value exceeds its score by at
+    most the score's rounding. So the result is exact when the LIMIT-th
+    emitted row's exact value clears the cutoff by more than that."""
+    metric, k_sel, ascending = topk
+    cutoff = float(scores[-1]) if len(scores) else float("-inf")
+    if cutoff != cutoff:
+        return False                       # NaN scores: cannot reason
+    if cutoff == float("-inf"):
+        # an unoccupied (-inf) slot made the candidate set: every
+        # occupied key was transferred, so the selection is complete
+        return True
+    n = int(limit.limit)
+    if n <= 0:
+        return True
+    vals = data.get(metric)
+    if vals is None:
+        return False
+    vals = np.asarray(vals)
+    if len(vals) < n:
+        # occupied keys were excluded (finite cutoff) yet the LIMIT is
+        # under-subscribed: an excluded key might belong in the result
+        return False
+    v_k = vals[n - 1]
+    if v_k is None or (isinstance(v_k, float) and v_k != v_k):
+        return False      # NULL boundary row: excluded NULLs could tie
+    try:
+        s_k = float(v_k)
+    except (TypeError, ValueError):
+        return False
+    if ascending:
+        s_k = -s_k
+    c_val = -cutoff if ascending else cutoff        # cutoff in VALUE domain
+    vlo = min(s_k if not ascending else -s_k, c_val)
+    vhi = max(s_k if not ascending else -s_k, c_val)
+    if _score_cast_exact(route, vlo, vhi):
+        # scores near the boundary are bit-exact: strictly better is
+        # always safe, and an exact tie is safe when the primary metric
+        # is the only order column (tied keys are interchangeable answers
+        # under SQL's unspecified tie order)
+        return s_k > cutoff \
+            or (s_k == cutoff and len(limit.columns) == 1)
+    base = max(abs(cutoff), abs(s_k), 1.0)
+    eps = float(np.spacing(np.float64(base)))
+    return (s_k - cutoff) > 64.0 * eps
+
+
+def _hash_rows(raw, routes, T):
+    """A hash program's host outputs -> ``(packed keys, finals)`` of the
+    occupied slots, in ascending key order (the JAX package's
+    ``_hash_chip_partials`` + ``_merge_hash_partials`` for one table; the
+    key-wise merge of several chips' or waves' tables goes with them,
+    ROADMAP A.5 / A.8)."""
+    out = dict(raw)
+    khi = out.pop("__tkhi__")
+    klo = out.pop("__tklo__")
+    occ = khi != H.EMPTY
+    keys = H.pack_key(khi[occ], klo[occ])
+    # the table's keys are distinct; a top-k selection leaves them in
+    # score order
+    order = np.argsort(keys, kind="stable")
+    return keys[order], {
+        name: np.asarray(G.combine_route(r, out, T))[occ][order]
+        for name, r in routes.items()}
 
 
 def _decode_agg_value(ds, p, r, v) -> np.ndarray:

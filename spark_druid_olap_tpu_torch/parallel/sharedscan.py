@@ -63,6 +63,7 @@ from spark_druid_olap_tpu_torch.utils.config import (
     CUDA_WAVE_SCRATCH_BYTES,
     GROUPBY_DENSE_MAX_KEYS,
     GROUPBY_PALLAS_MAX_KEYS,
+    GROUPBY_SORTED_MIN_KEYS,
     PALLAS_WAVE_ENABLED,
     PALLAS_WAVE_MAX_LANES,
     SHAREDSCAN_ENABLED,
@@ -484,6 +485,10 @@ class SharedScanCoalescer:
                 n_keys *= p.card
             if n_keys > eng.config.get(GROUPBY_DENSE_MAX_KEYS):
                 return False    # hashed tier: solo handles it
+            min_k = int(eng.config.get(GROUPBY_SORTED_MIN_KEYS))
+            if min_k > 0 and n_keys >= min_k and eng._sorted_run_wanted(
+                    X._rows_of(ds, lp.seg), n_keys):
+                return False    # medium-K reroute territory: keep parity
             needed = set()
             for p in dim_plans:
                 needed |= set(p.source_cols)
@@ -575,8 +580,12 @@ class SharedScanCoalescer:
         from spark_druid_olap_tpu_torch.parallel import executor as X
         dev = self.engine._bind_arrays(ds, union_names, seg_u)
         outs = prog_fn(dev)
-        return [X._finals_from_out(out, lp.routes, lp.n_keys)
-                for out, lp in zip(outs, lanes)]
+        # every lane's outputs in one device-to-host copy
+        host = X._to_host({(i, k): v for i, out in enumerate(outs)
+                           for k, v in out.items()})
+        return [X._finals_from_out({k: v for (j, k), v in host.items()
+                                    if j == i}, lp.routes, lp.n_keys)
+                for i, lp in enumerate(lanes)]
 
     @staticmethod
     def _decode_lane(eng, ds, lp: _LanePlan, finals) -> QueryResult:

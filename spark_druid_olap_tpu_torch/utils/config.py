@@ -56,13 +56,63 @@ GROUPBY_PALLAS_MAX_KEYS = _entry(
     "sdot.engine.groupby.pallas.max.keys", 64,
     "Dense group-by runs the fused single-pass kernel "
     "(ops/cuda_groupby.py) when the fused key cardinality is at most "
-    "this; above it, the scatter path. 0 disables the kernel. The key "
-    "keeps the JAX package's name so one setting drives both engines.")
+    "this; above it, the scatter tier (ops/groupby.scatter_groupby). 0 "
+    "disables the kernel. The key keeps the JAX package's name so one "
+    "setting drives both engines.")
 GROUPBY_DENSE_MAX_KEYS = _entry(
     "sdot.engine.groupby.dense.max.keys", 1 << 22,
     "Max fused key cardinality for the dense device group-by; above it "
-    "the JAX engine switches to the hashed group-by, which the port does "
-    "not have yet.")
+    "the engine switches to the hashed group-by (ops/hash_groupby.py).")
+GROUPBY_SORTED_MIN_KEYS = _entry(
+    "sdot.engine.groupby.sorted.min.keys", 1024,
+    "Medium-K routing: key cardinalities at or above this route to the "
+    "sorted-run tier even below dense.max.keys when the sorted-run gate "
+    "(sdot.engine.groupby.hash.sortedrun) says so. 0 disables the "
+    "medium-K reroute.")
+GROUPBY_HASH_SLOTS = _entry(
+    "sdot.engine.groupby.hash.slots", 0,
+    "Group-table slot count for the hashed group-by (any value; used "
+    "as-is). 0 = auto-size to the next power of two above the group-count "
+    "upper bound min(key space, selected rows). Overflow retries at 4x up "
+    "to sdot.engine.groupby.hash.max.slots.")
+GROUPBY_HASH_MAX_SLOTS = _entry(
+    "sdot.engine.groupby.hash.max.slots", 1 << 24,
+    "Max hash-table slot count; a query whose actual group count exceeds "
+    "what this table can hold falls back to the host tier "
+    "(EngineFallback).")
+GROUPBY_HASH_MAX_SLOTS_CPU = _entry(
+    "sdot.engine.groupby.hash.max.slots.cpu", 1 << 23,
+    "Hash-table slot ceiling on a cpu device (effective cap = min(this, "
+    "sdot.engine.groupby.hash.max.slots)), as the JAX package applies it "
+    "off the TPU. A cuda device uses hash.max.slots alone.")
+GROUPBY_HASH_SORTED = _entry(
+    "sdot.engine.groupby.hash.sortedrun", "auto",
+    "Sorted-run aggregation for the hashed group-by tier "
+    "(ops/sorted_groupby.py): ride agg values as sort payloads and "
+    "replace per-agg scatters with prefix sums, segmented reductions and "
+    "run-boundary reads. 'auto' = on when the device's unit cost of a "
+    "sort payload row is below that of a scatter update at the query's "
+    "rows per group (segment-pruned rows over min(key space, rows); "
+    "parallel/cost.unit_cost); 'on'/'off' force it.")
+GROUPBY_HASH_COMPACT_MIN = _entry(
+    "sdot.engine.groupby.hash.compact.min.slots", 1 << 18,
+    "Min hash-table slot count before the hashed group-by compacts on "
+    "device (two dispatches: build the table and read its occupancy "
+    "count, then copy only the occupied slots to the host) instead of "
+    "transferring the full [T] table.")
+COST_SORT_PAYLOAD_ROW = _entry(
+    "sdot.querycostmodel.sort.payload.seconds.per.row", 6.7e-10,
+    "Seconds per row per extra sort payload operand. The default is the "
+    "JAX package's TPU value and is never used for a cpu or cuda device: "
+    "parallel/cost.unit_cost reads each device's measured table unless "
+    "this key is set explicitly.", float)
+COST_SCATTER_UPDATE = _entry(
+    "sdot.querycostmodel.scatter.seconds.per.update", 6.7e-9,
+    "Seconds per update of a scatter into a group table that fits in "
+    "cache. The default is the JAX package's TPU value and is never used "
+    "for a cpu or cuda device: parallel/cost.unit_cost reads each "
+    "device's measured table (on cuda a curve over rows per slot) unless "
+    "this key is set explicitly.", float)
 DEVICE_CACHE_BYTES = _entry(
     "sdot.engine.device.cache.bytes", 8 << 30,
     "Budget for device-resident bound column arrays (host-side bytes "
@@ -70,14 +120,15 @@ DEVICE_CACHE_BYTES = _entry(
     "array cache is dropped and rebuilt on demand.")
 TOPN_DEVICE_MIN_KEYS = _entry(
     "sdot.engine.topn.device.min.keys", 8192,
-    "Min fused key cardinality at which the JAX engine runs an ordered "
-    "limit's top-k selection on the device; the port refuses such "
-    "queries until that epilogue is ported.")
+    "Min fused key cardinality before an ordered-limit group-by / topN "
+    "runs its top-k selection on the device (a score sort over the "
+    "per-key results, transferring only the candidate rows). Below it "
+    "the full [K] result transfers and the host sorts.")
 HAVING_DEVICE_MIN_KEYS = _entry(
     "sdot.engine.having.device.min.keys", 1 << 16,
     "Min fused key cardinality at which the JAX engine evaluates an "
     "exact-comparable HAVING on the device; the port refuses such "
-    "queries until that epilogue is ported.")
+    "queries until that epilogue is ported (ROADMAP A.4).")
 
 # --- shared-scan multi-query execution (parallel/sharedscan.py) --------------
 SHAREDSCAN_ENABLED = _entry(
@@ -231,6 +282,12 @@ class Config:
                 continue
             out.append((k, repr(v)))
         return tuple(sorted(out))
+
+    def is_set(self, entry_or_key) -> bool:
+        """Whether the key was set explicitly (even to its default)."""
+        key = entry_or_key.key if isinstance(entry_or_key, ConfigEntry) \
+            else entry_or_key
+        return key in self._values
 
     def get(self, entry_or_key) -> Any:
         if isinstance(entry_or_key, ConfigEntry):

@@ -74,7 +74,12 @@ SQL_MODULES = ["sql.lexer", "sql.ast", "sql.parser", "sql.session",
                "utils.phases"]
 
 
-@pytest.mark.parametrize("module", SHAREDSCAN_MODULES + SQL_MODULES)
+# the wide-key aggregation path's modules, by exact name
+HASHED_MODULES = ["ops.hash_groupby", "ops.sorted_groupby", "parallel.cost"]
+
+
+@pytest.mark.parametrize("module",
+                         SHAREDSCAN_MODULES + SQL_MODULES + HASHED_MODULES)
 def test_sharedscan_slice_modules_are_checked(module):
     import pkgutil
     prefix = "spark_druid_olap_tpu_torch."
