@@ -19,7 +19,14 @@ sorted-run and the scatter tier, q3 over the flat star (hashed tier,
 device top-k) and ``basic_agg`` (9M keys, compacted table) against pandas,
 the full star's top-k statements against the engine-free host tier, Q1
 forced onto the hashed tier against its dense answer, and each step's
-device time. Before that
+device time. Its phase ``tail`` drives what
+earlier slices refused: q2, q16, q18 and q20 against pandas, q18's inner
+group-by with device HAVING, on the host path and with a HAVING most
+groups pass, q6 and q12 forced compacted (late materialization) against
+their uncompacted runs with each compacted B1 launch held against its
+plain version, q3 hashed with compaction, one overflow retry, a paged
+select over lineitem with its mask on the device and on the host, and one
+search. The census holds every statement in engine mode. Before that
 it builds every kernel of the path from the sources in this checkout and
 holds each against its plain PyTorch version on the card: the dense
 group-by in each fold tier that holds a case, the wave kernel in each
@@ -1385,6 +1392,8 @@ def sql_phase(sdt, tables, lineitem_ds, CG, CW, smi):
 
     # the wide-key path over the flat star, before the base tables are in
     hashed = hashed_flat(ctx, tables, nr, ctx.device)
+    # late materialization over the flat star (phase tail, first half)
+    tail = tail_flat(ctx, oracles, tables, CG)
 
     # census: every other query once, over the whole star (the base
     # tables name what the flat table alone cannot resolve)
@@ -1423,7 +1432,12 @@ def sql_phase(sdt, tables, lineitem_ds, CG, CW, smi):
                         "ms": (time.perf_counter() - t0) * 1e3,
                         **{k: st.get(k) for k in ("route", "hashed",
                                                   "topk_device")}}
+    refused = {n: c["outcome"] for n, c in census.items()
+               if c["outcome"].startswith("refused")}
+    if refused:
+        raise AssertionError(f"census: statements refused: {refused}")
     hashed.update(hashed_full(ctx, tables, census))
+    tail.update(tail_full(ctx, tables, nr, census))
     emit("sql", card=smi, sf=SF, flat_rows=rows, flat_columns=flat_cols,
          flatten_s=t_flat, ingest_s=t_ingest, base_tables_ingest_s=t_base,
          statements=stmts, storm=storm, census=census, kernels=kernels,
@@ -1439,7 +1453,7 @@ def sql_phase(sdt, tables, lineitem_ds, CG, CW, smi):
               "warm run; kernels: each B1 call of a statement's cold run "
               "and the storm's B2 launch, kernel vs plain version on the "
               "same inputs, times as in phase timing")
-    return b1, b2, kernels, hashed
+    return b1, b2, kernels, hashed, tail
 
 
 # -- the wide-key aggregation path (phase "hashed") --------------------------
@@ -1620,6 +1634,7 @@ def tier_choice(ctx, run, timed, check, repeats=REPEATS) -> dict:
                        hashed=bool(st.get("hashed")),
                        hash_slots=st.get("hash_slots"),
                        hash_compact_k=st.get("hash_compact_k"),
+                       compact_m=st.get("compact_m"),
                        topk_device=st.get("topk_device"),
                        groups=st.get("groups"), calls=spy.counts())
             if mode != "auto":
@@ -1757,6 +1772,366 @@ def basic_agg_oracle(t):
         od=("o_orderkey", "nunique"))
 
 
+# -- device HAVING, late materialization, select and search (phase "tail") ---
+
+COMPACT_FORCED = {"sdot.engine.scan.compact.min.rows": 0}
+TAIL_REPEATS = 3
+Q18_INNER = ("select l_orderkey, sum(l_quantity) as q from lineitem "
+             "group by l_orderkey having sum(l_quantity) > {}")
+
+
+class settings:
+    """Config values set for a ``with`` block, the earlier ones restored
+    after it."""
+
+    def __init__(self, ctx, values):
+        self.config, self.values = ctx.config, dict(values)
+
+    def __enter__(self):
+        self.held = {k: self.config.get(k) for k in self.values}
+        for k, v in self.values.items():
+            self.config.set(k, v)
+
+    def __exit__(self, *exc):
+        for k, v in self.held.items():
+            self.config.set(k, v)
+
+
+class CopySpy:
+    """Counts the engine's device-to-host copies (``executor._to_host``)
+    and their bytes, and times each compaction (``compact_keep``) on the
+    card, while it is installed."""
+
+    def __init__(self):
+        from spark_druid_olap_tpu_torch.parallel import executor as X
+        self.X = X
+        self.copies, self.copy_bytes, self.compactions = 0, 0, []
+
+    def __enter__(self):
+        X = self.X
+        self.real = (X._to_host, X.compact_keep)
+
+        def to_host(out):
+            self.copies += 1
+            self.copy_bytes += sum(t.numel() * t.element_size()
+                                   for t in out.values())
+            return self.real[0](out)
+
+        def keep(valid, m):
+            self.compactions.append((valid, m))
+            return self.real[1](valid, m)
+        X._to_host, X.compact_keep = to_host, keep
+        return self
+
+    def __exit__(self, *exc):
+        self.X._to_host, self.X.compact_keep = self.real
+
+    def compaction_ms(self) -> list:
+        """Each compaction seen, timed again on its own inputs (device ms,
+        as phase timing times kernels), beside its bound: the mask read
+        once, the [m] positions written once."""
+        out = []
+        for valid, m in self.compactions:
+            nbytes = valid.numel() * valid.element_size() + 8 * m
+            out.append({"rows": valid.numel(), "m": m,
+                        "ms": device_ms(lambda: self.real[1](valid, m)),
+                        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+        return out
+
+
+def spied_run(ctx, sql, CG=None):
+    """One statement under a CopySpy, B1's launch count zeroed just
+    before and read just after, its calls to the B1 wrapper kept: (frame,
+    stats, spy, B1 launches, B1 calls)."""
+    calls = []
+    real = CG.dense_groupby_kernel if CG is not None else None
+
+    def b1_spy(key, n_keys, inputs, max_keys):
+        calls.append((key, n_keys, list(inputs), max_keys))
+        return real(key, n_keys, inputs, max_keys)
+    if CG is not None:
+        CG.dense_groupby_kernel = b1_spy
+        CG.launches = 0
+    try:
+        with CopySpy() as spy:
+            got = ctx.sql(sql).to_pandas()
+            torch.cuda.synchronize()
+        launched = CG.launches if CG is not None else 0
+    finally:
+        if CG is not None:
+            CG.dense_groupby_kernel = real
+    return got, dict(ctx.history.entries()[-1].stats), spy, launched, calls
+
+
+def warm_ms(ctx, sql, repeats=TAIL_REPEATS):
+    """Median warm ms of a statement and its last run's engine phases."""
+    runs = [timed_sql(ctx, sql) for _ in range(repeats)]
+    return statistics.median(ms for ms, _ in runs), runs[-1][1].get("phases")
+
+
+COMPACT_MODES = {
+    "compacted": dict(COMPACT_FORCED, **{"sdot.engine.scan.compact": True}),
+    "uncompacted": {"sdot.engine.scan.compact": False}}
+
+
+def compaction_pair(ctx, name, sql, check, CG, compacts, kernel) -> dict:
+    """One statement forced compacted and uncompacted: each run once
+    under the spies (its answer held by ``check``, the two held to each
+    other, the compaction decision and the tier asserted), then warm ms
+    of both in turns (compacted first on even rounds), medians of
+    ``REPEATS``."""
+    rec, frames = {}, {}
+    for mode, conf in COMPACT_MODES.items():
+        with settings(ctx, conf):
+            got, st, spy, launched, calls = spied_run(ctx, sql, CG)
+        check(got)
+        if bool(st.get("compact_m")) != (mode == "compacted" and compacts) \
+                or (st.get("route") == "kernel") != kernel \
+                or (kernel and launched < 1):
+            raise AssertionError(f"tail {name} ({mode}): {st}, "
+                                 f"{launched} B1 launches")
+        frames[mode] = got
+        rec[mode] = dict(compact_m=st.get("compact_m"),
+                         hashed=bool(st.get("hashed")),
+                         b1_launches=launched,
+                         b1_rows=[int(c[0].numel()) for c in calls],
+                         copies=spy.copies, copy_bytes=spy.copy_bytes,
+                         compaction=spy.compaction_ms(), calls=calls)
+    check_frame(f"tail {name} compacted vs uncompacted", frames["compacted"],
+                frames["uncompacted"], None, FLOAT_SUM_RTOL_KERNEL)
+    runs = {mode: [] for mode in COMPACT_MODES}
+    for i in range(REPEATS):
+        order = list(COMPACT_MODES) if i % 2 == 0 \
+            else list(reversed(COMPACT_MODES))
+        for mode in order:
+            with settings(ctx, COMPACT_MODES[mode]):
+                runs[mode].append(timed_sql(ctx, sql)[0])
+    for mode, ms in runs.items():
+        rec[mode]["warm_median_ms"] = statistics.median(ms)
+    return rec
+
+
+def tail_flat(ctx, oracles, tables, CG) -> dict:
+    """Phase ``tail`` over the flat star (before the census): q6 and q12
+    forced compacted (``compact.min.rows`` 0) against ``scan.compact``
+    false and pandas, each compacted B1 launch held against the plain
+    version; q14, which has no row filter to compact on; q3 hashed,
+    compacted against uncompacted and pandas; one overflow retry (a
+    selectivity estimate of 1e-7)."""
+    from spark_druid_olap_tpu_torch.parallel import cost
+    from spark_druid_olap_tpu_torch.tools import tpch
+    t0 = time.perf_counter()
+    out, b1, kernels = {}, 0, {}
+    want_q3 = q3_oracle(tables)
+    for name in ("q6", "q12", "q14", "q3"):
+        if name == "q3":
+            def check(got):
+                check_frame("tail q3 (flat) vs pandas", got, want_q3, None,
+                            FLOAT_SUM_RTOL_ORACLE)
+        else:
+            def check(got, name=name):
+                check_sql(name, got, oracles[name])
+        # q14's only predicate is its shipdate interval, which prunes
+        # segments and is no row filter: neither engine compacts it
+        rec = compaction_pair(ctx, name, tpch.QUERIES[name], check, CG,
+                              compacts=name != "q14", kernel=name != "q3")
+        calls = rec["compacted"].pop("calls")
+        rec["uncompacted"].pop("calls")
+        if rec["compacted"]["compact_m"] and calls:
+            b1 += rec["compacted"]["b1_launches"]
+            kernels[name] = b1_checked(CG, f"tail {name} compacted", calls)
+        out[name if name != "q3" else "q3_flat"] = rec
+    # a selectivity estimate far too low: the budget overflows on the
+    # card, the statement re-runs uncompacted with the same answer
+    real = cost._filter_selectivity
+    cost._filter_selectivity = lambda f, ds: 1e-7
+    try:
+        with settings(ctx, COMPACT_FORCED):
+            got, st, spy, _, _ = spied_run(ctx, tpch.QUERIES["q6"])
+    finally:
+        cost._filter_selectivity = real
+        ctx.engine._compact_overflowed.clear()
+    check_sql("q6", got, oracles["q6"])
+    if not st.get("compact_overflow") or st.get("compact_m"):
+        raise AssertionError(f"tail overflow retry: {st}")
+    out["overflow_retry"] = dict(statement="q6",
+                                 compact_overflow=st["compact_overflow"],
+                                 copies=spy.copies)
+    out["flat_seconds"] = time.perf_counter() - t0
+    return {"statements": out, "b1_launches": b1, "kernels": kernels}
+
+
+def tail_oracles(t, nr):
+    """Pandas answers of q2, q16, q18 and q20 (the forms of
+    tests/test_tpch22.py)."""
+    import pandas as pd
+    eu = (t["partsupp"]
+          .merge(t["supplier"], left_on="ps_suppkey", right_on="s_suppkey")
+          .merge(nr["suppnation"], left_on="s_nationkey",
+                 right_on="sn_nationkey")
+          .merge(nr["suppregion"], left_on="sn_regionkey",
+                 right_on="sr_regionkey"))
+    eu = eu[eu.sr_name == "EUROPE"]
+    df = t["part"].merge(eu, left_on="p_partkey", right_on="ps_partkey")
+    df = df[(df.p_size == 15) & df.p_type.str.endswith("BRASS")]
+    mins = eu.groupby("ps_partkey").ps_supplycost.min()
+    df = df[df.ps_supplycost == df.p_partkey.map(mins)]
+    df = df.sort_values(["s_acctbal", "sn_name", "s_name", "p_partkey"],
+                        ascending=[False, True, True, True]).head(100)
+    out = {"q2": df[["s_acctbal", "s_name", "sn_name", "p_partkey",
+                     "p_mfgr", "s_address", "s_phone", "s_comment"]]
+           .reset_index(drop=True)}
+    df = t["partsupp"].merge(t["part"], left_on="ps_partkey",
+                             right_on="p_partkey")
+    df = df[(df.p_brand != "Brand#45")
+            & ~df.p_type.str.startswith("MEDIUM POLISHED")
+            & df.p_size.isin([49, 14, 23, 45, 19, 3, 36, 9])]
+    bad = t["supplier"][t["supplier"].s_comment.str.contains(
+        "Customer.*Complaints", regex=True)].s_suppkey
+    df = df[~df.ps_suppkey.isin(bad)]
+    res = df.groupby(["p_brand", "p_type", "p_size"], as_index=False) \
+        .ps_suppkey.nunique()
+    res.columns = ["p_brand", "p_type", "p_size", "supplier_cnt"]
+    out["q16"] = res.sort_values(
+        ["supplier_cnt", "p_brand", "p_type", "p_size"],
+        ascending=[False, True, True, True]).reset_index(drop=True)
+    li = t["lineitem"]
+    big = li.groupby("l_orderkey").l_quantity.sum()
+    big = big[big > 300].index
+    df = (t["customer"]
+          .merge(t["orders"], left_on="c_custkey", right_on="o_custkey")
+          .merge(li, left_on="o_orderkey", right_on="l_orderkey"))
+    df = df[df.o_orderkey.isin(big)]
+    res = df.groupby(["c_name", "c_custkey", "o_orderkey", "o_orderdate",
+                      "o_totalprice"], as_index=False).l_quantity.sum()
+    out["q18"] = res.rename(columns={"l_quantity": "total_qty"}) \
+        .sort_values(["o_totalprice", "o_orderdate"],
+                     ascending=[False, True]).head(100) \
+        .reset_index(drop=True)
+    forest = t["part"][t["part"].p_name.str.contains("forest")].p_partkey
+    ps = t["partsupp"][t["partsupp"].ps_partkey.isin(forest)]
+    d = li[(li.l_shipdate >= pd.Timestamp("1994-01-01"))
+           & (li.l_shipdate < pd.Timestamp("1995-01-01"))]
+    half = d.groupby(["l_partkey", "l_suppkey"]).l_quantity.sum() * 0.5
+    idx = pd.MultiIndex.from_arrays([ps.ps_partkey, ps.ps_suppkey])
+    ps = ps[ps.ps_availqty.to_numpy() > half.reindex(idx).to_numpy()]
+    supp = t["supplier"].merge(nr["suppnation"], left_on="s_nationkey",
+                               right_on="sn_nationkey")
+    supp = supp[(supp.sn_name == "CANADA")
+                & supp.s_suppkey.isin(ps.ps_suppkey)]
+    out["q20"] = supp[["s_name", "s_address"]].sort_values("s_name") \
+        .reset_index(drop=True)
+    return out
+
+
+SELECT_COLUMNS = ("l_orderkey", "l_linenumber", "l_quantity", "l_discount",
+                  "l_shipdate")
+SELECT_PAGE = 1000
+
+
+def tail_full(ctx, tables, nr, census) -> dict:
+    """Phase ``tail`` after the census (every base table in): q2, q16,
+    q18 and q20 against pandas; q18's inner group-by (1.5M keys) with
+    device HAVING, on the host path, and with a HAVING most groups pass;
+    a selective select over lineitem, paged, device mask against host
+    mask and pandas; one search against pandas."""
+    import pandas as pd
+    from spark_druid_olap_tpu_torch.ir import spec as S
+    from spark_druid_olap_tpu_torch.tools import tpch
+    t0 = time.perf_counter()
+    out = {}
+    want = tail_oracles(tables, nr)
+    for name in ("q2", "q16", "q18", "q20"):
+        got, st, spy, _, _ = spied_run(ctx, tpch.QUERIES[name])
+        check_frame(f"tail {name} vs pandas", got, want[name], None,
+                    FLOAT_SUM_RTOL_ORACLE)
+        out[name] = dict(mode=st["mode"], rows=len(got),
+                         census=census[name]["outcome"],
+                         cold_ms=census[name]["ms"])
+    li = tables["lineitem"]
+    sums = li.groupby("l_orderkey").l_quantity.sum()
+    having = {}
+    for label, lit, conf in (("device", 300, None),
+                             ("host", 300, 1 << 30),
+                             ("most_pass", 0, None)):
+        sql = Q18_INNER.format(lit)
+        with settings(ctx, {} if conf is None else {
+                "sdot.engine.having.device.min.keys": conf}):
+            got, st, spy, _, _ = spied_run(ctx, sql)
+            ms, phases = warm_ms(ctx, sql)
+        sel = sums[sums > lit]
+        check_frame(f"tail q18 inner ({label}) vs pandas", got,
+                    pd.DataFrame({"l_orderkey": sel.index.to_numpy(),
+                                  "q": sel.to_numpy()}),
+                    ["l_orderkey"], FLOAT_SUM_RTOL_ORACLE)
+        hd = st.get("having_device", 0)
+        if (label == "host") != (hd == 0) or st["mode"] != "engine" \
+                or (label == "most_pass" and hd < len(sel)):
+            raise AssertionError(f"tail q18 inner ({label}): {st}")
+        having[label] = dict(having_device=hd, groups=len(got),
+                             copies=spy.copies, copy_bytes=spy.copy_bytes,
+                             warm_median_ms=ms, phases_ms=phases)
+    out["q18_inner"] = having
+    out["select"] = tail_select(ctx, li, S)
+    sql = ("select l_shipmode, count(*) as n from lineitem "
+           "where l_shipmode like '%AI%' group by l_shipmode")
+    got, st, _, _, _ = spied_run(ctx, sql)
+    ms, _ = warm_ms(ctx, sql)
+    w = li[li.l_shipmode.str.contains("AI")].groupby(
+        "l_shipmode").size().reset_index(name="n")
+    check_frame("tail search vs pandas", got, w, ["l_shipmode"], 0)
+    if not st.get("search_values"):
+        raise AssertionError(f"tail search: not a search: {st}")
+    out["search"] = dict(values=st["search_values"], warm_median_ms=ms)
+    out["full_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def tail_select(ctx, li, S) -> dict:
+    """A selective select over lineitem (l_quantity = 50 and l_discount
+    >= 0.09) as QuerySpecs: three pages and the whole selection, the mask
+    on the device (the default) and on the host, against each other and
+    the whole selection against pandas."""
+    f = S.LogicalFilter("and", (
+        S.BoundFilter("l_quantity", lower=50),
+        S.BoundFilter("l_discount", lower=0.09)))
+
+    def page(offset, size):
+        return S.SelectQuerySpec("lineitem", SELECT_COLUMNS, filter=f,
+                                 page_size=size, page_offset=offset)
+    out = {}
+    frames = {}
+    for where, conf in (("device", None), ("host", 1 << 40)):
+        with settings(ctx, {} if conf is None else {
+                "sdot.select.device.min.rows": conf}):
+            with CopySpy() as spy:
+                pages = [ctx.execute(page(o, SELECT_PAGE)).to_pandas()
+                         for o in (0, SELECT_PAGE, 5 * SELECT_PAGE)]
+                whole = ctx.execute(page(0, 10 ** 9)).to_pandas()
+            st = dict(ctx.engine.last_stats)
+            runs = []
+            for _ in range(TAIL_REPEATS):
+                t = time.perf_counter()
+                ctx.execute(page(SELECT_PAGE, SELECT_PAGE))
+                runs.append((time.perf_counter() - t) * 1e3)
+        if st.get("select_filter") != where:
+            raise AssertionError(f"tail select ({where}): {st}")
+        frames[where] = (pages, whole)
+        out[where] = dict(copies=spy.copies, copy_bytes=spy.copy_bytes,
+                          rows=len(whole),
+                          page_warm_median_ms=statistics.median(runs),
+                          bytes_scanned=st.get("bytes_scanned"))
+    for i, (a, b) in enumerate(zip(*(frames[w][0] for w in frames))):
+        check_frame(f"tail select page {i} device vs host", a, b, None, 0)
+    keys = ["l_orderkey", "l_linenumber"]
+    want = li[(li.l_quantity >= 50) & (li.l_discount >= 0.09)][
+        list(SELECT_COLUMNS)]
+    for w in frames:
+        check_frame(f"tail select ({w}) vs pandas", frames[w][1], want,
+                    keys, FLOAT_SUM_RTOL_ORACLE)
+    return out
+
+
 def hashed_q1(ctx, spec, dense) -> dict:
     """Q1 as a QuerySpec forced onto the hashed tier (6 keys over 6M rows:
     few groups, many rows each), under ``auto`` and on both tiers,
@@ -1859,8 +2234,18 @@ def main() -> int:
          segments=ctx.store.get("lineitem").num_segments)
 
     # 4a. the SQL front end over the flattened star
-    sql_b1, sql_b2, sql_k, hashed = sql_phase(
+    sql_b1, sql_b2, sql_k, hashed, tail = sql_phase(
         sdt, tables, ctx.store.get("lineitem"), CG, CW, smi)
+    emit("tail", card=smi, **tail,
+         oracle="q2 / q16 / q18 / q20, q18's inner group-by, the select "
+                "and the search vs pandas (ints exact, floats rtol 1e-6); "
+                "compacted vs uncompacted (floats rtol 1e-9); select pages "
+                "device mask vs host mask (exact); each compacted B1 "
+                "launch vs its plain version (kernels)",
+         note="warm ms: median of 3, host wall clock to the frame; "
+              "copies / copy_bytes: the engine's device-to-host copies "
+              "in one run; compaction: compact_keep's device ms by CUDA "
+              "events, bound = mask read + positions written / 3.35 TB/s")
     sees["after_sql"] = profiler_sees(probe, "dense_groupby")
 
     captured = {}
@@ -2107,7 +2492,8 @@ def main() -> int:
     # 7. every ported kernel with its check result: the sums over the
     # shapes the main path gave it (Q1, Q6, wide and the SQL statements
     # for B1; the QuerySpec and SQL storms for B2)
-    for k in sql_k["dense_groupby"].values():
+    for k in list(sql_k["dense_groupby"].values()) \
+            + list(tail["kernels"].values()):
         worst = max(worst, k["max_abs_err"])
         for f in ("ms", "plain_ms", "bound_ms", "library_ms"):
             total[f] += k[f]
@@ -2119,7 +2505,10 @@ def main() -> int:
         "name": "dense_groupby", "route": "cuda",
         "source": "spark_druid_olap_tpu_torch/csrc/dense_groupby.cu",
         "replaces": "spark_druid_olap_tpu/ops/pallas_groupby.py:205",
-        "launches": l1 + l6 + lw + sql_b1, "max_abs_err": worst,
+        "launches": l1 + l6 + lw + sql_b1 + tail["b1_launches"],
+        "max_abs_err": worst,
+        "b1_checked": {n: len(k["calls"])
+                       for n, k in tail["kernels"].items()},
         "ms": total["ms"], "plain_ms": total["plain_ms"],
         "bound_ms": total["bound_ms"],
         "bound_by": "bytes" if bound_by == {"bytes"} else "operations",

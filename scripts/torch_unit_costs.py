@@ -1,14 +1,19 @@
-"""Measure the port's ``cuda`` unit costs of the group-by tiers.
+"""Measure the port's ``cuda`` unit costs: the group-by tiers and the
+late-materialization gate.
 
     python3 scripts/torch_unit_costs.py
 
 Runs ``spark_druid_olap_tpu_torch.parallel.cost.measure_unit_costs`` on
 the first card (SF1 lineitem's 6,001,465 rows of uniform random keys):
-the sorted-run tier's time per row for one more float64 sum, and the
-scatter tier's time per update at each rows-per-slot ratio of
-``cost.PROBE_SCATTER_SLOTS``. Prints one JSON line with the card's name
-and power limit beside the values ``parallel/cost.py`` holds and the
-ones measured now. Needs one NVIDIA GPU and imports nothing of JAX.
+the sorted-run tier's time per row for one more float64 sum, the scatter
+tier's time per update at each rows-per-slot ratio of
+``cost.PROBE_SCATTER_SLOTS`` and into a table far past the L2
+(``scatter.big``), the compaction's time per scanned row (``sort``), one
+compacted gather's time per probe (``gather``) and the dense group-by
+kernel's time per row (``fused``). Prints one JSON line with the card's
+name and power limit beside the values ``parallel/cost.py`` holds and the
+ones measured now. Needs one NVIDIA GPU (it builds the dense group-by
+kernel) and imports nothing of JAX.
 """
 
 import json

@@ -333,6 +333,13 @@ def int_set_runs(vals: np.ndarray):
     return runs if len(runs) <= _CHAIN_MAX_RANGES else None
 
 
+def int_set_lowers_to_chain(vals: np.ndarray) -> bool:
+    """Whether membership in ``vals`` compiles to compare chains rather
+    than a probe of the sorted set (the compaction's staged-filter split
+    must agree with :func:`int_set_membership`)."""
+    return int_set_runs(vals) is not None
+
+
 def int_set_membership(arr: torch.Tensor, vals: np.ndarray) -> torch.Tensor:
     """Membership of integer ``arr`` in a sorted int array: a range
     compare chain for sets of few runs, else a ``torch.searchsorted``

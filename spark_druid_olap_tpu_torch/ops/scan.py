@@ -1,11 +1,12 @@
 """Scan context: the bridge between host-side metadata (dictionaries, column
 kinds) and the device tensors a query scans.
 
-Port of ``spark_druid_olap_tpu/ops/scan.py`` (``ScanContext``,
-``array_names``, ``array_dtype``, ``build_array``; no compacted view, no
-tiered or multi-host builders). The tensors it holds live on the engine's
-device; the dictionaries and cardinalities it consults stay on the host,
-so no string ever reaches the device.
+Port of ``spark_druid_olap_tpu/ops/scan.py`` (``ScanContext``, the
+late-materialization view ``CompactScanContext``, ``array_names``,
+``array_dtype``, ``build_array``; no tiered or multi-host builders). The
+tensors it holds live on the engine's device; the dictionaries and
+cardinalities it consults stay on the host, so no string ever reaches the
+device.
 """
 
 from __future__ import annotations
@@ -69,6 +70,65 @@ class ScanContext:
 
     def dictionary(self, name: str) -> np.ndarray:
         return self.ds.dims[name].dictionary
+
+
+def compact_keep(valid: torch.Tensor, m: int):
+    """Late materialization's row order: ``(keep, n_live)``, where
+    ``keep`` ([m] int64) lists the flat positions of the rows where
+    ``valid`` holds in ascending order, then the other rows in ascending
+    order, cut to ``m``; ``n_live`` is the live-row count, a 0-d device
+    tensor. It is the order of the JAX package's ``lax.sort`` of
+    ``(valid ? 0 : 1, row index)``, built as a stable partition (one
+    cumulative sum and one scatter): nothing waits on the host."""
+    flat = valid.reshape(-1)
+    n = flat.numel()
+    ridx = torch.arange(n, device=flat.device)
+    c = torch.cumsum(flat, 0)
+    n_live = c[-1]
+    # a live row's place is the live rows before it; a dead row's is
+    # after every live row, behind the dead rows before it (ridx - c)
+    pos = torch.where(flat, c - 1, n_live + ridx - c)
+    keep = torch.empty_like(ridx).scatter_(0, pos, ridx)
+    return keep[:m], n_live
+
+
+@dataclasses.dataclass
+class CompactScanContext(ScanContext):
+    """Late-materialization view over a scan: after the filter mask is
+    evaluated on the full [S, R] arrays, the surviving row positions move
+    to a static [M] prefix (``keep``, :func:`compact_keep`) and every
+    later column access gathers through it, so group keys, values and the
+    aggregation run at O(M) instead of O(N). Each column is gathered once
+    (cached per name), in its storage width, and widened after."""
+
+    keep: Optional[torch.Tensor] = None   # int64 [M] flat row positions
+
+    def __post_init__(self):
+        self._cache: Dict[str, torch.Tensor] = {}
+
+    def _gather(self, key: str, arr: torch.Tensor) -> torch.Tensor:
+        hit = self._cache.get(key)
+        if hit is None:
+            hit = self._cache[key] = arr.reshape(-1)[self.keep]
+        return hit
+
+    def col(self, name: str) -> torch.Tensor:
+        if name not in self.arrays:
+            return super().col(name)          # raises the scan's KeyError
+        arr = self._gather(name, self.arrays[name])
+        return arr.to(torch.int32) if arr.dtype in _NARROW_INTS else arr
+
+    def row_valid(self) -> torch.Tensor:
+        return self._gather(ROW_VALID_KEY, super().row_valid())
+
+    def time_ms(self) -> Optional[torch.Tensor]:
+        t = super().time_ms()
+        return None if t is None else self._gather(TIME_MS_KEY, t)
+
+    def null_valid(self, name: str) -> Optional[torch.Tensor]:
+        nv = super().null_valid(name)
+        return None if nv is None else self._gather(
+            NULL_VALID_PREFIX + name, nv)
 
 
 def array_names(ds: Datasource, columns, need_time_ms: bool):

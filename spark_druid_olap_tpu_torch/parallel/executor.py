@@ -3,11 +3,12 @@ tiers.
 
 Port of ``spark_druid_olap_tpu/parallel/executor.py``: ``QueryEngine.execute``
 -> ``_execute_inner`` -> ``_run_agg`` for GroupBy, Timeseries and TopN
-specs, on one device, in one wave. Planning (``plan_dimension``,
+specs, ``_run_select`` and ``_run_search`` for raw-row and dictionary
+searches, on one device, in one wave. Planning (``plan_dimension``,
 ``plan_aggregation`` / ``AggPlan``, ``_plan_agg``, ``_plan_routes``), the
-scan cores (``_make_core``, ``_hash_core``, without late materialization),
-the device-resident array cache (``_bind_arrays``), decode and the host
-epilogue (``_agg_epilogue``) mirror the JAX engine.
+scan cores (``_make_core``, ``_hash_core``), the device-resident array
+cache (``_bind_arrays``), decode and the host epilogue
+(``_agg_epilogue``) mirror the JAX engine.
 
 Tiers, as the JAX engine picks them: the dense route up to
 ``sdot.engine.groupby.dense.max.keys`` (the fused kernel for small K, the
@@ -17,16 +18,20 @@ aggregation, table compaction for large tables, a 4x retry on overflow);
 and the medium-K reroute of dense key spaces onto the sorted-run tier
 when the sorted-run gate says so. An ordered limit over a large key space
 selects its candidates on the device (device top-k, dense and hashed),
-and a GroupBy re-runs without it when the exactness proof fails.
+and a GroupBy re-runs without it when the exactness proof fails. A
+selective filter over a large scan compacts its survivors to a static
+prefix first (late materialization, ``_plan_compact_m``; dense and
+hashed, with the uncompacted retry when the budget overflows), and an
+exact-comparable HAVING over a large dense key space filters on the
+device (``_plan_device_having``: two dispatches, only the passing groups
+travel). A select filters on the device and moves a bit-packed row mask.
 
 Dimensions cover plain columns, time extractions, granularity buckets and
 the dictionary-functional lookup / regex / expression extractions.
 Every path the JAX engine would take outside this slice — sketches,
-device HAVING, multi-wave binding, select and search queries — raises
+multi-wave binding, multi-host partial stores — raises
 ``NotImplementedError`` naming its ROADMAP item; the engine never changes
-an answer to stay inside the slice. The JAX engine's late materialization
-(``compact_m``) is skipped: its uncompacted program is the JAX engine's own
-overflow path, with identical answers.
+an answer to stay inside the slice.
 """
 
 from __future__ import annotations
@@ -49,20 +54,29 @@ from spark_druid_olap_tpu_torch.ops import sorted_groupby as SG
 from spark_druid_olap_tpu_torch.ops import time_ops as T
 from spark_druid_olap_tpu_torch.ops import timezone as TZ
 from spark_druid_olap_tpu_torch.ops.scan import (
+    CompactScanContext,
     ScanContext,
     array_dtype,
     array_names,
     build_array,
+    compact_keep,
 )
+from spark_druid_olap_tpu_torch.parallel import cost as C
 from spark_druid_olap_tpu_torch.parallel.cost import unit_cost
+from spark_druid_olap_tpu_torch.planner import fusion as FU
 from spark_druid_olap_tpu_torch.result import QueryResult
 from spark_druid_olap_tpu_torch.segment.column import ColumnKind
 from spark_druid_olap_tpu_torch.segment.store import Datasource, SegmentStore
 from spark_druid_olap_tpu_torch.utils import host_eval
 from spark_druid_olap_tpu_torch.utils import phases as PH
 from spark_druid_olap_tpu_torch.utils.config import (
+    COST_FUSED_ROW,
+    COST_GATHER_PROBE,
     COST_SCATTER_UPDATE,
+    COST_SCATTER_UPDATE_BIG,
     COST_SORT_PAYLOAD_ROW,
+    COST_SORT_ROW,
+    COST_TABLE_CACHE_BYTES,
     Config,
     DEVICE_CACHE_BYTES,
     GROUPBY_DENSE_MAX_KEYS,
@@ -74,6 +88,10 @@ from spark_druid_olap_tpu_torch.utils.config import (
     GROUPBY_PALLAS_MAX_KEYS,
     GROUPBY_SORTED_MIN_KEYS,
     HAVING_DEVICE_MIN_KEYS,
+    SCAN_COMPACT,
+    SCAN_COMPACT_MIN_ROWS,
+    SELECT_DEVICE_MIN_ROWS,
+    SHAREDSCAN_FUSION_ENABLED,
     TOPN_DEVICE_MIN_KEYS,
     TZ_ID,
 )
@@ -593,6 +611,9 @@ class QueryEngine:
         self._programs: Dict[tuple, object] = {}
         self._compiling: Dict[tuple, threading.Event] = {}
         self._compile_lock = threading.Lock()
+        # statement shapes whose late-materialization budget overflowed:
+        # their warm runs go straight to the uncompacted program
+        self._compact_overflowed: set = set()
         self.sharedscan = SharedScanCoalescer(self)
 
     @property
@@ -632,8 +653,10 @@ class QueryEngine:
             r = self._run_agg(q, [q.dimension], q.aggregations,
                               q.post_aggregations, None, S.topn_limit(q),
                               q.granularity, q.filter, q.intervals)
-        elif isinstance(q, (S.SelectQuerySpec, S.SearchQuerySpec)):
-            raise not_ported(f"{type(q).__name__} execution", "A.5")
+        elif isinstance(q, S.SelectQuerySpec):
+            r = self._run_select(q)
+        elif isinstance(q, S.SearchQuerySpec):
+            r = self._run_search(q)
         else:
             raise EngineFallback(f"query type {type(q).__name__}")
         self.last_stats["total_ms"] = (_time.perf_counter() - t0) * 1000
@@ -689,24 +712,67 @@ class QueryEngine:
                 q, ds, seg_idx, all_dim_plans, agg_plans, names, min_day,
                 max_day, post_aggregations, having, limit, filter_spec,
                 intervals, no_topk=no_topk)
-        if self._device_having(having, routes, n_keys):
-            raise not_ported("device HAVING", "A.4")
-
+        having_dev = self._plan_device_having(having, routes, n_keys)
         topk = None if no_topk else \
             self._plan_device_topk(limit, having, agg_plans, n_keys)
         n_out = topk[1] if topk else n_keys
         t = _time.perf_counter()
         dev_arrays = self._bind_arrays(ds, names, seg_idx)
         t = _phase("bind", t)
-        core = self._make_core(ds, all_dim_plans, agg_plans, filter_spec,
-                               intervals, min_day, max_day, n_keys, routes)
-        out = core(dev_arrays)
-        if topk:
-            out = _topk_gather(out, routes, topk, n_keys)
-        host = _to_host(out)
+        if having_dev:
+            # two dispatches: the finals stay on the device; the passing
+            # count travels, then only the passing groups
+            table = self._make_core(ds, all_dim_plans, agg_plans,
+                                    filter_spec, intervals, min_day,
+                                    max_day, n_keys, routes)(dev_arrays)
+            mask = _having_mask(having_dev, table, routes)
+            cnt = int(_to_host({"__stats__": mask.sum().reshape(1)})
+                      ["__stats__"][0])
+            n_out = min(n_keys, 1 << max(6, (max(cnt, 1) - 1).bit_length()))
+            # most groups pass: the whole table travels in key order with
+            # the failing groups' occupancy zeroed (no selection pass)
+            full = n_out * 2 >= n_keys
+            if full:
+                n_out = n_keys
+            host = _to_host(_having_gather(table, mask, n_out, n_keys,
+                                           full))
+        else:
+            # budget from the cheap conjuncts only: the staged ones apply
+            # after compaction and do not shrink what the prefix must hold
+            cheap_f0, _ = self._split_filter_staged(filter_spec)
+            compact_m = self._plan_compact_m(ds, seg_idx, cheap_f0,
+                                             routes=routes, n_keys=n_keys)
+            memo = ("agg", (ds.name, id(ds), _cache_repr(q), len(seg_idx),
+                            ds.padded_rows, min_day, max_day, tuple(names),
+                            self.config.get(TZ_ID)), topk)
+            if compact_m and memo in self._compact_overflowed:
+                compact_m = None     # this shape overflowed before
+            for cm in ((compact_m, None) if compact_m else (None,)):
+                out = self._make_core(ds, all_dim_plans, agg_plans,
+                                      filter_spec, intervals, min_day,
+                                      max_day, n_keys, routes,
+                                      compact_m=cm)(dev_arrays)
+                over = out.pop("__over__", None)
+                if topk:
+                    out = _topk_gather(out, routes, topk, n_keys)
+                if over is not None:
+                    out["__over__"] = over
+                host = _to_host(out)
+                over = host.pop("__over__", None)
+                if over is None or int(over[0]) == 0:
+                    if cm:
+                        self.last_stats["compact_m"] = int(cm)
+                    break
+                # the selectivity estimate was too optimistic: retry
+                # uncompacted, and let warm runs of this shape skip it
+                self.last_stats["compact_overflow"] = int(over[0])
+                self._compact_overflowed.add(memo)
         t = _phase("dispatch", t)
         finals = _finals_from_out(host, routes, n_out)
-        top_idx = host["__topk_idx__"].astype(np.int64) if topk else None
+        # the key ids of a selection (device top-k, device HAVING); rows
+        # of the whole table come in key order
+        top_idx = host["__topk_idx__"].astype(np.int64) \
+            if "__topk_idx__" in host else None
 
         # --- decode -----------------------------------------------------------
         rows = finals["__rows__"]
@@ -753,27 +819,153 @@ class QueryEngine:
             "route": "kernel" if G.use_kernel(
                 n_keys, list(routes.values()),
                 self.config.get(GROUPBY_PALLAS_MAX_KEYS)) else "scatter",
-            "topk_device": int(topk[1]) if topk else 0})
+            "topk_device": int(topk[1]) if topk else 0,
+            "having_device": int(n_out) if having_dev else 0})
         return QueryResult(columns, data)
 
-    def _device_having(self, having, routes, n_keys) -> bool:
-        """Whether the JAX engine would evaluate this HAVING on the device
-        (its ``_plan_device_having`` gate): an integer literal compared
-        with an aggregate, over a key space of at least
-        ``sdot.engine.having.device.min.keys``."""
+    def _plan_device_having(self, having, routes, n_keys):
+        """``(aggregate, op, integer literal)`` when HAVING is one
+        comparison of an exact aggregate (an ``i64`` or ``f64`` route)
+        with an integer literal and the key space is at least
+        ``sdot.engine.having.device.min.keys``, else None. The host
+        epilogue re-applies HAVING over the exact finals, so the device
+        mask only filters what travels."""
         if having is None \
                 or n_keys < self.config.get(HAVING_DEVICE_MIN_KEYS):
-            return False
+            return None
         e = having.expr
-        if isinstance(e, E.Comparison):
-            for a, b in ((e.left, e.right), (e.right, e.left)):
-                if isinstance(a, E.Column) and a.name in routes \
-                        and isinstance(b, E.Literal) \
-                        and isinstance(b.value, (int, np.integer)) \
-                        and not isinstance(b.value, bool) \
-                        and -2**62 <= int(b.value) < 2**62:
-                    return True
-        return False
+        if not isinstance(e, E.Comparison):
+            return None
+        for a, b, op in ((e.left, e.right, e.op),
+                         (e.right, e.left, E.FLIP_CMP.get(e.op, e.op))):
+            if isinstance(a, E.Column) and isinstance(b, E.Literal) \
+                    and isinstance(b.value, (int, np.integer)) \
+                    and not isinstance(b.value, bool):
+                r = routes.get(a.name)
+                if r is None:
+                    continue
+                lit = int(b.value)
+                # the literal must fit the route's comparable domain
+                if r.tag == "i64" and not -2**62 <= lit < 2**62:
+                    continue
+                if r.tag in ("i64", "f64"):
+                    return (a.name, "!=" if op == "<>" else op, lit)
+        return None
+
+    @staticmethod
+    def _split_filter_staged(f):
+        """(cheap, expensive) for staged filter evaluation under
+        compaction: top-level AND conjuncts whose lowering must gather
+        (a large integer membership set that does not lower to a compare
+        chain, keyed-lookup expressions: the decorrelated-EXISTS
+        machinery) evaluate after compaction, on the survivors of the
+        cheap conjuncts only."""
+        def expr_has_gather(e):
+            found = [False]
+
+            def visit(n):
+                if isinstance(n, (E.KeyedLookup, E.KeyedLookup2)):
+                    found[0] = True
+                if isinstance(n, E.InList) \
+                        and isinstance(n.values, E.FrozenIntSet) \
+                        and not EC.int_set_lowers_to_chain(n.values.array):
+                    found[0] = True
+                return n
+            E.transform(e, visit)
+            return found[0]
+
+        def is_expensive(x):
+            if isinstance(x, S.InFilter) \
+                    and isinstance(x.values, E.FrozenIntSet) \
+                    and not EC.int_set_lowers_to_chain(x.values.array):
+                return True
+            if isinstance(x, S.ExprFilter):
+                return expr_has_gather(x.expr)
+            if isinstance(x, S.LogicalFilter) and x.op == "not":
+                return is_expensive(x.fields[0])
+            return False
+
+        if f is None:
+            return None, None
+        conj = list(f.fields) if isinstance(f, S.LogicalFilter) \
+            and f.op == "and" else [f]
+        cheap = [x for x in conj if not is_expensive(x)]
+        exp = [x for x in conj if is_expensive(x)]
+        if not exp:
+            return f, None
+
+        def rejoin(parts):
+            if not parts:
+                return None
+            if len(parts) == 1:
+                return parts[0]
+            return S.LogicalFilter("and", tuple(parts))
+
+        return rejoin(cheap), rejoin(exp)
+
+    def _plan_compact_m(self, ds, seg_idx, filter_spec, routes=None,
+                        n_keys=None, n_ops=None):
+        """Static survivor budget for late materialization (None = do
+        not compact): the filter-selectivity estimate
+        (``cost._filter_selectivity``) with a 2x margin, rounded up to a
+        power of two; a wrong estimate shows as the core's ``__over__``
+        and retries uncompacted. ``min.rows`` 0 skips the cost test (the
+        test and config override). Otherwise the compaction costs
+        ``rows * sort + M * n_ops * gather`` and must cost less than what
+        the removed rows would cost downstream
+        (:meth:`_compaction_saving`)."""
+        if filter_spec is None or not self.config.get(SCAN_COMPACT):
+            return None
+        min_rows = int(self.config.get(SCAN_COMPACT_MIN_ROWS))
+        rows = _rows_of(ds, seg_idx)
+        if min_rows > 0 and rows < min_rows:
+            return None                  # small scans: the pass wins nothing
+        sel = C._filter_selectivity(filter_spec, ds)
+        est = rows * sel * 2.0           # safety margin before retry
+        m = 1 << max(6, int(np.ceil(np.log2(max(est, 1.0)))))
+        m = max(m, 1 << 15) if rows >= (1 << 21) else m
+        if m > rows // 2:
+            return None                  # unselective: nothing to remove
+        if min_rows > 0:
+            if n_ops is None:
+                n_ops = max(1, len(routes))
+            n_ops = min(int(n_ops), 8)
+            sort_s = rows * unit_cost(self.config, COST_SORT_ROW,
+                                      self.device)
+            gather_s = m * n_ops * unit_cost(self.config, COST_GATHER_PROBE,
+                                             self.device)
+            if sort_s + gather_s >= self._compaction_saving(
+                    rows, rows - m, routes, n_keys, n_ops):
+                return None
+        return int(m)
+
+    def _compaction_saving(self, rows, removed, routes, n_keys, n_ops):
+        """Seconds the ``removed`` rows would cost the aggregation tier.
+        A cpu device prices them as the JAX package does on its x64
+        routes: ``n_ops`` scatter updates each, at the big-table cost
+        when the group table passes ``table.cache.bytes``. A cuda device
+        prices a statement the fused kernel (B1) takes at B1's measured
+        cost per row, and the scatter tier at the measured curve's value
+        for the statement's rows per group; the curve spans tables up to
+        ``cost.PROBE_SCATTER_SLOTS[-1]`` slots, the big-table cost holds
+        past them."""
+        slots = int(n_keys) if n_keys else 1 << 16
+        if self.device.type == "cpu":
+            big = slots * 4 * (len(routes) if routes else n_ops) \
+                > int(self.config.get(COST_TABLE_CACHE_BYTES))
+        else:
+            if routes is not None and G.use_kernel(
+                    slots, list(routes.values()),
+                    self.config.get(GROUPBY_PALLAS_MAX_KEYS)):
+                return removed * unit_cost(self.config, COST_FUSED_ROW,
+                                           self.device)
+            big = slots > C.PROBE_SCATTER_SLOTS[-1]
+        sc = unit_cost(self.config, COST_SCATTER_UPDATE_BIG, self.device) \
+            if big else unit_cost(self.config, COST_SCATTER_UPDATE,
+                                  self.device,
+                                  rows_per_slot=rows / max(1, min(slots,
+                                                                  rows)))
+        return removed * sc * n_ops
 
     def _plan_device_topk(self, limit, having, agg_plans, n_keys):
         """Whether the ordered limit selects its candidates on the device:
@@ -842,6 +1034,16 @@ class QueryEngine:
             self._plan_device_topk_hashed(limit, having, agg_plans)
         kg_used = 0
         tk_scores = None
+        # late materialization (shared with the dense path): the key build
+        # and the aggregation shrink to the survivors; a budget overflow
+        # folds into '__unres__' and the first retry turns it off at the
+        # same T
+        cheap_f0, _ = self._split_filter_staged(filter_spec)
+        lm = self._plan_compact_m(ds, seg_idx, cheap_f0, n_keys=T,
+                                  n_ops=len(agg_plans) + 2)
+        memo = ("hashlm", ds.name, _cache_repr(q))
+        if lm and memo in self._compact_overflowed:
+            lm = None
         while True:
             # k_sel * 4 <= T also bounds k_sel < T
             topk = topk_plan if topk_plan and topk_plan[1] * 4 <= T \
@@ -853,7 +1055,7 @@ class QueryEngine:
                 else G.plan_routes(metas)
             core = self._hash_core(ds, dim_plans, parts, agg_plans,
                                    filter_spec, intervals, min_day, max_day,
-                                   T, routes, sorted_run)
+                                   T, routes, sorted_run, compact_m=lm)
             t = _time.perf_counter()
             arrays = self._bind_arrays(ds, names, seg_idx)
             t = _phase("bind", t)
@@ -884,7 +1086,16 @@ class QueryEngine:
                     tk_scores = raw.pop("__topk_score__")
             t = _phase("dispatch", t)
             if not unresolved:
+                if lm:
+                    self.last_stats["compact_m"] = int(lm)
                 break
+            if lm:
+                # the compaction budget may be what overflowed: drop it at
+                # the same T first; only a second failure grows the table
+                self.last_stats["compact_overflow"] = int(unresolved)
+                self._compact_overflowed.add(memo)
+                lm = None
+                continue
             T *= 4
             if T > max_slots:
                 raise EngineFallback(
@@ -940,45 +1151,53 @@ class QueryEngine:
         return (oc.name, _topk_slack(limit), bool(oc.ascending))
 
     def _hash_core(self, ds, dim_plans, parts, agg_plans, filter_spec,
-                   intervals, min_day, max_day, T, routes, sorted_run):
+                   intervals, min_day, max_day, T, routes, sorted_run,
+                   compact_m=None):
         """The hash scan body: scan -> filter -> per-dim codes -> two-part
         key -> slot sort -> the sorted-run or the scatter aggregation into
         [T] tables. Returns the route outputs, the '__tkhi__' /
-        '__tklo__' key tables and '__unres__' ([1])."""
+        '__tklo__' key tables and '__unres__' ([1]). With ``compact_m``
+        the key build and the aggregation run on the compacted prefix,
+        and a budget overflow adds to '__unres__'."""
         cards = [p.card for p in dim_plans]
         tz = self.config.get(TZ_ID)
+        cheap_f, exp_f = (self._split_filter_staged(filter_spec)
+                          if compact_m else (filter_spec, None))
+        fuse_cse = bool(self.config.get(SHAREDSCAN_FUSION_ENABLED))
 
         def core(arrays):
             ctx = ScanContext(ds, arrays, min_day, max_day, tz=tz)
-            base = ctx.row_valid()
-            fm = F.lower_filter(filter_spec, ctx)
-            if fm is not None:
-                base = base & fm
-            im = F.interval_mask(intervals, ctx)
-            if im is not None:
-                base = base & im
+            cse, base = _scan_base(ctx, cheap_f, intervals, fuse_cse)
+            n_over = None
+            if compact_m:
+                ctx, cse, base, n_over = _compact(
+                    ctx, base, compact_m, exp_f, fuse_cse)
             codes = [p.build(ctx) for p in dim_plans]
             khi = H.fuse_part(codes, cards, parts[0])
             klo = H.fuse_part(codes, cards, parts[1]) if len(parts) > 1 \
                 else torch.zeros_like(khi)
             cols = [khi, klo]
             for p in agg_plans:
-                cols += [p.build_values(ctx), p.build_mask(ctx)]
+                cols += [p.build_values(ctx), p.build_mask(ctx, cse=cse)]
             valid, cols = H.live_rows(base, cols)
             khi, klo = cols[:2]
             inputs = [G.AggInput(p.spec.name, p.kind, cols[2 + 2 * i],
                                  cols[3 + 2 * i], is_int=p.is_int)
                       for i, p in enumerate(agg_plans)]
             if sorted_run:
-                return SG.sorted_hash_groupby(khi, klo, valid, T, inputs,
-                                              routes)
-            slot, tk_hi, tk_lo, unresolved = H.build_slots(
-                khi, klo, valid, T)
-            # pallas_max 0: the hashed tier always scatters, as in JAX
-            out = G.dense_groupby(slot, valid, T, inputs, routes, 0)
-            out["__tkhi__"] = tk_hi
-            out["__tklo__"] = tk_lo
-            out["__unres__"] = unresolved.reshape(1)
+                out = SG.sorted_hash_groupby(khi, klo, valid, T, inputs,
+                                             routes)
+            else:
+                slot, tk_hi, tk_lo, unresolved = H.build_slots(
+                    khi, klo, valid, T)
+                # pallas_max 0: the hashed tier always scatters, as in JAX
+                out = G.dense_groupby(slot, valid, T, inputs, routes, 0)
+                out["__tkhi__"] = tk_hi
+                out["__tklo__"] = tk_lo
+                out["__unres__"] = unresolved.reshape(1)
+            if n_over is not None:
+                u = out["__unres__"]
+                out["__unres__"] = u + n_over.to(u.dtype)
             return out
 
         return core
@@ -1059,30 +1278,42 @@ class QueryEngine:
         return G.plan_routes(metas)
 
     def _make_core(self, ds, dim_plans, agg_plans, filter_spec,
-                   intervals, min_day, max_day, n_keys, routes):
+                   intervals, min_day, max_day, n_keys, routes,
+                   compact_m=None):
+        """The dense scan body: scan -> filter -> fused key -> the dense
+        group-by tiers. With ``compact_m`` (late materialization) the
+        survivors move to a static [M] prefix first and the key build,
+        the values and the aggregation run there; gather-heavy conjuncts
+        apply on the prefix only, and '__over__' ([1]) counts the live
+        rows the budget could not hold."""
         pallas_max = self.config.get(GROUPBY_PALLAS_MAX_KEYS)
         tz = self.config.get(TZ_ID)
+        cheap_f, exp_f = (self._split_filter_staged(filter_spec)
+                          if compact_m else (filter_spec, None))
+        fuse_cse = bool(self.config.get(SHAREDSCAN_FUSION_ENABLED))
 
         def core(arrays):
             ctx = ScanContext(ds, arrays, min_day, max_day, tz=tz)
-            base = ctx.row_valid()
-            fm = F.lower_filter(filter_spec, ctx)
-            if fm is not None:
-                base = base & fm
-            im = F.interval_mask(intervals, ctx)
-            if im is not None:
-                base = base & im
+            cse, base = _scan_base(ctx, cheap_f, intervals, fuse_cse)
+            n_over = None
+            if compact_m:
+                ctx, cse, base, n_over = _compact(
+                    ctx, base, compact_m, exp_f, fuse_cse)
             if dim_plans:
                 codes = [p.build(ctx) for p in dim_plans]
                 key, _ = G.fuse_keys(codes, [p.card for p in dim_plans])
             else:
                 key = torch.zeros_like(base, dtype=torch.int32)
             inputs = [G.AggInput(p.spec.name, p.kind, p.build_values(ctx),
-                                 p.build_mask(ctx), is_int=p.is_int)
+                                 p.build_mask(ctx, cse=cse),
+                                 is_int=p.is_int)
                       for p in agg_plans]
             inputs.append(G.AggInput("__rows__", "count", is_int=True))
-            return G.dense_groupby(key, base, n_keys, inputs, routes,
-                                   pallas_max)
+            out = G.dense_groupby(key, base, n_keys, inputs, routes,
+                                  pallas_max)
+            if n_over is not None:
+                out["__over__"] = n_over.reshape(1)
+            return out
 
         return core
 
@@ -1150,10 +1381,249 @@ class QueryEngine:
             out[k] = dev
         return out
 
+    # -- select and search ----------------------------------------------------
+    def _run_select(self, q: S.SelectQuerySpec) -> QueryResult:
+        """Raw rows, paged: the filter on the device when the datasource
+        has at least ``sdot.select.device.min.rows`` rows (one mask pass,
+        a bit-packed transfer), else on the host; the page's values come
+        from the store's host copies."""
+        ds = self.store.get(q.datasource)
+        if ds.is_partial:
+            raise not_ported("select over a multi-host partial store",
+                             "A.8")
+        cols = list(q.columns) or ds.column_names()
+        seg_idx = ds.prune_segments(q.intervals, q.filter)
+        if len(seg_idx) == 0:
+            return QueryResult.empty(cols)
+        t = _time.perf_counter()
+        mask = None
+        if (q.filter is not None or q.intervals is not None) \
+                and ds.num_rows >= self.config.get(SELECT_DEVICE_MIN_ROWS):
+            mask = self._device_mask(ds, q.filter, q.intervals, seg_idx)
+        if mask is None:
+            self.last_stats["select_filter"] = "host"
+            mask = self._host_mask(ds, q.filter, q.intervals)
+        t = _phase("dispatch", t)
+        idx = np.nonzero(mask)[0]
+        if q.descending:
+            idx = idx[::-1]
+        page = idx[q.page_offset: q.page_offset + q.page_size]
+        data = {c: _host_column_values(ds, c, page) for c in cols}
+        _phase("epilogue", t)
+        self.last_stats.update({"datasource": ds.name,
+                                "rows": int(len(page)),
+                                "rows_scanned": int(ds.num_rows)})
+        if self.last_stats.get("select_filter") != "host":
+            # the device pass reads only the mask's inputs
+            mask_cols = set(F.columns_of_filter(q.filter))
+            if q.intervals and ds.time is not None:
+                mask_cols.add(ds.time.name)
+            if mask_cols:
+                self.last_stats["bytes_scanned"] = \
+                    int(C.bytes_per_segment(ds, sorted(mask_cols))) \
+                    * int(len(seg_idx))
+        return QueryResult(cols, data)
+
+    def _run_search(self, q: S.SearchQuerySpec) -> QueryResult:
+        """Dictionary values of each dimension that contain the needle,
+        with their row counts under the filter (host-side occurrence
+        counting; NULL rows count for no value)."""
+        ds = self.store.get(q.datasource)
+        if ds.is_partial:
+            raise not_ported("search over a multi-host partial store",
+                             "A.8")
+        mask = self._host_mask(ds, q.filter, q.intervals)
+        needle = q.query if q.case_sensitive else q.query.lower()
+        dims_out, vals_out, counts_out = [], [], []
+        for dname in q.dimensions:
+            dim = ds.dims[dname]
+            cand = [i for i, s in enumerate(dim.dictionary)
+                    if needle in (s if q.case_sensitive else s.lower())]
+            if not cand:
+                continue
+            eff = mask
+            if dim.validity is not None:
+                # NULL rows are stored at code 0; they are not occurrences
+                # of dictionary[0]
+                eff = eff & dim.validity
+            counts = np.bincount(dim.codes[eff], minlength=dim.cardinality)
+            for c in cand:
+                if counts[c] > 0:
+                    dims_out.append(dname)
+                    vals_out.append(dim.dictionary[c])
+                    counts_out.append(int(counts[c]))
+        if q.limit is not None:
+            dims_out = dims_out[: q.limit]
+            vals_out = vals_out[: q.limit]
+            counts_out = counts_out[: q.limit]
+        self.last_stats.update({"datasource": ds.name,
+                                "search_values": len(vals_out)})
+        if q.value_output is not None:
+            # rewritten from a group-by: project to its output shape
+            return QueryResult(
+                [q.value_output, q.count_output],
+                {q.value_output: np.array(vals_out, dtype=object),
+                 q.count_output: np.array(counts_out, dtype=np.int64)})
+        return QueryResult(
+            ["dimension", "value", "count"],
+            {"dimension": np.array(dims_out, dtype=object),
+             "value": np.array(vals_out, dtype=object),
+             "count": np.array(counts_out, dtype=np.int64)})
+
+    def _device_mask(self, ds: Datasource, filter_spec, intervals,
+                     seg_idx) -> Optional[np.ndarray]:
+        """The select filter on the device: the filter and interval mask
+        over the bound columns (through the array cache, so a repeated
+        select reuses resident columns), packed 32 rows to an int32 word
+        ([S, R / 32]), one copy to the host, unpacked there. Returns the
+        [num_rows] bool mask, or None when the filter does not lower (the
+        host path runs)."""
+        mins, maxs = ds.segment_time_bounds()
+        if ds.time is None:
+            min_day = max_day = 0
+        else:
+            min_day = int(mins[seg_idx].min() // T.MILLIS_PER_DAY)
+            max_day = int(maxs[seg_idx].max() // T.MILLIS_PER_DAY)
+        needed = set(F.columns_of_filter(filter_spec))
+        time_in_play = ds.time is not None and (
+            intervals is not None or ds.time.name in needed)
+        if time_in_play:
+            needed.add(ds.time.name)
+        names = array_names(ds, sorted(needed), time_in_play)
+        try:
+            arrays = self._bind_arrays(ds, names, seg_idx)
+            ctx = ScanContext(ds, arrays, min_day, max_day,
+                              tz=self.config.get(TZ_ID))
+            _, base = _scan_base(ctx, filter_spec, intervals, False)
+            words = _to_host({"w": _pack_rows(base)})["w"]
+        except (EngineFallback, EC.Unsupported):
+            return None
+        bits = np.unpackbits(words.astype("<i4", copy=False).view(np.uint8),
+                             bitorder="little").view(bool) \
+            .reshape(len(seg_idx), ds.padded_rows)
+        mask = np.zeros(ds.num_rows, dtype=bool)
+        for i, si in enumerate(seg_idx):
+            s = ds.segments[int(si)]
+            mask[s.start_row: s.end_row] = bits[i, : s.num_rows]
+        self.last_stats["select_filter"] = "device"
+        return mask
+
+    def _host_mask(self, ds: Datasource, filter_spec, intervals):
+        """The row mask evaluated on the host from the store's copies."""
+        n = ds.num_rows
+        mask = np.ones(n, dtype=bool)
+        if intervals is not None and ds.time is not None:
+            ms = ds.time.millis
+            im = np.zeros(n, dtype=bool)
+            for lo, hi in intervals:
+                im |= (ms >= lo) & (ms < hi)
+            mask &= im
+        if filter_spec is not None:
+            env = {c: _host_column_values(ds, c, None)
+                   for c in sorted(F.columns_of_filter(filter_spec))}
+            mask &= host_eval.eval_pred3(filter_to_expr(filter_spec), env)
+        return mask
+
     def clear_caches(self):
-        """Drop the device-resident columns (the next query re-uploads)."""
+        """Drop the device-resident columns (the next query re-uploads)
+        and the late-materialization overflow memo."""
         self._device_arrays.clear()
         self._device_bytes = 0
+        self._compact_overflowed.clear()
+
+
+def _scan_base(ctx, filter_spec, intervals, fuse_cse):
+    """``(cse, base)``: row validity, the filter and the interval mask of
+    one scan; ``cse`` (a ``planner/fusion.CSECache`` over ``ctx`` when
+    ``fuse_cse``, else None) memoizes the sub-masks of the filter for the
+    aggregates' own filters."""
+    cse = FU.CSECache(ctx) if fuse_cse else None
+    base = ctx.row_valid()
+    fm = cse.lower(filter_spec) if cse is not None \
+        else F.lower_filter(filter_spec, ctx)
+    if fm is not None:
+        base = base & fm
+    im = F.interval_mask(intervals, ctx)
+    if im is not None:
+        base = base & im
+    return cse, base
+
+
+def _compact(ctx, base, m, exp_f, fuse_cse):
+    """Late materialization inside a core: ``(compacted ctx, its cse,
+    base [m], overflow)``. The live rows move to the [m] prefix
+    (``ops/scan.compact_keep``); every later read gathers through it. The
+    CSE cache is rebuilt over the compacted context, so no full-width
+    mask leaks past this point; the staged gather-heavy conjuncts
+    (``exp_f``) apply to the prefix only. ``overflow`` ([] int32, on the
+    device) counts the live rows past ``m``."""
+    keep, n_live = compact_keep(base, m)
+    n_over = torch.clamp(n_live - m, min=0).to(torch.int32)
+    ctx = CompactScanContext(ctx.ds, ctx.arrays, ctx.min_day, ctx.max_day,
+                             ctx.tz, keep=keep)
+    cse = FU.CSECache(ctx) if fuse_cse else None
+    base = base.reshape(-1)[keep]
+    if exp_f is not None:
+        em = cse.lower(exp_f) if cse is not None \
+            else F.lower_filter(exp_f, ctx)
+        if em is not None:
+            base = base & em
+    return ctx, cse, base, n_over
+
+
+_CMP = {"=": torch.eq, "!=": torch.ne, "<": torch.lt, "<=": torch.le,
+        ">": torch.gt, ">=": torch.ge}
+
+
+def _having_mask(having_dev, out, routes) -> torch.Tensor:
+    """Device bool [n_keys]: the group holds rows AND the HAVING
+    comparison passes, exactly (an ``i64`` or ``f64`` route compares in
+    its own type); a NULL min/max metric makes the comparison unknown,
+    so the group fails."""
+    name, op, lit = having_dev
+    v = out[name]
+    m = _CMP[op](v, torch.tensor(lit, dtype=v.dtype, device=v.device))
+    nm = G.route_null_mask(routes[name], out)
+    if nm is not None:
+        m = m & ~nm
+    return m & (out["__rows__"] > 0)
+
+
+def _having_gather(table, mask, k, n_keys, full):
+    """Device HAVING's second dispatch: the groups that travel. ``full``:
+    the whole table in key order with the failing groups' '__rows__'
+    zeroed (in int64), so the host's occupancy filter drops them.
+    Otherwise the first ``k`` of the passing groups in ascending key
+    order, then the failing ones in ascending order (the order of
+    ``lax.top_k`` over the 0/1 mask), with their key ids
+    ('__topk_idx__')."""
+    if full:
+        g = dict(table)
+        g["__rows__"] = table["__rows__"] * mask.to(table["__rows__"].dtype)
+        return g
+    idx, _ = compact_keep(mask, k)
+    g = _gather_rows(table, idx, n_keys)
+    g["__topk_idx__"] = idx
+    return g
+
+
+def _pack_rows(base: torch.Tensor) -> torch.Tensor:
+    """A [S, R] bool mask as [S, R / 32] int32 words, row ``32 w + b`` in
+    bit ``b`` of word ``w`` (bit 31 carries the sign; distinct powers of
+    two sum without overflow)."""
+    s, r = base.shape
+    shifts = torch.arange(32, dtype=torch.int32, device=base.device)
+    return (base.reshape(s, r // 32, 32).to(torch.int32) << shifts).sum(
+        -1, dtype=torch.int32)
+
+
+def _cache_repr(q) -> str:
+    """repr(q) without its per-request QueryContext (a query id or a
+    timeout never changes what runs)."""
+    try:
+        return repr(dataclasses.replace(q, context=None))
+    except (TypeError, ValueError):
+        return repr(q)
 
 
 def _rows_of(ds, seg_idx) -> int:
@@ -1437,7 +1907,9 @@ def _host_column_values(ds: Datasource, name: str,
             out = np.where(v, out, np.float32(np.nan))
         return out
     if ds.time is not None and name == ds.time.name:
-        ms = ds.time.millis if idx is None else ds.time.millis[idx]
+        t = ds.time
+        ms = t.millis if idx is None else \
+            t.days[idx].astype(np.int64) * T.MILLIS_PER_DAY + t.ms_in_day[idx]
         return ms.astype("datetime64[ms]")
     raise KeyError(name)
 
@@ -1450,3 +1922,53 @@ def _neg_key(k: np.ndarray):
     # descending strings: invert via negated rank
     _, inv = np.unique(k, return_inverse=True)
     return -inv
+
+
+def filter_to_expr(f: S.FilterSpec) -> E.Expr:
+    """FilterSpec -> Expr for host-side evaluation (the JAX executor's
+    ``filter_to_expr``)."""
+    if isinstance(f, S.SelectorFilter):
+        if f.value is None:
+            return E.IsNull(E.Column(f.dimension))
+        return E.Comparison("=", E.Column(f.dimension), E.Literal(f.value))
+    if isinstance(f, S.BoundFilter):
+        parts = []
+        c = E.Column(f.dimension)
+        if f.lower is not None:
+            parts.append(E.Comparison(">" if f.lower_strict else ">=", c,
+                                      E.Literal(f.lower)))
+        if f.upper is not None:
+            parts.append(E.Comparison("<" if f.upper_strict else "<=", c,
+                                      E.Literal(f.upper)))
+        return E.And(tuple(parts)) if len(parts) != 1 else parts[0]
+    if isinstance(f, S.InFilter):
+        return E.InList(E.Column(f.dimension), tuple(f.values))
+    if isinstance(f, S.PatternFilter):
+        if f.kind == "like":
+            return E.Like(E.Column(f.dimension), f.pattern)
+        if f.kind == "contains":
+            return E.Like(E.Column(f.dimension), f"%{f.pattern}%")
+        raise EngineFallback("regex filter on host path")
+    if isinstance(f, S.NullFilter):
+        return E.IsNull(E.Column(f.dimension), negated=f.negated)
+    if isinstance(f, S.LogicalFilter):
+        subs = tuple(filter_to_expr(x) for x in f.fields)
+        if f.op == "and":
+            return E.And(subs) if subs else E.Literal(True)
+        if f.op == "or":
+            return E.Or(subs)
+        return E.Not(subs[0])
+    if isinstance(f, S.ExprFilter):
+        return f.expr
+    if isinstance(f, S.SpatialFilter):
+        import math
+        parts = []
+        for ax, lo, hi in zip(f.axes, f.min_coords, f.max_coords):
+            c = E.Column(ax)
+            if lo is not None and math.isfinite(lo):
+                parts.append(E.Comparison(">=", c, E.Literal(lo)))
+            if hi is not None and math.isfinite(hi):
+                parts.append(E.Comparison("<=", c, E.Literal(hi)))
+        return E.And(tuple(parts)) if len(parts) != 1 else (
+            parts[0] if parts else E.Literal(True))
+    raise EngineFallback(f"filter {type(f).__name__}")

@@ -20,6 +20,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from spark_druid_olap_tpu_torch.segment.column import (
+    MILLIS_PER_DAY,
     ColumnKind,
     DimColumn,
     MetricColumn,
@@ -62,6 +63,10 @@ class Datasource:
         self._bounds_cache: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
         n = max((s.num_rows for s in segments), default=0)
         self.padded_rows = max(ROW_ALIGN, -(-n // ROW_ALIGN) * ROW_ALIGN)
+        # the port builds complete stores only; a multi-host partial store
+        # (its rows spread over processes) is ROADMAP A.8, and the
+        # executor refuses select and search over one
+        self.is_partial = False
 
     # -- basic shape ----------------------------------------------------------
     @property
@@ -89,6 +94,16 @@ class Datasource:
         if self.time is not None:
             out.append(self.time.name)
         return out
+
+    def cardinality(self, name: str) -> Optional[int]:
+        """Exact dictionary cardinality for dims, the day span for the
+        time column, None for metrics."""
+        if name in self.dims:
+            return self.dims[name].cardinality
+        if self.time is not None and name == self.time.name:
+            lo, hi = self.interval()
+            return max(1, (hi - lo) // MILLIS_PER_DAY + 1)
+        return None
 
     def metadata(self) -> dict:
         """Druid segmentMetadata-equivalent summary (reference:

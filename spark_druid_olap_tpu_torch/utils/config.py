@@ -113,6 +113,35 @@ COST_SCATTER_UPDATE = _entry(
     "for a cpu or cuda device: parallel/cost.unit_cost reads each "
     "device's measured table (on cuda a curve over rows per slot) unless "
     "this key is set explicitly.", float)
+COST_SORT_ROW = _entry(
+    "sdot.querycostmodel.sort.seconds.per.row", 2.2e-10,
+    "Seconds per row of the late-materialization compaction (the stable "
+    "partition of live rows). The default is the JAX package's TPU value "
+    "and is never used for a cpu or cuda device: parallel/cost.unit_cost "
+    "reads each device's measured table unless this key is set "
+    "explicitly.", float)
+COST_SCATTER_UPDATE_BIG = _entry(
+    "sdot.querycostmodel.scatter.big.seconds.per.update", 6.7e-9,
+    "Seconds per scatter update into a group table larger than "
+    "sdot.querycostmodel.table.cache.bytes. The default is the JAX "
+    "package's TPU value and is never used for a cpu or cuda device.",
+    float)
+COST_TABLE_CACHE_BYTES = _entry(
+    "sdot.querycostmodel.table.cache.bytes", 24 << 20,
+    "Group-table byte size above which the compaction gate prices "
+    "scatter updates at the big-table unit cost.", int)
+COST_GATHER_PROBE = _entry(
+    "sdot.querycostmodel.gather.seconds.per.probe", 7e-9,
+    "Seconds per probe of a flat 1-D device gather (the compacted "
+    "column reads). The default is the JAX package's TPU value and is "
+    "never used for a cuda device.", float)
+COST_FUSED_ROW = _entry(
+    "sdot.querycostmodel.fused.seconds.per.row", 2.3e-9,
+    "Seconds per row of the fused small-K group-by kernel's one pass: "
+    "what compaction saves per removed row on that tier. The default is "
+    "the JAX package's TPU value; a cpu device takes it as the JAX "
+    "package does there, a cuda device reads its measured value.",
+    float)
 DEVICE_CACHE_BYTES = _entry(
     "sdot.engine.device.cache.bytes", 8 << 30,
     "Budget for device-resident bound column arrays (host-side bytes "
@@ -126,9 +155,28 @@ TOPN_DEVICE_MIN_KEYS = _entry(
     "the full [K] result transfers and the host sorts.")
 HAVING_DEVICE_MIN_KEYS = _entry(
     "sdot.engine.having.device.min.keys", 1 << 16,
-    "Min fused key cardinality at which the JAX engine evaluates an "
-    "exact-comparable HAVING on the device; the port refuses such "
-    "queries until that epilogue is ported (ROADMAP A.4).")
+    "Min fused key cardinality before an exact-comparable HAVING (one "
+    "aggregate against an integer literal) is evaluated on the device: "
+    "the finals stay on the device, only the passing count and then the "
+    "passing groups travel to the host, which re-applies HAVING.")
+SCAN_COMPACT = _entry(
+    "sdot.engine.scan.compact", True,
+    "Late materialization: when the filter-selectivity estimate says few "
+    "rows survive, move the survivors to a static prefix and run "
+    "group-key building, value derivation and aggregation at "
+    "O(survivors) instead of O(rows). Overflow of the estimated budget "
+    "retries uncompacted.")
+SCAN_COMPACT_MIN_ROWS = _entry(
+    "sdot.engine.scan.compact.min.rows", 1 << 21,
+    "Scans below this many rows never compact (the partition pass wins "
+    "nothing at small scale). 0 compacts every selective scan and skips "
+    "the cost test.")
+SELECT_DEVICE_MIN_ROWS = _entry(
+    "sdot.select.device.min.rows", 1 << 17,
+    "Min datasource rows before a select (raw scan) query evaluates its "
+    "filter on the device (one mask pass, 32 rows per transferred "
+    "word); below it the host numpy path runs. 0 forces the device path "
+    "when a device filter exists.")
 
 # --- shared-scan multi-query execution (parallel/sharedscan.py) --------------
 SHAREDSCAN_ENABLED = _entry(

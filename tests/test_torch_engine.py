@@ -300,23 +300,56 @@ def test_q1_and_q6_against_pandas(lineitem, port_ctx):
     np.testing.assert_allclose(got6["revenue"], [rev], rtol=FLOAT_RTOL)
 
 
-@pytest.mark.parametrize("spec", ["sketch", "select", "device_having"])
-def test_paths_outside_the_slice_raise(spec, port_ctx):
+def _slice_spec(S, E, spec):
+    """The select and the device-HAVING query that the earlier slices
+    refused (ROADMAP A.5 and A.4), now answered."""
+    if spec == "select":
+        return S.SelectQuerySpec(
+            "lineitem", ("l_shipdate", "l_quantity", "l_returnflag"),
+            filter=S.BoundFilter("l_quantity", lower=48), page_size=500)
+    # an integer HAVING over 2,000 parts x 100 suppliers: filtered on the
+    # device, only the passing groups travel
+    return S.GroupByQuerySpec(
+        "lineitem", (S.DimensionSpec("l_partkey", "l_partkey"),
+                     S.DimensionSpec("l_suppkey", "l_suppkey")),
+        (S.AggregationSpec("count", "n"),),
+        having=S.HavingSpec(E.Comparison(">", E.Column("n"),
+                                         E.Literal(1))))
+
+
+@pytest.mark.parametrize("spec", ["select", "device_having"])
+def test_paths_of_the_slice_answer(spec, jax_ctx, port_ctx):
+    want = jax_ctx.execute(_slice_spec(JS, JE, spec)).to_pandas()
+    got = port_ctx.execute(_slice_spec(TS, TE, spec)).to_pandas()
+    assert len(got) > 0
+    assert_results_equal(got, want)
+    key = "select_filter" if spec == "select" else "having_device"
+    assert port_ctx.engine.last_stats[key] \
+        == jax_ctx.engine.last_stats[key]
+    if spec == "device_having":
+        assert port_ctx.engine.last_stats[key] > 0
+
+
+@pytest.mark.parametrize("spec", ["sketch", "multi_wave", "partial_select",
+                                  "partial_search"])
+def test_paths_outside_the_slice_raise(spec, port_ctx, monkeypatch):
+    item = {"sketch": "A.3", "multi_wave": "A.5"}.get(spec, "A.8")
     if spec == "sketch":
         q = TS.TimeseriesQuerySpec("lineitem", (TS.AggregationSpec(
             "cardinality", "u", field="l_partkey"),))
-    elif spec == "select":
-        q = TS.SelectQuerySpec("lineitem", ("l_quantity",))
+    elif spec == "multi_wave":
+        # bound columns above the device budget need multi-wave binding
+        monkeypatch.setitem(port_ctx.config._values,
+                            "sdot.engine.device.cache.bytes", 1)
+        q = TS.TimeseriesQuerySpec("lineitem", (TS.AggregationSpec(
+            "longsum", "s", field="l_quantity"),))
     else:
-        # an integer HAVING over 2,000 parts x 100 suppliers: the JAX
-        # engine filters it on the device (ROADMAP A.4)
-        q = TS.GroupByQuerySpec(
-            "lineitem", (TS.DimensionSpec("l_partkey", "l_partkey"),
-                         TS.DimensionSpec("l_suppkey", "l_suppkey")),
-            (TS.AggregationSpec("count", "n"),),
-            having=TS.HavingSpec(TE.Comparison(">", TE.Column("n"),
-                                               TE.Literal(1))))
-    with pytest.raises(NotImplementedError, match="not ported yet") as e:
+        # a multi-host partial store: its rows live in other processes
+        monkeypatch.setattr(port_ctx.store.get("lineitem"), "is_partial",
+                            True)
+        q = TS.SelectQuerySpec("lineitem", ("l_quantity",)) \
+            if spec == "partial_select" else TS.SearchQuerySpec(
+                "lineitem", ("l_returnflag",), "R")
+    with pytest.raises(NotImplementedError,
+                       match=f"not ported yet \\(ROADMAP {item}\\)"):
         port_ctx.execute(q)
-    if spec == "device_having":
-        assert "device HAVING not ported yet (ROADMAP A.4)" in str(e.value)
