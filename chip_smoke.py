@@ -26,7 +26,13 @@ groups pass, q6 and q12 forced compacted (late materialization) against
 their uncompacted runs with each compacted B1 launch held against its
 plain version, q3 hashed with compaction, one overflow retry, a paged
 select over lineitem with its mask on the device and on the host, and one
-search. The census holds every statement in engine mode. Before that
+search. The census holds every statement in engine mode. Its phase
+``sketch`` runs HLL, theta and KLL: one statement with all three (B1 and
+the register ops), its registers against the plain version and its
+estimates against pandas, then four sketch statements coalesced into one
+wave launch whose theta stripe runs inside the kernel (held against the
+plain version bit for bit) and whose HLL, KLL and wide theta run in the
+epilogue, their answers equal to the solo answers. Before that
 it builds every kernel of the path from the sources in this checkout and
 holds each against its plain PyTorch version on the card: the dense
 group-by in each fold tier that holds a case, the wave kernel in each
@@ -43,6 +49,7 @@ script imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import pathlib
 import re
 import statistics
 import subprocess
@@ -63,8 +70,21 @@ REPEATS = 7
 SLEEP_CYCLES = 4_000_000         # ~2 ms of sleep kernel at the H100's clock
 
 
+# every JSON line also goes to this file, so the whole run is kept where
+# only the end of standard output is (the directory is gitignored)
+LOG = pathlib.Path(__file__).resolve().parent / "chiprun_out" \
+    / "chip_smoke.jsonl"
+
+
+def say(line: str) -> None:
+    print(line, flush=True)
+    LOG.parent.mkdir(exist_ok=True)
+    with open(LOG, "a") as f:
+        f.write(line + "\n")
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}, default=float), flush=True)
+    say(json.dumps({"phase": phase, **fields}, default=float))
 
 
 def nvidia_smi() -> str:
@@ -763,6 +783,15 @@ def compare_wave(case, got, want, layout):
             elif not torch.equal(g, w):
                 raise AssertionError(f"{what}: kernel and plain version "
                                      f"differ")
+        for name, _, _ in ls.thetas:
+            # the theta stripe: float32 lane minima, bit for bit
+            g, w = g_lane[name], w_lane[name]
+            if g.dtype != w.dtype or g.shape != w.shape \
+                    or not torch.equal(g.view(torch.int32),
+                                       w.view(torch.int32)):
+                raise AssertionError(f"{case}/lane{li}/{name}: the theta "
+                                     f"stripe differs from the plain "
+                                     f"version")
     return worst
 
 
@@ -794,10 +823,36 @@ def wave_checked(CW, case, program, layout, cols, want):
     return answer, worst
 
 
+def theta_specs(S):
+    """Lanes with in-kernel theta stripes over the synthetic store: 2 keys
+    (years) over int32 values and a DOUBLE's float32 bits, 4 keys (the
+    quarter of the year, 256 stripe slots: the cap) over int64 values under
+    an aggregate filter and over dictionary codes, and a 6-key lane whose
+    theta (384 slots) and HLL run in the epilogue."""
+    def theta(name, field, **kw):
+        return S.AggregationSpec("thetasketch", name, field=field, **kw)
+    return [
+        S.TimeseriesQuerySpec("synth", (
+            theta("t_i32", "i32"), theta("t_f32", "f32"),
+            S.AggregationSpec("count", "n")),
+            granularity=S.Granularity("year")),
+        S.GroupByQuerySpec("synth", (S.DimensionSpec(
+            "ts", "q", extraction=S.TimeExtraction("quarter")),), (
+            theta("t_i64", "i64", filter=S.BoundFilter("i32", lower=0,
+                                                       numeric=True)),
+            theta("t_k16", "k16"),
+            S.AggregationSpec("doublesum", "sf64", field="f64"))),
+        S.GroupByQuerySpec("synth", (S.DimensionSpec("k6", "k6"),), (
+            theta("t_wide", "i32"),
+            S.AggregationSpec("cardinality", "u", field="i64"),
+            S.AggregationSpec("longsum", "s32", field="i32")))]
+
+
 def wave_cases(sdt, S, E, CW, FU):
     """The wave kernel against its plain version over the contract's sizes,
-    lane counts, column types and edge cases; returns (cases run, largest
-    float-sum difference, [checks that ran])."""
+    lane counts, column types and edge cases, and with in-kernel theta
+    stripes; returns (cases run, largest float-sum difference, [checks that
+    ran])."""
     rng = np.random.default_rng(SEED + 1)
     eng = sdt.Context().engine
     cases, worst, checks = 0, 0.0, []
@@ -839,6 +894,18 @@ def wave_cases(sdt, S, E, CW, FU):
                     raise AssertionError(f"{case}: no int sum past 2^53")
                 checks.append(f"{case}: {nan_groups} NaN min groups, int "
                               f"sum {big} > 2^53")
+        program, layout, cols = compile_specs(eng, ds, theta_specs(S), CW,
+                                              FU)
+        stripes = sorted(t[0] for ls in layout.lanes for t in ls.thetas)
+        if stripes != ["t_f32", "t_i32", "t_i64", "t_k16"]:
+            raise AssertionError(f"n{n}_theta: stripes {stripes}")
+        want = CW.wave_reference(program, cols, layout)
+        worst = max(worst, wave_checked(CW, f"n{n}_theta", program, layout,
+                                        cols, want)[1])
+        cases += 1
+    checks.append("theta stripes (2 and 4 keys; int32, int64, float32 "
+                  "bits, codes; an aggregate filter) equal the plain "
+                  "version bit for bit")
     checks.append("every case in every register-file layout the shared "
                   "memory allows: two launches bit-identical, and equal to "
                   "the plain version")
@@ -1021,13 +1088,16 @@ def run_storm(ctx, specs, call=None):
 
 def wave_work(program, layout, columns):
     """(bytes, operations) of one wave: each union column read once, each
-    slot written once; per row, the program's instructions and a select
-    and a combine per lane aggregate."""
+    slot written once; per row, the program's instructions, a select and a
+    combine per lane aggregate, and per in-kernel theta its hash lanes'
+    integer operations (``REGISTER_OPS_PER_ROW``)."""
     nbytes = sum(c.numel() * c.element_size() for c in columns) \
         + layout.n_slots * 8
     n = columns[0].numel()
     aggs = sum(ls.n_aggs for ls in layout.lanes)
-    return nbytes, n * (len(program.instrs) + 2 * aggs)
+    thetas = sum(len(ls.thetas) for ls in layout.lanes)
+    return nbytes, n * (len(program.instrs) + 2 * aggs
+                        + thetas * REGISTER_OPS_PER_ROW["theta"])
 
 
 def bound(nbytes, ops):
@@ -1438,6 +1508,7 @@ def sql_phase(sdt, tables, lineitem_ds, CG, CW, smi):
         raise AssertionError(f"census: statements refused: {refused}")
     hashed.update(hashed_full(ctx, tables, census))
     tail.update(tail_full(ctx, tables, nr, census))
+    sketch = sketch_phase(ctx, tables, CG, CW)
     emit("sql", card=smi, sf=SF, flat_rows=rows, flat_columns=flat_cols,
          flatten_s=t_flat, ingest_s=t_ingest, base_tables_ingest_s=t_base,
          statements=stmts, storm=storm, census=census, kernels=kernels,
@@ -1453,7 +1524,7 @@ def sql_phase(sdt, tables, lineitem_ds, CG, CW, smi):
               "warm run; kernels: each B1 call of a statement's cold run "
               "and the storm's B2 launch, kernel vs plain version on the "
               "same inputs, times as in phase timing")
-    return b1, b2, kernels, hashed, tail
+    return b1, b2, kernels, hashed, tail, sketch
 
 
 # -- the wide-key aggregation path (phase "hashed") --------------------------
@@ -2132,6 +2203,259 @@ def tail_select(ctx, li, S) -> dict:
     return out
 
 
+# -- the sketch aggregations (phase "sketch") ---------------------------------
+
+# one statement with all three sketches beside a dense count: B1 for the
+# count, then the three register ops (the fused key holds 3 x 2 = 6 keys,
+# 4 of them occupied)
+SKETCH_SOLO = ("select l_returnflag, l_linestatus, count(*) as n, "
+               "approx_count_distinct(l_orderkey) as u_order, "
+               "approx_count_distinct_theta(l_suppkey) as t_supp, "
+               "percentile_approx(l_extendedprice, 0.5) as p50 "
+               "from tpch_flat group by l_returnflag, l_linestatus")
+# four statements coalesced into one wave launch: theta on 3 keys (3 x 64
+# stripe slots, inside the kernel), theta on 7 keys (448 slots, past the
+# 256-row cap: the epilogue), HLL and KLL (the epilogue)
+SKETCH_STORM = {
+    "theta_flag": "select l_returnflag, "
+                  "approx_count_distinct_theta(l_partkey) as t_part, "
+                  "count(*) as n from tpch_flat group by l_returnflag",
+    "theta_mode": "select l_shipmode, "
+                  "approx_count_distinct_theta(l_suppkey) as t_supp, "
+                  "sum(l_quantity) as q from tpch_flat group by l_shipmode",
+    "hll_status": "select l_linestatus, "
+                  "approx_count_distinct(l_orderkey) as u_order, "
+                  "count(*) as n from tpch_flat group by l_linestatus",
+    "kll_flag": "select l_returnflag, "
+                "percentile_approx(l_extendedprice, 0.9) as p90 "
+                "from tpch_flat where l_shipdate >= date '1995-01-01' "
+                "group by l_returnflag",
+}
+# the estimates against pandas, each about 3 standard errors: HLL (2^11
+# registers, 1.04 / sqrt(2^11) = 2.3%) within 6.9%, theta (k = 64, ~12.5%)
+# within 40%, KLL's estimate at a rank within sdot.quantile.rank_bound of
+# its fraction. The reference's HLL hash (the murmur3 finalizer alone) runs
+# -4.2% and -5.9% on two of SF1's four (l_returnflag, l_linestatus) groups
+# of l_orderkey, where a splitmix64 hash of the same keys gives +1.5% and
+# -2.4% (tools/hll_bias.py); the port keeps the reference's
+# registers bit for bit (a cluster merges raw registers), so its hash too
+HLL_REL_BOUND = 3 * 1.04 / 2 ** 5.5
+THETA_REL_BOUND = 0.40
+# integer operations per row, counted from each op's steps (ops/hll.py,
+# ops/theta.py, ops/kll.py): HLL one murmur finalizer (8), register and
+# rho (5), the fused index and the max (3); theta the shared multiply, then
+# per hash lane the seed xor, a murmur round pair (8), the float part (3),
+# the index and the min (2); KLL three mixes (27), the salt (3), lane and
+# level (7), tie (3), two indexed mins and a count (5)
+REGISTER_OPS_PER_ROW = {"hll": 16, "theta": 1 + 64 * 14, "kll": 45}
+
+
+def sketch_estimates_check(name, got, df, keys, cols, rank_bound):
+    """Each sketch column of ``got`` (grouped by ``keys``) against pandas
+    over the statement's rows ``df``: ``cols`` maps the column to (kind,
+    source column, fraction). Returns the worst relative error per kind
+    and, for KLL, the worst distance of the estimate's rank interval from
+    the fraction."""
+    worst = {}
+    groups = {(k if isinstance(k, tuple) else (k,)): g
+              for k, g in df.groupby(keys)} if keys else {(): df}
+    for _, row in got.iterrows():
+        k = tuple(row[c] for c in keys)
+        part = groups[k]
+        for c, (kind, src, q) in cols.items():
+            if kind == "kll":
+                v = part[src].to_numpy(np.float64)
+                est = float(row[c])
+                lo, hi = (v < est).mean(), (v <= est).mean()
+                off = max(0.0, lo - q, q - hi)
+                worst["kll_rank"] = max(worst.get("kll_rank", 0.0), off)
+                if off > rank_bound:
+                    raise AssertionError(
+                        f"{name} {c} {k}: estimate {est} at rank "
+                        f"[{lo:.4f}, {hi:.4f}], fraction {q} +- {rank_bound}")
+                continue
+            exact = part[src].nunique()
+            rel = abs(int(row[c]) - exact) / exact
+            worst[kind] = max(worst.get(kind, 0.0), rel)
+            bound_ = HLL_REL_BOUND if kind == "hll" else THETA_REL_BOUND
+            if rel > bound_:
+                raise AssertionError(f"{name} {c} {k}: {int(row[c])} vs "
+                                     f"{exact} distinct ({rel:.4f} > "
+                                     f"{bound_})")
+    return worst
+
+
+def register_ops_checked(captured, real) -> dict:
+    """Each register op the solo statement ran, again on the card (twice,
+    bit-identical) and on the host over the same inputs copied there (the
+    plain version: the same PyTorch function on the CPU), registers bit
+    for bit; device ms beside the bound of the bytes it must move (inputs
+    read once, registers written once) and its integer operations."""
+    out = {}
+    for kind, (args, kw) in captured.items():
+        fn = real[kind]
+        got, again = fn(*args, **kw), fn(*args, **kw)
+        host = fn(*[a.cpu() if torch.is_tensor(a) else a for a in args],
+                  **kw)
+        torch.cuda.synchronize()
+        g = got.cpu()
+        for a, b, what in ((got, again, "two runs"), (g, host, "host")):
+            if a.dtype != b.dtype or not torch.equal(
+                    a.view(torch.int32).cpu(), b.view(torch.int32).cpu()):
+                raise AssertionError(f"sketch {kind} registers: card vs "
+                                     f"{what} differ")
+        tensors = [a for a in args if torch.is_tensor(a)]
+        rows = int(tensors[0].numel())
+        nbytes = sum(t.numel() * t.element_size() for t in tensors) \
+            + got.numel() * got.element_size()
+        ops = rows * REGISTER_OPS_PER_ROW[kind]
+        b_ms, b_by = bound(nbytes, ops)
+        out[kind] = dict(
+            rows=rows, n_keys=int(got.shape[0]), width=int(got.shape[1]),
+            dtype=str(got.dtype).replace("torch.", ""),
+            value_dtype=str(tensors[2].dtype).replace("torch.", ""),
+            device_ms=device_ms(lambda: fn(*args, **kw)), bound_ms=b_ms,
+            bound_by=b_by, bytes=nbytes, int_ops=ops)
+    return out
+
+
+def sketch_phase(ctx, tables, CG, CW) -> dict:
+    """Phase ``sketch`` over the flat star: the solo statement (B1 and the
+    three register ops), its registers against the plain version and its
+    estimates against pandas; the four-statement storm in ONE wave launch,
+    the in-kernel theta stripe against the plain version in every
+    register-file layout that fits, the storm's answers equal to the solo
+    answers and its estimates against pandas; device times beside bounds."""
+    from spark_druid_olap_tpu_torch.ops import hll as HLL
+    from spark_druid_olap_tpu_torch.ops import kll as KLL
+    from spark_druid_olap_tpu_torch.ops import theta as TH
+    from spark_druid_olap_tpu_torch.utils.config import QUANTILE_RANK_BOUND
+    t_phase = time.perf_counter()
+    li = tables["lineitem"]
+    eps = float(ctx.config.get(QUANTILE_RANK_BOUND))
+    out = {}
+
+    # 1. solo: B1 for the count, the three register ops after it
+    mods = {"hll": (HLL, "hll_registers"), "theta": (TH, "theta_registers"),
+            "kll": (KLL, "kll_registers")}
+    real = {k: getattr(m, f) for k, (m, f) in mods.items()}
+    captured, b1_calls = {}, []
+    real_kernel = CG.dense_groupby_kernel
+
+    def spy(kind):
+        def run(*args, **kw):
+            captured.setdefault(kind, (args, kw))
+            return real[kind](*args, **kw)
+        return run
+
+    def b1_spy(key, n_keys, inputs, max_keys):
+        b1_calls.append((key, n_keys, list(inputs), max_keys))
+        return real_kernel(key, n_keys, inputs, max_keys)
+    for k, (m, f) in mods.items():
+        setattr(m, f, spy(k))
+    CG.dense_groupby_kernel = b1_spy
+    try:
+        CG.launches = 0
+        cold_ms, st = timed_sql(ctx, SKETCH_SOLO)
+        b1 = CG.launches
+    finally:
+        for k, (m, f) in mods.items():
+            setattr(m, f, real[k])
+        CG.dense_groupby_kernel = real_kernel
+    if st["mode"] != "engine" or b1 < 1 or set(captured) != set(mods):
+        raise AssertionError(f"sketch solo: mode {st['mode']!r}, {b1} B1 "
+                             f"launches, register ops {sorted(captured)}")
+    got = ctx.sql(SKETCH_SOLO).to_pandas()
+    keys = ["l_returnflag", "l_linestatus"]
+    want_n = li.groupby(keys).size()
+    if sorted(zip(got.l_returnflag, got.l_linestatus, got.n)) != sorted(
+            (a, b, int(c)) for (a, b), c in want_n.items()):
+        raise AssertionError("sketch solo: counts differ from pandas")
+    solo_err = sketch_estimates_check(
+        "sketch solo", got, li, keys,
+        {"u_order": ("hll", "l_orderkey", None),
+         "t_supp": ("theta", "l_suppkey", None),
+         "p50": ("kll", "l_extendedprice", 0.5)}, eps)
+    warm = [timed_sql(ctx, SKETCH_SOLO)[0] for _ in range(REPEATS)]
+    out["solo"] = dict(
+        statement=SKETCH_SOLO, groups=len(got), cold_ms=cold_ms,
+        warm_median_ms=statistics.median(warm), dense_groupby_launches=b1,
+        worst_error=solo_err,
+        estimates=got.drop(columns=keys).to_dict("list"))
+    out["registers"] = register_ops_checked(captured, real)
+    out["b1"] = b1_checked(CG, "sketch solo", b1_calls)
+    out["b1_launches"] = b1
+
+    # 2. the storm: one wave launch, theta split between stripe and epilogue
+    for k, v in SQL_STORM_CONFIG.items():
+        ctx.config.set(k, v)
+    names, queries = list(SKETCH_STORM), list(SKETCH_STORM.values())
+    run_storm(ctx, queries, call=ctx.sql)      # plans and builds once
+    st0 = ctx.engine.sharedscan.stats()
+    real_wave, waves = CW.wave_groupby, []
+
+    def wave_spy(program, layout, columns):
+        waves.append((program, layout, [c.reshape(-1) for c in columns]))
+        return real_wave(program, layout, columns)
+    CW.wave_groupby = wave_spy
+    try:
+        CW.launches = 0
+        CG.launches = 0
+        res, storm_ms, phases = run_storm(ctx, queries, call=ctx.sql)
+        torch.cuda.synchronize()
+        b2, b1_storm = CW.launches, CG.launches
+    finally:
+        CW.wave_groupby = real_wave
+    entries = ctx.history.entries()[-len(queries):]
+    waves_info = [e.stats.get("sharedscan", {}).get("wave")
+                  for e in entries]
+    st1 = ctx.engine.sharedscan.stats()
+    storm = {k: st1[k] - st0[k] for k in ("queries_coalesced",
+                                          "wave_launches", "wave_fallbacks")}
+    info = waves_info[0] or {}
+    storm.update(wave_kernel_launches=b2, dense_groupby_launches=b1_storm,
+                 wall_ms=storm_ms, phases_ms=phases,
+                 modes=[e.stats["mode"] for e in entries],
+                 theta_inkernel=info.get("theta_inkernel"),
+                 sketch_epilogue=info.get("sketch_epilogue"))
+    if storm["queries_coalesced"] != len(queries) \
+            or storm["wave_launches"] != 1 or storm["wave_fallbacks"] != 0 \
+            or b2 != 1 or b1_storm != 0 or len(waves) != 1 \
+            or storm["modes"] != ["engine"] * len(queries) \
+            or not info.get("theta_inkernel") \
+            or not info.get("sketch_epilogue"):
+        raise AssertionError(f"sketch storm: not {len(queries)} statements "
+                             f"in one wave launch with a stripe and an "
+                             f"epilogue: {storm}, reasons "
+                             f"{st1['wave_fallback_reasons']}")
+    ctx.config.set("sdot.sharedscan.enabled", False)
+    got = dict(zip(names, res))
+    for n, q in SKETCH_STORM.items():
+        check_frame(f"sketch storm {n} vs solo", got[n],
+                    ctx.sql(q).to_pandas(), None, 0)
+    late = li[li.l_shipdate >= np.datetime64("1995-01-01")]
+    storm["worst_error"] = {}
+    for n, keys, df, cols in (
+            ("theta_flag", ["l_returnflag"], li,
+             {"t_part": ("theta", "l_partkey", None)}),
+            ("theta_mode", ["l_shipmode"], li,
+             {"t_supp": ("theta", "l_suppkey", None)}),
+            ("hll_status", ["l_linestatus"], li,
+             {"u_order": ("hll", "l_orderkey", None)}),
+            ("kll_flag", ["l_returnflag"], late,
+             {"p90": ("kll", "l_extendedprice", 0.9)})):
+        storm["worst_error"][n] = sketch_estimates_check(
+            f"sketch storm {n}", got[n], df, keys, cols, eps)
+    out["storm"] = storm
+    out["b2_launches"] = b2
+    program, layout, cols = waves[0]
+    out["wave"] = wave_timed(CW, "sketch storm", program, layout, cols)
+    out["wave"]["stripes"] = [[t[0] for t in ls.thetas]
+                              for ls in layout.lanes]
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def hashed_q1(ctx, spec, dense) -> dict:
     """Q1 as a QuerySpec forced onto the hashed tier (6 keys over 6M rows:
     few groups, many rows each), under ``auto`` and on both tiers,
@@ -2165,6 +2489,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    LOG.unlink(missing_ok=True)
     import spark_druid_olap_tpu_torch as sdt
     from spark_druid_olap_tpu_torch.ir import expr as E
     from spark_druid_olap_tpu_torch.ir import spec as S
@@ -2175,7 +2500,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     smi = nvidia_smi()
-    print(smi, flush=True)
+    say(smi)
     kind = torch.cuda.get_device_name(0)
     emit("device", nvidia_smi=smi, kind=kind,
          count=torch.cuda.device_count(), torch=torch.__version__,
@@ -2234,7 +2559,7 @@ def main() -> int:
          segments=ctx.store.get("lineitem").num_segments)
 
     # 4a. the SQL front end over the flattened star
-    sql_b1, sql_b2, sql_k, hashed, tail = sql_phase(
+    sql_b1, sql_b2, sql_k, hashed, tail, sketch = sql_phase(
         sdt, tables, ctx.store.get("lineitem"), CG, CW, smi)
     emit("tail", card=smi, **tail,
          oracle="q2 / q16 / q18 / q20, q18's inner group-by, the select "
@@ -2246,6 +2571,21 @@ def main() -> int:
               "copies / copy_bytes: the engine's device-to-host copies "
               "in one run; compaction: compact_keep's device ms by CUDA "
               "events, bound = mask read + positions written / 3.35 TB/s")
+    emit("sketch", card=smi, **sketch,
+         oracle="estimates vs pandas: HLL within 6.9% (3 standard errors), "
+                "theta within 40%, KLL's estimate at a rank within "
+                "sdot.quantile.rank_bound of its fraction; the solo "
+                "statement's counts exact; storm answers equal the solo "
+                "answers exactly; registers on the card equal the plain "
+                "version's (the same op on the host) bit for bit; the B2 "
+                "launch with the theta stripe equals wave_reference bit "
+                "for bit in every register-file layout that fits, launched "
+                "twice",
+         note="register ops: device ms by CUDA events as in phase timing; "
+              "bound = the larger of the bytes (inputs read once, registers "
+              "written once) / 3.35 TB/s and the integer operations "
+              "(REGISTER_OPS_PER_ROW per row) / 67e12 per s (the data "
+              "sheet's fp32 rate; it lists no int32 rate)")
     sees["after_sql"] = profiler_sees(probe, "dense_groupby")
 
     captured = {}
@@ -2493,22 +2833,24 @@ def main() -> int:
     # shapes the main path gave it (Q1, Q6, wide and the SQL statements
     # for B1; the QuerySpec and SQL storms for B2)
     for k in list(sql_k["dense_groupby"].values()) \
-            + list(tail["kernels"].values()):
+            + list(tail["kernels"].values()) + [sketch["b1"]]:
         worst = max(worst, k["max_abs_err"])
         for f in ("ms", "plain_ms", "bound_ms", "library_ms"):
             total[f] += k[f]
         bound_by.update(c["bound_by"] for c in k["calls"])
-    sw = sql_k["wave"]["storm"]
-    w_worst = max(w_worst, sw["max_abs_err"])
-    w_bound_by = {wave_timing["bound_by"], sw["bound_by"]}
-    print(json.dumps({"kernels": [{
+    sw, kw = sql_k["wave"]["storm"], sketch["wave"]
+    w_worst = max(w_worst, sw["max_abs_err"], kw["max_abs_err"])
+    w_bound_by = {wave_timing["bound_by"], sw["bound_by"], kw["bound_by"]}
+    say(json.dumps({"kernels": [{
         "name": "dense_groupby", "route": "cuda",
         "source": "spark_druid_olap_tpu_torch/csrc/dense_groupby.cu",
         "replaces": "spark_druid_olap_tpu/ops/pallas_groupby.py:205",
-        "launches": l1 + l6 + lw + sql_b1 + tail["b1_launches"],
+        "launches": l1 + l6 + lw + sql_b1 + tail["b1_launches"]
+        + sketch["b1_launches"],
         "max_abs_err": worst,
-        "b1_checked": {n: len(k["calls"])
-                       for n, k in tail["kernels"].items()},
+        "b1_checked": dict({n: len(k["calls"])
+                            for n, k in tail["kernels"].items()},
+                           sketch_solo=len(sketch["b1"]["calls"])),
         "ms": total["ms"], "plain_ms": total["plain_ms"],
         "bound_ms": total["bound_ms"],
         "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
@@ -2516,16 +2858,21 @@ def main() -> int:
         "name": "wave", "route": "cuda",
         "source": "spark_druid_olap_tpu_torch/csrc/wave.cu",
         "replaces": "spark_druid_olap_tpu/ops/pallas_wave.py:371",
-        "launches": storm_launches + sql_b2, "max_abs_err": w_worst,
-        "ms": wk_ms + sw["ms"], "plain_ms": wp_ms + sw["plain_ms"],
-        "bound_ms": wave_timing["bound_ms"] + sw["bound_ms"],
+        "launches": storm_launches + sql_b2 + sketch["b2_launches"],
+        "max_abs_err": w_worst,
+        "ms": wk_ms + sw["ms"] + kw["ms"],
+        "plain_ms": wp_ms + sw["plain_ms"] + kw["plain_ms"],
+        "bound_ms": wave_timing["bound_ms"] + sw["bound_ms"]
+        + kw["bound_ms"],
         "bound_by": "bytes" if w_bound_by == {"bytes"} else "operations",
-        "library_ms": None}]}),
-        flush=True)
+        "library_ms": None,
+        # the launch with the in-kernel theta stripe (phase sketch)
+        "stripe_case": {k: kw[k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "max_abs_err")}}]}))
     emit("done", seconds=time.perf_counter() - t_start, card=smi)
-    print(json.dumps({"ok": True, "device": {
+    say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

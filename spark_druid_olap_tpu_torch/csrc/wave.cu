@@ -1,11 +1,16 @@
 // Wave kernel for Hopper (sm_90a): one launch runs every lane of a fused
-// shared-scan wave — each lane's filter, interval, group key and filtered
-// dense aggregates — over the wave's union columns.
+// shared-scan wave — each lane's filter, interval, group key, filtered
+// dense aggregates and in-kernel theta sketches — over the wave's union
+// columns.
 //
 // Replaces the JAX package's Pallas TPU kernel
 // spark_druid_olap_tpu/ops/pallas_wave.py:build_wave_fn (its inner
-// `kernel`, launched by the pl.pallas_call there), for the dense lanes of a
-// wave. The lanes' query semantics are not written here: the host traces
+// `kernel`, launched by the pl.pallas_call there), the theta stripe of
+// :403-414 included: for each in-kernel theta aggregate, key k and hash
+// lane j < 64, the minimum over the lane's rows that count of
+// _hash01(value, j) (sketch_hash.cuh). HLL, KLL and wider theta sketches
+// run after the launch (ops/cuda_wave.py's epilogue), as on the TPU. The
+// lanes' query semantics are not written here: the host traces
 // the engine's own lowering (ops/cuda_wave.py) into a short register
 // program, and every thread interprets that program over its rows. The
 // program is the same for every thread, so the dispatch switch does not
@@ -32,7 +37,11 @@
 //     live row has one key), then per aggregate a segmented shuffle scan.
 //     A value moves from its row's lane to the sorted position with one
 //     shuffle, so the register file stays private to its thread;
-//   * a second launch folds the blocks' partials, a warp per slot.
+//   * a second launch folds the blocks' partials, a warp per slot;
+//   * a theta aggregate expands each row into 64 min updates, one per
+//     hash lane, each folded like a min aggregate (one segmented scan per
+//     lane over the batch's sorted keys). A simple design that is right:
+//     privatising n_keys * 64 slots per thread would not fit.
 //
 // Exactness:
 //   * registers keep the trace's dtypes: an int32 add wraps as in int32, a
@@ -45,22 +54,32 @@
 //     with the fused dense group-by kernel: int64 / float64 slots, fixed
 //     row ranges per block, fixed sort and scan trees in a warp, warp order
 //     in a block, a fixed tree over blocks. No atomics: two launches on one
-//     input give bit-identical float sums.
+//     input give bit-identical float sums;
+//   * a theta stripe is a min over float32 hashes held in float64 slots:
+//     exact and independent of order, so bit-identical under any fold.
 //
 // Layout. The program blob (device memory, built once per program by the
 // wrapper) holds, each section padded to 8 bytes: Instr[n_instr],
-// LaneDesc[n_lanes], AggDesc[n_aggs], uint8 slot kind[n_slots]. Lane l owns
-// the slots [slot_off, slot_off + n_keys * n_aggs), the slot of (key k,
+// LaneDesc[n_lanes], AggDesc[n_aggs] (each lane's dense descriptors, then
+// its theta ones), uint8 slot kind[n_slots]. Lane l owns the slots
+// [slot_off, slot_off + n_keys * n_aggs), the slot of (key k,
 // aggregate m) at slot_off + k * n_aggs + m; its last aggregate is the
-// lane's row count. The output is [n_slots] 64-bit words (int64 or float64
-// bits). The wrapper allocates the output and the [n_slots][n_blocks]
-// block scratch; nothing is allocated here.
+// lane's row count. Its n_theta theta descriptors follow its dense ones in
+// AggDesc[] (kind min, float64 slots; val_reg holds the hashed value,
+// val_dt its dtype), and their stripes follow its dense slots: the slot of
+// (theta t, key k, hash lane j) at slot_off + n_keys * n_aggs
+// + (t * n_keys + k) * 64 + j. A stripe slot no row reaches keeps the fold's
+// +inf identity (the wrapper reads it as the TPU stripe's 2.0). The output
+// is [n_slots] 64-bit words (int64 or float64 bits). The wrapper allocates
+// the output and the [n_slots][n_blocks] block scratch; nothing is
+// allocated here.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "groupby_fold.cuh"
+#include "sketch_hash.cuh"
 #include "wave_program.cuh"
 
 namespace {
@@ -72,9 +91,10 @@ using sdot_fold::kCount;
 using sdot_fold::kFull;
 using sdot_fold::kThreads;
 using sdot_fold::kWarps;
+using sdot_sketch::kThetaLanes;
 
-struct LaneDesc {         // 24 bytes
-  int base_reg, key_reg, n_keys, n_aggs, agg_start, slot_off;
+struct LaneDesc {         // 32 bytes
+  int base_reg, key_reg, n_keys, n_aggs, agg_start, slot_off, n_theta, pad;
 };
 
 struct AggDesc {          // 8 bytes
@@ -230,6 +250,42 @@ wave_partials(const Params p, Acc* __restrict__ scratch) {
             if (r + 1 < R) __syncwarp();   // batch r + 1 may hit this slot
           }
         });
+      }
+      // the theta stripes: per hash lane j, the batch's hashes fold into
+      // the slots of (key, j) as a min aggregate does
+      Acc* stripe = lane_part + L.n_keys * L.n_aggs;
+      for (int t = 0; t < L.n_theta; ++t) {
+        const AggDesc a = aggs[L.agg_start + L.n_aggs + t];
+        bool ok[R];
+        uint32_t hbase[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          ok[r] = live[r] && (a.mask_reg == kNone ||
+                              f.get(a.mask_reg, r).i != 0);
+          const Reg g = f.get(a.val_reg, r);
+          hbase[r] = sdot_sketch::theta_base(
+              a.val_dt == kF32 ? __float_as_uint(g.f)
+                               : (uint32_t)(unsigned long long)g.i);
+        }
+        for (int j = 0; j < kThetaLanes; ++j) {
+          Acc x[R];
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            Acc h = sdot_fold::MinF::id();
+            if (ok[r]) h.f = (double)sdot_sketch::theta_hash01(hbase[r], j);
+            x[r] = sdot_fold::to_sorted(seg[r], h);
+          }
+          sdot_fold::seg_scan<sdot_fold::MinF>(seg, lane, x);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            if (seg[r].tail) {
+              Acc* slot = stripe + seg[r].key * kThetaLanes + j;
+              *slot = sdot_fold::MinF::op(*slot, x[r]);
+            }
+            if (r + 1 < R) __syncwarp();   // batch r + 1 may hit this slot
+          }
+        }
+        stripe += L.n_keys * kThetaLanes;
       }
     }
     __syncwarp();     // the next stretch's tails may fold into these slots

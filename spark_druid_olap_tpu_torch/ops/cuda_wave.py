@@ -40,14 +40,22 @@ The plain version,
 per instruction and runs each lane through
 ``cuda_groupby.dense_groupby_reference``. :func:`wave_groupby` takes that
 plain version for CPU tensors only; on CUDA tensors it launches the kernel
-or raises. Scope of this slice: dense count / sum / min / max lanes whose
-group-by rides the fused kernel's tier. The TPU kernel's in-kernel theta
-stripe and its HLL / KLL / wide-theta epilogue wait with the sketches
-(ROADMAP A.3).
+or raises. A lane's dense count / sum / min / max aggregates must ride the
+fused kernel's tier.
+
+Sketch lanes split as the TPU kernel splits them: a theta aggregate whose
+stripe of ``n_keys * 64`` min slots is at most ``THETA_KERNEL_MAX_ROWS``
+(256) runs inside the kernel (the stripe of ``pallas_wave.py`` :403-414:
+per key and hash lane, the minimum of ``_hash01(value, lane)`` over the
+rows that count, 2.0 where none does; the hash is ``csrc/sketch_hash.cuh``);
+HLL, KLL and wider theta run after the launch as the engine's register ops
+(``ops/sketch.py``) over the wave's bind — the epilogue of
+``pallas_wave.py`` :450-498.
 
 Accumulators are int64 / float64 slots (B1's identities, no Neumaier
 pairs, no f32 sentinels): per lane and key one slot per dense aggregate
-plus the lane's ``__rows__`` count, in the route's type.
+plus the lane's ``__rows__`` count, in the route's type, then the lane's
+theta stripes (float64 slots of float32 hashes, min).
 """
 
 from __future__ import annotations
@@ -65,7 +73,12 @@ from spark_druid_olap_tpu_torch.ops import cuda_build as CB
 from spark_druid_olap_tpu_torch.ops import cuda_groupby as CG
 from spark_druid_olap_tpu_torch.ops import filters as F
 from spark_druid_olap_tpu_torch.ops import groupby as G
+from spark_druid_olap_tpu_torch.ops import theta as TH
 from spark_druid_olap_tpu_torch.ops.scan import ScanContext, array_dtype
+from spark_druid_olap_tpu_torch.ops.sketch import (
+    SKETCH_KINDS,
+    sketch_registers,
+)
 from spark_druid_olap_tpu_torch.planner import fusion as FU
 
 SOURCE = CB.CSRC / "wave.cu"
@@ -84,6 +97,9 @@ SMEM_LIMIT = CG.SMEM_LIMIT         # opt-in shared memory, less the static part
 #: shared memory and serves where the shared one does not fit
 FILE_LAYOUTS = ((2, True), (1, False))
 PROBE_SHAPE = (1, 8)
+#: the in-kernel theta cap: a stripe of n_keys * 64 slots runs in the kernel
+#: up to this many, past it in the epilogue (pallas_wave.py's rule)
+THETA_KERNEL_MAX_ROWS = 256
 
 #: register dtypes, by code (``DType`` in csrc/wave.cu)
 DTYPES = (torch.bool, torch.int8, torch.int16, torch.int32, torch.int64,
@@ -125,7 +141,8 @@ _LOAD_FAST = {torch.bool: "load_bool", torch.int8: "load_i8",
               torch.int32: "load_i32", torch.float32: "load_f32"}
 LANE = np.dtype([("base_reg", "<i4"), ("key_reg", "<i4"),
                  ("n_keys", "<i4"), ("n_aggs", "<i4"),
-                 ("agg_start", "<i4"), ("slot_off", "<i4")])
+                 ("agg_start", "<i4"), ("slot_off", "<i4"),
+                 ("n_theta", "<i4"), ("pad", "<i4")])
 AGG = np.dtype([("kind", "u1"), ("flt", "u1"), ("val_reg", "u1"),
                 ("val_dt", "u1"), ("mask_reg", "u1"), ("pad", "u1", (3,))])
 
@@ -155,14 +172,17 @@ def wave_decline(lanes, max_lanes: int, max_keys: int) -> Optional[str]:
     (the Pallas group-by's tier); here every lane's dense aggregates must
     ride the fused group-by kernel's tier (``ops/groupby.use_kernel``:
     ``0 < n_keys <= sdot.engine.groupby.pallas.max.keys``, kinds in
-    ``cuda_groupby.KINDS``), and the group must be within the lane cap."""
+    ``cuda_groupby.KINDS``), and the group must be within the lane cap.
+    Sketch aggregates never decline: they run in the kernel's theta stripe
+    or in the epilogue."""
     if max_lanes <= 0 or len(lanes) > max_lanes:
         return (f"{len(lanes)} lanes exceed sdot.pallas.wave.max.lanes="
                 f"{max_lanes}")
     for lp in lanes:
-        if not G.use_kernel(lp.n_keys, lp.agg_plans, max_keys):
+        dense = [p for p in lp.agg_plans if p.kind not in SKETCH_KINDS]
+        if not G.use_kernel(lp.n_keys, dense, max_keys):
             return (f"a lane with {lp.n_keys} keys and kinds "
-                    f"{sorted({p.kind for p in lp.agg_plans})} is outside "
+                    f"{sorted({p.kind for p in dense})} is outside "
                     f"the fused group-by tier (sdot.engine.groupby.pallas."
                     f"max.keys={max_keys})")
     return None
@@ -174,12 +194,25 @@ def wave_eligible(lanes, max_lanes: int, max_keys: int) -> bool:
     return wave_decline(lanes, max_lanes, max_keys) is None
 
 
-def _lane_parts(lp, ctx: ScanContext, cse: Optional[FU.CSECache]):
+def theta_inkernel(lp) -> List[str]:
+    """The lane's theta aggregates whose stripe runs inside the kernel
+    (``n_keys * 64 <= THETA_KERNEL_MAX_ROWS``); its other sketches run in
+    the epilogue."""
+    if lp.n_keys * TH.K_LANES > THETA_KERNEL_MAX_ROWS:
+        return []
+    return [p.spec.name for p in lp.agg_plans if p.kind == "theta"]
+
+
+def _lane_parts(lp, ctx: ScanContext, cse: Optional[FU.CSECache],
+                dense: bool = True, sketches=()):
     """One lane's parts over ``ctx`` — the engine's own builders, as the
     lane-by-lane program (``parallel/sharedscan.py``) composes them:
-    ``(base, key, dense)`` with ``dense`` a list of ``(kind, name, values,
-    mask)``, values already in their route's dtype, ending with the lane's
-    ``__rows__`` count."""
+    ``(base, key, dense, sketch)``. ``dense`` lists ``(kind, name, values,
+    mask)`` of the dense aggregates, values already in their route's
+    dtype, ending with the lane's ``__rows__`` count (empty when ``dense``
+    is False); ``sketch`` lists ``(name, values, mask)`` of the sketch
+    aggregates named in ``sketches``, a DOUBLE column's values as float32
+    (the kernel hashes their bits)."""
     base = ctx.row_valid()
     fm = cse.lower(lp.q.filter) if cse is not None \
         else F.lower_filter(lp.q.filter, ctx)
@@ -194,16 +227,24 @@ def _lane_parts(lp, ctx: ScanContext, cse: Optional[FU.CSECache]):
         key, _ = G.fuse_keys(codes, [p.card for p in lp.dim_plans])
     else:
         key = torch.zeros_like(base, dtype=torch.int32)
-    dense = []
+    parts, sketch = [], []
     for p in lp.agg_plans:
         name = p.spec.name
+        if p.kind in SKETCH_KINDS:
+            if name in sketches:
+                sketch.append((name, p.build_values(ctx, bits=False),
+                               p.build_mask(ctx, cse=cse)))
+            continue
+        if not dense:
+            continue
         vals = None
         if p.kind != "count":
             vals = p.build_values(ctx)
             vals = vals.to(G._value_dtype(lp.routes[name], vals))
-        dense.append((p.kind, name, vals, p.build_mask(ctx, cse=cse)))
-    dense.append(("count", "__rows__", None, None))
-    return base, key, dense
+        parts.append((p.kind, name, vals, p.build_mask(ctx, cse=cse)))
+    if dense:
+        parts.append(("count", "__rows__", None, None))
+    return base, key, parts, sketch
 
 
 # =============================================================================
@@ -241,10 +282,21 @@ class LaneSlots:
     # (name, kind, flt, values output index or None, mask output or None)
     aggs: List[tuple]
     slot_off: int
+    # the in-kernel theta aggregates: (name, values output, mask or None);
+    # their stripes follow the dense slots, n_keys * 64 slots each
+    thetas: List[tuple] = dataclasses.field(default_factory=list)
 
     @property
     def n_aggs(self) -> int:
         return len(self.aggs)
+
+    @property
+    def theta_off(self) -> int:
+        return self.slot_off + self.n_keys * self.n_aggs
+
+    @property
+    def n_slots(self) -> int:
+        return self.n_keys * (self.n_aggs + len(self.thetas) * TH.K_LANES)
 
 
 @dataclasses.dataclass
@@ -623,8 +675,10 @@ def _column_dtype(ds, name: str) -> torch.dtype:
 def compile_wave(ds, lanes, min_day: int, max_day: int, fplan, *,
                  union_names, tz: str):
     """Trace every lane of a fused group over probe tiles and compile the
-    trace into ``(LaneProgram, WaveLayout)``. Raises :class:`WaveFallback`
-    with the reason when a lane does not lower to the kernel's ops."""
+    trace into ``(LaneProgram, WaveLayout)``: each lane's base, key, dense
+    aggregates and in-kernel theta aggregates (:func:`theta_inkernel`).
+    Raises :class:`WaveFallback` with the reason when a lane does not
+    lower to the kernel's ops."""
     from torch.fx.experimental.proxy_tensor import make_fx
     names = list(union_names)
     dtypes = [_column_dtype(ds, k) for k in names]
@@ -646,10 +700,13 @@ def compile_wave(ds, lanes, min_day: int, max_day: int, fplan, *,
             return len(outs) - 1
 
         for lp in lanes:
-            base, key, dense = _lane_parts(lp, ctx, cse)
+            base, key, dense, theta = _lane_parts(
+                lp, ctx, cse, sketches=theta_inkernel(lp))
             structure.append((put(base), put(key),
                               [(kind, name, put(v), put(m))
-                               for kind, name, v, m in dense]))
+                               for kind, name, v, m in dense],
+                              [(name, put(v), put(m))
+                               for name, v, m in theta]))
         return outs
 
     tiles = [torch.zeros(PROBE_SHAPE, dtype=d) for d in dtypes]
@@ -662,7 +719,7 @@ def compile_wave(ds, lanes, min_day: int, max_day: int, fplan, *,
                            f"{e}") from e
     comp = _Compiler(gm, int(np.prod(PROBE_SHAPE)))
     outs = comp.run(len(names))
-    for lp, (b, k, dense) in zip(lanes, structure):
+    for lp, (b, k, dense, theta) in zip(lanes, structure):
         if outs[b].dt != torch.bool or outs[k].dt != torch.int32:
             raise WaveFallback("a lane's base is not bool or its key not "
                                "int32")
@@ -670,11 +727,11 @@ def compile_wave(ds, lanes, min_day: int, max_day: int, fplan, *,
 
     slot = 0
     slots = []
-    for lp, (b, k, dense) in zip(lanes, structure):
+    for lp, (b, k, dense, theta) in zip(lanes, structure):
         aggs = [(name, kind, lp.routes[name].tag == "f64", v, m)
                 for kind, name, v, m in dense]
-        slots.append(LaneSlots(lp.n_keys, b, k, aggs, slot))
-        slot += lp.n_keys * len(aggs)
+        slots.append(LaneSlots(lp.n_keys, b, k, aggs, slot, theta))
+        slot += slots[-1].n_slots
     layout = WaveLayout(slots, slot)
     for ls in slots:
         for name, kind, flt, v, m in ls.aggs:
@@ -683,6 +740,11 @@ def compile_wave(ds, lanes, min_day: int, max_day: int, fplan, *,
                 if vdt.is_floating_point != flt:
                     raise WaveFallback(f"{name}: values of {vdt} on a "
                                        f"{'f64' if flt else 'i64'} route")
+            if m is not None and outs[m].dt != torch.bool:
+                raise WaveFallback(f"{name}: mask of {outs[m].dt}")
+        for name, v, m in ls.thetas:
+            if outs[v].dt == torch.float64:
+                raise WaveFallback(f"{name}: theta over float64 values")
             if m is not None and outs[m].dt != torch.bool:
                 raise WaveFallback(f"{name}: mask of {outs[m].dt}")
     return program, layout
@@ -742,9 +804,12 @@ def wave_reference(program: LaneProgram, columns: Sequence[torch.Tensor],
                    layout: WaveLayout) -> List[Dict[str, torch.Tensor]]:
     """Plain PyTorch version of the kernel (same inputs, same outputs): the
     program through :func:`run_program`, then per lane the fused group-by's
-    plain version over ``where(base, key, n_keys)``. Returns one dict per
-    lane: aggregate name (and ``__rows__``) -> ``[n_keys]`` int64 or
-    float64 tensor, as ``ops/groupby.dense_groupby`` returns."""
+    plain version over ``where(base, key, n_keys)`` and each in-kernel
+    theta's stripe through ``ops/theta.theta_registers`` (2.0 where no row
+    counts). Returns one dict per lane: aggregate name (and ``__rows__``)
+    -> ``[n_keys]`` int64 or float64 tensor, as
+    ``ops/groupby.dense_groupby`` returns, and theta name -> ``[n_keys,
+    64]`` float32 registers."""
     outs = run_program(program, columns)
     n = columns[0].numel()
     res = []
@@ -755,7 +820,13 @@ def wave_reference(program: LaneProgram, columns: Sequence[torch.Tensor],
                              None if v is None else _flat(outs[v], n),
                              None if m is None else _flat(outs[m], n))
                   for name, kind, flt, v, m in ls.aggs]
-        res.append(CG.dense_groupby_reference(key, ls.n_keys, inputs))
+        out = CG.dense_groupby_reference(key, ls.n_keys, inputs)
+        for name, v, m in ls.thetas:
+            ok = base if m is None else base & _flat(outs[m], n)
+            out[name] = TH.theta_registers(key, ok, _flat(outs[v], n),
+                                           ls.n_keys,
+                                           empty=float(TH._SENTINEL))
+        res.append(out)
     return res
 
 
@@ -796,20 +867,29 @@ def _pad8(b: bytes) -> bytes:
     return b + bytes(-len(b) % 8)
 
 
+def _n_descs(layout: WaveLayout) -> int:
+    """Aggregate descriptors of the blob: every lane's dense aggregates,
+    then its in-kernel thetas."""
+    return sum(ls.n_aggs + len(ls.thetas) for ls in layout.lanes)
+
+
 def blob_bytes(program: LaneProgram, layout: WaveLayout) -> bytes:
     """The kernel's program blob: instructions, lane and aggregate
-    descriptors and slot kinds, each section padded to 8 bytes."""
+    descriptors and slot kinds, each section padded to 8 bytes. A lane's
+    theta descriptors follow its dense ones (``LaneDesc.n_theta`` of
+    them): kind min over float64 slots, the hashed values' register and
+    dtype, the mask."""
     ins = np.zeros(len(program.instrs), INSTR)
     for i, (op, dt, src, dst, a, b, c, imm) in enumerate(program.instrs):
         ins[i] = (op, dt, src, dst, a, b, c, fast_code(op, dt, src), imm)
     lanes = np.zeros(len(layout.lanes), LANE)
-    aggs = np.zeros(sum(ls.n_aggs for ls in layout.lanes), AGG)
+    aggs = np.zeros(_n_descs(layout), AGG)
     kinds = np.zeros(layout.n_slots, np.uint8)
+    reg = program.outputs
     j = 0
     for li, ls in enumerate(layout.lanes):
-        reg = program.outputs
         lanes[li] = (reg[ls.base], reg[ls.key], ls.n_keys, ls.n_aggs, j,
-                     ls.slot_off)
+                     ls.slot_off, len(ls.thetas), 0)
         for m, (name, kind, flt, v, mk) in enumerate(ls.aggs):
             code = CG._KIND_CODE[kind]
             aggs[j] = (code, int(flt), NONE if v is None else reg[v],
@@ -818,6 +898,13 @@ def blob_bytes(program: LaneProgram, layout: WaveLayout) -> bytes:
             j += 1
             for k in range(ls.n_keys):
                 kinds[ls.slot_off + k * ls.n_aggs + m] = code | int(flt) << 2
+        theta_code = CG._KIND_CODE["min"] | 1 << 2
+        for name, v, mk in ls.thetas:
+            aggs[j] = (CG._KIND_CODE["min"], 1, reg[v],
+                       DT[program.output_dtypes[v]],
+                       NONE if mk is None else reg[mk], (0, 0, 0))
+            j += 1
+        kinds[ls.theta_off: ls.slot_off + ls.n_slots] = theta_code
     return b"".join(_pad8(x.tobytes()) for x in (ins, lanes, aggs, kinds))
 
 
@@ -850,9 +937,9 @@ def smem_bytes(program: LaneProgram, layout: WaveLayout, file) -> int:
     """Shared memory of one launch with register-file layout ``file``
     (an entry of :data:`FILE_LAYOUTS`)."""
     rows, shared = file
-    return _smem(len(program.instrs), len(layout.lanes),
-                 sum(ls.n_aggs for ls in layout.lanes), layout.n_slots,
-                 program.n_regs, rows, register_width(program), shared)
+    return _smem(len(program.instrs), len(layout.lanes), _n_descs(layout),
+                 layout.n_slots, program.n_regs, rows,
+                 register_width(program), shared)
 
 
 def register_file(program: LaneProgram, layout: WaveLayout,
@@ -921,13 +1008,22 @@ def _check(program: LaneProgram, columns: Sequence[torch.Tensor]) -> None:
 
 def _split(layout: WaveLayout, words: torch.Tensor
            ) -> List[Dict[str, torch.Tensor]]:
+    """The kernel's output words -> one dict per lane. A stripe slot that
+    no row reached holds the fold's +inf identity and reads as 2.0, the
+    TPU stripe's initial value (every hash is at most 1 + 1e-7)."""
     res = []
     for ls in layout.lanes:
-        block = words[ls.slot_off: ls.slot_off + ls.n_keys * ls.n_aggs] \
-            .view(ls.n_keys, ls.n_aggs)
+        block = words[ls.slot_off: ls.theta_off].view(ls.n_keys, ls.n_aggs)
         as_f64 = block.view(torch.float64)
-        res.append({name: (as_f64 if flt else block)[:, m]
-                    for m, (name, kind, flt, v, mk) in enumerate(ls.aggs)})
+        out = {name: (as_f64 if flt else block)[:, m]
+               for m, (name, kind, flt, v, mk) in enumerate(ls.aggs)}
+        stripe = ls.n_keys * TH.K_LANES
+        for t, (name, v, mk) in enumerate(ls.thetas):
+            lo = ls.theta_off + t * stripe
+            out[name] = words[lo: lo + stripe].view(torch.float64) \
+                .clamp(max=float(TH._SENTINEL)).to(torch.float32) \
+                .view(ls.n_keys, TH.K_LANES)
+        res.append(out)
     return res
 
 
@@ -964,7 +1060,7 @@ def wave_groupby(program: LaneProgram, layout: WaveLayout,
     out = torch.empty(layout.n_slots, dtype=torch.int64, device=dev)
     ptrs = (ctypes.c_ulonglong * max(1, len(columns)))(
         *[c.data_ptr() for c in columns])
-    n_aggs = sum(ls.n_aggs for ls in layout.lanes)
+    n_aggs = _n_descs(layout)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sdot_wave(blob.data_ptr(), len(program.instrs),
@@ -985,17 +1081,21 @@ def wave_groupby(program: LaneProgram, layout: WaveLayout,
 
 def build_wave_fn(ds, lanes, min_day: int, max_day: int, fplan, *,
                   union_names, tz: str, n_rows: int, max_lanes: int,
-                  scratch_bytes: int = SMEM_LIMIT):
+                  scratch_bytes: int = SMEM_LIMIT, log2m: int = 11,
+                  kll_lanes: int = 256):
     """Lower a fused group to the wave kernel.
 
     Returns ``(wave_fn, info)``: ``wave_fn(arrays)`` maps the wave's bind
     (union name -> ``[S, R]`` tensor) to one route-conformant output dict
     per lane, exactly what the lane-by-lane program's ``dense_groupby``
-    calls give, so ``_finals_from_out`` and the decode downstream are
-    untouched; ``info`` carries the launch accounting (blocks for the
-    wave's ``n_rows``, scratch slots, program length, registers, shared
-    memory, register-file layout). Raises :class:`WaveFallback` when the
-    group cannot lower.
+    calls and sketch stage give, so ``_finals_from_out`` and the decode
+    downstream are untouched: one launch, then the epilogue's sketches
+    (HLL, KLL, theta past the in-kernel cap) through ``ops/sketch.py``
+    over a ``ScanContext`` and ``CSECache`` of the same bind. ``info``
+    carries the launch accounting (blocks for the wave's ``n_rows``,
+    scratch slots, program length, registers, shared memory,
+    register-file layout, ``theta_inkernel`` and ``sketch_epilogue``
+    counts). Raises :class:`WaveFallback` when the group cannot lower.
     """
     if max_lanes <= 0 or len(lanes) > max_lanes:
         raise WaveFallback(f"{len(lanes)} lanes exceed "
@@ -1010,10 +1110,28 @@ def build_wave_fn(ds, lanes, min_day: int, max_day: int, fplan, *,
                            f" B of shared memory, over "
                            f"sdot.cuda.wave.scratch.bytes ({limit} B)")
     smem = smem_bytes(program, layout, file)
+    inkernel = [set(theta_inkernel(lp)) for lp in lanes]
+    epilogue = [[p for p in lp.agg_plans
+                 if p.kind in SKETCH_KINDS and p.spec.name not in ink]
+                for lp, ink in zip(lanes, inkernel)]
 
     def wave_fn(arrays):
-        return wave_groupby(program, layout,
-                            [arrays[k] for k in program.columns])
+        res = wave_groupby(program, layout,
+                           [arrays[k] for k in program.columns])
+        if any(epilogue):
+            ctx = ScanContext(ds, arrays, min_day, max_day, tz=tz)
+            cse = FU.CSECache(ctx)
+            if fplan is not None:
+                cse.prelower(fplan)
+            for lp, eps, out in zip(lanes, epilogue, res):
+                if not eps:
+                    continue
+                base, key, _, _ = _lane_parts(lp, ctx, cse, dense=False)
+                for p in eps:
+                    out[p.spec.name] = sketch_registers(
+                        p, ctx, cse, base, key, lp.n_keys, log2m=log2m,
+                        kll_lanes=kll_lanes)
+        return res
 
     rows_per_block, blocks = CG.launch_geometry(n_rows)
     info = {"blocks": blocks, "rows_per_block": rows_per_block,
@@ -1023,5 +1141,7 @@ def build_wave_fn(ds, lanes, min_day: int, max_day: int, fplan, *,
             "register_bytes": register_width(program),
             "rows_per_thread": file[0], "register_file_shared": file[1],
             "smem_bytes": smem,
-            "lanes": len(lanes)}
+            "lanes": len(lanes),
+            "theta_inkernel": sum(len(ink) for ink in inkernel),
+            "sketch_epilogue": sum(len(eps) for eps in epilogue)}
     return wave_fn, info

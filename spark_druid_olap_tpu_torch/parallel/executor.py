@@ -28,10 +28,14 @@ travel). A select filters on the device and moves a bit-packed row mask.
 
 Dimensions cover plain columns, time extractions, granularity buckets and
 the dictionary-functional lookup / regex / expression extractions.
-Every path the JAX engine would take outside this slice — sketches,
-multi-wave binding, multi-host partial stores — raises
-``NotImplementedError`` naming its ROADMAP item; the engine never changes
-an answer to stay inside the slice.
+Sketch aggregates (HLL ``cardinality``, theta ``thetasketch``, KLL
+``quantile``) run on the dense route as register ops after the dense
+group-by (``ops/hll.py``, ``ops/theta.py``, ``ops/kll.py``); their
+registers travel with the finals and are estimated on the host. Every path
+the JAX engine would take outside this slice — multi-wave binding,
+multi-host partial stores — raises ``NotImplementedError`` naming its
+ROADMAP item; the engine never changes an answer to stay inside the
+slice.
 """
 
 from __future__ import annotations
@@ -61,6 +65,11 @@ from spark_druid_olap_tpu_torch.ops.scan import (
     build_array,
     compact_keep,
 )
+from spark_druid_olap_tpu_torch.ops.sketch import (
+    SKETCH_KINDS,
+    decode_sketch,
+    sketch_registers,
+)
 from spark_druid_olap_tpu_torch.parallel import cost as C
 from spark_druid_olap_tpu_torch.parallel.cost import unit_cost
 from spark_druid_olap_tpu_torch.planner import fusion as FU
@@ -88,6 +97,8 @@ from spark_druid_olap_tpu_torch.utils.config import (
     GROUPBY_PALLAS_MAX_KEYS,
     GROUPBY_SORTED_MIN_KEYS,
     HAVING_DEVICE_MIN_KEYS,
+    HLL_LOG2M,
+    QUANTILE_LANES,
     SCAN_COMPACT,
     SCAN_COMPACT_MIN_ROWS,
     SELECT_DEVICE_MIN_ROWS,
@@ -432,14 +443,17 @@ def plan_dimension(dspec: S.DimensionSpec, ds: Datasource, min_day: int,
 @dataclasses.dataclass
 class AggPlan:
     spec: S.AggregationSpec
-    kind: str                    # 'count'|'sum'|'min'|'max'
+    kind: str                    # count|sum|min|max|hll|theta|kll
     out_dtype: object
     source_cols: tuple
     is_int: bool = False         # integer-exact device values (i64 route)
     dim_codes: bool = False      # min/max over a NON-numeric string dim:
     #   aggregate the sorted dictionary's CODES, decode at output
 
-    def build_values(self, ctx: ScanContext):
+    def build_values(self, ctx: ScanContext, bits: bool = True):
+        """The aggregate's values over ``ctx``. HLL and theta hash a DOUBLE
+        column's float32 bits, viewed as int32 here; ``bits=False`` keeps
+        the float32 column (the wave kernel hashes its bits itself)."""
         a = self.spec
         if a.kind == "anyvalue":
             # FD-demoted grouping column: any row's value works (max); dims
@@ -447,6 +461,19 @@ class AggPlan:
             return ctx.col(a.field)
         if a.field is not None:
             k = ctx.kind(a.field)
+            if self.kind in ("hll", "theta"):
+                if k in (ColumnKind.DIM, ColumnKind.LONG, ColumnKind.DATE):
+                    return ctx.col(a.field)
+                if k == ColumnKind.DOUBLE:
+                    v = ctx.col(a.field)
+                    return v.view(torch.int32) if bits else v
+                raise EngineFallback(f"cardinality over {k}")
+            if self.kind == "kll":
+                # the quantile domain: the numeric values themselves
+                # (canonical f32 inside kll_registers)
+                if k in (ColumnKind.LONG, ColumnKind.DOUBLE):
+                    return ctx.col(a.field)
+                raise EngineFallback(f"quantile over {k}")
             if k in (ColumnKind.LONG, ColumnKind.DOUBLE, ColumnKind.DATE):
                 return ctx.col(a.field)
             if k == ColumnKind.DIM and self.dim_codes:
@@ -499,14 +526,17 @@ _AGG_KIND = {"count": ("count", np.int64), "longsum": ("sum", np.int64),
              "doublesum": ("sum", np.float64), "longmin": ("min", np.int64),
              "longmax": ("max", np.int64), "doublemin": ("min", np.float64),
              "doublemax": ("max", np.float64),
+             "cardinality": ("hll", np.int64),
+             "thetasketch": ("theta", np.int64),
+             "quantile": ("kll", np.float64),
              "anyvalue": ("max", np.float64)}
-_SKETCH_KINDS = ("cardinality", "thetasketch", "quantile")
 
 
 def _identity_row(kinds_by_name) -> Dict[str, np.ndarray]:
     """The one identity row of a GLOBAL aggregate over zero rows — SQL
-    semantics: count -> 0, sum/min/max -> NULL."""
-    return {name: (np.array([0], dtype=np.int64) if kind == "count"
+    semantics: count / hll / theta -> 0, sum / min / max / kll -> NULL."""
+    return {name: (np.array([0], dtype=np.int64)
+                   if kind in ("count", "hll", "theta")
                    else np.array([np.nan]))
             for name, kind in kinds_by_name.items()}
 
@@ -544,8 +574,6 @@ def _expr_is_int(e: E.Expr, ds: Datasource) -> bool:
 
 
 def plan_aggregation(a: S.AggregationSpec, ds: Datasource) -> AggPlan:
-    if a.kind in _SKETCH_KINDS:
-        raise not_ported(f"sketch aggregation {a.kind!r}", "A.3")
     if a.kind not in _AGG_KIND:
         raise EngineFallback(f"aggregation kind {a.kind}")
     kind, dtype = _AGG_KIND[a.kind]
@@ -554,7 +582,9 @@ def plan_aggregation(a: S.AggregationSpec, ds: Datasource) -> AggPlan:
     if a.field is not None and a.kind != "count":
         cols.add(a.field)
         ck = ds.column_kind(a.field)
-        if a.kind == "anyvalue":
+        if kind == "kll" and ds.time is not None:
+            cols.add(ds.time.name)   # the content salt of the sampled set
+        if a.kind == "anyvalue" or kind in SKETCH_KINDS:
             is_int = _col_is_int(ds, a.field)
         elif ck == ColumnKind.DIM:
             if kind in ("min", "max") and not _dim_parses_numeric(
@@ -702,10 +732,13 @@ class QueryEngine:
         route_hashed = n_keys > self.config.get(GROUPBY_DENSE_MAX_KEYS)
         if not route_hashed:
             # medium-K reroute: the same gate as the sorted-run tier, so
-            # its 'off' switch also keeps medium-K queries dense
+            # its 'off' switch also keeps medium-K queries dense; sketch
+            # registers stay on the dense route
             min_k = int(self.config.get(GROUPBY_SORTED_MIN_KEYS))
-            if min_k > 0 and n_keys >= min_k and self._sorted_run_wanted(
-                    _rows_of(ds, seg_idx), n_keys):
+            if min_k > 0 and n_keys >= min_k \
+                    and not any(p.kind in SKETCH_KINDS for p in agg_plans) \
+                    and self._sorted_run_wanted(_rows_of(ds, seg_idx),
+                                                n_keys):
                 route_hashed = True
         if route_hashed:
             return self._run_agg_hashed(
@@ -768,7 +801,8 @@ class QueryEngine:
                 self.last_stats["compact_overflow"] = int(over[0])
                 self._compact_overflowed.add(memo)
         t = _phase("dispatch", t)
-        finals = _finals_from_out(host, routes, n_out)
+        sketch_plans = [p for p in agg_plans if p.kind in SKETCH_KINDS]
+        finals = _finals_from_out(host, routes, n_out, sketch_plans)
         # the key ids of a selection (device top-k, device HAVING); rows
         # of the whole table come in key order
         top_idx = host["__topk_idx__"].astype(np.int64) \
@@ -793,7 +827,7 @@ class QueryEngine:
                 columns.append(p.output_name)
         for p in agg_plans:
             name = p.spec.name
-            data[name] = _decode_agg_value(ds, p, routes[name],
+            data[name] = _decode_agg_value(ds, p, routes.get(name),
                                            finals[name][sel])
             columns.append(name)
         if global_empty:
@@ -982,8 +1016,8 @@ class QueryEngine:
             return None
         oc = limit.columns[0]
         mplan = next((p for p in agg_plans if p.spec.name == oc.name), None)
-        if mplan is None or mplan.dim_codes:
-            return None
+        if mplan is None or mplan.kind in SKETCH_KINDS or mplan.dim_codes:
+            return None          # a sketch's registers are no score
         k_sel = min(n_keys, _topk_slack(limit))
         if k_sel * 4 >= n_keys:
             return None              # full transfer is already cheap
@@ -1012,6 +1046,8 @@ class QueryEngine:
         reroute): a table of ``T`` slots on the device
         (``ops/hash_groupby.py``), read back by key. Overflow retries at
         4x slots, then falls back."""
+        if any(p.kind in SKETCH_KINDS for p in agg_plans):
+            raise EngineFallback("sketch aggregation over hashed group-by")
         cards = [p.card for p in dim_plans]
         try:
             parts = H.split_parts(cards)
@@ -1270,10 +1306,10 @@ class QueryEngine:
             self._plan_routes(agg_plans)
 
     def _plan_routes(self, agg_plans):
-        """Static numeric routes for the aggregations plus the '__rows__'
-        group-occupancy count."""
+        """Static numeric routes for the dense (non-sketch) aggregations
+        plus the '__rows__' group-occupancy count."""
         metas = [G.AggInput(p.spec.name, p.kind, is_int=p.is_int)
-                 for p in agg_plans]
+                 for p in agg_plans if p.kind not in SKETCH_KINDS]
         metas.append(G.AggInput("__rows__", "count", is_int=True))
         return G.plan_routes(metas)
 
@@ -1285,8 +1321,13 @@ class QueryEngine:
         survivors move to a static [M] prefix first and the key build,
         the values and the aggregation run there; gather-heavy conjuncts
         apply on the prefix only, and '__over__' ([1]) counts the live
-        rows the budget could not hold."""
+        rows the budget could not hold. Sketch aggregates follow the dense
+        group-by as register ops over the same key and rows."""
         pallas_max = self.config.get(GROUPBY_PALLAS_MAX_KEYS)
+        dense_plans = [p for p in agg_plans if p.kind not in SKETCH_KINDS]
+        sketch_plans = [p for p in agg_plans if p.kind in SKETCH_KINDS]
+        log2m = self.config.get(HLL_LOG2M)
+        kll_lanes = self.config.get(QUANTILE_LANES)
         tz = self.config.get(TZ_ID)
         cheap_f, exp_f = (self._split_filter_staged(filter_spec)
                           if compact_m else (filter_spec, None))
@@ -1307,10 +1348,14 @@ class QueryEngine:
             inputs = [G.AggInput(p.spec.name, p.kind, p.build_values(ctx),
                                  p.build_mask(ctx, cse=cse),
                                  is_int=p.is_int)
-                      for p in agg_plans]
+                      for p in dense_plans]
             inputs.append(G.AggInput("__rows__", "count", is_int=True))
             out = G.dense_groupby(key, base, n_keys, inputs, routes,
                                   pallas_max)
+            for p in sketch_plans:
+                out[p.spec.name] = sketch_registers(
+                    p, ctx, cse, base, key, n_keys, log2m=log2m,
+                    kll_lanes=kll_lanes)
             if n_over is not None:
                 out["__over__"] = n_over.reshape(1)
             return out
@@ -1674,11 +1719,15 @@ _NP_DTYPE = {torch.int64: np.int64, torch.int32: np.int32,
              torch.float32: np.float32}
 
 
-def _finals_from_out(host, routes, n_keys):
+def _finals_from_out(host, routes, n_keys, sketch_plans=()):
     """Route outputs on the host -> exact final [n_keys] numpy arrays per
-    aggregation."""
-    return {name: np.asarray(G.combine_route(r, host, n_keys))
-            for name, r in routes.items()}
+    aggregation, plus each sketch's [n_keys, width] register block (the
+    copy to the host flattened it)."""
+    finals = {name: np.asarray(G.combine_route(r, host, n_keys))
+              for name, r in routes.items()}
+    for p in sketch_plans:
+        finals[p.spec.name] = host[p.spec.name].reshape(n_keys, -1)
+    return finals
 
 
 def _top_k(score: torch.Tensor, k: int):
@@ -1821,7 +1870,10 @@ def _hash_rows(raw, routes, T):
 
 def _decode_agg_value(ds, p, r, v) -> np.ndarray:
     """Final per-group route values -> output column (dtype-faithful; min/max
-    empty-group sentinels become nulls)."""
+    empty-group sentinels become nulls); a sketch's selected registers ->
+    its estimates."""
+    if p.kind in SKETCH_KINDS:
+        return decode_sketch(p, v)
     if p.kind in ("min", "max"):
         if r.tag == "i64":
             sent = G.I64_MAX if p.kind == "min" else G.I64_MIN

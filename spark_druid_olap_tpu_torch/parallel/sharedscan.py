@@ -15,15 +15,17 @@ launches. Here:
   engine's device-array cache), runs one fused program and demultiplexes
   the per-query results.
 - The fused program is one launch of the wave kernel (``ops/cuda_wave.py``,
-  ``csrc/wave.cu``) when the group is wave-eligible; otherwise (the kernel
-  switched off, a lane outside the fused group-by tier, a lane program the
-  kernel does not run) the group stays fused and runs lane by lane through
-  ``ops/groupby.dense_groupby`` over the shared bind. Build-time declines
-  count in ``wave_fallbacks`` with their reason.
+  ``csrc/wave.cu``) when the group is wave-eligible, with the sketches the
+  kernel's theta stripe does not hold in its epilogue; otherwise (the
+  kernel switched off, a lane outside the fused group-by tier, a lane
+  program the kernel does not run) the group stays fused and runs lane by
+  lane through ``ops/groupby.dense_groupby`` and the sketch register ops
+  over the shared bind. Build-time declines count in ``wave_fallbacks``
+  with their reason.
 - Members that cannot ride at all (hashed-tier cardinality, an empty
-  prune, a sketch aggregation, a filter or expression the port does not
-  lower) run solo on their own threads; that is a plan-time routing
-  decision, counted in ``fallbacks``.
+  prune, a filter, expression or sketch input the port does not lower)
+  run solo on their own threads; that is a plan-time routing decision,
+  counted in ``fallbacks``.
 
 On purpose unlike the JAX package, an exception raised by the fused path
 after planning (a kernel build, launch or CUDA error, or a bug) is
@@ -57,6 +59,10 @@ from spark_druid_olap_tpu_torch.ops.scan import (
     array_dtype,
     array_names,
 )
+from spark_druid_olap_tpu_torch.ops.sketch import (
+    SKETCH_KINDS,
+    sketch_registers,
+)
 from spark_druid_olap_tpu_torch.planner import fusion as FU
 from spark_druid_olap_tpu_torch.result import QueryResult
 from spark_druid_olap_tpu_torch.utils.config import (
@@ -64,8 +70,10 @@ from spark_druid_olap_tpu_torch.utils.config import (
     GROUPBY_DENSE_MAX_KEYS,
     GROUPBY_PALLAS_MAX_KEYS,
     GROUPBY_SORTED_MIN_KEYS,
+    HLL_LOG2M,
     PALLAS_WAVE_ENABLED,
     PALLAS_WAVE_MAX_LANES,
+    QUANTILE_LANES,
     SHAREDSCAN_ENABLED,
     SHAREDSCAN_FUSION_ENABLED,
     SHAREDSCAN_FUSION_MAX_NODES,
@@ -468,7 +476,8 @@ class SharedScanCoalescer:
                    max_day: int) -> bool:
         """Detailed planning against the GROUP's day basis (every lane
         shares one ScanContext). False: the member runs solo (hashed-tier
-        cardinality, a sketch, anything the port does not lower)."""
+        cardinality, the medium-K reroute, anything the port does not
+        lower)."""
         from spark_druid_olap_tpu_torch.parallel import executor as X
         eng = self.engine
         try:
@@ -486,8 +495,10 @@ class SharedScanCoalescer:
             if n_keys > eng.config.get(GROUPBY_DENSE_MAX_KEYS):
                 return False    # hashed tier: solo handles it
             min_k = int(eng.config.get(GROUPBY_SORTED_MIN_KEYS))
-            if min_k > 0 and n_keys >= min_k and eng._sorted_run_wanted(
-                    X._rows_of(ds, lp.seg), n_keys):
+            if min_k > 0 and n_keys >= min_k \
+                    and not any(p.kind in SKETCH_KINDS for p in agg_plans) \
+                    and eng._sorted_run_wanted(X._rows_of(ds, lp.seg),
+                                               n_keys):
                 return False    # medium-K reroute territory: keep parity
             needed = set()
             for p in dim_plans:
@@ -512,11 +523,12 @@ class SharedScanCoalescer:
         return self._lowers(ds, lp, min_day, max_day)
 
     def _lowers(self, ds, lp: _LanePlan, min_day: int, max_day: int) -> bool:
-        """Whether the port lowers this lane's filter, keys and aggregates
-        (memoized per lane and day basis): one lowering over one-row CPU
-        tensors. A lane whose lowering raises (a filter or expression the
-        port does not lower yet) runs solo, where it raises the same error
-        for its own query only."""
+        """Whether the port lowers this lane's filter, keys and aggregates,
+        sketch inputs included (memoized per lane and day basis): one
+        lowering over one-row CPU tensors. A lane whose lowering raises (a
+        filter or expression the port does not lower yet, a sketch over a
+        column kind it does not take) runs solo, where it raises the same
+        error for its own query only."""
         key = (id(ds), lp.sig, min_day, max_day, self.engine.config.get(TZ_ID))
         ok = self._lowerable.get(key)
         if ok is None:
@@ -525,7 +537,9 @@ class SharedScanCoalescer:
             ctx = ScanContext(ds, arrays, min_day, max_day,
                               tz=self.engine.config.get(TZ_ID))
             try:
-                CW._lane_parts(lp, ctx, None)
+                CW._lane_parts(lp, ctx, None, sketches={
+                    p.spec.name for p in lp.agg_plans
+                    if p.kind in SKETCH_KINDS})
                 ok = True
             except Exception:  # noqa: BLE001 — the solo path reports it
                 ok = False
@@ -537,10 +551,13 @@ class SharedScanCoalescer:
         """The lane-by-lane program: one ScanContext over the union bind
         (with the fusion plan's CSE cache), each lane through
         ``ops/groupby.dense_groupby`` — the fused group-by kernel for
-        K <= sdot.engine.groupby.pallas.max.keys, its plain scatter above."""
+        K <= sdot.engine.groupby.pallas.max.keys, its plain scatter above —
+        then its sketches' register ops."""
         eng = self.engine
         pallas_max = eng.config.get(GROUPBY_PALLAS_MAX_KEYS)
         tz = eng.config.get(TZ_ID)
+        log2m = eng.config.get(HLL_LOG2M)
+        kll_lanes = eng.config.get(QUANTILE_LANES)
 
         def fused(arrays):
             ctx = ScanContext(ds, arrays, min_day, max_day, tz=tz)
@@ -550,12 +567,18 @@ class SharedScanCoalescer:
                 cse.prelower(fplan)
             outs = []
             for lp in lanes:
-                base, key, dense = CW._lane_parts(lp, ctx, cse)
+                base, key, dense, _ = CW._lane_parts(lp, ctx, cse)
                 inputs = [G.AggInput(name, kind, vals, mask,
                                      is_int=lp.routes[name].tag == "i64")
                           for kind, name, vals, mask in dense]
-                outs.append(G.dense_groupby(key, base, lp.n_keys, inputs,
-                                            lp.routes, pallas_max))
+                out = G.dense_groupby(key, base, lp.n_keys, inputs,
+                                      lp.routes, pallas_max)
+                for p in lp.agg_plans:
+                    if p.kind in SKETCH_KINDS:
+                        out[p.spec.name] = sketch_registers(
+                            p, ctx, cse, base, key, lp.n_keys, log2m=log2m,
+                            kll_lanes=kll_lanes)
+                outs.append(out)
             return outs
 
         return fused
@@ -566,10 +589,12 @@ class SharedScanCoalescer:
         """(wave_fn, wave_info): the group's wave as ONE launch of the wave
         kernel. Raises :class:`CW.WaveFallback` when the group does not
         lower; the caller then builds the lane-by-lane program."""
+        cfg = self.engine.config
         return CW.build_wave_fn(
             ds, lanes, min_day, max_day, fplan, union_names=union_names,
-            tz=self.engine.config.get(TZ_ID), n_rows=n_rows,
-            max_lanes=max_lanes, scratch_bytes=scratch)
+            tz=cfg.get(TZ_ID), n_rows=n_rows, max_lanes=max_lanes,
+            scratch_bytes=scratch, log2m=cfg.get(HLL_LOG2M),
+            kll_lanes=cfg.get(QUANTILE_LANES))
 
     def _dispatch(self, ds, union_names, seg_u, prog_fn,
                   lanes: List[_LanePlan]):
@@ -583,14 +608,16 @@ class SharedScanCoalescer:
         # every lane's outputs in one device-to-host copy
         host = X._to_host({(i, k): v for i, out in enumerate(outs)
                            for k, v in out.items()})
-        return [X._finals_from_out({k: v for (j, k), v in host.items()
-                                    if j == i}, lp.routes, lp.n_keys)
-                for i, lp in enumerate(lanes)]
+        return [X._finals_from_out(
+            {k: v for (j, k), v in host.items() if j == i}, lp.routes,
+            lp.n_keys, [p for p in lp.agg_plans if p.kind in SKETCH_KINDS])
+            for i, lp in enumerate(lanes)]
 
     @staticmethod
     def _decode_lane(eng, ds, lp: _LanePlan, finals) -> QueryResult:
         """Host demultiplex of one lane: the solo dense decode (group
-        selection, dictionary decode, identity row, epilogue)."""
+        selection, dictionary decode, sketch estimates, identity row,
+        epilogue)."""
         from spark_druid_olap_tpu_torch.parallel import executor as X
         rows = finals["__rows__"]
         sel = np.nonzero(rows > 0)[0]
@@ -608,7 +635,7 @@ class SharedScanCoalescer:
                 columns.append(p.output_name)
         for p in lp.agg_plans:
             name = p.spec.name
-            data[name] = X._decode_agg_value(ds, p, lp.routes[name],
+            data[name] = X._decode_agg_value(ds, p, lp.routes.get(name),
                                              finals[name][sel])
             columns.append(name)
         if global_empty:

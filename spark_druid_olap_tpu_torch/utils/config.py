@@ -142,6 +142,21 @@ COST_FUSED_ROW = _entry(
     "the JAX package's TPU value; a cpu device takes it as the JAX "
     "package does there, a cuda device reads its measured value.",
     float)
+HLL_LOG2M = _entry(
+    "sdot.engine.hll.log2m", 11,
+    "log2 of the HLL register count for approximate count-distinct "
+    "(reference: Druid hyperUnique uses 2^11 registers).")
+QUANTILE_LANES = _entry(
+    "sdot.quantile.lanes", 256,
+    "Sample lanes per KLL level for percentile_approx (ops/kll.py). "
+    "Register width is 2*4*lanes + 4 int32 per group; rank error "
+    "shrinks ~1/sqrt(lanes). Must match across every engine in a "
+    "cluster — registers merge elementwise at the broker.")
+QUANTILE_RANK_BOUND = _entry(
+    "sdot.quantile.rank_bound", 0.05,
+    "Maximum |rank(estimate) - fraction| the bench/loadtest percentile "
+    "differential gates accept from the KLL estimate (rank space, not "
+    "value space — value error is unbounded for heavy-tailed data).")
 DEVICE_CACHE_BYTES = _entry(
     "sdot.engine.device.cache.bytes", 8 << 30,
     "Budget for device-resident bound column arrays (host-side bytes "

@@ -32,6 +32,7 @@ from spark_druid_olap_tpu.utils.config import Config as JConfig
 import spark_druid_olap_tpu_torch as tsdot
 from spark_druid_olap_tpu_torch.ir import spec as TS
 from spark_druid_olap_tpu_torch.ops import cuda_wave as CW
+from spark_druid_olap_tpu_torch.parallel.executor import EngineFallback
 
 FLOAT_RTOL = 1e-6
 WINDOW_MS = 500.0
@@ -106,6 +107,50 @@ def tpch_batch(S):
                               granularity=S.Granularity("year")),
         S.TopNQuerySpec("tpch_flat", S.DimensionSpec("p_brand", "p_brand"),
                         "revenue", 5, aggs),
+    ]
+
+
+def sketch_batch(S):
+    """The statements of tests/test_pallas_wave.py::
+    test_wave_sketch_lanes_match: HLL and theta beside dense aggregates,
+    on 4, 3 and 2-3 keys (every theta inside the kernel's stripe)."""
+    saggs = (S.AggregationSpec("cardinality", "uprod", field="product"),
+             S.AggregationSpec("thetasketch", "tprod", field="product"),
+             S.AggregationSpec("longsum", "units", field="qty"),
+             S.AggregationSpec("count", "n"))
+    return [
+        S.GroupByQuerySpec("sales", (S.DimensionSpec("region", "region"),),
+                           saggs),
+        S.GroupByQuerySpec("sales", (S.DimensionSpec("flag", "flag"),),
+                           saggs, filter=S.SelectorFilter("status", "O")),
+        S.TimeseriesQuerySpec("sales", saggs,
+                              granularity=S.Granularity("year")),
+    ]
+
+
+def split_sketch_batch(S):
+    """Theta on 4 keys (inside the kernel) and on 50 (the epilogue: 50 x 64
+    slots pass the 256-row stripe cap), HLL over a DOUBLE, KLL under a
+    filter, beside dense aggregates."""
+    return [
+        S.GroupByQuerySpec("sales", (S.DimensionSpec("region", "region"),),
+                           (S.AggregationSpec("thetasketch", "t", field="qty"),
+                            S.AggregationSpec("count", "n"))),
+        S.GroupByQuerySpec("sales", (S.DimensionSpec("product", "product"),),
+                           (S.AggregationSpec("thetasketch", "t",
+                                              field="price"),
+                            S.AggregationSpec("doublesum", "revenue",
+                                              field="price"))),
+        S.GroupByQuerySpec("sales", (S.DimensionSpec("flag", "flag"),),
+                           (S.AggregationSpec("cardinality", "u",
+                                              field="price"),
+                            S.AggregationSpec("longmax", "m", field="qty"))),
+        S.TimeseriesQuerySpec(
+            "sales", (S.AggregationSpec("quantile", "p90", field="price",
+                                        fraction=0.9),
+                      S.AggregationSpec("count", "n")),
+            granularity=S.Granularity("month"),
+            filter=S.SelectorFilter("status", "F")),
     ]
 
 
@@ -223,6 +268,52 @@ def test_tpch_batch_matches_jax(tpch_flat):
     _differential(tpch_flat, tpch_batch, 3)
 
 
+@pytest.mark.parametrize("wave", [True, False])
+def test_sketch_lanes_match_the_jax_solo_engine(sales, wave):
+    """JAX's sketch-lane storm: estimates equal the JAX engine's solo
+    answers exactly, on the wave kernel (its theta stripe) and lane by
+    lane. (The JAX package's interpreted wave fails this test on its own
+    side, so the JAX solo engine is the oracle.)"""
+    specs = sketch_batch(TS)
+    jsolo = [sales.jsolo.execute(q).to_pandas() for q in sketch_batch(JS)]
+    ctx = sales.storm_ctx(**{"sdot.pallas.wave.enabled": wave})
+    got, errs = run_concurrent(ctx.execute, specs)
+    assert not any(errs), errs
+    for i, (g, w) in enumerate(zip(got, jsolo)):
+        assert_frames_match(g, w, f"q{i} vs JAX solo")
+    st = ctx.engine.sharedscan.stats()
+    assert st["queries_coalesced"] == 3 and st["wave_fallbacks"] == 0, st
+    assert st["wave_launches"] == int(wave), st
+
+
+def test_sketch_storm_splits_theta_between_stripe_and_epilogue(sales):
+    """One launch: the 4-key theta in the kernel's stripe, the 50-key
+    theta, HLL and KLL in the epilogue; answers equal the JAX engine's
+    solo answers and its jaxpr-fused storm's."""
+    jspecs, tspecs = split_sketch_batch(JS), split_sketch_batch(TS)
+    jsolo = [sales.jsolo.execute(q).to_pandas() for q in jspecs]
+    jstorm, jerrs = run_concurrent(sales.jstorm.execute, jspecs)
+    assert not any(jerrs), jerrs
+    ctx = sales.storm_ctx()
+    stats = [None] * len(tspecs)
+
+    def execute(i):
+        r = ctx.execute(tspecs[i])
+        stats[i] = dict(ctx.engine.last_stats)
+        return r
+
+    got, errs = run_concurrent(execute, list(range(len(tspecs))))
+    assert not any(errs), errs
+    for i, g in enumerate(got):
+        assert_frames_match(g, jsolo[i], f"q{i} vs JAX solo")
+        assert_frames_match(g, jstorm[i], f"q{i} vs JAX storm")
+    st = ctx.engine.sharedscan.stats()
+    assert st["queries_coalesced"] == 4 and st["wave_launches"] == 1, st
+    assert st["wave_fallbacks"] == 0, st
+    wave = stats[0]["sharedscan"]["wave"]
+    assert wave["theta_inkernel"] == 1 and wave["sketch_epilogue"] == 3, wave
+
+
 # -- port-side checks ---------------------------------------------------------
 
 def test_counters_and_member_stats(sales):
@@ -302,11 +393,12 @@ def test_fused_path_error_reaches_every_member(sales, monkeypatch):
 
 @pytest.mark.parametrize("declined", ["sketch", "spatial_filter"])
 def test_declined_member_runs_solo(declined, sales):
-    """A sketch aggregation or a spatial filter is not ported: its member
-    leaves the group at plan time and raises on its own thread; the others
-    still coalesce."""
+    """A sketch over a column kind it does not take (a quantile of a
+    string dimension) or a spatial filter (not ported) does not lower: its
+    member leaves the group at plan time and raises on its own thread, as
+    it does solo; the others still coalesce."""
     ctx = sales.storm_ctx()
-    aggs = (TS.AggregationSpec("cardinality", "u", field="product"),) \
+    aggs = (TS.AggregationSpec("quantile", "p", field="product"),) \
         if declined == "sketch" else _aggs(TS)
     filt = TS.SpatialFilter("qty_price", ("qty", "price"), (1.0, 10.0),
                             (20.0, 500.0)) \
@@ -315,8 +407,12 @@ def test_declined_member_runs_solo(declined, sales):
         "sales", aggs, filter=filt)]
     res, errs = run_concurrent(ctx.execute, specs)
     assert all(e is None for e in errs[:3]), errs
-    assert isinstance(errs[3], NotImplementedError)
-    assert "not ported yet" in str(errs[3])
+    if declined == "sketch":
+        assert isinstance(errs[3], EngineFallback)
+        assert "quantile over" in str(errs[3])
+    else:
+        assert isinstance(errs[3], NotImplementedError)
+        assert "not ported yet" in str(errs[3])
     for got, q in zip(res[:3], specs[:3]):
         assert_frames_match(got, sales.solo.execute(q).to_pandas())
     st = ctx.engine.sharedscan.stats()

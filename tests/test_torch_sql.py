@@ -395,9 +395,6 @@ def test_engine_free_host_oracle(flat_pair, monkeypatch, name):
 
 REFUSED = [
     # (fixture, statement, ROADMAP item)
-    ("full", "select approx_count_distinct(product) as np from sales", "A.3"),
-    ("full", "select region, approx_count_distinct_theta(product) as d "
-             "from sales group by region", "A.3"),
     ("full", "select region, qty, sum(qty) over (partition by region) "
              "as t from sales", "A.7"),
     ("full", "select region, qty, rank() over (order by qty) as r "
@@ -440,8 +437,12 @@ def test_port_refuses_what_it_has_not_ported(flat_pair, full_pair, where,
 
 
 # what earlier slices refused (device HAVING, A.4; the select path behind
-# q2, q16, q20 and a raw select, A.5), now answered as the JAX engine does
+# q2, q16, q20 and a raw select, A.5; the sketches, A.3), now answered as
+# the JAX engine does
 ANSWERED = [
+    ("full", "select approx_count_distinct(product) as np from sales"),
+    ("full", "select region, approx_count_distinct_theta(product) as d "
+             "from sales group by region"),
     ("full", "select region, product, due, count(*) as c from sales "
              "group by region, product, due having count(*) > 1"),
     ("full", jtpch.QUERIES["q2"]),

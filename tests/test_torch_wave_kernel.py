@@ -130,7 +130,7 @@ def check_group(ctx, specs, fusion=True):
         cse.prelower(fplan)
     got = CW.wave_reference(program, cols, layout)
     for li, (lp, ls) in enumerate(zip(lanes, layout.lanes)):
-        base, key, dense = CW._lane_parts(lp, sctx, cse)
+        base, key, dense, _ = CW._lane_parts(lp, sctx, cse)
         assert same(outs[ls.base], base), f"lane {li} base"
         assert same(outs[ls.key], key), f"lane {li} key"
         for (name, kind, flt, v, m), (_, _, vals, mask) in zip(ls.aggs,
@@ -142,7 +142,7 @@ def check_group(ctx, specs, fusion=True):
         inputs = [G.AggInput(name, kind, vals, mask)
                   for kind, name, vals, mask in dense]
         want = G.dense_groupby(key, base, lp.n_keys, inputs, lp.routes, 0)
-        assert set(got[li]) == set(want)
+        assert set(got[li]) == set(want) | {t[0] for t in ls.thetas}
         for name in want:
             assert same(got[li][name], want[name]), f"lane {li} {name}"
     return program, layout, cols, got
@@ -290,6 +290,141 @@ def test_chip_smoke_storm_program(ctx):
     assert len(layout.lanes) == 8
 
 
+# -- the in-kernel theta stripe -----------------------------------------------
+
+def theta_aggs(*specs):
+    return tuple(S.AggregationSpec("thetasketch", n, field=f, **kw)
+                 for n, f, kw in specs)
+
+
+# theta on 4 keys (region) and on 3 (tag and its null slot) runs in the
+# kernel's stripe: dictionary codes, a DOUBLE's float32 bits, int64 longs,
+# a date, an aggregate filter, a nullable group key; theta on 12 keys
+# (product, 768 slots) and HLL / KLL run in the epilogue
+THETA_GROUP = [
+    gb("region", aggs=AGGS + theta_aggs(
+        ("t_prod", "product", {}), ("t_price", "price", {}),
+        ("t_a", "a", {"filter": S.BoundFilter("qty", lower=25,
+                                              numeric=True)}))
+       + (S.AggregationSpec("cardinality", "u_b", field="b"),)),
+    gb("tag", aggs=theta_aggs(("t_due", "due", {}), ("t_b", "b", {}))
+       + (S.AggregationSpec("count", "n"),),
+       filter=S.BoundFilter("qty", upper=30, numeric=True)),
+    gb("product", aggs=theta_aggs(("t_wide", "qty", {})) + (
+        S.AggregationSpec("quantile", "p", field="price", fraction=0.5),
+        S.AggregationSpec("longsum", "q", field="qty"))),
+    # three of the four keys hold no row
+    gb("region", aggs=theta_aggs(("t_east", "qty", {})),
+       filter=S.SelectorFilter("region", "east"))]
+INKERNEL = {"t_prod", "t_price", "t_a", "t_due", "t_b", "t_east"}
+
+
+def test_theta_stripe_program_and_plain_version(ctx):
+    """The stripe's lane program gives the engine's own theta values (a
+    DOUBLE raw, the kernel hashes its bits) and masks bit for bit, and the
+    plain version's stripe equals the JAX package's theta_registers over
+    the same rows with its empty +inf read as the TPU stripe's 2.0."""
+    import jax.numpy as jnp
+    from spark_druid_olap_tpu.ops import theta as JTH
+    program, layout, cols, got = check_group(ctx, THETA_GROUP)
+    ds, lanes, lo, hi, names, fplan, arrays = plan(ctx, THETA_GROUP)
+    assert {t[0] for ls in layout.lanes for t in ls.thetas} == INKERNEL
+    outs = CW.run_program(program, cols)
+    sctx = ScanContext(ds, arrays, lo, hi)
+    for lp, ls, g in zip(lanes, layout.lanes, got):
+        base, key, _, theta = CW._lane_parts(
+            lp, sctx, None, dense=False, sketches=CW.theta_inkernel(lp))
+        assert [t[0] for t in theta] == [t[0] for t in ls.thetas]
+        kb = torch.where(base, key, lp.n_keys)
+        for (name, vals, mask), (_, v, m) in zip(theta, ls.thetas):
+            assert same(outs[v], vals), name
+            assert (m is None) == (mask is None), name
+            if m is not None:
+                assert same(outs[m], mask), name
+            ok = base if mask is None else base & mask
+            bits = vals.view(torch.int32) if vals.dtype == torch.float32 \
+                else vals
+            want = np.asarray(JTH.theta_registers(
+                jnp.asarray(kb.numpy()), jnp.asarray(ok.numpy()),
+                jnp.asarray(bits.numpy()), lp.n_keys)).astype(np.float32)
+            want = np.where(np.isinf(want), np.float32(2.0), want)
+            assert g[name].dtype == torch.float32
+            assert np.array_equal(g[name].numpy().view(np.int32),
+                                  want.view(np.int32)), name
+        for name, _, _ in theta:
+            assert (g[name] <= 2.0).all(), name
+            # a group no row reaches keeps 2.0 in every hash lane
+            assert (g[name] == 2.0).all(1).sum() == \
+                int((g["__rows__"] == 0).sum()), name
+
+
+def test_theta_stripe_split_and_blob(ctx):
+    """Stripe slots as the kernel writes them (float64 min words, +inf
+    where no row counts, after the lane's dense slots) split back into the
+    plain version's registers; the blob carries the theta descriptors and
+    min / float64 slot kinds; shared memory counts the stripes."""
+    program, layout, cols, want = check_group(ctx, THETA_GROUP)
+    words = torch.empty(layout.n_slots, dtype=torch.int64)
+    for ls, w in zip(layout.lanes, want):
+        for m, (name, kind, flt, v, mk) in enumerate(ls.aggs):
+            t = w[name].view(torch.int64) if flt else w[name]
+            words[ls.slot_off + m: ls.theta_off: ls.n_aggs] = t
+        for i, (name, v, mk) in enumerate(ls.thetas):
+            r = w[name].to(torch.float64)
+            r = torch.where(r == 2.0, float("inf"), r)
+            lo = ls.theta_off + i * ls.n_keys * 64
+            words[lo: lo + ls.n_keys * 64] = r.reshape(-1).view(torch.int64)
+    for g, w in zip(CW._split(layout, words), want):
+        assert set(g) == set(w)
+        for name in w:
+            assert same(g[name], w[name]), name
+    blob = CW.blob_bytes(program, layout)
+    n_desc = sum(ls.n_aggs + len(ls.thetas) for ls in layout.lanes)
+    assert len(blob) == CW._blob_len(len(program.instrs), len(layout.lanes),
+                                     n_desc, layout.n_slots)
+    off = -(-len(program.instrs) * CW.INSTR.itemsize // 8) * 8
+    lanes = np.frombuffer(blob, CW.LANE, len(layout.lanes), off)
+    off += -(-lanes.nbytes // 8) * 8
+    aggs = np.frombuffer(blob, CW.AGG, n_desc, off)
+    off += -(-aggs.nbytes // 8) * 8
+    kinds = np.frombuffer(blob, np.uint8, layout.n_slots, off)
+    for lane, ls in zip(lanes, layout.lanes):
+        assert lane["n_theta"] == len(ls.thetas)
+        for i, (name, v, mk) in enumerate(ls.thetas):
+            a = aggs[lane["agg_start"] + ls.n_aggs + i]
+            assert (a["kind"], a["flt"]) == (CG._KIND_CODE["min"], 1)
+            assert a["val_reg"] == program.outputs[v]
+            assert a["val_dt"] == CW.DT[program.output_dtypes[v]]
+            assert a["mask_reg"] == (CW.NONE if mk is None
+                                     else program.outputs[mk])
+        stripe = kinds[ls.theta_off: ls.slot_off + ls.n_slots]
+        assert len(stripe) == len(ls.thetas) * ls.n_keys * 64
+        assert (stripe == (CG._KIND_CODE["min"] | 1 << 2)).all()
+    assert layout.n_slots == sum(ls.n_slots for ls in layout.lanes)
+    for file in CW.FILE_LAYOUTS:
+        assert CW.smem_bytes(program, layout, file) >= \
+            8 * CW.WARPS * layout.n_slots + len(blob)
+
+
+def test_wave_fn_runs_the_epilogue_as_the_lane_by_lane_program(ctx):
+    """One wave: dense aggregates and the stripe from the kernel's plain
+    version, HLL / KLL / wide theta from the epilogue; every output equals
+    the lane-by-lane program's (a stripe's 2.0 is that program's +inf)."""
+    ds, lanes, lo, hi, names, fplan, arrays = plan(ctx, THETA_GROUP)
+    wave_fn, info = build(ctx, THETA_GROUP)
+    assert info["theta_inkernel"] == 6 and info["sketch_epilogue"] == 3
+    got = wave_fn(arrays)
+    fused = ctx.engine.sharedscan._build_fused_program(ds, lanes, lo, hi,
+                                                       fplan)(arrays)
+    for g, w in zip(got, fused):
+        assert set(g) == set(w)
+        for name in w:
+            want = w[name]
+            if name in INKERNEL:
+                want = want.clamp(max=2.0)
+            assert same(g[name], want), name
+
+
 # -- the kernel's interpreter, built with the host compiler ---------------------
 
 HOST_HARNESS = r"""
@@ -381,6 +516,55 @@ def run_host(lib, program, layout, cols, rows, word, fast):
                       ctypes.c_int(len(outs)),
                       out.ctypes.data_as(ctypes.c_void_p))
     return out
+
+
+SKETCH_HARNESS = r"""
+#include <stdint.h>
+#include "sketch_hash.cuh"
+
+extern "C" void sdot_test_theta_hash(const uint32_t* v, long long n, int j,
+                                     float* out) {
+  for (long long i = 0; i < n; ++i)
+    out[i] = sdot_sketch::theta_hash01(sdot_sketch::theta_base(v[i]), j);
+}
+"""
+
+
+def test_host_built_theta_hash_matches_both_packages(tmp_path):
+    """``csrc/sketch_hash.cuh`` (the stripe's hash), host-built, against
+    ``ops/theta._hash01`` and the JAX package's, bit for bit, over the low
+    32 bits of int32, int64 and float32-bit values for hash lanes 0-63."""
+    import ctypes
+    import shutil
+    import subprocess
+    import jax.numpy as jnp
+    from spark_druid_olap_tpu.ops import theta as JTH
+    from spark_druid_olap_tpu_torch.ops import theta as TTH
+    cxx = shutil.which("g++") or shutil.which("c++") or shutil.which("clang++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the hash with")
+    (tmp_path / "h.cpp").write_text(SKETCH_HARNESS)
+    so = tmp_path / "libh.so"
+    subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared",
+                    "-fPIC", "-I", str(CW.CB.CSRC), "-o", str(so),
+                    str(tmp_path / "h.cpp")], check=True)
+    lib = ctypes.CDLL(str(so))
+    r = np.random.default_rng(21)
+    vals = np.concatenate([
+        r.integers(-2**31, 2**31, 2000).astype(np.int64),
+        r.integers(-2**62, 2**62, 2000),
+        r.normal(0, 1e4, 2000).astype(np.float32).view(np.int32)
+        .astype(np.int64), np.array([0, -1, 2**31 - 1, -2**31, 2**32])])
+    low = np.ascontiguousarray((vals & 0xFFFFFFFF).astype(np.uint32))
+    out = np.empty(len(vals), np.float32)
+    for j in range(64):
+        lib.sdot_test_theta_hash(low.ctypes.data_as(ctypes.c_void_p),
+                                 ctypes.c_longlong(len(vals)), ctypes.c_int(j),
+                                 out.ctypes.data_as(ctypes.c_void_p))
+        port = TTH._hash01(torch.from_numpy(vals), j).numpy()
+        jax_ = np.asarray(JTH._hash01(jnp.asarray(vals), j))
+        assert np.array_equal(out.view(np.int32), port.view(np.int32)), j
+        assert np.array_equal(out.view(np.int32), jax_.view(np.int32)), j
 
 
 def reg_values(words: np.ndarray, dtype: torch.dtype) -> np.ndarray:
