@@ -32,8 +32,16 @@ the register ops), its registers against the plain version and its
 estimates against pandas, then four sketch statements coalesced into one
 wave launch whose theta stripe runs inside the kernel (held against the
 plain version bit for bit) and whose HLL, KLL and wide theta run in the
-epilogue, their answers equal to the solo answers. Before that
-it builds every kernel of the path from the sources in this checkout and
+epilogue, their answers equal to the solo answers. Its last phase,
+``waves``, generates TPC-H SF5 lineitem (~30M rows; cut from SF10, whose
+run passed 1,000 s) and runs Q1, the sketch statement, revenue by part on
+the hashed tier, a HAVING with an ordered LIMIT and the storm under a wave
+budget (``sdot.engine.wave.max.bytes``) that gives Q1 8 waves: each
+statement in 4 or more waves against the same statement in one wave and
+against pandas, every B1 / B2 launch of every wave against its plain
+version, with per-wave bind, copy and compute times and the overlap share;
+then Q1 in one wave under a bind-cache cap below its bound bytes. Before
+that it builds every kernel of the path from the sources in this checkout and
 holds each against its plain PyTorch version on the card: the dense
 group-by in each fold tier that holds a case, the wave kernel in each
 register-file layout that fits, every case launched twice and required
@@ -1047,11 +1055,12 @@ def check_frame(name, got, want, keys, rtol):
             raise AssertionError(f"{name} {c}: {g[:5]} vs {w[:5]}")
 
 
-def run_storm(ctx, specs, call=None):
+def run_storm(ctx, specs, call=None, stats_out=None):
     """Fire every spec (or, with ``call=ctx.sql``, every statement) at
     once from its own thread (barrier start); returns the frames, the ms
     from the first thread's start to the last answer, and the group's
-    host phases (the leader's ``sharedscan`` stats)."""
+    host phases (the leader's ``sharedscan`` stats). ``stats_out``, a
+    list, receives each member's ``last_stats``."""
     call = call or ctx.execute
     import threading
     n = len(specs)
@@ -1079,6 +1088,8 @@ def run_storm(ctx, specs, call=None):
     for e in errs:
         if e is not None:
             raise e
+    if stats_out is not None:
+        stats_out.extend(stats)
     leader = [st["sharedscan"] for st in stats
               if st.get("sharedscan", {}).get("role") == "leader"]
     phases = dict(leader[0]["phases_ms"], held_ms=leader[0]["held_ms"]) \
@@ -2484,6 +2495,403 @@ def hashed_q1(ctx, spec, dense) -> dict:
     return out
 
 
+# -- multi-wave binding (phase "waves") ---------------------------------------
+
+# SF5, cut from SF10: the whole run took 1,007.9 s at SF10 on one H100
+# (SF10's generation and ingest alone 412 s of host time)
+WAVES_SF = 5.0
+WAVES_Q1 = 8                # Q1's waves under the phase's budget
+WAVES_MIN = 4               # waves every statement of the phase must take
+WAVES_REPEATS = 3
+# the hashed statement's key space (1M parts at SF5) over this dense
+# ceiling, so it takes the hashed tier in both wave modes
+WAVES_HASHED = {"sdot.engine.groupby.dense.max.keys": 1 << 19}
+WAVES_HAVING_MIN = 300      # lines per (supplier, status) in the HAVING
+WAVES_LIMIT = 10
+
+
+def waves_specs(S, E):
+    """The phase's statements over lineitem as QuerySpecs: Q1 (B1 per
+    wave), phase sketch's statement (B1 and the three register ops per
+    wave), revenue by part (hashed tier, 1M groups at SF5) and a HAVING
+    with an ordered LIMIT by supplier and line status (100,000 keys at
+    SF5: device HAVING in one wave, the host under waves)."""
+    C, L = E.Column, E.Literal
+    rev = E.BinaryOp("*", C("l_extendedprice"),
+                     E.BinaryOp("-", L(1), C("l_discount")))
+    return {
+        "q1": q1_spec(S, E),
+        "sketch": S.GroupByQuerySpec(
+            "lineitem", (S.DimensionSpec("l_returnflag", "l_returnflag"),
+                         S.DimensionSpec("l_linestatus", "l_linestatus")),
+            (S.AggregationSpec("count", "n"),
+             S.AggregationSpec("cardinality", "u_order", field="l_orderkey"),
+             S.AggregationSpec("thetasketch", "t_supp", field="l_suppkey"),
+             S.AggregationSpec("quantile", "p50", field="l_extendedprice",
+                               fraction=0.5))),
+        "hashed": S.GroupByQuerySpec(
+            "lineitem", (S.DimensionSpec("l_partkey", "l_partkey"),),
+            (S.AggregationSpec("doublesum", "revenue", expr=rev),
+             S.AggregationSpec("count", "n"))),
+        "having_limit": S.GroupByQuerySpec(
+            "lineitem", (S.DimensionSpec("l_suppkey", "l_suppkey"),
+                         S.DimensionSpec("l_linestatus", "l_linestatus")),
+            (S.AggregationSpec("longsum", "qty", field="l_quantity"),
+             S.AggregationSpec("doublesum", "revenue", expr=rev),
+             S.AggregationSpec("count", "n")),
+            having=S.HavingSpec(E.Comparison(
+                ">", C("n"), L(WAVES_HAVING_MIN))),
+            limit=S.LimitSpec((S.OrderByColumn("revenue", ascending=False),),
+                              WAVES_LIMIT))}
+
+
+def waves_oracles(df) -> dict:
+    """pandas answers for :func:`waves_specs` (Q1's and the sketch
+    statement's are checked by their own functions): ``(keys, frame)``."""
+    d = df.assign(revenue=df["l_extendedprice"] * (1 - df["l_discount"]))
+    hashed = d.groupby("l_partkey").agg(
+        revenue=("revenue", "sum"), n=("l_quantity", "size")).reset_index()
+    sup = d.groupby(["l_suppkey", "l_linestatus"]).agg(
+        qty=("l_quantity", "sum"), revenue=("revenue", "sum"),
+        n=("l_quantity", "size")).reset_index()
+    sup = sup[sup["n"] > WAVES_HAVING_MIN].sort_values(
+        "revenue", ascending=False).head(WAVES_LIMIT).reset_index(drop=True)
+    return {"hashed": (["l_partkey"], hashed), "having_limit": (None, sup)}
+
+
+def pinned_copy_gb_per_s(nbytes, repeats=5) -> float:
+    """GB/s of one host-to-device copy of ``nbytes`` from pinned memory on
+    this card (CUDA events, median): the rate a wave's copy can reach."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dev.copy_(host, non_blocking=True)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return nbytes / statistics.median(times) / 1e6
+
+
+class LaunchSpy:
+    """Within the block: every B1 and B2 wrapper call recorded (its inputs,
+    for the check against the plain version) and both launch counts from
+    0."""
+
+    def __init__(self, CG, CW):
+        self.CG, self.CW = CG, CW
+        self.b1, self.b2 = [], []
+
+    def __enter__(self):
+        CG, CW = self.CG, self.CW
+        self.real = CG.dense_groupby_kernel, CW.wave_groupby
+        real_b1, real_b2 = self.real
+
+        def b1(key, n_keys, inputs, max_keys):
+            self.b1.append((key, n_keys, list(inputs), max_keys))
+            return real_b1(key, n_keys, inputs, max_keys)
+
+        def b2(program, layout, columns):
+            self.b2.append((program, layout,
+                            [c.reshape(-1) for c in columns]))
+            return real_b2(program, layout, columns)
+        CG.dense_groupby_kernel, CW.wave_groupby = b1, b2
+        CG.launches = CW.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self.b1_launches, self.b2_launches = self.CG.launches, \
+            self.CW.launches
+        self.CG.dense_groupby_kernel, self.CW.wave_groupby = self.real
+        return False
+
+
+def wave_summary(steps, wall_ms, kernel_ms=None) -> dict:
+    """One multi-wave run: per wave its host bind, copy and compute
+    (``wave_steps``) and its kernel's device ms; the overlap share
+    1 - wall / (sum of binds and copies + sum of compute spans)."""
+    serial = sum(st["bind_ms"] + (st.get("h2d_ms") or 0.0)
+                 + (st.get("compute_ms") or 0.0) for st in steps)
+    per_wave = []
+    for i, st in enumerate(steps):
+        row = dict(st)
+        if st.get("h2d_ms"):
+            row["h2d_gb_per_s"] = st["h2d_bytes"] / st["h2d_ms"] / 1e6
+        if kernel_ms is not None and len(kernel_ms) == len(steps):
+            row["kernel_ms"] = kernel_ms[i]
+        per_wave.append(row)
+    h2d_ms = sum(st.get("h2d_ms") or 0.0 for st in steps)
+    return dict(
+        wall_ms=wall_ms, per_wave=per_wave,
+        bind_ms=sum(st["bind_ms"] for st in steps), h2d_ms=h2d_ms,
+        compute_ms=sum(st.get("compute_ms") or 0.0 for st in steps),
+        h2d_bytes=sum(st["h2d_bytes"] for st in steps),
+        h2d_gb_per_s=sum(st["h2d_bytes"] for st in steps) / h2d_ms / 1e6
+        if h2d_ms else None,
+        overlap_share=1.0 - wall_ms / serial if serial else None)
+
+
+def waves_phase(sdt, S, E, CG, CW, smi, sf=WAVES_SF, device="cuda",
+                ingest_kw=None) -> dict:
+    """Phase ``waves``: TPC-H lineitem at ``WAVES_SF`` (generated by the
+    port's ``tools/tpch.generate``, ingested without ``l_comment``) under a
+    wave budget that gives Q1 ``WAVES_Q1`` waves. Each statement runs
+    multi-wave (launch counts, every B1 / B2 launch of every wave against
+    its plain version, per-wave bind / copy / compute, the overlap share),
+    against the same statement in one wave (answers; cold and warm ms) and
+    against pandas; the storm of 8 QuerySpecs takes one B2 launch per wave.
+    Then the bind-cache repair: Q1 in one wave under a device cache cap
+    below its bound bytes answers, with the cache dropped. ``sf``,
+    ``device`` and ``ingest_kw`` (segment size) serve a rehearsal on the
+    CPU at a tiny scale."""
+    from spark_druid_olap_tpu_torch.parallel import cost as C
+    from spark_druid_olap_tpu_torch.parallel import executor as X
+    from spark_druid_olap_tpu_torch.tools.tpch import generate
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    tables = generate(sf, seed=SEED)
+    df = tables.pop("lineitem").drop(columns="l_comment")
+    del tables
+    t_gen = time.perf_counter() - t0
+    base = sdt.Context(device=device)
+    t0 = time.perf_counter()
+    ds = base.ingest_dataframe("lineitem", df, time_column="l_shipdate",
+                               **(ingest_kw or {}))
+    t_ingest = time.perf_counter() - t0
+    out = {"sf": sf, "card": smi, "rows": len(df),
+           "segments": ds.num_segments, "padded_rows": ds.padded_rows,
+           "generate_s": t_gen, "ingest_s": t_ingest}
+
+    specs = waves_specs(S, E)
+    q1 = specs["q1"]
+    seg = ds.prune_segments(q1.intervals, q1.filter)
+    q1_names = base.engine._plan_agg(
+        ds, seg, list(q1.dimensions), q1.aggregations, q1.granularity,
+        q1.filter, q1.intervals)[5]
+    q1_seg_bytes = C.bytes_per_segment(ds, q1_names)
+    budget = q1_seg_bytes * -(-len(seg) // WAVES_Q1)
+    out["wave_max_bytes"] = budget
+
+    def context(config):
+        ctx = sdt.Context(dict(config), device=device)
+        ctx.store.register(ds)
+        return ctx
+
+    multi = {"sdot.engine.wave.max.bytes": budget}
+    oracles = waves_oracles(df)
+    q1_want = q1_oracle(df)
+    b1_all, b2_all = [], []
+    launches = {"dense_groupby": 0, "wave": 0}
+    statements = {}
+    eps = float(base.config.get("sdot.quantile.rank_bound"))
+
+    # 1. the four statements, each multi-wave against one wave
+    for name, spec in specs.items():
+        extra = WAVES_HASHED if name == "hashed" else {}
+        wctx, sctx = context(dict(multi, **extra)), context(extra)
+        # the finals the decode reads: the waves' merge (multi-wave), the
+        # one copy's (single wave, which runs after)
+        captured = {}
+        real_run, real_finals = X.QueryEngine._run_waves, X._finals_from_out
+
+        def run_waves(self, *a, **k):
+            r = real_run(self, *a, **k)
+            captured["multi"] = r[0]
+            return r
+
+        def finals(*a, **k):
+            captured["single"] = real_finals(*a, **k)
+            return captured["single"]
+        X.QueryEngine._run_waves, X._finals_from_out = run_waves, finals
+        try:
+            with LaunchSpy(CG, CW) as spy:
+                t = time.perf_counter()
+                got = wctx.execute(spec).to_pandas()
+                torch.cuda.synchronize()
+                first_ms = (time.perf_counter() - t) * 1e3
+            st = dict(wctx.engine.last_stats)
+            single = sctx.execute(spec).to_pandas()
+            sst = dict(sctx.engine.last_stats)
+        finally:
+            X.QueryEngine._run_waves, X._finals_from_out = real_run, \
+                real_finals
+        if st.get("waves", 1) < WAVES_MIN or sst.get("waves") != 1 \
+                or (name == "hashed") != bool(st.get("hashed")) \
+                or (name == "hashed") != bool(sst.get("hashed")) \
+                or (name == "having_limit") != bool(sst.get("having_device")) \
+                or st.get("having_device") or st.get("topk_device"):
+            raise AssertionError(
+                f"waves {name}: {st.get('waves')} waves multi-wave, "
+                f"{sst.get('waves')} single; hashed {st.get('hashed')} / "
+                f"{sst.get('hashed')}; device HAVING "
+                f"{st.get('having_device')} / {sst.get('having_device')}")
+        # both runs decode in key order (or the LIMIT's order)
+        check_frame(f"waves {name} vs one wave", got, single, None,
+                    FLOAT_SUM_RTOL_KERNEL)
+        if name == "q1":
+            check_q1(got, q1_want)
+        elif name == "sketch":
+            for k in ("u_order", "t_supp", "p50"):
+                a, b = captured["multi"][k], captured["single"][k]
+                if a.dtype != b.dtype or a.shape != b.shape \
+                        or not np.array_equal(a.view(np.uint8),
+                                              b.view(np.uint8)):
+                    raise AssertionError(f"waves sketch {k}: registers "
+                                         f"differ from one wave")
+            keys = ["l_returnflag", "l_linestatus"]
+            want_n = df.groupby(keys).size()
+            if sorted(zip(got.l_returnflag, got.l_linestatus, got.n)) \
+                    != sorted((a, b, int(c)) for (a, b), c in
+                              want_n.items()):
+                raise AssertionError("waves sketch: counts differ from "
+                                     "pandas")
+            captured["worst_error"] = sketch_estimates_check(
+                "waves sketch", got, df, keys,
+                {"u_order": ("hll", "l_orderkey", None),
+                 "t_supp": ("theta", "l_suppkey", None),
+                 "p50": ("kll", "l_extendedprice", 0.5)}, eps)
+        else:
+            keys, want = oracles[name]
+            check_frame(f"waves {name} vs pandas", got, want, keys,
+                        FLOAT_SUM_RTOL_ORACLE)
+        checked = b1_checked(CG, f"waves {name}", spy.b1) if spy.b1 \
+            else None
+        runs = []
+        for _ in range(WAVES_REPEATS):
+            ms = timed_execute(wctx, spec)
+            runs.append(wave_summary(
+                wctx.engine.last_stats["wave_steps"], ms,
+                [c["kernel_ms"] for c in checked["calls"]]
+                if checked else None))
+        cold, warm = [], []
+        for _ in range(WAVES_REPEATS):
+            sctx.engine.clear_caches()
+            cold.append(timed_execute(sctx, spec))
+        for _ in range(WAVES_REPEATS):
+            warm.append(timed_execute(sctx, spec))
+        med = sorted(runs, key=lambda r: r["wall_ms"])[len(runs) // 2]
+        statements[name] = dict(
+            waves=st["waves"], segments_per_wave=st["segments_per_wave"],
+            rows=len(got), tier="hashed" if st.get("hashed") else
+            st.get("route"), dense_groupby_launches=spy.b1_launches,
+            wave_launches=spy.b2_launches, first_ms=first_ms,
+            wall_ms=[r["wall_ms"] for r in runs], median_run=med,
+            single_cold_ms=cold, single_warm_ms=warm,
+            single_cold_median_ms=statistics.median(cold),
+            single_warm_median_ms=statistics.median(warm),
+            having_device=[st.get("having_device"),
+                           sst.get("having_device")],
+            b1={k: checked[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "library_ms", "max_abs_err")}
+            if checked else None,
+            worst_error=captured.get("worst_error"))
+        b1_all.append(checked)
+        launches["dense_groupby"] += spy.b1_launches
+        launches["wave"] += spy.b2_launches
+        del wctx, sctx, spy
+
+    # 2. the storm: one B2 launch per wave, answers equal one wave's
+    storm = context(dict(STORM_CONFIG, **multi))
+    snames = list(storm_specs(S, E))
+    slist = list(storm_specs(S, E).values())
+    run_storm(storm, slist)                 # plans and builds once
+    st0 = storm.engine.sharedscan.stats()
+    members = []
+    with LaunchSpy(CG, CW) as spy:
+        res, storm_ms, phases = run_storm(storm, slist, stats_out=members)
+    st1 = storm.engine.sharedscan.stats()
+    delta = {k: st1[k] - st0[k] for k in ("queries_coalesced",
+                                          "wave_launches", "wave_fallbacks")}
+    n_waves = {m["waves"] for m in members}
+    if len(n_waves) != 1 or min(n_waves) < WAVES_MIN \
+            or delta["queries_coalesced"] != len(slist) \
+            or delta["wave_launches"] != min(n_waves) \
+            or spy.b2_launches != min(n_waves) or spy.b1_launches != 0 \
+            or delta["wave_fallbacks"] != 0:
+        raise AssertionError(f"waves storm: {n_waves} waves, {delta}, "
+                             f"B2 {spy.b2_launches}, B1 {spy.b1_launches}")
+    solo = context({})
+    got = dict(zip(snames, res))
+    for n, q in zip(snames, slist):
+        check_frame(f"waves storm {n} vs one wave", got[n],
+                    solo.execute(q).to_pandas(), None, FLOAT_SUM_RTOL_KERNEL)
+    check_q1(got["q1"], q1_want)
+    checked = [wave_timed(CW, f"waves storm[{i}]", *call)
+               for i, call in enumerate(spy.b2)]
+    steps = next(m["wave_steps"] for m in members if "wave_steps" in m)
+    runs = []
+    for _ in range(WAVES_REPEATS):
+        members = []
+        ms = run_storm(storm, slist, stats_out=members)[1]
+        runs.append(wave_summary(
+            next(m["wave_steps"] for m in members if "wave_steps" in m), ms,
+            [c["ms"] for c in checked]))
+    one = context(STORM_CONFIG)
+    cold, warm = [], []
+    for _ in range(WAVES_REPEATS):
+        one.engine.clear_caches()
+        cold.append(run_storm(one, slist)[1])
+    for _ in range(WAVES_REPEATS):
+        warm.append(run_storm(one, slist)[1])
+    med = sorted(runs, key=lambda r: r["wall_ms"])[len(runs) // 2]
+    statements["storm"] = dict(
+        waves=min(n_waves), segments_per_wave=members[0]["segments_per_wave"],
+        coalescer=delta, wave_launches=spy.b2_launches,
+        dense_groupby_launches=spy.b1_launches, first_ms=storm_ms,
+        first_steps=len(steps), wall_ms=[r["wall_ms"] for r in runs],
+        median_run=med, single_cold_ms=cold, single_warm_ms=warm,
+        single_cold_median_ms=statistics.median(cold),
+        single_warm_median_ms=statistics.median(warm),
+        b2=[{k: c[k] for k in ("rows", "max_abs_err", "ms", "plain_ms",
+                               "bound_ms", "bound_by")} for c in checked])
+    b2_all = checked
+    launches["wave"] += spy.b2_launches
+    del storm, one, solo, spy
+
+    # 3. the bind-cache repair: a cap below Q1's bound bytes drops the
+    # cache and Q1 binds and answers in one wave
+    q1_bytes = q1_seg_bytes * len(seg)
+    cap = q1_bytes // 2
+    fctx = context({"sdot.engine.device.cache.bytes": cap})
+    got = fctx.execute(q1).to_pandas()
+    fst = fctx.engine.last_stats
+    check_q1(got, q1_want)
+    if fst["waves"] != 1 \
+            or len(fctx.engine._device_arrays) >= len(q1_names):
+        raise AssertionError(f"waves cache repair: {fst['waves']} waves, "
+                             f"{len(fctx.engine._device_arrays)} of "
+                             f"{len(q1_names)} arrays resident")
+    out["cache_repair"] = dict(
+        q1_bound_bytes=q1_bytes, cap=cap, waves=fst["waves"],
+        resident_arrays=len(fctx.engine._device_arrays),
+        bound_arrays=len(q1_names),
+        resident_bytes=fctx.engine._device_bytes)
+    del fctx
+
+    widest = max(r["h2d_bytes"] / len(r["per_wave"])
+                 for st in statements.values() for r in [st["median_run"]])
+    out["pinned_copy_gb_per_s"] = pinned_copy_gb_per_s(int(widest))
+    out["pinned_probe_bytes"] = int(widest)
+    out["statements"] = statements
+    out["launches"] = launches
+    b1 = [c for c in b1_all if c]
+    out["b1"] = {k: sum(c[k] for c in b1) for k in (
+        "ms", "plain_ms", "bound_ms", "library_ms")}
+    out["b1"]["max_abs_err"] = max(c["max_abs_err"] for c in b1)
+    out["b1"]["calls"] = [call for c in b1 for call in c["calls"]]
+    out["b2"] = {k: sum(c[k] for c in b2_all) for k in (
+        "ms", "plain_ms", "bound_ms")}
+    out["b2"]["max_abs_err"] = max(c["max_abs_err"] for c in b2_all)
+    out["b2"]["calls"] = len(b2_all)
+    out["b2"]["bound_by"] = sorted({c["bound_by"] for c in b2_all})
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -2829,28 +3237,54 @@ def main() -> int:
               "synthetic rows, how many show the kernel, at points along "
               "the run")
 
-    # 7. every ported kernel with its check result: the sums over the
-    # shapes the main path gave it (Q1, Q6, wide and the SQL statements
-    # for B1; the QuerySpec and SQL storms for B2)
+    # 7. multi-wave binding at WAVES_SF, after the SF1 state leaves host
+    # and card
+    del ctx, storm, ds, df, tables, captured, program, layout, scols, got
+    del sres, solo
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    waves = waves_phase(sdt, S, E, CG, CW, smi)
+    emit("waves", **waves,
+         oracle="each statement multi-wave vs the same statement in one "
+                "wave (ints, counts, min/max and sketch registers exact; "
+                "floats rtol 1e-9) and vs pandas (floats rtol 1e-6; the "
+                "sketch estimates as in phase sketch; the storm's Q1); "
+                "every B1 / B2 launch of every wave vs its plain version",
+         note="per wave: bind_ms host (gather into pinned staging), "
+              "h2d_bytes / h2d_ms (CUDA events on the copy stream), "
+              "compute_ms (CUDA events around the wave's program on the "
+              "compute stream), kernel_ms (the wave's B1 call, timed as "
+              "in phase timing); overlap_share = 1 - wall / (sum of bind "
+              "+ copy + compute); single-wave cold = device cache "
+              "dropped before each run; pinned_copy_gb_per_s: one copy "
+              "of the widest wave's bytes from pinned memory")
+
+    # 8. every ported kernel with its check result: the sums over the
+    # shapes the main path gave it (Q1, Q6, wide, the SQL statements and
+    # the waves for B1; the QuerySpec, SQL and wave storms for B2)
     for k in list(sql_k["dense_groupby"].values()) \
-            + list(tail["kernels"].values()) + [sketch["b1"]]:
+            + list(tail["kernels"].values()) + [sketch["b1"], waves["b1"]]:
         worst = max(worst, k["max_abs_err"])
         for f in ("ms", "plain_ms", "bound_ms", "library_ms"):
             total[f] += k[f]
         bound_by.update(c["bound_by"] for c in k["calls"])
-    sw, kw = sql_k["wave"]["storm"], sketch["wave"]
-    w_worst = max(w_worst, sw["max_abs_err"], kw["max_abs_err"])
-    w_bound_by = {wave_timing["bound_by"], sw["bound_by"], kw["bound_by"]}
+    sw, kw, ww = sql_k["wave"]["storm"], sketch["wave"], waves["b2"]
+    w_worst = max(w_worst, sw["max_abs_err"], kw["max_abs_err"],
+                  ww["max_abs_err"])
+    w_bound_by = {wave_timing["bound_by"], sw["bound_by"], kw["bound_by"],
+                  *ww["bound_by"]}
     say(json.dumps({"kernels": [{
         "name": "dense_groupby", "route": "cuda",
         "source": "spark_druid_olap_tpu_torch/csrc/dense_groupby.cu",
         "replaces": "spark_druid_olap_tpu/ops/pallas_groupby.py:205",
         "launches": l1 + l6 + lw + sql_b1 + tail["b1_launches"]
-        + sketch["b1_launches"],
+        + sketch["b1_launches"] + waves["launches"]["dense_groupby"],
         "max_abs_err": worst,
         "b1_checked": dict({n: len(k["calls"])
                             for n, k in tail["kernels"].items()},
-                           sketch_solo=len(sketch["b1"]["calls"])),
+                           sketch_solo=len(sketch["b1"]["calls"]),
+                           waves=len(waves["b1"]["calls"])),
         "ms": total["ms"], "plain_ms": total["plain_ms"],
         "bound_ms": total["bound_ms"],
         "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
@@ -2858,12 +3292,15 @@ def main() -> int:
         "name": "wave", "route": "cuda",
         "source": "spark_druid_olap_tpu_torch/csrc/wave.cu",
         "replaces": "spark_druid_olap_tpu/ops/pallas_wave.py:371",
-        "launches": storm_launches + sql_b2 + sketch["b2_launches"],
+        "launches": storm_launches + sql_b2 + sketch["b2_launches"]
+        + waves["launches"]["wave"],
         "max_abs_err": w_worst,
-        "ms": wk_ms + sw["ms"] + kw["ms"],
-        "plain_ms": wp_ms + sw["plain_ms"] + kw["plain_ms"],
+        "ms": wk_ms + sw["ms"] + kw["ms"] + ww["ms"],
+        "plain_ms": wp_ms + sw["plain_ms"] + kw["plain_ms"]
+        + ww["plain_ms"],
         "bound_ms": wave_timing["bound_ms"] + sw["bound_ms"]
-        + kw["bound_ms"],
+        + kw["bound_ms"] + ww["bound_ms"],
+        "b2_checked": {"waves": ww["calls"]},
         "bound_by": "bytes" if w_bound_by == {"bytes"} else "operations",
         "library_ms": None,
         # the launch with the in-kernel theta stripe (phase sketch)

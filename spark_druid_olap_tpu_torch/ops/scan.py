@@ -3,7 +3,8 @@ kinds) and the device tensors a query scans.
 
 Port of ``spark_druid_olap_tpu/ops/scan.py`` (``ScanContext``, the
 late-materialization view ``CompactScanContext``, ``array_names``,
-``array_dtype``, ``build_array``; no tiered or multi-host builders). The
+``array_dtype``, ``build_array`` and, for a wave, ``build_wave_array``;
+no tiered or multi-host builders). The
 tensors it holds live on the engine's device; the dictionaries and
 cardinalities it consults stay on the host, so no string ever reaches the
 device.
@@ -184,3 +185,18 @@ def build_array(ds: Datasource, key: str,
                                   np.arange(ds.num_segments))):
         arr = arr[segment_indices]
     return arr
+
+
+def build_wave_array(ds: Datasource, key: str, segment_indices,
+                     out: np.ndarray) -> np.ndarray:
+    """One wave's host array of ``key``, built into ``out`` ([spw, R] of
+    the array's dtype): the selected segments, then zero segments up to
+    ``spw``, whose ``row_valid`` is false (the JAX package's
+    ``build_array(ds, key, segs, pad_segments_to=spw)``). Every wave thus
+    has the shape its program was built for, and ``out`` may be a pinned
+    staging buffer that the copy to the device reads."""
+    n = len(segment_indices)
+    np.take(_stacked_by_key(ds, key), segment_indices, axis=0, out=out[:n],
+            mode="clip")
+    out[n:] = 0
+    return out

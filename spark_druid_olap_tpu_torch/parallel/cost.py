@@ -3,8 +3,10 @@
 Port of the JAX-free parts of ``spark_druid_olap_tpu/parallel/cost.py``
 that the executor's gates read: ``unit_cost``, the filter-selectivity
 estimate (``_filter_selectivity`` with ``_bound_overlap_fraction`` and
-``_pattern_fraction``) and ``bytes_per_segment``. The rest of that cost
-model (single vs sharded, waves, explain's cost table) is ROADMAP A.9.
+``_pattern_fraction``), ``bytes_per_segment`` and the wave plan
+(``wave_budget_bytes``, ``tier_io_budget``, ``tier_io_seg_bytes``,
+``plan_waves``). The rest of that cost model (single vs sharded,
+explain's cost table) is ROADMAP A.9.
 
 A unit cost is the configured value when the key is set explicitly;
 otherwise the measured table of the engine's device type.
@@ -259,6 +261,80 @@ def array_itemsize(ds, key: str) -> int:
 
 def bytes_per_segment(ds, names) -> int:
     return int(ds.padded_rows) * sum(array_itemsize(ds, k) for k in names)
+
+
+# -- waves --------------------------------------------------------------------
+
+# the auto wave budget's share of a cuda device's memory: two waves are
+# resident at once (the one computing and the next one's copy), beside the
+# bind cache; the JAX package takes 0.6 of its device's HBM limit
+CUDA_WAVE_MEMORY_SHARE = 0.3
+
+
+def wave_budget_bytes(conf, device) -> Optional[int]:
+    """Per-device byte budget for one wave's scan arrays (the JAX
+    package's ``wave_budget_bytes``). The configured
+    ``sdot.engine.wave.max.bytes`` wins; else, on a cuda device,
+    ``CUDA_WAVE_MEMORY_SHARE`` of its memory; else None (one wave), as the
+    JAX package reads a CPU backend."""
+    from spark_druid_olap_tpu_torch.utils.config import WAVE_MAX_BYTES
+    b = conf.get(WAVE_MAX_BYTES)
+    if b:
+        return int(b)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    total = torch.cuda.get_device_properties(device).total_memory
+    return int(total * CUDA_WAVE_MEMORY_SHARE)
+
+
+def tier_io_budget(ds, conf) -> Optional[int]:
+    """Per-wave host-I/O byte cap of a tiered (cold) datasource (the JAX
+    package's ``tier_io_budget``), None on an in-memory store. Every
+    store of the port is in memory: the tiered store is ROADMAP A.9."""
+    if getattr(ds, "tier", None) is None:
+        return None
+    raise NotImplementedError(
+        "tiered datasource not ported yet (ROADMAP A.9)")
+
+
+def tier_io_seg_bytes(ds, names) -> Optional[int]:
+    """Per-segment host bytes one wave faults for the named scan keys on
+    an encoded tiered store (the JAX package's ``tier_io_seg_bytes``),
+    None elsewhere."""
+    fn = getattr(ds, "host_bytes_per_segment", None)
+    if fn is None:
+        return None
+    b = int(fn(names))
+    return b if b > 0 else None
+
+
+def plan_waves(n_segments: int, n_dev: int, seg_bytes: int,
+               budget: Optional[int], conf, output_groups: int,
+               n_aggs: int, io_budget: Optional[int] = None,
+               io_seg_bytes: Optional[int] = None) -> tuple:
+    """Segments per wave and the wave count (the JAX package's
+    ``plan_waves``, verbatim). Every wave costs a dispatch plus a host
+    merge of its [K] partials while scan and transport totals do not
+    depend on the wave count, so the min-cost segments-per-wave is the
+    largest ``n_dev`` multiple whose scan arrays for one device fit
+    ``budget``; ``io_budget`` caps one wave's host bytes (all devices),
+    over ``io_seg_bytes`` per segment (default ``seg_bytes``).
+
+    Returns ``(segments_per_wave, n_waves)``; segments_per_wave is a
+    multiple of ``n_dev``."""
+    n_dev = max(1, n_dev)
+    if n_segments <= 0:
+        return n_dev, 1
+    cap = -(-n_segments // n_dev) * n_dev
+    if budget is not None and seg_bytes > 0:
+        per_dev = int(budget // seg_bytes)
+        cap = min(cap, max(1, per_dev) * n_dev)
+    io_div = io_seg_bytes if io_seg_bytes is not None else seg_bytes
+    if io_budget is not None and io_div > 0:
+        per_wave = max(1, int(io_budget // io_div))
+        cap = min(cap, -(-per_wave // n_dev) * n_dev)
+    return cap, -(-n_segments // cap)
 
 
 # -- measuring the cuda table -------------------------------------------------

@@ -4,7 +4,7 @@ tiers.
 Port of ``spark_druid_olap_tpu/parallel/executor.py``: ``QueryEngine.execute``
 -> ``_execute_inner`` -> ``_run_agg`` for GroupBy, Timeseries and TopN
 specs, ``_run_select`` and ``_run_search`` for raw-row and dictionary
-searches, on one device, in one wave. Planning (``plan_dimension``,
+searches, on one device. Planning (``plan_dimension``,
 ``plan_aggregation`` / ``AggPlan``, ``_plan_agg``, ``_plan_routes``), the
 scan cores (``_make_core``, ``_hash_core``), the device-resident array
 cache (``_bind_arrays``), decode and the host epilogue
@@ -31,11 +31,20 @@ the dictionary-functional lookup / regex / expression extractions.
 Sketch aggregates (HLL ``cardinality``, theta ``thetasketch``, KLL
 ``quantile``) run on the dense route as register ops after the dense
 group-by (``ops/hll.py``, ``ops/theta.py``, ``ops/kll.py``); their
-registers travel with the finals and are estimated on the host. Every path
-the JAX engine would take outside this slice — multi-wave binding,
+registers travel with the finals and are estimated on the host.
+
+A scan whose bound arrays pass the per-device wave budget
+(``parallel/cost.wave_budget_bytes``, ``sdot.engine.wave.max.bytes``)
+runs as bounded waves of segments (``_run_waves`` on the dense route, the
+same loop in ``_run_agg_hashed``; ``_WaveBinder``): one launch of the
+scan's program per wave, the next wave's copy to the device in flight
+while the current wave computes, each wave's finals merged on the host
+(``_merge_wave_finals``, ``_merge_hash_partials``). Waves bypass the bind
+cache; device top-k and device HAVING stay off under waves, as in the JAX
+engine. Every path the JAX engine would take outside the port so far —
 multi-host partial stores — raises ``NotImplementedError`` naming its
 ROADMAP item; the engine never changes an answer to stay inside the
-slice.
+port.
 """
 
 from __future__ import annotations
@@ -57,12 +66,14 @@ from spark_druid_olap_tpu_torch.ops import hash_groupby as H
 from spark_druid_olap_tpu_torch.ops import sorted_groupby as SG
 from spark_druid_olap_tpu_torch.ops import time_ops as T
 from spark_druid_olap_tpu_torch.ops import timezone as TZ
+from spark_druid_olap_tpu_torch.ops.kll import merge as kll_merge
 from spark_druid_olap_tpu_torch.ops.scan import (
     CompactScanContext,
     ScanContext,
     array_dtype,
     array_names,
     build_array,
+    build_wave_array,
     compact_keep,
 )
 from spark_druid_olap_tpu_torch.ops.sketch import (
@@ -745,16 +756,24 @@ class QueryEngine:
                 q, ds, seg_idx, all_dim_plans, agg_plans, names, min_day,
                 max_day, post_aggregations, having, limit, filter_spec,
                 intervals, no_topk=no_topk)
-        having_dev = self._plan_device_having(having, routes, n_keys)
-        topk = None if no_topk else \
+        spw, n_waves = self._plan_waves(ds, names, seg_idx, n_keys,
+                                        len(agg_plans))
+        topk = None if no_topk or n_waves > 1 else \
             self._plan_device_topk(limit, having, agg_plans, n_keys)
+        having_dev = self._plan_device_having(having, routes, n_keys,
+                                              n_waves)
         n_out = topk[1] if topk else n_keys
+        sketch_plans = [p for p in agg_plans if p.kind in SKETCH_KINDS]
+        shape = (ds.name, id(ds), _cache_repr(q), len(seg_idx),
+                 ds.padded_rows, min_day, max_day, tuple(names),
+                 self.config.get(TZ_ID))
+        host = {}
         t = _time.perf_counter()
-        dev_arrays = self._bind_arrays(ds, names, seg_idx)
-        t = _phase("bind", t)
         if having_dev:
             # two dispatches: the finals stay on the device; the passing
             # count travels, then only the passing groups
+            dev_arrays = self._bind_arrays(ds, names, seg_idx)
+            t = _phase("bind", t)
             table = self._make_core(ds, all_dim_plans, agg_plans,
                                     filter_spec, intervals, min_day,
                                     max_day, n_keys, routes)(dev_arrays)
@@ -769,17 +788,18 @@ class QueryEngine:
                 n_out = n_keys
             host = _to_host(_having_gather(table, mask, n_out, n_keys,
                                            full))
-        else:
+            finals = _finals_from_out(host, routes, n_out, sketch_plans)
+        elif n_waves == 1:
             # budget from the cheap conjuncts only: the staged ones apply
             # after compaction and do not shrink what the prefix must hold
             cheap_f0, _ = self._split_filter_staged(filter_spec)
             compact_m = self._plan_compact_m(ds, seg_idx, cheap_f0,
                                              routes=routes, n_keys=n_keys)
-            memo = ("agg", (ds.name, id(ds), _cache_repr(q), len(seg_idx),
-                            ds.padded_rows, min_day, max_day, tuple(names),
-                            self.config.get(TZ_ID)), topk)
+            memo = ("agg", shape, topk)
             if compact_m and memo in self._compact_overflowed:
                 compact_m = None     # this shape overflowed before
+            dev_arrays = self._bind_arrays(ds, names, seg_idx)
+            t = _phase("bind", t)
             for cm in ((compact_m, None) if compact_m else (None,)):
                 out = self._make_core(ds, all_dim_plans, agg_plans,
                                       filter_spec, intervals, min_day,
@@ -800,9 +820,35 @@ class QueryEngine:
                 # uncompacted, and let warm runs of this shape skip it
                 self.last_stats["compact_overflow"] = int(over[0])
                 self._compact_overflowed.add(memo)
+            finals = _finals_from_out(host, routes, n_out, sketch_plans)
+        else:
+            # wave-mode late materialization: the compaction runs inside
+            # each wave with a per-wave budget (the first wave's rows stand
+            # for all: waves are equal splits); a wave that overflows its
+            # budget ends the run, and the whole scan re-runs uncompacted
+            cheap_f0, _ = self._split_filter_staged(filter_spec)
+            compact_m = self._plan_compact_m(ds, seg_idx[:spw], cheap_f0,
+                                             routes=routes, n_keys=n_keys)
+            memo = ("aggw", shape, spw)
+            if compact_m and memo in self._compact_overflowed:
+                compact_m = None
+            for cm in ((compact_m, None) if compact_m else (None,)):
+                core = self._make_core(ds, all_dim_plans, agg_plans,
+                                       filter_spec, intervals, min_day,
+                                       max_day, n_keys, routes,
+                                       compact_m=cm)
+                finals, wave_over = self._run_waves(
+                    ds, names, seg_idx, spw, core, routes, n_keys,
+                    sketch_plans)
+                if not wave_over:
+                    if cm:
+                        self.last_stats["compact_m"] = int(cm)
+                    break
+                self.last_stats["compact_overflow"] = int(wave_over)
+                self._compact_overflowed.add(memo)
+            # the waves charged their own bind and dispatch phases
+            t = _time.perf_counter()
         t = _phase("dispatch", t)
-        sketch_plans = [p for p in agg_plans if p.kind in SKETCH_KINDS]
-        finals = _finals_from_out(host, routes, n_out, sketch_plans)
         # the key ids of a selection (device top-k, device HAVING); rows
         # of the whole table come in key order
         top_idx = host["__topk_idx__"].astype(np.int64) \
@@ -850,6 +896,7 @@ class QueryEngine:
         self.last_stats.update({
             "datasource": ds.name, "segments": int(len(seg_idx)),
             "groups": int(len(sel)), "rows_scanned": int(ds.num_rows),
+            "waves": int(n_waves), "segments_per_wave": int(spw),
             "route": "kernel" if G.use_kernel(
                 n_keys, list(routes.values()),
                 self.config.get(GROUPBY_PALLAS_MAX_KEYS)) else "scatter",
@@ -857,14 +904,14 @@ class QueryEngine:
             "having_device": int(n_out) if having_dev else 0})
         return QueryResult(columns, data)
 
-    def _plan_device_having(self, having, routes, n_keys):
+    def _plan_device_having(self, having, routes, n_keys, n_waves):
         """``(aggregate, op, integer literal)`` when HAVING is one
         comparison of an exact aggregate (an ``i64`` or ``f64`` route)
-        with an integer literal and the key space is at least
-        ``sdot.engine.having.device.min.keys``, else None. The host
-        epilogue re-applies HAVING over the exact finals, so the device
-        mask only filters what travels."""
-        if having is None \
+        with an integer literal, the scan runs in one wave and the key
+        space is at least ``sdot.engine.having.device.min.keys``, else
+        None. The host epilogue re-applies HAVING over the exact finals,
+        so the device mask only filters what travels."""
+        if having is None or n_waves != 1 \
                 or n_keys < self.config.get(HAVING_DEVICE_MIN_KEYS):
             return None
         e = having.expr
@@ -1043,9 +1090,10 @@ class QueryEngine:
                         min_day, max_day, post_aggregations, having, limit,
                         filter_spec, intervals, no_topk: bool = False):
         """Group-by above the dense key-space ceiling (and the medium-K
-        reroute): a table of ``T`` slots on the device
-        (``ops/hash_groupby.py``), read back by key. Overflow retries at
-        4x slots, then falls back."""
+        reroute): a table of ``T`` slots on the device per wave
+        (``ops/hash_groupby.py``), the waves' partials merged by key on
+        the host. Overflow in any wave retries the scan at 4x slots, then
+        falls back."""
         if any(p.kind in SKETCH_KINDS for p in agg_plans):
             raise EngineFallback("sketch aggregation over hashed group-by")
         cards = [p.card for p in dim_plans]
@@ -1064,19 +1112,23 @@ class QueryEngine:
             n_keys_total *= int(c)
         T = int(self.config.get(GROUPBY_HASH_SLOTS)) or H.initial_slots(
             min(n_keys_total, rows_sel), hi=max_slots)
+        spw, n_waves = self._plan_waves(ds, names, seg_idx,
+                                        min(rows_sel, T), len(agg_plans))
+        wave_segs = FU.plan_device_waves(seg_idx, spw, 1)
         metas = [G.AggInput(p.spec.name, p.kind, is_int=p.is_int)
                  for p in agg_plans]
         topk_plan = None if no_topk else \
-            self._plan_device_topk_hashed(limit, having, agg_plans)
+            self._plan_device_topk_hashed(limit, having, agg_plans, n_waves)
         kg_used = 0
         tk_scores = None
-        # late materialization (shared with the dense path): the key build
-        # and the aggregation shrink to the survivors; a budget overflow
-        # folds into '__unres__' and the first retry turns it off at the
-        # same T
+        # late materialization (shared with the dense path), in one wave
+        # only: the key build and the aggregation shrink to the survivors;
+        # a budget overflow folds into '__unres__' and the first retry
+        # turns it off at the same T
         cheap_f0, _ = self._split_filter_staged(filter_spec)
         lm = self._plan_compact_m(ds, seg_idx, cheap_f0, n_keys=T,
-                                  n_ops=len(agg_plans) + 2)
+                                  n_ops=len(agg_plans) + 2) \
+            if n_waves == 1 else None
         memo = ("hashlm", ds.name, _cache_repr(q))
         if lm and memo in self._compact_overflowed:
             lm = None
@@ -1093,16 +1145,26 @@ class QueryEngine:
                                    filter_spec, intervals, min_day, max_day,
                                    T, routes, sorted_run, compact_m=lm)
             t = _time.perf_counter()
-            arrays = self._bind_arrays(ds, names, seg_idx)
-            t = _phase("bind", t)
-            out = core(arrays)
-            if compact:
-                # dispatch 1 of 2: the table stays on the device; only
-                # [unresolved, occupied] travel
-                occ = (out["__tkhi__"] != H.EMPTY).sum()
-                unresolved, occupied = (int(x) for x in torch.stack(
-                    [out.pop("__unres__")[0], occ]).cpu())
-                if not unresolved:
+            if n_waves == 1:
+                arrays = self._bind_arrays(ds, names, seg_idx)
+                t = _phase("bind", t)
+                outs = [core(arrays)]
+            else:
+                binder = _WaveBinder(ds, names, spw, self.device)
+                outs = binder.stream(core, wave_segs)
+            partials, unresolved = [], 0
+            # each wave's outputs; under waves the next wave's bind is
+            # already issued when the host syncs on this one's
+            for out in outs:
+                if compact:
+                    # dispatch 1 of 2: the table stays on the device; only
+                    # [unresolved, occupied] travel
+                    occ = (out["__tkhi__"] != H.EMPTY).sum()
+                    unres, occupied = (int(x) for x in torch.stack(
+                        [out.pop("__unres__")[0], occ]).cpu())
+                    unresolved += unres
+                    if unresolved:
+                        break
                     # dispatch 2 of 2: the occupied slots are the table's
                     # prefix [0, G); copy a power of two of them
                     kg = min(T, 1 << max(6, (max(1, occupied) - 1)
@@ -1110,16 +1172,23 @@ class QueryEngine:
                     kg_used = max(kg_used, kg)
                     raw = _to_host({k: v[:kg] for k, v in out.items()})
                     k_out = kg
-            else:
-                if topk:
-                    unres = out.pop("__unres__")
-                    out = _hash_topk_gather(out, routes, topk, T)
-                    out["__unres__"] = unres
-                raw = _to_host(out)
-                unresolved = int(raw.pop("__unres__")[0])
-                k_out = topk[1] if topk else T
-                if topk:
-                    tk_scores = raw.pop("__topk_score__")
+                else:
+                    if topk:
+                        unres = out.pop("__unres__")
+                        out = _hash_topk_gather(out, routes, topk, T)
+                        out["__unres__"] = unres
+                    raw = _to_host(out)
+                    unresolved += int(raw.pop("__unres__")[0])
+                    if unresolved:
+                        break
+                    k_out = topk[1] if topk else T
+                    if topk:
+                        tk_scores = raw.pop("__topk_score__")
+                partials += _hash_partial(raw, routes, k_out)
+            if n_waves > 1:
+                # the waves charged their own bind and dispatch phases
+                self.last_stats["wave_steps"] = binder.steps()
+                t = _time.perf_counter()
             t = _phase("dispatch", t)
             if not unresolved:
                 if lm:
@@ -1136,7 +1205,7 @@ class QueryEngine:
             if T > max_slots:
                 raise EngineFallback(
                     f"hashed group-by exceeded {max_slots} table slots")
-        keys, merged = _hash_rows(raw, routes, k_out)
+        keys, merged = _merge_hash_partials(partials, routes)
         data: Dict[str, np.ndarray] = {}
         columns: List[str] = []
         khi, klo = H.unpack_key(keys)
@@ -1167,16 +1236,20 @@ class QueryEngine:
         self.last_stats.update({
             "datasource": ds.name, "segments": int(len(seg_idx)),
             "groups": int(len(keys)), "rows_scanned": int(ds.num_rows),
+            "waves": len(wave_segs), "segments_per_wave": int(spw),
             "route": "sorted" if sorted_run else "scatter", "hashed": True,
             "hash_slots": int(T), "hash_compact_k": int(kg_used),
             "topk_device": int(topk[1]) if topk else 0})
         return QueryResult(columns, data)
 
-    def _plan_device_topk_hashed(self, limit, having, agg_plans):
+    def _plan_device_topk_hashed(self, limit, having, agg_plans, n_waves):
         """Device top-k over the hash table: only the best ``k_sel`` slots
-        travel. The engine runs one device and one wave, so the table is
-        complete and the slot scores are global."""
-        if having is not None or limit is None or limit.limit is None:
+        travel. One wave only: the table is then complete and the slot
+        scores are global. Under waves a key's partials are split across
+        the waves' tables, so a per-wave selection could miss a key large
+        in total; the full tables merge by key instead."""
+        if having is not None or limit is None or limit.limit is None \
+                or n_waves != 1:
             return None
         if not limit.columns:
             return None
@@ -1391,19 +1464,48 @@ class QueryEngine:
             prog = self._programs.get(sig)
         return prog
 
+    def _plan_waves(self, ds, names, seg_idx, output_groups, n_aggs):
+        """``(segments per wave, waves)`` of one scan on this engine's
+        device (``parallel/cost.plan_waves`` under
+        ``cost.wave_budget_bytes``)."""
+        return C.plan_waves(
+            len(seg_idx), 1, C.bytes_per_segment(ds, names),
+            C.wave_budget_bytes(self.config, self.device), self.config,
+            output_groups, n_aggs, io_budget=C.tier_io_budget(ds, self.config),
+            io_seg_bytes=C.tier_io_seg_bytes(ds, names))
+
+    def _run_waves(self, ds, names, seg_idx, spw, core, routes, n_keys,
+                   sketch_plans):
+        """Execute the scan in bounded segment waves (double-buffered:
+        wave i+1's copy to the device overlaps wave i's compute), merging
+        each wave's [K] finals on the host. Returns ``(finals, 0)``, or
+        ``(None, overflow)`` when a wave's late-materialization budget
+        overflowed: the caller re-runs the scan uncompacted."""
+        binder = _WaveBinder(ds, names, spw, self.device)
+        finals = None
+        try:
+            for out in binder.stream(core, FU.plan_device_waves(seg_idx, spw,
+                                                                1)):
+                host = _to_host(out)
+                over = host.pop("__over__", None)
+                if over is not None and int(over[0]):
+                    # this wave's budget was too small: stop burning waves
+                    return None, int(over[0])
+                f = _finals_from_out(host, routes, n_keys, sketch_plans)
+                finals = f if finals is None \
+                    else _merge_wave_finals(finals, f, routes, sketch_plans)
+        finally:
+            self.last_stats["wave_steps"] = binder.steps()
+        return finals, 0
+
     def _bind_arrays(self, ds, names, seg_idx):
         """Fetch-or-build the device tensors a scan binds, cached per
         (datasource, array, segment selection) so repeated queries never
-        re-upload host data. A scan whose arrays exceed the device budget
-        needs the JAX engine's multi-wave binding, not ported yet."""
+        re-upload host data. ``sdot.engine.device.cache.bytes`` bounds the
+        cache, not the scan: an upload that would pass it drops the whole
+        cache first, so residency peaks at the cap plus one array."""
         seg_sig = (len(seg_idx), hash(np.asarray(seg_idx).tobytes()))
         cap = int(self.config.get(DEVICE_CACHE_BYTES))
-        rows = len(seg_idx) * ds.padded_rows
-        total = sum(rows * np.dtype(array_dtype(ds, k)).itemsize
-                    for k in names)
-        if total > cap:
-            raise not_ported(f"multi-wave binding ({total} B > "
-                             f"sdot.engine.device.cache.bytes {cap})", "A.5")
         with self._bind_lock:
             return self._bind_locked(ds, names, seg_idx, seg_sig, cap)
 
@@ -1849,23 +1951,209 @@ def _topk_selection_exact(limit, topk, route, scores, data) -> bool:
     return (s_k - cutoff) > 64.0 * eps
 
 
-def _hash_rows(raw, routes, T):
-    """A hash program's host outputs -> ``(packed keys, finals)`` of the
-    occupied slots, in ascending key order (the JAX package's
-    ``_hash_chip_partials`` + ``_merge_hash_partials`` for one table; the
-    key-wise merge of several chips' or waves' tables goes with them,
-    ROADMAP A.5 / A.8)."""
+def _hash_partial(raw, routes, T) -> list:
+    """One hash table's host outputs -> ``[(packed keys, finals)]`` of its
+    occupied slots, or ``[]`` when none is occupied (the JAX package's
+    ``_hash_chip_partials`` for one device)."""
     out = dict(raw)
     khi = out.pop("__tkhi__")
     klo = out.pop("__tklo__")
     occ = khi != H.EMPTY
-    keys = H.pack_key(khi[occ], klo[occ])
-    # the table's keys are distinct; a top-k selection leaves them in
-    # score order
+    if not occ.any():
+        return []
+    return [(H.pack_key(khi[occ], klo[occ]),
+             {name: np.asarray(G.combine_route(r, out, T))[occ]
+              for name, r in routes.items()})]
+
+
+def _merge_hash_partials(parts, routes):
+    """Merge the waves' hash-table partials by key on the host:
+    ``(keys in ascending order, finals)``. Sums and counts add exactly
+    (int64 / float64 finals, in wave order), min / max keep their
+    sentinels (the JAX package's ``_merge_hash_partials``, as a sort and
+    segmented reductions; one table's keys are distinct, so one partial
+    only sorts)."""
+    if not parts:
+        return np.zeros(0, np.int64), {name: np.zeros(0, np.float64)
+                                       for name in routes}
+    keys = np.concatenate([k for k, _ in parts])
+    # stable: a key's values stay in wave order
     order = np.argsort(keys, kind="stable")
-    return keys[order], {
-        name: np.asarray(G.combine_route(r, out, T))[occ][order]
-        for name, r in routes.items()}
+    keys = keys[order]
+    starts = np.flatnonzero(np.concatenate(([True], keys[1:] != keys[:-1])))
+    merged = {}
+    for name, r in routes.items():
+        v = np.concatenate([f[name] for _, f in parts])[order]
+        if len(parts) > 1:
+            op = {"min": np.minimum, "max": np.maximum}.get(r.kind, np.add)
+            v = op.reduceat(v, starts)
+        merged[name] = v
+    return keys[starts], merged
+
+
+def _merge_wave_finals(acc, new, routes, sketch_plans=()):
+    """Cross-wave merge of dense finals (the JAX package's
+    ``_merge_wave_finals``): sums and counts add exactly (int64 / float64
+    finals), min / max keep their empty-group sentinels, and sketch
+    registers take their union: HLL the elementwise max, theta's k-mins
+    the elementwise min, KLL the lex-min survivor and the exact count sum
+    (``ops/kll.merge``)."""
+    kinds = {p.spec.name: p.kind for p in sketch_plans}
+    for name, v in new.items():
+        r = routes.get(name)
+        if r is None:                       # sketch registers [K, width]
+            kind = kinds[name]
+            if kind == "kll":
+                acc[name] = kll_merge(acc[name], v)
+            elif kind == "theta":
+                acc[name] = np.minimum(acc[name], v)
+            else:
+                acc[name] = np.maximum(acc[name], v)
+        elif r.kind == "min":
+            acc[name] = np.minimum(acc[name], v)
+        elif r.kind == "max":
+            acc[name] = np.maximum(acc[name], v)
+        else:
+            acc[name] = acc[name] + v
+    return acc
+
+
+class _WaveBinder:
+    """Uncached binds of one scan's waves (the JAX engine's
+    ``_bind_wave``) and the double-buffered loop over them (its
+    ``_run_waves``). A wave binds its segments padded to ``spw`` with dead
+    segments (``ops/scan.build_wave_array``), so every wave has the shape
+    its program was built for. Waves never enter the bind cache: wave
+    mode exists because the scan exceeds what one wave may hold.
+
+    On a cuda device the host gathers a wave into one of two pinned
+    staging sets, used in turn, and a copy stream moves it to the card
+    while the compute stream still runs the wave before. The wave's device
+    tensors are allocated on the copy stream; the compute stream waits on
+    the copy's event before the wave's launch, and each tensor is recorded
+    on the compute stream, so the allocator never hands its memory out
+    while the compute stream may still read it. Each wave keeps its
+    timings (``steps``): host bind ms, bytes copied, and on cuda the
+    copy's and the compute span's device ms (CUDA events)."""
+
+    def __init__(self, ds, names, spw, device):
+        self.ds, self.names, self.spw = ds, list(names), int(spw)
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        self._steps: List[dict] = []
+        self._staging: List[Optional[Dict[str, torch.Tensor]]] = [None, None]
+        self._copied: List[Optional[torch.cuda.Event]] = [None, None]
+        if self.cuda:
+            self.copy_stream = torch.cuda.Stream(self.device)
+
+    def _host_buffers(self, slot):
+        """The host arrays a wave builds into: staging set ``slot`` of
+        two, allocated once per loop and reused every other wave (pinned
+        on cuda; on the CPU the wave's program reads it directly, and has
+        finished with it before the set's next wave is built)."""
+        if self._copied[slot] is not None:
+            self._copied[slot].synchronize()  # its last copy is done
+        if self._staging[slot] is None:
+            shape = (self.spw, self.ds.padded_rows)
+            self._staging[slot] = {
+                k: torch.empty(shape, dtype=_torch_dtype(array_dtype(
+                    self.ds, k)), pin_memory=self.cuda) for k in self.names}
+        return self._staging[slot]
+
+    def bind_wave(self, segs):
+        """Build one wave on the host and start its copy to the device:
+        ``(device tensors by array name, the wave's step record)``."""
+        t0 = _time.perf_counter()
+        slot = len(self._steps) % 2
+        bufs = self._host_buffers(slot)
+        for k, b in bufs.items():
+            build_wave_array(self.ds, k, segs, b.numpy())
+        step = {"segments": int(len(segs)),
+                "h2d_bytes": int(sum(b.nbytes for b in bufs.values()))}
+        if self.cuda:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            with torch.cuda.stream(self.copy_stream):
+                arrays = {k: torch.empty_like(b, device=self.device)
+                          for k, b in bufs.items()}
+                # the events span the copies only, not the allocation
+                ev[0].record()
+                for k, b in bufs.items():
+                    arrays[k].copy_(b, non_blocking=True)
+                ev[1].record()
+            self._copied[slot] = step["_copy"] = ev[1]
+            step["_copy_start"] = ev[0]
+        else:
+            arrays = bufs
+        step["bind_ms"] = (_time.perf_counter() - t0) * 1e3
+        PH.add("bind", step["bind_ms"] / 1e3)
+        self._steps.append(step)
+        return arrays, step
+
+    def _launch(self, prog, wave):
+        arrays, step = wave
+        if not self.cuda:
+            return prog(arrays)
+        cs = torch.cuda.current_stream(self.device)
+        cs.wait_event(step["_copy"])
+        for a in arrays.values():
+            a.record_stream(cs)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record(cs)
+        out = prog(arrays)
+        ev[1].record(cs)
+        step["_compute"] = ev
+        return out
+
+    def tier_prefetch(self, wave_segs, i):
+        """Enqueue wave ``i``'s cold-tier chunks so they load behind the
+        current wave's compute (the JAX engine's ``_tier_prefetch``). A
+        no-op on in-memory datasources, every datasource of the port until
+        the tiered store (ROADMAP A.9), and past the last wave."""
+        pf = getattr(self.ds, "tier_prefetch", None)
+        if pf is not None and i < len(wave_segs):
+            pf(self.names, wave_segs[i])
+
+    def stream(self, prog, wave_segs):
+        """Yield each wave's outputs of ``prog`` in wave order. Wave i is
+        launched, then wave i+1 bound (its host build and its copy
+        overlap wave i's compute), then wave i's outputs yielded: the
+        caller's copy of them to the host is the loop's sync point."""
+        self.tier_prefetch(wave_segs, 1)
+        cur = self.bind_wave(wave_segs[0])
+        for i in range(len(wave_segs)):
+            t0 = _time.perf_counter()
+            out = self._launch(prog, cur)
+            self.tier_prefetch(wave_segs, i + 2)
+            b0 = _time.perf_counter()
+            cur = self.bind_wave(wave_segs[i + 1]) \
+                if i + 1 < len(wave_segs) else None
+            bind_s = _time.perf_counter() - b0
+            try:
+                yield out
+            finally:
+                # the bind above charged its own phase
+                PH.add("dispatch", _time.perf_counter() - t0 - bind_s)
+
+    def steps(self) -> List[dict]:
+        """Per wave: segments, host bind ms, bytes copied and, on cuda,
+        ``h2d_ms`` and ``compute_ms`` (None where the wave was not
+        launched); waits for the events it reads."""
+        out = []
+        for st in self._steps:
+            d = {k: v for k, v in st.items() if not k.startswith("_")}
+            if self.cuda:
+                st["_copy"].synchronize()
+                d["h2d_ms"] = st["_copy_start"].elapsed_time(st["_copy"])
+                ev = st.get("_compute")
+                if ev:
+                    ev[1].synchronize()
+                d["compute_ms"] = ev[0].elapsed_time(ev[1]) if ev else None
+            out.append(d)
+        return out
+
+
+def _torch_dtype(np_dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, np_dtype)).dtype
 
 
 def _decode_agg_value(ds, p, r, v) -> np.ndarray:

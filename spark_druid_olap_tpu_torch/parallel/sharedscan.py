@@ -1,8 +1,8 @@
 """Shared-scan multi-query execution: coalesce concurrent eligible queries
 over one datasource into ONE fused wave.
 
-Port of ``spark_druid_olap_tpu/parallel/sharedscan.py`` as a single-device,
-single-wave slice. A BI-dashboard storm is K small concurrent queries over
+Port of ``spark_druid_olap_tpu/parallel/sharedscan.py`` on a single
+device. A BI-dashboard storm is K small concurrent queries over
 the same columns; executed solo, they pay K reads of those columns and K
 launches. Here:
 
@@ -13,10 +13,15 @@ launches. Here:
 - At close, the leader plans every member against the union segment
   selection, binds the COLUMN UNION of the group once (through the
   engine's device-array cache), runs one fused program and demultiplexes
-  the per-query results.
+  the per-query results. A union over the per-device wave budget
+  (``sdot.engine.wave.max.bytes``) runs as waves of segments instead:
+  one uncached bind and one program dispatch per wave, the next wave's
+  copy in flight while the current one computes, each lane's finals
+  merged across the waves on the host.
 - The fused program is one launch of the wave kernel (``ops/cuda_wave.py``,
-  ``csrc/wave.cu``) when the group is wave-eligible, with the sketches the
-  kernel's theta stripe does not hold in its epilogue; otherwise (the
+  ``csrc/wave.cu``) per wave when the group is wave-eligible, with the
+  sketches the kernel's theta stripe does not hold in its epilogue;
+  otherwise (the
   kernel switched off, a lane outside the fused group-by tier, a lane
   program the kernel does not run) the group stays fused and runs lane by
   lane through ``ops/groupby.dense_groupby`` and the sketch register ops
@@ -32,11 +37,9 @@ after planning (a kernel build, launch or CUDA error, or a bug) is
 delivered to every member that rides the group instead of degrading them
 to solo runs, so a failing kernel can never hide behind the solo path.
 
-Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
-item where the JAX engine would take it): mesh-sharded waves (A.8),
-multi-wave dispatch — a column union over ``sdot.engine.device.cache.bytes``
-(A.5) — and the WLM hand-off and result cache (A.9). The port has no query
-cancellation or timeout yet, so members are not re-checked while held.
+Not ported yet: mesh-sharded waves (A.8), and the WLM hand-off and
+result cache (A.9). The port has no query cancellation or timeout yet, so
+members are not re-checked while held.
 """
 
 from __future__ import annotations
@@ -305,7 +308,11 @@ class SharedScanCoalescer:
         lane_idx = {s: i for i, s in enumerate(sigs)}
 
         union_cols, union_names = self._union(ds, lanes)
-        n_rows = len(seg_u) * ds.padded_rows
+        spw, n_waves = eng._plan_waves(
+            ds, union_names, seg_u, max(lp.n_keys for lp in lanes),
+            sum(len(lp.agg_plans) for lp in lanes))
+        # the rows of one launch: every wave is padded to spw segments
+        n_rows = spw * ds.padded_rows
 
         # 5. fusion planning is advisory: an error lowers the unfused way
         fplan = None
@@ -363,9 +370,9 @@ class SharedScanCoalescer:
         prog_fn, wave_info = eng._cached_program(sig, _build)
         t_dispatch = _time.perf_counter()
 
-        # 8. dispatch once; 9. demultiplex
-        per_lane_finals = self._dispatch(ds, union_names, seg_u, prog_fn,
-                                         lanes)
+        # 8. dispatch once per wave; 9. demultiplex
+        per_lane_finals, wave_steps = self._dispatch(
+            ds, union_names, seg_u, spw, n_waves, prog_fn, lanes)
         t_demux = _time.perf_counter()
         results = [self._decode_lane(eng, ds, lp, fin)
                    for lp, fin in zip(lanes, per_lane_finals)]
@@ -380,11 +387,11 @@ class SharedScanCoalescer:
         solo_bytes = sum(_bind_bytes(ds, lp.names, len(lp.seg))
                          for _, lp in planned)
         saved_bytes = max(0, solo_bytes - bind_bytes)
-        saved_disp = len(planned) - 1
+        saved_disp = (len(planned) - 1) * n_waves
         with self._lock:
             self.groups_coalesced += 1
             if wave_info is not None:
-                self.wave_launches += 1
+                self.wave_launches += n_waves
                 self.wave_smem_peak = max(self.wave_smem_peak,
                                           wave_info["smem_bytes"])
             self.queries_coalesced += len(planned)
@@ -406,7 +413,8 @@ class SharedScanCoalescer:
                 "datasource": ds.name, "segments": int(len(lp.seg)),
                 "rows_scanned": int(ds.num_rows),
                 "groups": int(np.count_nonzero(fin["__rows__"] > 0)),
-                "waves": 1, "bytes_scanned": int(bind_bytes),
+                "waves": int(n_waves), "segments_per_wave": int(spw),
+                "bytes_scanned": int(bind_bytes),
                 "route": "wave" if wave_info is not None else "lanes",
                 "sharedscan": {
                     "group": g.gid, "queries": len(planned),
@@ -418,8 +426,10 @@ class SharedScanCoalescer:
                     "dispatches_saved": saved_disp,
                     "fusion": (fplan.counters()
                                if fplan is not None else None),
-                    "wave": dict(wave_info, launches=1)
+                    "wave": dict(wave_info, launches=n_waves)
                     if wave_info is not None else None}}
+            if wave_steps is not None:
+                m.stats["wave_steps"] = wave_steps
             m.outcome = results[li]
 
     def _plan_members(self, ds, qs):
@@ -596,22 +606,36 @@ class SharedScanCoalescer:
             scratch_bytes=scratch, log2m=cfg.get(HLL_LOG2M),
             kll_lanes=cfg.get(QUANTILE_LANES))
 
-    def _dispatch(self, ds, union_names, seg_u, prog_fn,
+    def _dispatch(self, ds, union_names, seg_u, spw, n_waves, prog_fn,
                   lanes: List[_LanePlan]):
-        """One shared bind and ONE program dispatch (the single-wave
-        branch of the JAX package's ``_dispatch``); per-lane finals. A
-        union over the device budget needs multi-wave dispatch, which
-        ``_bind_arrays`` refuses (ROADMAP A.5)."""
+        """One shared bind and ONE program dispatch per wave (the JAX
+        package's ``_dispatch``; double-buffered like the engine's
+        ``_run_waves``); per-lane finals merged across the waves. Returns
+        ``(per-lane finals, the waves' steps or None in one wave)``."""
         from spark_druid_olap_tpu_torch.parallel import executor as X
-        dev = self.engine._bind_arrays(ds, union_names, seg_u)
-        outs = prog_fn(dev)
-        # every lane's outputs in one device-to-host copy
-        host = X._to_host({(i, k): v for i, out in enumerate(outs)
-                           for k, v in out.items()})
-        return [X._finals_from_out(
-            {k: v for (j, k), v in host.items() if j == i}, lp.routes,
-            lp.n_keys, [p for p in lp.agg_plans if p.kind in SKETCH_KINDS])
-            for i, lp in enumerate(lanes)]
+        sketch = [[p for p in lp.agg_plans if p.kind in SKETCH_KINDS]
+                  for lp in lanes]
+
+        def lane_finals(outs):
+            # every lane's outputs in one device-to-host copy
+            host = X._to_host({(i, k): v for i, out in enumerate(outs)
+                               for k, v in out.items()})
+            return [X._finals_from_out(
+                {k: v for (j, k), v in host.items() if j == i}, lp.routes,
+                lp.n_keys, sketch[i]) for i, lp in enumerate(lanes)]
+
+        if n_waves == 1:
+            return lane_finals(prog_fn(self.engine._bind_arrays(
+                ds, union_names, seg_u))), None
+        binder = X._WaveBinder(ds, union_names, spw, self.engine.device)
+        finals = None
+        for outs in binder.stream(prog_fn, FU.plan_device_waves(seg_u, spw,
+                                                                1)):
+            f = lane_finals(outs)
+            finals = f if finals is None else [
+                X._merge_wave_finals(a, b, lp.routes, sketch[i])
+                for i, (a, b, lp) in enumerate(zip(finals, f, lanes))]
+        return finals, binder.steps()
 
     @staticmethod
     def _decode_lane(eng, ds, lp: _LanePlan, finals) -> QueryResult:

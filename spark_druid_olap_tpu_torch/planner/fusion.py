@@ -2,11 +2,10 @@
 
 Port of ``spark_druid_olap_tpu/planner/fusion.py`` (``canon_key``,
 ``interval_key``, ``FusionPlan``, ``plan_lanes``, ``analyze_query``,
-``CSECache``), torch-free and bound to the port's ``ops/filters.py``. Its
-``plan_wave_tiles`` (a TPU VMEM and f32-exactness tile planner) has no
-counterpart: the port's wave kernel accumulates in int64 / float64 and
-sizes its shared memory in ``ops/cuda_wave.py``. ``plan_device_waves``
-(multi-wave, mesh-balanced binding) waits with ROADMAP A.5.
+``plan_device_waves``, ``CSECache``), torch-free and bound to the port's
+``ops/filters.py``. Its ``plan_wave_tiles`` (a TPU VMEM and f32-exactness
+tile planner) has no counterpart: the port's wave kernel accumulates in
+int64 / float64 and sizes its shared memory in ``ops/cuda_wave.py``.
 
 Two halves that must agree:
 
@@ -227,6 +226,44 @@ def analyze_query(filter_spec: Optional[S.FilterSpec], intervals,
     for af in agg_filters:
         _walk(af, seen, totals)
     return totals[0], len(seen)
+
+
+def plan_device_waves(seg_idx, spw: int, n_dev: int,
+                      seg_rows=None) -> list:
+    """Partition a segment selection into dispatch waves of ``spw``
+    slots and, within each wave, order the segments so the mesh's
+    contiguous per-device blocks (``spw / n_dev`` slots each) carry
+    balanced ROW loads: greedy LPT over per-segment valid-row counts
+    (``seg_rows``: segment id -> valid rows; None keeps the original
+    order). Correctness-neutral: each wave holds the same segment set and
+    the merge is grouping-invariant. On one device (``n_dev`` 1) it is
+    the plain split. The JAX package's ``plan_device_waves``, verbatim.
+
+    Returns the list of per-wave segment-id arrays (the last one possibly
+    short: the bind pads it to ``spw``)."""
+    import numpy as _np
+    seg_idx = _np.asarray(seg_idx)
+    waves = [seg_idx[i: i + spw] for i in range(0, len(seg_idx), spw)]
+    if n_dev <= 1 or seg_rows is None:
+        return waves
+    per_dev = max(1, spw // max(1, n_dev))
+    out = []
+    for w in waves:
+        rows = _np.array([int(seg_rows.get(int(s), 0)) for s in w],
+                         dtype=_np.int64)
+        order = _np.argsort(-rows, kind="stable")
+        buckets: list = [[] for _ in range(n_dev)]
+        loads = _np.zeros(n_dev, dtype=_np.int64)
+        for j in order:
+            free = [d for d in range(n_dev) if len(buckets[d]) < per_dev]
+            if not free:
+                free = list(range(n_dev))
+            d = min(free, key=lambda k: (int(loads[k]), k))
+            buckets[d].append(int(w[j]))
+            loads[d] += int(rows[j])
+        out.append(_np.array([s for b in buckets for s in b],
+                             dtype=w.dtype))
+    return out
 
 
 class CSECache:

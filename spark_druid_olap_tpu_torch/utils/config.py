@@ -161,7 +161,19 @@ DEVICE_CACHE_BYTES = _entry(
     "sdot.engine.device.cache.bytes", 8 << 30,
     "Budget for device-resident bound column arrays (host-side bytes "
     "tracked per upload). When a new binding would exceed it the whole "
-    "array cache is dropped and rebuilt on demand.")
+    "array cache is dropped before the upload and rebuilt on demand, so "
+    "residency peaks at the budget plus one array; a scan is never "
+    "refused for it. How much one scan binds at once is "
+    "sdot.engine.wave.max.bytes.")
+WAVE_MAX_BYTES = _entry(
+    "sdot.engine.wave.max.bytes", 0,
+    "Per-device byte budget for one execution wave's scan arrays; a scan "
+    "whose bound arrays exceed it runs in multiple bounded waves over the "
+    "segment axis. 0 = auto: on a cuda device 30% of its memory, so that "
+    "two waves in flight plus the bind cache fit (the JAX package takes "
+    "60% of its device's HBM limit); unbounded on the CPU, as there. "
+    "Reference analog: the cost model's segments-per-query limit "
+    "bounding per-historical work (DruidQueryCostModel.scala:343-414).")
 TOPN_DEVICE_MIN_KEYS = _entry(
     "sdot.engine.topn.device.min.keys", 8192,
     "Min fused key cardinality before an ordered-limit group-by / topN "

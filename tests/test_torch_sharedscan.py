@@ -437,7 +437,19 @@ def test_pattern_filter_member_rides_the_wave(sales):
 
 
 def test_union_over_the_device_budget_is_not_ported(sales):
+    """A column union over ``sdot.engine.device.cache.bytes`` is no longer
+    refused: the key caps the bind cache, not a scan, so the group binds
+    in one wave (the cache dropped first) and answers as the JAX solo
+    engine does under the same setting."""
     ctx = sales.storm_ctx(**{"sdot.engine.device.cache.bytes": 1024})
-    _, errs = run_concurrent(ctx.execute, sales_batch(TS)[:2])
-    assert all(isinstance(e, NotImplementedError) and "A.5" in str(e)
-               for e in errs), errs
+    jsolo = JQueryEngine(sales.jstore, config=JConfig({
+        "sdot.sharedscan.enabled": False, "sdot.wlm.enabled": False,
+        "sdot.engine.device.cache.bytes": 1024}))
+    specs = sales_batch(TS)[:2]
+    got, errs = run_concurrent(ctx.execute, specs)
+    assert not any(errs), errs
+    for g, q in zip(got, sales_batch(JS)[:2]):
+        assert_frames_match(g, jsolo.execute(q).to_pandas())
+    st = ctx.engine.sharedscan.stats()
+    assert st["queries_coalesced"] == 2 and st["wave_launches"] == 1, st
+    assert len(ctx.engine._device_arrays) == 1

@@ -402,8 +402,6 @@ REFUSED = [
     ("full", "ON DATASOURCE sales EXECUTE QUERY '{\"queryType\": "
              "\"timeseries\", \"aggregations\": [{\"type\": \"count\", "
              "\"name\": \"c\"}]}'", "A.9"),
-    # bound columns above the device budget: multi-wave binding
-    ("full", "select flag, sum(qty) as s from sales group by flag", "A.5"),
     # a multi-host partial store: select and search exchange rows
     ("full", "select ts, region, qty from sales where region = 'north' "
              "limit 20", "A.8"),
@@ -412,17 +410,12 @@ REFUSED = [
 ]
 
 
-def _tiny_device_budget(tctx, monkeypatch):
-    monkeypatch.setitem(tctx.config._values,
-                        "sdot.engine.device.cache.bytes", 1)
-
-
 def _partial_store(tctx, monkeypatch):
     monkeypatch.setattr(tctx.store.get("sales"), "is_partial", True)
 
 
 # what a refusal needs on the port's side (the JAX engine answers as is)
-REFUSED_SETUP = {"A.5": _tiny_device_budget, "A.8": _partial_store}
+REFUSED_SETUP = {"A.8": _partial_store}
 
 
 @pytest.mark.parametrize("where,sql,item", REFUSED)
@@ -437,8 +430,8 @@ def test_port_refuses_what_it_has_not_ported(flat_pair, full_pair, where,
 
 
 # what earlier slices refused (device HAVING, A.4; the select path behind
-# q2, q16, q20 and a raw select, A.5; the sketches, A.3), now answered as
-# the JAX engine does
+# q2, q16, q20 and a raw select, A.5; the sketches, A.3; bound columns over
+# sdot.engine.device.cache.bytes, A.5), now answered as the JAX engine does
 ANSWERED = [
     ("full", "select approx_count_distinct(product) as np from sales"),
     ("full", "select region, approx_count_distinct_theta(product) as d "
@@ -450,12 +443,30 @@ ANSWERED = [
     ("full", jtpch.QUERIES["q20"]),
     ("full", "select ts, region, qty from sales where region = 'east' "
              "limit 50"),
+    # bound columns above the device cache's cap: the cache is dropped and
+    # the scan binds in one wave
+    ("full", "select flag, sum(qty) as s from sales group by flag"),
 ]
 
 
+def _tiny_device_budget(pair, monkeypatch):
+    for c in pair:
+        monkeypatch.setitem(c.config._values,
+                            "sdot.engine.device.cache.bytes", 1)
+
+
+# what an answer needs on both sides
+ANSWERED_SETUP = {
+    "select flag, sum(qty) as s from sales group by flag":
+        _tiny_device_budget}
+
+
 @pytest.mark.parametrize("where,sql", ANSWERED)
-def test_port_answers_what_it_refused(flat_pair, full_pair, where, sql):
+def test_port_answers_what_it_refused(flat_pair, full_pair, where, sql,
+                                      monkeypatch):
     pair = flat_pair if where == "flat" else full_pair
+    if sql in ANSWERED_SETUP:
+        ANSWERED_SETUP[sql](pair, monkeypatch)
     got, want, tmode, jmode = _both(pair, sql)
     assert tmode == jmode
     stats = [c.history.entries()[-1].stats for c in pair]
