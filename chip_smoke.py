@@ -32,7 +32,19 @@ the register ops), its registers against the plain version and its
 estimates against pandas, then four sketch statements coalesced into one
 wave launch whose theta stripe runs inside the kernel (held against the
 plain version bit for bit) and whose HLL, KLL and wide theta run in the
-epilogue, their answers equal to the solo answers. Its last phase,
+epilogue, their answers equal to the solo answers. Phases ``join`` and
+``window`` (inside ``sql``, over the whole star) run four joins on the
+broadcast tier (orders x customer with a residual and a build-side group,
+partsupp x supplier, and orders x customer again in 3 or more probe
+waves) against pandas and the host tier, and three windowed statements
+(ranks over a group-by of 10,000 suppliers, a moving sum and a lag, a
+bounded min / max frame and a row number over ~370,000 orders) against
+pandas. Phase ``ingest`` reports the native string encoder: which columns
+it encoded, pyarrow's version, and orders ingested with and without it.
+Phase ``spatial`` ingests lineitem with a spatial dimension and runs a
+statement whose two ranges collapse into one spatial filter (B1), the
+same filter as one lane of a storm (B2), and bounding-box pruning on a
+synthetic table against its unpruned answer. Its last phase,
 ``waves``, generates TPC-H SF5 lineitem (~30M rows; cut from SF10, whose
 run passed 1,000 s) and runs Q1, the sketch statement, revenue by part on
 the hashed tier, a HAVING with an ordered LIMIT and the storm under a wave
@@ -1519,6 +1531,10 @@ def sql_phase(sdt, tables, lineitem_ds, CG, CW, smi):
         raise AssertionError(f"census: statements refused: {refused}")
     hashed.update(hashed_full(ctx, tables, census))
     tail.update(tail_full(ctx, tables, nr, census))
+    # the broadcast join and window tiers over the whole star
+    extra = {"join": join_phase(sdt, ctx, tables, CG),
+             "window": window_phase(ctx, tables),
+             "flat_ingest_s": t_ingest, "base_tables_ingest_s": t_base}
     sketch = sketch_phase(ctx, tables, CG, CW)
     emit("sql", card=smi, sf=SF, flat_rows=rows, flat_columns=flat_cols,
          flatten_s=t_flat, ingest_s=t_ingest, base_tables_ingest_s=t_base,
@@ -1535,7 +1551,7 @@ def sql_phase(sdt, tables, lineitem_ds, CG, CW, smi):
               "warm run; kernels: each B1 call of a statement's cold run "
               "and the storm's B2 launch, kernel vs plain version on the "
               "same inputs, times as in phase timing")
-    return b1, b2, kernels, hashed, tail, sketch
+    return b1, b2, kernels, hashed, tail, sketch, extra
 
 
 # -- the wide-key aggregation path (phase "hashed") --------------------------
@@ -2892,6 +2908,535 @@ def waves_phase(sdt, S, E, CG, CW, smi, sf=WAVES_SF, device="cuda",
     return out
 
 
+# -- the native encoder at ingest (phase "ingest") -----------------------------
+
+def native_state() -> dict:
+    """Whether the native string encoder built and loaded, and pyarrow's
+    version. Where pyarrow and g++ are both present the encoder must load:
+    a build failure may not hide behind the numpy path."""
+    import shutil
+    from spark_druid_olap_tpu_torch.segment import native
+    mod = native.load()
+    pa = native.pyarrow_version()
+    gxx = shutil.which("g++")
+    if mod is None and pa is not None and gxx is not None:
+        raise AssertionError("ingest: pyarrow and g++ are present but the "
+                             "native encoder did not build or load")
+    return {"native_loaded": mod is not None, "pyarrow": pa,
+            "gxx": gxx is not None}
+
+
+def encoder_spy():
+    """Wrap the native encoder's entry point: the columns it encoded and
+    the columns it declined (which then take the numpy path), by name."""
+    from spark_druid_olap_tpu_torch.segment import native
+    real = native.encode_strings
+    took = {"native": [], "numpy": []}
+
+    def spy(raw):
+        out = real(raw)
+        took["numpy" if out is None else "native"].append(
+            getattr(raw, "name", None))
+        return out
+    native.encode_strings = spy
+    return took
+
+
+def native_columns(state, took, where) -> dict:
+    """The columns each encoder path took since ``took`` was last
+    cleared; with the encoder loaded, a string column on the numpy path
+    fails the run (TPC-H has no NULL strings, the one reason to take
+    it)."""
+    cols = {k: list(v) for k, v in took.items()}
+    if state["native_loaded"] and cols["numpy"]:
+        raise AssertionError(f"ingest ({where}): string columns took the "
+                             f"numpy path: {cols['numpy']}")
+    for v in took.values():
+        v.clear()
+    return cols
+
+
+def native_pair(sdt, df, name, time_column, target_rows):
+    """One table ingested with the native encoder and without it, in this
+    run: seconds of each, and the two datasources equal column by
+    column. Returns the summary and the datasource the encoder built."""
+    from spark_druid_olap_tpu_torch.segment import native
+    from spark_druid_olap_tpu_torch.segment.ingest import ingest_dataframe
+    t0 = time.perf_counter()
+    fast = ingest_dataframe(name, df, time_column=time_column,
+                            target_rows=target_rows)
+    t_fast = time.perf_counter() - t0
+    # without the encoder: what a machine without g++ or pyarrow runs
+    # (sequential numpy encoding, no thread pool)
+    load, encode = native.load, native.encode_strings
+    native.load, native.encode_strings = (lambda: None), (lambda raw: None)
+    try:
+        t0 = time.perf_counter()
+        slow = ingest_dataframe(name, df, time_column=time_column,
+                                target_rows=target_rows)
+        t_slow = time.perf_counter() - t0
+    finally:
+        native.load, native.encode_strings = load, encode
+    for k, d in fast.dims.items():
+        s = slow.dims[k]
+        if not (np.array_equal(np.asarray(d.dictionary, dtype=object),
+                               np.asarray(s.dictionary, dtype=object))
+                and d.codes.dtype == s.codes.dtype
+                and np.array_equal(d.codes, s.codes)):
+            raise AssertionError(f"ingest {name}.{k}: the native and numpy "
+                                 f"paths differ")
+    return {"table": name, "rows": len(df), "string_columns": len(fast.dims),
+            "native_s": t_fast, "numpy_s": t_slow,
+            "speedup": t_slow / max(t_fast, 1e-9)}, fast
+
+
+# -- the spatial filter (phase "spatial") --------------------------------------
+
+SPATIAL_DIMS = {"qty_price": ("l_quantity", "l_extendedprice")}
+SPATIAL_SQL = ("select l_returnflag, count(*) as n, sum(l_extendedprice) "
+               "as s, min(l_discount) as d from lineitem "
+               "where l_quantity >= 10 and l_quantity <= 30 "
+               "and l_extendedprice >= 15000 and l_extendedprice <= 25000 "
+               "group by l_returnflag")
+PRUNE_ROWS = 1 << 22
+PRUNE_SEGMENT_ROWS = 1 << 19
+PRUNE_SQL = ("select city, count(*) as c, sum(fare) as f from trips "
+             "where lat >= 10 and lat <= 20 and lon >= -50 and lon <= 40 "
+             "group by city")
+
+
+def spied_b1(CG, calls):
+    """Wrap the B1 wrapper: each call's inputs go to ``calls``; returns
+    the undo."""
+    real = CG.dense_groupby_kernel
+
+    def spy(key, n_keys, inputs, max_keys, *a, **k):
+        calls.append((key, n_keys, list(inputs), max_keys))
+        return real(key, n_keys, inputs, max_keys, *a, **k)
+    CG.dense_groupby_kernel = spy
+    return lambda: setattr(CG, "dense_groupby_kernel", real)
+
+
+def spied_sql_b1(ctx, sql, CG):
+    """One statement with B1's launch count zeroed just before it and read
+    just after: (frame, stats, launches, the B1 calls, host ms)."""
+    calls = []
+    undo = spied_b1(CG, calls)
+    try:
+        CG.launches = 0
+        t = time.perf_counter()
+        got = ctx.sql(sql).to_pandas()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        launched = CG.launches
+    finally:
+        undo()
+    return got, ctx.history.entries()[-1].stats, launched, calls, ms
+
+
+def spatial_points(n, rng):
+    """Points whose latitude grows with time, so time-contiguous segments
+    have boxes that differ (``tests/test_spatial.py``'s frame, scaled)."""
+    import pandas as pd
+    return pd.DataFrame({
+        "ts": pd.date_range("2020-01-01", periods=n, freq="s"),
+        "lat": np.sort(rng.uniform(-60, 60, n)) + rng.normal(0, 0.5, n),
+        "lon": rng.uniform(-170, 170, n),
+        "city": rng.choice(["ny", "sf", "la", "chi"], n),
+        "fare": np.round(rng.uniform(3, 80, n), 2)})
+
+
+def spatial_phase(sdt, df, S, E, CG, CW) -> dict:
+    """Phase ``spatial``: SF1 lineitem ingested with ``SPATIAL_DIMS``; a
+    statement whose two ranges collapse into one ``SpatialFilter`` (B1)
+    against pandas; the same filter as one lane of a three-lane storm (one
+    B2 launch) against its solo answer; and pruning by bounding box on a
+    synthetic table whose segments' boxes differ: segments pruned, the
+    answer equal to the unpruned one and to pandas."""
+    from spark_druid_olap_tpu_torch.planner import builder as B
+    from spark_druid_olap_tpu_torch.sql.parser import parse_select
+    t_phase = time.perf_counter()
+    sp = sdt.Context()
+    t0 = time.perf_counter()
+    ds = sp.ingest_dataframe("lineitem", df, time_column="l_shipdate",
+                             spatial_dims=SPATIAL_DIMS)
+    t_ingest = time.perf_counter() - t0
+    f = B.build(sp, parse_select(SPATIAL_SQL)).specs[0].filter
+    if not isinstance(f, S.SpatialFilter) \
+            or f.axes != SPATIAL_DIMS["qty_price"]:
+        raise AssertionError(f"spatial: the ranges did not collapse: {f}")
+    got, st, launched, calls, cold_ms = spied_sql_b1(sp, SPATIAL_SQL, CG)
+    if st["mode"] != "engine" or launched < 1 or len(got) < 2:
+        raise AssertionError(f"spatial: mode {st['mode']!r}, {launched} "
+                             f"B1 launches")
+    m = df.l_quantity.between(10, 30) \
+        & df.l_extendedprice.astype(np.float32).between(15000, 25000)
+    want = df[m].groupby("l_returnflag").agg(
+        n=("l_quantity", "size"), s=("l_extendedprice", "sum"),
+        d=("l_discount", "min")).reset_index()
+    want["d"] = want["d"].astype(np.float32).astype(np.float64)
+    check_frame("spatial vs pandas", got, want, ["l_returnflag"],
+                FLOAT_SUM_RTOL_ORACLE)
+    warm = [timed_sql(sp, SPATIAL_SQL)[0] for _ in range(REPEATS)]
+
+    # the filter as one lane of a storm: one B2 launch
+    storm = sdt.Context(STORM_CONFIG)
+    storm.store.register(ds)
+    lane = S.GroupByQuerySpec(
+        "lineitem", dimensions=(S.DimensionSpec("l_returnflag",
+                                                "l_returnflag"),),
+        aggregations=(S.AggregationSpec("count", "n"),
+                      S.AggregationSpec("doublesum", "s",
+                                        field="l_extendedprice")),
+        filter=f)
+    specs = [lane, q1_spec(S, E), q6_spec(S, E)]
+    solo = [sp.execute(q).to_pandas() for q in specs]
+    waves, real_wave = [], CW.wave_groupby
+
+    def wave_spy(program, layout, columns):
+        waves.append((program, layout, [c.reshape(-1) for c in columns]))
+        return real_wave(program, layout, columns)
+    st0 = storm.engine.sharedscan.stats()
+    CW.wave_groupby = wave_spy
+    try:
+        CW.launches = 0
+        CG.launches = 0
+        res, storm_ms, _ = run_storm(storm, specs)
+        torch.cuda.synchronize()
+        b2, storm_b1 = CW.launches, CG.launches
+    finally:
+        CW.wave_groupby = real_wave
+    st1 = storm.engine.sharedscan.stats()
+    coalesced = st1["queries_coalesced"] - st0["queries_coalesced"]
+    if b2 != 1 or coalesced != len(specs) or len(waves) != 1:
+        raise AssertionError(f"spatial storm: {coalesced} coalesced, {b2} "
+                             f"wave launches, reasons "
+                             f"{st1['wave_fallback_reasons']}")
+    for i, (g, w) in enumerate(zip(res, solo)):
+        check_frame(f"spatial storm lane {i} vs solo", g, w, None,
+                    FLOAT_SUM_RTOL_KERNEL)
+
+    # pruning by bounding box on a table whose segments' boxes differ
+    pts = spatial_points(PRUNE_ROWS, np.random.default_rng(SEED))
+    pc = sdt.Context()
+    pds = pc.ingest_dataframe("trips", pts, time_column="ts",
+                              target_rows=PRUNE_SEGMENT_ROWS,
+                              spatial_dims={"pickup": ("lat", "lon")})
+    pf = B.build(pc, parse_select(PRUNE_SQL)).specs[0].filter
+    kept = pds.prune_segments(None, pf)
+    pruned, pst, p_launched, p_calls, p_cold = spied_sql_b1(pc, PRUNE_SQL,
+                                                            CG)
+    if not 0 < len(kept) < pds.num_segments \
+            or pst["segments"] != len(kept) or p_launched < 1:
+        raise AssertionError(f"spatial pruning: kept {len(kept)} of "
+                             f"{pds.num_segments}, statement scanned "
+                             f"{pst['segments']}, {p_launched} launches")
+    p_warm = [timed_sql(pc, PRUNE_SQL)[0] for _ in range(REPEATS)]
+    pds._filter_keep_mask = lambda _f: np.ones(pds.num_segments, dtype=bool)
+    try:
+        full, fst, f_launched, f_calls, _ = spied_sql_b1(pc, PRUNE_SQL, CG)
+        u_warm = [timed_sql(pc, PRUNE_SQL)[0] for _ in range(REPEATS)]
+    finally:
+        del pds._filter_keep_mask
+    if fst["segments"] != pds.num_segments:
+        raise AssertionError("spatial pruning: the unpruned run pruned")
+    check_frame("spatial pruned vs unpruned", pruned, full, ["city"],
+                FLOAT_SUM_RTOL_KERNEL)
+    box = pts.lat.between(10, 20) & pts.lon.between(-50, 40)
+    check_frame("spatial pruned vs pandas", pruned,
+                pts[box].groupby("city").agg(
+                    c=("fare", "size"), f=("fare", "sum")).reset_index(),
+                ["city"], FLOAT_SUM_RTOL_ORACLE)
+    return {
+        "lineitem_ingest_s": t_ingest, "filter": {
+            "axes": list(f.axes), "min": list(f.min_coords),
+            "max": list(f.max_coords)},
+        "statement": {"cold_ms": cold_ms,
+                      "warm_median_ms": statistics.median(warm),
+                      "segments": st["segments"], "groups": len(got),
+                      "dense_groupby_launches": launched},
+        "storm": {"lanes": len(specs), "queries_coalesced": coalesced,
+                  "wave_launches": b2, "dense_groupby_launches": storm_b1,
+                  "wall_ms": storm_ms},
+        "pruning": {"rows": PRUNE_ROWS, "segments": pds.num_segments,
+                    "kept": int(len(kept)),
+                    "pruned_cold_ms": p_cold,
+                    "pruned_warm_median_ms": statistics.median(p_warm),
+                    "unpruned_warm_median_ms": statistics.median(u_warm),
+                    "dense_groupby_launches": p_launched + f_launched},
+        "b1_launches": launched + p_launched + f_launched,
+        "b2_launches": b2,
+        "b1": b1_checked(CG, "spatial", calls + p_calls + f_calls),
+        "b2": wave_timed(CW, "spatial storm", *waves[0]),
+        "seconds": time.perf_counter() - t_phase}
+
+
+# -- the broadcast join tier (phase "join") ------------------------------------
+
+JOIN_SQL = {
+    "J1": ("select o_orderpriority, count(*) as c from orders o join "
+           "customer c on o.o_custkey = c.c_custkey "
+           "group by o_orderpriority"),
+    # a residual and a build-side group; the probe filter is on
+    # o_orderstatus: a range on o_orderdate (the time column) makes the JAX
+    # package's recognizer decline, and the statement runs on its host tier
+    "J2": ("select c_mktsegment, count(*) as n, sum(o_totalprice) as s, "
+           "max(c_acctbal) as m from orders o join customer c "
+           "on o.o_custkey = c.c_custkey "
+           "and o.o_totalprice > c.c_acctbal * 20 "
+           "where o.o_orderstatus = 'F' group by c_mktsegment"),
+    # the residual keeps it off the partsupp star: without one, both
+    # packages collapse partsupp x supplier onto partsupp_flat
+    "J3": ("select s_nationkey, sum(ps_supplycost * ps_availqty) as v, "
+           "count(*) as n from partsupp ps join supplier s "
+           "on ps.ps_suppkey = s.s_suppkey "
+           "and ps.ps_supplycost < s.s_acctbal group by s_nationkey"),
+}
+# J4: J1 over orders ingested again in smaller segments, under a wave
+# budget that holds a JOIN_WAVES_MIN-th of their probe arrays
+JOIN_SQL["J4"] = JOIN_SQL["J1"].replace("from orders o", "from orders_w o")
+JOIN_WAVE_SEGMENT_ROWS = 1 << 18
+JOIN_WAVES_MIN = 3
+
+
+def _f32(s):
+    """A float column as the store holds it (float32), read as float64."""
+    return s.astype(np.float32).astype(np.float64)
+
+
+def join_oracles(t) -> dict:
+    o, c = t["orders"], t["customer"]
+    oc = o.merge(c, left_on="o_custkey", right_on="c_custkey")
+    j1 = oc.groupby("o_orderpriority").size().rename("c").reset_index()
+    keep = (_f32(oc.o_totalprice) > _f32(oc.c_acctbal) * 20) \
+        & (oc.o_orderstatus == "F")
+    j2 = oc[keep].groupby("c_mktsegment").agg(
+        n=("o_orderkey", "size"), s=("o_totalprice", "sum"),
+        m=("c_acctbal", "max")).reset_index()
+    j2["m"] = _f32(j2["m"])
+    ps = t["partsupp"].merge(t["supplier"], left_on="ps_suppkey",
+                             right_on="s_suppkey")
+    ps = ps[_f32(ps.ps_supplycost) < _f32(ps.s_acctbal)]
+    ps["v"] = _f32(ps.ps_supplycost) * ps.ps_availqty
+    j3 = ps.groupby("s_nationkey").agg(v=("v", "sum"),
+                                       n=("v", "size")).reset_index()
+    return {"J1": j1, "J2": j2, "J3": j3, "J4": j1}
+
+
+class Stopwatch:
+    """Stream ms of the calls it wraps: CUDA events recorded before and
+    after each call on a cuda device, host wall clock on the CPU (a
+    rehearsal). The span between two events also holds the gaps while the
+    host queues the call's work, so it bounds the call's device time from
+    above."""
+
+    def __init__(self):
+        self.spans = []
+
+    def wrap(self, module, name):
+        real = getattr(module, name)
+
+        def timed(*a, **k):
+            if torch.cuda.is_available():
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                out = real(*a, **k)
+                ev[1].record()
+                self.spans.append(ev)
+            else:
+                t = time.perf_counter()
+                out = real(*a, **k)
+                self.spans.append((time.perf_counter() - t) * 1e3)
+            return out
+        setattr(module, name, timed)
+        return lambda: setattr(module, name, real)
+
+    def ms(self) -> float:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        return sum(s if isinstance(s, float) else s[0].elapsed_time(s[1])
+                   for s in self.spans)
+
+
+def timed_steps(ctx, sql, parts) -> dict:
+    """One warm run of ``sql`` with each ``(module, function)`` of
+    ``parts`` timed: the stream ms of each (an upper bound on its device
+    time), summed over its calls."""
+    watches, undo = {}, []
+    for label, (mod, fn) in parts.items():
+        watches[label] = Stopwatch()
+        undo.append(watches[label].wrap(mod, fn))
+    try:
+        ctx.sql(sql).to_pandas()
+    finally:
+        for u in undo:
+            u()
+    return {label: w.ms() for label, w in watches.items()}
+
+
+def join_phase(sdt, ctx, tables, CG) -> dict:
+    """Phase ``join``: J1-J4 on the broadcast tier over the SF1 star. Each
+    against pandas and against the same statement on the host tier
+    (``sdot.join.enabled`` false); cold and warm ms, ``last_stats["join"]``,
+    the probe / expand and group-by stream ms. J4 is J1 over orders in
+    smaller segments, under a wave budget that gives its probe at least
+    ``JOIN_WAVES_MIN`` waves, equal to J1. That orders ingest is also the
+    native encoder's on / off comparison; the encoder's datasource is the
+    one registered."""
+    from spark_druid_olap_tpu_torch.ops import groupby as G
+    from spark_druid_olap_tpu_torch.ops import hash_join as HJ
+    from spark_druid_olap_tpu_torch.ops.scan import array_names
+    from spark_druid_olap_tpu_torch.parallel import cost as C
+    t_phase = time.perf_counter()
+    encoder, ow = native_pair(sdt, tables["orders"], "orders_w",
+                              "o_orderdate", JOIN_WAVE_SEGMENT_ROWS)
+    ctx.store.register(ow)
+    budget = max(1, ow.num_segments // JOIN_WAVES_MIN) * C.bytes_per_segment(
+        ow, array_names(ow, ["o_custkey", "o_orderpriority"], False))
+    oracles = join_oracles(tables)
+    out, calls, answers = {}, [], {}
+    b1 = 0
+    for name, sql in JOIN_SQL.items():
+        if name == "J4":
+            ctx.config.set("sdot.engine.wave.max.bytes", budget)
+        try:
+            got, st, launched, c, cold_ms = spied_sql_b1(ctx, sql, CG)
+            js = dict(st.get("join") or {})
+            if st["mode"] != "engine" or js.get("mode") != "broadcast" \
+                    or launched < 1:
+                raise AssertionError(f"join {name}: mode {st['mode']!r}, "
+                                     f"join {js}, {launched} B1 launches")
+            keys = [c_ for c_ in got.columns if got[c_].dtype.kind != "f"]
+            check_frame(f"join {name} vs pandas", got, oracles[name], keys,
+                        FLOAT_SUM_RTOL_ORACLE)
+            warm = [timed_sql(ctx, sql)[0] for _ in range(REPEATS)]
+            steps = timed_steps(ctx, sql, {
+                "canonical_key_ms": (HJ, "canonical_key"),
+                "probe_ms": (HJ, "probe"), "expand_ms": (HJ, "expand"),
+                "groupby_ms": (G, "dense_groupby")})
+            ctx.config.set("sdot.join.enabled", False)
+            try:
+                t = time.perf_counter()
+                host = ctx.sql(sql).to_pandas()
+                host_ms = (time.perf_counter() - t) * 1e3
+                host_mode = ctx.history.entries()[-1].stats["mode"]
+            finally:
+                ctx.config.set("sdot.join.enabled", True)
+            if not host_mode.startswith("host"):
+                raise AssertionError(f"join {name}: tier off ran {host_mode}")
+            check_frame(f"join {name} vs host tier", got, host, keys,
+                        FLOAT_SUM_RTOL_ORACLE)
+        finally:
+            ctx.config.set("sdot.engine.wave.max.bytes", 0)
+        if name == "J4":
+            if js["waves"] < JOIN_WAVES_MIN:
+                raise AssertionError(f"join J4: {js['waves']} waves")
+            check_frame("join J4 vs J1", got, answers["J1"], keys, 0.0)
+        answers[name] = got
+        b1 += launched
+        calls += c
+        js.pop("build_ledger", None)
+        out[name] = dict(cold_ms=cold_ms, warm_median_ms=statistics.median(
+            warm), warm_min_ms=min(warm), host_tier_ms=host_ms,
+            join=js, groups=len(got), dense_groupby_launches=launched,
+            stream_ms=steps)
+    return {"statements": out, "encoder": encoder, "b1_launches": b1,
+            "b1": b1_checked(CG, "join", calls),
+            "seconds": time.perf_counter() - t_phase}
+
+
+# -- the window tier (phase "window") ------------------------------------------
+
+WINDOW_REV = "sum(l_extendedprice * (1 - l_discount))"
+WINDOW_SQL = {
+    "W1": (f"select l_suppkey, {WINDOW_REV} as rev, rank() over "
+           f"(order by {WINDOW_REV} desc) as r, dense_rank() over "
+           f"(order by {WINDOW_REV} desc) as dr from lineitem "
+           f"group by l_suppkey"),
+    # o_orderkey breaks ties of o_orderdate: the moving frames are
+    # order-dependent, so a unique order keeps the pandas reference exact
+    "W2": ("select o_orderkey, o_custkey, o_orderdate, o_totalprice, "
+           "sum(o_totalprice) over (partition by o_custkey order by "
+           "o_orderdate, o_orderkey rows between 2 preceding and current "
+           "row) as mv, lag(o_totalprice, 1) over (partition by o_custkey "
+           "order by o_orderdate, o_orderkey) as prev from orders "
+           "where o_orderdate >= date '1997-01-01'"),
+    "W3": ("select o_orderkey, o_custkey, min(o_totalprice) over "
+           "(partition by o_custkey order by o_orderdate, o_orderkey rows "
+           "between 2 preceding and 1 following) as mn, max(o_totalprice) "
+           "over (partition by o_custkey order by o_orderdate, o_orderkey "
+           "rows between 2 preceding and 1 following) as mx, row_number() "
+           "over (partition by o_custkey order by o_orderdate, o_orderkey) "
+           "as rn from orders where o_orderdate >= date '1997-01-01'"),
+}
+
+
+def window_oracles(t) -> dict:
+    """pandas references: W1's revenue per supplier (its ranks are checked
+    against the statement's own revenue column, see ``window_phase``);
+    W2 / W3 over the same orders, frames by grouped shifts."""
+    import pandas as pd
+    li = t["lineitem"]
+    rev = (_f32(li.l_extendedprice) * (1 - _f32(li.l_discount))) \
+        .groupby(li.l_suppkey).sum().rename("rev").reset_index()
+    o = t["orders"]
+    o = o[o.o_orderdate >= pd.Timestamp("1997-01-01")].sort_values(
+        ["o_custkey", "o_orderdate", "o_orderkey"], kind="mergesort")
+    o = o[["o_orderkey", "o_custkey", "o_totalprice"]].reset_index(drop=True)
+    o["o_totalprice"] = _f32(o.o_totalprice)
+    g = o.groupby("o_custkey")["o_totalprice"]
+    w2 = o.copy()
+    w2["mv"] = g.rolling(3, min_periods=1).sum().reset_index(
+        level=0, drop=True)
+    w2["prev"] = g.shift(1)
+    w3 = o[["o_orderkey", "o_custkey"]].copy()
+    lanes = [g.shift(k) for k in (-1, 0, 1, 2)]
+    w3["mn"] = pd.concat(lanes, axis=1).min(axis=1)
+    w3["mx"] = pd.concat(lanes, axis=1).max(axis=1)
+    w3["rn"] = o.groupby("o_custkey").cumcount() + 1
+    return {"W1": rev, "W2": w2.drop(columns="o_custkey"), "W3": w3}
+
+
+def window_phase(ctx, tables) -> dict:
+    """Phase ``window``: W1-W3 through ``Context.sql`` (mode
+    ``engine+window``) against pandas; cold and warm ms; the stream ms of
+    each window function (rank, offset, framed aggregate) in one warm
+    run."""
+    from spark_druid_olap_tpu_torch.window import exec as WX
+    t_phase = time.perf_counter()
+    oracles = window_oracles(tables)
+    out = {}
+    for name, sql in WINDOW_SQL.items():
+        cold_ms, st = timed_sql(ctx, sql)
+        got = ctx.sql(sql).to_pandas()
+        if st["mode"] != "engine+window":
+            raise AssertionError(f"window {name}: mode {st['mode']!r}")
+        if name == "W1":
+            check_frame("window W1 rev vs pandas", got[["l_suppkey", "rev"]],
+                        oracles["W1"], ["l_suppkey"], FLOAT_SUM_RTOL_ORACLE)
+            # ranks are a function of the statement's own revenue: float
+            # sums within rtol may order near-equal suppliers either way
+            r = got["rev"].rank(method="min", ascending=False)
+            dr = got["rev"].rank(method="dense", ascending=False)
+            if not (np.array_equal(got["r"], r.astype(np.int64))
+                    and np.array_equal(got["dr"], dr.astype(np.int64))):
+                raise AssertionError("window W1: ranks differ from pandas")
+        else:
+            check_frame(f"window {name} vs pandas", got, oracles[name],
+                        ["o_orderkey"], FLOAT_SUM_RTOL_ORACLE)
+        warm = [timed_sql(ctx, sql)[0] for _ in range(REPEATS)]
+        out[name] = dict(
+            cold_ms=cold_ms, warm_median_ms=statistics.median(warm),
+            warm_min_ms=min(warm), rows=len(got),
+            fns=st["window"]["fns"],
+            stream_ms=timed_steps(ctx, sql, {
+                "rank_ms": (WX, "_rank_kernel"),
+                "offset_ms": (WX, "_offset_kernel"),
+                "agg_ms": (WX, "_agg_kernel")}),
+            window_ms=st["window"]["window_ms"])
+    return {"statements": out, "seconds": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -2954,7 +3499,14 @@ def main() -> int:
          tolerance="ints/counts/min/max exact; float sums rtol 1e-9; NaN "
                    "in the same groups; two launches bit-identical")
 
-    # 4. the main path at SF1
+    # 4. the main path at SF1; every ingest from here on encodes its
+    # string columns with the native encoder where it loaded
+    encoder = native_state()
+    say(f"native encoder: loaded {encoder['native_loaded']}, pyarrow "
+        f"{encoder['pyarrow']}" + ("" if encoder["native_loaded"] else
+                                   " (the numpy path: a host fast path "
+                                   "is missing, not a device one)"))
+    took = encoder_spy()
     t0 = time.perf_counter()
     tables = generate(SF, seed=SEED)
     df = tables["lineitem"]
@@ -2963,12 +3515,41 @@ def main() -> int:
     t0 = time.perf_counter()
     ctx.ingest_dataframe("lineitem", df, time_column="l_shipdate")
     t_ingest = time.perf_counter() - t0
-    emit("ingest", sf=SF, rows=len(df), generate_s=t_gen, ingest_s=t_ingest,
-         segments=ctx.store.get("lineitem").num_segments)
 
     # 4a. the SQL front end over the flattened star
-    sql_b1, sql_b2, sql_k, hashed, tail, sketch = sql_phase(
+    sql_b1, sql_b2, sql_k, hashed, tail, sketch, extra = sql_phase(
         sdt, tables, ctx.store.get("lineitem"), CG, CW, smi)
+    join, window = extra["join"], extra["window"]
+    emit("ingest", card=smi, sf=SF, rows=len(df), generate_s=t_gen,
+         ingest_s=t_ingest, segments=ctx.store.get("lineitem").num_segments,
+         flat_ingest_s=extra["flat_ingest_s"],
+         base_tables_ingest_s=extra["base_tables_ingest_s"],
+         **encoder, columns=native_columns(encoder, took, "sql"),
+         on_off=join["encoder"],
+         note="seconds: host wall clock; on_off: orders ingested in this "
+              "run with the native encoder and without it (the numpy "
+              "path), equal dictionaries and codes")
+    emit("join", card=smi, **{k: v for k, v in join.items()
+                              if k != "encoder"},
+         oracle="pandas on the generator's tables (floats as stored, "
+                "float32: ints exact, float sums rtol 1e-6); the same "
+                "statement on the host tier (sdot.join.enabled false); J4 "
+                "(>= 3 probe waves) equal to J1 exactly; each B1 call vs "
+                "its plain version (b1)",
+         note="ms: host wall clock to the frame, warm = median of 7; "
+              "stream_ms: one warm run, CUDA events around each call of "
+              "the step, summed over its calls (stream ms: an upper bound "
+              "on device time, since the span also holds the host's "
+              "queueing gaps)")
+    emit("window", card=smi, **window,
+         oracle="pandas on the generator's tables: W1's revenue rtol 1e-6 "
+                "and its ranks exactly as pandas ranks the statement's own "
+                "revenue; W2 / W3 exact but the moving sum (rtol 1e-6)",
+         note="ms: host wall clock to the frame, warm = median of 7; "
+              "stream_ms: one warm run, CUDA events around each window "
+              "function, summed over its calls (stream ms: an upper bound "
+              "on device time, since the span also holds the host's "
+              "queueing gaps)")
     emit("tail", card=smi, **tail,
          oracle="q2 / q16 / q18 / q20, q18's inner group-by, the select "
                 "and the search vs pandas (ints exact, floats rtol 1e-6); "
@@ -3237,6 +3818,15 @@ def main() -> int:
               "synthetic rows, how many show the kernel, at points along "
               "the run")
 
+    # 6b. the spatial filter over SF1 lineitem (B1, one B2 lane, pruning)
+    spatial = spatial_phase(sdt, df, S, E, CG, CW)
+    emit("spatial", card=smi, **spatial,
+         oracle="pandas on the same frame (ints exact, floats rtol 1e-6); "
+                "the storm lane vs its solo answer and the pruned vs the "
+                "unpruned answer (floats rtol 1e-9); each B1 call and the "
+                "B2 launch vs their plain versions (b1, b2)",
+         note="ms: host wall clock to the frame, warm = median of 7")
+
     # 7. multi-wave binding at WAVES_SF, after the SF1 state leaves host
     # and card
     del ctx, storm, ds, df, tables, captured, program, layout, scols, got
@@ -3244,7 +3834,9 @@ def main() -> int:
     import gc
     gc.collect()
     torch.cuda.empty_cache()
+    native_columns(encoder, took, "spatial")
     waves = waves_phase(sdt, S, E, CG, CW, smi)
+    waves["encoder_columns"] = native_columns(encoder, took, "waves")
     emit("waves", **waves,
          oracle="each statement multi-wave vs the same statement in one "
                 "wave (ints, counts, min/max and sketch registers exact; "
@@ -3264,27 +3856,32 @@ def main() -> int:
     # shapes the main path gave it (Q1, Q6, wide, the SQL statements and
     # the waves for B1; the QuerySpec, SQL and wave storms for B2)
     for k in list(sql_k["dense_groupby"].values()) \
-            + list(tail["kernels"].values()) + [sketch["b1"], waves["b1"]]:
+            + list(tail["kernels"].values()) \
+            + [sketch["b1"], waves["b1"], spatial["b1"], join["b1"]]:
         worst = max(worst, k["max_abs_err"])
         for f in ("ms", "plain_ms", "bound_ms", "library_ms"):
             total[f] += k[f]
         bound_by.update(c["bound_by"] for c in k["calls"])
     sw, kw, ww = sql_k["wave"]["storm"], sketch["wave"], waves["b2"]
+    pw = spatial["b2"]
     w_worst = max(w_worst, sw["max_abs_err"], kw["max_abs_err"],
-                  ww["max_abs_err"])
+                  ww["max_abs_err"], pw["max_abs_err"])
     w_bound_by = {wave_timing["bound_by"], sw["bound_by"], kw["bound_by"],
-                  *ww["bound_by"]}
+                  *ww["bound_by"], pw["bound_by"]}
     say(json.dumps({"kernels": [{
         "name": "dense_groupby", "route": "cuda",
         "source": "spark_druid_olap_tpu_torch/csrc/dense_groupby.cu",
         "replaces": "spark_druid_olap_tpu/ops/pallas_groupby.py:205",
         "launches": l1 + l6 + lw + sql_b1 + tail["b1_launches"]
-        + sketch["b1_launches"] + waves["launches"]["dense_groupby"],
+        + sketch["b1_launches"] + waves["launches"]["dense_groupby"]
+        + spatial["b1_launches"] + join["b1_launches"],
         "max_abs_err": worst,
         "b1_checked": dict({n: len(k["calls"])
                             for n, k in tail["kernels"].items()},
                            sketch_solo=len(sketch["b1"]["calls"]),
-                           waves=len(waves["b1"]["calls"])),
+                           waves=len(waves["b1"]["calls"]),
+                           spatial=len(spatial["b1"]["calls"]),
+                           join=len(join["b1"]["calls"])),
         "ms": total["ms"], "plain_ms": total["plain_ms"],
         "bound_ms": total["bound_ms"],
         "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
@@ -3293,14 +3890,14 @@ def main() -> int:
         "source": "spark_druid_olap_tpu_torch/csrc/wave.cu",
         "replaces": "spark_druid_olap_tpu/ops/pallas_wave.py:371",
         "launches": storm_launches + sql_b2 + sketch["b2_launches"]
-        + waves["launches"]["wave"],
+        + waves["launches"]["wave"] + spatial["b2_launches"],
         "max_abs_err": w_worst,
-        "ms": wk_ms + sw["ms"] + kw["ms"] + ww["ms"],
+        "ms": wk_ms + sw["ms"] + kw["ms"] + ww["ms"] + pw["ms"],
         "plain_ms": wp_ms + sw["plain_ms"] + kw["plain_ms"]
-        + ww["plain_ms"],
+        + ww["plain_ms"] + pw["plain_ms"],
         "bound_ms": wave_timing["bound_ms"] + sw["bound_ms"]
-        + kw["bound_ms"] + ww["bound_ms"],
-        "b2_checked": {"waves": ww["calls"]},
+        + kw["bound_ms"] + ww["bound_ms"] + pw["bound_ms"],
+        "b2_checked": {"waves": ww["calls"], "spatial": 1},
         "bound_by": "bytes" if w_bound_by == {"bytes"} else "operations",
         "library_ms": None,
         # the launch with the in-kernel theta stripe (phase sketch)

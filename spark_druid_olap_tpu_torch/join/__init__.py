@@ -1,0 +1,19 @@
+"""General (non-star) join execution tiers.
+
+Port of ``spark_druid_olap_tpu/join/__init__.py``. The star joins collapse
+in ``planner/builder.py``; every other recognized two-table join runs here,
+above ``ops/hash_join.py``:
+
+- :mod:`spark_druid_olap_tpu_torch.join.broadcast`: broadcast hash join.
+  The build side fits ``sdot.join.broadcast.max.bytes``; its hash table is
+  built once on the host, moved to the device, and probed inside the
+  engine's segment wave loop.
+
+The partitioned tier (``join/partitioned.py``, a broker re-sharding both
+sides through the historicals) needs the cluster and waits for it (ROADMAP
+A.9). ``planner/joinplan.py`` recognizes join statements, picks the tier
+through ``parallel/cost.py:join_estimate``, and applies the shared
+epilogue.
+"""
+
+from spark_druid_olap_tpu_torch.ops.hash_join import JoinUnsupported  # noqa: F401

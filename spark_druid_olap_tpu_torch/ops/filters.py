@@ -47,8 +47,7 @@ def lower_filter(f: Optional[S.FilterSpec], ctx: ScanContext):
     if isinstance(f, S.PatternFilter):
         return _pattern(f, ctx)
     if isinstance(f, S.SpatialFilter):
-        raise NotImplementedError(
-            "SpatialFilter not ported yet (ROADMAP A.1)")
+        return _spatial(f, ctx)
     raise EC.Unsupported(f"filter {type(f).__name__}")
 
 
@@ -203,6 +202,25 @@ def _pattern(f: S.PatternFilter, ctx):
         raise EC.Unsupported(f"pattern kind {f.kind}") from None
     return _nullsafe(EC.take_mask(mask, ctx.col(f.dimension)), f.dimension,
                      ctx)
+
+
+def _spatial(f: S.SpatialFilter, ctx):
+    """Rectangular bound over the spatial dim's axis columns: per-axis
+    inclusive range compares (the row-mask half; segment bounding-box
+    pruning happens on the host in ``Datasource.prune_segments``)."""
+    out = None
+    for ax, lo, hi in zip(f.axes, f.min_coords, f.max_coords):
+        arr = ctx.col(ax)
+        m = None
+        if lo is not None and np.isfinite(lo):
+            m = arr >= lo
+        if hi is not None and np.isfinite(hi):
+            m2 = arr <= hi
+            m = m2 if m is None else (m & m2)
+        if m is not None:
+            m = _nullsafe(m, ax, ctx)
+            out = m if out is None else (out & m)
+    return out if out is not None else ctx.row_valid()
 
 
 def _logical(f: S.LogicalFilter, ctx):

@@ -5,7 +5,8 @@ that the executor's gates read: ``unit_cost``, the filter-selectivity
 estimate (``_filter_selectivity`` with ``_bound_overlap_fraction`` and
 ``_pattern_fraction``), ``bytes_per_segment`` and the wave plan
 (``wave_budget_bytes``, ``tier_io_budget``, ``tier_io_seg_bytes``,
-``plan_waves``). The rest of that cost model (single vs sharded,
+``plan_waves``) and the join tier's pricing (``JoinEstimate``,
+``join_estimate``). The rest of that cost model (single vs sharded,
 explain's cost table) is ROADMAP A.9.
 
 A unit cost is the configured value when the key is set explicitly;
@@ -36,6 +37,7 @@ otherwise the measured table of the engine's device type.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import re
 from collections import OrderedDict
@@ -433,3 +435,49 @@ def _device_ms(fn, reps: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return sorted(times)[len(times) // 2]
+
+
+# -- general join tier pricing (planner/joinplan.py) ---------------------------
+
+@dataclasses.dataclass
+class JoinEstimate:
+    """Tier placement for one recognized join (the JAX package's
+    ``JoinEstimate`` without its cost fields: with no cluster the port
+    never prices the partitioned tier against the broadcast one, ROADMAP
+    A.9).
+
+    ``build_bytes`` / ``probe_bytes`` are host-row upper bounds over the
+    columns the join touches; ``shuffle_bytes`` is the partition exchange
+    the partitioned tier would make (both sides cross the wire twice)."""
+    mode: str                  # 'broadcast' | 'partitioned' | 'host'
+    probe_bytes: int
+    build_bytes: int
+    shuffle_bytes: int
+    reason: str
+
+
+def join_side_bytes(ds, cols) -> int:
+    """Upper-bound host bytes of one join side restricted to ``cols``."""
+    return int(ds.num_rows) * int(sum(array_itemsize(ds, c) for c in cols))
+
+
+def join_estimate(config, *, probe_ds, build_ds, probe_cols,
+                  build_cols) -> JoinEstimate:
+    """Pick the join tier (the JAX package's ``join_estimate`` with no
+    cluster attached). ``sdot.join.mode`` forces a tier; in auto mode the
+    broadcast byte cap decides between broadcast and the host fallback."""
+    from spark_druid_olap_tpu_torch.utils.config import (
+        JOIN_BROADCAST_MAX_BYTES, JOIN_MODE)
+    build_bytes = join_side_bytes(build_ds, build_cols)
+    probe_bytes = join_side_bytes(probe_ds, probe_cols)
+    cap = int(config.get(JOIN_BROADCAST_MAX_BYTES))
+    shuffle = 2 * (probe_bytes + build_bytes)
+    forced = str(config.get(JOIN_MODE)).lower()
+    if forced in ("broadcast", "partitioned", "host"):
+        return JoinEstimate(forced, probe_bytes, build_bytes, shuffle,
+                            "forced by sdot.join.mode")
+    if build_bytes <= cap:
+        return JoinEstimate("broadcast", probe_bytes, build_bytes, shuffle,
+                            f"build fits cap ({build_bytes:,} <= {cap:,})")
+    return JoinEstimate("host", probe_bytes, build_bytes, shuffle,
+                        "build exceeds broadcast cap; no cluster")

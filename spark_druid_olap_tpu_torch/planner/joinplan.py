@@ -1,15 +1,13 @@
-"""General-join recognition (the ``join/`` planner's recognizer).
+"""General-join recognition, tier choice and the shared epilogue.
 
-Port of ``spark_druid_olap_tpu/planner/joinplan.py``: the pure recognizer
-:func:`try_plan` and its :class:`JoinPlan` are copies. The device join
-tiers it hands a plan to (``join/broadcast.py``, ``join/partitioned.py``)
-are not ported yet (ROADMAP A.7), so :func:`try_execute` makes the JAX
-package's placement decision and then refuses: where the JAX engine would
-run a recognized join on its device tier, the port raises
-``NotImplementedError`` instead of answering on the host tier; where the
-JAX engine declines (kill switch off, not recognized, build side over the
-broadcast cap with no cluster), the port declines the same way and the
-statement falls through to the composite and host tiers, as there.
+Port of ``spark_druid_olap_tpu/planner/joinplan.py``: the recognizer
+:func:`try_plan` and its :class:`JoinPlan` are copies; :func:`try_execute`
+prices the plan with ``parallel/cost.join_estimate``, orients the smaller
+side as build, runs the broadcast tier (``join/broadcast.py``) and applies
+:func:`_epilogue`. The partitioned tier needs a cluster (ROADMAP A.9): the
+port's contexts have none, so the estimate places a join there only when
+``sdot.join.mode`` forces it, and then it runs broadcast, as the JAX
+package does when no cluster is attached.
 
 Column attribution: the alias-scoping pass has already rewritten
 duplicate self-join legs into rename projections (``__sj<i>_<col>``),
@@ -25,20 +23,14 @@ import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import pandas as pd
 
 from spark_druid_olap_tpu_torch.ir import expr as E
+from spark_druid_olap_tpu_torch.ops.hash_join import JoinUnsupported
 from spark_druid_olap_tpu_torch.sql import ast as A
-from spark_druid_olap_tpu_torch.utils.config import (
-    JOIN_BROADCAST_MAX_BYTES,
-    JOIN_ENABLED,
-    JOIN_MODE,
-)
+from spark_druid_olap_tpu_torch.utils import phases as PH
+from spark_druid_olap_tpu_torch.utils.config import JOIN_ENABLED
 
-
-class JoinUnsupported(Exception):
-    """A recognized join the device tiers decline (the caller falls
-    through to the composite and host tiers). The JAX package defines it
-    in ``ops/hash_join.py``."""
 
 _AGG_FNS = ("count", "sum", "min", "max", "avg")
 
@@ -348,41 +340,68 @@ def try_plan(ctx, stmt: A.SelectStmt) -> Optional[JoinPlan]:
 
 
 # =============================================================================
-# execution (placement decision only)
+# execution + shared epilogue
 # =============================================================================
 
-def _side_bytes(ds, cols) -> int:
-    """Upper-bound host bytes of one join side restricted to ``cols``
-    (``parallel/cost.py:join_side_bytes``)."""
-    from spark_druid_olap_tpu_torch.ops.scan import array_dtype
-    return int(ds.num_rows) * int(sum(np.dtype(array_dtype(ds, c)).itemsize
-                                      for c in cols))
-
-
-def _placement(conf, plan: JoinPlan, store):
-    """The JAX cost model's tier choice for ``plan`` on a store with no
-    cluster attached (``parallel/cost.py:join_estimate``): ``(mode,
-    reason)`` with mode ``broadcast`` or ``host``."""
-    forced = str(conf.get(JOIN_MODE)).lower()
-    if forced in ("broadcast", "partitioned", "host"):
-        return forced, "forced by sdot.join.mode"
-    build_ds = store.get(plan.build.ds)
-    build_bytes = _side_bytes(build_ds, sorted(plan.build_cols()))
-    cap = int(conf.get(JOIN_BROADCAST_MAX_BYTES))
-    if build_bytes <= cap:
-        return "broadcast", "no cluster"
-    return "host", "build exceeds broadcast cap; no cluster"
+def _epilogue(plan: JoinPlan, data: Dict[str, np.ndarray]) -> pd.DataFrame:
+    """Grouped data (query / output names) -> final frame: projection in
+    item order, HAVING, ORDER BY, LIMIT."""
+    from spark_druid_olap_tpu_torch.utils import host_eval
+    env = dict(data)
+    cols: List[Tuple[str, str]] = []        # (title, env key)
+    agg_i = 0
+    for i, item in enumerate(plan.items):
+        if isinstance(item.expr, E.Column):
+            title = item.alias or item.expr.name
+            cols.append((title, item.expr.name))
+        else:
+            out = plan.aggs[agg_i].out
+            agg_i += 1
+            title = item.alias or out
+            cols.append((title, out))
+    for title, key in cols:
+        env.setdefault(title, env[key])
+    if plan.having is not None:
+        if any(c not in env for c in E.columns_in(plan.having)):
+            raise JoinUnsupported("HAVING references a non-output column")
+        mask = host_eval.eval_pred3(plan.having, env)
+        env = {k: np.asarray(v)[mask] for k, v in env.items()}
+    df = pd.DataFrame({title: env[key] for title, key in cols})
+    if plan.order_by:
+        by, asc = [], []
+        for oi in plan.order_by:
+            if not isinstance(oi.expr, E.Column) \
+                    or oi.expr.name not in env:
+                raise JoinUnsupported(
+                    "ORDER BY references a non-output column")
+            name = oi.expr.name
+            title = next((t for t, k in cols
+                          if t == name or k == name), None)
+            if title is None:
+                raise JoinUnsupported(
+                    "ORDER BY references a non-projected column")
+            by.append(title)
+            asc.append(bool(oi.ascending))
+        df = df.sort_values(by, ascending=asc, kind="mergesort") \
+            .reset_index(drop=True)
+    if plan.limit is not None:
+        df = df.head(int(plan.limit)).reset_index(drop=True)
+    return df
 
 
 _RECOGNIZE = object()   # default: recognize internally via try_plan
 
 
-def try_execute(ctx, stmt: A.SelectStmt, plan=_RECOGNIZE):
+def try_execute(ctx, stmt: A.SelectStmt,
+                plan=_RECOGNIZE) -> Optional[pd.DataFrame]:
     """Session hook: None = not recognized (the host tier takes over);
-    :class:`JoinUnsupported` when recognized but placed on the host, as
-    the JAX cost model places it. A join the JAX engine would run on its
-    device join tier raises ``NotImplementedError`` (ROADMAP A.7)."""
+    raises :class:`JoinUnsupported` when recognized but undeliverable
+    (same outcome for the caller). On success the join stats land in
+    ``ctx.engine.last_stats['join']``. The session's planning memo passes
+    its cached :func:`try_plan` outcome via ``plan``; the kill switch,
+    the cost arbitration and the execution stay live on every call."""
     conf = ctx.config
+    # a previous statement's join stats must never survive into this one
     ctx.engine.last_stats.pop("join", None)
     if not bool(conf.get(JOIN_ENABLED)):
         return None
@@ -390,9 +409,53 @@ def try_execute(ctx, stmt: A.SelectStmt, plan=_RECOGNIZE):
         plan = try_plan(ctx, stmt)
     if plan is None:
         return None
-    mode, reason = _placement(conf, plan, ctx.store)
-    if mode == "host":
-        raise JoinUnsupported(reason)
-    raise NotImplementedError(
-        f"{mode} device join of {plan.probe.ds!r} with {plan.build.ds!r} "
-        f"not ported yet (ROADMAP A.7)")
+    # the join tier bypasses engine.execute, which clears last_stats per
+    # statement: clear here, or the previous statement's stats leak
+    ctx.engine.last_stats.clear()
+    from spark_druid_olap_tpu_torch.join import broadcast as JB
+    from spark_druid_olap_tpu_torch.parallel import cost as C
+    from spark_druid_olap_tpu_torch.parallel.executor import not_ported
+
+    store = ctx.store
+    probe_ds = store.get(plan.probe.ds)
+    build_ds = store.get(plan.build.ds)
+    est = C.join_estimate(
+        conf, probe_ds=probe_ds, build_ds=build_ds,
+        probe_cols=sorted(plan.probe_cols()),
+        build_cols=sorted(plan.build_cols()))
+    if est.mode == "host":
+        raise JoinUnsupported(est.reason)
+    if est.mode == "partitioned" and getattr(ctx, "cluster", None) \
+            is not None:
+        raise not_ported("partitioned device join", "A.9")
+    # a partitioned estimate with no cluster (only ``sdot.join.mode``
+    # forces one) runs broadcast, as the JAX package's tier falls back
+    # when its exchange finds no cluster attached
+
+    # orient the smaller side as build (the estimate is orientation-
+    # symmetric in bytes; swap before executing, not inside the tier)
+    if est.mode == "broadcast" and est.probe_bytes < est.build_bytes:
+        sw = plan.swapped()
+        sw_est = C.join_estimate(
+            conf, probe_ds=build_ds, build_ds=probe_ds,
+            probe_cols=sorted(sw.probe_cols()),
+            build_cols=sorted(sw.build_cols()))
+        if sw_est.mode == "broadcast":
+            plan, est = sw, sw_est
+
+    try:
+        data, js = JB.execute_broadcast(ctx, plan)
+    except JoinUnsupported:
+        sw = plan.swapped()
+        data, js = JB.execute_broadcast(ctx, sw)
+        plan = sw
+    js["estimate"] = {
+        "mode": est.mode, "reason": est.reason,
+        "build_bytes": est.build_bytes, "probe_bytes": est.probe_bytes,
+        "shuffle_bytes": est.shuffle_bytes,
+    }
+    js.setdefault("shuffle_bytes", 0)
+    with PH.phase("epilogue"):
+        df = _epilogue(plan, data)
+    ctx.engine.last_stats["join"] = js
+    return df

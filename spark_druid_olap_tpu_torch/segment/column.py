@@ -35,6 +35,8 @@ from typing import Optional
 import numpy as np
 import pandas as pd
 
+from spark_druid_olap_tpu_torch.segment import native
+
 
 class ColumnKind(enum.Enum):
     DIM = "dimension"          # dictionary-encoded string
@@ -225,11 +227,19 @@ def build_dim_column(name: str, raw: np.ndarray,
 
     When ``dictionary`` is given (the datasource-global dictionary built at
     ingest), codes are looked up against it; otherwise a fresh sorted
-    dictionary is built from this chunk by ``pandas.factorize(sort=True)``,
-    which yields the same sorted dictionary and codes as ``np.unique`` in
-    one hashing pass (the JAX package's native C++ encoder,
-    ``segment/native.py``, is not ported).
+    dictionary is built from this chunk: by the native C++ encoder
+    (``segment/native.py``) when it loaded and the column has no nulls,
+    else by ``pandas.factorize(sort=True)``, which yields the same sorted
+    dictionary and codes as ``np.unique`` in one hashing pass.
     """
+    if dictionary is None:
+        fast = native.encode_strings(raw)
+        if fast is not None:
+            d, codes = fast
+            codes = codes.astype(
+                narrow_int_dtype(0, max(len(d) - 1, 0)), copy=False)
+            return DimColumn(name=name, dictionary=d, codes=codes,
+                             validity=None)
     raw = np.asarray(raw, dtype=object)
     # pandas-style null detection: None, float nan, or pd.NA
     validity = ~pd.isna(raw)

@@ -1,8 +1,8 @@
 """Batch ingest: pandas DataFrame -> time-sharded columnar segments.
 
-Port of ``spark_druid_olap_tpu/segment/ingest.py`` (``ingest_dataframe``,
-numpy/pandas path; no native encoder, no encoding hints, no multi-host
-partial ingest).
+Port of ``spark_druid_olap_tpu/segment/ingest.py`` (``ingest_dataframe``
+with its native encoder pool and spatial dimensions; no encoding hints, no
+multi-host partial ingest).
 
 Pipeline: parse time column to UTC epoch millis -> stable-sort by time ->
 build *global sorted dictionaries* per string dimension -> slice the sorted
@@ -12,6 +12,7 @@ time bounds for pruning) -> encode columns.
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 from typing import Dict, Iterable, Optional
 
 import numpy as np
@@ -27,6 +28,7 @@ from spark_druid_olap_tpu_torch.segment.column import (
     encode_time_millis,
     narrow_int_dtype,
 )
+from spark_druid_olap_tpu_torch.segment import native
 from spark_druid_olap_tpu_torch.segment.store import Datasource, Segment
 
 
@@ -62,12 +64,19 @@ def ingest_dataframe(
     metrics: Optional[Iterable[str]] = None,
     target_rows: int = 1 << 20,
     metric_kinds: Optional[Dict[str, ColumnKind]] = None,
+    spatial_dims: Optional[Dict[str, Iterable[str]]] = None,
     drop_columns: Optional[Iterable[str]] = None,
 ) -> Datasource:
     """Ingest a DataFrame as a datasource.
 
     ``dimensions``/``metrics`` override column-kind inference (a numeric
     column listed in ``dimensions`` is dictionary-encoded as a string dim).
+
+    ``spatial_dims`` declares spatial dimensions: name -> numeric axis
+    columns (e.g. ``{"pickup": ["pickup_lat", "pickup_lon"]}``), Druid's
+    ingest-time spatialDimensions. Axis columns stay queryable as plain
+    metrics; conjunctive range predicates on them collapse into one
+    rectangular ``SpatialFilter`` with segment bounding-box pruning.
     """
     df = df.reset_index(drop=True)
     n = len(df)
@@ -120,11 +129,17 @@ def ingest_dataframe(
         return build_metric_column(col, series.to_numpy(), kind)
 
     drop = set(drop_columns or ())
+    columns = [c for c in df.columns
+               if c not in drop
+               and not (time_column is not None and c == time_column)]
+    # the native encoder releases the GIL, so columns encode in parallel
+    if native.load() is not None and len(columns) > 1:
+        with cf.ThreadPoolExecutor(max_workers=min(8, len(columns))) as ex:
+            results = list(ex.map(encode_one, columns))
+    else:
+        results = [encode_one(c) for c in columns]
     dims, mets = {}, {}
-    for col in df.columns:
-        if col in drop or (time_column is not None and col == time_column):
-            continue
-        built = encode_one(col)
+    for col, built in zip(columns, results):
         if isinstance(built, DimColumn):
             dims[col] = built
         else:
@@ -143,5 +158,15 @@ def ingest_dataframe(
                 min_millis=int(millis[s:e].min()),
                 max_millis=int(millis[s:e].max())))
 
+    spatial = {}
+    for sname, axes in (spatial_dims or {}).items():
+        axes = tuple(axes)
+        for ax in axes:
+            if ax not in mets:
+                raise ValueError(
+                    f"spatial dim {sname!r}: axis {ax!r} is not a numeric "
+                    f"column of {name!r}")
+        spatial[sname] = axes
+
     return Datasource(name=name, time=time_col, dims=dims, metrics=mets,
-                      segments=segments)
+                      segments=segments, spatial=spatial)

@@ -53,12 +53,17 @@ class Datasource:
 
     def __init__(self, name: str, time: Optional[TimeColumn],
                  dims: Dict[str, DimColumn], metrics: Dict[str, MetricColumn],
-                 segments: List[Segment]):
+                 segments: List[Segment],
+                 spatial: Optional[Dict[str, Tuple[str, ...]]] = None):
         self.name = name
         self.time = time
         self.dims = dims
         self.metrics = metrics
         self.segments = segments
+        # spatial dim name -> numeric axis columns (the reference's
+        # spatial-index column map, DruidRelationColumn spatial axes)
+        self.spatial: Dict[str, Tuple[str, ...]] = {
+            k: tuple(v) for k, v in (spatial or {}).items()}
         self._stacked_cache: Dict[str, np.ndarray] = {}
         self._bounds_cache: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
         n = max((s.num_rows for s in segments), default=0)
@@ -218,7 +223,8 @@ class Datasource:
 
     def prune_segments(self, intervals, filter_spec=None) -> np.ndarray:
         """Indices of segments overlapping any [lo, hi) milli-interval AND
-        not provably excluded by the filter's numeric bounds (zone maps).
+        not provably excluded by the filter's numeric or spatial bounds
+        (zone maps; a spatial filter prunes by each segment's bounding box).
         Conservative: only top-level AND conjuncts prune; the full
         row-level filter still runs on the device."""
         if intervals is None:
@@ -239,6 +245,14 @@ class Datasource:
             keep = ones
             for x in f.fields:
                 keep = keep & self._filter_keep_mask(x)
+            return keep
+        if isinstance(f, S.SpatialFilter):
+            keep = ones
+            for ax, lo, hi in zip(f.axes, f.min_coords, f.max_coords):
+                if ax not in self.metrics:
+                    continue
+                mins, maxs = self.segment_metric_bounds(ax)
+                keep = keep & (maxs >= lo) & (mins <= hi)
             return keep
         if isinstance(f, S.BoundFilter) and f.dimension in self.metrics \
                 and self.metrics[f.dimension].kind.name in ("LONG", "DOUBLE"):

@@ -3,9 +3,10 @@
 Port of ``spark_druid_olap_tpu/sql/session.py``: ``run_sql``,
 ``explain_sql`` / ``explain_text``, the select path with its statement memo
 and plan cache, UNION ALL, ``execute_planned`` and the exact count-distinct
-phase 2, as there. What the port has not ported raises
-``NotImplementedError`` naming its ROADMAP item instead of answering on the
-host: window functions (A.7), materialized rollup statements, persistence
+phase 2, with the window post-pass (``window/``) and the broadcast join
+tier (``planner/joinplan.try_execute``), as there. What the port has not
+ported raises ``NotImplementedError`` naming its ROADMAP item instead of
+answering on the host: materialized rollup statements, persistence
 commands and ``ON DATASOURCE ... EXECUTE QUERY`` (A.9). The per-statement
 stats carry no device dispatch counts (the JAX engine's
 ``dispatch_counts``); the kernels' own launch counters take their place.
@@ -375,6 +376,8 @@ def _run_select_tz(ctx, stmt, sql: str) -> QueryResult:
                 # WindowUnsupported propagates UNCACHED (slot stays
                 # _UNSET): only deterministic outcomes memoize
                 memo.window = wp
+        if wp is not None:
+            return _run_windowed(ctx, wp, sql, ph_tok)
         return _run_select_planned(ctx, stmt, sql, ph_tok, memo, memo_hit)
     finally:
         PH.end(ph_tok)   # idempotent: normally closed at stats assembly
@@ -568,16 +571,42 @@ def _run_select_planned(ctx, stmt, sql: str, ph_tok, memo,
 
 
 def _maybe_windows(ctx, stmt):
-    """The JAX session strips ``OVER (...)`` calls here into a window
-    post-pass (``window/plan.py``); the port has no window tier yet, so a
-    statement with one raises, and every other statement gets None, as
-    there."""
-    for item in stmt.items:
-        if item.expr != "*" and any(isinstance(n, E.WindowCall)
-                                    for n in E.walk(item.expr)):
-            raise NotImplementedError(
-                "window functions not ported yet (ROADMAP A.7)")
-    return None
+    """Strip ``OVER (...)`` calls BEFORE any planning (window/plan.py).
+    Returns ``(base_stmt, WindowPlan)`` or None. Runs ahead of the plan
+    cache on purpose: the base statement is what gets planned and cached,
+    so a windowed statement and its base share cache entries."""
+    from spark_druid_olap_tpu_torch.window import plan as WPLAN
+    return WPLAN.extract(ctx, stmt)
+
+
+def _run_windowed(ctx, wp, sql: str, ph_tok=None) -> QueryResult:
+    """Window post-pass: run the base statement through the normal tiers
+    (engine pushdown / composite / host), then compute the window columns
+    on the device over the result frame and apply the deferred ORDER BY /
+    LIMIT / OFFSET (window/exec.py). The base statement re-enters
+    ``_run_select_tz`` with the phase accumulator already open, so its
+    phases merge here and this statement's ``stats['phases']`` covers the
+    whole pipeline."""
+    from spark_druid_olap_tpu_torch.window import exec as WEXEC
+    base_stmt, plan = wp
+    t0 = _time.perf_counter()
+    base = _run_select_tz(ctx, base_stmt, f"{sql} <window base>")
+    _tw = _time.perf_counter()
+    with PH.phase("epilogue"):
+        df = WEXEC.apply(ctx, plan, base.to_pandas())
+    stats = dict(ctx.engine.last_stats)
+    stats["mode"] = "engine+window"
+    stats["window"] = {"n_windows": len(plan.windows),
+                       "fns": sorted({w.fn for w in plan.windows}),
+                       "window_ms": round(
+                           (_time.perf_counter() - _tw) * 1000, 2)}
+    stats["total_ms"] = (_time.perf_counter() - t0) * 1000
+    phases = PH.end(ph_tok)
+    if phases is not None:
+        stats["phases"] = {k: round(v, 3) for k, v in phases.items()}
+    ctx.history.record(base_stmt, stats, sql=sql)
+    return QueryResult(list(df.columns),
+                       {c: df[c].to_numpy() for c in df.columns})
 
 
 def _run_union(ctx, u: A.UnionAll, sql: str) -> QueryResult:

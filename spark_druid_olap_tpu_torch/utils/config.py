@@ -285,20 +285,38 @@ DATABASE_DEFAULT = _entry(
     "always addresses explicitly.")
 JOIN_ENABLED = _entry(
     "sdot.join.enabled", True,
-    "General (non-star) joins execute on the device join tier when the "
-    "statement shape qualifies; False routes every non-star join to the "
-    "host fallback. The port recognizes such joins (planner/joinplan.py) "
-    "and refuses to execute them until the join tier is ported.")
+    "General (non-star) joins execute on the device join tier "
+    "(join/broadcast.py) when the statement shape qualifies; False routes "
+    "every non-star join to the host pandas fallback (kill switch: "
+    "answers are identical, only placement changes).")
 JOIN_BROADCAST_MAX_BYTES = _entry(
     "sdot.join.broadcast.max.bytes", 64 << 20,
-    "Build-side byte ceiling for the broadcast device join tier; a "
-    "bigger build side (with no cluster attached) goes to the host "
-    "fallback. The port applies the JAX cost model's decision before it "
-    "refuses the device tier.", int)
+    "Build-side byte ceiling for the broadcast hash-join tier: when the "
+    "smaller side's estimated bytes fit, its hash table is built once, "
+    "device-resident, and probed inside the segment wave loop. A bigger "
+    "build goes to the host fallback.", int)
+JOIN_MAX_MATCHES = _entry(
+    "sdot.join.max.matches", 64,
+    "Widest per-key duplicate group the device probe expands (the static "
+    "match-expansion width C). A build side with a hotter key declines "
+    "to the host fallback instead of materializing an oversized "
+    "expansion.", int)
 JOIN_MODE = _entry(
     "sdot.join.mode", "auto",
     "Join-tier placement override: 'auto' (cost model picks), "
-    "'broadcast', 'partitioned', or 'host'.")
+    "'broadcast', 'partitioned', or 'host' (device join tiers "
+    "disabled for this statement shape only).")
+WINDOW_ENABLED = _entry(
+    "sdot.window.enabled", True,
+    "Window-function post-pass (window/): OVER (PARTITION BY ... ORDER "
+    "BY ...) computed by segment-sorted device functions over the "
+    "grouped result frame. Off = window queries raise unsupported.")
+WINDOW_MAX_FRAME = _entry(
+    "sdot.window.max.frame", 1024,
+    "Largest bounded ROWS frame (preceding + following + 1) the device "
+    "window functions lower via shift-stacking; wider frames raise "
+    "unsupported rather than materializing an unbounded shift stack.",
+    int)
 PHASES_ENABLED = _entry(
     "sdot.phases.enabled", True,
     "Per-query host-path phase profiler (utils/phases.py): attribute host "

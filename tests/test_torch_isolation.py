@@ -78,8 +78,15 @@ SQL_MODULES = ["sql.lexer", "sql.ast", "sql.parser", "sql.session",
 HASHED_MODULES = ["ops.hash_groupby", "ops.sorted_groupby", "parallel.cost"]
 
 
+# the native encoder, the join and the window tiers, by exact name (``join``
+# and ``window`` are package names in the JAX package too)
+JOIN_WINDOW_MODULES = ["segment.native", "ops.hash_join", "join.broadcast",
+                       "window.plan", "window.exec"]
+
+
 @pytest.mark.parametrize("module",
-                         SHAREDSCAN_MODULES + SQL_MODULES + HASHED_MODULES)
+                         SHAREDSCAN_MODULES + SQL_MODULES + HASHED_MODULES
+                         + JOIN_WINDOW_MODULES)
 def test_sharedscan_slice_modules_are_checked(module):
     import pkgutil
     prefix = "spark_druid_olap_tpu_torch."

@@ -262,8 +262,8 @@ def test_trial_lowering_runs_on_cpu_and_lets_unported_paths_through(
     from spark_druid_olap_tpu_torch.ir import spec as S
     spatial = S.SpatialFilter("loc", ("l_quantity", "l_tax"),
                               (0.0, 0.0), (1.0, 1.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.1"):
-        b._spec_pushable(S.LogicalFilter("and", (spatial,)))
+    # the spatial filter lowers since the port has it (A.1's remnant)
+    assert b._spec_pushable(S.LogicalFilter("and", (spatial,)))
     from spark_druid_olap_tpu_torch.ir import expr as E
     # a CASE producing strings is Unsupported in both compilers: residue
     assert not b._spec_pushable(S.ExprFilter(E.Comparison(
@@ -393,12 +393,24 @@ def test_engine_free_host_oracle(flat_pair, monkeypatch, name):
 
 # -- what the port refuses ----------------------------------------------------
 
+# window statements (A.7): refused until the window tier was ported, now
+# held equal to the JAX engine's answers
+WINDOWED = [
+    "select region, qty, sum(qty) over (partition by region) "
+    "as t from sales",
+    "select region, qty, rank() over (order by qty) as r from sales",
+]
+
+
+@pytest.mark.parametrize("sql", WINDOWED)
+def test_window_statements_answer_as_the_jax_engine(full_pair, sql):
+    got, want, tmode, jmode = _both(full_pair, sql)
+    assert tmode == jmode == "engine+window"
+    assert_answers_equal(got, want, ordered=False)
+
+
 REFUSED = [
     # (fixture, statement, ROADMAP item)
-    ("full", "select region, qty, sum(qty) over (partition by region) "
-             "as t from sales", "A.7"),
-    ("full", "select region, qty, rank() over (order by qty) as r "
-             "from sales", "A.7"),
     ("full", "ON DATASOURCE sales EXECUTE QUERY '{\"queryType\": "
              "\"timeseries\", \"aggregations\": [{\"type\": \"count\", "
              "\"name\": \"c\"}]}'", "A.9"),
@@ -500,24 +512,55 @@ def test_device_topk_answers_equal_the_jax_engine(flat_pair, full_pair,
 
 
 def test_recognized_device_join_is_refused_not_answered_on_host(full_pair):
-    """A two-table join the JAX engine runs on its device join tier
-    raises in the port (ROADMAP A.7) instead of falling to the host."""
+    """A two-table join the JAX engine runs on its device join tier runs
+    on the port's broadcast tier too (ROADMAP A.7, ported): the same
+    answer, mode and join decisions, and the same answer as both hosts
+    with the tier switched off."""
     jctx, tctx = full_pair
     sql = ("select o_orderpriority, count(*) as c from orders o join "
            "customer c on o.o_custkey = c.c_custkey "
            "group by o_orderpriority")
-    jctx.sql(sql)
-    assert _mode(jctx) == "engine"
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        tctx.sql(sql)
+    got, want, tmode, jmode = _both(full_pair, sql)
+    assert tmode == jmode == "engine"
+    assert_answers_equal(got, want, ordered=False)
+    tjs, jjs = (c.engine.last_stats["join"] for c in (tctx, jctx))
+    assert tjs["mode"] == jjs["mode"] == "broadcast"
+    for k in ("build_rows", "table_slots", "match_width", "waves",
+              "groups"):
+        assert tjs[k] == jjs[k], k
     tctx.config.set("sdot.join.enabled", False)
     jctx.config.set("sdot.join.enabled", False)
     try:
-        got, want, tmode, jmode = _both(full_pair, sql)
+        hgot, hwant, tmode, jmode = _both(full_pair, sql)
     finally:
         tctx.config.set("sdot.join.enabled", True)
         jctx.config.set("sdot.join.enabled", True)
     assert tmode == jmode and tmode.startswith("host")
+    assert_answers_equal(hgot, hwant, ordered=False)
+    assert_answers_equal(got, hgot, ordered=False)
+
+
+# the join and window statements chip_smoke.py runs at SF1 (phases join and
+# window): at SF 0.01 the JAX package puts each join on its broadcast tier,
+# and both packages answer every one alike
+@pytest.mark.parametrize("name", ["J1", "J2", "J3"])
+def test_chip_smoke_joins_run_broadcast_in_both(full_pair, name):
+    import chip_smoke
+    got, want, tmode, jmode = _both(full_pair, chip_smoke.JOIN_SQL[name])
+    assert tmode == jmode == "engine"
+    assert_answers_equal(got, want, ordered=False)
+    tjs, jjs = (c.engine.last_stats["join"] for c in reversed(full_pair))
+    assert tjs["mode"] == jjs["mode"] == "broadcast"
+    for k in ("build_rows", "table_slots", "match_width", "waves",
+              "groups"):
+        assert tjs[k] == jjs[k], k
+
+
+@pytest.mark.parametrize("name", ["W1", "W2", "W3"])
+def test_chip_smoke_windows_equal_the_jax_engine(full_pair, name):
+    import chip_smoke
+    got, want, tmode, jmode = _both(full_pair, chip_smoke.WINDOW_SQL[name])
+    assert tmode == jmode == "engine+window"
     assert_answers_equal(got, want, ordered=False)
 
 
