@@ -44,7 +44,17 @@ it encoded, pyarrow's version, and orders ingested with and without it.
 Phase ``spatial`` ingests lineitem with a spatial dimension and runs a
 statement whose two ranges collapse into one spatial filter (B1), the
 same filter as one lane of a storm (B2), and bounding-box pruning on a
-synthetic table against its unpruned answer. Its last phase,
+synthetic table against its unpruned answer. Phase ``serving`` runs
+the result cache, WLM and cancellation with their defaults over the flat
+star: phase ``sql``'s statements as warm misses and as hits (each hit bit
+for bit the miss that put it, the engine / session split, ``wlm.admit``
+and the lookup's host ms), three answers derived from cached supersets
+against cache-off runs, an invalidating re-ingest, a storm into a
+one-slot lane that WLM hands into one shared-scan group (one wave
+launch), and a cancel of a held member, a zero timeout and a cancel at a
+wave boundary, each followed by a right answer and empty lanes. Every
+other phase's context sets ``sdot.cache.enabled`` false, so its warm
+times stay the engine's (WLM admission included). Its last phase,
 ``waves``, generates TPC-H SF5 lineitem (~30M rows; cut from SF10, whose
 run passed 1,000 s) and runs Q1, the sketch statement, revenue by part on
 the hashed tier, a HAVING with an ordered LIMIT and the storm under a wave
@@ -934,7 +944,12 @@ def wave_cases(sdt, S, E, CW, FU):
 
 # -- the storm: 8 concurrent dashboard queries over SF1 lineitem --------------
 
+# the phases that repeat warm statements time the engine: a result-cache
+# hit would answer them from host memory (phase serving times the hits);
+# WLM stays on, as every statement of a user pays it
+ENGINE_TIMED = {"sdot.cache.enabled": False}
 STORM_CONFIG = {
+    **ENGINE_TIMED,
     "sdot.sharedscan.enabled": True, "sdot.sharedscan.max.queries": 8,
     # the group closes as soon as the 8th query joins; the window only
     # has to outlast the threads' start skew
@@ -1367,7 +1382,7 @@ def sql_phase(sdt, tables, lineitem_ds, CG, CW, smi):
     t0 = time.perf_counter()
     flat = tpch.flatten(tables)
     t_flat = time.perf_counter() - t0
-    ctx = sdt.Context()
+    ctx = sdt.Context(ENGINE_TIMED)
     t0 = time.perf_counter()
     ctx.ingest_dataframe("tpch_flat", flat, time_column="l_shipdate",
                          target_rows=1 << 20)
@@ -1534,7 +1549,8 @@ def sql_phase(sdt, tables, lineitem_ds, CG, CW, smi):
     # the broadcast join and window tiers over the whole star
     extra = {"join": join_phase(sdt, ctx, tables, CG),
              "window": window_phase(ctx, tables),
-             "flat_ingest_s": t_ingest, "base_tables_ingest_s": t_base}
+             "flat_ingest_s": t_ingest, "base_tables_ingest_s": t_base,
+             "flat_ds": ctx.store.get("tpch_flat")}
     sketch = sketch_phase(ctx, tables, CG, CW)
     emit("sql", card=smi, sf=SF, flat_rows=rows, flat_columns=flat_cols,
          flatten_s=t_flat, ingest_s=t_ingest, base_tables_ingest_s=t_base,
@@ -1552,6 +1568,405 @@ def sql_phase(sdt, tables, lineitem_ds, CG, CW, smi):
               "and the storm's B2 launch, kernel vs plain version on the "
               "same inputs, times as in phase timing")
     return b1, b2, kernels, hashed, tail, sketch, extra
+
+
+# -- the serving tier: result cache, WLM and cancellation (phase "serving") --
+
+# the handoff storm: one slot, so every other statement queues and the
+# admission poll hands it into the open shared-scan group
+HANDOFF_CONFIG = {"sdot.wlm.lanes": "interactive:slots=1,queue=16",
+                  "sdot.sharedscan.enabled": True,
+                  "sdot.wlm.batch.window.ms": 50.0}
+# q7's 4,375 keys are above B1's tier and would keep the whole group off
+# the wave kernel: the storm's eighth thread repeats q1 instead
+HANDOFF_SQL = [n for n in SQL_MAIN if n not in SQL_MEDIUM_K] + ["q1"]
+HELD_CONFIG = {"sdot.sharedscan.enabled": True,
+               "sdot.wlm.batch.window.ms": 800.0}
+HELD_SQL = {"q1": None, "shipdate_range": None, "q6": "held-victim"}
+INVALIDATE_SQL = ("select n_regionkey, count(*) as n from nation_again "
+                  "group by n_regionkey order by n_regionkey")
+
+
+class KernelSpies:
+    """Every call of the B1 and B2 wrappers inside ``run``, the launch
+    counts zeroed just before and read just after; ``b1`` / ``b2`` keep
+    each call's inputs for the checks against the plain versions."""
+
+    def __init__(self, CG, CW):
+        self.CG, self.CW = CG, CW
+        self.b1, self.b2 = [], []
+        self.b1_launches = self.b2_launches = 0
+
+    def run(self, fn):
+        CG, CW = self.CG, self.CW
+        real1, real2 = CG.dense_groupby_kernel, CW.wave_groupby
+
+        def spy1(key, n_keys, inputs, max_keys):
+            self.b1.append((key, n_keys, list(inputs), max_keys))
+            return real1(key, n_keys, inputs, max_keys)
+
+        def spy2(program, layout, columns):
+            self.b2.append((program, layout,
+                            [c.reshape(-1) for c in columns]))
+            return real2(program, layout, columns)
+        CG.dense_groupby_kernel, CW.wave_groupby = spy1, spy2
+        CG.launches = CW.launches = 0
+        try:
+            return fn()
+        finally:
+            # a run that raised (a cancel) counts what it launched too
+            torch.cuda.synchronize()
+            self.b1_launches += CG.launches
+            self.b2_launches += CW.launches
+            CG.dense_groupby_kernel, CW.wave_groupby = real1, real2
+
+
+def bit_equal(name, got, want):
+    """Two frames bit for bit: columns, dtypes and every value (NaN where
+    the other has NaN)."""
+    if list(got.columns) != list(want.columns) or len(got) != len(want):
+        raise AssertionError(f"{name}: shape {list(got.columns)} x "
+                             f"{len(got)} vs {list(want.columns)} x "
+                             f"{len(want)}")
+    for c in want.columns:
+        g, w = got[c].to_numpy(), want[c].to_numpy()
+        if g.dtype != w.dtype or not (
+                np.array_equal(g, w, equal_nan=True) if w.dtype.kind == "f"
+                else np.array_equal(g, w)):
+            raise AssertionError(f"{name} {c}: {g[:5]} vs {w[:5]}")
+
+
+def lanes_idle(name, ctx):
+    """No lane runs or queues anything, and nothing is in flight."""
+    busy = [ln for ln in ctx.engine.wlm.stats()["lanes"]
+            if ln["active"] or ln["queued"]]
+    if busy or ctx.engine.inflight.snapshot():
+        raise AssertionError(f"{name}: lanes not empty: {busy}, in flight "
+                             f"{ctx.engine.inflight.snapshot()}")
+
+
+def serving_context(sdt, flat_ds, star, config=None):
+    """A context over phase sql's flat star, with the defaults (cache on,
+    WLM on) but for ``config``."""
+    ctx = sdt.Context(config)
+    ctx.store.register(flat_ds)
+    ctx.register_star_schema(star)
+    return ctx
+
+
+def hit_vs_miss(ctx, tpch, spies) -> dict:
+    """Each statement of phase sql: the warm miss (the cache cleared before
+    each call) and the hit, medians of 7; the hit's frame bit for bit the
+    miss's; the engine / session split and the WLM and lookup host phases."""
+    out = {}
+    for name in SQL_MAIN:
+        sql = tpch.QUERIES[name]
+        ctx.engine.result_cache.clear()
+        first = spies.run(lambda: ctx.sql(sql).to_pandas())   # cold, spied
+        st = ctx.history.entries()[-1].stats
+        if st.get("cache") != "miss" or st["mode"] != "engine":
+            raise AssertionError(f"serving {name}: first run {st.get('cache')}"
+                                 f" in mode {st['mode']}")
+        runs = {}
+        for kind in ("miss", "hit"):
+            spent, stop = engine_spent(ctx)
+            timed = []
+            for _ in range(REPEATS):
+                if kind == "miss":
+                    ctx.engine.result_cache.clear()
+                t = time.perf_counter()
+                frame = ctx.sql(sql).to_pandas()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t) * 1e3
+                st = dict(ctx.history.entries()[-1].stats)
+                timed.append((ms, st))
+                if kind == "miss":
+                    # q7's scatter tier sums floats in atomics' order
+                    check_frame(f"serving {name} miss", frame, first, None,
+                                FLOAT_SUM_RTOL_KERNEL)
+                    put = frame        # the entry the hits read
+                else:
+                    bit_equal(f"serving {name} hit", frame, put)
+            stop()
+            if len(spent) != REPEATS:
+                raise AssertionError(f"serving {name}: {len(spent)} engine "
+                                     f"calls in {REPEATS} runs")
+            status = {s.get("cache") for _, s in timed}
+            served = {s.get("served_from") for _, s in timed}
+            want = ({"miss"}, {None}) if kind == "miss" \
+                else ({"hit"}, {"result_cache"})
+            if (status, served) != want:
+                raise AssertionError(f"serving {name} {kind}: cache "
+                                     f"{status}, served_from {served}")
+            ms = [m for m, _ in timed]
+            session = [m - e for m, e in zip(ms, spent)]
+            ph = [s.get("phases") or {} for _, s in timed]
+            runs[kind] = dict(
+                median_ms=statistics.median(ms), min_ms=min(ms),
+                max_ms=max(ms), engine_median_ms=statistics.median(spent),
+                session_median_ms=statistics.median(session),
+                wlm_admit_median_ms=statistics.median(
+                    p.get("wlm.admit", 0.0) for p in ph),
+                cache_lookup_median_ms=statistics.median(
+                    p.get("cache.lookup", 0.0) for p in ph),
+                cache=status.pop(), served_from=served.pop(),
+                wlm=timed[-1][1].get("wlm"))
+        out[name] = runs
+    return out
+
+
+def subsumption_on_card(ctx, S, spies) -> dict:
+    """Answers derived from cached supersets on the host, each against the
+    same spec run with the cache off."""
+    revenue = (S.AggregationSpec("count", "n"),
+               S.AggregationSpec("longsum", "qty", field="l_quantity"),
+               S.AggregationSpec("doublesum", "price",
+                                 field="l_extendedprice"))
+    brand = (S.DimensionSpec("p_brand", "p_brand"),)
+    cases = {
+        "monthly_from_daily": (
+            S.TimeseriesQuerySpec("lineitem", revenue,
+                                  granularity=S.Granularity("day")),
+            S.TimeseriesQuerySpec("lineitem", revenue,
+                                  granularity=S.Granularity("month"))),
+        "topn_from_groupby": (
+            S.GroupByQuerySpec("tpch_flat", brand, revenue),
+            S.TopNQuerySpec("tpch_flat", brand[0], "price", 5, revenue)),
+        "filtered_from_unfiltered": (
+            S.GroupByQuerySpec("tpch_flat", brand, revenue),
+            S.GroupByQuerySpec("tpch_flat", brand, revenue,
+                               filter=S.InFilter(
+                                   "p_brand", ("Brand#13", "Brand#42")))),
+    }
+    out = {}
+    for name, (wide, narrow) in cases.items():
+        with settings(ctx, {"sdot.cache.enabled": False}):
+            want = spies.run(lambda: ctx.execute(narrow).to_pandas())
+        ctx.engine.result_cache.clear()
+        spies.run(lambda: ctx.execute(wide))
+        t = time.perf_counter()
+        got = ctx.execute(narrow).to_pandas()
+        ms = (time.perf_counter() - t) * 1e3
+        status = ctx.engine.last_stats.get("cache")
+        if status != "subsumed":
+            raise AssertionError(f"serving {name}: {status}, not subsumed")
+        check_frame(f"serving {name} vs cache off", got, want,
+                    [c for c in want.columns if want[c].dtype.kind != "f"],
+                    FLOAT_SUM_RTOL_KERNEL)
+        out[name] = {"status": status, "rows": len(got), "derive_ms": ms}
+    return out
+
+
+def invalidation_on_card(ctx, tables, tpch, spies) -> dict:
+    """A re-ingested datasource misses; the star's statements still hit."""
+    nation = tables["nation"]
+    for name in SQL_MAIN:               # the star's answers in the cache
+        ctx.sql(tpch.QUERIES[name])
+    events = []
+    ctx.store.add_listener(lambda ev, name: events.append((ev, name)))
+    ctx.ingest_dataframe("nation_again", nation)
+    statuses = []
+    for _ in range(2):
+        first = spies.run(lambda: ctx.sql(INVALIDATE_SQL).to_pandas())
+        statuses.append(ctx.history.entries()[-1].stats.get("cache"))
+    ctx.ingest_dataframe("nation_again", nation)
+    again = spies.run(lambda: ctx.sql(INVALIDATE_SQL).to_pandas())
+    statuses.append(ctx.history.entries()[-1].stats.get("cache"))
+    bit_equal("serving re-ingest", again, first)
+    star = {}
+    for name in SQL_MAIN:
+        ctx.sql(tpch.QUERIES[name]).to_pandas()
+        star[name] = ctx.history.entries()[-1].stats.get("cache")
+    if statuses != ["miss", "hit", "miss"] \
+            or set(star.values()) != {"hit"} \
+            or events != [("register", "nation_again")] * 2:
+        raise AssertionError(f"serving invalidation: {statuses}, star "
+                             f"{star}, events {events}")
+    return {"re_ingested": statuses, "star_after": star,
+            "version": ctx.store.datasource_version("nation_again"),
+            "events": len(events)}
+
+
+def handoff_storm(sdt, flat_ds, star, tpch, solo, spies) -> dict:
+    """phase sql's statements from 8 threads into a one-slot lane: the
+    queued ones ride the open shared-scan group (B2)."""
+    ctx = serving_context(sdt, flat_ds, star, HANDOFF_CONFIG)
+    queries = [tpch.QUERIES[n] for n in HANDOFF_SQL]
+    for sql in dict.fromkeys(queries):        # plans and columns warm
+        ctx.sql(sql)
+    ctx.engine.result_cache.clear()
+    lane0 = ctx.engine.wlm.stats()["lanes"]
+    ss0 = ctx.engine.sharedscan.stats()
+    stats = []
+    res, wall_ms, phases = spies.run(lambda: run_storm(
+        ctx, queries, call=ctx.sql, stats_out=stats))
+    lane = next(ln for ln in ctx.engine.wlm.stats()["lanes"]
+                if ln["lane"] == "interactive")
+    before = next(ln for ln in lane0 if ln["lane"] == "interactive")
+    ss = ctx.engine.sharedscan.stats()
+    for name, frame in zip(HANDOFF_SQL, res):
+        check_frame(f"serving handoff {name} vs solo", frame, solo[name],
+                    None, FLOAT_SUM_RTOL_KERNEL)
+    out = {"statements": HANDOFF_SQL, "wall_ms": wall_ms,
+           "group_phases_ms": phases,
+           "admitted": lane["admitted"] - before["admitted"],
+           "coalesced_handoff": lane["coalesced_handoff"]
+           - before["coalesced_handoff"],
+           "wlm_handoffs": ss["wlm_handoffs"] - ss0["wlm_handoffs"],
+           "queries_coalesced": ss["queries_coalesced"]
+           - ss0["queries_coalesced"],
+           "wave_launches": ss["wave_launches"] - ss0["wave_launches"],
+           "max_active_seen": lane["max_active_seen"],
+           "queued_ms": [(s.get("wlm") or {}).get("queued_ms")
+                         for s in stats],
+           "cache": [s.get("cache") for s in stats]}
+    if out["max_active_seen"] != 1 or out["wlm_handoffs"] < 1 \
+            or out["wave_launches"] < 1 \
+            or out["admitted"] != len(queries):
+        raise AssertionError(f"serving handoff storm: {out}")
+    lanes_idle("serving handoff storm", ctx)
+    return out
+
+
+def cancel_on_card(sdt, S, E, flat_ds, star, lineitem_ds, df, tpch, solo,
+                   spies) -> dict:
+    """Cancel one member of a held batch, a zero timeout, and a cancel at a
+    wave boundary; then the next statement on each engine, and the lanes
+    empty."""
+    import threading
+    from spark_druid_olap_tpu_torch.parallel import executor as X
+    out = {}
+    # 1. one member of a held batch
+    ctx = serving_context(sdt, flat_ds, star, HELD_CONFIG)
+    for name in HELD_SQL:
+        ctx.sql(tpch.QUERIES[name])
+    ctx.engine.result_cache.clear()
+    names = list(HELD_SQL)
+    res, errs = [None] * len(names), [None] * len(names)
+    bar = threading.Barrier(len(names) + 1)
+
+    def worker(i):
+        bar.wait()
+        try:
+            res[i] = ctx.sql(tpch.QUERIES[names[i]],
+                             query_id=HELD_SQL[names[i]]).to_pandas()
+        except BaseException as e:  # noqa: BLE001 — checked below
+            errs[i] = e
+
+    ss0 = ctx.engine.sharedscan.stats()
+
+    def storm():
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(len(names))]
+        for t in threads:
+            t.start()
+        bar.wait()
+        time.sleep(0.2)                # well inside the 800 ms window
+        cancelled = ctx.engine.cancel("held-victim")
+        for t in threads:
+            t.join(timeout=300)
+        return cancelled
+    cancelled = spies.run(storm)
+    ss = ctx.engine.sharedscan.stats()
+    victim = names.index("q6")
+    if not cancelled or not isinstance(errs[victim], X.QueryCancelled):
+        raise AssertionError(f"serving held cancel: {cancelled}, "
+                             f"{errs[victim]!r}")
+    for i, name in enumerate(names):
+        if i != victim:
+            if errs[i] is not None:
+                raise errs[i]
+            check_frame(f"serving held {name} vs solo", res[i], solo[name],
+                        None, FLOAT_SUM_RTOL_KERNEL)
+    nxt = ctx.sql(tpch.QUERIES["q6"], query_id="held-victim").to_pandas()
+    check_frame("serving after the held cancel", nxt, solo["q6"], None,
+                FLOAT_SUM_RTOL_KERNEL)
+    lanes_idle("serving held cancel", ctx)
+    out["held_batch"] = {
+        "cancelled": names[victim], "error": type(errs[victim]).__name__,
+        "queries_coalesced": ss["queries_coalesced"]
+        - ss0["queries_coalesced"],
+        "wave_launches": ss["wave_launches"] - ss0["wave_launches"]}
+    # 2. a zero timeout
+    q6 = q6_spec(S, E)
+    tctx = sdt.Context()
+    tctx.store.register(lineitem_ds)
+    import dataclasses
+    try:
+        tctx.execute(dataclasses.replace(
+            q6, context=S.QueryContext(timeout_millis=0)))
+        raise AssertionError("serving: timeout_millis=0 answered")
+    except X.QueryTimeout as e:
+        out["timeout"] = str(e)
+    rev = q6_oracle(df)
+    got = spies.run(lambda: tctx.execute(q6).to_pandas())
+    np.testing.assert_allclose(got["revenue"].to_numpy(), [rev],
+                               rtol=FLOAT_SUM_RTOL_ORACLE)
+    lanes_idle("serving timeout", tctx)
+    # 3. a cancel at a wave boundary: one segment per wave
+    wctx = sdt.Context({"sdot.engine.wave.max.bytes": 1,
+                        "sdot.cache.enabled": False})
+    wctx.store.register(lineitem_ds)
+    q1 = q1_spec(S, E)
+    real_bind = X._WaveBinder.bind_wave
+    bound_waves = []
+
+    def bind_then_cancel(binder, segs):
+        bound_waves.append(len(segs))
+        if len(bound_waves) == 3:      # wave 2 bound: cancel before launch
+            wctx.engine.cancel("wave-victim")
+        return real_bind(binder, segs)
+    X._WaveBinder.bind_wave = bind_then_cancel
+    try:
+        spies.run(lambda: wctx.execute(dataclasses.replace(
+            q1, context=S.QueryContext(query_id="wave-victim"))))
+        raise AssertionError("serving: the wave-boundary cancel answered")
+    except X.QueryCancelled as e:
+        out["wave_cancel"] = {"error": str(e), "waves_bound": len(bound_waves)}
+    finally:
+        X._WaveBinder.bind_wave = real_bind
+    got = spies.run(lambda: wctx.execute(q1).to_pandas())
+    st = wctx.engine.last_stats
+    check_q1(got, q1_oracle(df))
+    if st["waves"] < 4 or wctx.engine._device_arrays:
+        raise AssertionError(f"serving wave cancel: {st['waves']} waves, "
+                             f"{len(wctx.engine._device_arrays)} bound")
+    out["wave_cancel"]["next_waves"] = st["waves"]
+    lanes_idle("serving wave cancel", wctx)
+    return out
+
+
+def serving_phase(sdt, S, E, flat_ds, lineitem_ds, df, tables, CG,
+                  CW) -> dict:
+    """Phase serving: the result cache, WLM and cancellation around the
+    engine, on phase sql's flat star with the defaults."""
+    from spark_druid_olap_tpu_torch.tools import tpch
+    t_phase = time.perf_counter()
+    star = tpch.star_schema("tpch_flat")
+    spies = KernelSpies(CG, CW)
+    ctx = serving_context(sdt, flat_ds, star)
+    ctx.store.register(lineitem_ds)
+    stmts = hit_vs_miss(ctx, tpch, spies)
+    # before any cache-off run: turning the key off and on again moves
+    # the config fingerprint, and with it every key
+    invalidation = invalidation_on_card(ctx, tables, tpch, spies)
+    solo = {}
+    for name in SQL_MAIN:
+        with settings(ctx, {"sdot.cache.enabled": False}):
+            solo[name] = ctx.sql(tpch.QUERIES[name]).to_pandas()
+    subsumed = subsumption_on_card(ctx, S, spies)
+    lanes_idle("serving", ctx)
+    handoff = handoff_storm(sdt, flat_ds, star, tpch, solo, spies)
+    cancel = cancel_on_card(sdt, S, E, flat_ds, star, lineitem_ds, df, tpch,
+                            solo, spies)
+    kernels = {"b1": b1_checked(CG, "serving", spies.b1),
+               "b2": [wave_timed(CW, f"serving b2[{i}]", *w)
+                      for i, w in enumerate(spies.b2)]}
+    return dict(statements=stmts, subsumption=subsumed,
+                invalidation=invalidation, handoff_storm=handoff,
+                cancel=cancel, cache=ctx.engine.result_cache.stats(),
+                b1_launches=spies.b1_launches, b2_launches=spies.b2_launches,
+                kernels=kernels, seconds=time.perf_counter() - t_phase)
 
 
 # -- the wide-key aggregation path (phase "hashed") --------------------------
@@ -2673,7 +3088,7 @@ def waves_phase(sdt, S, E, CG, CW, smi, sf=WAVES_SF, device="cuda",
     df = tables.pop("lineitem").drop(columns="l_comment")
     del tables
     t_gen = time.perf_counter() - t0
-    base = sdt.Context(device=device)
+    base = sdt.Context(ENGINE_TIMED, device=device)
     t0 = time.perf_counter()
     ds = base.ingest_dataframe("lineitem", df, time_column="l_shipdate",
                                **(ingest_kw or {}))
@@ -2693,7 +3108,7 @@ def waves_phase(sdt, S, E, CG, CW, smi, sf=WAVES_SF, device="cuda",
     out["wave_max_bytes"] = budget
 
     def context(config):
-        ctx = sdt.Context(dict(config), device=device)
+        ctx = sdt.Context({**config, **ENGINE_TIMED}, device=device)
         ctx.store.register(ds)
         return ctx
 
@@ -3056,7 +3471,7 @@ def spatial_phase(sdt, df, S, E, CG, CW) -> dict:
     from spark_druid_olap_tpu_torch.planner import builder as B
     from spark_druid_olap_tpu_torch.sql.parser import parse_select
     t_phase = time.perf_counter()
-    sp = sdt.Context()
+    sp = sdt.Context(ENGINE_TIMED)
     t0 = time.perf_counter()
     ds = sp.ingest_dataframe("lineitem", df, time_column="l_shipdate",
                              spatial_dims=SPATIAL_DIMS)
@@ -3118,7 +3533,7 @@ def spatial_phase(sdt, df, S, E, CG, CW) -> dict:
 
     # pruning by bounding box on a table whose segments' boxes differ
     pts = spatial_points(PRUNE_ROWS, np.random.default_rng(SEED))
-    pc = sdt.Context()
+    pc = sdt.Context(ENGINE_TIMED)
     pds = pc.ingest_dataframe("trips", pts, time_column="ts",
                               target_rows=PRUNE_SEGMENT_ROWS,
                               spatial_dims={"pickup": ("lat", "lon")})
@@ -3511,7 +3926,7 @@ def main() -> int:
     tables = generate(SF, seed=SEED)
     df = tables["lineitem"]
     t_gen = time.perf_counter() - t0
-    ctx = sdt.Context()
+    ctx = sdt.Context(ENGINE_TIMED)
     t0 = time.perf_counter()
     ctx.ingest_dataframe("lineitem", df, time_column="l_shipdate")
     t_ingest = time.perf_counter() - t0
@@ -3576,6 +3991,28 @@ def main() -> int:
               "(REGISTER_OPS_PER_ROW per row) / 67e12 per s (the data "
               "sheet's fp32 rate; it lists no int32 rate)")
     sees["after_sql"] = profiler_sees(probe, "dense_groupby")
+
+    # 4a''. the result cache, WLM and cancellation around the engine, with
+    # the defaults, on phase sql's flat star
+    serving = serving_phase(sdt, S, E, extra.pop("flat_ds"),
+                            ctx.store.get("lineitem"), df, tables, CG, CW)
+    emit("serving", card=smi, **serving,
+         oracle="each hit bit for bit the frame of the miss that put it; "
+                "warm misses vs the first (floats rtol 1e-9: q7's scatter "
+                "tier sums in atomics' order); subsumed answers vs the "
+                "same spec with the cache off (floats rtol 1e-9); the "
+                "handoff storm's and the held batch's answers vs the "
+                "solo answers (floats rtol 1e-9); Q1 / Q6 after a cancel "
+                "or timeout vs pandas (floats rtol 1e-6); every lane 0 "
+                "running and 0 queued after each step; each B1 call and "
+                "B2 launch of the phase's spied runs vs its plain version "
+                "(kernels)",
+         note="ms: host wall clock to the frame, medians of 7; miss = the "
+              "cache cleared before each call (plans and columns warm); "
+              "engine = inside engine.execute (WLM admission, cache "
+              "lookup, the engine), session = the rest; wlm_admit / "
+              "cache_lookup: the statement's utils/phases host phases; "
+              "kernels: timed as in phase timing")
 
     captured = {}
     real_kernel = CG.dense_groupby_kernel
@@ -3857,31 +4294,37 @@ def main() -> int:
     # the waves for B1; the QuerySpec, SQL and wave storms for B2)
     for k in list(sql_k["dense_groupby"].values()) \
             + list(tail["kernels"].values()) \
-            + [sketch["b1"], waves["b1"], spatial["b1"], join["b1"]]:
+            + [sketch["b1"], waves["b1"], spatial["b1"], join["b1"],
+               serving["kernels"]["b1"]]:
         worst = max(worst, k["max_abs_err"])
         for f in ("ms", "plain_ms", "bound_ms", "library_ms"):
             total[f] += k[f]
         bound_by.update(c["bound_by"] for c in k["calls"])
     sw, kw, ww = sql_k["wave"]["storm"], sketch["wave"], waves["b2"]
     pw = spatial["b2"]
+    vw = serving["kernels"]["b2"]
     w_worst = max(w_worst, sw["max_abs_err"], kw["max_abs_err"],
-                  ww["max_abs_err"], pw["max_abs_err"])
+                  ww["max_abs_err"], pw["max_abs_err"],
+                  *(w["max_abs_err"] for w in vw))
     w_bound_by = {wave_timing["bound_by"], sw["bound_by"], kw["bound_by"],
-                  *ww["bound_by"], pw["bound_by"]}
+                  *ww["bound_by"], pw["bound_by"],
+                  *(w["bound_by"] for w in vw)}
     say(json.dumps({"kernels": [{
         "name": "dense_groupby", "route": "cuda",
         "source": "spark_druid_olap_tpu_torch/csrc/dense_groupby.cu",
         "replaces": "spark_druid_olap_tpu/ops/pallas_groupby.py:205",
         "launches": l1 + l6 + lw + sql_b1 + tail["b1_launches"]
         + sketch["b1_launches"] + waves["launches"]["dense_groupby"]
-        + spatial["b1_launches"] + join["b1_launches"],
+        + spatial["b1_launches"] + join["b1_launches"]
+        + serving["b1_launches"],
         "max_abs_err": worst,
         "b1_checked": dict({n: len(k["calls"])
                             for n, k in tail["kernels"].items()},
                            sketch_solo=len(sketch["b1"]["calls"]),
                            waves=len(waves["b1"]["calls"]),
                            spatial=len(spatial["b1"]["calls"]),
-                           join=len(join["b1"]["calls"])),
+                           join=len(join["b1"]["calls"]),
+                           serving=len(serving["kernels"]["b1"]["calls"])),
         "ms": total["ms"], "plain_ms": total["plain_ms"],
         "bound_ms": total["bound_ms"],
         "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
@@ -3890,14 +4333,18 @@ def main() -> int:
         "source": "spark_druid_olap_tpu_torch/csrc/wave.cu",
         "replaces": "spark_druid_olap_tpu/ops/pallas_wave.py:371",
         "launches": storm_launches + sql_b2 + sketch["b2_launches"]
-        + waves["launches"]["wave"] + spatial["b2_launches"],
+        + waves["launches"]["wave"] + spatial["b2_launches"]
+        + serving["b2_launches"],
         "max_abs_err": w_worst,
-        "ms": wk_ms + sw["ms"] + kw["ms"] + ww["ms"] + pw["ms"],
+        "ms": wk_ms + sw["ms"] + kw["ms"] + ww["ms"] + pw["ms"]
+        + sum(w["ms"] for w in vw),
         "plain_ms": wp_ms + sw["plain_ms"] + kw["plain_ms"]
-        + ww["plain_ms"] + pw["plain_ms"],
+        + ww["plain_ms"] + pw["plain_ms"] + sum(w["plain_ms"] for w in vw),
         "bound_ms": wave_timing["bound_ms"] + sw["bound_ms"]
-        + kw["bound_ms"] + ww["bound_ms"] + pw["bound_ms"],
-        "b2_checked": {"waves": ww["calls"], "spatial": 1},
+        + kw["bound_ms"] + ww["bound_ms"] + pw["bound_ms"]
+        + sum(w["bound_ms"] for w in vw),
+        "b2_checked": {"waves": ww["calls"], "spatial": 1,
+                       "serving": len(vw)},
         "bound_by": "bytes" if w_bound_by == {"bytes"} else "operations",
         "library_ms": None,
         # the launch with the in-kernel theta stripe (phase sketch)

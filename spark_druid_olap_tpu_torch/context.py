@@ -80,10 +80,16 @@ class Context:
         self.history.record(q, dict(self.engine.last_stats))
         return r
 
-    def sql(self, query: str) -> QueryResult:
-        """Parse, plan and run one SQL statement (``sql/session.py``)."""
+    def sql(self, query: str, query_id: Optional[str] = None,
+            lane: Optional[str] = None, tenant: Optional[str] = None,
+            priority: Optional[int] = None) -> QueryResult:
+        """Parse, plan and run one SQL statement (``sql/session.py``).
+        ``query_id`` makes it cancellable (``engine.cancel``); ``lane``,
+        ``tenant`` and ``priority`` route its engine queries through WLM
+        admission (``wlm/``)."""
         from spark_druid_olap_tpu_torch.sql.session import run_sql
-        return run_sql(self, query)
+        return run_sql(self, query, query_id=query_id, lane=lane,
+                       tenant=tenant, priority=priority)
 
     def explain(self, query: str) -> str:
         """The pushdown plan of one statement, without running it."""

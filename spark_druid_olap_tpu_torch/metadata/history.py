@@ -1,9 +1,7 @@
 """Bounded in-memory query history.
 
 Port counterpart of ``spark_druid_olap_tpu/metadata/history.py``: a copy
-kept inside the PyTorch package, which imports nothing of the JAX package,
-less the in-flight registry of the JAX engine's workload manager (not
-ported, ROADMAP A.9).
+kept inside the PyTorch package, which imports nothing of the JAX package.
 
 ≈ ``DruidQueryHistory`` (reference ``DruidQueryHistory.scala:39-76``: bounded
 queue of 500 executed Druid queries with timings, surfaced in a web-UI tab and
@@ -31,6 +29,70 @@ class QueryExecutionRecord:
         return {"startedAt": self.started_at, "queryType": self.query_type,
                 "datasource": self.datasource, "sql": self.sql,
                 **self.stats}
+
+
+class InflightRegistry:
+    """Live queries by admission state (``queued`` → ``running``),
+    surfaced by ``sys_queries`` next to the completed-history rows so
+    in-flight load is observable while it is happening (≈ Druid's
+    broker `sys.queries` / running-query endpoint)."""
+
+    __slots__ = ("_lock", "_rows", "_next")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._rows = {}
+        self._next = 0
+
+    def begin(self, query_id, datasource, query_type) -> int:
+        with self._lock:
+            tok = self._next
+            self._next += 1
+            self._rows[tok] = {
+                "query_id": query_id, "datasource": datasource,
+                "query_type": query_type, "state": "queued",
+                "lane": None, "tenant": None,
+                "started_at": time.time(), "t0": time.perf_counter(),
+                "queued_ms": 0.0}
+            return tok
+
+    def running(self, tok: int, lane=None, tenant=None,
+                queued_ms: float = 0.0) -> None:
+        with self._lock:
+            row = self._rows.get(tok)
+            if row is not None:
+                row["state"] = "running"
+                row["lane"] = lane
+                row["tenant"] = tenant
+                row["queued_ms"] = queued_ms
+
+    def annotate(self, tok, **fields) -> None:
+        """Attach extra columns to a live row (e.g. the shared-scan
+        coalesced-group id); snapshot() copies rows, so annotations flow
+        into ``sys_queries`` without schema changes here."""
+        if tok is None:
+            return
+        with self._lock:
+            row = self._rows.get(tok)
+            if row is not None:
+                row.update(fields)
+
+    def done(self, tok: int) -> None:
+        with self._lock:
+            self._rows.pop(tok, None)
+
+    def snapshot(self) -> List[dict]:
+        now = time.perf_counter()
+        with self._lock:
+            out = []
+            for row in self._rows.values():
+                d = dict(row)
+                d["wall_ms"] = (now - d.pop("t0")) * 1000.0
+                if d["state"] == "queued":
+                    # still accruing; report the live wait
+                    d["queued_ms"] = d["wall_ms"]
+                out.append(d)
+            return out
 
 
 def _filter_columns(f, out: set) -> None:

@@ -3,9 +3,10 @@
 Port of ``spark_druid_olap_tpu/ops/filters.py``: ``lower_filter`` for
 selector, bound (string code ranges, numeric, date and time bounds), IN
 lists and large integer IN sets, pattern (LIKE / contains / regex over the
-dictionary), null, logical and expression filters; ``interval_mask``;
-``columns_of_filter``. Spatial filters raise ``NotImplementedError``
-(ROADMAP A.1). Every filter lowers to a bool [S, R] mask over the
+dictionary), null, logical, expression and spatial (``_spatial``: the
+conjunctive per-axis ranges of a ``SpatialFilter``) filters;
+``interval_mask``; ``columns_of_filter``. Every filter lowers to a bool
+[S, R] mask over the
 stacked segment tensors; string predicates become integer tests on
 dictionary codes through ``encode/predicates.py``.
 """

@@ -5,9 +5,12 @@ that the executor's gates read: ``unit_cost``, the filter-selectivity
 estimate (``_filter_selectivity`` with ``_bound_overlap_fraction`` and
 ``_pattern_fraction``), ``bytes_per_segment`` and the wave plan
 (``wave_budget_bytes``, ``tier_io_budget``, ``tier_io_seg_bytes``,
-``plan_waves``) and the join tier's pricing (``JoinEstimate``,
-``join_estimate``). The rest of that cost model (single vs sharded,
-explain's cost table) is ROADMAP A.9.
+``plan_waves``), the join tier's pricing (``JoinEstimate``,
+``join_estimate``) and the one-device part of ``estimate``
+(``CostEstimate``, ``_output_groups``), the cost units WLM demotes to its
+batch lane and charges tenant quotas in. The rest of that cost model
+(explain's cost table, ROADMAP A.9; the sharded price, A.8) is not
+ported.
 
 A unit cost is the configured value when the key is set explicitly;
 otherwise the measured table of the engine's device type.
@@ -46,6 +49,10 @@ from typing import Optional
 import torch
 
 from spark_druid_olap_tpu_torch.ir import spec as S
+from spark_druid_olap_tpu_torch.utils.config import (
+    COST_PER_BYTE_TRANSPORT,
+    COST_PER_ROW_SCAN,
+)
 
 _CPU_MEASURED = {
     "sdot.querycostmodel.sort.seconds.per.row": 3.0e-7,
@@ -242,6 +249,58 @@ def _bound_overlap_fraction(f: S.BoundFilter, ds) -> Optional[float]:
     if width <= 0:
         return None
     return max(0.0, min(1.0, (hi - lo) / width))
+
+
+@dataclasses.dataclass
+class CostEstimate:
+    """The JAX package's estimate on one device: ``sharded_cost`` equals
+    ``single_cost`` and nothing recommends sharding."""
+    rows: int                      # rows scanned after interval pruning
+    selectivity: float             # estimated filter selectivity
+    output_groups: int             # estimated result cardinality
+    single_cost: float
+    sharded_cost: float
+    n_devices: int = 1
+    recommend_sharded: bool = False
+
+
+def _output_groups(q: S.QuerySpec, ds) -> int:
+    dims = S.query_dimensions(q)
+    out = 1
+    for d in dims:
+        if d.extraction is None:
+            out *= max(1, ds.cardinality(d.dimension) or 100)
+        elif isinstance(d.extraction, S.TimeExtraction):
+            out *= 32
+        else:
+            out *= 100
+    gran = getattr(q, "granularity", S.GRAN_ALL)
+    if gran is not None and not gran.is_all():
+        lo, hi = ds.interval()
+        buckets = {"year": 3.2e10, "quarter": 8e9, "month": 2.6e9,
+                   "week": 6.05e8, "day": 8.64e7, "hour": 3.6e6,
+                   "minute": 6e4}.get(gran.kind, 8.64e7)
+        out *= max(1, int((hi - lo) / buckets))
+    return out
+
+
+def estimate(ctx_or_engine, q: S.QuerySpec) -> CostEstimate:
+    """Single-device cost units of one spec: the scan of the rows its
+    intervals keep plus the decode of its estimated groups (the JAX
+    package's ``single_cost``)."""
+    engine = getattr(ctx_or_engine, "engine", ctx_or_engine)
+    ds = engine.store.get(q.datasource)
+    conf = engine.config
+    seg_idx = ds.prune_segments(getattr(q, "intervals", None))
+    if ds.num_segments:
+        rows = int(ds.num_rows * len(seg_idx) / ds.num_segments)
+    else:
+        rows = 0
+    sel = _filter_selectivity(getattr(q, "filter", None), ds)
+    groups = min(_output_groups(q, ds), max(1, int(rows * sel)) or 1)
+    single = rows * conf.get(COST_PER_ROW_SCAN) \
+        + groups * conf.get(COST_PER_BYTE_TRANSPORT) * 16
+    return CostEstimate(rows, sel, groups, single, single)
 
 
 def array_itemsize(ds, key: str) -> int:

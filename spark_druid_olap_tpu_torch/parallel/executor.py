@@ -2,9 +2,15 @@
 tiers.
 
 Port of ``spark_druid_olap_tpu/parallel/executor.py``: ``QueryEngine.execute``
--> ``_execute_inner`` -> ``_run_agg`` for GroupBy, Timeseries and TopN
-specs, ``_run_select`` and ``_run_search`` for raw-row and dictionary
-searches, on one device. Planning (``plan_dimension``,
+(query-id registration, the in-flight registry and WLM admission,
+``wlm/``) -> ``_execute_admitted`` (the semantic result cache,
+``cache/``, in front of the shared-scan coalescer) -> ``_execute_inner``
+-> ``_run_agg`` for GroupBy, Timeseries and TopN specs, ``_run_select``
+and ``_run_search`` for raw-row and dictionary searches, on one device.
+A cancel (``cancel``) or a deadline (``QueryContext.timeout_millis``)
+takes effect at the host's stage boundaries (``_stage_check``): before
+each dispatch, after the device round trip, and at every wave; a
+launched kernel runs to its end. Planning (``plan_dimension``,
 ``plan_aggregation`` / ``AggPlan``, ``_plan_agg``, ``_plan_routes``), the
 scan cores (``_make_core``, ``_hash_core``), the device-resident array
 cache (``_bind_arrays``), decode and the host epilogue
@@ -122,6 +128,17 @@ from spark_druid_olap_tpu_torch.utils.config import (
 class EngineFallback(Exception):
     """Query (or part) can't run on the device path; a planner must evaluate
     a host residual instead."""
+
+
+class QueryCancelled(RuntimeError):
+    """Raised when a registered query id is cancelled mid-flight. The
+    cancel is cooperative: it takes effect at the next stage boundary on
+    the host (before a dispatch, after the device round trip, at every
+    wave); a launched kernel runs to its end."""
+
+
+class QueryTimeout(RuntimeError):
+    """Raised when QueryContext.timeout_millis elapses at a stage boundary."""
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -639,8 +656,13 @@ def _topk_slack(limit: S.LimitSpec) -> int:
 class QueryEngine:
     def __init__(self, store: SegmentStore, config: Optional[Config] = None,
                  device="cuda"):
+        from spark_druid_olap_tpu_torch.cache.result_cache import (
+            SemanticResultCache)
+        from spark_druid_olap_tpu_torch.metadata.history import (
+            InflightRegistry)
         from spark_druid_olap_tpu_torch.parallel.sharedscan import (
             SharedScanCoalescer)
+        from spark_druid_olap_tpu_torch.wlm.admit import WorkloadManager
         self.store = store
         self.config = config or Config()
         self.device = torch.device(device)
@@ -655,7 +677,20 @@ class QueryEngine:
         # statement shapes whose late-materialization budget overflowed:
         # their warm runs go straight to the uncompacted program
         self._compact_overflowed: set = set()
+        # cooperative cancellation: refcounted flags per query id
+        self._cancel_flags: Dict[str, threading.Event] = {}
+        self._cancel_refs: Dict[str, int] = {}
+        self._cancel_lock = threading.Lock()
+        # semantic result cache (cache/): exact and subsumed reuse of
+        # aggregate answers held on the host, keyed on the datasource's
+        # ingest version
+        self.result_cache = SemanticResultCache(self.config)
+        # workload management (wlm/): lane admission and tenant quotas in
+        # front of every spec; the in-flight registry behind sys_queries
+        self.wlm = WorkloadManager(self.config)
+        self.inflight = InflightRegistry()
         self.sharedscan = SharedScanCoalescer(self)
+        self.wlm.sharedscan = self.sharedscan
 
     @property
     def last_stats(self) -> Dict[str, object]:
@@ -666,34 +701,147 @@ class QueryEngine:
             d = self._tls.stats = {}
         return d
 
+    # -- cancellation / timeout -----------------------------------------------
+    def register_query(self, query_id: str) -> None:
+        """Register a cancellable id BEFORE planning starts, so a cancel
+        arriving at any point in the query's life is honored.
+        Registrations are refcounted: statements sharing an id (one cancel
+        scope) stay cancellable until the LAST one releases."""
+        with self._cancel_lock:
+            self._cancel_flags.setdefault(query_id, threading.Event())
+            self._cancel_refs[query_id] = \
+                self._cancel_refs.get(query_id, 0) + 1
+
+    def release_query(self, query_id: str) -> None:
+        with self._cancel_lock:
+            n = self._cancel_refs.get(query_id, 1) - 1
+            if n <= 0:
+                self._cancel_refs.pop(query_id, None)
+                self._cancel_flags.pop(query_id, None)
+            else:
+                self._cancel_refs[query_id] = n
+
+    def cancel(self, query_id: str) -> bool:
+        """Mark a registered query id cancelled (cooperative; takes effect
+        at the next stage boundary). False when the id is not running."""
+        ev = self._cancel_flags.get(query_id)
+        if ev is None:
+            return False
+        ev.set()
+        return True
+
+    def _stage_check(self, q, t0: float):
+        ctxq = getattr(q, "context", None)
+        if ctxq is None:
+            return
+        if ctxq.query_id is not None:
+            ev = self._cancel_flags.get(ctxq.query_id)
+            if ev is not None and ev.is_set():
+                raise QueryCancelled(f"query {ctxq.query_id} cancelled")
+        if ctxq.timeout_millis is not None:
+            if (_time.perf_counter() - t0) * 1000 > ctxq.timeout_millis:
+                raise QueryTimeout(
+                    f"query exceeded {ctxq.timeout_millis}ms")
+
     # -- public ---------------------------------------------------------------
     def execute(self, q: S.QuerySpec) -> QueryResult:
+        """Registration, the in-flight registry and WLM admission, then
+        ``_execute_admitted``."""
         t0 = _time.perf_counter()
         self.last_stats.clear()
+        qid = getattr(getattr(q, "context", None), "query_id", None)
+        if qid is not None:
+            self.register_query(qid)
         try:
+            tok = self.inflight.begin(qid, getattr(q, "datasource", None),
+                                      type(q).__name__)
+            try:
+                # the shared-scan coalescer (joined on this thread)
+                # annotates each constituent's row with its group id
+                self._tls.inflight_tok = tok
+                ticket = None
+                try:
+                    if self.wlm.enabled:
+                        # admission before any planning, cache or dispatch
+                        # work: a shed query costs nothing, and queue wait
+                        # counts against the deadline (t0 is ticking)
+                        cancel_ev = self._cancel_flags.get(qid) \
+                            if qid is not None else None
+                        ticket = self.wlm.admit(self, q, t0, cancel_ev)
+                        if ticket.timeout_millis is not None \
+                                and getattr(q.context, "timeout_millis",
+                                            None) is None:
+                            # the lane's default timeout rides the spec so
+                            # every _stage_check honors it (the context is
+                            # stripped from cache keys and program
+                            # signatures)
+                            ctx0 = q.context or S.QueryContext()
+                            q = dataclasses.replace(
+                                q, context=dataclasses.replace(
+                                    ctx0,
+                                    timeout_millis=ticket.timeout_millis))
+                        self.last_stats["wlm"] = ticket.stats()
+                        self.inflight.running(tok, lane=ticket.lane,
+                                              tenant=ticket.tenant,
+                                              queued_ms=ticket.queued_ms)
+                    else:
+                        self.inflight.running(tok)
+                    return self._execute_admitted(q, t0)
+                finally:
+                    self._tls.inflight_tok = None
+                    if ticket is not None:
+                        self.wlm.release(ticket)
+            finally:
+                self.inflight.done(tok)
+        finally:
+            if qid is not None:
+                self.release_query(qid)
+
+    def _execute_admitted(self, q: S.QuerySpec, t0: float) -> QueryResult:
+        """Result-cache lookup, then the coalescer or ``_execute_inner``,
+        then ``cache.put``. An exception is never cached."""
+        try:
+            cache = self.result_cache
+            use_cache = cache.enabled and cache.cacheable(q)
+            if use_cache:
+                ds_version = self.store.datasource_version(q.datasource)
+                served, status = cache.lookup(q, ds_version)
+                if served is not None:
+                    self.last_stats["cache"] = status
+                    self.last_stats["datasource"] = q.datasource
+                    self.last_stats["total_ms"] = \
+                        (_time.perf_counter() - t0) * 1000
+                    return served
             if self.sharedscan.should_try(q):
                 # coalesce with concurrent eligible queries on the same
-                # datasource (parallel/sharedscan.py)
-                return self.sharedscan.run(q, t0)
-            return self._execute_inner(q, t0)
+                # datasource (parallel/sharedscan.py); under the cache, so
+                # each constituent populates its own key
+                r = self.sharedscan.run(q, t0)
+            else:
+                r = self._execute_inner(q, t0)
+            if use_cache:
+                cache.put(q, ds_version, r)
+                self.last_stats["cache"] = "miss"
+            return r
         except EC.Unsupported as e:
             # an expression or filter the device path cannot compile:
             # the signal a planner answers with a host residual
             raise EngineFallback(str(e)) from e
 
     def _execute_inner(self, q: S.QuerySpec, t0: float) -> QueryResult:
+        self._stage_check(q, t0)
         if isinstance(q, S.GroupByQuerySpec):
             r = self._run_agg(q, list(q.dimensions), q.aggregations,
                               q.post_aggregations, q.having, q.limit,
-                              q.granularity, q.filter, q.intervals)
+                              q.granularity, q.filter, q.intervals, t0)
         elif isinstance(q, S.TimeseriesQuerySpec):
             r = self._run_agg(q, [], q.aggregations, q.post_aggregations,
                               None, None, q.granularity, q.filter,
-                              q.intervals)
+                              q.intervals, t0)
         elif isinstance(q, S.TopNQuerySpec):
             r = self._run_agg(q, [q.dimension], q.aggregations,
                               q.post_aggregations, None, S.topn_limit(q),
-                              q.granularity, q.filter, q.intervals)
+                              q.granularity, q.filter, q.intervals, t0)
         elif isinstance(q, S.SelectQuerySpec):
             r = self._run_select(q)
         elif isinstance(q, S.SearchQuerySpec):
@@ -706,8 +854,15 @@ class QueryEngine:
     # -- aggregation path -----------------------------------------------------
     def _run_agg(self, q, dimensions: List[S.DimensionSpec], aggregations,
                  post_aggregations, having, limit, granularity, filter_spec,
-                 intervals, no_topk: bool = False) -> QueryResult:
+                 intervals, t0: Optional[float] = None,
+                 no_topk: bool = False) -> QueryResult:
         ds = self.store.get(q.datasource)
+
+        def check():
+            # a stage boundary: cancel and deadline take effect here
+            if t0 is not None:
+                self._stage_check(q, t0)
+
         seg_idx = ds.prune_segments(intervals, filter_spec)
         gran_kind = granularity.kind if granularity else "all"
 
@@ -755,7 +910,7 @@ class QueryEngine:
             return self._run_agg_hashed(
                 q, ds, seg_idx, all_dim_plans, agg_plans, names, min_day,
                 max_day, post_aggregations, having, limit, filter_spec,
-                intervals, no_topk=no_topk)
+                intervals, check, no_topk=no_topk)
         spw, n_waves = self._plan_waves(ds, names, seg_idx, n_keys,
                                         len(agg_plans))
         topk = None if no_topk or n_waves > 1 else \
@@ -774,12 +929,14 @@ class QueryEngine:
             # count travels, then only the passing groups
             dev_arrays = self._bind_arrays(ds, names, seg_idx)
             t = _phase("bind", t)
+            check()
             table = self._make_core(ds, all_dim_plans, agg_plans,
                                     filter_spec, intervals, min_day,
                                     max_day, n_keys, routes)(dev_arrays)
             mask = _having_mask(having_dev, table, routes)
             cnt = int(_to_host({"__stats__": mask.sum().reshape(1)})
                       ["__stats__"][0])
+            check()
             n_out = min(n_keys, 1 << max(6, (max(cnt, 1) - 1).bit_length()))
             # most groups pass: the whole table travels in key order with
             # the failing groups' occupancy zeroed (no selection pass)
@@ -801,6 +958,7 @@ class QueryEngine:
             dev_arrays = self._bind_arrays(ds, names, seg_idx)
             t = _phase("bind", t)
             for cm in ((compact_m, None) if compact_m else (None,)):
+                check()      # pre-dispatch boundary
                 out = self._make_core(ds, all_dim_plans, agg_plans,
                                       filter_spec, intervals, min_day,
                                       max_day, n_keys, routes,
@@ -811,6 +969,7 @@ class QueryEngine:
                 if over is not None:
                     out["__over__"] = over
                 host = _to_host(out)
+                check()      # post-device boundary
                 over = host.pop("__over__", None)
                 if over is None or int(over[0]) == 0:
                     if cm:
@@ -839,7 +998,7 @@ class QueryEngine:
                                        compact_m=cm)
                 finals, wave_over = self._run_waves(
                     ds, names, seg_idx, spw, core, routes, n_keys,
-                    sketch_plans)
+                    sketch_plans, check)
                 if not wave_over:
                     if cm:
                         self.last_stats["compact_m"] = int(cm)
@@ -892,7 +1051,7 @@ class QueryEngine:
                 return self._run_agg(q, dimensions, aggregations,
                                      post_aggregations, having, limit,
                                      granularity, filter_spec, intervals,
-                                     no_topk=True)
+                                     t0, no_topk=True)
         self.last_stats.update({
             "datasource": ds.name, "segments": int(len(seg_idx)),
             "groups": int(len(sel)), "rows_scanned": int(ds.num_rows),
@@ -1088,12 +1247,14 @@ class QueryEngine:
     # -- hashed high-cardinality aggregation path -----------------------------
     def _run_agg_hashed(self, q, ds, seg_idx, dim_plans, agg_plans, names,
                         min_day, max_day, post_aggregations, having, limit,
-                        filter_spec, intervals, no_topk: bool = False):
+                        filter_spec, intervals, check,
+                        no_topk: bool = False):
         """Group-by above the dense key-space ceiling (and the medium-K
         reroute): a table of ``T`` slots on the device per wave
         (``ops/hash_groupby.py``), the waves' partials merged by key on
         the host. Overflow in any wave retries the scan at 4x slots, then
-        falls back."""
+        falls back. ``check`` is the statement's stage boundary (before
+        each dispatch and wave, and after the last)."""
         if any(p.kind in SKETCH_KINDS for p in agg_plans):
             raise EngineFallback("sketch aggregation over hashed group-by")
         cards = [p.card for p in dim_plans]
@@ -1148,10 +1309,11 @@ class QueryEngine:
             if n_waves == 1:
                 arrays = self._bind_arrays(ds, names, seg_idx)
                 t = _phase("bind", t)
+                check()
                 outs = [core(arrays)]
             else:
                 binder = _WaveBinder(ds, names, spw, self.device)
-                outs = binder.stream(core, wave_segs)
+                outs = binder.stream(core, wave_segs, check)
             partials, unresolved = [], 0
             # each wave's outputs; under waves the next wave's bind is
             # already issued when the host syncs on this one's
@@ -1205,6 +1367,7 @@ class QueryEngine:
             if T > max_slots:
                 raise EngineFallback(
                     f"hashed group-by exceeded {max_slots} table slots")
+        check()
         keys, merged = _merge_hash_partials(partials, routes)
         data: Dict[str, np.ndarray] = {}
         columns: List[str] = []
@@ -1232,7 +1395,7 @@ class QueryEngine:
                 return self._run_agg_hashed(
                     q, ds, seg_idx, dim_plans, agg_plans, names, min_day,
                     max_day, post_aggregations, having, limit, filter_spec,
-                    intervals, no_topk=True)
+                    intervals, check, no_topk=True)
         self.last_stats.update({
             "datasource": ds.name, "segments": int(len(seg_idx)),
             "groups": int(len(keys)), "rows_scanned": int(ds.num_rows),
@@ -1475,17 +1638,18 @@ class QueryEngine:
             io_seg_bytes=C.tier_io_seg_bytes(ds, names))
 
     def _run_waves(self, ds, names, seg_idx, spw, core, routes, n_keys,
-                   sketch_plans):
+                   sketch_plans, check=None):
         """Execute the scan in bounded segment waves (double-buffered:
         wave i+1's copy to the device overlaps wave i's compute), merging
-        each wave's [K] finals on the host. Returns ``(finals, 0)``, or
-        ``(None, overflow)`` when a wave's late-materialization budget
-        overflowed: the caller re-runs the scan uncompacted."""
+        each wave's [K] finals on the host; ``check`` runs at every wave
+        boundary. Returns ``(finals, 0)``, or ``(None, overflow)`` when a
+        wave's late-materialization budget overflowed: the caller re-runs
+        the scan uncompacted."""
         binder = _WaveBinder(ds, names, spw, self.device)
         finals = None
         try:
-            for out in binder.stream(core, FU.plan_device_waves(seg_idx, spw,
-                                                                1)):
+            for out in binder.stream(
+                    core, FU.plan_device_waves(seg_idx, spw, 1), check):
                 host = _to_host(out)
                 over = host.pop("__over__", None)
                 if over is not None and int(over[0]):
@@ -1672,11 +1836,12 @@ class QueryEngine:
         return mask
 
     def clear_caches(self):
-        """Drop the device-resident columns (the next query re-uploads)
-        and the late-materialization overflow memo."""
+        """Drop the device-resident columns (the next query re-uploads),
+        the late-materialization overflow memo and the result cache."""
         self._device_arrays.clear()
         self._device_bytes = 0
         self._compact_overflowed.clear()
+        self.result_cache.clear()
 
 
 def _scan_base(ctx, filter_spec, intervals, fuse_cse):
@@ -2113,26 +2278,36 @@ class _WaveBinder:
         if pf is not None and i < len(wave_segs):
             pf(self.names, wave_segs[i])
 
-    def stream(self, prog, wave_segs):
+    def stream(self, prog, wave_segs, check=None):
         """Yield each wave's outputs of ``prog`` in wave order. Wave i is
         launched, then wave i+1 bound (its host build and its copy
         overlap wave i's compute), then wave i's outputs yielded: the
-        caller's copy of them to the host is the loop's sync point."""
+        caller's copy of them to the host is the loop's sync point.
+        ``check`` (a cancel or deadline) runs before each launch; however
+        the loop ends, it waits for the copies still in flight out of the
+        pinned staging before the staging can be freed."""
         self.tier_prefetch(wave_segs, 1)
         cur = self.bind_wave(wave_segs[0])
-        for i in range(len(wave_segs)):
-            t0 = _time.perf_counter()
-            out = self._launch(prog, cur)
-            self.tier_prefetch(wave_segs, i + 2)
-            b0 = _time.perf_counter()
-            cur = self.bind_wave(wave_segs[i + 1]) \
-                if i + 1 < len(wave_segs) else None
-            bind_s = _time.perf_counter() - b0
-            try:
-                yield out
-            finally:
-                # the bind above charged its own phase
-                PH.add("dispatch", _time.perf_counter() - t0 - bind_s)
+        try:
+            for i in range(len(wave_segs)):
+                if check is not None:
+                    check()     # per-wave boundary
+                t0 = _time.perf_counter()
+                out = self._launch(prog, cur)
+                self.tier_prefetch(wave_segs, i + 2)
+                b0 = _time.perf_counter()
+                cur = self.bind_wave(wave_segs[i + 1]) \
+                    if i + 1 < len(wave_segs) else None
+                bind_s = _time.perf_counter() - b0
+                try:
+                    yield out
+                finally:
+                    # the bind above charged its own phase
+                    PH.add("dispatch", _time.perf_counter() - t0 - bind_s)
+        finally:
+            for ev in self._copied:
+                if ev is not None:
+                    ev.synchronize()
 
     def steps(self) -> List[dict]:
         """Per wave: segments, host bind ms, bytes copied and, on cuda,

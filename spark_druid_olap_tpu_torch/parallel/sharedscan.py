@@ -37,9 +37,18 @@ after planning (a kernel build, launch or CUDA error, or a bug) is
 delivered to every member that rides the group instead of degrading them
 to solo runs, so a failing kernel can never hide behind the solo path.
 
-Not ported yet: mesh-sharded waves (A.8), and the WLM hand-off and
-result cache (A.9). The port has no query cancellation or timeout yet, so
-members are not re-checked while held.
+Members are re-checked for their own cancel and deadline while held
+(the leader while it holds the window, followers while parked, each
+member again at close): a cancelled or timed-out member drops out with
+its error, and the rest ride on. A cancel or deadline of the member whose
+checks the dispatch runs (the first rider) at a dispatch or wave
+boundary raises in that member only; the others run solo, as in the JAX
+package. WLM hands queued statements into an open group
+(``open_group_hint``, ``note_handoff``), and the result cache sits above
+``run``, so each constituent populates its own key. The solo path counts
+no CSE, so the JAX package's ``note_solo_cse`` has no counterpart.
+
+Not ported yet: mesh-sharded waves (A.8).
 """
 
 from __future__ import annotations
@@ -91,16 +100,21 @@ from spark_druid_olap_tpu_torch.utils.config import (
 _FALLBACK = object()
 
 
-class _Member:
-    __slots__ = ("q", "t0", "leader", "event", "outcome", "stats")
+# how often a parked follower re-checks its own cancel and deadline
+_WAIT_POLL_S = 0.02
 
-    def __init__(self, q, t0, leader: bool):
+
+class _Member:
+    __slots__ = ("q", "t0", "leader", "event", "outcome", "stats", "tok")
+
+    def __init__(self, q, t0, leader: bool, tok=None):
         self.q = q
         self.t0 = t0
         self.leader = leader
         self.event = threading.Event()
         self.outcome = None
         self.stats = None
+        self.tok = tok               # the member's in-flight registry row
 
 
 class _Group:
@@ -163,6 +177,7 @@ class SharedScanCoalescer:
         self.fallbacks = 0            # members routed to solo execution
         self.binds_saved_bytes = 0
         self.dispatches_saved = 0
+        self.wlm_handoffs = 0         # queued waiters bypassed into groups
         # fusion planner (planner/fusion.py), ticked on every fused run
         self.fusion_groups = 0
         self.fusion_fallbacks = 0     # planning errors -> unfused lowering
@@ -187,6 +202,25 @@ class SharedScanCoalescer:
         return self.enabled() and isinstance(
             q, (S.GroupByQuerySpec, S.TimeseriesQuerySpec, S.TopNQuerySpec))
 
+    def open_group_hint(self, datasource) -> bool:
+        """True when an open group on ``datasource`` still has room: the
+        WLM poll loop then hands a queued compatible query to the
+        coalescer instead of draining it serially."""
+        if not self.enabled() or datasource is None:
+            return False
+        maxq = int(self.engine.config.get(SHAREDSCAN_MAX_QUERIES))
+        with self._lock:
+            g = self._groups.get(datasource)
+            return g is not None and g.state == "open" \
+                and len(g.members) < maxq
+
+    def note_handoff(self) -> None:
+        """Called by the WLM poll loop (under its own lock, which comes
+        first) when a queued waiter bypasses its lane to ride an open
+        group's dispatch."""
+        with self._lock:
+            self.wlm_handoffs += 1
+
     # -- group membership -----------------------------------------------------
     def run(self, q, t0: float) -> QueryResult:
         """Join (or lead) the open group for q's datasource; return the
@@ -195,10 +229,11 @@ class SharedScanCoalescer:
         window_s = max(0.0,
                        float(eng.config.get(WLM_BATCH_WINDOW_MS)) / 1000.0)
         maxq = max(1, int(eng.config.get(SHAREDSCAN_MAX_QUERIES)))
+        tok = getattr(eng._tls, "inflight_tok", None)
         with self._lock:
             g = self._groups.get(q.datasource)
             if g is not None and g.state == "open" and len(g.members) < maxq:
-                m = _Member(q, t0, leader=False)
+                m = _Member(q, t0, leader=False, tok=tok)
                 g.members.append(m)
                 if len(g.members) >= maxq:
                     g.state = "closing"
@@ -206,12 +241,12 @@ class SharedScanCoalescer:
             else:
                 self._next_gid += 1
                 g = _Group(self._next_gid, q.datasource)
-                m = _Member(q, t0, leader=True)
+                m = _Member(q, t0, leader=True, tok=tok)
                 g.members.append(m)
                 self._groups[q.datasource] = g
 
         if m.leader:
-            self._hold_window(g, window_s)
+            self._hold_window(g, m, window_s)
             with self._lock:
                 g.state = "closed"
                 if self._groups.get(q.datasource) is g:
@@ -219,7 +254,10 @@ class SharedScanCoalescer:
                 members = list(g.members)
             self._close_group(g, members)
         else:
-            m.event.wait()
+            while not m.event.wait(_WAIT_POLL_S):
+                # the follower's OWN cancel or deadline while parked; a
+                # late outcome into an abandoned slot is harmless
+                eng._stage_check(q, t0)
 
         out = m.outcome
         if out is _FALLBACK:
@@ -231,26 +269,43 @@ class SharedScanCoalescer:
         eng.last_stats["total_ms"] = (_time.perf_counter() - t0) * 1000
         return out
 
-    @staticmethod
-    def _hold_window(g: _Group, window_s: float) -> None:
+    def _hold_window(self, g: _Group, m: _Member, window_s: float) -> None:
         """Leader parks for the micro-batch window (early close when the
-        group fills)."""
-        g.close_ev.wait(window_s)
+        group fills, or when the leader's own cancel or deadline fires:
+        held time counts against timeout_millis)."""
+        deadline = _time.perf_counter() + window_s
+        while not g.close_ev.is_set():
+            rem = deadline - _time.perf_counter()
+            if rem <= 0:
+                break
+            g.close_ev.wait(min(rem, 0.005))
+            try:
+                self.engine._stage_check(m.q, m.t0)
+            except BaseException:  # noqa: BLE001 — _close_group drops it
+                break
 
     def _close_group(self, g: _Group, members: List[_Member]) -> None:
         """Runs on the leader's thread. Every member gets an outcome and
-        (followers) a set event, no matter what: members the plan routes
-        solo get _FALLBACK; an exception of the fused path reaches every
-        member that rides the group."""
-        fused_tried = len(members) >= 2
+        (followers) a set event, no matter what: a member cancelled or
+        timed out while held gets its error and drops out before the
+        plan; members the plan routes solo get _FALLBACK; an exception of
+        the fused path reaches every member that rides the group."""
+        live = []
+        for m in members:
+            try:
+                self.engine._stage_check(m.q, m.t0)
+                live.append(m)
+            except BaseException as e:  # noqa: BLE001 — its outcome
+                m.outcome = e
+        fused_tried = len(live) >= 2
         try:
             if fused_tried:
-                self._run_fused(g, members)
+                self._run_fused(g, live)
             else:
                 with self._lock:
                     self.solo_groups += 1
         except BaseException as e:  # noqa: BLE001 — delivered as outcome
-            for m in members:
+            for m in live:
                 if m.outcome is None:
                     m.outcome = e
         finally:
@@ -272,6 +327,7 @@ class SharedScanCoalescer:
         fetch ONE program keyed on the sorted tuple of lane signatures,
         bind the column union once, dispatch, and demultiplex. Members the
         plan declines get _FALLBACK (solo); the rest ride."""
+        from spark_druid_olap_tpu_torch.parallel import executor as X
         eng = self.engine
         t_plan = _time.perf_counter()
 
@@ -370,9 +426,18 @@ class SharedScanCoalescer:
         prog_fn, wave_info = eng._cached_program(sig, _build)
         t_dispatch = _time.perf_counter()
 
-        # 8. dispatch once per wave; 9. demultiplex
-        per_lane_finals, wave_steps = self._dispatch(
-            ds, union_names, seg_u, spw, n_waves, prog_fn, lanes)
+        # 8. dispatch once per wave, at each boundary the first rider's
+        # cancel and deadline; 9. demultiplex
+        pilot = planned[0][0]
+        try:
+            per_lane_finals, wave_steps = self._dispatch(
+                ds, union_names, seg_u, spw, n_waves, prog_fn, lanes,
+                lambda: eng._stage_check(pilot.q, pilot.t0))
+        except (X.QueryCancelled, X.QueryTimeout) as e:
+            # the pilot's own cancel or deadline: it raises, the other
+            # riders run solo (as in the JAX package)
+            pilot.outcome = e
+            return solo(m for m, _ in planned[1:])
         t_demux = _time.perf_counter()
         results = [self._decode_lane(eng, ds, lp, fin)
                    for lp, fin in zip(lanes, per_lane_finals)]
@@ -431,6 +496,7 @@ class SharedScanCoalescer:
             if wave_steps is not None:
                 m.stats["wave_steps"] = wave_steps
             m.outcome = results[li]
+            eng.inflight.annotate(m.tok, sharedscan_group=g.gid)
 
     def _plan_members(self, ds, qs):
         """Steps 1-3 of a fused run: shape and prune every spec, take the
@@ -607,11 +673,12 @@ class SharedScanCoalescer:
             kll_lanes=cfg.get(QUANTILE_LANES))
 
     def _dispatch(self, ds, union_names, seg_u, spw, n_waves, prog_fn,
-                  lanes: List[_LanePlan]):
+                  lanes: List[_LanePlan], check):
         """One shared bind and ONE program dispatch per wave (the JAX
         package's ``_dispatch``; double-buffered like the engine's
-        ``_run_waves``); per-lane finals merged across the waves. Returns
-        ``(per-lane finals, the waves' steps or None in one wave)``."""
+        ``_run_waves``), ``check`` before each; per-lane finals merged
+        across the waves. Returns ``(per-lane finals, the waves' steps or
+        None in one wave)``."""
         from spark_druid_olap_tpu_torch.parallel import executor as X
         sketch = [[p for p in lp.agg_plans if p.kind in SKETCH_KINDS]
                   for lp in lanes]
@@ -625,12 +692,13 @@ class SharedScanCoalescer:
                 lp.n_keys, sketch[i]) for i, lp in enumerate(lanes)]
 
         if n_waves == 1:
-            return lane_finals(prog_fn(self.engine._bind_arrays(
-                ds, union_names, seg_u))), None
+            arrays = self.engine._bind_arrays(ds, union_names, seg_u)
+            check()
+            return lane_finals(prog_fn(arrays)), None
         binder = X._WaveBinder(ds, union_names, spw, self.engine.device)
         finals = None
-        for outs in binder.stream(prog_fn, FU.plan_device_waves(seg_u, spw,
-                                                                1)):
+        for outs in binder.stream(
+                prog_fn, FU.plan_device_waves(seg_u, spw, 1), check):
             f = lane_finals(outs)
             finals = f if finals is None else [
                 X._merge_wave_finals(a, b, lp.routes, sketch[i])
@@ -680,6 +748,7 @@ class SharedScanCoalescer:
                     "fallbacks": self.fallbacks,
                     "binds_saved_bytes": self.binds_saved_bytes,
                     "dispatches_saved": self.dispatches_saved,
+                    "wlm_handoffs": self.wlm_handoffs,
                     "wave_launches": self.wave_launches,
                     "wave_fallbacks": self.wave_fallbacks,
                     "wave_fallback_reasons":

@@ -5,9 +5,8 @@ kept inside the PyTorch package, which imports nothing of the JAX package.
 Two parts differ: ``datasource_frame`` reads the store's host copies
 through the port's own ``_host_column_values`` (the port's stores are
 always complete, so there is no cross-process gather), and the system
-tables that need machinery the port has not ported (rollups, snapshots,
-the in-flight registry and the WLM lanes) raise ``NotImplementedError``
-(ROADMAP A.9).
+tables that need machinery the port has not ported (rollups, snapshots)
+raise ``NotImplementedError`` (ROADMAP A.9).
 
 The completeness safety net: whatever the device planner cannot push down
 runs here — the analog of the reference leaving non-rewritten plans to plain
@@ -40,6 +39,31 @@ class HostExecError(Exception):
 # SQL-queryable metadata views (≈ DruidMetadataViews.metadataDFs — the
 # reference exposes druidrelations/druidservers/druidsegments as resolvable
 # tables via a catalog hook, SPLSessionState.scala:67-74)
+def _sys_queries(ctx):
+    """In-flight queries (state queued/running, live from the engine's
+    inflight registry) ahead of the completed history, with uniform
+    state / lane / queued_ms / wall_ms columns so load is observable
+    while it is happening."""
+    rows = []
+    for r in ctx.engine.inflight.snapshot():
+        rows.append({"state": r["state"], "queryType": r["query_type"],
+                     "datasource": r["datasource"],
+                     "query_id": r["query_id"], "lane": r["lane"],
+                     "tenant": r["tenant"], "startedAt": r["started_at"],
+                     "queued_ms": round(r["queued_ms"], 2),
+                     "wall_ms": round(r["wall_ms"], 2)})
+    for rec in ctx.history.entries():
+        d = rec.to_dict()
+        wlm = d.get("wlm") or {}
+        d.setdefault("state", "completed")
+        d.setdefault("lane", wlm.get("lane"))
+        d.setdefault("tenant", wlm.get("tenant"))
+        d.setdefault("queued_ms", wlm.get("queued_ms", 0.0))
+        d.setdefault("wall_ms", d.get("total_ms"))
+        rows.append(d)
+    return pd.DataFrame(rows)
+
+
 def _sys_not_ported(what: str):
     def view(ctx):
         raise NotImplementedError(
@@ -51,8 +75,8 @@ SYS_VIEWS = {
     "sys_datasources": lambda ctx: ctx.catalog.datasources_view(),
     "sys_segments": lambda ctx: ctx.catalog.segments_view(),
     "sys_columns": lambda ctx: ctx.catalog.columns_view(),
-    "sys_queries": _sys_not_ported("sys_queries"),
-    "sys_lanes": _sys_not_ported("sys_lanes"),
+    "sys_queries": _sys_queries,
+    "sys_lanes": lambda ctx: ctx.engine.wlm.lanes_view(),
     "sys_rollups": _sys_not_ported("sys_rollups"),
     "sys_snapshots": _sys_not_ported("sys_snapshots"),
 }

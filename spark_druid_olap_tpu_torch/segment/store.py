@@ -329,20 +329,52 @@ def datasource_from_arrays(name: str, arrays: dict) -> Datasource:
 
 class SegmentStore:
     """Registry of ingested datasources. ``version`` is bumped on every
-    register or drop; plan and result caches key on it
-    (``planner/host_exec.result_cache``)."""
+    register, drop or clear; plan caches key on it
+    (``planner/host_exec.result_cache``). Each datasource also keeps its
+    own ingest version, the store version at its last register or drop:
+    result-cache keys fold it in, so a re-ingest invalidates only that
+    datasource's cached answers (``datasource_version``)."""
 
     def __init__(self):
         self._datasources: Dict[str, Datasource] = {}
         self.version = 0
+        self._versions: Dict[str, int] = {}
+        # change listeners, called as cb(event, name) with event in
+        # register | drop | clear
+        self._listeners = []
+
+    def add_listener(self, cb) -> None:
+        self._listeners.append(cb)
+
+    def _notify(self, event: str, name) -> None:
+        for cb in self._listeners:
+            try:
+                cb(event, name)
+            except Exception:  # noqa: BLE001 — a listener never breaks
+                pass           # the store
 
     def register(self, ds: Datasource) -> None:
         self._datasources[ds.name] = ds
         self.version += 1
+        self._versions[ds.name] = self.version
+        self._notify("register", ds.name)
 
     def drop(self, name: str) -> None:
         self._datasources.pop(name, None)
         self.version += 1
+        self._versions[name] = self.version
+        self._notify("drop", name)
+
+    def clear(self) -> None:
+        """Drop every datasource."""
+        self._datasources.clear()
+        self.version += 1
+        self._versions.clear()
+        self._notify("clear", None)
+
+    def datasource_version(self, name: str) -> int:
+        """Monotone ingest version of one datasource (0 = never seen)."""
+        return self._versions.get(name, 0)
 
     def names(self) -> List[str]:
         return sorted(self._datasources)

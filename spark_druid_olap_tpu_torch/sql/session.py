@@ -4,7 +4,10 @@ Port of ``spark_druid_olap_tpu/sql/session.py``: ``run_sql``,
 ``explain_sql`` / ``explain_text``, the select path with its statement memo
 and plan cache, UNION ALL, ``execute_planned`` and the exact count-distinct
 phase 2, with the window post-pass (``window/``) and the broadcast join
-tier (``planner/joinplan.try_execute``), as there. What the port has not
+tier (``planner/joinplan.try_execute``), as there. ``run_sql`` registers a
+statement's ``query_id`` before planning and puts it into each spec's
+``QueryContext`` (``engine.cancel`` reaches every one), and pushes its
+``lane`` / ``tenant`` / ``priority`` for WLM admission. What the port has not
 ported raises ``NotImplementedError`` naming its ROADMAP item instead of
 answering on the host: materialized rollup statements, persistence
 commands and ``ON DATASOURCE ... EXECUTE QUERY`` (A.9). The per-statement
@@ -21,7 +24,7 @@ from __future__ import annotations
 
 import functools as _functools
 import time as _time
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import pandas as pd
@@ -166,7 +169,30 @@ def _parse_cached(sql: str):
     return stmt
 
 
-def run_sql(ctx, sql: str) -> QueryResult:
+def run_sql(ctx, sql: str, query_id: Optional[str] = None,
+            lane: Optional[str] = None, tenant: Optional[str] = None,
+            priority: Optional[int] = None) -> QueryResult:
+    if lane is not None or tenant is not None or priority is not None:
+        # the request's lane / tenant / priority ride WLM's thread-local
+        # state down to every spec this statement executes (subqueries and
+        # composite sub-plans too), as the query id does below
+        ctx.engine.wlm.push_request(lane, tenant, priority)
+        try:
+            return run_sql(ctx, sql, query_id=query_id)
+        finally:
+            ctx.engine.wlm.pop_request()
+    if query_id is not None:
+        # register BEFORE planning so a cancel landing at any point in the
+        # statement's life is honored; the id rides thread-local state
+        # down to every spec this statement executes
+        tls = host_exec.ctx_tls(ctx)   # resolve BEFORE the refcount:
+        ctx.engine.register_query(query_id)   # nothing between acquire
+        try:                                  # and try may raise
+            tls.query_id = query_id
+            return _run_sql_inner(ctx, sql)
+        finally:
+            tls.query_id = None
+            ctx.engine.release_query(query_id)
     return _run_sql_inner(ctx, sql)
 
 
@@ -194,7 +220,7 @@ def _run_sql_inner(ctx, sql: str) -> QueryResult:
                 "(ROADMAP A.9)")
         if stmt.datasource:
             ctx.store.drop(stmt.datasource)
-        ctx.engine.clear_caches()
+        ctx.engine.clear_caches()   # the result cache too
         return QueryResult(["status"], {"status": np.array(["OK"],
                                                            dtype=object)})
     if isinstance(stmt, (A.Checkpoint, A.Restore)):
@@ -558,6 +584,9 @@ def _run_select_planned(ctx, stmt, sql: str, ph_tok, memo,
     if rollup_status is not None:
         stats["rollup"] = rollup_status
     stats["total_ms"] = (_time.perf_counter() - t0) * 1000
+    if stats.get("cache") not in (None, "miss"):
+        # a semantic result-cache hit: the engine dispatched nothing
+        stats["served_from"] = "result_cache"
     if plan_cached:
         stats["plan_cached"] = True
     if memo_hit is not None:
@@ -628,8 +657,13 @@ def _run_union(ctx, u: A.UnionAll, sql: str) -> QueryResult:
 
 
 def execute_planned(ctx, pq: PlannedQuery) -> pd.DataFrame:
+    import dataclasses as _dc
+    qid = getattr(host_exec.ctx_tls(ctx), "query_id", None)
     frames: List[pd.DataFrame] = []
     for q, set_dims in zip(pq.specs, pq.spec_dims):
+        if qid is not None and getattr(q.context, "query_id", None) is None:
+            qctx = q.context or S.QueryContext()
+            q = _dc.replace(q, context=_dc.replace(qctx, query_id=qid))
         df = ctx.engine.execute(q).to_pandas()
         if "__count__" in df.columns and "__count__" not in pq.output_columns:
             df = df.drop(columns=["__count__"])

@@ -259,6 +259,69 @@ CUDA_WAVE_SCRATCH_BYTES = _entry(
     "limit less the static part are clamped to it.", int)
 
 
+# --- semantic result cache (cache/) ------------------------------------------
+CACHE_ENABLED = _entry(
+    "sdot.cache.enabled", True,
+    "Semantic query-result cache over engine aggregate results "
+    "(cache/result_cache.py): identical queries are served from host "
+    "memory without touching the device. Keys fold in the per-datasource "
+    "ingest version, so staleness is structural: any re-ingest or drop "
+    "invalidates.")
+CACHE_MAX_BYTES = _entry(
+    "sdot.cache.max_bytes", 256 << 20,
+    "Byte budget for materialized results held by the semantic result "
+    "cache; least-recently-used entries evict past it. Results larger "
+    "than the whole budget are never admitted.")
+CACHE_SUBSUMPTION = _entry(
+    "sdot.cache.subsumption", True,
+    "Answer queries from SUPERSET cached entries without re-executing "
+    "(cache/subsume.py): coarser-granularity timeseries from a cached "
+    "finer one, TopN and dim-filtered GroupBy from a cached "
+    "unfiltered/unlimited GroupBy over the same dims, and "
+    "having/limit/post-agg re-evaluation on cached partials.")
+
+# --- workload management (wlm/) and its cost estimate (parallel/cost.py) -----
+WLM_ENABLED = _entry(
+    "sdot.wlm.enabled", True,
+    "Admission control in front of the engine (wlm/): every query is "
+    "classified into a named lane with bounded concurrency and queue "
+    "depth; overload sheds with a retryable rejection instead of melting "
+    "every in-flight query.", semantic=False)
+WLM_LANES = _entry(
+    "sdot.wlm.lanes",
+    "interactive:slots=8,queue=64;reporting:slots=4,queue=32;"
+    "batch:slots=2,queue=16",
+    "Lane layout: 'name:slots=N,queue=N,wait_ms=N,timeout_ms=N,"
+    "priority=N;...'. slots = concurrent queries in the lane, queue = "
+    "bounded wait-queue depth past which admissions shed, wait_ms = max "
+    "queue-wait budget (0 = only the query's own timeout bounds it), "
+    "timeout_ms = default QueryContext timeout applied when the client "
+    "set none, priority = default admission priority (higher first).",
+    semantic=False)
+WLM_DEFAULT_LANE = _entry(
+    "sdot.wlm.default.lane", "interactive",
+    "Lane for queries with no explicit context.lane (before cost-based "
+    "demotion is considered).", semantic=False)
+WLM_BATCH_COST = _entry(
+    "sdot.wlm.batch.cost.threshold", 0.5,
+    "Estimated single-device cost units (parallel/cost.estimate) at or "
+    "above which a query without an explicit lane is demoted to the "
+    "'batch' lane. 0 disables cost-based demotion. Per-tenant quotas "
+    "ride the same config channel as free-form keys: "
+    "'sdot.wlm.quota.<tenant>' = 'concurrent=N,budget=F,refill=F' "
+    "('default' is the template for tenants without an explicit entry).",
+    float, semantic=False)
+COST_PER_ROW_SCAN = _entry(
+    "sdot.querycostmodel.historical.processing.cost", 1e-8,
+    "Abstract cost to scan and filter one row on one device "
+    "(parallel/cost.estimate; the cost units WLM demotes and charges "
+    "quotas in).", float)
+COST_PER_BYTE_TRANSPORT = _entry(
+    "sdot.querycostmodel.transport.cost", 2.5e-9,
+    "Abstract cost to move one byte of the result from the device to the "
+    "host (parallel/cost.estimate).", float)
+
+
 # --- SQL front end (sql/session.py, planner/) --------------------------------
 DEBUG_TRANSFORMATIONS = _entry(
     "sdot.debug.transformations", False,
@@ -366,15 +429,24 @@ class Config:
     def fingerprint(self) -> tuple:
         """Hashable snapshot of the semantic overrides: plan and result
         caches key on it, so a config change never serves a plan built
-        under the old settings. Operational keys (``semantic=False``) are
-        left out; unknown keys are kept."""
+        under the old settings. Operational keys (``semantic=False``) and
+        the tenant quota family are left out; unknown keys are kept."""
         out = []
         for k, v in self._values.items():
             e = _REGISTRY.get(k)
             if e is not None and not e.semantic:
                 continue
+            if k.startswith("sdot.wlm.quota."):
+                continue    # dynamic family, admission-only
             out.append((k, repr(v)))
         return tuple(sorted(out))
+
+    def prefixed(self, prefix: str) -> Dict[str, Any]:
+        """Every explicitly-set key under ``prefix`` (free-form families
+        such as ``sdot.wlm.quota.<tenant>`` ride the unknown-key channel
+        and enumerate themselves this way)."""
+        return {k: v for k, v in self._values.items()
+                if k.startswith(prefix)}
 
     def is_set(self, entry_or_key) -> bool:
         """Whether the key was set explicitly (even to its default)."""

@@ -16,6 +16,8 @@ rtol 1e-6 (float metrics are stored f32, and the engines sum them in
 different orders).
 """
 
+import test_torch_cache_pin  # noqa: F401 (the port's result cache off)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

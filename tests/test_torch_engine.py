@@ -14,6 +14,8 @@ rtol 1e-6 (float metric columns are stored f32; the JAX routes and the port
 sum them in different orders).
 """
 
+import test_torch_cache_pin  # noqa: F401 (the port's result cache off)
+
 import numpy as np
 import pandas as pd
 import pytest

@@ -12,6 +12,8 @@ kernel's register-file layout (``ops/cuda_wave.register_file``) with its
 decline when nothing fits.
 """
 
+import test_torch_cache_pin  # noqa: F401 (the port's result cache off)
+
 import numpy as np
 import pytest
 import torch

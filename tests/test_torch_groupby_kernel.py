@@ -11,6 +11,8 @@ Tolerance: integers, counts and min/max exact; float sums rtol 1e-6, because
 the JAX kernel sums f32 per lane (Neumaier pairs) and the port sums in f64.
 """
 
+import test_torch_cache_pin  # noqa: F401 (the port's result cache off)
+
 import numpy as np
 import pytest
 import torch

@@ -16,6 +16,8 @@ same rows (ops), rtol 1e-6 through the engines (float metrics are stored
 f32 and the tiers sum them in different orders).
 """
 
+import test_torch_cache_pin  # noqa: F401 (the port's result cache off)
+
 import threading
 
 import jax

@@ -14,6 +14,8 @@ travelled) must equal the JAX engine's in every case.
 Tolerance: dimensions, integers and counts exact; float sums rtol 1e-6.
 """
 
+import test_torch_cache_pin  # noqa: F401 (the port's result cache off)
+
 import numpy as np
 import pandas as pd
 import pytest

@@ -3,6 +3,8 @@ entry point refuses to run without the card unless asked for the CPU, and
 its copied TPC-H generator gives the JAX generator's frames.
 """
 
+import test_torch_cache_pin  # noqa: F401 (the port's result cache off)
+
 import ast
 import pathlib
 import subprocess
@@ -84,16 +86,24 @@ JOIN_WINDOW_MODULES = ["segment.native", "ops.hash_join", "join.broadcast",
                        "window.plan", "window.exec"]
 
 
+# the result cache, WLM and the in-flight registry, by exact name (``cache``
+# and ``wlm`` are package names in the JAX package too)
+SERVING_MODULES = ["cache", "cache.keys", "cache.result_cache",
+                   "cache.subsume", "wlm", "wlm.lanes", "wlm.quota",
+                   "wlm.admit"]
+
+
 @pytest.mark.parametrize("module",
                          SHAREDSCAN_MODULES + SQL_MODULES + HASHED_MODULES
-                         + JOIN_WINDOW_MODULES)
+                         + JOIN_WINDOW_MODULES + SERVING_MODULES)
 def test_sharedscan_slice_modules_are_checked(module):
     import pkgutil
     prefix = "spark_druid_olap_tpu_torch."
     name = prefix + module
     walked = {m.name for m in pkgutil.walk_packages(tsdot.__path__, prefix)}
     assert name in walked
-    path = PORT.joinpath(*module.split(".")).with_suffix(".py")
+    path = PORT.joinpath(*module.split("."))
+    path = path / "__init__.py" if path.is_dir() else path.with_suffix(".py")
     assert not _forbidden_imports(path)
 
 

@@ -17,6 +17,8 @@ waves. The JAX context runs with ``sdot.mesh.enabled`` false, so both
 packages plan one device and the same waves.
 """
 
+import test_torch_cache_pin  # noqa: F401 (the port's result cache off)
+
 import numpy as np
 import pandas as pd
 import pytest

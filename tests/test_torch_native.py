@@ -11,6 +11,8 @@ Arrow-backed column. A whole ingest with the encoder and without it gives
 identical datasources, which equal the JAX package's.
 """
 
+import test_torch_cache_pin  # noqa: F401 (the port's result cache off)
+
 import os
 import time
 

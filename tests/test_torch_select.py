@@ -16,6 +16,8 @@ and the group-by to search rewrite of a ``like '%x%'`` count through
 Tolerance: exact (select returns stored values; search counts rows).
 """
 
+import test_torch_cache_pin  # noqa: F401 (the port's result cache off)
+
 import numpy as np
 import pandas as pd
 import pytest

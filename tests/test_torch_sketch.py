@@ -20,6 +20,8 @@ Tolerance: registers, estimates, counts and dimensions exact; float sums
 rtol 1e-6.
 """
 
+import test_torch_cache_pin  # noqa: F401 (the port's result cache off)
+
 import jax.numpy as jnp
 import numpy as np
 import pandas as pd

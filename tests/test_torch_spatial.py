@@ -12,6 +12,8 @@ the filter as one lane of a storm (the JAX package lowers it in the lane
 too) answering as it does solo.
 """
 
+import test_torch_cache_pin  # noqa: F401 (the port's result cache off)
+
 import numpy as np
 import pytest
 

@@ -14,6 +14,8 @@ counts and min/max exact; float sums rtol 1e-6 (float metrics are stored
 f32 and the engines sum them in different orders).
 """
 
+import test_torch_cache_pin  # noqa: F401 (the port's result cache off)
+
 import ast
 import dataclasses
 import math

@@ -14,6 +14,8 @@ rtol 1e-6 (float metrics are stored f32; the engines sum in different
 orders).
 """
 
+import test_torch_cache_pin  # noqa: F401 (the port's result cache off)
+
 import pytest
 
 import spark_druid_olap_tpu as jsdot

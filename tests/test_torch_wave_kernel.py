@@ -13,6 +13,8 @@ checked against the same program. The kernel itself runs only on the card
 (``chip_smoke.py`` holds it against ``wave_reference`` there).
 """
 
+import test_torch_cache_pin  # noqa: F401 (the port's result cache off)
+
 import numpy as np
 import pandas as pd
 import pytest

@@ -21,6 +21,8 @@ and the engines sum in different orders), rtol 1e-9 against the port's own
 single wave (the waves' float64 finals add in another order).
 """
 
+import test_torch_cache_pin  # noqa: F401 (the port's result cache off)
+
 import numpy as np
 import pandas as pd
 import pytest

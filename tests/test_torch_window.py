@@ -16,6 +16,8 @@ packages, with many tied order keys, NULL arguments and every frame
 shape.
 """
 
+import test_torch_cache_pin  # noqa: F401 (the port's result cache off)
+
 import numpy as np
 import pytest
 
