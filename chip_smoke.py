@@ -54,11 +54,29 @@ one-slot lane that WLM hands into one shared-scan group (one wave
 launch), and a cancel of a held member, a zero timeout and a cancel at a
 wave boundary, each followed by a right answer and empty lanes. Every
 other phase's context sets ``sdot.cache.enabled`` false, so its warm
-times stay the engine's (WLM admission included). Its last phase,
-``waves``, generates TPC-H SF5 lineitem (~30M rows; cut from SF10, whose
-run passed 1,000 s) and runs Q1, the sketch statement, revenue by part on
-the hashed tier, a HAVING with an ordered LIMIT and the storm under a wave
-budget (``sdot.engine.wave.max.bytes``) that gives Q1 8 waves: each
+times stay the engine's (WLM admission included). Phase ``ssb`` (run
+before the TPC-H phases) generates the SSB lineorder at SF1 straight into
+Parquet, star-joins it chunk by chunk and streams it into ``ssb_flat``
+(``Context.ingest_parquet_stream``: seconds, peak resident set), runs the
+13 SSB statements through ``Context.sql`` against pandas (cold, warm, tier,
+the device's idle share) and the q1 flight as one wave launch. After
+phase ``serving``: phase ``rollup`` builds rollups over SF1 lineitem (Q1
+and Q6 served from them against the rewrite off and pandas, stale after
+an append, served again after REFRESH) and the SSB cube over ``ssb_flat``
+(its 13 statements against the rewrite off); phase ``append`` streams 4
+batches of 250,000 rows into a copy of SF1 lineitem, each with a return
+flag new to the dictionary and a widened metric, with Q1 (B1, a cache
+miss after each batch) and the storm (B2) against pandas after each;
+phase ``modules`` installs a module from ``sdot.modules`` (a string
+function grouped on through B1, a spec rule, a statement handler) and runs
+Q1's QuerySpec as ``ON DATASOURCE ... EXECUTE QUERY``. Every B1 and B2
+call of these phases is held against its plain version. Its last phase,
+``waves``, generates TPC-H SF3 lineitem (~18M rows; cut from SF10, whose
+run passed 1,000 s, then from SF5 for the phases above) and runs Q1, the
+sketch statement, revenue by part on the hashed tier, a HAVING with an
+ordered LIMIT and the storm under a wave budget
+(``sdot.engine.wave.max.bytes``) of a Q1 segment's bytes times
+ceil(segments / 8) (Q1 in 6 waves at SF3): each
 statement in 4 or more waves against the same statement in one wave and
 against pandas, every B1 / B2 launch of every wave against its plain
 version, with per-wave bind, copy and compute times and the overlap share;
@@ -2928,15 +2946,20 @@ def hashed_q1(ctx, spec, dense) -> dict:
 
 # -- multi-wave binding (phase "waves") ---------------------------------------
 
-# SF5, cut from SF10: the whole run took 1,007.9 s at SF10 on one H100
-# (SF10's generation and ingest alone 412 s of host time)
-WAVES_SF = 5.0
-WAVES_Q1 = 8                # Q1's waves under the phase's budget
+# SF3, cut from SF10 (the whole run took 1,007.9 s at SF10 on one H100,
+# SF10's generation and ingest alone 412 s of host time), then from SF5 to
+# make room for phases ssb, rollup, append and modules
+WAVES_SF = 3.0
+WAVES_Q1 = 8                # at most this many waves for Q1 under the budget
 WAVES_MIN = 4               # waves every statement of the phase must take
 WAVES_REPEATS = 3
-# the hashed statement's key space (1M parts at SF5) over this dense
+# the hashed statement's key space (600,000 parts at SF3) over this dense
 # ceiling, so it takes the hashed tier in both wave modes
 WAVES_HASHED = {"sdot.engine.groupby.dense.max.keys": 1 << 19}
+# the HAVING statement's 60,000 keys at SF3 (30,000 suppliers by 2 line
+# statuses) over this device-HAVING floor, so its one-wave run takes
+# device HAVING (the default floor, 65,536, held 100,000 keys at SF5)
+WAVES_HAVING = {"sdot.engine.having.device.min.keys": 1 << 15}
 WAVES_HAVING_MIN = 300      # lines per (supplier, status) in the HAVING
 WAVES_LIMIT = 10
 
@@ -2944,9 +2967,9 @@ WAVES_LIMIT = 10
 def waves_specs(S, E):
     """The phase's statements over lineitem as QuerySpecs: Q1 (B1 per
     wave), phase sketch's statement (B1 and the three register ops per
-    wave), revenue by part (hashed tier, 1M groups at SF5) and a HAVING
-    with an ordered LIMIT by supplier and line status (100,000 keys at
-    SF5: device HAVING in one wave, the host under waves)."""
+    wave), revenue by part (hashed tier, 600,000 groups at SF3) and a
+    HAVING with an ordered LIMIT by supplier and line status (60,000 keys
+    at SF3: device HAVING in one wave, the host under waves)."""
     C, L = E.Column, E.Literal
     rev = E.BinaryOp("*", C("l_extendedprice"),
                      E.BinaryOp("-", L(1), C("l_discount")))
@@ -3122,7 +3145,8 @@ def waves_phase(sdt, S, E, CG, CW, smi, sf=WAVES_SF, device="cuda",
 
     # 1. the four statements, each multi-wave against one wave
     for name, spec in specs.items():
-        extra = WAVES_HASHED if name == "hashed" else {}
+        extra = {"hashed": WAVES_HASHED,
+                 "having_limit": WAVES_HAVING}.get(name, {})
         wctx, sctx = context(dict(multi, **extra)), context(extra)
         # the finals the decode reads: the waves' merge (multi-wave), the
         # one copy's (single wave, which runs after)
@@ -3852,6 +3876,735 @@ def window_phase(ctx, tables) -> dict:
     return {"statements": out, "seconds": time.perf_counter() - t_phase}
 
 
+# -- SSB, rollups, stream append, modules (phases ssb, rollup, append,
+# modules) -------------------------------------------------------------------
+
+# BASELINE.json config 3 ("SSB SF30 — denormalized wide fact table"), cut
+# to SF1 for the run's time limit: 6,000,000 lineorder rows
+SSB_SF = 1.0
+# the SSB statements the coalescer fuses into one wave launch: the q1
+# flight (one group each); the others group by more keys than the fused
+# group-by kernel's tier, which wave lanes must ride
+SSB_STORM = ["q1.1", "q1.2", "q1.3"]
+SSB_STORM_CONFIG = {
+    "sdot.sharedscan.enabled": True,
+    "sdot.sharedscan.max.queries": len(SSB_STORM),
+    "sdot.wlm.batch.window.ms": 2000.0}
+SSB_ORDER = {   # each statement's ORDER BY: (column, ascending)
+    "q2": [("d_year", True), ("p_brand1", True)],
+    "q3": [("d_year", True), ("lo_revenue", False)],
+    "q4.1": [("d_year", True), ("c_nation", True)],
+    "q4.2": [("d_year", True), ("s_nation", True), ("p_category", True)],
+    "q4.3": [("d_year", True), ("s_city", True), ("p_brand1", True)]}
+UK_CITIES = ["UNITED KI1", "UNITED KI5"]
+
+
+class SsbOracle:
+    """pandas answers for ``tools/ssb.QUERIES`` from the lineorder Parquet
+    file and the generator's in-memory dimensions: each dimension column
+    reaches the fact rows by its key (the dimension tables' keys are 1..n,
+    the date table's rows are consecutive days), not through the flat
+    file the engine ingests. Float measures are read as the store holds
+    them (float32) and each row's expression is evaluated in float32, as
+    the engine evaluates it, before the float64 sum: a difference of two
+    measures (q4's profit) cancels, and rounding the other way would pass
+    rtol 1e-6 of a small group's sum."""
+
+    KEYS = {"d": ("date", "lo_orderdate"), "c": ("customer", "lo_custkey"),
+            "s": ("supplier", "lo_suppkey"), "p": ("part", "lo_partkey")}
+
+    def __init__(self, dims, lineorder_path):
+        import pandas as pd
+        import pyarrow.parquet as pq
+        self.pd = pd
+        self.dims = dims
+        self.lo = pq.read_table(lineorder_path, columns=[
+            "lo_orderdate", "lo_custkey", "lo_suppkey", "lo_partkey",
+            "lo_quantity", "lo_extendedprice", "lo_discount", "lo_revenue",
+            "lo_supplycost"]).to_pandas()
+        self.cols = {}
+
+    def col(self, name):
+        if name in self.cols:
+            return self.cols[name]
+        pd = self.pd
+        if name.startswith("lo_"):
+            out = self.lo[name].to_numpy()
+            if out.dtype.kind == "f":
+                out = out.astype(np.float32)    # as the store holds it
+        else:
+            table, key = self.KEYS[name[0]]
+            d = self.dims[table]
+            if table == "date":
+                first = d["d_datekey"].iloc[0]
+                idx = ((self.lo[key] - first) // pd.Timedelta(days=1)) \
+                    .to_numpy()
+            else:
+                idx = self.lo[key].to_numpy() - 1
+            vals = d[name].to_numpy()
+            if vals.dtype == object:
+                codes, uniq = pd.factorize(vals)
+                out = pd.Categorical.from_codes(codes[idx], uniq)
+            else:
+                out = vals[idx]
+        self.cols[name] = out
+        return out
+
+    def isin(self, name, values):
+        return np.asarray(self.pd.Series(self.col(name)).isin(values))
+
+    def eq(self, name, value):
+        return np.asarray(self.col(name) == value)
+
+    def between(self, name, lo, hi):
+        v = self.col(name)
+        if isinstance(v, self.pd.Categorical):
+            v = np.asarray(v, dtype=object)
+        return (v >= lo) & (v <= hi)
+
+    def mask(self, name):
+        c = self.between
+        q1 = {"q1.1": self.eq("d_year", 1993) & c("lo_discount", 1, 3)
+              & (self.col("lo_quantity") < 25),
+              "q1.2": self.eq("d_yearmonthnum", 199401)
+              & c("lo_discount", 4, 6) & c("lo_quantity", 26, 35),
+              "q1.3": self.eq("d_weeknuminyear", 6) & self.eq("d_year", 1994)
+              & c("lo_discount", 5, 7) & c("lo_quantity", 26, 35)}
+        if name in q1:
+            return q1[name]
+        years = c("d_year", 1992, 1997)
+        us = lambda side: self.eq(f"{side}_nation", "UNITED STATES")
+        am = lambda side: self.eq(f"{side}_region", "AMERICA")
+        mfgr12 = self.isin("p_mfgr", ["MFGR#1", "MFGR#2"])
+        uk = self.isin("c_city", UK_CITIES) & self.isin("s_city", UK_CITIES)
+        late = self.isin("d_year", [1997, 1998])
+        return {
+            "q2.1": self.eq("p_category", "MFGR#12") & am("s"),
+            "q2.2": c("p_brand1", "MFGR#2221", "MFGR#2228")
+            & self.eq("s_region", "ASIA"),
+            "q2.3": self.eq("p_brand1", "MFGR#2239")
+            & self.eq("s_region", "EUROPE"),
+            "q3.1": self.eq("c_region", "ASIA") & self.eq("s_region", "ASIA")
+            & years,
+            "q3.2": us("c") & us("s") & years,
+            "q3.3": uk & years,
+            "q3.4": uk & self.eq("d_yearmonth", "Dec1997"),
+            "q4.1": am("c") & am("s") & mfgr12,
+            "q4.2": am("c") & am("s") & late & mfgr12,
+            "q4.3": us("s") & late & self.eq("p_category", "MFGR#14")}[name]
+
+    def answer(self, name):
+        """(frame, order): the statement's columns, sorted by its ORDER BY,
+        and that order (None: one row)."""
+        pd = self.pd
+        m = self.mask(name)
+        if name.startswith("q1"):
+            rev = self.col("lo_extendedprice")[m] \
+                * self.col("lo_discount")[m].astype(np.float32)
+            return pd.DataFrame({"revenue": [rev.astype(np.float64)
+                                             .sum()]}), None
+        group = {"q2": ["d_year", "p_brand1"],
+                 "q3.1": ["c_nation", "s_nation", "d_year"],
+                 "q4.1": ["d_year", "c_nation"],
+                 "q4.2": ["d_year", "s_nation", "p_category"],
+                 "q4.3": ["d_year", "s_city", "p_brand1"]}
+        keys = group.get(name[:2]) or group.get(name) \
+            or ["c_city", "s_city", "d_year"]
+        frame = pd.DataFrame({k: np.asarray(self.col(k))[m] for k in keys})
+        if name.startswith("q4"):
+            agg = "profit"
+            frame[agg] = (self.col("lo_revenue")[m]
+                          - self.col("lo_supplycost")[m]).astype(np.float64)
+        else:
+            agg = "lo_revenue"
+            frame[agg] = self.col("lo_revenue")[m].astype(np.float64)
+        out = frame.groupby(keys, sort=False)[agg].sum().reset_index()
+        order = SSB_ORDER.get(name[:2]) or SSB_ORDER[name]
+        out = out.sort_values([c for c, _ in order],
+                              ascending=[a for _, a in order],
+                              kind="mergesort").reset_index(drop=True)
+        return out, [c for c, _ in order]
+
+
+def q1_sql_oracle(df):
+    """pandas answer of ``tools/tpch.QUERIES['q1']`` (Q1 through SQL: the
+    averages, no ``sum_disc``)."""
+    want = q1_oracle(df)
+    for avg, total in (("avg_qty", "sum_qty"),
+                       ("avg_price", "sum_base_price"),
+                       ("avg_disc", "sum_disc")):
+        want[avg] = want[total] / want["count_order"]
+    return want.drop(columns="sum_disc")
+
+
+def check_ssb(name, got, want, order):
+    """The engine's frame against the oracle's: the same rows in the
+    statement's order, keys and integers exact, sums rtol 1e-6."""
+    if order is not None:
+        keys = [c for c in want.columns if c in got.columns
+                and want[c].dtype.kind != "f"]
+        g = list(got[keys].itertuples(index=False, name=None))
+        w = list(want[keys].itertuples(index=False, name=None))
+        if g != w:
+            raise AssertionError(f"ssb {name}: rows or their order differ "
+                                 f"from the oracle: {g[:3]} vs {w[:3]}")
+    check_frame(f"ssb {name} vs pandas", got, want, None,
+                FLOAT_SUM_RTOL_ORACLE)
+
+
+def _status_gb(key):
+    """A ``/proc/self/status`` size line (``VmRSS``, ``VmHWM``), GB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith(key + ":"):
+                return int(line.split()[1]) * 1024 / 1e9
+    raise AssertionError(f"no {key} in /proc/self/status")
+
+
+def rss_gb():
+    """The process's resident set (``VmRSS``), GB."""
+    return _status_gb("VmRSS")
+
+
+class RssPeak:
+    """The process's largest resident set while the ``with`` block runs,
+    GB. The kernel's high-water mark ``VmHWM`` is reset to the current
+    resident set on entry (``5`` written to ``/proc/self/clear_refs``) and
+    read on exit, so nothing runs beside the timed block; where the reset
+    is refused or does not take, ``VmRSS`` is read every 5 ms on a thread
+    instead. ``method`` says which (``"hwm"`` or ``"poll"``)."""
+
+    def __enter__(self):
+        self.before = self.peak = rss_gb()
+        self.thread = None
+        try:
+            with open("/proc/self/clear_refs", "w") as f:
+                f.write("5")
+            # a reset high-water mark sits at the resident set (+ 1%)
+            reset = _status_gb("VmHWM") <= rss_gb() * 1.01 + 1e-3
+        except (OSError, AssertionError):
+            reset = False
+        self.method = "hwm" if reset else "poll"
+        if reset:
+            return self
+        import threading
+        self.done = threading.Event()
+
+        def poll():
+            while not self.done.wait(0.005):
+                self.peak = max(self.peak, rss_gb())
+        self.thread = threading.Thread(target=poll, daemon=True)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        if self.thread is None:
+            self.peak = max(self.peak, _status_gb("VmHWM"))
+        else:
+            self.done.set()
+            self.thread.join()
+        self.after = rss_gb()
+        self.peak = max(self.peak, self.after)
+
+
+def ssb_storm(ctx, sql_of, spies, solo) -> dict:
+    """The q1 flight from threads under shared scan: one group, one wave
+    launch, each answer equal to its solo answer."""
+    with settings(ctx, SSB_STORM_CONFIG):
+        queries = [sql_of[n] for n in SSB_STORM]
+        run_storm(ctx, queries, call=ctx.sql)   # plans the statements once
+        st0 = ctx.engine.sharedscan.stats()
+        b1, b2 = spies.b1_launches, spies.b2_launches
+        res, wall_ms, phases = spies.run(lambda: run_storm(
+            ctx, queries, call=ctx.sql))
+        st1 = ctx.engine.sharedscan.stats()
+    out = {k: st1[k] - st0[k] for k in ("queries_coalesced",
+                                        "wave_launches", "wave_fallbacks")}
+    out.update(statements=SSB_STORM, wall_ms=wall_ms, phases_ms=phases,
+               wave_kernel_launches=spies.b2_launches - b2,
+               dense_groupby_launches=spies.b1_launches - b1,
+               wave_fallback_reasons=st1["wave_fallback_reasons"])
+    if out["queries_coalesced"] != len(SSB_STORM) \
+            or out["wave_launches"] != 1 \
+            or out["wave_kernel_launches"] != 1 \
+            or out["dense_groupby_launches"] != 0:
+        raise AssertionError(f"ssb storm: not {len(SSB_STORM)} statements "
+                             f"in one wave launch: {out}")
+    for n, frame in zip(SSB_STORM, res):
+        check_frame(f"ssb storm {n} vs solo", frame, solo[n], None,
+                    FLOAT_SUM_RTOL_KERNEL)
+    return out
+
+
+def ssb_phase(sdt, CG, CW, smi, sf=SSB_SF, ingest_kw=None) -> dict:
+    """Phase ``ssb``: the SSB lineorder generated at ``sf`` straight into
+    Parquet (``ssb.generate_stream``), star-joined chunk by chunk
+    (``flatten_stream``) and streamed into ``ssb_flat``
+    (``Context.ingest_parquet_stream``, its seconds and peak resident set);
+    the 13 statements through ``Context.sql`` against pandas (cold, warm,
+    tier, mode, the device's idle share), then the q1 flight as one storm.
+    Returns the phase's numbers and the context phase ``rollup`` reads."""
+    import tempfile
+    from spark_druid_olap_tpu_torch.tools import ssb
+    t_phase = time.perf_counter()
+    out = {"sf": sf, "card": smi}
+    with tempfile.TemporaryDirectory(prefix="sdot_ssb_") as tmp:
+        lo_path = str(pathlib.Path(tmp) / "lineorder.parquet")
+        flat_path = str(pathlib.Path(tmp) / "ssb_flat.parquet")
+        t0 = time.perf_counter()
+        dims, n_lo = ssb.generate_stream(sf, lo_path, seed=SEED)
+        out["generate_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["flat_rows"] = ssb.flatten_stream(dims, lo_path, flat_path)
+        out["flatten_s"] = time.perf_counter() - t0
+        out["lineorder_rows"] = n_lo
+        out["flat_file_mb"] = pathlib.Path(flat_path).stat().st_size / 1e6
+        ctx = sdt.Context(ENGINE_TIMED)
+
+        def ingest():
+            t0 = time.perf_counter()
+            ds = ctx.ingest_parquet_stream("ssb_flat", flat_path,
+                                           time_column="lo_orderdate",
+                                           **(ingest_kw or {}))
+            return ds, time.perf_counter() - t0
+        with RssPeak() as rss:
+            ds, out["ingest_s"] = ingest()
+        out["ingest_rss_gb"] = {"before": rss.before, "peak": rss.peak,
+                                "after": rss.after, "method": rss.method}
+        if rss.method == "poll":
+            # the poller's thread shares the GIL with the ingest: the
+            # seconds are taken again from an ingest with nothing beside it
+            out["ingest_polled_s"] = out["ingest_s"]
+            ds = None
+            ds, out["ingest_s"] = ingest()
+        out["store_gb"] = sum(
+            c.codes.nbytes for c in ds.dims.values()) / 1e9 + sum(
+            m.values.nbytes for m in ds.metrics.values()) / 1e9
+        out["segments"], out["columns"] = ds.num_segments, \
+            len(ds.column_names())
+        oracle = SsbOracle(dims, lo_path)
+    if out["flat_rows"] != n_lo or ds.num_rows != n_lo:
+        raise AssertionError(f"ssb: {n_lo} lineorder rows, {out['flat_rows']}"
+                             f" flat, {ds.num_rows} ingested")
+    ctx.register_star_schema(ssb.star_schema("ssb_flat"))
+    spies = KernelSpies(CG, CW)
+    counted = {"dense_groupby": CG, "wave": CW}
+    stmts, solo = {}, {}
+    for name, sql in ssb.QUERIES.items():
+        b1, b2 = spies.b1_launches, spies.b2_launches
+        t = time.perf_counter()
+        got = spies.run(lambda: ctx.sql(sql).to_pandas())
+        cold = (time.perf_counter() - t) * 1e3
+        st = dict(ctx.history.entries()[-1].stats)
+        if st["mode"] != "engine" or spies.b2_launches != b2:
+            raise AssertionError(f"ssb {name}: mode {st['mode']!r}, "
+                                 f"{spies.b2_launches - b2} wave launches")
+        want, order = oracle.answer(name)
+        check_ssb(name, got, want, order)
+        if st.get("route") == "kernel" and spies.b1_launches == b1:
+            raise AssertionError(f"ssb {name}: kernel route, no B1 launch")
+        warm = [timed_sql(ctx, sql)[0] for _ in range(REPEATS)]
+        prof = profile_run(lambda: timed_sql(ctx, sql)[0], counted)
+        solo[name] = got
+        stmts[name] = dict(
+            cold_ms=cold, warm_median_ms=statistics.median(warm),
+            warm_min_ms=min(warm), warm_max_ms=max(warm), mode=st["mode"],
+            route=st.get("route"), hashed=bool(st.get("hashed")),
+            groups=st.get("groups"), rows=len(got),
+            b1_launches=spies.b1_launches - b1,
+            device_idle_share=prof["device_idle_share"],
+            device_busy_ms=prof["device_busy_ms"])
+    del oracle
+    out["statements"] = stmts
+    out["storm"] = ssb_storm(ctx, ssb.QUERIES, spies, solo)
+    out["kernels"] = {"b1": b1_checked(CG, "ssb", spies.b1),
+                      "b2": [wave_timed(CW, f"ssb b2[{i}]", *w)
+                             for i, w in enumerate(spies.b2)]}
+    out["b1_launches"], out["b2_launches"] = spies.b1_launches, \
+        spies.b2_launches
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, ctx
+
+
+# phase rollup: a lineitem rollup by flag, status and ship mode serves Q1;
+# Q6 filters on l_discount and l_quantity and sums l_extendedprice *
+# l_discount, none of which that rollup keeps, so Q6 gets a rollup of its
+# own
+ROLLUP_Q1 = (
+    "create rollup li_q1 on lineitem dimensions (l_returnflag, "
+    "l_linestatus, l_shipmode) aggregations (sum(l_quantity), "
+    "sum(l_extendedprice), sum(l_extendedprice * (1 - l_discount)), "
+    "sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)), "
+    "sum(l_discount), count(*)) granularity day")
+ROLLUP_Q6 = (
+    "create rollup li_q6 on lineitem dimensions (l_discount, l_quantity) "
+    "aggregations (sum(l_extendedprice * l_discount), count(*)) "
+    "granularity day")
+ROLLUP_SSB = (     # tests/test_rollup.py:52-57
+    "create rollup ssb_cube on ssb_flat dimensions ("
+    "d_year, d_yearmonthnum, d_weeknuminyear, d_yearmonth, "
+    "c_city, c_nation, c_region, s_city, s_nation, s_region, "
+    "p_mfgr, p_category, p_brand1, lo_discount, lo_quantity) "
+    "aggregations (sum(lo_extendedprice * lo_discount), sum(lo_revenue), "
+    "sum(lo_revenue - lo_supplycost), count(*))")
+# tests/test_rollup.py's tolerance for a rollup answer against its base
+# (conftest.assert_frames_equal): the rollup sums stored f64 partials
+ROLLUP_RTOL = 1e-4
+REWRITE = "sdot.mv.rewrite.enabled"
+ROLLUP_APPEND_ROWS = 250_000
+
+
+def rollup_served(ctx, sql, spies, want_status):
+    """One statement with the rewrite on and off (each run once spied,
+    then ``REPEATS`` times timed): the rewrite leg's status, both frames
+    and each leg's warm median ms."""
+    got = spies.run(lambda: ctx.sql(sql).to_pandas())
+    status = ctx.history.entries()[-1].stats.get("rollup")
+    if status != want_status:
+        raise AssertionError(f"rollup: {sql.split()[:6]} served from "
+                             f"{status}, want {want_status}")
+    ms = statistics.median(timed_sql(ctx, sql)[0] for _ in range(REPEATS))
+    with settings(ctx, {REWRITE: False}):
+        base = spies.run(lambda: ctx.sql(sql).to_pandas())
+        base_ms = statistics.median(timed_sql(ctx, sql)[0]
+                                    for _ in range(REPEATS))
+    return got, base, ms, base_ms
+
+
+def rollup_build(ctx, sql, spies) -> dict:
+    """CREATE ROLLUP, timed; ``host_tier``: whether its group-by fell to
+    the host tier (a key space the engine does not pack)."""
+    from spark_druid_olap_tpu_torch.planner import host_exec as HX
+    real, host = HX.execute_select, []
+
+    def on_host(*a, **k):
+        host.append(1)
+        return real(*a, **k)
+    HX.execute_select = on_host
+    try:
+        t = time.perf_counter()
+        msg = spies.run(lambda: ctx.sql(sql).to_pandas())["status"][0]
+        ms = (time.perf_counter() - t) * 1e3
+    finally:
+        HX.execute_select = real
+    name = sql.split()[2]
+    r = ctx.rollups[name]
+    return {"status": msg, "build_ms": ms, "host_tier": bool(host),
+            "rows": ctx.store.get(r.backing).num_rows,
+            "base_rows": ctx.store.get(r.base).num_rows,
+            "time_identity": r.time_identity}
+
+
+def rollup_phase(sdt, lineitem_ds, df, ssb_ctx, CG, CW, smi) -> dict:
+    """Phase ``rollup``: the lineitem rollups over phase sql's SF1
+    lineitem (build ms, rows, ``sys_rollups``); Q1 and Q6 from them
+    against the rewrite off (ints exact, floats ``ROLLUP_RTOL``) and
+    pandas; one append, after which the base answers, then REFRESH, after
+    which the rollups answer again, each against pandas; then the SSB
+    cube over ``ssb_flat`` (its 15 dimensions' key space packs into no
+    engine key, so the build's group-by runs on the host tier, in both
+    packages) and the 13 SSB statements it serves against the rewrite
+    off."""
+    import pandas as pd
+    from spark_druid_olap_tpu_torch.tools import ssb, tpch
+    t_phase = time.perf_counter()
+    spies = KernelSpies(CG, CW)
+    ctx = sdt.Context(ENGINE_TIMED)
+    ctx.store.register(lineitem_ds)
+    out = {"card": smi, "builds": {}}
+    for sql in (ROLLUP_Q1, ROLLUP_Q6):
+        out["builds"][sql.split()[2]] = rollup_build(ctx, sql, spies)
+    out["sys_rollups"] = ctx.sql("select * from sys_rollups").to_pandas() \
+        .to_dict("records")
+    stmts = {"q1": "li_q1", "q6": "li_q6"}
+
+    def against_pandas(name, got, frame):
+        if name == "q1":
+            check_frame("rollup q1 vs pandas", got, q1_sql_oracle(frame),
+                        None, FLOAT_SUM_RTOL_ORACLE)
+        else:
+            np.testing.assert_allclose(got["revenue"].to_numpy(),
+                                       [q6_oracle(frame)],
+                                       rtol=FLOAT_SUM_RTOL_ORACLE)
+
+    def served(tag, frame, fresh):
+        res = {}
+        for name, rollup in stmts.items():
+            sql = tpch.QUERIES[name]
+            got, base, ms, base_ms = rollup_served(
+                ctx, sql, spies, f"rollup:{rollup}" if fresh else "base")
+            check_frame(f"rollup {tag} {name} vs rewrite off", got, base,
+                        None, ROLLUP_RTOL)
+            against_pandas(name, got, frame)
+            res[name] = {"warm_ms": ms, "rewrite_off_warm_ms": base_ms,
+                         "status": "rollup:" + rollup if fresh else "base"}
+        return res
+
+    out["fresh"] = served("fresh", df, True)
+    batch = df.sample(n=ROLLUP_APPEND_ROWS, random_state=SEED) \
+        .reset_index(drop=True)
+    t = time.perf_counter()
+    ctx.stream_ingest("lineitem", batch, time_column="l_shipdate")
+    out["append_ms"] = (time.perf_counter() - t) * 1e3
+    full = pd.concat([df, batch], ignore_index=True)
+    view = ctx.sql("select name, fresh from sys_rollups").to_pandas()
+    if view["fresh"].any():
+        raise AssertionError(f"rollup: fresh after an append: {view}")
+    out["stale"] = served("stale", full, False)
+    out["refresh_ms"] = {}
+    for name in ("li_q1", "li_q6"):
+        t = time.perf_counter()
+        spies.run(lambda: ctx.sql(f"refresh rollup {name}"))
+        out["refresh_ms"][name] = (time.perf_counter() - t) * 1e3
+    out["refreshed"] = served("refreshed", full, True)
+    del full, batch
+
+    # the SSB cube: a wide-key build on the hashed tier
+    sctx = sdt.Context(ENGINE_TIMED)
+    sctx.store.register(ssb_ctx.store.get("ssb_flat"))
+    sctx.register_star_schema(ssb.star_schema("ssb_flat"))
+    out["builds"]["ssb_cube"] = rollup_build(sctx, ROLLUP_SSB, spies)
+    ssb_stmts = {}
+    for name, sql in ssb.QUERIES.items():
+        got, base, ms, base_ms = rollup_served(sctx, sql, spies,
+                                               "rollup:ssb_cube")
+        check_frame(f"rollup ssb {name} vs rewrite off", got, base, None,
+                    ROLLUP_RTOL)
+        ssb_stmts[name] = {"warm_ms": ms, "rewrite_off_warm_ms": base_ms}
+    out["ssb"] = ssb_stmts
+    out["kernels"] = {"b1": b1_checked(CG, "rollup", spies.b1),
+                      "b2": [wave_timed(CW, f"rollup b2[{i}]", *w)
+                             for i, w in enumerate(spies.b2)]}
+    out["b1_launches"], out["b2_launches"] = spies.b1_launches, \
+        spies.b2_launches
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# phase append: 4 batches of 250,000 lineitem rows; each brings a return
+# flag new to the dictionary (it sorts among the old ones, so the old
+# codes remap and Q1 groups one more flag) and a value that widens a
+# metric's stored dtype
+APPEND_ROWS = 250_000
+APPEND_FLAGS = ["B", "D", "M", "P"]
+APPEND_WIDEN = [("l_quantity", 200, "int16"), ("l_quantity", 40_000, "int32"),
+                ("l_quantity", 3_000_000_000, "int64"),
+                ("l_linenumber", 1_000, "int16")]
+
+
+def append_batch(df, i):
+    b = df.sample(n=APPEND_ROWS, random_state=SEED + 1 + i) \
+        .reset_index(drop=True)
+    b.loc[::997, "l_returnflag"] = APPEND_FLAGS[i]
+    col, value, _ = APPEND_WIDEN[i]
+    b.loc[7, col] = value
+    return b
+
+
+def append_phase(sdt, S, E, lineitem_ds, df, CG, CW, smi) -> dict:
+    """Phase ``append``: ``Context.stream_ingest`` of 4 batches
+    into a copy of SF1 lineitem (its own context, with the defaults: the
+    result cache on). Before each batch Q1 is cached (a hit); after it Q1
+    is a miss (the cache's version check) and equals pandas over the
+    concatenated frame (B1), and the storm of 8 QuerySpecs (one B2 launch)
+    equals pandas too; the dictionary grows by the batch's flag and the
+    widened column holds its new dtype."""
+    import pandas as pd
+    t_phase = time.perf_counter()
+    spies = KernelSpies(CG, CW)
+    ctx = sdt.Context()
+    ctx.store.register(lineitem_ds)
+    storm = sdt.Context(STORM_CONFIG)
+    specs = storm_specs(S, E)
+    names, slist = list(specs), list(specs.values())
+    q1 = q1_spec(S, E)
+    full, out = df, {"card": smi, "batches": []}
+    for i in range(len(APPEND_FLAGS)):
+        ctx.execute(q1)
+        ctx.execute(q1)
+        if ctx.engine.last_stats.get("cache") != "hit":
+            raise AssertionError(
+                f"append {i}: Q1 before the batch is not cached: "
+                f"{ctx.engine.last_stats.get('cache')}")
+        batch = append_batch(df, i)
+        t = time.perf_counter()
+        ds = ctx.stream_ingest("lineitem", batch, time_column="l_shipdate")
+        ingest_ms = (time.perf_counter() - t) * 1e3
+        full = pd.concat([full, batch], ignore_index=True)
+        col, _, dtype = APPEND_WIDEN[i]
+        flags = list(ds.dims["l_returnflag"].dictionary)
+        if str(ds.metrics[col].values.dtype) != dtype \
+                or APPEND_FLAGS[i] not in flags:
+            raise AssertionError(f"append {i}: {col} stored as "
+                                 f"{ds.metrics[col].values.dtype}, want "
+                                 f"{dtype}; flags {flags}")
+        b1 = spies.b1_launches
+        t = time.perf_counter()
+        r1 = spies.run(lambda: ctx.execute(q1).to_pandas())
+        q1_ms = (time.perf_counter() - t) * 1e3
+        st = dict(ctx.engine.last_stats)
+        if st.get("cache") != "miss" or spies.b1_launches == b1:
+            raise AssertionError(f"append {i}: Q1 after the batch: cache "
+                                 f"{st.get('cache')}, B1 launches "
+                                 f"{spies.b1_launches - b1}")
+        check_q1(r1, q1_oracle(full))
+        storm.store.register(ds)
+        ss0 = storm.engine.sharedscan.stats()
+        b2 = spies.b2_launches
+        res, storm_ms, _ = spies.run(lambda: run_storm(storm, slist))
+        ss1 = storm.engine.sharedscan.stats()
+        coalesced = ss1["queries_coalesced"] - ss0["queries_coalesced"]
+        if coalesced != len(slist) or spies.b2_launches - b2 != 1:
+            raise AssertionError(f"append {i}: storm coalesced {coalesced}, "
+                                 f"{spies.b2_launches - b2} wave launches, "
+                                 f"{ss1['wave_fallback_reasons']}")
+        got = dict(zip(names, res))
+        check_q1(got["q1"], q1_oracle(full))
+        np.testing.assert_allclose(got["q6"]["revenue"].to_numpy(),
+                                   [q6_oracle(full)],
+                                   rtol=FLOAT_SUM_RTOL_ORACLE)
+        for name, (keys, want) in storm_oracles(full).items():
+            check_frame(f"append {i} storm {name} vs pandas", got[name],
+                        want, keys, FLOAT_SUM_RTOL_ORACLE)
+        out["batches"].append(dict(
+            rows=ds.num_rows, segments=ds.num_segments,
+            stream_ingest_ms=ingest_ms, q1_ms=q1_ms, q1_cache=st["cache"],
+            storm_ms=storm_ms, flags=flags,
+            widened={col: str(ds.metrics[col].values.dtype)}))
+    out["kernels"] = {"b1": b1_checked(CG, "append", spies.b1),
+                      "b2": [wave_timed(CW, f"append b2[{i}]", *w)
+                             for i, w in enumerate(spies.b2)]}
+    out["b1_launches"], out["b2_launches"] = spies.b1_launches, \
+        spies.b2_launches
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# phase modules: a module named in sdot.modules (this script's
+# ``SmokeModule``, built at first access so importing the script loads
+# nothing of the port)
+FLAG_NAMES = {"A": "accepted", "N": "none", "R": "returned"}
+MODULE_CONFIG = {**ENGINE_TIMED, "sdot.modules": "chip_smoke:SmokeModule"}
+MODULE_FN_SQL = ("select flagname(l_returnflag) as flag, count(*) as n, "
+                 "sum(l_quantity) as qty from lineitem "
+                 "group by flagname(l_returnflag) order by flag")
+MODULE_TOPN_SQL = ("select l_shipmode, sum(l_extendedprice) as rev "
+                   "from lineitem group by l_shipmode order by rev desc "
+                   "limit 5")
+MODULE_TOPN_CLAMP = 3
+
+
+def __getattr__(name):
+    if name == "SmokeModule":
+        return smoke_module_class()
+    raise AttributeError(name)
+
+
+def smoke_module_class():
+    """A module with a one-argument string function (``flagname``), a spec
+    rule (a topN's threshold clamped to ``MODULE_TOPN_CLAMP``, as
+    tests/test_modules.py's) and a statement handler (``PING``)."""
+    import dataclasses
+    from spark_druid_olap_tpu_torch.ir import spec as S
+    from spark_druid_olap_tpu_torch.result import QueryResult
+    from spark_druid_olap_tpu_torch.utils.modules import Module
+
+    def clamp(q, conf):
+        if isinstance(q, S.TopNQuerySpec) and q.threshold > MODULE_TOPN_CLAMP:
+            return dataclasses.replace(q, threshold=MODULE_TOPN_CLAMP)
+        return None
+
+    def ping(ctx, sql):
+        if sql.strip().upper() == "PING":
+            return QueryResult(["pong"],
+                               {"pong": np.array([1], dtype=np.int64)})
+        return None
+
+    class SmokeModule(Module):
+        def functions(self):
+            return {"flagname": lambda s: FLAG_NAMES.get(s, s)}
+
+        def spec_rules(self):
+            return [clamp]
+
+        def statement_handlers(self):
+            return [ping]
+    return SmokeModule
+
+
+def modules_phase(sdt, S, E, lineitem_ds, df, CG, CW, smi) -> dict:
+    """Phase ``modules``: the module from ``sdot.modules``; its function
+    grouped on over a dictionary dimension (B1, against pandas), its spec
+    rule (a clamped topN, against pandas), its handler; then ``ON
+    DATASOURCE lineitem EXECUTE QUERY`` with Q1's QuerySpec as serde JSON,
+    against Q1 through SQL."""
+    from spark_druid_olap_tpu_torch.ir import serde
+    from spark_druid_olap_tpu_torch.tools import tpch
+    t_phase = time.perf_counter()
+    spies = KernelSpies(CG, CW)
+    ctx = sdt.Context(MODULE_CONFIG)
+    ctx.store.register(lineitem_ds)
+    out = {"card": smi, "modules": [type(m).__name__ for m in ctx.modules]}
+    try:
+        if out["modules"] != ["SmokeModule"]:
+            raise AssertionError(f"modules: installed {out['modules']}")
+        pong = ctx.sql("PING").to_pandas()
+        if pong["pong"].tolist() != [1]:
+            raise AssertionError(f"modules: PING answered {pong}")
+        b1 = spies.b1_launches
+        t = time.perf_counter()
+        got = spies.run(lambda: ctx.sql(MODULE_FN_SQL).to_pandas())
+        fn_ms = (time.perf_counter() - t) * 1e3
+        st = ctx.history.entries()[-1].stats
+        want = df.assign(flag=df["l_returnflag"].map(FLAG_NAMES)) \
+            .groupby("flag").agg(n=("l_quantity", "size"),
+                                 qty=("l_quantity", "sum")).reset_index()
+        if st["mode"] != "engine" or st.get("route") != "kernel" \
+                or spies.b1_launches == b1:
+            raise AssertionError(f"modules: flagname took mode {st['mode']}"
+                                 f", route {st.get('route')}, "
+                                 f"{spies.b1_launches - b1} B1 launches")
+        check_frame("modules flagname vs pandas", got, want, None, 0)
+        out["function"] = {"ms": fn_ms, "route": st.get("route"),
+                           "groups": len(got),
+                           "b1_launches": spies.b1_launches - b1}
+        top = spies.run(lambda: ctx.sql(MODULE_TOPN_SQL).to_pandas())
+        st = ctx.history.entries()[-1].stats
+        rev = df.groupby("l_shipmode")["l_extendedprice"].sum() \
+            .sort_values(ascending=False).head(MODULE_TOPN_CLAMP)
+        if list(top["l_shipmode"]) != list(rev.index):
+            raise AssertionError(f"modules: clamped topN {top}")
+        np.testing.assert_allclose(top["rev"].to_numpy(), rev.to_numpy(),
+                                   rtol=FLOAT_SUM_RTOL_ORACLE)
+        out["spec_rule"] = {"rows": len(top), "mode": st["mode"],
+                            "route": st.get("route")}
+        body = serde.query_to_json(q1_spec(S, E))
+        raw_sql = f"ON DATASOURCE lineitem EXECUTE QUERY '{body}'"
+        t = time.perf_counter()
+        raw = spies.run(lambda: ctx.sql(raw_sql).to_pandas())
+        raw_ms = (time.perf_counter() - t) * 1e3
+        recorded = ctx.history.entries()[-1]
+        via_sql = spies.run(lambda: ctx.sql(tpch.QUERIES["q1"]).to_pandas())
+        check_frame("modules raw Q1 vs SQL Q1", raw, via_sql, None,
+                    FLOAT_SUM_RTOL_KERNEL)
+        check_q1(raw, q1_oracle(df))
+        out["raw_query"] = {"ms": raw_ms, "json_bytes": len(body),
+                            "recorded": [recorded.query_type,
+                                         recorded.datasource]}
+    finally:
+        ctx.functions.pop("flagname", None)
+    out["kernels"] = {"b1": b1_checked(CG, "modules", spies.b1),
+                      "b2": [wave_timed(CW, f"modules b2[{i}]", *w)
+                             for i, w in enumerate(spies.b2)]}
+    out["b1_launches"], out["b2_launches"] = spies.b1_launches, \
+        spies.b2_launches
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+NEW_PHASES = ("ssb", "rollup", "append", "modules")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -3913,6 +4666,27 @@ def main() -> int:
          checks=w_checks, seconds=time.perf_counter() - t0,
          tolerance="ints/counts/min/max exact; float sums rtol 1e-9; NaN "
                    "in the same groups; two launches bit-identical")
+
+    # 3b. the SSB workload: SF1 streamed from Parquet into ssb_flat, its 13
+    # statements against pandas, the q1 flight as one storm
+    ssb, ssb_ctx = ssb_phase(sdt, CG, CW, smi)
+    emit("ssb", **ssb,
+         oracle="pandas from the lineorder Parquet file and the generator's "
+                "dimensions, each dimension column reached by its key, "
+                "floats as stored and each row's expression in float32, as "
+                "the engine evaluates it: ints exact, float sums rtol 1e-6, "
+                "the statement's order; the "
+                "storm's answers vs the solo answers (floats rtol 1e-9); "
+                "each B1 call and the B2 launch vs their plain versions "
+                "(kernels)",
+         note="ms: host wall clock to the frame, cold = the first run "
+              "(columns uploaded), warm = median of 7; idle share: "
+              "torch.profiler over one warm run (null where the profile "
+              "lost device records); ingest_rss_gb: the process's VmRSS "
+              "before, after and at its largest during the streamed "
+              "ingest (method hwm: VmHWM reset on entry; poll: VmRSS "
+              "read every 5 ms, and ingest_s then from a second ingest "
+              "without the poller, ingest_polled_s from the first)")
 
     # 4. the main path at SF1; every ingest from here on encodes its
     # string columns with the native encoder where it loaded
@@ -4013,6 +4787,44 @@ def main() -> int:
               "lookup, the engine), session = the rest; wlm_admit / "
               "cache_lookup: the statement's utils/phases host phases; "
               "kernels: timed as in phase timing")
+
+    # 4c. rollups over lineitem and ssb_flat, stream appends, modules
+    rollup = rollup_phase(sdt, ctx.store.get("lineitem"), df, ssb_ctx, CG,
+                          CW, smi)
+    del ssb_ctx
+    emit("rollup", **rollup,
+         oracle="each rollup answer vs the same statement with "
+                "sdot.mv.rewrite.enabled false (ints exact, floats rtol "
+                "1e-4: tests/test_rollup.py's tolerance, the rollup sums "
+                "stored f64 partials) and Q1 / Q6 vs pandas (floats rtol "
+                "1e-6), fresh, stale after an append (the base answers) and "
+                "refreshed; each B1 call vs its plain version (kernels)",
+         note="warm_ms / rewrite_off_warm_ms: host wall clock to the "
+              "frame, median of 7 after a first (spied) run, with the "
+              "rewrite on and off; build_ms: CREATE ROLLUP, the backing "
+              "datasource's group-by and its ingest (host_tier: the "
+              "group-by fell to the host tier)")
+    append = append_phase(sdt, S, E, ctx.store.get("lineitem"), df, CG, CW,
+                          smi)
+    emit("append", **append,
+         oracle="Q1 and the storm of 8 QuerySpecs after each batch vs "
+                "pandas over the concatenated frame (ints exact, floats "
+                "rtol 1e-6); Q1 cached before a batch (hit), a miss after "
+                "it; each B1 call and B2 launch vs its plain version "
+                "(kernels)",
+         note="ms: host wall clock; stream_ingest_ms: the append (the "
+              "dictionary merge and code remap of every column, O(rows)); "
+              "q1_ms: the first Q1 after it (a result-cache miss, the new "
+              "columns uploaded)")
+    modules = modules_phase(sdt, S, E, ctx.store.get("lineitem"), df, CG, CW,
+                            smi)
+    emit("modules", **modules,
+         oracle="flagname's group-by and the clamped topN vs pandas (ints "
+                "exact, floats rtol 1e-6); the raw Q1 QuerySpec vs Q1 "
+                "through SQL (floats rtol 1e-9) and pandas; each B1 call "
+                "vs its plain version (kernels)",
+         note="ms: host wall clock to the frame")
+    new_phases = (ssb, rollup, append, modules)
 
     captured = {}
     real_kernel = CG.dense_groupby_kernel
@@ -4295,14 +5107,16 @@ def main() -> int:
     for k in list(sql_k["dense_groupby"].values()) \
             + list(tail["kernels"].values()) \
             + [sketch["b1"], waves["b1"], spatial["b1"], join["b1"],
-               serving["kernels"]["b1"]]:
+               serving["kernels"]["b1"]] \
+            + [p["kernels"]["b1"] for p in new_phases]:
         worst = max(worst, k["max_abs_err"])
         for f in ("ms", "plain_ms", "bound_ms", "library_ms"):
             total[f] += k[f]
         bound_by.update(c["bound_by"] for c in k["calls"])
     sw, kw, ww = sql_k["wave"]["storm"], sketch["wave"], waves["b2"]
     pw = spatial["b2"]
-    vw = serving["kernels"]["b2"]
+    vw = serving["kernels"]["b2"] \
+        + [w for p in new_phases for w in p["kernels"]["b2"]]
     w_worst = max(w_worst, sw["max_abs_err"], kw["max_abs_err"],
                   ww["max_abs_err"], pw["max_abs_err"],
                   *(w["max_abs_err"] for w in vw))
@@ -4316,7 +5130,7 @@ def main() -> int:
         "launches": l1 + l6 + lw + sql_b1 + tail["b1_launches"]
         + sketch["b1_launches"] + waves["launches"]["dense_groupby"]
         + spatial["b1_launches"] + join["b1_launches"]
-        + serving["b1_launches"],
+        + serving["b1_launches"] + sum(p["b1_launches"] for p in new_phases),
         "max_abs_err": worst,
         "b1_checked": dict({n: len(k["calls"])
                             for n, k in tail["kernels"].items()},
@@ -4324,7 +5138,9 @@ def main() -> int:
                            waves=len(waves["b1"]["calls"]),
                            spatial=len(spatial["b1"]["calls"]),
                            join=len(join["b1"]["calls"]),
-                           serving=len(serving["kernels"]["b1"]["calls"])),
+                           serving=len(serving["kernels"]["b1"]["calls"]),
+                           **{n: len(p["kernels"]["b1"]["calls"])
+                              for n, p in zip(NEW_PHASES, new_phases)}),
         "ms": total["ms"], "plain_ms": total["plain_ms"],
         "bound_ms": total["bound_ms"],
         "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
@@ -4334,7 +5150,7 @@ def main() -> int:
         "replaces": "spark_druid_olap_tpu/ops/pallas_wave.py:371",
         "launches": storm_launches + sql_b2 + sketch["b2_launches"]
         + waves["launches"]["wave"] + spatial["b2_launches"]
-        + serving["b2_launches"],
+        + serving["b2_launches"] + sum(p["b2_launches"] for p in new_phases),
         "max_abs_err": w_worst,
         "ms": wk_ms + sw["ms"] + kw["ms"] + ww["ms"] + pw["ms"]
         + sum(w["ms"] for w in vw),
@@ -4344,7 +5160,9 @@ def main() -> int:
         + kw["bound_ms"] + ww["bound_ms"] + pw["bound_ms"]
         + sum(w["bound_ms"] for w in vw),
         "b2_checked": {"waves": ww["calls"], "spatial": 1,
-                       "serving": len(vw)},
+                       "serving": len(serving["kernels"]["b2"]),
+                       **{n: len(p["kernels"]["b2"])
+                          for n, p in zip(NEW_PHASES, new_phases)}},
         "bound_by": "bytes" if w_bound_by == {"bytes"} else "operations",
         "library_ms": None,
         # the launch with the in-kernel theta stripe (phase sketch)

@@ -2,15 +2,20 @@
 
 Port of ``spark_druid_olap_tpu/context.py``: ``Context(config, device)``
 wires the SQL front end (``sql``, ``explain``), the planner's catalog of
-star schemas, the query history, the named lookups and the engine over the
-segment store. The device is explicit and passed down to the engine: the
-default is ``"cuda"``, and with no CUDA device the constructor raises
-instead of running on the CPU. Tests pass ``device="cpu"``.
+star schemas, the query history, the named lookups, the materialized
+rollups, the extension modules (``sdot.modules``, ``install_module``), the
+ingest entry points (``ingest_dataframe`` / ``_parquet`` / ``_csv`` /
+``_parquet_stream`` and ``stream_ingest``) and the engine over the segment
+store. The device is explicit and passed down to the engine: the default is
+``"cuda"``, and with no CUDA device the constructor raises instead of
+running on the CPU. Tests pass ``device="cpu"``. Persistence
+(``sdot.persist.path``) and the cluster tier are not ported (ROADMAP A.9):
+``stream_ingest`` raises when either is configured.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -19,10 +24,16 @@ from spark_druid_olap_tpu_torch.metadata.catalog import Catalog
 from spark_druid_olap_tpu_torch.metadata.history import QueryHistory
 from spark_druid_olap_tpu_torch.parallel.executor import QueryEngine
 from spark_druid_olap_tpu_torch.result import QueryResult
-from spark_druid_olap_tpu_torch.segment.ingest import ingest_dataframe
+from spark_druid_olap_tpu_torch.segment.ingest import (
+    ingest_csv,
+    ingest_dataframe,
+    ingest_parquet,
+)
 from spark_druid_olap_tpu_torch.segment.store import SegmentStore
+from spark_druid_olap_tpu_torch.utils import host_eval as _he
 from spark_druid_olap_tpu_torch.utils.config import (
     Config,
+    MODULES,
     QUERY_HISTORY,
     QUERY_HISTORY_SIZE,
     SEGMENT_ROWS,
@@ -47,19 +58,97 @@ class Context:
             if self.config.get(QUERY_HISTORY) else 0)
         # named lookup tables for the SQL LOOKUP(col, 'name') function
         self.lookups: Dict[str, Dict[str, Optional[str]]] = {}
+        # materialized rollup registry: name -> mv.registry.RollupDef;
+        # the planner consults it for automatic rewrite (mv/match.py)
+        self.rollups: Dict[str, object] = {}
+        # module extension points (utils/modules.py): scalar functions
+        # (the process-wide host_eval registry, as in the JAX package),
+        # spec rewrite rules and front statement handlers
+        self.functions = _he.EXTRA_FUNCTIONS
+        self.spec_rules: List = []
+        self.statement_handlers: List = []
+        self.modules: List = []
+        mods_csv = self.config.get(MODULES)
+        if mods_csv:
+            from spark_druid_olap_tpu_torch.utils.modules import (
+                install_from_config)
+            self.modules = install_from_config(self, mods_csv)
         # the host tier runs uncorrelated sub-statements through the
         # engine when they push down (planner/host_exec.try_engine);
         # differential oracles turn it off to stay engine-free
         self.host_engine_assist = True
 
+    def install_module(self, module) -> None:
+        """Install an extension module programmatically (≈ adding to
+        ``sdot.modules``)."""
+        module.install(self)
+        self.modules.append(module)
+
     # -- ingest / registration ------------------------------------------------
+    def _ingest_kwargs(self, kwargs):
+        """Segment sizing defaults to ``sdot.segment.target.rows``."""
+        if "target_rows" not in kwargs:
+            kwargs = {**kwargs, "target_rows": self.config.get(SEGMENT_ROWS)}
+        return kwargs
+
     def ingest_dataframe(self, name, df, **kwargs):
-        """Ingest a DataFrame; segment sizing defaults to
-        ``sdot.segment.target.rows``."""
-        kwargs.setdefault("target_rows", self.config.get(SEGMENT_ROWS))
-        ds = ingest_dataframe(name, df, **kwargs)
+        """Ingest a DataFrame (``segment/ingest.py``)."""
+        ds = ingest_dataframe(name, df, **self._ingest_kwargs(kwargs))
         self.store.register(ds)
         return ds
+
+    def ingest_parquet(self, name, path, **kwargs):
+        """Read a Parquet file whole and ingest it."""
+        ds = ingest_parquet(name, path, **self._ingest_kwargs(kwargs))
+        self.store.register(ds)
+        return ds
+
+    def ingest_csv(self, name, path, **kwargs):
+        """Read a CSV file whole and ingest it."""
+        ds = ingest_csv(name, path, **self._ingest_kwargs(kwargs))
+        self.store.register(ds)
+        return ds
+
+    def ingest_parquet_stream(self, name, path, **kwargs):
+        """Out-of-core Parquet ingest (row-group streaming,
+        ``segment/stream_ingest.py``): peak host memory is the final
+        columns plus one batch, for files whose pandas form would not fit."""
+        from spark_druid_olap_tpu_torch.segment.stream_ingest import (
+            ingest_parquet_stream)
+        ds = ingest_parquet_stream(name, path, **self._ingest_kwargs(kwargs))
+        self.store.register(ds)
+        return ds
+
+    def stream_ingest(self, name, df, **kwargs):
+        """Streaming append (≈ Druid realtime ingest,
+        ``segment/append.py``): create the datasource on the first batch,
+        append rows after; an empty batch changes nothing. Returns the new
+        immutable Datasource value, registered under ``name``, so the
+        store's version bump invalidates cached answers and marks rollups
+        on it stale.
+
+        When an ``ingest`` WLM lane is configured, each batch takes a lane
+        slot for its apply, so producers share the admission fabric with
+        queries. The write-ahead log (``sdot.persist.path``) and the push
+        to a cluster's historicals are not ported (ROADMAP A.9)."""
+        if self.config.get("sdot.persist.path"):
+            raise NotImplementedError(
+                "stream_ingest with sdot.persist.path (the write-ahead log) "
+                "not ported yet (ROADMAP A.9)")
+        if self.config.get("sdot.cluster.nodes"):
+            raise NotImplementedError(
+                "stream_ingest's push to cluster historicals not ported yet "
+                "(ROADMAP A.9)")
+        from spark_druid_olap_tpu_torch.segment.append import (
+            apply_stream_ingest)
+        kwargs = self._ingest_kwargs(kwargs)
+        wlm = self.engine.wlm
+        ticket = wlm.admit_ingest()
+        try:
+            return apply_stream_ingest(self, name, df, kwargs)
+        finally:
+            if ticket is not None:
+                wlm.release(ticket)
 
     def register_star_schema(self, star_schema) -> None:
         """Declare a star schema (``metadata/star.py``): joins over its

@@ -919,7 +919,7 @@ class QueryEngine:
                                               n_waves)
         n_out = topk[1] if topk else n_keys
         sketch_plans = [p for p in agg_plans if p.kind in SKETCH_KINDS]
-        shape = (ds.name, id(ds), _cache_repr(q), len(seg_idx),
+        shape = (ds.name, ds.serial, _cache_repr(q), len(seg_idx),
                  ds.padded_rows, min_day, max_day, tuple(names),
                  self.config.get(TZ_ID))
         host = {}
@@ -1676,7 +1676,7 @@ class QueryEngine:
     def _bind_locked(self, ds, names, seg_idx, seg_sig, cap):
         out = {}
         for k in names:
-            key = (id(ds), k, seg_sig)
+            key = (ds.serial, k, seg_sig)
             dev = self._device_arrays.get(key)
             if dev is None:
                 host = build_array(ds, k, seg_idx)

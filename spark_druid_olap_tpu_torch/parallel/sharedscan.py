@@ -397,7 +397,7 @@ class SharedScanCoalescer:
 
         # 7. build once, cached under a signature that carries the fusion
         # token and the wave decision
-        sig = ("aggmulti", ds.name, id(ds), n_rows, min_day, max_day,
+        sig = ("aggmulti", ds.name, ds.serial, n_rows, min_day, max_day,
                tuple(union_names), eng.config.get(TZ_ID), max_keys, sigs,
                bool(eng.config.get(SHAREDSCAN_FUSION_ENABLED)),
                int(eng.config.get(SHAREDSCAN_FUSION_MAX_NODES)),
@@ -605,7 +605,8 @@ class SharedScanCoalescer:
         filter or expression the port does not lower yet, a sketch over a
         column kind it does not take) runs solo, where it raises the same
         error for its own query only."""
-        key = (id(ds), lp.sig, min_day, max_day, self.engine.config.get(TZ_ID))
+        key = (ds.serial, lp.sig, min_day, max_day,
+               self.engine.config.get(TZ_ID))
         ok = self._lowerable.get(key)
         if ok is None:
             arrays = {k: torch.zeros((1, 1), dtype=CW._column_dtype(ds, k))

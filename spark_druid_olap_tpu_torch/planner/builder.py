@@ -1,11 +1,9 @@
 """Pushdown builder: SelectStmt -> engine QuerySpec(s).
 
-Port of ``spark_druid_olap_tpu/planner/builder.py``. Two places differ
+Port of ``spark_druid_olap_tpu/planner/builder.py``. One place differs
 from the JAX builder: the trial lowering that decides whether a filter
 conjunct is pushed down (:meth:`Builder._spec_pushable`) runs the port's
-lowering on zero CPU tensors instead of a JAX shape trace, and the
-materialized-rollup rewrite raises (ROADMAP A.9) when rollups are
-registered, since the port has no ``mv/`` yet.
+lowering on zero CPU tensors instead of a JAX shape trace.
 
 The rewrite heart of the framework — merges the reference's planner stack:
 
@@ -877,10 +875,12 @@ class Builder:
                 intervals=intervals)
             # materialized-rollup rewrite, BEFORE spec transforms so a
             # rewritten GroupBy can still become timeseries/topN/search
-            if getattr(self.ctx, "rollups", None):
-                raise NotImplementedError(
-                    "materialized rollup rewrite not ported yet "
-                    "(ROADMAP A.9)")
+            from spark_druid_olap_tpu_torch.mv import match as MV
+            with PH.phase("plan.rollup"):
+                q2, mv_name = MV.try_rewrite(self.ctx, q)
+            if q2 is not None:
+                q = q2
+                rollup_used = mv_name
             q = QT.transform(q, self.ctx.config,
                              getattr(self.ctx, "spec_rules", ()))
             specs.append(q)

@@ -5,8 +5,8 @@ kept inside the PyTorch package, which imports nothing of the JAX package.
 Two parts differ: ``datasource_frame`` reads the store's host copies
 through the port's own ``_host_column_values`` (the port's stores are
 always complete, so there is no cross-process gather), and the system
-tables that need machinery the port has not ported (rollups, snapshots)
-raise ``NotImplementedError`` (ROADMAP A.9).
+table that needs machinery the port has not ported (snapshots) raises
+``NotImplementedError`` (ROADMAP A.9).
 
 The completeness safety net: whatever the device planner cannot push down
 runs here — the analog of the reference leaving non-rewritten plans to plain
@@ -64,6 +64,11 @@ def _sys_queries(ctx):
     return pd.DataFrame(rows)
 
 
+def _sys_rollups(ctx):
+    from spark_druid_olap_tpu_torch.mv.registry import rollups_view
+    return rollups_view(ctx)
+
+
 def _sys_not_ported(what: str):
     def view(ctx):
         raise NotImplementedError(
@@ -77,7 +82,7 @@ SYS_VIEWS = {
     "sys_columns": lambda ctx: ctx.catalog.columns_view(),
     "sys_queries": _sys_queries,
     "sys_lanes": lambda ctx: ctx.engine.wlm.lanes_view(),
-    "sys_rollups": _sys_not_ported("sys_rollups"),
+    "sys_rollups": _sys_rollups,
     "sys_snapshots": _sys_not_ported("sys_snapshots"),
 }
 
@@ -1171,11 +1176,25 @@ def _one_grouping(ctx, stmt, df, env, group_exprs, all_group_exprs, agg_calls,
     if keep is not None:
         res = res[keep].reset_index(drop=True)
     # stash order-by helper columns
-    res.attrs["agg_cols"] = agg_cols
-    res.attrs["grp_cols"] = grp_cols
-    res.attrs["genv"] = genv
-    res.attrs["keep"] = keep
+    res.attrs["order_helpers"] = _OrderHelpers(agg_cols, grp_cols, genv,
+                                               keep)
     return res
+
+
+class _OrderHelpers:
+    """What ORDER BY needs of a grouped frame's evaluation (its aggregate
+    and group columns, the per-group environment, the kept groups), held
+    in ``DataFrame.attrs`` as one object that deep-copies by reference:
+    pandas deep-copies ``attrs`` at every column access, and the per-group
+    environment holds whole arrays, one element per group. The JAX
+    package keeps the four values in ``attrs`` directly."""
+
+    def __init__(self, agg_cols, grp_cols, genv, keep):
+        self.agg_cols, self.grp_cols = agg_cols, grp_cols
+        self.genv, self.keep = genv, keep
+
+    def __deepcopy__(self, memo):
+        return self
 
 
 def finish_union(frames, u: A.UnionAll) -> pd.DataFrame:
@@ -1260,15 +1279,15 @@ def _order_limit_distinct(ctx, res: pd.DataFrame, stmt: A.SelectStmt, env):
             else:
                 # compute from result columns
                 envr = {c: res[c].to_numpy() for c in res.columns}
-                agg_cols = res.attrs.get("agg_cols", {})
-                grp_cols = res.attrs.get("grp_cols", {})
-                genv = res.attrs.get("genv", {})
-                e2 = _replace_for_output(e, agg_cols, grp_cols)
+                helpers = res.attrs.get("order_helpers") \
+                    or _OrderHelpers({}, {}, {}, None)
+                e2 = _replace_for_output(e, helpers.agg_cols,
+                                         helpers.grp_cols)
                 try:
                     v = host_eval.eval_expr(e2, envr)
                 except host_eval.HostEvalError:
-                    keep = res.attrs.get("keep")
-                    fullenv = dict(genv)
+                    keep = helpers.keep
+                    fullenv = dict(helpers.genv)
                     v = np.asarray(host_eval.eval_expr(e2, fullenv))
                     if keep is not None:
                         v = v[keep]

@@ -1,8 +1,8 @@
 """Batch ingest: pandas DataFrame -> time-sharded columnar segments.
 
 Port of ``spark_druid_olap_tpu/segment/ingest.py`` (``ingest_dataframe``
-with its native encoder pool and spatial dimensions; no encoding hints, no
-multi-host partial ingest).
+with its native encoder pool and spatial dimensions, ``ingest_parquet`` and
+``ingest_csv``; no encoding hints, no multi-host partial ingest).
 
 Pipeline: parse time column to UTC epoch millis -> stable-sort by time ->
 build *global sorted dictionaries* per string dimension -> slice the sorted
@@ -170,3 +170,16 @@ def ingest_dataframe(
 
     return Datasource(name=name, time=time_col, dims=dims, metrics=mets,
                       segments=segments, spatial=spatial)
+
+
+def ingest_parquet(name: str, path: str, **kwargs) -> Datasource:
+    """Read a Parquet file whole, then :func:`ingest_dataframe`."""
+    return ingest_dataframe(name, pd.read_parquet(path), **kwargs)
+
+
+def ingest_csv(name: str, path: str, **kwargs) -> Datasource:
+    """Read a CSV file whole (``sep``, ``names``, ``header`` go to
+    ``pandas.read_csv``), then :func:`ingest_dataframe`."""
+    read_kwargs = {k: kwargs.pop(k) for k in ("sep", "names", "header")
+                   if k in kwargs}
+    return ingest_dataframe(name, pd.read_csv(path, **read_kwargs), **kwargs)

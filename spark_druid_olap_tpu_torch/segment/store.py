@@ -15,6 +15,7 @@ array, bound to the device by the executor.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -29,6 +30,9 @@ from spark_druid_olap_tpu_torch.segment.column import (
 )
 
 ROW_ALIGN = 1024  # pad segment rows to a multiple of this
+
+# Datasource.serial: a number no other Datasource of this process takes
+_SERIALS = itertools.count(1)
 
 
 @dataclasses.dataclass
@@ -56,6 +60,11 @@ class Datasource:
                  segments: List[Segment],
                  spatial: Optional[Dict[str, Tuple[str, ...]]] = None):
         self.name = name
+        # the identity every cache of derived device state keys on (bound
+        # columns, programs, lowerability): unlike id(), a datasource that
+        # replaces a freed one (a re-ingest, an append) never reuses it, so
+        # no entry built over the old codes or dtypes can be found again
+        self.serial = next(_SERIALS)
         self.time = time
         self.dims = dims
         self.metrics = metrics

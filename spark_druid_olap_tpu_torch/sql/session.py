@@ -9,8 +9,7 @@ statement's ``query_id`` before planning and puts it into each spec's
 ``QueryContext`` (``engine.cancel`` reaches every one), and pushes its
 ``lane`` / ``tenant`` / ``priority`` for WLM admission. What the port has not
 ported raises ``NotImplementedError`` naming its ROADMAP item instead of
-answering on the host: materialized rollup statements, persistence
-commands and ``ON DATASOURCE ... EXECUTE QUERY`` (A.9). The per-statement
+answering on the host: the persistence commands (A.9). The per-statement
 stats carry no device dispatch counts (the JAX engine's
 ``dispatch_counts``); the kernels' own launch counters take their place.
 
@@ -218,9 +217,16 @@ def _run_sql_inner(ctx, sql: str) -> QueryResult:
             raise NotImplementedError(
                 "CLEAR METADATA PURGE (deep storage) not ported yet "
                 "(ROADMAP A.9)")
+        from spark_druid_olap_tpu_torch.mv.registry import clear_rollups
         if stmt.datasource:
             ctx.store.drop(stmt.datasource)
-        ctx.engine.clear_caches()   # the result cache too
+            clear_rollups(ctx, stmt.datasource)
+            # the drop bumps the datasource version (stale keys can never
+            # hit again), but the entries themselves must not linger
+            ctx.engine.result_cache.clear()
+        else:
+            clear_rollups(ctx)
+            ctx.engine.clear_caches()  # includes the semantic result cache
         return QueryResult(["status"], {"status": np.array(["OK"],
                                                            dtype=object)})
     if isinstance(stmt, (A.Checkpoint, A.Restore)):
@@ -228,12 +234,16 @@ def _run_sql_inner(ctx, sql: str) -> QueryResult:
             f"{type(stmt).__name__.upper()} (persistence) not ported yet "
             f"(ROADMAP A.9)")
     if isinstance(stmt, (A.CreateRollup, A.DropRollup, A.RefreshRollup)):
-        raise NotImplementedError(
-            "materialized rollup statements not ported yet (ROADMAP A.9)")
+        from spark_druid_olap_tpu_torch.mv.registry import handle_statement
+        msg = handle_statement(ctx, stmt)
+        return QueryResult(["status"], {"status": np.array([msg],
+                                                           dtype=object)})
     if isinstance(stmt, A.ExecuteRawQuery):
-        raise NotImplementedError(
-            "ON DATASOURCE ... EXECUTE QUERY (ir/serde.py) not ported yet "
-            "(ROADMAP A.9)")
+        from spark_druid_olap_tpu_torch.ir.serde import query_from_json
+        q = query_from_json(stmt.query_json, default_ds=stmt.datasource)
+        r = ctx.engine.execute(q)
+        ctx.history.record(q, dict(ctx.engine.last_stats), sql=sql)
+        return r
     if isinstance(stmt, A.ExplainRewrite):
         text = explain_text(ctx, stmt.query, stmt.sql)
         return QueryResult(["plan"],

@@ -400,6 +400,19 @@ PLAN_MEMO_ENTRIES = _entry(
     "sdot.plan.memo.entries", 128,
     "Max memoized planning-cascade outcomes; least-recently-used "
     "statements evict past it.", int, semantic=False)
+MODULES = _entry(
+    "sdot.modules", "",
+    "Comma-separated extension modules to install at Context creation, as "
+    "package.module:ClassName (utils/modules.py; reference: "
+    "spark.sparklinedata.modules via ModuleLoader).")
+MV_REWRITE_ENABLED = _entry(
+    "sdot.mv.rewrite.enabled", True,
+    "Automatically rewrite eligible GroupBy queries onto a registered "
+    "materialized rollup datasource (mv/match.py): grouping dims covered "
+    "by the rollup dims (join-key equivalences count), merge-closed "
+    "derivable aggregations, dim-only filters, cleanly-coarsening "
+    "granularity. Stale rollups (base re-ingested since the build) are "
+    "bypassed, never served.")
 QUERY_HISTORY = _entry(
     "sdot.enable.query.history", True,
     "Record executed statements with timings into the bounded history "

@@ -2,8 +2,7 @@
 
 Port counterpart of ``spark_druid_olap_tpu/wlm/admit.py``: a copy kept
 inside the PyTorch package, which imports nothing of the JAX package,
-less ``admit_ingest`` (it comes with stream ingest, ROADMAP A.9) and the
-``wlm.admit`` chaos site (it comes with ``fault/``, ROADMAP A.9).
+less the ``wlm.admit`` chaos site (it comes with ``fault/``, ROADMAP A.9).
 
 ≈ Druid's `QueryScheduler.laneQuery/run` + the prioritization strategies:
 every engine query passes through :meth:`WorkloadManager.admit` before
@@ -44,6 +43,29 @@ _POLL_S = 0.02
 
 class LaneFullError(AdmissionRejected):
     """Lane queue depth or queue-wait budget exceeded — load shed."""
+
+
+class _IngestContext:
+    """QueryContext stand-in for stream-ingest admission: pins the
+    ``ingest`` lane, inherits everything else from the lane config."""
+    lane = "ingest"
+    tenant = None
+    priority = None
+    timeout_millis = None
+    query_id = None
+
+
+class _IngestShim:
+    """Synthetic spec routing a stream-ingest batch through lane
+    admission. No datasource / aggregations: the shared-scan handoff
+    and cost model both pass it over, so only the ``ingest`` lane's
+    slot/queue accounting applies."""
+    context = _IngestContext()
+    datasource = None
+    aggregations = ()
+
+
+_INGEST_SHIM = _IngestShim()
 
 
 @dataclasses.dataclass
@@ -340,6 +362,24 @@ class WorkloadManager:
                 lane.timed_out += 1
                 self.shed_total += 1
             self.quotas.release(tenant)
+
+    def admit_ingest(self) -> Optional[Ticket]:
+        """Lane admission for one stream-ingest batch (the write-side
+        twin of :meth:`admit`). Routes through the ``ingest`` lane when
+        the operator configured one in ``sdot.wlm.lanes`` — producers
+        then share the same slot/queue/shed fabric as queries, so an
+        ingest storm cannot starve dashboards (and vice versa: the
+        lane's slot count caps concurrent local applies). Returns a
+        Ticket for :meth:`release`, or None (no admission, no release)
+        when WLM is off or no ``ingest`` lane exists — ingest is never
+        throttled by default."""
+        if not self.enabled:
+            return None
+        with self._lock:
+            self._refresh_locked()
+            if "ingest" not in self._lanes:
+                return None
+        return self.admit(None, _INGEST_SHIM, time.perf_counter())
 
     def release(self, ticket: Ticket) -> None:
         run_ms = (time.perf_counter() - ticket._started) * 1000.0

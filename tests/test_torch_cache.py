@@ -28,11 +28,13 @@ import pytest
 import spark_druid_olap_tpu as jsdot
 from spark_druid_olap_tpu.cache.result_cache import ByteBudgetLRU as JLRU
 from spark_druid_olap_tpu.ir import spec as JS
+from spark_druid_olap_tpu.tools import ssb as jssb
 from spark_druid_olap_tpu.tools import tpch as jtpch
 
 import spark_druid_olap_tpu_torch as tsdot
 from spark_druid_olap_tpu_torch.cache.result_cache import ByteBudgetLRU as TLRU
 from spark_druid_olap_tpu_torch.ir import spec as TS
+from spark_druid_olap_tpu_torch.tools import ssb as tssb
 from spark_druid_olap_tpu_torch.tools import tpch as ttpch
 
 from test_torch_sql import assert_answers_equal
@@ -141,7 +143,71 @@ def test_tpch_warm_statements_are_served_from_the_cache(tpch_pair):
     assert hits["torch"] == hits["jax"] and hits["torch"] >= 5, hits
 
 
-# -- invalidation --------------------------------------------------------------
+# -- SSB: cached and uncached answers bit for bit -----------------------------
+
+def test_ssb_cached_equals_uncached():
+    """``tests/test_result_cache.py``'s SSB case: each of the 13
+    statements uncached, cold and warm, bit for bit in each package; the
+    warm statuses equal the JAX package's, and every statement (all push
+    down) is served from the cache at least 10 times out of 13."""
+    ctxs = {pkg: _new_ctx(pkg) for pkg in PACKAGES}
+    jssb.setup_context(ctxs["jax"], sf=0.003, target_rows=4096)
+    tssb.setup_context(ctxs["torch"], sf=0.003, target_rows=4096)
+    hits = {pkg: 0 for pkg in PACKAGES}
+    for name, sql in tssb.QUERIES.items():
+        got, status = {}, {}
+        for pkg, ctx in ctxs.items():
+            ctx.config.set("sdot.cache.enabled", False)
+            ref = ctx.sql(sql).to_pandas()
+            ctx.config.set("sdot.cache.enabled", True)
+            cold = ctx.sql(sql).to_pandas()
+            warm = ctx.sql(sql).to_pandas()
+            pd.testing.assert_frame_equal(ref, cold, check_exact=True,
+                                          obj=f"{pkg} {name} cold")
+            pd.testing.assert_frame_equal(ref, warm, check_exact=True,
+                                          obj=f"{pkg} {name} warm")
+            got[pkg], status[pkg] = ref, _status(ctx)
+            hits[pkg] += status[pkg] in ("hit", "subsumed")
+        assert status["torch"] == status["jax"], (name, status)
+        assert_answers_equal(got["torch"], got["jax"],
+                             ordered="order by" in sql.lower())
+    assert hits["torch"] == hits["jax"] and hits["torch"] >= 10, hits
+    assert ctxs["torch"].engine.result_cache.stats()["hits"] > 0
+
+
+# -- invalidation -------------------------------------------------------------
+
+def test_invalidation_after_stream_append(tmp_path):
+    """``tests/test_result_cache.py``'s stream case: a streamed Parquet
+    datasource, its count cached, then the doubled file streamed in under
+    the same name: a miss with twice the count, in both packages; then a
+    ``stream_ingest`` append: a miss again with the appended rows."""
+    sql = "select count(*) c from streamed"
+
+    def run(pkg):
+        ctx, df = _sales_ctx(pkg, n=2000)
+        p = tmp_path / f"{pkg}_sales.parquet"
+        df.to_parquet(p)
+        ctx.ingest_parquet_stream("streamed", str(p), time_column="ts")
+        a = ctx.sql(sql).to_pandas()
+        ctx.sql(sql)
+        s1 = _status(ctx)
+        pd.concat([df, df]).to_parquet(p)
+        ctx.ingest_parquet_stream("streamed", str(p), time_column="ts")
+        b = ctx.sql(sql).to_pandas()
+        s2 = _status(ctx)
+        assert int(b["c"][0]) == 2 * int(a["c"][0])
+        ctx.sql(sql)
+        s3 = _status(ctx)
+        ctx.stream_ingest("streamed", df.iloc[:300], time_column="ts")
+        c = ctx.sql(sql).to_pandas()
+        assert int(c["c"][0]) == 2 * int(a["c"][0]) + 300
+        return (s1, s2, s3, _status(ctx)), c
+
+    out = _both(run)
+    assert out["torch"][0] == out["jax"][0] == ("hit", "miss", "hit", "miss")
+    assert_answers_equal(out["torch"][1], out["jax"][1], ordered=True)
+
 
 def test_invalidation_after_reingest():
     sql = ("select region, sum(units) u from sales group by region "
@@ -196,7 +262,7 @@ def test_store_versions_and_listeners_match_jax():
     assert out["torch"][1][-1] == ("clear", None)
 
 
-# -- subsumption ---------------------------------------------------------------
+# -- subsumption --------------------------------------------------------------
 
 def _subsume_case(case, S, ctx):
     """One of tests/test_result_cache.py's six subsumption cases: returns
@@ -269,7 +335,7 @@ def test_subsumption(case):
         assert_answers_equal(tg, jg, ordered=True)
 
 
-# -- eviction, bytes, flush, isolation -----------------------------------------
+# -- eviction, bytes, flush, isolation ----------------------------------------
 
 def test_eviction_under_tiny_budget():
     def run(pkg):
@@ -386,7 +452,7 @@ def test_history_and_metadata_report_cache_status():
         assert k in out["torch"][3]
 
 
-# -- the shared-scan tier under the cache ----------------------------------------
+# -- the shared-scan tier under the cache -------------------------------------
 
 def test_constituents_populate_cache_under_own_keys():
     """Each coalesced constituent lands in the cache under its own key: a

@@ -93,9 +93,17 @@ SERVING_MODULES = ["cache", "cache.keys", "cache.result_cache",
                    "wlm.admit"]
 
 
+# the extension modules, the raw-query wire, rollups and the rest of ingest,
+# by exact name (``mv`` is a package name in the JAX package too)
+INGEST_ROLLUP_MODULES = ["ir.serde", "utils.modules", "mv", "mv.registry",
+                         "mv.match", "segment.append",
+                         "segment.stream_ingest", "tools.ssb"]
+
+
 @pytest.mark.parametrize("module",
                          SHAREDSCAN_MODULES + SQL_MODULES + HASHED_MODULES
-                         + JOIN_WINDOW_MODULES + SERVING_MODULES)
+                         + JOIN_WINDOW_MODULES + SERVING_MODULES
+                         + INGEST_ROLLUP_MODULES)
 def test_sharedscan_slice_modules_are_checked(module):
     import pkgutil
     prefix = "spark_druid_olap_tpu_torch."
