@@ -67,16 +67,24 @@ an append, served again after REFRESH) and the SSB cube over ``ssb_flat``
 batches of 250,000 rows into a copy of SF1 lineitem, each with a return
 flag new to the dictionary and a widened metric, with Q1 (B1, a cache
 miss after each batch) and the storm (B2) against pandas after each;
+phase ``persist`` checkpoints SF1 lineitem raw and encoded, recovers each
+root in a fresh context (the store bit for bit; Q1, Q6 and the storm
+against pandas and against the answers before the checkpoint), journals
+phase ``append``'s batches and 4 producers' 32 small batches through the
+write-ahead log (group commit), recovers that root in a fresh context
+(the snapshot plus all 36 frames replayed, the store bit for bit),
+recovers a child process's root after a kill -9, compacts the appended tail (B2's padded rows and time before and
+after) and runs ``sys_snapshots``, RESTORE and CLEAR METADATA ... PURGE;
 phase ``modules`` installs a module from ``sdot.modules`` (a string
 function grouped on through B1, a spec rule, a statement handler) and runs
 Q1's QuerySpec as ``ON DATASOURCE ... EXECUTE QUERY``. Every B1 and B2
 call of these phases is held against its plain version. Its last phase,
-``waves``, generates TPC-H SF3 lineitem (~18M rows; cut from SF10, whose
-run passed 1,000 s, then from SF5 for the phases above) and runs Q1, the
+``waves``, generates TPC-H SF2 lineitem (~12M rows; cut from SF10, whose
+run passed 1,000 s, then from SF5 and SF3 for the phases above) and runs Q1, the
 sketch statement, revenue by part on the hashed tier, a HAVING with an
 ordered LIMIT and the storm under a wave budget
 (``sdot.engine.wave.max.bytes``) of a Q1 segment's bytes times
-ceil(segments / 8) (Q1 in 6 waves at SF3): each
+ceil(segments / 8) (Q1 in 6 waves at SF2): each
 statement in 4 or more waves against the same statement in one wave and
 against pandas, every B1 / B2 launch of every wave against its plain
 version, with per-wave bind, copy and compute times and the overlap share;
@@ -115,6 +123,10 @@ FP32_OPS_PER_S = 67e12           # H100 SXM data-sheet fp32 rate (no tensor core
 FLOAT_SUM_RTOL_KERNEL = 1e-9     # both sides sum in f64; only the order differs
 FLOAT_SUM_RTOL_ORACLE = 1e-6     # float metric columns are stored f32
 REPEATS = 7
+# the plain versions and library calls a path's kernel calls are held
+# against, 100-1000x slower than the kernels: medians of 7 of them took
+# about a minute of the run, so outside phase timing they are medians of 3
+PLAIN_REPEATS = 3
 SLEEP_CYCLES = 4_000_000         # ~2 ms of sleep kernel at the H100's clock
 
 
@@ -1167,8 +1179,9 @@ def bound(nbytes, ops):
 def b1_checked(CG, case, calls) -> dict:
     """Each call a path made to the B1 wrapper, held against the plain
     version on the same inputs (launched twice, bit-identical) and timed as
-    phase ``timing`` times the main path's queries; the sums and each
-    call's shape and times."""
+    phase ``timing`` times the main path's queries (the plain version and
+    the library call over ``PLAIN_REPEATS``); the sums and each call's
+    shape and times."""
     out = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
            "library_ms": 0.0, "calls": []}
     for i, (key, n_keys, inputs, max_keys) in enumerate(calls):
@@ -1185,8 +1198,9 @@ def b1_checked(CG, case, calls) -> dict:
         if not same_bits(got, again):
             raise AssertionError(f"{what}: two launches differ")
         err = compare(what, got, want, inputs)
-        k_ms, p_ms = device_ms(kernel), device_ms(plain)
-        l_ms = device_ms(lambda: library_call(key, n_keys, inputs))
+        k_ms, p_ms = device_ms(kernel), device_ms(plain, PLAIN_REPEATS)
+        l_ms = device_ms(lambda: library_call(key, n_keys, inputs),
+                         PLAIN_REPEATS)
         nbytes, ops = kernel_work(key, n_keys, inputs)
         b_ms, b_by = bound(nbytes, ops)
         per_launch = CG.plan_launches(n_keys, len(inputs))[0]
@@ -1208,7 +1222,8 @@ def b1_checked(CG, case, calls) -> dict:
 def wave_timed(CW, case, program, layout, cols) -> dict:
     """A wave launch a path made, held against the plain version on the
     same inputs in every register-file layout that fits (each twice,
-    bit-identical) and timed as phase ``timing`` times the storm's."""
+    bit-identical) and timed as phase ``timing`` times the storm's (the
+    plain version over ``PLAIN_REPEATS``)."""
     want = CW.wave_reference(program, cols, layout)
     err = wave_checked(CW, case, program, layout, cols, want)[1]
     nbytes, ops = wave_work(program, layout, cols)
@@ -1219,7 +1234,8 @@ def wave_timed(CW, case, program, layout, cols) -> dict:
         columns=program.columns, register_file=layout.file,
         max_abs_err=err,
         ms=device_ms(lambda: CW.wave_groupby(program, layout, cols)),
-        plain_ms=device_ms(lambda: CW.wave_reference(program, cols, layout)),
+        plain_ms=device_ms(lambda: CW.wave_reference(program, cols, layout),
+                           PLAIN_REPEATS),
         bound_ms=b_ms, bound_by=b_by, union_bytes=nbytes)
 
 
@@ -1584,7 +1600,8 @@ def sql_phase(sdt, tables, lineitem_ds, CG, CW, smi):
               "utils/phases; device busy / idle: torch.profiler over one "
               "warm run; kernels: each B1 call of a statement's cold run "
               "and the storm's B2 launch, kernel vs plain version on the "
-              "same inputs, times as in phase timing")
+              "same inputs, times as in phase timing (the plain version "
+              "and the library call medians of 3)")
     return b1, b2, kernels, hashed, tail, sketch, extra
 
 
@@ -2946,17 +2963,18 @@ def hashed_q1(ctx, spec, dense) -> dict:
 
 # -- multi-wave binding (phase "waves") ---------------------------------------
 
-# SF3, cut from SF10 (the whole run took 1,007.9 s at SF10 on one H100,
+# SF2, cut from SF10 (the whole run took 1,007.9 s at SF10 on one H100,
 # SF10's generation and ingest alone 412 s of host time), then from SF5 to
-# make room for phases ssb, rollup, append and modules
-WAVES_SF = 3.0
+# make room for phases ssb, rollup, append and modules, then from SF3 for
+# phase persist
+WAVES_SF = 2.0
 WAVES_Q1 = 8                # at most this many waves for Q1 under the budget
 WAVES_MIN = 4               # waves every statement of the phase must take
 WAVES_REPEATS = 3
-# the hashed statement's key space (600,000 parts at SF3) over this dense
+# the hashed statement's key space (400,000 parts at SF2) over this dense
 # ceiling, so it takes the hashed tier in both wave modes
-WAVES_HASHED = {"sdot.engine.groupby.dense.max.keys": 1 << 19}
-# the HAVING statement's 60,000 keys at SF3 (30,000 suppliers by 2 line
+WAVES_HASHED = {"sdot.engine.groupby.dense.max.keys": 1 << 18}
+# the HAVING statement's 40,000 keys at SF2 (20,000 suppliers by 2 line
 # statuses) over this device-HAVING floor, so its one-wave run takes
 # device HAVING (the default floor, 65,536, held 100,000 keys at SF5)
 WAVES_HAVING = {"sdot.engine.having.device.min.keys": 1 << 15}
@@ -2967,9 +2985,9 @@ WAVES_LIMIT = 10
 def waves_specs(S, E):
     """The phase's statements over lineitem as QuerySpecs: Q1 (B1 per
     wave), phase sketch's statement (B1 and the three register ops per
-    wave), revenue by part (hashed tier, 600,000 groups at SF3) and a
-    HAVING with an ordered LIMIT by supplier and line status (60,000 keys
-    at SF3: device HAVING in one wave, the host under waves)."""
+    wave), revenue by part (hashed tier, 400,000 groups at SF2) and a
+    HAVING with an ordered LIMIT by supplier and line status (40,000 keys
+    at SF2: device HAVING in one wave, the host under waves)."""
     C, L = E.Column, E.Literal
     rev = E.BinaryOp("*", C("l_extendedprice"),
                      E.BinaryOp("-", L(1), C("l_discount")))
@@ -4480,6 +4498,502 @@ def append_phase(sdt, S, E, lineitem_ds, df, CG, CW, smi) -> dict:
     return out
 
 
+# phase persist: durable persistence over SF1 lineitem — checkpoints raw
+# and encoded, recovery, journaled appends, a kill -9, compaction and the
+# SQL surface, each statement over recovered, replayed or compacted data
+PERSIST_SMALL_ROWS = 10_000      # each producer thread's batches
+PERSIST_PRODUCERS = 4
+PERSIST_PRODUCER_BATCHES = 8
+CRASH_SF = 0.05                  # the kill -9 child's frame
+CRASH_BATCH_ROWS = 1_000
+CRASH_PRODUCERS = 2
+CRASH_MIN_ACKS = 3
+CRASH_TIMEOUT_S = 180.0
+CRASH_DEVICE = "cuda"            # the child's context
+
+
+def store_diffs(a, b) -> list:
+    """Where two datasources differ (empty when equal bit for bit):
+    segments, time, each dimension's dictionary, codes and validity, each
+    metric's kind, dtype, values and validity."""
+    out = []
+
+    def arr(x, y, what):
+        if x is None or y is None:
+            if (x is None) != (y is None):
+                out.append(what)
+        elif x.dtype != y.dtype or not np.array_equal(x, y):
+            out.append(what)
+    if [(s.id, s.start_row, s.end_row, s.min_millis, s.max_millis)
+            for s in a.segments] != \
+            [(s.id, s.start_row, s.end_row, s.min_millis, s.max_millis)
+             for s in b.segments]:
+        out.append("segments")
+    if (a.time is None) != (b.time is None):
+        out.append("time")
+    elif a.time is not None:
+        arr(a.time.days, b.time.days, "time days")
+        arr(a.time.ms_in_day, b.time.ms_in_day, "time ms")
+    if list(a.dims) != list(b.dims) or list(a.metrics) != list(b.metrics):
+        out.append("schema")
+        return out
+    for k in a.dims:
+        if len(a.dims[k].dictionary) != len(b.dims[k].dictionary) \
+                or list(a.dims[k].dictionary) != list(b.dims[k].dictionary):
+            out.append(f"{k} dictionary")
+        arr(a.dims[k].codes, b.dims[k].codes, f"{k} codes")
+        arr(a.dims[k].validity, b.dims[k].validity, f"{k} validity")
+    for k in a.metrics:
+        if a.metrics[k].kind != b.metrics[k].kind:
+            out.append(f"{k} kind")
+        arr(a.metrics[k].values, b.metrics[k].values, f"{k} values")
+        arr(a.metrics[k].validity, b.metrics[k].validity, f"{k} validity")
+    return out
+
+
+def column_codecs(manifest) -> dict:
+    """Column -> codec of its data blob (``raw`` where the chooser kept
+    it raw), from a snapshot manifest."""
+    enc = (manifest.get("encoding") or {}).get("columns", {})
+    out = {}
+    if manifest["time"] is not None:
+        t = manifest["time"]
+        out[t["name"]] = {"days": enc.get(t["days"], "raw"),
+                          "ms": enc.get(t["ms"], "raw")}
+    for e in manifest["dims"] + manifest["metrics"]:
+        rel = e.get("codes") or e.get("values")
+        out[e["name"]] = enc.get(rel, "raw")
+    return out
+
+
+def padded(ds) -> int:
+    return ds.num_segments * ds.padded_rows
+
+
+def storm_answers(storm, ds, slist, spies):
+    """The storm of 8 QuerySpecs over ``ds`` (registered into the storm
+    context): one B2 launch, its frames and wall ms."""
+    storm.store.register(ds)
+    ss0 = storm.engine.sharedscan.stats()
+    b2 = spies.b2_launches
+    res, ms, _ = spies.run(lambda: run_storm(storm, slist))
+    ss1 = storm.engine.sharedscan.stats()
+    if ss1["queries_coalesced"] - ss0["queries_coalesced"] != len(slist) \
+            or spies.b2_launches - b2 != 1:
+        raise AssertionError(f"persist storm: {spies.b2_launches - b2} "
+                             f"wave launches, "
+                             f"{ss1['wave_fallback_reasons']}")
+    return res, ms
+
+
+def persist_oracles(df) -> dict:
+    """pandas answers of Q1, Q6 and the storm over ``df``, computed once
+    for every check against the same frame."""
+    return {"q1": q1_oracle(df), "q6": q6_oracle(df),
+            "storm": storm_oracles(df)}
+
+
+def check_storm_oracle(what, names, res, want):
+    """The storm's answers ``res`` against ``want`` (persist_oracles)."""
+    got = dict(zip(names, res))
+    check_q1(got["q1"], want["q1"])
+    np.testing.assert_allclose(got["q6"]["revenue"].to_numpy(),
+                               [want["q6"]], rtol=FLOAT_SUM_RTOL_ORACLE)
+    for name, (keys, w) in want["storm"].items():
+        check_frame(f"{what} storm {name} vs pandas", got[name], w, keys,
+                    FLOAT_SUM_RTOL_ORACLE)
+
+
+def persist_child(root, device, sf, rows) -> int:
+    """The kill -9 leg's child (``chip_smoke.py --persist-child ROOT
+    DEVICE SF ROWS``): ``CRASH_PRODUCERS`` threads stream ``ROWS``-row
+    slices of TPC-H SF ``SF`` lineitem into ``lineitem`` under ``ROOT``
+    (a context on ``DEVICE``, the WAL's fsync and group commit on),
+    printing ``ACK producer batch`` after each ``stream_ingest`` returns,
+    until the parent kills it."""
+    import threading
+    import spark_druid_olap_tpu_torch as sdt
+    from spark_druid_olap_tpu_torch.tools.tpch import generate
+    sf, rows = float(sf), int(rows)
+    df = generate(sf, seed=SEED)["lineitem"]
+    ctx = sdt.Context({**ENGINE_TIMED, "sdot.persist.path": root},
+                      device=device)
+    n = len(df) // rows
+    lock = threading.Lock()
+    # the create first, so the producers race only on appends
+    ctx.stream_ingest("lineitem", df.iloc[:rows], time_column="l_shipdate")
+    print("ACK 0 0", flush=True)
+
+    def producer(p):
+        for b in range(1 + p, n, CRASH_PRODUCERS):
+            ctx.stream_ingest("lineitem", df.iloc[b * rows:(b + 1) * rows],
+                              time_column="l_shipdate")
+            with lock:
+                print(f"ACK {p} {b}", flush=True)
+    threads = [threading.Thread(target=producer, args=(p,))
+               for p in range(CRASH_PRODUCERS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return 0
+
+
+def kill9_leg(sdt, S, E, tmp, spies) -> dict:
+    """Start the child, SIGKILL it after ``CRASH_MIN_ACKS`` acknowledged
+    batches, recover its root in a fresh context: every acknowledged batch
+    present whole, no batch in part, at most one unacknowledged batch per
+    producer; Q1 (B1) against pandas over exactly the recovered batches."""
+    import signal
+    import subprocess as sp
+    import threading
+    from spark_druid_olap_tpu_torch.tools.tpch import generate
+    root = str(pathlib.Path(tmp) / "crash")
+    t0 = time.perf_counter()
+    err_path = pathlib.Path(tmp) / "crash_child.err"
+    with open(err_path, "w") as err_f:
+        proc = sp.Popen([sys.executable,
+                         str(pathlib.Path(__file__).resolve()),
+                         "--persist-child", root, CRASH_DEVICE,
+                         repr(CRASH_SF), str(CRASH_BATCH_ROWS)],
+                        stdout=sp.PIPE, stderr=err_f, text=True,
+                        cwd=str(pathlib.Path(__file__).resolve().parent))
+    timer = threading.Timer(CRASH_TIMEOUT_S, proc.kill)
+    timer.start()
+    acked, killed_at = [], None
+    try:
+        for line in proc.stdout:
+            if line.startswith("ACK "):
+                _, p, b = line.split()
+                acked.append((int(p), int(b)))
+                if len(acked) >= CRASH_MIN_ACKS and killed_at is None:
+                    proc.send_signal(signal.SIGKILL)
+                    killed_at = len(acked)
+        rc = proc.wait()
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    child_s = time.perf_counter() - t0
+    err = err_path.read_text()
+    if rc != -signal.SIGKILL or killed_at is None:
+        raise AssertionError(f"kill -9: child exited {rc} after "
+                             f"{len(acked)} acks: {err[-2000:]}")
+    df = generate(CRASH_SF, seed=SEED)["lineitem"]
+    n = len(df) // CRASH_BATCH_ROWS
+    t0 = time.perf_counter()
+    ctx = sdt.Context({**ENGINE_TIMED, "sdot.persist.path": root})
+    recover_ms = (time.perf_counter() - t0) * 1e3
+    if not ctx.store.names():
+        raise AssertionError(f"kill -9: nothing recovered; child: "
+                             f"{err[-2000:]}")
+    ds = ctx.store.get("lineitem")
+    key = lambda o, ln: np.asarray(o, np.int64) * 8 + np.asarray(ln, np.int64)
+    have = key(ds.metrics["l_orderkey"].values,
+               ds.metrics["l_linenumber"].values)
+    want = key(df["l_orderkey"].to_numpy(), df["l_linenumber"].to_numpy())
+    per = np.isin(want[:n * CRASH_BATCH_ROWS], have) \
+        .reshape(n, CRASH_BATCH_ROWS).sum(axis=1)
+    partial = [int(b) for b in np.flatnonzero(
+        (per > 0) & (per < CRASH_BATCH_ROWS))]
+    present = {int(b) for b in np.flatnonzero(per == CRASH_BATCH_ROWS)}
+    acked_b = {b for _, b in acked}
+    lost = sorted(acked_b - present)
+    extra = sorted(present - acked_b)
+    per_producer = {p: sum(1 for b in extra
+                           if b > 0 and (b - 1) % CRASH_PRODUCERS == p)
+                    for p in range(CRASH_PRODUCERS)}
+    if partial or lost or any(v > 1 for v in per_producer.values()) \
+            or len(have) != len(present) * CRASH_BATCH_ROWS \
+            or 0 in extra:
+        raise AssertionError(f"kill -9: partial {partial}, lost {lost}, "
+                             f"unacked present {extra}, rows {len(have)}")
+    rows = np.concatenate([np.arange(b * CRASH_BATCH_ROWS,
+                                     (b + 1) * CRASH_BATCH_ROWS)
+                           for b in sorted(present)])
+    got = spies.run(lambda: ctx.execute(q1_spec(S, E)).to_pandas())
+    check_q1(got, q1_oracle(df.iloc[rows]))
+    info = dict(ctx.store.recovery_info["lineitem"])
+    ctx.close()
+    return dict(child_s=child_s, acked=len(acked), killed_after=killed_at,
+                batches=n, recovered_batches=len(present),
+                unacked_present=extra, recovered_rows=int(len(have)),
+                recovery_ms=recover_ms, recovery=info)
+
+
+def persist_phase(sdt, S, E, lineitem_ds, df, append, CG, CW, smi) -> dict:
+    """Phase ``persist``: (a) CHECKPOINT of SF1 lineitem raw and encoded
+    (seconds, bytes, codecs, the largest dictionary's JSON encode alone,
+    disk space); (b) a fresh context over each root (recovery and
+    checksum ms, the store bit for bit, Q1 / Q6 / the storm against pandas
+    and bit for bit against the answers before the checkpoint, cold and
+    warm); (c) phase append's 4 batches through the journaled
+    ``stream_ingest``, then 4 producer threads x 8 batches (group
+    commits), Q1 and the storm against pandas, and a fresh context over
+    that root replaying all 36 frames onto the snapshot (its ms, the
+    store bit for bit, Q1 bit for bit); (d) a kill -9 of a child
+    streaming into its own root; (e) ``persist.compact`` (segments, rows,
+    padded rows, B2's ms before and after); (f) ``sys_snapshots``,
+    RESTORE and CLEAR METADATA ... PURGE through SQL."""
+    import json as _json
+    import shutil
+    import tempfile
+    import threading
+    import pandas as pd
+    from spark_druid_olap_tpu_torch.persist import snapshot as SNAP
+    t_phase = time.perf_counter()
+    spies = KernelSpies(CG, CW)
+    specs = storm_specs(S, E)
+    names, slist = list(specs), list(specs.values())
+    q1, q6 = q1_spec(S, E), q6_spec(S, E)
+    out = {"card": smi}
+    steps, t_step = {}, [t_phase]
+
+    def step(name):
+        now = time.perf_counter()
+        steps[name] = now - t_step[0]
+        t_step[0] = now
+    storm = sdt.Context(STORM_CONFIG)
+    with tempfile.TemporaryDirectory(prefix="sdot_persist_") as tmp:
+        roots = {"raw": str(pathlib.Path(tmp) / "raw"),
+                 "encoded": str(pathlib.Path(tmp) / "encoded")}
+        out["disk_free_gb_before"] = shutil.disk_usage(tmp).free / 1e9
+        # the answers before any checkpoint, over the ingested store
+        base = sdt.Context(ENGINE_TIMED)
+        base.store.register(lineitem_ds)
+        before = {"q1": spies.run(lambda: base.execute(q1).to_pandas()),
+                  "q6": spies.run(lambda: base.execute(q6).to_pandas())}
+        before["storm"], _ = storm_answers(storm, lineitem_ds, slist, spies)
+        del base
+        want_df = persist_oracles(df)
+        step("before")
+        # (a) checkpoints
+        t0 = time.perf_counter()
+        big = max(lineitem_ds.dims.values(), key=lambda d: d.cardinality)
+        blob = _json.dumps([str(v) for v in big.dictionary]).encode()
+        ck = {"largest_dictionary": dict(
+            column=big.name, values=big.cardinality, json_bytes=len(blob),
+            encode_s=time.perf_counter() - t0)}
+        del blob
+        for leg, enc in (("raw", False), ("encoded", True)):
+            c = sdt.Context({**ENGINE_TIMED, "sdot.persist.path": roots[leg],
+                             "sdot.encode.enabled": enc})
+            c.store.register(lineitem_ds)
+            t0 = time.perf_counter()
+            summary = c.checkpoint("lineitem")[0]
+            secs = time.perf_counter() - t0
+            ds_root = c.persist._ds_root("lineitem")
+            man = SNAP.load_manifest(ds_root, SNAP.current_version(ds_root))
+            ck[leg] = dict(seconds=secs, bytes=summary["bytes"],
+                           rows=summary["rows"],
+                           codecs=column_codecs(man))
+            if enc:
+                e = man["encoding"]
+                ck[leg].update(raw_bytes=e["raw_bytes"],
+                               encoded_bytes=e["encoded_bytes"],
+                               ratio=e["raw_bytes"] / e["encoded_bytes"])
+            c.close()
+        out["checkpoint"] = ck
+        out["disk_free_gb_after_checkpoints"] = \
+            shutil.disk_usage(tmp).free / 1e9
+        step("checkpoint")
+        # (b) recovery
+        rec = {}
+        ctxs = {}
+        for leg in ("raw", "encoded"):
+            t0 = time.perf_counter()
+            c = ctxs[leg] = sdt.Context({**ENGINE_TIMED,
+                                         "sdot.persist.path": roots[leg]})
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            ds = c.store.get("lineitem")
+            diffs = store_diffs(ds, lineitem_ds)
+            if diffs:
+                raise AssertionError(f"persist {leg}: recovered store "
+                                     f"differs: {diffs}")
+            r = {"context_ms": wall_ms,
+                 "recovery_ms": c.persist.recovery_report["total_ms"]}
+            t0 = time.perf_counter()
+            got1 = spies.run(lambda: c.execute(q1).to_pandas())
+            r["q1_cold_ms"] = (time.perf_counter() - t0) * 1e3
+            r["recovery"] = dict(c.engine.last_stats["persist"])
+            t0 = time.perf_counter()
+            again = spies.run(lambda: c.execute(q1).to_pandas())
+            r["q1_warm_ms"] = (time.perf_counter() - t0) * 1e3
+            got6 = spies.run(lambda: c.execute(q6).to_pandas())
+            check_q1(got1, want_df["q1"])
+            np.testing.assert_allclose(got6["revenue"].to_numpy(),
+                                       [want_df["q6"]],
+                                       rtol=FLOAT_SUM_RTOL_ORACLE)
+            for what, g, w in (("q1", got1, before["q1"]),
+                               ("q1 warm", again, before["q1"]),
+                               ("q6", got6, before["q6"])):
+                bit_equal(f"persist {leg} {what}", g, w)
+            res, r["storm_ms"] = storm_answers(storm, ds, slist, spies)
+            for n_, g, w in zip(names, res, before["storm"]):
+                bit_equal(f"persist {leg} storm {n_}", g, w)
+            check_storm_oracle(f"persist {leg}", names, res, want_df)
+            rec[leg] = r
+        out["recovery"] = rec
+        ctxs["encoded"].close()
+        del ctxs["encoded"]
+        step("recovery")
+        # (c) journaled appends on the raw root's context
+        ctx = ctxs["raw"]
+        frames, batches = [df], []
+        for i in range(len(APPEND_FLAGS)):
+            b = append_batch(df, i)
+            t0 = time.perf_counter()
+            ctx.stream_ingest("lineitem", b, time_column="l_shipdate")
+            batches.append(dict(
+                ms=(time.perf_counter() - t0) * 1e3,
+                in_memory_ms=append["batches"][i]["stream_ingest_ms"]))
+            frames.append(b)
+        small = [df.sample(n=PERSIST_SMALL_ROWS, random_state=SEED + 100 + k)
+                 .reset_index(drop=True)
+                 for k in range(PERSIST_PRODUCERS * PERSIST_PRODUCER_BATCHES)]
+        errs = []
+
+        def producer(p):
+            try:
+                for k in range(p, len(small), PERSIST_PRODUCERS):
+                    ctx.stream_ingest("lineitem", small[k],
+                                      time_column="l_shipdate")
+            except BaseException as e:  # noqa: BLE001 — raised below
+                errs.append(e)
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=producer, args=(p,))
+                   for p in range(PERSIST_PRODUCERS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        producers_s = time.perf_counter() - t0
+        if errs:
+            raise errs[0]
+        full = pd.concat(frames + small, ignore_index=True)
+        gc = ctx.persist.stats()["groupCommit"]
+        if gc["frames"] != len(APPEND_FLAGS) + len(small) \
+                or not 1 <= gc["commits"] <= gc["frames"]:
+            raise AssertionError(f"persist: group commit {gc}")
+        ds = ctx.store.get("lineitem")
+        if ds.num_rows != len(full):
+            raise AssertionError(f"persist: {ds.num_rows} rows, want "
+                                 f"{len(full)}")
+        live_q1 = spies.run(lambda: ctx.execute(q1).to_pandas())
+        want_full = persist_oracles(full)
+        check_q1(live_q1, want_full["q1"])
+        b2_pre = len(spies.b2)
+        pre_storm, pre_storm_ms = storm_answers(storm, ds, slist, spies)
+        check_storm_oracle("persist journaled", names, pre_storm, want_full)
+        out["journaled"] = dict(
+            batches=batches, producers=PERSIST_PRODUCERS,
+            producer_batches=len(small), producer_rows=PERSIST_SMALL_ROWS,
+            producers_s=producers_s, group_commits=gc["commits"],
+            group_frames=gc["frames"], rows=ds.num_rows,
+            wal_bytes=ctx.persist.stats()["datasources"]["lineitem"]
+            ["walBytes"])
+        step("journaled")
+        # crash recovery at the phase's size: nothing was checkpointed
+        # since (b), so a fresh context over the live root loads the SF1
+        # snapshot and replays every frame journaled above, as after a
+        # crash of ``ctx`` (the root is only read: no torn tail to trim)
+        t0 = time.perf_counter()
+        rc = sdt.Context({**ENGINE_TIMED, "sdot.persist.path": roots["raw"]})
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        rds = rc.store.get("lineitem")
+        diffs = store_diffs(rds, ds)
+        if diffs:
+            raise AssertionError(f"persist replay: store differs: {diffs}")
+        info = dict(rc.store.recovery_info["lineitem"])
+        if info["source"] != "snapshot+wal" \
+                or info["wal_records"] != gc["frames"]:
+            raise AssertionError(f"persist replay: {info}, want "
+                                 f"{gc['frames']} records")
+        total_ms = rc.persist.recovery_report["total_ms"]
+        bit_equal("persist replayed q1",
+                  spies.run(lambda: rc.execute(q1).to_pandas()), live_q1)
+        rc.close()
+        out["replay"] = dict(
+            context_ms=wall_ms, recovery_ms=total_ms,
+            checksum_verify_ms=info["checksum_verify_ms"],
+            wal_records=info["wal_records"], rows=rds.num_rows,
+            wal_bytes=out["journaled"]["wal_bytes"])
+        del rc, rds
+        step("replay")
+        # (d) kill -9
+        out["kill9"] = kill9_leg(sdt, S, E, tmp, spies)
+        step("kill9")
+        # (e) compaction
+        pre_q1 = spies.run(lambda: ctx.execute(q1).to_pandas())
+        t0 = time.perf_counter()
+        (summary,) = ctx.persist.compact("lineitem")
+        compact_s = time.perf_counter() - t0
+        cds = ctx.store.get("lineitem")
+        if cds.num_rows != ds.num_rows:
+            raise AssertionError("persist: compaction changed the rows")
+        post_q1 = spies.run(lambda: ctx.execute(q1).to_pandas())
+        check_frame("persist compacted q1", post_q1, pre_q1,
+                    ["l_returnflag", "l_linestatus"], FLOAT_SUM_RTOL_ORACLE)
+        b2_post = len(spies.b2)
+        post_storm, post_storm_ms = storm_answers(storm, cds, slist, spies)
+        for n_, g, w in zip(names, post_storm, pre_storm):
+            check_frame(f"persist compacted storm {n_}", g, w, None,
+                        FLOAT_SUM_RTOL_ORACLE)
+        out["compaction"] = dict(
+            seconds=compact_s, summary=summary,
+            segments=[ds.num_segments, cds.num_segments],
+            rows=[ds.num_rows, cds.num_rows],
+            padded_rows=[padded(ds), padded(cds)],
+            storm_ms=[pre_storm_ms, post_storm_ms], b2_index=[b2_pre,
+                                                              b2_post])
+        step("compaction")
+        # (f) the SQL surface
+        snaps = ctx.sql("select datasource, version, state, current, rows "
+                        "from sys_snapshots").to_pandas()
+        if not snaps["current"].any() or len(snaps) < 1:
+            raise AssertionError(f"persist: sys_snapshots {snaps}")
+        last = append_batch(df, 0).head(PERSIST_SMALL_ROWS)
+        ctx.stream_ingest("lineitem", last, time_column="l_shipdate")
+        want = spies.run(lambda: ctx.execute(q1).to_pandas())
+        t0 = time.perf_counter()
+        st = ctx.sql("restore lineitem").to_pandas()
+        restore_s = time.perf_counter() - t0
+        if list(st["status"]) != ["restored lineitem from snapshot+wal"]:
+            raise AssertionError(f"persist: restore said {st}")
+        got = spies.run(lambda: ctx.execute(q1).to_pandas())
+        bit_equal("persist q1 after RESTORE", got, want)
+        check_q1(got, q1_oracle(pd.concat([full, last], ignore_index=True)))
+        ctx.sql("clear metadata lineitem purge")
+        ctx.close()
+        fresh = sdt.Context({**ENGINE_TIMED,
+                             "sdot.persist.path": roots["raw"]})
+        if "lineitem" in fresh.store.names():
+            raise AssertionError("persist: lineitem survived PURGE")
+        fresh.close()
+        out["sql"] = dict(
+            sys_snapshots=snaps.astype(str).to_dict("records"),
+            restore_s=restore_s, restore_status=list(st["status"]),
+            purged=True)
+        out["disk_free_gb_after"] = shutil.disk_usage(tmp).free / 1e9
+        del ctxs, ctx, fresh, storm
+        step("sql")
+    out["kernels"] = {"b1": b1_checked(CG, "persist", spies.b1),
+                      "b2": [wave_timed(CW, f"persist b2[{i}]", *w)
+                             for i, w in enumerate(spies.b2)]}
+    out["compaction"]["b2_kernel_ms"] = [
+        out["kernels"]["b2"][i]["ms"] for i in out["compaction"]["b2_index"]]
+    out["compaction"]["b2_rows"] = [
+        out["kernels"]["b2"][i]["rows"]
+        for i in out["compaction"]["b2_index"]]
+    out["b1_launches"], out["b2_launches"] = spies.b1_launches, \
+        spies.b2_launches
+    step("kernels")
+    out["steps_s"] = steps
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 # phase modules: a module named in sdot.modules (this script's
 # ``SmokeModule``, built at first access so importing the script loads
 # nothing of the port)
@@ -4602,7 +5116,7 @@ def modules_phase(sdt, S, E, lineitem_ds, df, CG, CW, smi) -> dict:
     return out
 
 
-NEW_PHASES = ("ssb", "rollup", "append", "modules")
+NEW_PHASES = ("ssb", "rollup", "append", "persist", "modules")
 
 
 def main() -> int:
@@ -4786,7 +5300,8 @@ def main() -> int:
               "engine = inside engine.execute (WLM admission, cache "
               "lookup, the engine), session = the rest; wlm_admit / "
               "cache_lookup: the statement's utils/phases host phases; "
-              "kernels: timed as in phase timing")
+              "kernels: timed as in phase timing (the plain version and "
+              "the library call medians of 3)")
 
     # 4c. rollups over lineitem and ssb_flat, stream appends, modules
     rollup = rollup_phase(sdt, ctx.store.get("lineitem"), df, ssb_ctx, CG,
@@ -4816,6 +5331,33 @@ def main() -> int:
               "dictionary merge and code remap of every column, O(rows)); "
               "q1_ms: the first Q1 after it (a result-cache miss, the new "
               "columns uploaded)")
+    persist = persist_phase(sdt, S, E, ctx.store.get("lineitem"), df, append,
+                            CG, CW, smi)
+    emit("persist", **persist,
+         oracle="recovered stores vs the ingested store column by column, "
+                "bit for bit (dictionaries included); Q1 / Q6 / the storm "
+                "after recovery vs pandas (ints exact, floats rtol 1e-6) "
+                "and bit for bit vs the answers before the checkpoint; "
+                "after the journaled appends Q1 and the storm vs pandas "
+                "over the concatenated frame; the journaled root replayed "
+                "in a fresh context: its store bit for bit vs the live one, "
+                "every frame replayed, Q1 bit for bit; the kill -9 child's "
+                "root: "
+                "every acknowledged batch whole, none in part, at most one "
+                "unacknowledged per producer, Q1 vs pandas over exactly "
+                "the recovered batches; compacted Q1 / storm vs their "
+                "answers before compaction (ints exact, floats rtol 1e-6); "
+                "Q1 after RESTORE bit for bit vs before it; each B1 call "
+                "and B2 launch vs its plain version (kernels)",
+         note="ms / s: host wall clock; recovery_ms: the manager's "
+              "recovery report (snapshot load, checksums, WAL replay; "
+              "replay: the SF1 snapshot plus the 36 journaled frames); "
+              "checksum_verify_ms: stats['persist'] of the first "
+              "statement; cold = the first statement over the recovered "
+              "store (columns uploaded); the WAL's fsync and group commit "
+              "on; the root in a temporary directory on the machine's "
+              "local disk, its reads warm (file cache not dropped); "
+              "steps_s: host wall seconds of each step of the phase")
     modules = modules_phase(sdt, S, E, ctx.store.get("lineitem"), df, CG, CW,
                             smi)
     emit("modules", **modules,
@@ -4824,7 +5366,7 @@ def main() -> int:
                 "through SQL (floats rtol 1e-9) and pandas; each B1 call "
                 "vs its plain version (kernels)",
          note="ms: host wall clock to the frame")
-    new_phases = (ssb, rollup, append, modules)
+    new_phases = (ssb, rollup, append, persist, modules)
 
     captured = {}
     real_kernel = CG.dense_groupby_kernel
@@ -5176,4 +5718,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--persist-child"]:
+        sys.exit(persist_child(*sys.argv[2:6]))
     sys.exit(main())

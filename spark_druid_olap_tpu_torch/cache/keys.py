@@ -25,8 +25,11 @@ The key also folds in the per-datasource ingest version
 drop or config change moves subsequent queries to fresh keys (≈ Druid's
 segment version in its result-cache keys).
 
-Persistence (ROADMAP A.9) is not ported: no restore rewinds a version,
-so a version-keyed entry can never collide with another datasource state.
+Persistence can rewind a version: an in-session RESTORE installs the
+snapshot's ingest version again, so ``sql/session.py`` clears every
+derived cache after it. Recovery at construction restores each
+datasource's exact pre-crash version (``SegmentStore.restore``) into an
+empty cache, so a key still names one datasource state.
 """
 
 from __future__ import annotations

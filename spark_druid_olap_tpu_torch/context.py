@@ -8,9 +8,12 @@ ingest entry points (``ingest_dataframe`` / ``_parquet`` / ``_csv`` /
 ``_parquet_stream`` and ``stream_ingest``) and the engine over the segment
 store. The device is explicit and passed down to the engine: the default is
 ``"cuda"``, and with no CUDA device the constructor raises instead of
-running on the CPU. Tests pass ``device="cpu"``. Persistence
-(``sdot.persist.path``) and the cluster tier are not ported (ROADMAP A.9):
-``stream_ingest`` raises when either is configured.
+running on the CPU. Tests pass ``device="cpu"``. With
+``sdot.persist.path`` set, the context builds a persist manager
+(``persist/``) and recovers the root at construction; ``stream_ingest``
+then journals every batch before it is queryable, and ``checkpoint`` /
+``close`` publish and stop. The cluster tier is not ported (ROADMAP A.9):
+``stream_ingest`` raises when ``sdot.cluster.nodes`` is set.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from spark_druid_olap_tpu_torch.utils import host_eval as _he
 from spark_druid_olap_tpu_torch.utils.config import (
     Config,
     MODULES,
+    PERSIST_PATH,
     QUERY_HISTORY,
     QUERY_HISTORY_SIZE,
     SEGMENT_ROWS,
@@ -73,6 +77,17 @@ class Context:
             from spark_druid_olap_tpu_torch.utils.modules import (
                 install_from_config)
             self.modules = install_from_config(self, mods_csv)
+        # durable persistence (persist/): deep-storage snapshots + ingest
+        # WAL + startup recovery; None when sdot.persist.path is unset.
+        # Recovery binds nothing to the device: the first statement does
+        self.persist = None
+        ppath = self.config.get(PERSIST_PATH)
+        if ppath:
+            from spark_druid_olap_tpu_torch.persist.manager import (
+                PersistManager)
+            self.persist = PersistManager(self, ppath)
+            self.persist.recover()
+            self.persist.start_background()
         # the host tier runs uncorrelated sub-statements through the
         # engine when they push down (planner/host_exec.try_engine);
         # differential oracles turn it off to stay engine-free
@@ -127,14 +142,15 @@ class Context:
         store's version bump invalidates cached answers and marks rollups
         on it stale.
 
+        With persistence on (``sdot.persist.path``) each batch is
+        journaled to the write-ahead log and fsynced BEFORE it becomes
+        queryable, so a committed batch survives kill -9
+        (``persist/wal.py``).
+
         When an ``ingest`` WLM lane is configured, each batch takes a lane
         slot for its apply, so producers share the admission fabric with
-        queries. The write-ahead log (``sdot.persist.path``) and the push
-        to a cluster's historicals are not ported (ROADMAP A.9)."""
-        if self.config.get("sdot.persist.path"):
-            raise NotImplementedError(
-                "stream_ingest with sdot.persist.path (the write-ahead log) "
-                "not ported yet (ROADMAP A.9)")
+        queries. The push to a cluster's historicals is not ported
+        (ROADMAP A.9)."""
         if self.config.get("sdot.cluster.nodes"):
             raise NotImplementedError(
                 "stream_ingest's push to cluster historicals not ported yet "
@@ -145,10 +161,30 @@ class Context:
         wlm = self.engine.wlm
         ticket = wlm.admit_ingest()
         try:
+            if self.persist is not None:
+                return self.persist.stream_ingest(name, df, kwargs)
             return apply_stream_ingest(self, name, df, kwargs)
         finally:
             if ticket is not None:
                 wlm.release(ticket)
+
+    def checkpoint(self, name: Optional[str] = None):
+        """Publish snapshot(s) to deep storage (requires
+        ``sdot.persist.path``). ``name=None`` checkpoints every complete
+        datasource. Returns the checkpoint summaries."""
+        if self.persist is None:
+            raise RuntimeError(
+                "persistence is disabled; set sdot.persist.path")
+        if name is not None:
+            return [self.persist.checkpoint(name)]
+        return self.persist.checkpoint_all()
+
+    def close(self) -> None:
+        """Stop background machinery (the persist checkpointer and
+        compactor) and close the journals. Safe to call more than once;
+        the context remains usable for queries."""
+        if self.persist is not None:
+            self.persist.stop()
 
     def register_star_schema(self, star_schema) -> None:
         """Declare a star schema (``metadata/star.py``): joins over its

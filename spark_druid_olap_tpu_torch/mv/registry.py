@@ -2,8 +2,8 @@
 
 Port counterpart of ``spark_druid_olap_tpu/mv/registry.py``: a copy kept
 inside the PyTorch package, which imports nothing of the JAX package.
-The JSON form of a definition (``rollup_to_dict`` /
-``rollup_from_dict``) comes with persistence's catalog (ROADMAP A.9).
+The JSON form of a definition (``rollup_to_dict`` / ``rollup_from_dict``)
+is persistence's catalog entry (``persist/manager.py``).
 
 A rollup is built by running a GroupBy over the base datasource through the
 normal planner/engine path (host fallback included) and re-ingesting the
@@ -240,6 +240,39 @@ def clear_rollups(ctx, datasource: Optional[str] = None) -> None:
             drop_rollup(ctx, name)
         except ValueError:
             pass
+
+
+def rollup_to_dict(r: RollupDef) -> dict:
+    """JSON form of a rollup definition for persist/'s catalog.json.
+    ``built_version`` rides along so post-recovery staleness checks
+    compare against the RESTORED base ingest version — a rollup stale at
+    crash time is still stale (and bypassed) after recovery."""
+    from spark_druid_olap_tpu_torch.ir.serde import expr_to_dict
+    return {
+        "name": r.name, "base": r.base, "backing": r.backing,
+        "dims": list(r.dims),
+        "aggs": [expr_to_dict(e) for e in r.agg_exprs],
+        "granularity": r.granularity,
+        "timeColumn": r.time_column,
+        "builtVersion": int(r.built_version),
+        "timeIdentity": bool(r.time_identity),
+        # agg_key tuples are (kind, field, sql|None, filter_repr) — all
+        # JSON scalars; lists round-trip back to tuples below
+        "aggMap": [[list(k), v] for k, v in r.agg_map.items()],
+    }
+
+
+def rollup_from_dict(d: dict) -> RollupDef:
+    from spark_druid_olap_tpu_torch.ir.serde import expr_from_dict
+    return RollupDef(
+        name=d["name"], base=d["base"], backing=d["backing"],
+        dims=tuple(d["dims"]),
+        agg_exprs=tuple(expr_from_dict(e) for e in d["aggs"]),
+        granularity=d.get("granularity"),
+        time_column=d.get("timeColumn"),
+        built_version=int(d.get("builtVersion", -1)),
+        time_identity=bool(d.get("timeIdentity", False)),
+        agg_map={tuple(k): v for k, v in d.get("aggMap", ())})
 
 
 def rollups_view(ctx) -> pd.DataFrame:

@@ -691,6 +691,13 @@ class QueryEngine:
         self.inflight = InflightRegistry()
         self.sharedscan = SharedScanCoalescer(self)
         self.wlm.sharedscan = self.sharedscan
+        # deterministic fault injection (fault/): None unless
+        # sdot.fault.plan is set, and every site guards on None so the
+        # un-injected path pays nothing. The WLM site is wired here; the
+        # persist manager picks the injector up from this attribute.
+        from spark_druid_olap_tpu_torch.fault import FaultInjector
+        self.fault = FaultInjector.from_config(self.config)
+        self.wlm.fault = self.fault
 
     @property
     def last_stats(self) -> Dict[str, object]:
@@ -796,11 +803,22 @@ class QueryEngine:
         finally:
             if qid is not None:
                 self.release_query(qid)
+            # after the releases: a failing stats snapshot must not be
+            # able to strand the cancel flag
+            if self.fault is not None:
+                self.last_stats["fault"] = self.fault.stats()
 
     def _execute_admitted(self, q: S.QuerySpec, t0: float) -> QueryResult:
         """Result-cache lookup, then the coalescer or ``_execute_inner``,
         then ``cache.put``. An exception is never cached."""
         try:
+            pinfo = self.store.recovery_info.get(
+                getattr(q, "datasource", None))
+            if pinfo is not None:
+                # the datasource was rebuilt from deep storage this
+                # session — surface where it came from (snapshot / wal /
+                # both) and what checksum verification cost
+                self.last_stats["persist"] = dict(pinfo)
             cache = self.result_cache
             use_cache = cache.enabled and cache.cacheable(q)
             if use_cache:

@@ -4,9 +4,7 @@ Port counterpart of ``spark_druid_olap_tpu/planner/host_exec.py``: a copy
 kept inside the PyTorch package, which imports nothing of the JAX package.
 Two parts differ: ``datasource_frame`` reads the store's host copies
 through the port's own ``_host_column_values`` (the port's stores are
-always complete, so there is no cross-process gather), and the system
-table that needs machinery the port has not ported (snapshots) raises
-``NotImplementedError`` (ROADMAP A.9).
+always complete, so there is no cross-process gather).
 
 The completeness safety net: whatever the device planner cannot push down
 runs here — the analog of the reference leaving non-rewritten plans to plain
@@ -69,11 +67,14 @@ def _sys_rollups(ctx):
     return rollups_view(ctx)
 
 
-def _sys_not_ported(what: str):
-    def view(ctx):
-        raise NotImplementedError(
-            f"system table {what} not ported yet (ROADMAP A.9)")
-    return view
+def _sys_snapshots(ctx):
+    """Deep-storage state (persist/): empty frame with the view's schema
+    when persistence is off — the view stays queryable either way."""
+    if getattr(ctx, "persist", None) is not None:
+        return ctx.persist.snapshots_view()
+    cols = ["datasource", "version", "state", "current", "rows",
+            "bytes", "wal_seq", "wal_bytes", "dirty", "created_at"]
+    return pd.DataFrame(columns=cols)
 
 
 SYS_VIEWS = {
@@ -83,7 +84,7 @@ SYS_VIEWS = {
     "sys_queries": _sys_queries,
     "sys_lanes": lambda ctx: ctx.engine.wlm.lanes_view(),
     "sys_rollups": _sys_rollups,
-    "sys_snapshots": _sys_not_ported("sys_snapshots"),
+    "sys_snapshots": _sys_snapshots,
 }
 
 

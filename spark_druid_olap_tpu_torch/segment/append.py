@@ -2,14 +2,14 @@
 
 Port counterpart of ``spark_druid_olap_tpu/segment/append.py``: a copy kept
 inside the PyTorch package, which imports nothing of the JAX package,
-less the ingest-time encoding hints (the port's ingest skips them too),
-the write-ahead log's ``wal_kwargs_*`` and the thread pool of
-``append_dataframe(parallel=True)``, which only the persist manager
-uses (persistence, ROADMAP A.9).
+less the ingest-time encoding hints (the port's ingest skips them too).
 The dictionary merge takes another way to the same dictionary and codes
-(:func:`_merge_dictionary`).
-The port's stores are always complete, so there is no partial-store
-guard.
+(:func:`_merge_dictionary`). The columns of a batch of at least
+``_PARALLEL_MIN_ROWS`` rows are built on a thread pool for every caller,
+where the reference builds them so only for its persist manager
+(``append_dataframe(parallel=True)``); both builds give the same columns.
+The write-ahead log's ``wal_kwargs_*`` serve the persist manager
+(``persist/manager.py``).
 
 The in-tree replacement for Druid's real-time (streaming) ingest tier —
 the reference delegates it to Tranquility/Kafka indexing into realtime
@@ -41,6 +41,8 @@ a column missing from the batch appends as all-null.
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -191,12 +193,42 @@ def _append_metric(old: MetricColumn, series: Optional[pd.Series],
                         kind=old.kind)
 
 
+# below this many batch rows a thread pool costs more than it saves
+_PARALLEL_MIN_ROWS = 2048
+
+
 def _build_columns(ds: Datasource, df: pd.DataFrame, n_new: int):
-    """Build the appended dim/metric columns, one column at a time."""
-    dims = {k: _append_dim(d, df[k] if k in df.columns else None, n_new)
-            for k, d in ds.dims.items()}
-    mets = {k: _append_metric(m, df[k] if k in df.columns else None, n_new)
-            for k, m in ds.metrics.items()}
+    """Build the appended dim/metric columns, across a thread pool once
+    the batch has ``_PARALLEL_MIN_ROWS`` rows. Each column's dictionary
+    union + order-preserving remap is independent of every other column's,
+    so running them concurrently is bit-identical to the serial
+    comprehension — numpy's sort/searchsorted kernels release the GIL,
+    which is where the parallel win comes from on wide schemas."""
+    dim_items = list(ds.dims.items())
+    met_items = list(ds.metrics.items())
+    n_cols = len(dim_items) + len(met_items)
+    if n_cols < 2 or n_new < _PARALLEL_MIN_ROWS:
+        dims = {k: _append_dim(d, df[k] if k in df.columns else None,
+                               n_new)
+                for k, d in dim_items}
+        mets = {k: _append_metric(m, df[k] if k in df.columns else None,
+                                  n_new)
+                for k, m in met_items}
+        return dims, mets
+    workers = min(n_cols, max(2, (os.cpu_count() or 4) - 1), 8)
+    with ThreadPoolExecutor(max_workers=workers,
+                            thread_name_prefix="sdot-append") as pool:
+        dim_futs = [(k, pool.submit(
+            _append_dim, d, df[k] if k in df.columns else None, n_new))
+            for k, d in dim_items]
+        met_futs = [(k, pool.submit(
+            _append_metric, m, df[k] if k in df.columns else None, n_new))
+            for k, m in met_items]
+        # .result() re-raises a build rejection from any column exactly
+        # like the serial path would (the pool context manager joins the
+        # rest before the exception propagates)
+        dims = {k: f.result() for k, f in dim_futs}
+        mets = {k: f.result() for k, f in met_futs}
     return dims, mets
 
 
@@ -204,6 +236,7 @@ def append_dataframe(ds: Datasource, df: pd.DataFrame,
                      target_rows: int = 1 << 20) -> Datasource:
     """A new :class:`Datasource` with ``df``'s rows appended as fresh
     segments. ``ds`` is untouched (immutable-columns contract)."""
+    ds.require_complete("stream append")
     df = df.reset_index(drop=True)
     n_new = len(df)
     if n_new == 0:
@@ -257,10 +290,41 @@ def append_dataframe(ds: Datasource, df: pd.DataFrame,
                       spatial=dict(ds.spatial))
 
 
+# JSON-serializable keys of the ingest kwargs a WAL create record carries
+# (ColumnKind values serialize as their enum value strings).
+_WAL_KWARG_KEYS = ("time_column", "dimensions", "metrics", "target_rows",
+                   "metric_kinds", "spatial_dims", "drop_columns")
+
+
+def wal_kwargs_to_dict(kwargs: dict) -> dict:
+    out = {}
+    for k in _WAL_KWARG_KEYS:
+        v = kwargs.get(k)
+        if v is None:
+            continue
+        if k == "metric_kinds":
+            v = {c: kk.value for c, kk in v.items()}
+        elif k in ("dimensions", "metrics", "drop_columns"):
+            v = list(v)
+        elif k == "spatial_dims":
+            v = {s: list(a) for s, a in v.items()}
+        out[k] = v
+    return out
+
+
+def wal_kwargs_from_dict(d: dict) -> dict:
+    out = dict(d)
+    if "metric_kinds" in out:
+        out["metric_kinds"] = {c: ColumnKind(v)
+                               for c, v in out["metric_kinds"].items()}
+    return out
+
+
 def apply_stream_ingest(ctx, name: str, df: pd.DataFrame,
                         kwargs: dict) -> Datasource:
     """In-memory half of a stream_ingest: create on first batch, append
-    after. The caller (``Context.stream_ingest``) owns admission."""
+    after. The caller (``Context.stream_ingest`` / ``PersistManager``)
+    owns admission and durability."""
     from spark_druid_olap_tpu_torch.segment.ingest import ingest_dataframe
     existing = ctx.store._datasources.get(name)
     if existing is None:

@@ -82,6 +82,14 @@ class Datasource:
         # executor refuses select and search over one
         self.is_partial = False
 
+    def require_complete(self, what: str = "this operation") -> None:
+        """Host paths (a checkpoint, an append) read full columns; on a
+        partial store that would silently cover one host's rows."""
+        if self.is_partial:
+            raise RuntimeError(
+                f"{what} requires the complete datasource, but "
+                f"{self.name!r} is a multi-host partial store")
+
     # -- basic shape ----------------------------------------------------------
     @property
     def num_rows(self) -> int:
@@ -342,15 +350,21 @@ class SegmentStore:
     (``planner/host_exec.result_cache``). Each datasource also keeps its
     own ingest version, the store version at its last register or drop:
     result-cache keys fold it in, so a re-ingest invalidates only that
-    datasource's cached answers (``datasource_version``)."""
+    datasource's cached answers (``datasource_version``). Persistence's
+    recovery installs a datasource under its exact pre-crash version
+    (``restore``)."""
 
     def __init__(self):
         self._datasources: Dict[str, Datasource] = {}
         self.version = 0
         self._versions: Dict[str, int] = {}
-        # change listeners, called as cb(event, name) with event in
-        # register | drop | clear
+        # change listeners (persist/ dirty tracking), called as
+        # cb(event, name) with event in register | drop | clear | restore
         self._listeners = []
+        # per-datasource recovery provenance set by persist recovery
+        # (source, snapshot version, checksum-verify ms); surfaced as
+        # stats['persist'] on queries over a recovered datasource
+        self.recovery_info: Dict[str, dict] = {}
 
     def add_listener(self, cb) -> None:
         self._listeners.append(cb)
@@ -368,10 +382,22 @@ class SegmentStore:
         self._versions[ds.name] = self.version
         self._notify("register", ds.name)
 
+    def restore(self, ds: Datasource, ingest_version: int) -> None:
+        """Recovery-path registration: install ``ds`` under its EXACT
+        pre-crash ingest version instead of bumping. Result-cache keys
+        and rollup built_version freshness compare against these
+        numbers, so restoring them verbatim is what makes staleness
+        semantics hold across restarts (persist/manager.py)."""
+        self._datasources[ds.name] = ds
+        self._versions[ds.name] = int(ingest_version)
+        self.version = max(self.version, int(ingest_version))
+        self._notify("restore", ds.name)
+
     def drop(self, name: str) -> None:
         self._datasources.pop(name, None)
         self.version += 1
         self._versions[name] = self.version
+        self.recovery_info.pop(name, None)
         self._notify("drop", name)
 
     def clear(self) -> None:
@@ -379,6 +405,7 @@ class SegmentStore:
         self._datasources.clear()
         self.version += 1
         self._versions.clear()
+        self.recovery_info.clear()
         self._notify("clear", None)
 
     def datasource_version(self, name: str) -> int:

@@ -7,9 +7,10 @@ phase 2, with the window post-pass (``window/``) and the broadcast join
 tier (``planner/joinplan.try_execute``), as there. ``run_sql`` registers a
 statement's ``query_id`` before planning and puts it into each spec's
 ``QueryContext`` (``engine.cancel`` reaches every one), and pushes its
-``lane`` / ``tenant`` / ``priority`` for WLM admission. What the port has not
-ported raises ``NotImplementedError`` naming its ROADMAP item instead of
-answering on the host: the persistence commands (A.9). The per-statement
+``lane`` / ``tenant`` / ``priority`` for WLM admission. CHECKPOINT, RESTORE
+and CLEAR METADATA ... PURGE run through the context's persist manager
+(``persist/``) and raise "persistence is disabled" without one, as in the
+JAX package. The per-statement
 stats carry no device dispatch counts (the JAX engine's
 ``dispatch_counts``); the kernels' own launch counters take their place.
 
@@ -213,10 +214,6 @@ def _run_sql_inner(ctx, sql: str) -> QueryResult:
         stmt = parse_statement(sql)
         PH.stash("parse", _time.perf_counter() - _tp)
     if isinstance(stmt, A.ClearMetadata):
-        if stmt.purge:
-            raise NotImplementedError(
-                "CLEAR METADATA PURGE (deep storage) not ported yet "
-                "(ROADMAP A.9)")
         from spark_druid_olap_tpu_torch.mv.registry import clear_rollups
         if stmt.datasource:
             ctx.store.drop(stmt.datasource)
@@ -227,12 +224,14 @@ def _run_sql_inner(ctx, sql: str) -> QueryResult:
         else:
             clear_rollups(ctx)
             ctx.engine.clear_caches()  # includes the semantic result cache
+        if stmt.purge and ctx.persist is not None:
+            # PURGE extends the clear to deep storage — without it the
+            # snapshots survive and recovery resurrects the datasources
+            ctx.persist.purge(stmt.datasource)
         return QueryResult(["status"], {"status": np.array(["OK"],
                                                            dtype=object)})
     if isinstance(stmt, (A.Checkpoint, A.Restore)):
-        raise NotImplementedError(
-            f"{type(stmt).__name__.upper()} (persistence) not ported yet "
-            f"(ROADMAP A.9)")
+        return _run_persist_command(ctx, stmt)
     if isinstance(stmt, (A.CreateRollup, A.DropRollup, A.RefreshRollup)):
         from spark_druid_olap_tpu_torch.mv.registry import handle_statement
         msg = handle_statement(ctx, stmt)
@@ -249,6 +248,29 @@ def _run_sql_inner(ctx, sql: str) -> QueryResult:
         return QueryResult(["plan"],
                            {"plan": np.array(text.split("\n"), dtype=object)})
     return _run_select(ctx, stmt, sql)
+
+
+def _run_persist_command(ctx, stmt) -> QueryResult:
+    """``CHECKPOINT [ds]`` / ``RESTORE [ds]`` (persist/manager.py)."""
+    if ctx.persist is None:
+        raise RuntimeError(
+            "persistence is disabled; set sdot.persist.path")
+    if isinstance(stmt, A.Checkpoint):
+        summaries = ctx.checkpoint(stmt.datasource)
+        msgs = [f"checkpointed {s['datasource']} v{s['version']} "
+                f"({s['rows']} rows, {s['bytes']} bytes)"
+                for s in summaries] or ["nothing to checkpoint"]
+        return QueryResult(["status"],
+                           {"status": np.array(msgs, dtype=object)})
+    report = ctx.persist.restore(stmt.datasource)
+    # the restore rewinds ingest-version counters; cached results keyed
+    # on the pre-restore versions could collide with post-restore keys,
+    # so every derived cache drops
+    ctx.engine.clear_caches()
+    msgs = [f"restored {d['datasource']} from {d['source']}"
+            for d in report["datasources"]] or ["nothing restored"]
+    return QueryResult(["status"],
+                       {"status": np.array(msgs, dtype=object)})
 
 
 # the line explain prints where the JAX package prints its cost model's

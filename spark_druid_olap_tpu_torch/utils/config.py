@@ -421,6 +421,85 @@ QUERY_HISTORY_SIZE = _entry(
     "sdot.query.history.size", 500,
     "Bounded size of the in-memory query history queue (reference: "
     "DruidQueryHistory MAX_SIZE=500).")
+# --- durable segment persistence (persist/) -----------------------------------
+PERSIST_PATH = _entry(
+    "sdot.persist.path", "",
+    "Root directory of the on-disk snapshot store (deep storage). Empty "
+    "disables persistence entirely: the segment store is volatile. Set to "
+    "a directory to enable versioned checkpoints, the stream-ingest WAL, "
+    "and startup recovery.")
+# The next four are read only to refuse any value but their default: the
+# port always persists when sdot.persist.path is set, recovers at start,
+# and fsyncs every journaled batch through group commit.
+PERSIST_ENABLED = _entry(
+    "sdot.persist.enabled", True,
+    "Persist when sdot.persist.path is set. Only true is accepted; an "
+    "empty sdot.persist.path runs volatile.")
+PERSIST_RECOVER = _entry(
+    "sdot.persist.recover.on.start", True,
+    "Recover published snapshots + WAL tails into the segment store at "
+    "Context creation. Only true is accepted.")
+PERSIST_WAL_FSYNC = _entry(
+    "sdot.persist.wal.fsync", True,
+    "fsync the write-ahead journal before a stream_ingest batch is "
+    "considered committed. Only true is accepted (the kill -9 "
+    "durability guarantee).", semantic=False)
+PERSIST_CHECKPOINT_SECONDS = _entry(
+    "sdot.persist.checkpoint.interval.seconds", 0.0,
+    "Cadence of the background checkpointer folding dirty datasources "
+    "into fresh snapshots. 0 disables the thread; CHECKPOINT statements "
+    "and Context.checkpoint() still work.", float, semantic=False)
+PERSIST_CHECKPOINT_MAX_BYTES = _entry(
+    "sdot.persist.checkpoint.max.bytes", 0,
+    "Byte budget for ONE background checkpoint pass: dirty datasources "
+    "snapshot in ascending size order until the pass would exceed it; "
+    "the rest stay dirty for the next tick. 0 = unbounded.", int,
+    semantic=False)
+PERSIST_KEEP_SNAPSHOTS = _entry(
+    "sdot.persist.keep.snapshots", 2,
+    "Published snapshot versions retained per datasource; older versions "
+    "are pruned after each successful publish. Must be >= 1 (the current "
+    "version is never pruned).", semantic=False)
+PERSIST_VERIFY_CHECKSUMS = _entry(
+    "sdot.persist.verify.checksums", True,
+    "Verify per-file CRC32 checksums against the manifest during "
+    "recovery. A mismatch quarantines that snapshot version and recovery "
+    "falls back to the previous one (or the WAL alone).", semantic=False)
+PERSIST_GROUP_COMMIT = _entry(
+    "sdot.persist.wal.group.commit", True,
+    "Route stream-ingest WAL appends through the shared commit queue: "
+    "one fsync covers every frame queued by concurrent producers, and "
+    "each ACK is released only after its covering fsync. Only true is "
+    "accepted.", semantic=False)
+PERSIST_COMPACT_SECONDS = _entry(
+    "sdot.persist.compact.interval.seconds", 0.0,
+    "Cadence of the background compactor rolling a stream-appended tail "
+    "of many small segments into time-partitioned segments (atomic "
+    "generation swap, no ingest-version bump). 0 disables the thread; "
+    "PersistManager.compact() still works.", float, semantic=False)
+PERSIST_COMPACT_MIN_SEGMENTS = _entry(
+    "sdot.persist.compact.min.segments", 8,
+    "Segment-count floor below which the compactor leaves a datasource "
+    "alone.", int, semantic=False)
+# --- compressed snapshot columns (encode/) ------------------------------------
+ENCODE_ENABLED = _entry(
+    "sdot.encode.enabled", False,
+    "Write snapshot column blobs ENCODED (bit-packed dictionary codes, "
+    "RLE runs, frame-of-reference+delta time columns, encode/codecs.py) "
+    "with a per-column chooser at checkpoint/compaction time. Decoded "
+    "arrays are bit-identical to the raw path.", semantic=False)
+# --- deterministic fault injection (fault/) -----------------------------------
+FAULT_PLAN = _entry(
+    "sdot.fault.plan", "",
+    "JSON FaultPlan ({\"seed\": S, \"rules\": [...]}) activating named "
+    "injection sites in persist I/O and WLM admission. Empty (default) = "
+    "every site is a zero-cost no-op.", semantic=False)
+# --- out-of-core tiered storage (tier/): read only to refuse it ---------------
+TIER_ENABLED = _entry(
+    "sdot.tier.enabled", False,
+    "Recover datasources as tiered (cold) stores. The tiered store is not "
+    "ported (ROADMAP A.9): with sdot.persist.path set, true raises.",
+    semantic=False)
 
 
 class Config:

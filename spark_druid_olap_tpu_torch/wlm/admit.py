@@ -1,8 +1,7 @@
 """Admission control: classify -> quota -> lane queue -> slot.
 
 Port counterpart of ``spark_druid_olap_tpu/wlm/admit.py``: a copy kept
-inside the PyTorch package, which imports nothing of the JAX package,
-less the ``wlm.admit`` chaos site (it comes with ``fault/``, ROADMAP A.9).
+inside the PyTorch package, which imports nothing of the JAX package.
 
 ≈ Druid's `QueryScheduler.laneQuery/run` + the prioritization strategies:
 every engine query passes through :meth:`WorkloadManager.admit` before
@@ -116,6 +115,9 @@ class WorkloadManager:
         # set by the owning QueryEngine; lets queued waiters hand off to
         # an open shared-scan group instead of draining serially
         self.sharedscan = None
+        # fault injector (fault/) wired by the owning QueryEngine; None
+        # unless sdot.fault.plan is set
+        self.fault = None
 
     # -- configuration ---------------------------------------------------------
     @property
@@ -225,6 +227,11 @@ class WorkloadManager:
 
     def _admit(self, engine, q, t0: float,
                cancel_event: Optional[threading.Event] = None) -> Ticket:
+        inj = self.fault
+        if inj is not None:
+            # chaos site (before the lock — a delay rule models slot
+            # starvation, an error rule a queue-full shed)
+            inj.fire("wlm.admit")
         with self._lock:
             self._refresh_locked()
             lane_name, est, demoted, tenant, priority = \

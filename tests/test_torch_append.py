@@ -10,6 +10,13 @@ and validity. Answers are equal to the JAX engine's (dimensions, integers
 and counts exact, float sums rtol 1e-6) and, for the differential against
 one batch ingest, to ``conftest.assert_frames_equal``.
 
+The two WAL cases run through both packages with ``sdot.persist.path``
+set (an empty batch journals nothing; appends racing checkpoints recover
+to the live store, equal across packages), beside a journaled append that
+recovers in a fresh context and the port's one column build (a thread
+pool above a batch-row floor) held equal to both of the JAX package's
+builds, parallel and serial.
+
 Beyond the JAX cases: a scan of a pruned segment selection after two
 appends with ``id`` forced to collide across datasource versions (the bind
 cache and the program cache once keyed on ``id(ds)``; the answer is held
@@ -410,12 +417,130 @@ def test_ingest_lane_admits_each_batch():
 
 
 @pytest.mark.parametrize("key,value", [
-    ("sdot.persist.path", "/nonexistent-persist-root"),
     ("sdot.cluster.nodes", "localhost:1")])
 def test_unported_stream_ingest_branches_raise(key, value):
     ctx = tsdot.Context({key: value}, device="cpu")
     with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9"):
         ctx.stream_ingest("sales", _batch(10, 60), **INGEST)
+
+
+def test_journaled_stream_ingest_answers_and_recovers(tmp_path):
+    """With ``sdot.persist.path`` set, ``stream_ingest`` journals each
+    batch before it answers, and a fresh context over the root recovers
+    every batch, in both packages alike."""
+    roots = {"jax": tmp_path / "jax", "port": tmp_path / "port"}
+    pair = (jsdot.Context({"sdot.persist.path": str(roots["jax"])}),
+            tsdot.Context({"sdot.persist.path": str(roots["port"])},
+                          device="cpu"))
+    _ingest_both(pair, "sales", _batch(80, 61), **INGEST)
+    _ingest_both(pair, "sales", _batch(30, 62), **INGEST)
+    want = _sql_both(pair, QS[0])
+    for c in pair:
+        assert c.persist.counters["wal_appends"] == 2
+        c.close()
+    again = (jsdot.Context({"sdot.persist.path": str(roots["jax"])}),
+             tsdot.Context({"sdot.persist.path": str(roots["port"])},
+                           device="cpu"))
+    assert_same_store(*(c.store.get("sales") for c in again))
+    assert_answers_equal(_sql_both(again, QS[0]), want, ordered=True)
+    # the first append onto the journaled create publishes a snapshot
+    # first (a replay needs a base), so one record stays in the journal
+    for c in again:
+        info = c.store.recovery_info["sales"]
+        assert (info["source"], info["wal_records"]) == ("snapshot+wal", 1)
+    for c in again:
+        c.close()
+
+
+def test_empty_batch_writes_no_wal_record(tmp_path):
+    for pkg, ctx in (("jax", jsdot.Context(
+            {"sdot.persist.path": str(tmp_path / "jax")})),
+            ("port", tsdot.Context(
+                {"sdot.persist.path": str(tmp_path / "port")},
+                device="cpu"))):
+        ds0 = ctx.stream_ingest("sales", _batch(50, 6), **INGEST)
+        appends0 = ctx.persist.counters["wal_appends"]
+        ds1 = ctx.stream_ingest("sales", _batch(10, 7).iloc[0:0], **INGEST)
+        assert ds1 is ds0, pkg
+        assert ctx.persist.counters["wal_appends"] == appends0, pkg
+        ctx.close()
+
+
+def test_append_racing_checkpoint(tmp_path):
+    """Concurrent appends and checkpoints serialize: every committed batch
+    lands exactly once, the final on-disk state recovers to the final
+    in-memory state, and the two packages end with the same store."""
+    q = ("select region, sum(qty) as q, count(*) as n "
+         "from sales group by region order by region")
+    got = {}
+    for pkg, make in (
+            ("jax", lambda cfg: jsdot.Context(cfg)),
+            ("port", lambda cfg: tsdot.Context(cfg, device="cpu"))):
+        cfg = {"sdot.persist.path": str(tmp_path / pkg)}
+        ctx = make(cfg)
+        ctx.stream_ingest("sales", _batch(100, 24), **INGEST)
+        errors, stop = [], threading.Event()
+
+        def checkpoints(ctx=ctx, stop=stop, errors=errors):
+            while not stop.is_set():
+                try:
+                    ctx.checkpoint("sales")
+                except Exception as e:  # noqa: BLE001 — surfaced below
+                    errors.append(e)
+
+        t = threading.Thread(target=checkpoints)
+        t.start()
+        try:
+            for i in range(10):
+                ctx.stream_ingest("sales", _batch(20, 100 + i), **INGEST)
+        finally:
+            stop.set()
+            t.join()
+        assert not errors, errors
+        want = ctx.sql(q).to_pandas()
+        assert int(want["n"].sum()) == 300
+        ctx.close()
+        again = make(cfg)
+        assert_frames_equal(again.sql(q).to_pandas(), want)
+        got[pkg] = (again.store.get("sales"), want)
+        again.close()
+    assert_same_store(got["jax"][0], got["port"][0])
+    assert_answers_equal(got["port"][1], got["jax"][1], ordered=True)
+
+
+@pytest.mark.parametrize("null_rate", [0.0, 0.2])
+def test_parallel_append_equals_serial(null_rate, monkeypatch):
+    """The port's one column build (a thread pool from
+    ``_PARALLEL_MIN_ROWS`` batch rows up, serial below) builds the same
+    store as both of the JAX package's builds, its ``parallel=True``
+    thread pool and its serial comprehension."""
+    from spark_druid_olap_tpu_torch.segment import append as TA
+    pools = []
+
+    class Pool(TA.ThreadPoolExecutor):
+        def __init__(self, *a, **kw):
+            pools.append(kw.get("max_workers"))
+            super().__init__(*a, **kw)
+    monkeypatch.setattr(TA, "ThreadPoolExecutor", Pool)
+    base = _batch(3000, 70)
+    batch = _batch(5000, 71, null_product_rate=null_rate)
+    batch.loc[::7, "region"] = "south"          # a new dictionary value
+    batch.loc[3, "qty"] = 3_000_000_000         # a widened metric
+    small = batch.iloc[:TA._PARALLEL_MIN_ROWS - 1]
+    tctx = tsdot.Context(device="cpu")
+    ds = tctx.stream_ingest("sales", base, **INGEST)
+    par = tappend(ds, batch, target_rows=2048)
+    assert len(pools) == 1 and pools[0] >= 2
+    serial = tappend(ds, small, target_rows=2048)
+    assert len(pools) == 1
+    jctx = jsdot.Context()
+    jds = jctx.stream_ingest("sales", base, **INGEST)
+    for parallel in (True, False):
+        assert_same_store(
+            jappend(jds, batch, target_rows=2048, parallel=parallel), par)
+        assert_same_store(
+            jappend(jds, small, target_rows=2048, parallel=parallel),
+            serial)
 
 
 @pytest.mark.parametrize("seed", range(6))

@@ -100,10 +100,17 @@ INGEST_ROLLUP_MODULES = ["ir.serde", "utils.modules", "mv", "mv.registry",
                          "segment.stream_ingest", "tools.ssb"]
 
 
+# persistence, its codecs and fault injection, by exact name (``persist``,
+# ``encode`` and ``fault`` are package names in the JAX package too)
+PERSIST_MODULES = ["persist", "persist.wal", "persist.snapshot",
+                   "persist.compact", "persist.manager", "encode",
+                   "encode.codecs", "encode.chooser", "fault", "fault.plan"]
+
+
 @pytest.mark.parametrize("module",
                          SHAREDSCAN_MODULES + SQL_MODULES + HASHED_MODULES
                          + JOIN_WINDOW_MODULES + SERVING_MODULES
-                         + INGEST_ROLLUP_MODULES)
+                         + INGEST_ROLLUP_MODULES + PERSIST_MODULES)
 def test_sharedscan_slice_modules_are_checked(module):
     import pkgutil
     prefix = "spark_druid_olap_tpu_torch."
