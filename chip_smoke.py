@@ -62,33 +62,45 @@ Parquet, star-joins it chunk by chunk and streams it into ``ssb_flat``
 the device's idle share) and the q1 flight as one wave launch. After
 phase ``serving``: phase ``rollup`` builds rollups over SF1 lineitem (Q1
 and Q6 served from them against the rewrite off and pandas, stale after
-an append, served again after REFRESH) and the SSB cube over ``ssb_flat``
+an append, served again after REFRESH) and the SSB cube over SSB SF 0.1
 (its 13 statements against the rewrite off); phase ``append`` streams 4
 batches of 250,000 rows into a copy of SF1 lineitem, each with a return
 flag new to the dictionary and a widened metric, with Q1 (B1, a cache
 miss after each batch) and the storm (B2) against pandas after each;
 phase ``persist`` checkpoints SF1 lineitem raw and encoded, recovers each
 root in a fresh context (the store bit for bit; Q1, Q6 and the storm
-against pandas and against the answers before the checkpoint), journals
-phase ``append``'s batches and 4 producers' 32 small batches through the
+against pandas and against the answers before the checkpoint), recovers
+both roots again as tiered datasources (Q1, Q6 and the storm cold and
+warm under a hot-set budget, bit for bit against the eager store in the
+same waves; Q1 cold again under a budget of two waves, where the
+prefetcher's chunks are hit), journals
+phase ``append``'s batches and 4 producers' 16 small batches through the
 write-ahead log (group commit), recovers that root in a fresh context
-(the snapshot plus all 36 frames replayed, the store bit for bit),
-recovers a child process's root after a kill -9, compacts the appended tail (B2's padded rows and time before and
+(the snapshot plus all 20 frames replayed, the store bit for bit),
+recovers a child process's root after a kill -9, poisons another child's
+CUDA context (its Q1 and Q6 then answer on the host tier, mode ``host
+(backend_lost ...)``) and restarts over that child's root on the card,
+compacts the appended tail (B2's padded rows and time before and
 after) and runs ``sys_snapshots``, RESTORE and CLEAR METADATA ... PURGE;
 phase ``modules`` installs a module from ``sdot.modules`` (a string
 function grouped on through B1, a spec rule, a statement handler) and runs
 Q1's QuerySpec as ``ON DATASOURCE ... EXECUTE QUERY``. Every B1 and B2
 call of these phases is held against its plain version. Its last phase,
-``waves``, generates TPC-H SF2 lineitem (~12M rows; cut from SF10, whose
-run passed 1,000 s, then from SF5 and SF3 for the phases above) and runs Q1, the
+``waves``, ingests the run's SF1 lineitem again without ``l_comment``
+(cut from SF10, whose run passed 1,000 s, then from SF5, SF3 and SF2 for
+the phases above) and runs Q1, the
 sketch statement, revenue by part on the hashed tier, a HAVING with an
 ordered LIMIT and the storm under a wave budget
 (``sdot.engine.wave.max.bytes``) of a Q1 segment's bytes times
-ceil(segments / 8) (Q1 in 6 waves at SF2): each
+ceil(segments / 6) (Q1 in 6 waves at SF1): each
 statement in 4 or more waves against the same statement in one wave and
 against pandas, every B1 / B2 launch of every wave against its plain
 version, with per-wave bind, copy and compute times and the overlap share;
-then Q1 in one wave under a bind-cache cap below its bound bytes. Before
+then Q1 in one wave under a bind-cache cap below its bound bytes, then
+EXPLAIN of Q1 (its printed waves against the ones it runs) and of Q6
+compacted (its printed survivor budget against its run), and the cost
+model's calibration. Any statement demoted as ``backend_lost`` outside
+the device-loss child fails the run. Before
 that it builds every kernel of the path from the sources in this checkout and
 holds each against its plain PyTorch version on the card: the dense
 group-by in each fold tier that holds a case, the wave kernel in each
@@ -1268,24 +1280,7 @@ def sql_oracles(t, nr):
     import pandas as pd
     ts = pd.Timestamp
     li = t["lineitem"]
-    out = {}
-    d = li[(li.l_shipdate >= ts("1994-01-01"))
-           & (li.l_shipdate <= ts("1997-01-01"))]
-    out["shipdate_range"] = d.groupby(["l_returnflag", "l_linestatus"]) \
-        .size().reset_index(name="count_order")
-    d = li[li.l_shipdate <= ts("1998-12-01") - pd.Timedelta(days=90)]
-    disc = _rev(d)
-    d = d.assign(disc_price=disc, charge=disc * (1 + d.l_tax))
-    out["q1"] = d.groupby(["l_returnflag", "l_linestatus"],
-                          as_index=False).agg(
-        sum_qty=("l_quantity", "sum"),
-        sum_base_price=("l_extendedprice", "sum"),
-        sum_disc_price=("disc_price", "sum"), sum_charge=("charge", "sum"),
-        avg_qty=("l_quantity", "mean"),
-        avg_price=("l_extendedprice", "mean"),
-        avg_disc=("l_discount", "mean"),
-        count_order=("l_quantity", "size")) \
-        .sort_values(["l_returnflag", "l_linestatus"]).reset_index(drop=True)
+    out = lineitem_sql_oracles(li)
     d = (t["customer"]
          .merge(t["orders"], left_on="c_custkey", right_on="o_custkey")
          .merge(li, left_on="o_orderkey", right_on="l_orderkey")
@@ -1299,12 +1294,6 @@ def sql_oracles(t, nr):
     out["q5"] = d.assign(revenue=_rev(d)).groupby(
         "sn_name", as_index=False).revenue.sum() \
         .sort_values("revenue", ascending=False).reset_index(drop=True)
-    d = li[(li.l_shipdate >= ts("1994-01-01"))
-           & (li.l_shipdate < ts("1995-01-01"))
-           & (li.l_discount >= 0.05) & (li.l_discount <= 0.07)
-           & (li.l_quantity < 24)]
-    out["q6"] = pd.DataFrame(
-        {"revenue": [(d.l_extendedprice * d.l_discount).sum()]})
     d = (t["supplier"]
          .merge(li, left_on="s_suppkey", right_on="l_suppkey")
          .merge(t["orders"], left_on="l_orderkey", right_on="o_orderkey")
@@ -2963,22 +2952,23 @@ def hashed_q1(ctx, spec, dense) -> dict:
 
 # -- multi-wave binding (phase "waves") ---------------------------------------
 
-# SF2, cut from SF10 (the whole run took 1,007.9 s at SF10 on one H100,
-# SF10's generation and ingest alone 412 s of host time), then from SF5 to
-# make room for phases ssb, rollup, append and modules, then from SF3 for
-# phase persist
-WAVES_SF = 2.0
-WAVES_Q1 = 8                # at most this many waves for Q1 under the budget
+# SF1, the run's own lineitem without l_comment: cut from SF10 (the whole
+# run took 1,007.9 s at SF10 on one H100, SF10's generation and ingest
+# alone 412 s of host time), then from SF5 to make room for phases ssb,
+# rollup, append and modules, from SF3 for phase persist and from SF2 for
+# phase persist's tier and device-loss legs
+WAVES_SF = 1.0
+WAVES_Q1 = 6                # at most this many waves for Q1 under the budget
 WAVES_MIN = 4               # waves every statement of the phase must take
 WAVES_REPEATS = 3
-# the hashed statement's key space (400,000 parts at SF2) over this dense
+# the hashed statement's key space (200,000 parts at SF1) over this dense
 # ceiling, so it takes the hashed tier in both wave modes
-WAVES_HASHED = {"sdot.engine.groupby.dense.max.keys": 1 << 18}
-# the HAVING statement's 40,000 keys at SF2 (20,000 suppliers by 2 line
+WAVES_HASHED = {"sdot.engine.groupby.dense.max.keys": 1 << 17}
+# the HAVING statement's 20,000 keys at SF1 (10,000 suppliers by 2 line
 # statuses) over this device-HAVING floor, so its one-wave run takes
 # device HAVING (the default floor, 65,536, held 100,000 keys at SF5)
-WAVES_HAVING = {"sdot.engine.having.device.min.keys": 1 << 15}
-WAVES_HAVING_MIN = 300      # lines per (supplier, status) in the HAVING
+WAVES_HAVING = {"sdot.engine.having.device.min.keys": 1 << 14}
+WAVES_HAVING_MIN = 150      # lines per (supplier, status) in the HAVING
 WAVES_LIMIT = 10
 
 
@@ -3108,35 +3098,49 @@ def wave_summary(steps, wall_ms, kernel_ms=None) -> dict:
 
 
 def waves_phase(sdt, S, E, CG, CW, smi, sf=WAVES_SF, device="cuda",
-                ingest_kw=None) -> dict:
-    """Phase ``waves``: TPC-H lineitem at ``WAVES_SF`` (generated by the
-    port's ``tools/tpch.generate``, ingested without ``l_comment``) under a
-    wave budget that gives Q1 ``WAVES_Q1`` waves. Each statement runs
+                ingest_kw=None, df=None, ds=None) -> dict:
+    """Phase ``waves``: TPC-H lineitem at ``WAVES_SF`` without
+    ``l_comment`` (``df`` and its datasource ``ds``, the run's own at that
+    scale, seen without the column; else generated by the port's
+    ``tools/tpch.generate`` and ingested) under a wave budget that gives
+    Q1 ``WAVES_Q1`` waves. Each statement runs
     multi-wave (launch counts, every B1 / B2 launch of every wave against
     its plain version, per-wave bind / copy / compute, the overlap share),
     against the same statement in one wave (answers; cold and warm ms) and
     against pandas; the storm of 8 QuerySpecs takes one B2 launch per wave.
     Then the bind-cache repair: Q1 in one wave under a device cache cap
-    below its bound bytes answers, with the cache dropped. ``sf``,
+    below its bound bytes answers, with the cache dropped; then EXPLAIN
+    (:func:`explain_leg`) and the cost model's calibration. ``sf``,
     ``device`` and ``ingest_kw`` (segment size) serve a rehearsal on the
     CPU at a tiny scale."""
     from spark_druid_olap_tpu_torch.parallel import cost as C
     from spark_druid_olap_tpu_torch.parallel import executor as X
     from spark_druid_olap_tpu_torch.tools.tpch import generate
+    from spark_druid_olap_tpu_torch.segment.store import Datasource
     t_phase = time.perf_counter()
-    t0 = time.perf_counter()
-    tables = generate(sf, seed=SEED)
-    df = tables.pop("lineitem").drop(columns="l_comment")
-    del tables
-    t_gen = time.perf_counter() - t0
     base = sdt.Context(ENGINE_TIMED, device=device)
     t0 = time.perf_counter()
-    ds = base.ingest_dataframe("lineitem", df, time_column="l_shipdate",
-                               **(ingest_kw or {}))
-    t_ingest = time.perf_counter() - t0
+    if ds is None:
+        if df is None:
+            df = generate(sf, seed=SEED)["lineitem"]
+        df = df.drop(columns="l_comment")
+        t_gen = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ds = base.ingest_dataframe("lineitem", df, time_column="l_shipdate",
+                                   **(ingest_kw or {}))
+        made = {"generate_s": t_gen, "ingest_s": time.perf_counter() - t0}
+    else:
+        # the run's frame and datasource seen without l_comment, shared,
+        # not copied: view_s times that view, not a generation or ingest
+        df = df.drop(columns="l_comment")
+        ds = Datasource(ds.name, ds.time,
+                        {k: d for k, d in ds.dims.items()
+                         if k != "l_comment"}, dict(ds.metrics),
+                        list(ds.segments), spatial=dict(ds.spatial))
+        made = {"view_s": time.perf_counter() - t0}
     out = {"sf": sf, "card": smi, "rows": len(df),
            "segments": ds.num_segments, "padded_rows": ds.padded_rows,
-           "generate_s": t_gen, "ingest_s": t_ingest}
+           **made}
 
     specs = waves_specs(S, E)
     q1 = specs["q1"]
@@ -3345,6 +3349,11 @@ def waves_phase(sdt, S, E, CG, CW, smi, sf=WAVES_SF, device="cuda",
         resident_bytes=fctx.engine._device_bytes)
     del fctx
 
+    # 4. EXPLAIN against the executed plans, and the calibration
+    out["explain"] = explain_leg(context, multi, df, CG, CW)
+    b1_all.append(out["explain"].pop("b1"))
+    launches["dense_groupby"] += out["explain"]["b1_launches"]
+
     widest = max(r["h2d_bytes"] / len(r["per_wave"])
                  for st in statements.values() for r in [st["median_run"]])
     out["pinned_copy_gb_per_s"] = pinned_copy_gb_per_s(int(widest))
@@ -3362,6 +3371,68 @@ def waves_phase(sdt, S, E, CG, CW, smi, sf=WAVES_SF, device="cuda",
     out["b2"]["calls"] = len(b2_all)
     out["b2"]["bound_by"] = sorted({c["bound_by"] for c in b2_all})
     out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def explain_leg(context, multi, df, CG, CW) -> dict:
+    """EXPLAIN over phase waves' store: Q1's ``waves=NxM`` under the
+    phase's wave budget equals the plan Q1 then runs; Q6 with compaction
+    forced (in one wave) prints the late-materialize line whose survivor
+    budget its run then takes; both answers against pandas. Then
+    ``tools.calibrate.calibrate`` fits the single-device cost constants
+    (seconds) on the store in one wave, not applied: each probe shape
+    spied once, then its timed repeats."""
+    from spark_druid_olap_tpu_torch.tools import calibrate as CAL
+    from spark_druid_olap_tpu_torch.tools.tpch import QUERIES
+    want = lineitem_sql_oracles(df)
+    ctx = context(multi)
+    out = {}
+    with LaunchSpy(CG, CW) as spy:
+        text = ctx.explain(QUERIES["q1"])
+        got = ctx.sql(QUERIES["q1"]).to_pandas()
+        st = ctx.history.entries()[-1].stats
+        printed = [(int(a), int(b)) for a, b in
+                   re.findall(r"waves=(\d+)x(\d+)seg", text)]
+        check_sql("q1", got, want["q1"])
+        if st["mode"] != "engine" \
+                or printed != [(st["waves"], st["segments_per_wave"])]:
+            raise AssertionError(f"explain: Q1 printed {printed}, ran "
+                                 f"{st['waves']} x "
+                                 f"{st['segments_per_wave']}: {text}")
+        out["q1"] = dict(explain=text.split("\n")[-2:], waves=st["waves"],
+                         segments_per_wave=st["segments_per_wave"])
+        with settings(ctx, dict(COMPACT_FORCED, **{
+                "sdot.engine.wave.max.bytes": 0})):
+            text = ctx.explain(QUERIES["q6"])
+            got = ctx.sql(QUERIES["q6"]).to_pandas()
+            st = ctx.history.entries()[-1].stats
+        check_sql("q6", got, want["q6"])
+        m = re.search(r"scan: late-materialize to \[([\d,]+)\] survivors",
+                      text)
+        if m is None or st.get("compact_m") \
+                != int(m.group(1).replace(",", "")):
+            raise AssertionError(f"explain: Q6 compacted to "
+                                 f"{st.get('compact_m')}: {text}")
+        out["q6"] = dict(explain=text.split("\n")[-3:],
+                         compact_m=st["compact_m"])
+        with settings(ctx, {"sdot.engine.wave.max.bytes": 0}):
+            shapes = CAL.default_shapes("lineitem",
+                                        ctx.store.get("lineitem"))
+            for q in shapes:
+                ctx.execute(q)
+    b1 = b1_checked(CG, "explain", spy.b1)
+    if spy.b2 or not spy.b1:
+        raise AssertionError(f"explain: {len(spy.b1)} B1 calls, "
+                             f"{len(spy.b2)} B2")
+    with settings(ctx, {"sdot.engine.wave.max.bytes": 0}):
+        t0 = time.perf_counter()
+        fitted = CAL.calibrate(ctx, "lineitem", apply=False)
+        out["calibrate"] = dict(fitted=fitted,
+                                seconds=time.perf_counter() - t0,
+                                shapes=[repr(q.dimensions) for q in shapes])
+    if not fitted["sdot.querycostmodel.historical.processing.cost"] > 0:
+        raise AssertionError(f"calibrate: {fitted}")
+    out["b1"], out["b1_launches"] = b1, spy.b1_launches
     return out
 
 
@@ -4160,8 +4231,8 @@ def ssb_phase(sdt, CG, CW, smi, sf=SSB_SF, ingest_kw=None) -> dict:
     (``flatten_stream``) and streamed into ``ssb_flat``
     (``Context.ingest_parquet_stream``, its seconds and peak resident set);
     the 13 statements through ``Context.sql`` against pandas (cold, warm,
-    tier, mode, the device's idle share), then the q1 flight as one storm.
-    Returns the phase's numbers and the context phase ``rollup`` reads."""
+    tier, mode, the device's idle share), then the q1 flight as one
+    storm."""
     import tempfile
     from spark_druid_olap_tpu_torch.tools import ssb
     t_phase = time.perf_counter()
@@ -4241,7 +4312,7 @@ def ssb_phase(sdt, CG, CW, smi, sf=SSB_SF, ingest_kw=None) -> dict:
     out["b1_launches"], out["b2_launches"] = spies.b1_launches, \
         spies.b2_launches
     out["seconds"] = time.perf_counter() - t_phase
-    return out, ctx
+    return out
 
 
 # phase rollup: a lineitem rollup by flag, status and ship mode serves Q1;
@@ -4270,6 +4341,10 @@ ROLLUP_SSB = (     # tests/test_rollup.py:52-57
 ROLLUP_RTOL = 1e-4
 REWRITE = "sdot.mv.rewrite.enabled"
 ROLLUP_APPEND_ROWS = 250_000
+# the SSB cube's base: SSB at this scale, generated in memory (cut from
+# phase ssb's SF1 store, whose host build of the cube took 65.7 s, to make
+# room for phase persist's tier and device-loss legs)
+ROLLUP_CUBE_SF = 0.1
 
 
 def rollup_served(ctx, sql, spies, want_status):
@@ -4313,16 +4388,17 @@ def rollup_build(ctx, sql, spies) -> dict:
             "time_identity": r.time_identity}
 
 
-def rollup_phase(sdt, lineitem_ds, df, ssb_ctx, CG, CW, smi) -> dict:
+def rollup_phase(sdt, lineitem_ds, df, CG, CW, smi,
+                 cube_sf=ROLLUP_CUBE_SF) -> dict:
     """Phase ``rollup``: the lineitem rollups over phase sql's SF1
     lineitem (build ms, rows, ``sys_rollups``); Q1 and Q6 from them
     against the rewrite off (ints exact, floats ``ROLLUP_RTOL``) and
     pandas; one append, after which the base answers, then REFRESH, after
     which the rollups answer again, each against pandas; then the SSB
-    cube over ``ssb_flat`` (its 15 dimensions' key space packs into no
-    engine key, so the build's group-by runs on the host tier, in both
-    packages) and the 13 SSB statements it serves against the rewrite
-    off."""
+    cube over ``ssb_flat`` at ``cube_sf`` (its 15 dimensions' key space
+    packs into no engine key, so the build's group-by runs on the host
+    tier, in both packages) and the 13 SSB statements it serves against
+    the rewrite off."""
     import pandas as pd
     from spark_druid_olap_tpu_torch.tools import ssb, tpch
     t_phase = time.perf_counter()
@@ -4379,7 +4455,12 @@ def rollup_phase(sdt, lineitem_ds, df, ssb_ctx, CG, CW, smi) -> dict:
 
     # the SSB cube: a wide-key build on the hashed tier
     sctx = sdt.Context(ENGINE_TIMED)
-    sctx.store.register(ssb_ctx.store.get("ssb_flat"))
+    t = time.perf_counter()
+    flat = ssb.flatten(ssb.generate(cube_sf, seed=SEED))
+    sctx.ingest_dataframe("ssb_flat", flat, time_column="lo_orderdate")
+    out["cube_base"] = dict(sf=cube_sf, rows=len(flat),
+                            setup_s=time.perf_counter() - t)
+    del flat
     sctx.register_star_schema(ssb.star_schema("ssb_flat"))
     out["builds"]["ssb_cube"] = rollup_build(sctx, ROLLUP_SSB, spies)
     ssb_stmts = {}
@@ -4503,7 +4584,7 @@ def append_phase(sdt, S, E, lineitem_ds, df, CG, CW, smi) -> dict:
 # SQL surface, each statement over recovered, replayed or compacted data
 PERSIST_SMALL_ROWS = 10_000      # each producer thread's batches
 PERSIST_PRODUCERS = 4
-PERSIST_PRODUCER_BATCHES = 8
+PERSIST_PRODUCER_BATCHES = 4    # 8 in PR 13: cut for the run's 900 s
 CRASH_SF = 0.05                  # the kill -9 child's frame
 CRASH_BATCH_ROWS = 1_000
 CRASH_PRODUCERS = 2
@@ -4602,6 +4683,524 @@ def check_storm_oracle(what, names, res, want):
     for name, (keys, w) in want["storm"].items():
         check_frame(f"{what} storm {name} vs pandas", got[name], w, keys,
                     FLOAT_SUM_RTOL_ORACLE)
+
+
+# the tier leg of phase persist: step (a)'s SF1 roots recovered as tiered
+# datasources (tier/) under a hot-set budget of a quarter of Q1's bound
+# bytes and a per-wave I/O cap that gives Q1 on the raw root 3 waves; then
+# Q1 cold again under a second budget that holds TIER_PREFETCH_WAVES of
+# those waves, where the prefetcher's chunks stay hot until their bind
+TIER_BUDGET_SHARE = 4
+TIER_Q1_WAVES = 3
+TIER_PREFETCH_WAVES = 2
+
+
+class ResidentSampler:
+    """Within the block, a thread samples the hot set every millisecond:
+    its resident bytes and, under the store's lock, the bytes pinned by
+    in-flight queries; ``peak`` and ``peak_pinned`` are the largest seen,
+    ``over`` the samples whose residency passed budget + pinned."""
+
+    def __init__(self, tier):
+        self.tier = tier
+        self.peak = self.peak_pinned = self.samples = 0
+        self.over = []
+
+    def _sample(self):
+        t = self.tier
+        with t._lock:
+            hot = t._bytes
+            pinned = sum(e.nbytes for k, e in t._hot.items()
+                         if t._pins.get(k))
+        self.peak = max(self.peak, hot)
+        self.peak_pinned = max(self.peak_pinned, pinned)
+        self.samples += 1
+        if hot > t.budget + pinned:
+            self.over.append((hot, pinned))
+
+    def __enter__(self):
+        import threading
+        self.stop = threading.Event()
+
+        def loop():
+            while not self.stop.wait(0.001):
+                self._sample()
+        self.thread = threading.Thread(target=loop, daemon=True)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join()
+        self._sample()
+        return False
+
+
+def tier_delta(before, after) -> dict:
+    """The hot set's counters one run moved, and its residency after."""
+    keys = ("faults", "hits", "bytes_faulted", "evictions", "bytes_evicted",
+            "crc_verified_files", "prefetch_submitted", "prefetch_loaded",
+            "prefetch_hits", "prefetch_hit_bytes", "decode_ms_saved")
+    out = {k: after[k] - before[k] for k in keys}
+    out.update(hot_bytes=after["hot_bytes"],
+               decoded_cache_bytes=after["decoded_cache_bytes"],
+               pinned_entries=after["pinned_entries"])
+    return out
+
+
+def same_plan_budget(st) -> int:
+    """The wave budget under which an in-memory scan takes the waves a
+    tiered run took (``sdot.engine.wave.max.bytes``: segments per wave
+    times the bytes one segment binds, read off the first wave's copy);
+    0 (the default) for a run in one wave."""
+    if st.get("waves", 1) <= 1:
+        return 0
+    return int(st["wave_steps"][0]["h2d_bytes"])
+
+
+def tier_run(tctx, run, stats_of, spies, spied):
+    """One run of a statement over the tiered store (``spied``: its B1 /
+    B2 calls kept for the checks against the plain versions): its answer,
+    wall ms, waves, the hot set's counters, peak residency against budget
+    + pinned, the demand path's fault and decode ms (``tier.fault`` /
+    ``tier.decode``, this thread) and the waves' steps."""
+    from spark_druid_olap_tpu_torch.utils import phases as PH
+    tier = tctx.persist.tier
+    s0 = tier.stats_snapshot()
+    tok = PH.begin()
+    with ResidentSampler(tier) as rs:
+        t = time.perf_counter()
+        got = spies.run(run) if spied else run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+    ph = PH.end(tok) or {}
+    if rs.over:
+        raise AssertionError(f"tier: residency {rs.over[:3]} over budget "
+                             f"{tier.budget} + pinned")
+    st = stats_of()
+    if st.get("waves", 1) > 1 and st.get("wave_steps"):
+        # the binder pins a wave's chunks only while it builds the wave
+        wave = max(w["h2d_bytes"] for w in st["wave_steps"])
+        if rs.peak_pinned > wave:
+            raise AssertionError(f"tier: {rs.peak_pinned} bytes pinned, "
+                                 f"more than one wave's {wave}")
+    r = dict(ms=ms, waves=st.get("waves", 1),
+             segments_per_wave=st.get("segments_per_wave"),
+             tier=tier_delta(s0, tier.stats_snapshot()),
+             peak_resident_bytes=rs.peak, peak_pinned_bytes=rs.peak_pinned,
+             budget_bytes=tier.budget, samples=rs.samples,
+             fault_ms=ph.get("tier.fault", 0.0),
+             decode_ms=ph.get("tier.decode", 0.0))
+    if st.get("wave_steps"):
+        r["steps"] = wave_summary(st["wave_steps"], ms)
+    return got, r, st
+
+
+def tier_leg(sdt, S, E, roots, eager, before, want_df, storm, spies,
+             rec) -> dict:
+    """Phase persist's tier leg: a fresh context over each of step (a)'s
+    roots with ``sdot.tier.enabled`` (boot ms against step (b)'s eager
+    recovery), Q1, Q6 (B1) and the storm (B2) each cold (the hot set and
+    the engine's caches dropped first, so every chunk faults and every
+    blob's CRC is checked again; its B1 / B2 calls held against the plain
+    versions) and warm; every answer bit for bit
+    against the eager context of step (b) under the same wave plan,
+    against step (b)'s one-wave answers (ints exact, floats rtol 1e-9)
+    and against pandas; a waved run never pins more than one wave's
+    bytes. Then Q1 cold under a second budget that holds
+    ``TIER_PREFETCH_WAVES`` of its waves: bit for bit against the first
+    setting's cold answer, with ``prefetch_hit_bytes`` above 0."""
+    from spark_druid_olap_tpu_torch.parallel import cost as C
+    from spark_druid_olap_tpu_torch.tier.handles import TieredDatasource
+    q1, q6 = q1_spec(S, E), q6_spec(S, E)
+    specs = storm_specs(S, E)
+    names, slist = list(specs), list(specs.values())
+    # the configuration, reckoned on the raw root's eager store: Q1's bound
+    # bytes as cost.bytes_per_segment reckons them over its segments, and
+    # the bytes a raw segment of Q1's arrays faults (its real rows)
+    eds = eager["raw"].store.get("lineitem")
+    seg = eds.prune_segments(q1.intervals, q1.filter)
+    q1_names = eager["raw"].engine._plan_agg(
+        eds, seg, list(q1.dimensions), q1.aggregations, q1.granularity,
+        q1.filter, q1.intervals)[5]
+    q1_bytes = C.bytes_per_segment(eds, q1_names) * len(seg)
+    budget = q1_bytes // TIER_BUDGET_SHARE
+    raw_seg_io = max(s.num_rows for s in eds.segments) * sum(
+        C.array_itemsize(eds, k) for k in q1_names if k != "__rows__")
+    spw = -(-len(seg) // TIER_Q1_WAVES)
+    io = int((spw + 0.5) * raw_seg_io)
+    prefetch_budget = TIER_PREFETCH_WAVES * io
+    out = {"config": {"sdot.tier.budget.bytes": budget,
+                      "sdot.tier.wave.io.bytes": io,
+                      "prefetch_setting_budget_bytes": prefetch_budget,
+                      "q1_bound_bytes": q1_bytes, "q1_arrays": q1_names,
+                      "raw_segment_io_bytes": raw_seg_io,
+                      "segments": len(seg)}}
+    for leg in ("raw", "encoded"):
+        ectx = eager[leg]
+        t0 = time.perf_counter()
+        tctx = sdt.Context({**ENGINE_TIMED, "sdot.persist.path": roots[leg],
+                            "sdot.tier.enabled": True,
+                            "sdot.tier.budget.bytes": budget,
+                            "sdot.tier.wave.io.bytes": io})
+        boot_ms = (time.perf_counter() - t0) * 1e3
+        tds = tctx.store.get("lineitem")
+        tier = tctx.persist.tier
+        if not isinstance(tds, TieredDatasource) \
+                or tier.stats_snapshot()["faults"]:
+            raise AssertionError(f"tier {leg}: boot gave {type(tds)}, "
+                                 f"{tier.stats_snapshot()['faults']} faults")
+        r = {"boot_ms": boot_ms, "eager_recovery_ms": rec[leg]["context_ms"],
+             "recovery": dict(tctx.store.recovery_info["lineitem"]),
+             "encoding": tds.encoding_info(),
+             "host_bytes_per_segment_q1": tds.host_bytes_per_segment(
+                 q1_names)}
+        solo = {"q1": (q1, lambda g: check_q1(g, want_df["q1"])),
+                "q6": (q6, lambda g: np.testing.assert_allclose(
+                    g["revenue"].to_numpy(), [want_df["q6"]],
+                    rtol=FLOAT_SUM_RTOL_ORACLE))}
+        cold = {}
+        for name, (spec, oracle) in solo.items():
+            runs = {}
+            for temp in ("cold", "warm"):
+                if temp == "cold":
+                    tier.clear()
+                    tctx.engine.clear_caches()
+                got, runs[temp], st = tier_run(
+                    tctx, lambda: tctx.execute(spec).to_pandas(),
+                    lambda: dict(tctx.engine.last_stats), spies,
+                    temp == "cold")
+                oracle(got)
+                with settings(ectx, {"sdot.engine.wave.max.bytes":
+                                     same_plan_budget(st)}):
+                    same = ectx.execute(spec).to_pandas()
+                    est = dict(ectx.engine.last_stats)
+                if (est.get("waves", 1), est.get("segments_per_wave")) \
+                        != (st.get("waves", 1), st.get("segments_per_wave")):
+                    raise AssertionError(
+                        f"tier {leg} {name}: eager plan {est.get('waves')} x "
+                        f"{est.get('segments_per_wave')}, tiered "
+                        f"{st.get('waves')} x {st.get('segments_per_wave')}")
+                bit_equal(f"tier {leg} {name} {temp} vs eager, same waves",
+                          got, same)
+                check_frame(f"tier {leg} {name} {temp} vs step (b)", got,
+                            before[name], None, FLOAT_SUM_RTOL_KERNEL)
+                if temp == "cold":
+                    cold[name] = (got, st)
+            r[name] = runs
+        if leg == "raw" and r["q1"]["cold"]["waves"] != TIER_Q1_WAVES:
+            raise AssertionError(f"tier raw: Q1 in {r['q1']['cold']['waves']}"
+                                 f" waves, want {TIER_Q1_WAVES}")
+        # the storm: one B2 launch per tier-forced wave
+        runs = {}
+        for temp in ("cold", "warm"):
+            if temp == "cold":
+                tier.clear()
+                storm.engine.clear_caches()
+            storm.store.register(tds)
+            members, ss0 = [], storm.engine.sharedscan.stats()
+            b2 = spies.b2_launches
+            with settings(storm, {"sdot.tier.wave.io.bytes": io}):
+                res, runs[temp], _ = tier_run(
+                    tctx, lambda: run_storm(storm, slist,
+                                            stats_out=members)[0],
+                    lambda: members[0], spies, temp == "cold")
+            ss1 = storm.engine.sharedscan.stats()
+            waves = {m.get("waves", 1) for m in members}
+            if len(waves) != 1 or ss1["queries_coalesced"] \
+                    - ss0["queries_coalesced"] != len(slist) \
+                    or ss1["wave_launches"] - ss0["wave_launches"] \
+                    != min(waves) or spies.b2_launches - b2 \
+                    != (min(waves) if temp == "cold" else 0):
+                raise AssertionError(
+                    f"tier {leg} storm: waves {waves}, "
+                    f"{spies.b2_launches - b2} wave launches, "
+                    f"{ss1['wave_fallback_reasons']}")
+            runs[temp]["member_tier"] = members[0].get("tier")
+            check_storm_oracle(f"tier {leg}", names, res, want_df)
+            storm.store.register(eds)
+            with settings(storm, {"sdot.engine.wave.max.bytes":
+                                  same_plan_budget(members[0])}):
+                same = run_storm(storm, slist)[0]
+            for n_, g, w, b in zip(names, res, same, before["storm"]):
+                bit_equal(f"tier {leg} storm {n_} {temp} vs eager, same "
+                          f"waves", g, w)
+                check_frame(f"tier {leg} storm {n_} {temp} vs step (b)", g,
+                            b, None, FLOAT_SUM_RTOL_KERNEL)
+        r["storm"] = runs
+        r["final"] = tier.stats_snapshot()
+        tctx.close()
+        # the second setting: Q1 cold under a budget that holds two of
+        # its waves, so the chunks the prefetcher loads behind the running
+        # wave are still hot when their wave binds them
+        pctx = sdt.Context({**ENGINE_TIMED, "sdot.persist.path": roots[leg],
+                            "sdot.tier.enabled": True,
+                            "sdot.tier.budget.bytes": prefetch_budget,
+                            "sdot.tier.wave.io.bytes": io})
+        got, pr, st = tier_run(
+            pctx, lambda: pctx.execute(q1).to_pandas(),
+            lambda: dict(pctx.engine.last_stats), spies, True)
+        check_q1(got, want_df["q1"])
+        want_got, want_st = cold["q1"]
+        if (st.get("waves", 1), st.get("segments_per_wave")) \
+                != (want_st.get("waves", 1),
+                    want_st.get("segments_per_wave")):
+            raise AssertionError(f"tier {leg} prefetch: Q1 in "
+                                 f"{st.get('waves')} waves, the first "
+                                 f"setting's in {want_st.get('waves')}")
+        bit_equal(f"tier {leg} q1 prefetch setting vs first setting", got,
+                  want_got)
+        if pr["waves"] < 2 or pr["tier"]["prefetch_hit_bytes"] <= 0:
+            raise AssertionError(f"tier {leg} prefetch: {pr['waves']} "
+                                 f"waves, {pr['tier']}")
+        r["prefetch_setting"] = pr
+        pctx.close()
+        out[leg] = r
+    return out
+
+
+# the device-loss leg of phase persist: a child streams SF 0.05 lineitem
+# into its own root, answers Q1 and Q6 on the card, poisons its CUDA
+# context and answers them again on the host tier
+LOSS_SF = 0.05
+LOSS_BATCHES = 4
+LOSS_COOLDOWN_S = 2.0
+LOSS_PROBE_DEADLINE_S = 10.0
+LOSS_TIMEOUT_S = 300.0
+
+
+def lineitem_sql_oracles(li) -> dict:
+    """pandas answers of TPC-H shipdate_range, Q1 and Q6 (``Context.sql``)
+    over a lineitem frame (the forms of tests/test_tpch.py)."""
+    import pandas as pd
+    ts = pd.Timestamp
+    out = {}
+    d = li[(li.l_shipdate >= ts("1994-01-01"))
+           & (li.l_shipdate <= ts("1997-01-01"))]
+    out["shipdate_range"] = d.groupby(["l_returnflag", "l_linestatus"]) \
+        .size().reset_index(name="count_order")
+    d = li[li.l_shipdate <= ts("1998-12-01") - pd.Timedelta(days=90)]
+    disc = _rev(d)
+    d = d.assign(disc_price=disc, charge=disc * (1 + d.l_tax))
+    out["q1"] = d.groupby(["l_returnflag", "l_linestatus"],
+                          as_index=False).agg(
+        sum_qty=("l_quantity", "sum"),
+        sum_base_price=("l_extendedprice", "sum"),
+        sum_disc_price=("disc_price", "sum"), sum_charge=("charge", "sum"),
+        avg_qty=("l_quantity", "mean"),
+        avg_price=("l_extendedprice", "mean"),
+        avg_disc=("l_discount", "mean"),
+        count_order=("l_quantity", "size")) \
+        .sort_values(["l_returnflag", "l_linestatus"]).reset_index(drop=True)
+    d = li[(li.l_shipdate >= ts("1994-01-01"))
+           & (li.l_shipdate < ts("1995-01-01"))
+           & (li.l_discount >= 0.05) & (li.l_discount <= 0.07)
+           & (li.l_quantity < 24)]
+    out["q6"] = pd.DataFrame(
+        {"revenue": [(d.l_extendedprice * d.l_discount).sum()]})
+    return out
+
+
+def poison_cuda_context() -> dict:
+    """Provoke a sticky CUDA error: an out-of-bounds index on a CUDA
+    tensor trips the indexing kernel's device-side assert, after which
+    the context refuses every call. Returns how, the error and its ms."""
+    x = torch.zeros(4, device="cuda")
+    idx = torch.tensor([1 << 20], device="cuda")
+    t0 = time.perf_counter()
+    try:
+        x[idx] = 1.0
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return {"how": "out-of-bounds index (device-side assert)",
+                "error": f"{type(e).__name__}: {str(e)[:200]}",
+                "ms": (time.perf_counter() - t0) * 1e3, "exc": e}
+    raise AssertionError("device loss: an out-of-bounds CUDA index raised "
+                         "nothing")
+
+
+def device_loss_child(root) -> int:
+    """The device-loss leg's child (``chip_smoke.py --device-loss-child
+    ROOT``): stream SF ``LOSS_SF`` lineitem into ``ROOT`` and checkpoint
+    it, answer Q1 and Q6 through ``Context.sql`` on the card, poison the
+    CUDA context, answer them again (the host tier, mode ``host
+    (backend_lost ...)``), one statement inside the cooldown with a spy on
+    ``_bind_arrays``, then the re-attach probe after the cooldown. Prints
+    one ``LOSS {json}`` line per finding and leaves by ``os._exit(0)``:
+    the poisoned context must not be torn down."""
+    import os
+    import spark_druid_olap_tpu_torch as sdt
+    from spark_druid_olap_tpu_torch.parallel import executor as X
+    from spark_druid_olap_tpu_torch.tools.tpch import QUERIES, generate
+
+    def report(step, **fields):
+        print("LOSS " + json.dumps({"step": step, **fields}), flush=True)
+
+    def mode(ctx):
+        return ctx.history.entries()[-1].stats["mode"]
+    df = generate(LOSS_SF, seed=SEED)["lineitem"]
+    want = lineitem_sql_oracles(df)
+    ctx = sdt.Context({**ENGINE_TIMED, "sdot.persist.path": root,
+                       "sdot.engine.backend.retry.seconds": LOSS_COOLDOWN_S})
+    n = -(-len(df) // LOSS_BATCHES)
+    for i in range(LOSS_BATCHES):
+        ctx.stream_ingest("lineitem", df.iloc[i * n:(i + 1) * n],
+                          time_column="l_shipdate")
+    ctx.checkpoint()
+    report("ingest", rows=len(df), batches=LOSS_BATCHES)
+    first = {}
+    for name in ("q1", "q6"):
+        got = ctx.sql(QUERIES[name]).to_pandas()
+        check_sql(name, got, want[name])
+        if mode(ctx) != "engine":
+            raise AssertionError(f"device loss: {name} before the loss ran "
+                                 f"in {mode(ctx)}")
+        first[name] = got
+    report("before", modes="engine",
+           q1={c: first["q1"][c].tolist() for c in first["q1"].columns},
+           dtypes={c: str(first["q1"][c].dtype) for c in first["q1"]})
+    poison = poison_cuda_context()
+    t_poison = time.perf_counter() - poison["ms"] / 1e3
+    classified = X._is_backend_loss(poison.pop("exc"))
+    report("poison", classified_loss=classified, **poison)
+    after = {}
+    for name in ("q1", "q6"):
+        t0 = time.perf_counter()
+        got = ctx.sql(QUERIES[name]).to_pandas()
+        after[name] = dict(
+            ms=(time.perf_counter() - t0) * 1e3,
+            since_poison_ms=(time.perf_counter() - t_poison) * 1e3,
+            mode=mode(ctx),
+            backend_lost=ctx.history.entries()[-1].stats.get(
+                "backend_lost"))
+        check_sql(name, got, want[name])
+        if not after[name]["mode"].startswith("host (backend_lost"):
+            raise AssertionError(f"device loss: {name} after the loss ran "
+                                 f"in {after[name]['mode']}")
+    report("after", **after)
+    # inside the cooldown no statement touches the device
+    binds, real = [], X.QueryEngine._bind_arrays
+
+    def spy(self, *a, **k):
+        binds.append(1)
+        return real(self, *a, **k)
+    X.QueryEngine._bind_arrays = spy
+    t0 = time.perf_counter()
+    got = ctx.sql(QUERIES["q1"]).to_pandas()
+    check_sql("q1", got, want["q1"])
+    report("cooldown", binds=len(binds), mode=mode(ctx),
+           ms=(time.perf_counter() - t0) * 1e3,
+           retry_in_s=ctx.engine._backend_retry_at - time.time())
+    if binds or not mode(ctx).startswith("host (backend_lost"):
+        raise AssertionError(f"device loss: {len(binds)} binds inside the "
+                             f"cooldown, mode {mode(ctx)}")
+    # after it, the probe runs once, within its deadline, and fails: a
+    # sticky error poisons the context for the rest of the process
+    time.sleep(max(0.0, ctx.engine._backend_retry_at - time.time()) + 0.1)
+    t0 = time.perf_counter()
+    alive = X._probe_device_alive(ctx.engine.device,
+                                  timeout_s=LOSS_PROBE_DEADLINE_S)
+    probe_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    got = ctx.sql(QUERIES["q6"]).to_pandas()
+    check_sql("q6", got, want["q6"])
+    report("probe", alive=alive, probe_ms=probe_ms,
+           deadline_ms=LOSS_PROBE_DEADLINE_S * 1e3, binds=len(binds),
+           statement_ms=(time.perf_counter() - t0) * 1e3, mode=mode(ctx))
+    if alive or probe_ms > LOSS_PROBE_DEADLINE_S * 1e3 + 1000 \
+            or not mode(ctx).startswith("host (backend_lost"):
+        raise AssertionError(f"device loss: probe alive={alive} in "
+                             f"{probe_ms} ms, mode {mode(ctx)}")
+    report("done")
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def start_device_loss_child(tmp) -> dict:
+    """Start the device-loss leg's child (``--device-loss-child``) over
+    its own root under ``tmp``; it runs beside the parent's next steps (a
+    CUDA context is the process's own: poisoning it touches no other)."""
+    import subprocess as sp
+    root = str(pathlib.Path(tmp) / "loss")
+    err = open(pathlib.Path(tmp) / "loss_child.err", "w+")
+    proc = sp.Popen([sys.executable, str(pathlib.Path(__file__).resolve()),
+                     "--device-loss-child", root], stdout=sp.PIPE,
+                    stderr=err, text=True,
+                    cwd=str(pathlib.Path(__file__).resolve().parent))
+    return {"proc": proc, "root": root, "err": err,
+            "t0": time.perf_counter()}
+
+
+def device_loss_leg(sdt, child, spies) -> dict:
+    """Wait for the child (:func:`start_device_loss_child`), read its
+    findings, then a fresh context on the card over the child's root: Q1
+    in engine mode, bit for bit the child's answer before the loss (a
+    restart after a device loss loses nothing)."""
+    import subprocess as sp
+    from spark_druid_olap_tpu_torch.tools.tpch import QUERIES, generate
+    proc, root, err = child["proc"], child["root"], child["err"]
+    try:
+        stdout, _ = proc.communicate(timeout=LOSS_TIMEOUT_S)
+    except sp.TimeoutExpired:
+        proc.kill()
+        stdout, _ = proc.communicate()
+    child_s = time.perf_counter() - child["t0"]
+    err.seek(0)
+    stderr = err.read()
+    err.close()
+    found = {}
+    for line in stdout.splitlines():
+        if line.startswith("LOSS "):
+            d = json.loads(line[5:])
+            found[d.pop("step")] = d
+    if proc.returncode != 0 or "done" not in found:
+        raise AssertionError(f"device loss: child exited {proc.returncode}"
+                             f", steps {sorted(found)}: {stderr[-3000:]}")
+    if not found["poison"]["classified_loss"]:
+        raise AssertionError(f"device loss: {found['poison']['error']} "
+                             f"not classified as a loss")
+    t0 = time.perf_counter()
+    ctx = sdt.Context({**ENGINE_TIMED, "sdot.persist.path": root})
+    restart_ms = (time.perf_counter() - t0) * 1e3
+    got = spies.run(lambda: ctx.sql(QUERIES["q1"]).to_pandas())
+    mode = ctx.history.entries()[-1].stats["mode"]
+    want = found["before"]["q1"]
+    if mode != "engine" or {c: got[c].tolist() for c in got.columns} \
+            != want or {c: str(got[c].dtype) for c in got} \
+            != found["before"]["dtypes"]:
+        raise AssertionError(f"device loss: the restarted Q1 ran in {mode}"
+                             f" or differs from the child's answer before "
+                             f"the loss")
+    check_sql("q1", got, lineitem_sql_oracles(
+        generate(LOSS_SF, seed=SEED)["lineitem"])["q1"])
+    ctx.close()
+    return dict(child_s=child_s, restart_ms=restart_ms, restart_mode=mode,
+                poison=found["poison"], after=found["after"],
+                cooldown=found["cooldown"], probe=found["probe"],
+                first_host_answer_ms=found["after"]["q1"]["since_poison_ms"])
+
+
+class LossGuard:
+    """Every device loss the engine marks in this process: the run fails
+    on any, since only the device-loss leg's child may lose the device (a
+    kernel bug that poisons the context would otherwise be served quietly
+    by the host tier)."""
+
+    def __init__(self):
+        from spark_druid_olap_tpu_torch.parallel import executor as X
+        self.marks = []
+        real = X.QueryEngine._mark_backend_lost
+
+        def marked(engine, *a, **k):
+            self.marks.append(a or k)
+            return real(engine, *a, **k)
+        X.QueryEngine._mark_backend_lost = marked
+
+    def check(self, where):
+        if self.marks:
+            raise AssertionError(f"{where}: {len(self.marks)} statements "
+                                 f"demoted as backend_lost outside the "
+                                 f"device-loss leg, at {self.marks[:3]}")
 
 
 def persist_child(root, device, sf, rows) -> int:
@@ -4728,14 +5327,17 @@ def persist_phase(sdt, S, E, lineitem_ds, df, append, CG, CW, smi) -> dict:
     disk space); (b) a fresh context over each root (recovery and
     checksum ms, the store bit for bit, Q1 / Q6 / the storm against pandas
     and bit for bit against the answers before the checkpoint, cold and
-    warm); (c) phase append's 4 batches through the journaled
-    ``stream_ingest``, then 4 producer threads x 8 batches (group
+    warm); (b') each root recovered as tiered datasources
+    (:func:`tier_leg`); (c) phase append's 4 batches through the journaled
+    ``stream_ingest``, then 4 producer threads x 4 batches (group
     commits), Q1 and the storm against pandas, and a fresh context over
-    that root replaying all 36 frames onto the snapshot (its ms, the
+    that root replaying all 20 frames onto the snapshot (its ms, the
     store bit for bit, Q1 bit for bit); (d) a kill -9 of a child
-    streaming into its own root; (e) ``persist.compact`` (segments, rows,
-    padded rows, B2's ms before and after); (f) ``sys_snapshots``,
-    RESTORE and CLEAR METADATA ... PURGE through SQL."""
+    streaming into its own root; (d') a real device loss in a child
+    started beside (d) (:func:`device_loss_leg`); (e) ``persist.compact``
+    (segments, rows, padded rows, B2's ms before and after); (f)
+    ``sys_snapshots``, RESTORE and CLEAR METADATA ... PURGE through
+    SQL."""
     import json as _json
     import shutil
     import tempfile
@@ -4835,9 +5437,13 @@ def persist_phase(sdt, S, E, lineitem_ds, df, append, CG, CW, smi) -> dict:
             check_storm_oracle(f"persist {leg}", names, res, want_df)
             rec[leg] = r
         out["recovery"] = rec
+        step("recovery")
+        # (b') the same roots recovered as tiered datasources
+        out["tier"] = tier_leg(sdt, S, E, roots, ctxs, before, want_df,
+                               storm, spies, rec)
         ctxs["encoded"].close()
         del ctxs["encoded"]
-        step("recovery")
+        step("tier")
         # (c) journaled appends on the raw root's context
         ctx = ctxs["raw"]
         frames, batches = [df], []
@@ -4921,9 +5527,13 @@ def persist_phase(sdt, S, E, lineitem_ds, df, append, CG, CW, smi) -> dict:
             wal_bytes=out["journaled"]["wal_bytes"])
         del rc, rds
         step("replay")
-        # (d) kill -9
+        # (d) kill -9, with (d')'s child, a real device loss, beside it
+        loss_child = start_device_loss_child(tmp)
         out["kill9"] = kill9_leg(sdt, S, E, tmp, spies)
         step("kill9")
+        # (d') the device-loss child's findings, a restart over its root
+        out["device_loss"] = device_loss_leg(sdt, loss_child, spies)
+        step("device_loss")
         # (e) compaction
         pre_q1 = spies.run(lambda: ctx.execute(q1).to_pandas())
         t0 = time.perf_counter()
@@ -5134,6 +5744,7 @@ def main() -> int:
     from spark_druid_olap_tpu_torch.tools.tpch import generate
 
     t_start = time.perf_counter()
+    loss_guard = LossGuard()
     smi = nvidia_smi()
     say(smi)
     kind = torch.cuda.get_device_name(0)
@@ -5183,7 +5794,7 @@ def main() -> int:
 
     # 3b. the SSB workload: SF1 streamed from Parquet into ssb_flat, its 13
     # statements against pandas, the q1 flight as one storm
-    ssb, ssb_ctx = ssb_phase(sdt, CG, CW, smi)
+    ssb = ssb_phase(sdt, CG, CW, smi)
     emit("ssb", **ssb,
          oracle="pandas from the lineorder Parquet file and the generator's "
                 "dimensions, each dimension column reached by its key, "
@@ -5304,9 +5915,7 @@ def main() -> int:
               "the library call medians of 3)")
 
     # 4c. rollups over lineitem and ssb_flat, stream appends, modules
-    rollup = rollup_phase(sdt, ctx.store.get("lineitem"), df, ssb_ctx, CG,
-                          CW, smi)
-    del ssb_ctx
+    rollup = rollup_phase(sdt, ctx.store.get("lineitem"), df, CG, CW, smi)
     emit("rollup", **rollup,
          oracle="each rollup answer vs the same statement with "
                 "sdot.mv.rewrite.enabled false (ints exact, floats rtol "
@@ -5347,17 +5956,34 @@ def main() -> int:
                 "unacknowledged per producer, Q1 vs pandas over exactly "
                 "the recovered batches; compacted Q1 / storm vs their "
                 "answers before compaction (ints exact, floats rtol 1e-6); "
-                "Q1 after RESTORE bit for bit vs before it; each B1 call "
-                "and B2 launch vs its plain version (kernels)",
+                "Q1 after RESTORE bit for bit vs before it; tier: every "
+                "tiered answer bit for bit vs the eager context in the same "
+                "waves, vs step (b)'s one-wave answers (ints exact, floats "
+                "rtol 1e-9) and vs pandas, residency <= budget + pinned at "
+                "every sample; device_loss: the child's demoted Q1 / Q6 vs "
+                "pandas in mode host (backend_lost ...), no bind inside the "
+                "cooldown, the probe false within its deadline, the "
+                "restarted Q1 in engine mode bit for bit the child's first; "
+                "each B1 call and B2 launch of a spied run vs its plain "
+                "version (kernels)",
          note="ms / s: host wall clock; recovery_ms: the manager's "
               "recovery report (snapshot load, checksums, WAL replay; "
-              "replay: the SF1 snapshot plus the 36 journaled frames); "
+              "replay: the SF1 snapshot plus the 20 journaled frames); "
               "checksum_verify_ms: stats['persist'] of the first "
               "statement; cold = the first statement over the recovered "
               "store (columns uploaded); the WAL's fsync and group commit "
               "on; the root in a temporary directory on the machine's "
               "local disk, its reads warm (file cache not dropped); "
-              "steps_s: host wall seconds of each step of the phase")
+              "steps_s: host wall seconds of each step of the phase; "
+              "tier: boot_ms the tiered context's construction, ms host "
+              "wall clock of each run to its frame, tier the hot set's "
+              "counters the run moved, fault_ms / decode_ms the demand "
+              "path's tier.fault / tier.decode phases on the calling "
+              "thread (the storm's run on its workers: not counted), "
+              "peak_resident_bytes / peak_pinned_bytes sampled every ms; "
+              "device_loss: since_poison_ms from the poisoning kernel's "
+              "launch to the first host answer, probe_ms the re-attach "
+              "probe's wall clock")
     modules = modules_phase(sdt, S, E, ctx.store.get("lineitem"), df, CG, CW,
                             smi)
     emit("modules", **modules,
@@ -5620,20 +6246,26 @@ def main() -> int:
 
     # 7. multi-wave binding at WAVES_SF, after the SF1 state leaves host
     # and card
+    waves_source = (df, ctx.store.get("lineitem"))
     del ctx, storm, ds, df, tables, captured, program, layout, scols, got
     del sres, solo
     import gc
     gc.collect()
     torch.cuda.empty_cache()
     native_columns(encoder, took, "spatial")
-    waves = waves_phase(sdt, S, E, CG, CW, smi)
+    waves = waves_phase(sdt, S, E, CG, CW, smi, df=waves_source[0],
+                        ds=waves_source[1])
+    del waves_source
     waves["encoder_columns"] = native_columns(encoder, took, "waves")
     emit("waves", **waves,
          oracle="each statement multi-wave vs the same statement in one "
                 "wave (ints, counts, min/max and sketch registers exact; "
                 "floats rtol 1e-9) and vs pandas (floats rtol 1e-6; the "
                 "sketch estimates as in phase sketch; the storm's Q1); "
-                "every B1 / B2 launch of every wave vs its plain version",
+                "every B1 / B2 launch of every wave vs its plain version; "
+                "explain: Q1's printed waves=NxM equal to the waves it "
+                "runs, Q6's printed survivor budget equal to its run's "
+                "compact_m, both vs pandas",
          note="per wave: bind_ms host (gather into pinned staging), "
               "h2d_bytes / h2d_ms (CUDA events on the copy stream), "
               "compute_ms (CUDA events around the wave's program on the "
@@ -5643,6 +6275,7 @@ def main() -> int:
               "dropped before each run; pinned_copy_gb_per_s: one copy "
               "of the widest wave's bytes from pinned memory")
 
+    loss_guard.check("chip_smoke")
     # 8. every ported kernel with its check result: the sums over the
     # shapes the main path gave it (Q1, Q6, wide, the SQL statements and
     # the waves for B1; the QuerySpec, SQL and wave storms for B2)
@@ -5720,4 +6353,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--persist-child"]:
         sys.exit(persist_child(*sys.argv[2:6]))
+    if sys.argv[1:2] == ["--device-loss-child"]:
+        sys.exit(device_loss_child(sys.argv[2]))
     sys.exit(main())

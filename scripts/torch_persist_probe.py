@@ -5,10 +5,12 @@
 Builds the two kernels, generates TPC-H SF1 lineitem, ingests it, then
 runs phase ``append`` (4 in-memory batches of 250,000 rows, whose ms
 phase ``persist`` reports beside its journaled ones) and phase
-``persist`` (checkpoints raw and encoded, recovery, journaled appends and
-their replay in a fresh context, a kill -9 of a child, compaction, the
-SQL surface), exactly as ``chip_smoke.py`` runs them, in a few minutes
-instead of the whole run.
+``persist`` (checkpoints raw and encoded, recovery, the same roots
+recovered as tiered datasources under a hot-set budget (the tier leg),
+journaled appends and their replay in a fresh context, a kill -9 of a
+child, a real device loss in a child and a restart over its root (the
+device-loss leg), compaction, the SQL surface), exactly as
+``chip_smoke.py`` runs them, in a few minutes instead of the whole run.
 Prints the card's name and power limit, then each phase's JSON line (also
 appended to ``chiprun_out/chip_smoke.jsonl``); exits non-zero on any
 failed check. Needs one NVIDIA GPU and imports nothing of JAX.
@@ -38,6 +40,7 @@ def main() -> int:
     from spark_druid_olap_tpu_torch.ops import cuda_wave as CW
     from spark_druid_olap_tpu_torch.tools.tpch import generate
     t0 = time.perf_counter()
+    loss_guard = CS.LossGuard()
     smi = CS.nvidia_smi()
     CS.say(smi)
     for m in (CG, CW):
@@ -51,6 +54,7 @@ def main() -> int:
     CS.emit("append", **append)
     persist = CS.persist_phase(sdt, S, E, ds, df, append, CG, CW, smi)
     CS.emit("persist", **persist)
+    loss_guard.check("torch_persist_probe")
     CS.say(json.dumps({"total_s": time.perf_counter() - t0}))
     return 0
 

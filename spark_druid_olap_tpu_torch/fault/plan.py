@@ -3,8 +3,10 @@
 Port counterpart of ``spark_druid_olap_tpu/fault/plan.py``: a copy kept
 inside the PyTorch package, which imports nothing of the JAX package.
 ``LaneFullError`` comes from the port's ``wlm/admit.py``. The port's
-sites are the WAL's, the snapshot publish's, compaction's and WLM
-admission's; the cluster and cold-tier sites come with ROADMAP A.9.
+sites are the WAL's, the snapshot publish's, compaction's, WLM
+admission's and the cold tier's (``tier.read`` before a cold load,
+``tier.verify`` over the bytes a first fault checksums); the cluster
+sites come with ROADMAP A.9.
 
 A :class:`FaultPlan` is a seeded schedule of :class:`FaultRule`\\ s parsed
 from the ``sdot.fault.plan`` config key (JSON). Each rule names an

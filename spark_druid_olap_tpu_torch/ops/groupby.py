@@ -221,3 +221,32 @@ def _value_dtype(route: Route, values: torch.Tensor) -> torch.dtype:
     return values.dtype if values.dtype.is_floating_point \
         else torch.float64
 
+
+def run_weighted_partials(run_values, run_lengths, n_keys: int,
+                          run_sums=None) -> Dict[str, np.ndarray]:
+    """RLE-aware host partials (the JAX package's
+    ``ops/groupby.run_weighted_partials``, copied): aggregate
+    run-at-a-time instead of row-at-a-time. A run of length L with key k
+    contributes L to count[k] in one add — the count partial IS the run
+    length — and a pre-reduced per-run metric sum lands in sum[k] the same
+    way, so a group-by over an RLE-encoded dimension touches O(runs)
+    values (``encode/exec.rle_groupby`` drives this over encoded chunks;
+    keys outside [0, n_keys) — filtered sentinels — drop, matching the
+    kernels' overflow-slot semantics). Exact: counts accumulate in int64,
+    sums in f64."""
+    counts = np.zeros(n_keys, dtype=np.int64)
+    out = {"count": counts}
+    run_values = np.asarray(run_values)
+    run_lengths = np.asarray(run_lengths, dtype=np.int64)
+    if len(run_lengths) == 0:
+        if run_sums is not None:
+            out["sum"] = np.zeros(n_keys, dtype=np.float64)
+        return out
+    keep = (run_values >= 0) & (run_values < n_keys)
+    v = run_values[keep].astype(np.int64)
+    np.add.at(counts, v, run_lengths[keep])
+    if run_sums is not None:
+        sums = np.zeros(n_keys, dtype=np.float64)
+        np.add.at(sums, v, np.asarray(run_sums, dtype=np.float64)[keep])
+        out["sum"] = sums
+    return out

@@ -3,8 +3,9 @@ kinds) and the device tensors a query scans.
 
 Port of ``spark_druid_olap_tpu/ops/scan.py`` (``ScanContext``, the
 late-materialization view ``CompactScanContext``, ``array_names``,
-``array_dtype``, ``build_array`` and, for a wave, ``build_wave_array``;
-no tiered or multi-host builders). The
+``array_dtype``, ``build_array`` and, for a wave, ``build_wave_array``,
+both of which fault a tiered datasource's chunks through its
+``_tier_build``; no multi-host builders). The
 tensors it holds live on the engine's device; the dictionaries and
 cardinalities it consults stay on the host, so no string ever reaches the
 device.
@@ -178,6 +179,17 @@ def build_array(ds: Datasource, key: str,
     axis to a power of two for its compile cache, the port binds exactly
     the selected segments: eager PyTorch has no compiled shape to keep
     stable."""
+    tb = getattr(ds, "_tier_build", None)
+    if tb is not None:
+        # tiered store: fault only the requested segments' chunks into
+        # the stacked layout (tier/handles.py). Encoded chunks decode
+        # inside the fault (tier/store.py), so this path returns
+        # logical-dtype rows either way — the device never sees packed
+        # bytes. None means the key is metadata-only (row validity) —
+        # fall through to the base path.
+        out = tb(key, segment_indices)
+        if out is not None:
+            return out
     arr = _stacked_by_key(ds, key)
     if segment_indices is not None and (
             len(segment_indices) != ds.num_segments
@@ -194,7 +206,11 @@ def build_wave_array(ds: Datasource, key: str, segment_indices,
     ``spw``, whose ``row_valid`` is false (the JAX package's
     ``build_array(ds, key, segs, pad_segments_to=spw)``). Every wave thus
     has the shape its program was built for, and ``out`` may be a pinned
-    staging buffer that the copy to the device reads."""
+    staging buffer that the copy to the device reads. A tiered datasource
+    faults the segments' chunks straight into ``out``."""
+    tb = getattr(ds, "_tier_build", None)
+    if tb is not None and tb(key, segment_indices, out) is not None:
+        return out
     n = len(segment_indices)
     np.take(_stacked_by_key(ds, key), segment_indices, axis=0, out=out[:n],
             mode="clip")

@@ -7,10 +7,12 @@ estimate (``_filter_selectivity`` with ``_bound_overlap_fraction`` and
 (``wave_budget_bytes``, ``tier_io_budget``, ``tier_io_seg_bytes``,
 ``plan_waves``), the join tier's pricing (``JoinEstimate``,
 ``join_estimate``) and the one-device part of ``estimate``
-(``CostEstimate``, ``_output_groups``), the cost units WLM demotes to its
-batch lane and charges tenant quotas in. The rest of that cost model
-(explain's cost table, ROADMAP A.9; the sharded price, A.8) is not
-ported.
+(``CostEstimate`` with its ``table``, ``_output_groups``), the cost units
+WLM demotes to its batch lane and charges tenant quotas in, with
+``explain_cost`` and ``_explain_scan_plan``, the lines EXPLAIN prints
+under each spec. On one device the JAX package's cross-host and
+interconnect terms are zero and are left out; its mesh pricing
+(``mesh_estimate``) waits for ROADMAP A.8.
 
 A unit cost is the configured value when the key is set explicitly;
 otherwise the measured table of the engine's device type.
@@ -50,9 +52,18 @@ import torch
 
 from spark_druid_olap_tpu_torch.ir import spec as S
 from spark_druid_olap_tpu_torch.utils.config import (
+    COST_COMPILE,
     COST_PER_BYTE_TRANSPORT,
     COST_PER_ROW_SCAN,
 )
+
+# the merge term and the scan split's efficiency of explain's sharded
+# price, at the JAX package's defaults of its
+# sdot.querycostmodel.historical.merge.cost and shard.efficiency: on one
+# device the price decides nothing, and only a mesh (ROADMAP A.8) would
+# fit them
+MERGE_COST_PER_ROW = 7e-8
+SHARD_EFFICIENCY = 1.0
 
 _CPU_MEASURED = {
     "sdot.querycostmodel.sort.seconds.per.row": 3.0e-7,
@@ -253,8 +264,9 @@ def _bound_overlap_fraction(f: S.BoundFilter, ds) -> Optional[float]:
 
 @dataclasses.dataclass
 class CostEstimate:
-    """The JAX package's estimate on one device: ``sharded_cost`` equals
-    ``single_cost`` and nothing recommends sharding."""
+    """The JAX package's estimate on one device: ``sharded_cost`` prices
+    the scan split over ``n_devices`` (1) with the merge and compile
+    terms, so nothing recommends sharding."""
     rows: int                      # rows scanned after interval pruning
     selectivity: float             # estimated filter selectivity
     output_groups: int             # estimated result cardinality
@@ -262,6 +274,23 @@ class CostEstimate:
     sharded_cost: float
     n_devices: int = 1
     recommend_sharded: bool = False
+    scan_bytes: int = 0            # est. device bytes the scan binds
+    segments_per_wave: int = 0     # 0 = everything in one wave
+    n_waves: Optional[int] = 1     # None = the engine could not plan it
+
+    def table(self) -> str:
+        if self.n_waves is None:
+            wave = "  waves=?"
+        else:
+            wave = "" if self.n_waves <= 1 else \
+                f"  waves={self.n_waves}x{self.segments_per_wave}seg"
+        return (f"rows={self.rows:,} sel={self.selectivity:.3f} "
+                f"est_groups={self.output_groups:,} "
+                f"scan_bytes={self.scan_bytes:,}\n"
+                f"single-chip cost={self.single_cost:.4g}  "
+                f"sharded({self.n_devices})={self.sharded_cost:.4g}  "
+                f"-> {'SHARDED' if self.recommend_sharded else 'SINGLE'}"
+                + wave)
 
 
 def _output_groups(q: S.QuerySpec, ds) -> int:
@@ -285,9 +314,13 @@ def _output_groups(q: S.QuerySpec, ds) -> int:
 
 
 def estimate(ctx_or_engine, q: S.QuerySpec) -> CostEstimate:
-    """Single-device cost units of one spec: the scan of the rows its
-    intervals keep plus the decode of its estimated groups (the JAX
-    package's ``single_cost``)."""
+    """Cost units of one spec on the engine's one device (the JAX
+    package's ``estimate`` with no mesh and one process): the scan of the
+    rows its intervals keep plus the decode of its estimated groups
+    (``single_cost``, what WLM reads), the same split over one device
+    with the merge and compile terms (``sharded_cost``), the scan's bytes
+    and its wave plan under ``wave_budget_bytes``, both over the spec's
+    named columns."""
     engine = getattr(ctx_or_engine, "engine", ctx_or_engine)
     ds = engine.store.get(q.datasource)
     conf = engine.config
@@ -298,9 +331,90 @@ def estimate(ctx_or_engine, q: S.QuerySpec) -> CostEstimate:
         rows = 0
     sel = _filter_selectivity(getattr(q, "filter", None), ds)
     groups = min(_output_groups(q, ds), max(1, int(rows * sel)) or 1)
-    single = rows * conf.get(COST_PER_ROW_SCAN) \
-        + groups * conf.get(COST_PER_BYTE_TRANSPORT) * 16
-    return CostEstimate(rows, sel, groups, single, single)
+    scan_c = conf.get(COST_PER_ROW_SCAN)
+    byte_c = conf.get(COST_PER_BYTE_TRANSPORT)
+    n_aggs = max(1, len(S.query_aggregations(q)))
+    single = rows * scan_c + groups * byte_c * 16
+    sharded = (rows / SHARD_EFFICIENCY) * scan_c \
+        + groups * n_aggs * MERGE_COST_PER_ROW \
+        + groups * byte_c * 16 \
+        + conf.get(COST_COMPILE) * 0.1
+    # approximate scan footprint + wave plan (exact names are
+    # executor-side; this mirrors them closely enough for explain)
+    names = set()
+    for d in S.query_dimensions(q):
+        names.add(d.dimension)
+    for a in S.query_aggregations(q):
+        if a.field:
+            names.add(a.field)
+    from spark_druid_olap_tpu_torch.ops.filters import columns_of_filter
+    names |= columns_of_filter(getattr(q, "filter", None))
+    names = {c for c in names if c in ds.dims or c in ds.metrics
+             or (ds.time is not None and c == ds.time.name)}
+    seg_bytes = bytes_per_segment(
+        ds, list(names) + ["__rows__"]) if ds.num_segments else 0
+    spw, waves = plan_waves(len(seg_idx), 1, seg_bytes,
+                            wave_budget_bytes(conf, engine.device), conf,
+                            groups, n_aggs)
+    return CostEstimate(rows, sel, groups, single, sharded,
+                        scan_bytes=seg_bytes * len(seg_idx),
+                        segments_per_wave=spw, n_waves=waves)
+
+
+def explain_cost(ctx, q: S.QuerySpec) -> str:
+    """The cost lines EXPLAIN prints under one spec: the estimate's table
+    and, where the scan would compact, its late-materialization plan. On
+    an aggregation spec the table's waves are the ones execution runs
+    (``QueryEngine.wave_plan``, over the arrays the engine binds), not
+    the estimate's over the spec's named columns, which can differ (a
+    departure from the JAX package, ROADMAP §C). A spec the engine
+    declines (``EngineFallback``) runs on the host tier, in no device
+    waves; where the engine fails to plan the scan for another reason
+    the table prints ``waves=?`` and the error."""
+    from spark_druid_olap_tpu_torch.parallel.executor import EngineFallback
+    try:
+        est = estimate(ctx, q)
+    except Exception as e:  # cost must never break explain
+        return f"cost: unavailable ({e})"
+    out = est.table()
+    if isinstance(q, (S.GroupByQuerySpec, S.TimeseriesQuerySpec,
+                      S.TopNQuerySpec)):
+        try:
+            est.segments_per_wave, est.n_waves = ctx.engine.wave_plan(q)
+            out = est.table()
+        except EngineFallback:
+            est.segments_per_wave, est.n_waves = 0, 1
+            out = est.table()
+        except Exception as e:  # noqa: BLE001 — shown, never replaced
+            est.segments_per_wave, est.n_waves = 0, None
+            out = est.table() + f" ({type(e).__name__}: {str(e)[:80]})"
+    try:
+        out += _explain_scan_plan(ctx, q)
+    except Exception:   # noqa: BLE001 — advisory detail only
+        pass
+    return out
+
+
+def _explain_scan_plan(ctx, q: S.QuerySpec) -> str:
+    """Physical scan decisions: late-materialization budget and staged
+    (post-compaction) filter conjuncts — the explain surface for the
+    compact-then-aggregate path."""
+    eng = ctx.engine
+    f = getattr(q, "filter", None)
+    ds = eng.store.get(q.datasource)
+    seg_idx = ds.prune_segments(getattr(q, "intervals", None), f)
+    cheap, exp = eng._split_filter_staged(f)
+    m = eng._plan_compact_m(ds, seg_idx, cheap)
+    if m is None:
+        return ""
+    # ESTIMATE: the execution-time decision additionally sees the agg
+    # routes and overflow memory, neither of which exists at explain time
+    line = f"\nscan: late-materialize to [{m:,}] survivors (estimate)"
+    if exp is not None:
+        n_exp = len(exp.fields) if isinstance(exp, S.LogicalFilter) \
+            and exp.op == "and" else 1
+        line += f" (+{n_exp} gather-heavy conjunct(s) staged after)"
+    return line
 
 
 def array_itemsize(ds, key: str) -> int:
@@ -350,19 +464,26 @@ def wave_budget_bytes(conf, device) -> Optional[int]:
 
 
 def tier_io_budget(ds, conf) -> Optional[int]:
-    """Per-wave host-I/O byte cap of a tiered (cold) datasource (the JAX
-    package's ``tier_io_budget``), None on an in-memory store. Every
-    store of the port is in memory: the tiered store is ROADMAP A.9."""
+    """Per-wave host-I/O byte cap for a tiered (cold) datasource, or
+    None on an in-memory store (the JAX package's ``tier_io_budget``). A
+    cold scan in one giant wave serializes the entire fault traffic ahead
+    of the first dispatch; capping wave bytes at
+    ``sdot.tier.wave.io.bytes`` forces enough waves that the prefetcher
+    can hide wave i+1's loads behind wave i's compute."""
     if getattr(ds, "tier", None) is None:
         return None
-    raise NotImplementedError(
-        "tiered datasource not ported yet (ROADMAP A.9)")
+    from spark_druid_olap_tpu_torch.utils.config import TIER_WAVE_IO_BYTES
+    b = int(conf.get(TIER_WAVE_IO_BYTES))
+    return b if b > 0 else None
 
 
 def tier_io_seg_bytes(ds, names) -> Optional[int]:
     """Per-segment host bytes one wave faults for the named scan keys on
-    an encoded tiered store (the JAX package's ``tier_io_seg_bytes``),
-    None elsewhere."""
+    a tiered store (the JAX package's ``tier_io_seg_bytes``):
+    COMPRESSED bytes on an encoded one
+    (``TieredDatasource.host_bytes_per_segment``), None elsewhere. It is
+    the divisor of the cold-tier io cap; the device budget keeps the
+    logical ``bytes_per_segment``, since chunks decode before binding."""
     fn = getattr(ds, "host_bytes_per_segment", None)
     if fn is None:
         return None

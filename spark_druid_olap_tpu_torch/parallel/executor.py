@@ -47,15 +47,29 @@ scan's program per wave, the next wave's copy to the device in flight
 while the current wave computes, each wave's finals merged on the host
 (``_merge_wave_finals``, ``_merge_hash_partials``). Waves bypass the bind
 cache; device top-k and device HAVING stay off under waves, as in the JAX
-engine. Every path the JAX engine would take outside the port so far —
-multi-host partial stores — raises ``NotImplementedError`` naming its
-ROADMAP item; the engine never changes an answer to stay inside the
-port.
+engine. On a tiered datasource (``tier/``) ``execute`` pins every chunk the
+statement faults until it ends, binds fault only the segments being bound
+(``ops/scan.build_array`` / ``build_wave_array``), the wave binder pins a
+wave's chunks only while it copies them into its staging
+(``TieredDatasource.wave_pins``), and each wave enqueues the chunks of the
+wave after next on the tier's prefetcher.
+
+A device loss demotes the statement and every later one to the host tier
+(``EngineFallback`` ``backend_lost``), with at most one bounded re-attach
+probe per cooldown (``_try_reattach``). An error is a loss when its text
+reads as a sticky CUDA error (``_is_backend_loss``) and a probe of the
+device then fails (``_probe_device_alive``); where it surfaced
+(``_loss_site``) goes into ``last_stats["backend_lost"]``. Every path the
+JAX engine would take outside the port so far — multi-host partial stores —
+raises ``NotImplementedError`` naming its ROADMAP item; the engine never
+changes an answer to stay inside the port.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import re
 import threading
 import time as _time
 from typing import Dict, List, Optional
@@ -96,6 +110,7 @@ from spark_druid_olap_tpu_torch.segment.store import Datasource, SegmentStore
 from spark_druid_olap_tpu_torch.utils import host_eval
 from spark_druid_olap_tpu_torch.utils import phases as PH
 from spark_druid_olap_tpu_torch.utils.config import (
+    BACKEND_RETRY_SECONDS,
     COST_FUSED_ROW,
     COST_GATHER_PROBE,
     COST_SCATTER_UPDATE,
@@ -674,6 +689,12 @@ class QueryEngine:
         self._programs: Dict[tuple, object] = {}
         self._compiling: Dict[tuple, threading.Event] = {}
         self._compile_lock = threading.Lock()
+        # device-loss state: after a sticky CUDA error statements demote
+        # to the host tier, and a bounded re-attach probe runs at most
+        # once per cooldown window (``_try_reattach``)
+        self._backend_lost_at: Optional[float] = None
+        self._backend_lost_site = "?"
+        self._backend_retry_at: float = 0.0
         # statement shapes whose late-materialization budget overflowed:
         # their warm runs go straight to the uncompacted program
         self._compact_overflowed: set = set()
@@ -759,7 +780,15 @@ class QueryEngine:
         qid = getattr(getattr(q, "context", None), "query_id", None)
         if qid is not None:
             self.register_query(qid)
+        tier = pin_tok = None
         try:
+            # tiered cold storage: pin every hot chunk this query faults
+            # for its whole lifetime — eviction under budget pressure
+            # must never pull a column out from under an in-flight scan
+            tier_ds = self.store._datasources.get(
+                getattr(q, "datasource", None))
+            tier = getattr(tier_ds, "tier", None)
+            pin_tok = tier.acquire_pins() if tier is not None else None
             tok = self.inflight.begin(qid, getattr(q, "datasource", None),
                                       type(q).__name__)
             try:
@@ -801,16 +830,27 @@ class QueryEngine:
             finally:
                 self.inflight.done(tok)
         finally:
-            if qid is not None:
-                self.release_query(qid)
+            try:
+                if pin_tok is not None:
+                    tier.release_pins(pin_tok)
+                    self.last_stats["tier"] = tier.stats_snapshot()
+                    enc_info = getattr(tier_ds, "encoding_info", None)
+                    if enc_info is not None:
+                        self.last_stats["encoding"] = enc_info()
+            finally:
+                if qid is not None:
+                    self.release_query(qid)
             # after the releases: a failing stats snapshot must not be
-            # able to strand the cancel flag
+            # able to strand the pin or the cancel flag
             if self.fault is not None:
                 self.last_stats["fault"] = self.fault.stats()
 
     def _execute_admitted(self, q: S.QuerySpec, t0: float) -> QueryResult:
-        """Result-cache lookup, then the coalescer or ``_execute_inner``,
-        then ``cache.put``. An exception is never cached."""
+        """Result-cache lookup, the device-loss gate, then the coalescer
+        or ``_execute_inner``, then ``cache.put``. An exception is never
+        cached; one the classifier calls a device loss
+        (:func:`_is_backend_loss`) marks the device lost and demotes the
+        statement to the host tier."""
         try:
             pinfo = self.store.recovery_info.get(
                 getattr(q, "datasource", None))
@@ -822,6 +862,9 @@ class QueryEngine:
             cache = self.result_cache
             use_cache = cache.enabled and cache.cacheable(q)
             if use_cache:
+                # the lookup precedes the device-loss gate on purpose: a
+                # cached answer needs no device, so hits keep serving
+                # while the host tier covers the misses
                 ds_version = self.store.datasource_version(q.datasource)
                 served, status = cache.lookup(q, ds_version)
                 if served is not None:
@@ -830,6 +873,12 @@ class QueryEngine:
                     self.last_stats["total_ms"] = \
                         (_time.perf_counter() - t0) * 1000
                     return served
+            if self._backend_lost_at is not None \
+                    and not self._try_reattach():
+                self.last_stats["backend_lost"] = {
+                    "site": self._backend_lost_site}
+                raise EngineFallback(
+                    "backend_lost (device unreachable; host tier serving)")
             if self.sharedscan.should_try(q):
                 # coalesce with concurrent eligible queries on the same
                 # datasource (parallel/sharedscan.py); under the cache, so
@@ -845,6 +894,65 @@ class QueryEngine:
             # an expression or filter the device path cannot compile:
             # the signal a planner answers with a host residual
             raise EngineFallback(str(e)) from e
+        except Exception as e:  # noqa: BLE001 — classify device loss
+            # the classifier reads the error's text; the probe observes
+            # whether the context still answers: a device that does was
+            # not lost, and the error raises as itself
+            if _is_backend_loss(e) and not _probe_device_alive(self.device):
+                site = _loss_site(e)
+                self._mark_backend_lost(site)
+                raise EngineFallback(
+                    f"backend_lost (at {site}; {type(e).__name__}: "
+                    f"{str(e)[:120]})") from e
+            raise
+
+    def _mark_backend_lost(self, site: str = "?"):
+        """Drop everything that references device memory (programs, the
+        bind cache); the host tier serves until a re-attach probe
+        succeeds. ``site`` (:func:`_loss_site`) goes into
+        ``last_stats["backend_lost"]``, so a fault of the port's own
+        kernels can be told apart from a loss elsewhere."""
+        with self._compile_lock:
+            self._backend_lost_at = _time.time()
+            self._backend_retry_at = self._backend_lost_at \
+                + float(self.config.get(BACKEND_RETRY_SECONDS))
+            self._backend_lost_site = site
+            self._programs.clear()
+        with self._bind_lock:
+            self._device_arrays.clear()
+            self._device_bytes = 0
+        self.last_stats["backend_lost"] = {"site": site}
+
+    def _try_reattach(self) -> bool:
+        """At most one bounded device probe per cooldown window. The
+        probe runs in a daemon thread with a hard deadline, so a hung
+        dispatch cannot take the session down with it.
+
+        On a card the probe is a trivial dispatch and a synchronize. A
+        sticky CUDA error poisons the process's context for good, so after
+        one no probe in this process succeeds: the device comes back with
+        a new process, which recovers a persisted store with nothing
+        acknowledged lost (``persist/``). A probe can succeed only after a
+        loss that left the context usable."""
+        now = _time.time()
+        with self._compile_lock:
+            if now < self._backend_retry_at:
+                return False
+            # claim this window under the lock so concurrent statements
+            # don't pile probes onto a dead device
+            self._backend_retry_at = now \
+                + float(self.config.get(BACKEND_RETRY_SECONDS))
+        if _probe_device_alive(self.device):
+            with self._compile_lock:
+                self._backend_lost_at = None
+            return True
+        return False
+
+    def reshard(self, devices=None) -> None:
+        """Rebuild the engine over the live device set (the JAX engine's
+        ``reshard``, which a re-attach runs when the mesh's size
+        changed)."""
+        raise not_ported("resharding onto the live devices", "A.8")
 
     def _execute_inner(self, q: S.QuerySpec, t0: float) -> QueryResult:
         self._stage_check(q, t0)
@@ -913,24 +1021,13 @@ class QueryEngine:
             self._plan_agg(ds, seg_idx, dimensions, aggregations,
                            granularity, filter_spec, intervals)
         cards = [p.card for p in all_dim_plans]
-        route_hashed = n_keys > self.config.get(GROUPBY_DENSE_MAX_KEYS)
-        if not route_hashed:
-            # medium-K reroute: the same gate as the sorted-run tier, so
-            # its 'off' switch also keeps medium-K queries dense; sketch
-            # registers stay on the dense route
-            min_k = int(self.config.get(GROUPBY_SORTED_MIN_KEYS))
-            if min_k > 0 and n_keys >= min_k \
-                    and not any(p.kind in SKETCH_KINDS for p in agg_plans) \
-                    and self._sorted_run_wanted(_rows_of(ds, seg_idx),
-                                                n_keys):
-                route_hashed = True
+        route_hashed, spw, n_waves = self._scan_wave_plan(
+            ds, seg_idx, all_dim_plans, agg_plans, n_keys, names)
         if route_hashed:
             return self._run_agg_hashed(
                 q, ds, seg_idx, all_dim_plans, agg_plans, names, min_day,
                 max_day, post_aggregations, having, limit, filter_spec,
-                intervals, check, no_topk=no_topk)
-        spw, n_waves = self._plan_waves(ds, names, seg_idx, n_keys,
-                                        len(agg_plans))
+                intervals, check, spw, n_waves, no_topk=no_topk)
         topk = None if no_topk or n_waves > 1 else \
             self._plan_device_topk(limit, having, agg_plans, n_keys)
         having_dev = self._plan_device_having(having, routes, n_keys,
@@ -1186,7 +1283,7 @@ class QueryEngine:
             return None                  # unselective: nothing to remove
         if min_rows > 0:
             if n_ops is None:
-                n_ops = max(1, len(routes))
+                n_ops = max(1, len(routes)) if routes is not None else 4
             n_ops = min(int(n_ops), 8)
             sort_s = rows * unit_cost(self.config, COST_SORT_ROW,
                                       self.device)
@@ -1262,17 +1359,79 @@ class QueryEngine:
             < unit_cost(self.config, COST_SCATTER_UPDATE, self.device,
                         rows_per_slot=per_slot)
 
+    def wave_plan(self, q: S.QuerySpec):
+        """``(segments per wave, waves)`` of the scan that executing the
+        aggregation spec ``q`` runs, on its dense or its hashed route: the
+        plan ``_run_agg`` itself takes (``_scan_wave_plan``). ``(0, 1)``
+        where interval pruning leaves nothing to scan."""
+        if not isinstance(q, (S.GroupByQuerySpec, S.TimeseriesQuerySpec,
+                              S.TopNQuerySpec)):
+            raise TypeError(f"no aggregation scan in {type(q).__name__}")
+        dims = list(q.dimensions) if isinstance(q, S.GroupByQuerySpec) \
+            else [q.dimension] if isinstance(q, S.TopNQuerySpec) else []
+        ds = self.store.get(q.datasource)
+        seg_idx = ds.prune_segments(q.intervals, q.filter)
+        if ds.num_rows == 0 or len(seg_idx) == 0:
+            return 0, 1
+        dim_plans, agg_plans, _, _, n_keys, names, _ = self._plan_agg(
+            ds, seg_idx, dims, q.aggregations, q.granularity, q.filter,
+            q.intervals)
+        return self._scan_wave_plan(ds, seg_idx, dim_plans, agg_plans,
+                                    n_keys, names)[1:]
+
+    def _scan_wave_plan(self, ds, seg_idx, dim_plans, agg_plans, n_keys,
+                        names):
+        """``(hashed, segments per wave, waves)`` of an aggregation scan:
+        the hashed route above the dense key-space ceiling and for the
+        medium-K reroute, else the dense one; the wave plan prices the
+        dense route's key space, the hashed route's first table."""
+        hashed = n_keys > self.config.get(GROUPBY_DENSE_MAX_KEYS)
+        if not hashed:
+            # medium-K reroute: the same gate as the sorted-run tier, so
+            # its 'off' switch also keeps medium-K queries dense; sketch
+            # registers stay on the dense route
+            min_k = int(self.config.get(GROUPBY_SORTED_MIN_KEYS))
+            if min_k > 0 and n_keys >= min_k \
+                    and not any(p.kind in SKETCH_KINDS for p in agg_plans) \
+                    and self._sorted_run_wanted(_rows_of(ds, seg_idx),
+                                                n_keys):
+                hashed = True
+        groups = n_keys
+        if hashed:
+            rows_sel = _rows_of(ds, seg_idx)
+            groups = min(rows_sel, self._hash_slots(
+                rows_sel, _key_space(dim_plans)))
+        spw, n_waves = self._plan_waves(ds, names, seg_idx, groups,
+                                        len(agg_plans))
+        return hashed, spw, n_waves
+
+    def _hash_max_slots(self) -> int:
+        """The largest table the hashed route grows to on this device."""
+        max_slots = int(self.config.get(GROUPBY_HASH_MAX_SLOTS))
+        if self.device.type == "cpu":
+            max_slots = min(max_slots, int(self.config.get(
+                GROUPBY_HASH_MAX_SLOTS_CPU)))
+        return max_slots
+
+    def _hash_slots(self, rows_sel: int, n_keys_total: int) -> int:
+        """The hashed route's first table size ``T``: the configured one,
+        else sized from the key space and the selected rows (which bound
+        the group count)."""
+        return int(self.config.get(GROUPBY_HASH_SLOTS)) or H.initial_slots(
+            min(n_keys_total, rows_sel), hi=self._hash_max_slots())
+
     # -- hashed high-cardinality aggregation path -----------------------------
     def _run_agg_hashed(self, q, ds, seg_idx, dim_plans, agg_plans, names,
                         min_day, max_day, post_aggregations, having, limit,
-                        filter_spec, intervals, check,
+                        filter_spec, intervals, check, spw, n_waves,
                         no_topk: bool = False):
         """Group-by above the dense key-space ceiling (and the medium-K
         reroute): a table of ``T`` slots on the device per wave
         (``ops/hash_groupby.py``), the waves' partials merged by key on
-        the host. Overflow in any wave retries the scan at 4x slots, then
-        falls back. ``check`` is the statement's stage boundary (before
-        each dispatch and wave, and after the last)."""
+        the host, in the waves ``_scan_wave_plan`` planned. Overflow in
+        any wave retries the scan at 4x slots, then falls back. ``check``
+        is the statement's stage boundary (before each dispatch and wave,
+        and after the last)."""
         if any(p.kind in SKETCH_KINDS for p in agg_plans):
             raise EngineFallback("sketch aggregation over hashed group-by")
         cards = [p.card for p in dim_plans]
@@ -1280,19 +1439,10 @@ class QueryEngine:
             parts = H.split_parts(cards)
         except H.KeySpaceTooWide as e:
             raise EngineFallback(str(e)) from e
-        # the exact selected-row count bounds the group count
         rows_sel = _rows_of(ds, seg_idx)
-        max_slots = int(self.config.get(GROUPBY_HASH_MAX_SLOTS))
-        if self.device.type == "cpu":
-            max_slots = min(max_slots, int(self.config.get(
-                GROUPBY_HASH_MAX_SLOTS_CPU)))
-        n_keys_total = 1
-        for c in cards:
-            n_keys_total *= int(c)
-        T = int(self.config.get(GROUPBY_HASH_SLOTS)) or H.initial_slots(
-            min(n_keys_total, rows_sel), hi=max_slots)
-        spw, n_waves = self._plan_waves(ds, names, seg_idx,
-                                        min(rows_sel, T), len(agg_plans))
+        n_keys_total = _key_space(dim_plans)
+        max_slots = self._hash_max_slots()
+        T = self._hash_slots(rows_sel, n_keys_total)
         wave_segs = FU.plan_device_waves(seg_idx, spw, 1)
         metas = [G.AggInput(p.spec.name, p.kind, is_int=p.is_int)
                  for p in agg_plans]
@@ -1413,7 +1563,7 @@ class QueryEngine:
                 return self._run_agg_hashed(
                     q, ds, seg_idx, dim_plans, agg_plans, names, min_day,
                     max_day, post_aggregations, having, limit, filter_spec,
-                    intervals, check, no_topk=True)
+                    intervals, check, spw, n_waves, no_topk=True)
         self.last_stats.update({
             "datasource": ds.name, "segments": int(len(seg_idx)),
             "groups": int(len(keys)), "rows_scanned": int(ds.num_rows),
@@ -1703,8 +1853,8 @@ class QueryEngine:
                     # exceeds cap + one array
                     self._device_arrays.clear()
                     self._device_bytes = 0
-                dev = torch.from_numpy(np.ascontiguousarray(host)) \
-                    .to(self.device)
+                src = torch.from_numpy(np.ascontiguousarray(host))
+                dev = _device_copy_retry(lambda: src.to(self.device))
                 self._device_arrays[key] = dev
                 self._device_bytes += int(host.nbytes)
             out[k] = dev
@@ -1954,6 +2104,109 @@ def _cache_repr(q) -> str:
         return repr(dataclasses.replace(q, context=None))
     except (TypeError, ValueError):
         return repr(q)
+
+
+# CUDA runtime errors after which the context is unusable for the rest of
+# the process ("sticky" errors), by the runtime's message and by its code
+# (the port's kernels report ``CUDA error <code>`` from their launch check)
+_STICKY_CUDA_MESSAGES = (
+    "illegal memory access", "device-side assert", "unspecified launch "
+    "failure", "launch timed out", "illegal instruction",
+    "misaligned address", "invalid program counter",
+    "hardware stack error", "uncorrectable ecc", "invalid address space",
+    "no cuda-capable device", "cuda driver version is insufficient",
+    "device(s) is/are busy or unavailable")
+# cudaErrorNoDevice 100, cudaErrorECCUncorrectable 214,
+# cudaErrorIllegalAddress 700, cudaErrorLaunchTimeout 702,
+# cudaErrorAssert 710, cudaErrorHardwareStackError 714 ...
+# cudaErrorLaunchFailure 719
+_STICKY_CUDA_CODES = frozenset(
+    (100, 214, 700, 702, 710, 714, 715, 716, 717, 718, 719))
+_CUDA_CODE = re.compile(r"cuda error (\d+)")
+
+
+def _is_backend_loss(e: BaseException) -> bool:
+    """Whether ``e`` says the device is gone for this process: a sticky
+    CUDA error (an illegal address, a device-side assert, a launch
+    failure, an uncorrectable ECC error; the runtime's ``CUDA error: ...``
+    or a kernel's ``CUDA error <code>``) or a driver that reports no
+    device. Not a loss: a device out-of-memory error, a shape or type
+    error, a kernel that fails to build, a launch error that leaves the
+    context usable."""
+    if isinstance(e, (EngineFallback, torch.cuda.OutOfMemoryError)) \
+            or not isinstance(e, RuntimeError):
+        return False
+    s = str(e).lower()
+    if "cuda error" not in s and "cuda-capable" not in s \
+            and "cuda driver" not in s:
+        return False
+    m = _CUDA_CODE.search(s)
+    if m is not None:
+        return int(m.group(1)) in _STICKY_CUDA_CODES
+    return any(t in s for t in _STICKY_CUDA_MESSAGES)
+
+
+def _loss_site(e: BaseException) -> str:
+    """Where a device loss surfaced: ``B1`` or ``B2`` for the port's
+    kernels' launch checks, ``copy`` for a host-to-device copy through
+    :func:`_device_copy_retry`, else the innermost function of the port
+    the error passed through (``module.function``)."""
+    s = str(e)
+    if s.startswith("dense_groupby kernel launch failed"):
+        return "B1"
+    if s.startswith("wave kernel launch failed"):
+        return "B2"
+    site, tb = "?", e.__traceback__
+    while tb is not None:
+        code = tb.tb_frame.f_code
+        mod = tb.tb_frame.f_globals.get("__name__", "")
+        if code.co_name == "_device_copy_retry":
+            return "copy"
+        if mod.startswith("spark_druid_olap_tpu_torch"):
+            site = f"{mod.rsplit('.', 1)[-1]}.{code.co_name}"
+        tb = tb.tb_next
+    return site
+
+
+def _probe_device_alive(device, timeout_s: float = 10.0) -> bool:
+    """Whether ``device`` answers a trivial dispatch and a synchronize
+    within the deadline, probed from a daemon thread (a hung dispatch
+    must never hang the session)."""
+    result = []
+
+    def work():
+        try:
+            r = torch.arange(8, device=device).sum().item()
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize(device)
+            result.append(r == 28)
+        except Exception:  # noqa: BLE001 — any failure: still down
+            result.append(False)
+
+    th = threading.Thread(target=work, daemon=True)
+    th.start()
+    th.join(timeout_s)
+    return bool(result and result[0])
+
+
+def _device_copy_retry(fn):
+    """A host-to-device copy (or device allocation) with backoff on a
+    device out-of-memory error, which memory freed by concurrent
+    statements can cure (the JAX engine's ``_device_put_retry``, whose
+    RESOURCE_EXHAUSTED this is); every other error, a sticky one above
+    all, raises at once."""
+    from spark_druid_olap_tpu_torch.utils.retry import retry_on_error
+    return retry_on_error(
+        fn, "device copy", tries=3, start=0.5,
+        retryable=lambda e: isinstance(e, torch.cuda.OutOfMemoryError))
+
+
+def _key_space(dim_plans) -> int:
+    """The product of the dimensions' cardinalities (a Python int)."""
+    n = 1
+    for p in dim_plans:
+        n *= int(p.card)
+    return n
 
 
 def _rows_of(ds, seg_idx) -> int:
@@ -2249,15 +2502,20 @@ class _WaveBinder:
         t0 = _time.perf_counter()
         slot = len(self._steps) % 2
         bufs = self._host_buffers(slot)
-        for k, b in bufs.items():
-            build_wave_array(self.ds, k, segs, b.numpy())
+        # a tiered datasource's chunks are copied into the staging as
+        # they fault: pinned for this wave's build only
+        pins = getattr(self.ds, "wave_pins", None)
+        with pins() if pins is not None else contextlib.nullcontext():
+            for k, b in bufs.items():
+                build_wave_array(self.ds, k, segs, b.numpy())
         step = {"segments": int(len(segs)),
                 "h2d_bytes": int(sum(b.nbytes for b in bufs.values()))}
         if self.cuda:
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             with torch.cuda.stream(self.copy_stream):
-                arrays = {k: torch.empty_like(b, device=self.device)
-                          for k, b in bufs.items()}
+                arrays = _device_copy_retry(lambda: {
+                    k: torch.empty_like(b, device=self.device)
+                    for k, b in bufs.items()})
                 # the events span the copies only, not the allocation
                 ev[0].record()
                 for k, b in bufs.items():
@@ -2288,10 +2546,10 @@ class _WaveBinder:
         return out
 
     def tier_prefetch(self, wave_segs, i):
-        """Enqueue wave ``i``'s cold-tier chunks so they load behind the
-        current wave's compute (the JAX engine's ``_tier_prefetch``). A
-        no-op on in-memory datasources, every datasource of the port until
-        the tiered store (ROADMAP A.9), and past the last wave."""
+        """Enqueue wave ``i``'s cold-tier chunks on a tiered datasource's
+        prefetcher so they load behind the current wave's compute (the
+        JAX engine's ``_tier_prefetch``). A no-op on in-memory datasources
+        and past the last wave."""
         pf = getattr(self.ds, "tier_prefetch", None)
         if pf is not None and i < len(wave_segs):
             pf(self.names, wave_segs[i])

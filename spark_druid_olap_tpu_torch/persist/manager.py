@@ -2,8 +2,8 @@
 
 Port counterpart of ``spark_druid_olap_tpu/persist/manager.py``: a copy
 kept inside the PyTorch package, which imports nothing of the JAX
-package, less the tiered store: ``sdot.tier.enabled`` with a persist
-path raises (ROADMAP A.9), so every tier branch of the original is gone.
+package, with the original's tier branches (``sdot.tier.enabled``:
+recovery into tiered datasources, ``tier/``).
 Journaling is always fsynced and group-committed, and recovery always
 runs at start: the original's switches for these
 (``sdot.persist.wal.fsync``, ``wal.group.commit``, ``recover.on.start``,
@@ -63,22 +63,14 @@ CATALOG_FILE = "catalog.json"
 
 
 def _refuse_unported(cfg) -> None:
-    """Raise, before anything touches the disk, on a setting the port
-    does not run: the tiered store, or a durability switch away from its
-    default."""
+    """Raise, before anything touches the disk, on a durability switch
+    away from its default."""
     from spark_druid_olap_tpu_torch.utils.config import (
         PERSIST_ENABLED,
         PERSIST_GROUP_COMMIT,
         PERSIST_RECOVER,
         PERSIST_WAL_FSYNC,
-        TIER_ENABLED,
     )
-    # out-of-core tiered storage (recovery handing back cold stores
-    # that fault columns on demand) is not ported
-    if bool(cfg.get(TIER_ENABLED)):
-        raise NotImplementedError(
-            "tiered datasource store (sdot.tier.enabled) not ported yet "
-            "(ROADMAP A.9)")
     for entry in (PERSIST_ENABLED, PERSIST_RECOVER, PERSIST_WAL_FSYNC,
                   PERSIST_GROUP_COMMIT):
         if bool(cfg.get(entry)) != entry.default:
@@ -90,6 +82,8 @@ def _refuse_unported(cfg) -> None:
 
 
 def _ds_bytes(ds) -> int:
+    # footprint accessors, not raw .nbytes: sizing a TIERED datasource
+    # through the array properties would fault every column hot
     total = 0
     if ds.time is not None:
         total += ds.time.footprint_nbytes()
@@ -115,8 +109,8 @@ class PersistManager:
         _refuse_unported(cfg)
         self.ctx = ctx
         self.root = os.path.abspath(root)
-        # fault injector (fault/): threaded into every WAL and the
-        # snapshot publish path
+        # fault injector (fault/): threaded into every WAL, the snapshot
+        # publish path, and the cold tier below
         self.fault = getattr(ctx.engine, "fault", None)
         os.makedirs(self.root, exist_ok=True)
         # LOCK ORDER: a per-datasource build lock (serializing the
@@ -166,6 +160,29 @@ class PersistManager:
                          "compactions": 0, "compacted_segments": 0,
                          "quarantined": 0, "errors": 0}
         self.recovery_report: Optional[dict] = None
+        # out-of-core tiered storage: when enabled, recovery hands back
+        # TieredDatasources whose columns fault from the snapshot blobs
+        # through this byte-budgeted hot set (tier/store.py)
+        from spark_druid_olap_tpu_torch.utils.config import (
+            TIER_BUDGET_BYTES, TIER_DECODED_CACHE_BYTES, TIER_ENABLED,
+            TIER_PREFETCH_ENABLED, TIER_PREFETCH_THREADS,
+            TIER_VERIFY_CHECKSUMS)
+        self.tier = None
+        if bool(cfg.get(TIER_ENABLED)):
+            from spark_druid_olap_tpu_torch.tier.store import (
+                TieredColumnStore)
+            self.tier = TieredColumnStore(
+                int(cfg.get(TIER_BUDGET_BYTES)),
+                verify=bool(cfg.get(TIER_VERIFY_CHECKSUMS)),
+                popularity=self._tier_popularity,
+                on_corrupt=self._on_tier_corrupt,
+                decoded_budget=int(cfg.get(TIER_DECODED_CACHE_BYTES)))
+            # .fault on the tier store is the demand-fault METHOD, so
+            # the injector rides a different name there
+            self.tier.chaos = self.fault
+            if bool(cfg.get(TIER_PREFETCH_ENABLED)):
+                self.tier.start_prefetcher(
+                    int(cfg.get(TIER_PREFETCH_THREADS)))
         ctx.store.add_listener(self._on_store_event)
 
     # -- paths ----------------------------------------------------------------
@@ -225,12 +242,76 @@ class PersistManager:
             self._reg_seq.pop(name, None)
             self._tail_ds.pop(name, None)
             self._tail_chain.pop(name, None)
+            if self.tier is not None:
+                self.tier.drop_datasource(name)
         elif event == "clear":
             self._dirty.clear()
             self._wal_seq.clear()
             self._reg_seq.clear()
             self._tail_ds.clear()
             self._tail_chain.clear()
+            if self.tier is not None:
+                self.tier.clear()
+
+    # -- tier callbacks -------------------------------------------------------
+    def _tier_popularity(self, ds_name: str, column: str) -> float:
+        """Eviction score for one hot chunk's column: the session query
+        history's per-column hit count (metadata/history.py). Called
+        under the tier lock; QueryHistory never calls back into tier or
+        persist, so the order tier.lock -> history.lock is safe."""
+        hist = getattr(self.ctx, "history", None)
+        if hist is None:
+            return 0.0
+        return hist.column_score(ds_name, column)
+
+    def _on_tier_corrupt(self, ds_name: str, version_dir: str,
+                         reason: str) -> None:
+        """First-fault CRC mismatch on a cold blob: quarantine that
+        snapshot version and re-recover the datasource from an older one
+        (or the WAL alone) — the exact PERSIST recovery semantics, just
+        triggered lazily. The faulting query still fails with
+        SnapshotCorrupt; the NEXT query sees the fallback store. Invoked
+        by the tier OUTSIDE its lock (lock order: PersistManager.lock
+        before QueryHistory._lock; the tier lock is never held across
+        this call)."""
+        with self.lock:
+            dirpath = os.path.dirname(os.path.abspath(version_dir))
+            base = os.path.basename(version_dir)
+            try:
+                version = int(base.lstrip("v"))
+            except ValueError:
+                return
+            qpath = SNAP.quarantine_version(dirpath, version)
+            if qpath is None:
+                return          # another fault already quarantined it
+            self.counters["quarantined"] += 1
+            if self.tier is not None:
+                self.tier.drop_datasource(ds_name)
+            # re-recover whichever datasource lives in that directory
+            name = None
+            for n, p in self._ds_dirs().items():
+                if os.path.abspath(p) == dirpath:
+                    name = n
+                    break
+            report = {"datasources": [], "quarantined": [
+                {"datasource": name or ds_name, "version": version,
+                 "reason": reason, "moved_to": qpath}], "errors": []}
+            if name is not None:
+                if self.tier is not None and name != ds_name:
+                    self.tier.drop_datasource(name)
+                info = self._recover_datasource(name, dirpath, report)
+                recovery_info = dict(
+                    getattr(self.ctx.store, "recovery_info", {}) or {})
+                if info is not None:
+                    recovery_info[name] = info
+                self.ctx.store.recovery_info = recovery_info
+            prev = self.recovery_report
+            if prev is not None:
+                prev.setdefault("quarantined", []).extend(
+                    report["quarantined"])
+                prev.setdefault("errors", []).extend(report["errors"])
+            else:
+                self.recovery_report = report
 
     # -- durable stream ingest ------------------------------------------------
     def stream_ingest(self, name: str, df: pd.DataFrame,
@@ -283,6 +364,16 @@ class PersistManager:
                     # to append onto, so publish one synchronously
                     # before journaling
                     self.checkpoint(name)
+                if base is not None \
+                        and getattr(base, "tier", None) is not None:
+                    # appends mutate column arrays (dataclasses.replace
+                    # + concatenate) — swap the tiered store for an
+                    # eager copy first. Quiet swap: no version bump, no
+                    # store events; the register below marks dirty as
+                    # usual.
+                    base = base.materialize()
+                    store._datasources[name] = base
+                    self.tier.drop_datasource(name)
             kind = "create" if base is None else "append"
             # Build the new Datasource value BEFORE journaling: the WAL
             # append is the commit point, and a batch the build rejects
@@ -613,8 +704,17 @@ class PersistManager:
             + [v for v in sorted(versions, reverse=True) if v != cur]
         for v in candidates:
             try:
-                ds, manifest, verify_ms = SNAP.load_snapshot(
-                    dirpath, v, verify=self.verify)
+                if self.tier is not None:
+                    # cold-tier recovery: O(manifest) structural check,
+                    # columns fault on demand; blob CRCs verify on first
+                    # fault (tier/loader.py)
+                    from spark_druid_olap_tpu_torch.tier.loader import (
+                        load_tiered_snapshot)
+                    ds, manifest, verify_ms = load_tiered_snapshot(
+                        dirpath, v, self.tier, verify=self.verify)
+                else:
+                    ds, manifest, verify_ms = SNAP.load_snapshot(
+                        dirpath, v, verify=self.verify)
                 loaded_version = v
                 break
             except SNAP.SnapshotCorrupt as e:
@@ -653,6 +753,15 @@ class PersistManager:
             # advance the seq watermark even past a failing record so a
             # later live append can never reuse its sequence number
             self._wal_seq[name] = max(self._wal_seq.get(name, 0), seq)
+            if self.tier is not None:
+                live = self.ctx.store._datasources.get(name)
+                if getattr(live, "tier", None) is not None:
+                    # a WAL tail past the snapshot must append onto an
+                    # eager store (the tail materializes this datasource
+                    # in RAM; the next checkpoint re-publishes and it
+                    # loads tiered again)
+                    self.ctx.store._datasources[name] = live.materialize()
+                    self.tier.drop_datasource(name)
             try:
                 df = WAL.decode_batch(body)
                 kwargs = wal_kwargs_from_dict(header.get("kwargs") or {})
@@ -868,6 +977,8 @@ class PersistManager:
         if t is not None:
             t.join(timeout=5.0)
             self._thread = None
+        if self.tier is not None:
+            self.tier.stop()
         with self.lock:
             for w in self._wals.values():
                 w.close()
@@ -944,4 +1055,6 @@ class PersistManager:
                     and self._thread.is_alive(),
                 },
                 "recovery": self.recovery_report,
+                "tier": None if self.tier is None
+                else self.tier.stats_snapshot(),
             }

@@ -273,10 +273,6 @@ def _run_persist_command(ctx, stmt) -> QueryResult:
                        {"status": np.array(msgs, dtype=object)})
 
 
-# the line explain prints where the JAX package prints its cost model's
-# estimate (parallel/cost.py, with the cost hooks, ROADMAP A.9)
-EXPLAIN_COST_LINE = "cost: not ported yet (ROADMAP A.9)"
-
 # spec types the shared-scan tier coalesces (parallel/sharedscan.py)
 _COALESCIBLE = (S.GroupByQuerySpec, S.TimeseriesQuerySpec, S.TopNQuerySpec)
 
@@ -346,12 +342,14 @@ def explain_text(ctx, stmt: A.SelectStmt, sql: str) -> str:
         lines.append(f"rollup rewrite: {pq.rollup} -> scans "
                      f"{pq.specs[0].datasource!r} instead of the base "
                      f"datasource")
+    from spark_druid_olap_tpu_torch.parallel.cost import explain_cost
     for i, q in enumerate(pq.specs):
         lines.append(f"  [{i}] {type(q).__name__}: dims="
                      f"{[d.output_name for d in S.query_dimensions(q)]} "
                      f"aggs={[a.name for a in S.query_aggregations(q)]} "
                      f"intervals={q.intervals}")
-        lines.append("      " + EXPLAIN_COST_LINE)
+        lines.append("      "
+                     + explain_cost(ctx, q).replace("\n", "\n      "))
     if pq.distinct_phase2:
         lines.append(f"  phase2: exact count-distinct over "
                      f"{pq.distinct_phase2.group_cols}")

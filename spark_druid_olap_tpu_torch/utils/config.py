@@ -165,6 +165,13 @@ DEVICE_CACHE_BYTES = _entry(
     "residency peaks at the budget plus one array; a scan is never "
     "refused for it. How much one scan binds at once is "
     "sdot.engine.wave.max.bytes.")
+BACKEND_RETRY_SECONDS = _entry(
+    "sdot.engine.backend.retry.seconds", 30.0,
+    "Cooldown between re-attach probes after the device is lost "
+    "mid-session (a sticky CUDA error): statements are served by the host "
+    "tier, and at most one probe per cooldown window checks whether the "
+    "device answers again. After a sticky error no probe in that process "
+    "succeeds: the device comes back with a new process.", float)
 WAVE_MAX_BYTES = _entry(
     "sdot.engine.wave.max.bytes", 0,
     "Per-device byte budget for one execution wave's scan arrays; a scan "
@@ -320,6 +327,11 @@ COST_PER_BYTE_TRANSPORT = _entry(
     "sdot.querycostmodel.transport.cost", 2.5e-9,
     "Abstract cost to move one byte of the result from the device to the "
     "host (parallel/cost.estimate).", float)
+COST_COMPILE = _entry(
+    "sdot.querycostmodel.compile.cost", 0.05,
+    "Fixed abstract cost charged per distinct program in explain's "
+    "sharded price (parallel/cost.estimate); tools/calibrate.fit sets it "
+    "to 0.", float)
 
 
 # --- SQL front end (sql/session.py, planner/) --------------------------------
@@ -492,14 +504,54 @@ ENCODE_ENABLED = _entry(
 FAULT_PLAN = _entry(
     "sdot.fault.plan", "",
     "JSON FaultPlan ({\"seed\": S, \"rules\": [...]}) activating named "
-    "injection sites in persist I/O and WLM admission. Empty (default) = "
-    "every site is a zero-cost no-op.", semantic=False)
-# --- out-of-core tiered storage (tier/): read only to refuse it ---------------
+    "injection sites in persist I/O, the cold tier's reads and WLM "
+    "admission. Empty (default) = every site is a zero-cost no-op.",
+    semantic=False)
+# --- out-of-core tiered storage (tier/) ---------------------------------------
 TIER_ENABLED = _entry(
     "sdot.tier.enabled", False,
-    "Recover datasources as tiered (cold) stores. The tiered store is not "
-    "ported (ROADMAP A.9): with sdot.persist.path set, true raises.",
+    "Recover datasources as TIERED stores: column bytes stay in the "
+    "persist/ snapshot (cold tier) and fault on demand into a "
+    "byte-budgeted hot set instead of loading eagerly at boot "
+    "(tier/loader.py; requires sdot.persist.path). Consulted once, at "
+    "recovery.", semantic=False)
+TIER_BUDGET_BYTES = _entry(
+    "sdot.tier.budget.bytes", 2 << 30,
+    "Byte budget of the hot set (per process). Chunks over budget evict "
+    "by query-history popularity, oldest touch first; chunks pinned by "
+    "in-flight queries never evict, so peak residency is budget + "
+    "in-flight bytes.", int, semantic=False)
+TIER_VERIFY_CHECKSUMS = _entry(
+    "sdot.tier.verify.checksums", True,
+    "Verify each cold blob's CRC32 against the manifest on the FIRST "
+    "fault that touches it (recovery itself only checks structure, "
+    "keeping boot O(manifest)). A mismatch quarantines the snapshot "
+    "version and re-recovers per PERSIST semantics.", semantic=False)
+TIER_PREFETCH_ENABLED = _entry(
+    "sdot.tier.prefetch.enabled", True,
+    "Run the cold-tier prefetcher threads: the wave loop enqueues wave "
+    "i+2's chunks while wave i computes on the device, hiding cold loads "
+    "behind dispatch. Demand faults serve everything when disabled.",
     semantic=False)
+TIER_PREFETCH_THREADS = _entry(
+    "sdot.tier.prefetch.threads", 2,
+    "Prefetcher worker threads draining the cold-load queue.",
+    int, semantic=False)
+TIER_DECODED_CACHE_BYTES = _entry(
+    "sdot.tier.decoded.cache.bytes", 128 << 20,
+    "Byte budget of the decode-ahead cache: decoded arrays of hot ENCODED "
+    "chunks, accounted at decoded size on top of the encoded hot set. "
+    "The prefetcher decodes into it and demand faults serve from it "
+    "(stats[\"tier\"][\"decode_ms_saved\"]). Decoded entries evict "
+    "before any encoded payload. 0 disables decode-ahead; raw stores are "
+    "unaffected.", int, semantic=False)
+TIER_WAVE_IO_BYTES = _entry(
+    "sdot.tier.wave.io.bytes", 256 << 20,
+    "Per-wave host-I/O byte cap on a tiered scan (the wave planner's I/O "
+    "term, parallel/cost.tier_io_budget): forces enough waves that "
+    "prefetch can overlap loads with compute. 0 disables the term. "
+    "Semantic: changes the wave composition and with it float "
+    "accumulation order.", int)
 
 
 class Config:

@@ -7,8 +7,10 @@ batch never resurfacing through a context; written through
 ``append_group``, the port's only write path) and its WLM admission case
 run through both packages on the same plans: the outcomes, the mutated bytes
 and the injectors' stats are equal, and the journals both packages leave
-are byte-identical. The cluster, wire and cold-tier cases wait for ROADMAP
-A.9.
+are byte-identical. Its two cold-tier cases (a CRC flip injected at a
+first fault quarantines the version and recovery falls back; a slowed
+cold read still answers exactly) run in both packages, each over a root
+written by a package. The cluster and wire cases wait for ROADMAP A.9.
 """
 
 import test_torch_cache_pin  # noqa: F401 (the port's result cache off)
@@ -26,9 +28,12 @@ from spark_druid_olap_tpu.wlm.lanes import AdmissionRejected as JRejected
 
 import spark_druid_olap_tpu_torch as tsdot
 from spark_druid_olap_tpu_torch import fault as TF
+from spark_druid_olap_tpu_torch.persist import snapshot as TSNAP
 from spark_druid_olap_tpu_torch.persist.wal import WriteAheadLog as TWAL
 from spark_druid_olap_tpu_torch.wlm.lanes import (
     AdmissionRejected as TRejected)
+
+from test_torch_sql import assert_answers_equal
 
 F = {"jax": JF, "port": TF}
 WAL = {"jax": JWAL, "port": TWAL}
@@ -263,6 +268,76 @@ def test_ctx_torn_wal_durability(tmp_path):
         c2.close()
     assert got["port"] == got["jax"] \
         == list(range(0, 10)) + list(range(20, 30))
+
+
+# -- (e) cold tier: CRC flip at first fault, slow cold read -------------------
+
+_EQ = ("select country, sum(clicks) as c, count(*) as n from events "
+       "group by country order by country")
+_EINGEST = dict(time_column="ts", dimensions=["country"],
+                metrics=["clicks"])
+
+
+def _tier_ctx(pkg, root, plan):
+    cfg = {"sdot.persist.path": str(root), "sdot.tier.enabled": True,
+           "sdot.fault.plan": plan}
+    return jsdot.Context(cfg) if pkg == "jax" \
+        else tsdot.Context(cfg, device="cpu")
+
+
+def _events_root(pkg, root, versions):
+    """``versions`` checkpoints of the events store; the answer after the
+    first and the current version."""
+    from test_torch_persist import _events, open_ctx
+    ctx = open_ctx(pkg, root)
+    ctx.stream_ingest("events", _events(100), **_EINGEST)
+    want = ctx.sql(_EQ).to_pandas()
+    ctx.checkpoint("events")
+    if versions > 1:
+        ctx.stream_ingest("events", _events(10, seed=5), **_EINGEST)
+        ctx.checkpoint("events")
+    cur = TSNAP.current_version(ctx.persist._ds_root("events"))
+    ctx.close()
+    return want, cur
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_tier_crc_flip_quarantines_and_recovers(tmp_path, pkg):
+    from spark_druid_olap_tpu.persist.snapshot import SnapshotCorrupt as JC
+    corrupt = {"jax": JC, "port": TSNAP.SnapshotCorrupt}[pkg]
+    # each package reads the root the other one wrote
+    writer = "port" if pkg == "jax" else "jax"
+    want, cur = _events_root(writer, tmp_path, 2)
+    # no bytes touched on disk: the CRC flip is injected at verify time
+    ctx2 = _tier_ctx(pkg, tmp_path, _plan(
+        13, {"site": "tier.verify", "action": "flip", "count": 1}))
+    assert not ctx2.persist.recovery_report["quarantined"]
+    with pytest.raises(corrupt):
+        ctx2.sql(_EQ)
+    # the faulting query quarantined the flipped version and re-ran
+    # recovery; the retry answers exactly from the older snapshot
+    rep = ctx2.persist.recovery_report
+    assert len(rep["quarantined"]) == 1
+    assert rep["quarantined"][0]["version"] == cur
+    assert_answers_equal(ctx2.sql(_EQ).to_pandas(), want, True)
+    assert ctx2.persist.tier.counters["crc_failures"] == 1
+    assert ctx2.persist.counters["quarantined"] == 1
+    ctx2.close()
+
+
+def test_tier_slow_cold_read_still_exact(tmp_path):
+    got, stats = {}, {}
+    for pkg in ("jax", "port"):
+        want, _ = _events_root(pkg, tmp_path / pkg, 1)
+        ctx2 = _tier_ctx(pkg, tmp_path / pkg, _plan(
+            13, {"site": "tier.read", "action": "delay", "arg": 0.05,
+                 "count": 2}))
+        got[pkg] = ctx2.sql(_EQ).to_pandas()
+        assert_answers_equal(got[pkg], want, True)
+        stats[pkg] = ctx2.engine.last_stats["fault"]["by_site"]
+        assert stats[pkg] == {"tier.read": 2}
+        ctx2.close()
+    assert_answers_equal(got["port"], got["jax"], True)
 
 
 # -- (f) WLM admission: starvation + queue-full shed --------------------------

@@ -1,8 +1,10 @@
 """The port's compressed snapshot columns against the JAX package's.
 
-The codec, chooser, predicate, snapshot and star cases of
-``tests/test_encoding.py`` (not its tiered, wire and cluster cases, which
-wait for ROADMAP A.9) run through both packages on the CPU. Codecs: the
+The codec, chooser, predicate, snapshot, star and tiered cases of
+``tests/test_encoding.py`` (not its wire and cluster cases, which wait for
+ROADMAP A.9) run through both packages on the CPU; the tiered ones read
+roots that each package wrote, in both packages, and ``encode/exec.py``'s
+helpers are held against the JAX package's. Codecs: the
 port's ``encode_array`` / ``encode_chunk`` give the JAX package's payload
 bytes and header for every array and codec, and decode bit for bit.
 Snapshots: both packages, each over its own persist root, answer the same
@@ -14,6 +16,7 @@ column by column after each recovery; compression never changes an answer.
 import test_torch_cache_pin  # noqa: F401 (the port's result cache off)
 
 import os
+import shutil
 import threading
 
 import numpy as np
@@ -30,6 +33,8 @@ from spark_druid_olap_tpu_torch.persist import snapshot as SNAP
 from conftest import make_sales_df
 from test_torch_append import assert_same_store
 from test_torch_persist import Pair, open_ctx
+
+PKGS = ("jax", "port")
 from test_torch_sql import assert_answers_equal
 
 # -- codec round-trips --------------------------------------------------------
@@ -466,3 +471,128 @@ def test_star_schema_encoded_vs_raw(star_pair, suite, name):
     sql = (tpch if suite == "tpch" else ssb).QUERIES[name]
     assert_answers_equal(star_pair["port"].sql(sql).to_pandas(),
                          star_pair["jax"].sql(sql).to_pandas(), True)
+
+
+# -- tiered execution over encoded chunks -------------------------------------
+
+@pytest.fixture(scope="module")
+def tiered_roots(tmp_path_factory):
+    """One synthetic store checkpointed raw and encoded by each package."""
+    roots = {}
+    for writer in PKGS:
+        for leg, enabled in (("raw", False), ("encoded", True)):
+            root = tmp_path_factory.mktemp(f"enc-tier-{writer}-{leg}")
+            seed = open_ctx(writer, root, **{"sdot.encode.enabled": enabled})
+            seed.ingest_dataframe("sales", make_sales_df(), time_column="ts",
+                                  target_rows=4096)
+            seed.checkpoint("sales")
+            seed.close()
+            roots[writer, leg] = root
+    return roots
+
+
+def _tiered(pkg, root, tmp_path, budget=1 << 20):
+    """``pkg``'s tiered context over a private copy of ``root``."""
+    dst = tmp_path / f"{pkg}-{os.path.basename(root)}"
+    shutil.copytree(root, dst)
+    return open_ctx(pkg, dst, **{"sdot.cache.enabled": False,
+                                 "sdot.plan.cache.enabled": False,
+                                 "sdot.tier.enabled": True,
+                                 "sdot.tier.budget.bytes": budget,
+                                 "sdot.tier.wave.io.bytes": budget // 4})
+
+
+def _ctx_answers(ctx):
+    return {q: ctx.sql(q).to_pandas() for q in QUERIES}
+
+
+@pytest.mark.parametrize("writer", PKGS)
+def test_tiered_encoded_differential_and_stats(tiered_roots, tmp_path,
+                                               writer):
+    eager = open_ctx(writer, tiered_roots[writer, "raw"])
+    want = _ctx_answers(eager)
+    eager.close()
+    enc = {}
+    for reader in PKGS:
+        ctx = _tiered(reader, tiered_roots[writer, "encoded"], tmp_path)
+        for q, w in _ctx_answers(ctx).items():
+            assert_answers_equal(w, want[q], True)
+        enc[reader] = ctx.engine.last_stats.get("encoding")
+        assert enc[reader] and enc[reader]["encoded_keys"] > 0 \
+            and enc[reader]["ratio"] > 1.0
+        st = ctx.persist.tier.stats_snapshot()
+        assert st["hot_bytes"] <= st["budget_bytes"]
+        ctx.close()
+    assert enc["port"] == enc["jax"]
+
+
+@pytest.mark.parametrize("writer", PKGS)
+def test_zone_maps_served_from_manifest_without_faults(tiered_roots,
+                                                       tmp_path, writer):
+    """Per-segment bounds come from the manifest's encoding block, so
+    metric pruning must not decode — or even fault — a single cold
+    chunk."""
+    eager = open_ctx(writer, tiered_roots[writer, "raw"])
+    want_bounds = eager.store.get("sales").segment_metric_bounds("qty")
+    eager.close()
+    for reader in PKGS:
+        ctx = _tiered(reader, tiered_roots[writer, "encoded"], tmp_path)
+        st0 = ctx.persist.tier.stats_snapshot()["faults"]
+        mins, maxs = ctx.store.get("sales").segment_metric_bounds("qty")
+        assert ctx.persist.tier.stats_snapshot()["faults"] == st0
+        np.testing.assert_allclose(mins, want_bounds[0])
+        np.testing.assert_allclose(maxs, want_bounds[1])
+        ctx.close()
+
+
+@pytest.mark.parametrize("writer", PKGS)
+def test_same_budget_holds_more_encoded_chunks(tiered_roots, tmp_path,
+                                               writer):
+    """The hot set stores ENCODED payloads, so the same budget ends up
+    holding more chunks whenever anything compressed."""
+    for reader in PKGS:
+        entries = {}
+        for leg in ("raw", "encoded"):
+            ctx = _tiered(reader, tiered_roots[writer, leg], tmp_path,
+                          budget=256 * 1024)
+            for q in QUERIES:
+                ctx.sql(q)
+            entries[leg] = ctx.persist.tier.stats_snapshot()["hot_entries"]
+            ctx.close()
+        assert entries["encoded"] > entries["raw"], (reader, entries)
+
+
+def test_exec_helpers_equal_the_jax_helpers(tmp_path):
+    """``encode/exec.py``'s header zone maps, FoR-domain day pruning, RLE
+    group-by and encoded-domain reductions give the JAX package's values,
+    and agree with the decoded rows."""
+    from spark_druid_olap_tpu.encode import exec as JEX
+    from spark_druid_olap_tpu_torch.encode import exec as TEX
+    days = np.sort(_R.integers(16000, 16400, 3000)).astype(np.int32)
+    dim = np.repeat(np.arange(6, dtype=np.int8), 500)
+    metric = _R.uniform(size=len(dim))
+    for arr, codec in ((days, C.FORDELTA), (dim, C.RLE),
+                       (ARRAYS["narrow_i32"], C.BITPACK),
+                       (ARRAYS["low_card_i8"], C.RAW)):
+        payload, header = C.encode_array(arr, codec)
+        assert TEX.chunk_bounds(header) == JEX.chunk_bounds(header)
+        np.testing.assert_array_equal(TEX.decode_chunk(payload, header), arr)
+        for op in ("count", "sum", "min", "max"):
+            got = TEX.reduce_chunk(payload, header, op)
+            assert got == JEX.reduce_chunk(payload, header, op), (codec, op)
+        assert TEX.reduce_chunk(payload, header, "sum") \
+            == int(arr.astype(np.int64).sum())
+    day_ms = 86_400_000
+    payload, header = C.encode_array(days, C.FORDELTA)
+    for lo, hi in ((16100, 16101), (15000, 15990), (16399, 17000),
+                   (16500, 16600)):
+        iv = [(lo * day_ms, hi * day_ms)]
+        assert TEX.chunk_day_overlap(header, iv) \
+            == JEX.chunk_day_overlap(header, iv)
+    payload, header = C.encode_array(dim, C.RLE)
+    t = TEX.rle_groupby(payload, header, 6, metric)
+    j = JEX.rle_groupby(payload, header, 6, metric)
+    assert t.keys() == j.keys()
+    for k in t:
+        np.testing.assert_array_equal(t[k], j[k])
+    np.testing.assert_array_equal(t["count"], np.bincount(dim, minlength=6))

@@ -107,10 +107,18 @@ PERSIST_MODULES = ["persist", "persist.wal", "persist.snapshot",
                    "encode.codecs", "encode.chooser", "fault", "fault.plan"]
 
 
+# the cold tier, the encoded-domain helpers, the retry and the
+# calibration, by exact name (``tier`` is a package name in the JAX package
+# too)
+TIER_MODULES = ["tier", "tier.store", "tier.handles", "tier.loader",
+                "encode.exec", "utils.retry", "tools.calibrate"]
+
+
 @pytest.mark.parametrize("module",
                          SHAREDSCAN_MODULES + SQL_MODULES + HASHED_MODULES
                          + JOIN_WINDOW_MODULES + SERVING_MODULES
-                         + INGEST_ROLLUP_MODULES + PERSIST_MODULES)
+                         + INGEST_ROLLUP_MODULES + PERSIST_MODULES
+                         + TIER_MODULES)
 def test_sharedscan_slice_modules_are_checked(module):
     import pkgutil
     prefix = "spark_druid_olap_tpu_torch."

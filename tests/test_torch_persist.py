@@ -15,7 +15,8 @@ package checkpointed with a journaled tail recovers in the port with the
 same store, versions and answers, and the reverse), both packages write
 byte-identical snapshot blobs for one store (raw and encoded; only the
 manifest's ``created_at`` differs), the branches the port leaves out
-raise ``NotImplementedError`` naming ROADMAP A.9, and the JAX package's
+(a cluster's tiered shard slices, the cluster push) raise
+``NotImplementedError`` naming ROADMAP A.9, and the JAX package's
 switches that turn off persistence, recovery, fsync or group commit are
 refused at any value but their default. The JAX package's
 background-checkpointer test polls with sleeps and fails now and then; here
@@ -626,17 +627,38 @@ def test_snapshot_blobs_byte_identical(tmp_path, encode):
 # -- what the port leaves out -------------------------------------------------
 
 def test_unported_branches_raise_a9(tmp_path):
-    """The tiered store (with a persist path), ``tier_io_budget`` over a
-    tiered datasource and the cluster push raise, naming ROADMAP A.9."""
+    """The tiered store (with a persist path) recovers tiered
+    datasources and ``tier_io_budget`` reads ``sdot.tier.wave.io.bytes``
+    over them, as in the JAX package; a tiered shard slice (a cluster
+    historical's boot) and the cluster push still raise, naming ROADMAP
+    A.9."""
+    from spark_druid_olap_tpu.parallel import cost as jcost
     from spark_druid_olap_tpu_torch.parallel import cost
+    from spark_druid_olap_tpu_torch.tier.handles import TieredDatasource
+    from spark_druid_olap_tpu_torch.tier.loader import slice_tiered
+    seed = open_ctx("port", tmp_path / "tiered")
+    seed.stream_ingest("events", _events(50), **INGEST)
+    seed.checkpoint()
+    seed.close()
+    tiered = {pkg: open_ctx(pkg, tmp_path / "tiered",
+                            **{"sdot.tier.enabled": True})
+              for pkg in ("jax", "port")}
+    ds = tiered["port"].store.get("events")
+    assert isinstance(ds, TieredDatasource)
+    mod = {"jax": jcost, "port": cost}
+    for io in (None, 0, 4096):
+        got = {}
+        for pkg, c in tiered.items():
+            if io is not None:
+                c.config.set("sdot.tier.wave.io.bytes", io)
+            got[pkg] = mod[pkg].tier_io_budget(
+                c.store.get("events"), c.config)
+        assert got["port"] == got["jax"] \
+            == {None: 256 << 20, 0: None, 4096: 4096}[io]
     with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9"):
-        open_ctx("port", tmp_path / "tiered", **{"sdot.tier.enabled": True})
-    assert not (tmp_path / "tiered").exists()    # refused before any write
-
-    class Tiered:
-        tier = object()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9"):
-        cost.tier_io_budget(Tiered(), None)
+        slice_tiered(ds, [0])
+    for c in tiered.values():
+        c.close()
     ctx = open_ctx("port", tmp_path, **{"sdot.cluster.nodes": "localhost:1"})
     with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9"):
         ctx.stream_ingest("events", _events(10), **INGEST)

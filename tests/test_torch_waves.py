@@ -123,11 +123,37 @@ def test_plan_device_waves_equals_jax(case):
         assert g.dtype == w.dtype and np.array_equal(g, w)
 
 
-def test_tier_hooks_are_off_on_in_memory_stores():
+def test_tier_hooks_are_off_on_in_memory_stores(tmp_path):
     ds = tsdot.Context(device="cpu").ingest_dataframe(
         "t", make_sales_df(n=100), time_column="ts")
     assert TC.tier_io_budget(ds, TConfig()) is None
     assert TC.tier_io_seg_bytes(ds, ["qty"]) is None
+    # on a tiered datasource both hooks answer as the JAX package's do:
+    # the configured per-wave I/O cap, and the hot-set bytes one segment
+    # faults (compressed bytes on an encoded root)
+    seg_bytes = {}
+    for encoded in (False, True):
+        root = tmp_path / f"enc{int(encoded)}"
+        seed = tsdot.Context({"sdot.persist.path": str(root),
+                              "sdot.encode.enabled": encoded}, device="cpu")
+        seed.ingest_dataframe("t", make_sales_df(n=3000), time_column="ts",
+                              target_rows=1024)
+        seed.checkpoint()
+        seed.close()
+        cfg = {"sdot.persist.path": str(root), "sdot.tier.enabled": True,
+               "sdot.tier.wave.io.bytes": 1 << 16}
+        tctx = tsdot.Context(cfg, device="cpu")
+        jctx = jsdot.Context(cfg)
+        tds, jds = tctx.store.get("t"), jctx.store.get("t")
+        assert TC.tier_io_budget(tds, tctx.config) \
+            == JC.tier_io_budget(jds, jctx.config) == 1 << 16
+        names = ["qty", "region", "__rows__"]
+        got = seg_bytes[encoded] = TC.tier_io_seg_bytes(tds, names)
+        assert got == JC.tier_io_seg_bytes(jds, names)
+        assert 0 < got <= TC.bytes_per_segment(tds, names[:2])
+        tctx.close()
+        jctx.close()
+    assert seg_bytes[True] < seg_bytes[False]
 
 
 # -- the engine ---------------------------------------------------------------
