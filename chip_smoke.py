@@ -41,10 +41,10 @@ waves) against pandas and the host tier, and three windowed statements
 bounded min / max frame and a row number over ~370,000 orders) against
 pandas. Phase ``ingest`` reports the native string encoder: which columns
 it encoded, pyarrow's version, and orders ingested with and without it.
-Phase ``spatial`` ingests lineitem with a spatial dimension and runs a
-statement whose two ranges collapse into one spatial filter (B1), the
-same filter as one lane of a storm (B2), and bounding-box pruning on a
-synthetic table against its unpruned answer. Phase ``serving`` runs
+Phase ``spatial`` ingests lineitem (without ``l_comment``) with a
+spatial dimension and runs a statement whose two ranges collapse into one
+spatial filter (B1), the same filter as one lane of a storm (B2), and
+bounding-box pruning on a synthetic table against its unpruned answer. Phase ``serving`` runs
 the result cache, WLM and cancellation with their defaults over the flat
 star: phase ``sql``'s statements as warm misses and as hits (each hit bit
 for bit the miss that put it, the engine / session split, ``wlm.admit``
@@ -84,8 +84,21 @@ compacts the appended tail (B2's padded rows and time before and
 after) and runs ``sys_snapshots``, RESTORE and CLEAR METADATA ... PURGE;
 phase ``modules`` installs a module from ``sdot.modules`` (a string
 function grouped on through B1, a spec rule, a statement handler) and runs
-Q1's QuerySpec as ``ON DATASOURCE ... EXECUTE QUERY``. Every B1 and B2
-call of these phases is held against its plain version. Its last phase,
+Q1's QuerySpec as ``ON DATASOURCE ... EXECUTE QUERY``. Phase ``server``
+(after ``serving``) serves phase ``sql``'s flat star from the port's
+HTTP ``SqlServer`` on a loopback port: phase sql's 8 statements as JSON
+and as Arrow, each response byte for byte the in-process answer, Q1's
+QuerySpec on ``/query``, 8 clients at once into a one-slot lane (one
+wave launch), a shed (429) and a cancel (499), and two statements over
+Arrow Flight. Phase ``cluster`` (after ``modules``) boots 3 historicals
+and a broker on the card over phase ``persist``'s raw SF1 lineitem root
+(replication 2, shared scan on every node) and runs Q1, Q6, a TopN and
+an HLL + theta + KLL statement through the broker against the single
+context over the same root, the 8-spec storm twice (wave launches per
+historical), a historical stopped mid-storm with zero mismatches, its
+restart and a 10,000-row ``stream_ingest`` read back through the
+broker. Every B1 and B2 call of these phases is held against its plain
+version. Its last phase,
 ``waves``, ingests the run's SF1 lineitem again without ``l_comment``
 (cut from SF10, whose run passed 1,000 s, then from SF5, SF3 and SF2 for
 the phases above) and runs Q1, the
@@ -1188,12 +1201,15 @@ def bound(nbytes, ops):
     return max(b_bytes, b_ops), "bytes" if b_bytes >= b_ops else "operations"
 
 
-def b1_checked(CG, case, calls) -> dict:
+def b1_checked(CG, case, calls, timed_shapes=None) -> dict:
     """Each call a path made to the B1 wrapper, held against the plain
     version on the same inputs (launched twice, bit-identical) and timed as
     phase ``timing`` times the main path's queries (the plain version and
     the library call over ``PLAIN_REPEATS``); the sums and each call's
-    shape and times."""
+    shape and times. With ``timed_shapes`` (a set), a call whose shape
+    (rows, keys, aggregates, their masks) an earlier call of the set was
+    timed at is checked but not timed again: its entry says ``timed``
+    false and the sums leave it out (ms, plain, bound and library alike)."""
     out = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
            "library_ms": 0.0, "calls": []}
     for i, (key, n_keys, inputs, max_keys) in enumerate(calls):
@@ -1210,6 +1226,16 @@ def b1_checked(CG, case, calls) -> dict:
         if not same_bits(got, again):
             raise AssertionError(f"{what}: two launches differ")
         err = compare(what, got, want, inputs)
+        if timed_shapes is not None:
+            shape = (int(key.numel()), n_keys, max_keys,
+                     tuple((a.kind, a.mask is not None) for a in inputs))
+            if shape in timed_shapes:
+                out["calls"].append(dict(
+                    rows=int(key.numel()), n_keys=n_keys,
+                    n_aggs=len(inputs), max_abs_err=err, timed=False))
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+                continue
+            timed_shapes.add(shape)
         k_ms, p_ms = device_ms(kernel), device_ms(plain, PLAIN_REPEATS)
         l_ms = device_ms(lambda: library_call(key, n_keys, inputs),
                          PLAIN_REPEATS)
@@ -1231,15 +1257,26 @@ def b1_checked(CG, case, calls) -> dict:
     return out
 
 
-def wave_timed(CW, case, program, layout, cols) -> dict:
+def wave_timed(CW, case, program, layout, cols, timed_shapes=None) -> dict:
     """A wave launch a path made, held against the plain version on the
     same inputs in every register-file layout that fits (each twice,
     bit-identical) and timed as phase ``timing`` times the storm's (the
-    plain version over ``PLAIN_REPEATS``)."""
+    plain version over ``PLAIN_REPEATS``). With ``timed_shapes`` (a set),
+    a launch of a program and layout already timed is checked only:
+    ``timed`` false, and no ms, plain_ms or bound_ms."""
     want = CW.wave_reference(program, cols, layout)
     err = wave_checked(CW, case, program, layout, cols, want)[1]
     nbytes, ops = wave_work(program, layout, cols)
     b_ms, b_by = bound(nbytes, ops)
+    if timed_shapes is not None:
+        shape = (int(cols[0].numel()), len(layout.lanes),
+                 len(program.instrs), program.n_regs,
+                 tuple(program.columns), layout.file, repr(program.instrs))
+        if shape in timed_shapes:
+            return dict(rows=int(cols[0].numel()), lanes=len(layout.lanes),
+                        max_abs_err=err, timed=False, ms=0.0, plain_ms=0.0,
+                        bound_ms=0.0, bound_by=b_by)
+        timed_shapes.add(shape)
     return dict(
         rows=int(cols[0].numel()), lanes=len(layout.lanes),
         instructions=len(program.instrs), registers=program.n_regs,
@@ -3575,7 +3612,8 @@ def spatial_points(n, rng):
 
 
 def spatial_phase(sdt, df, S, E, CG, CW) -> dict:
-    """Phase ``spatial``: SF1 lineitem ingested with ``SPATIAL_DIMS``; a
+    """Phase ``spatial``: SF1 lineitem (without ``l_comment``) ingested
+    with ``SPATIAL_DIMS``; a
     statement whose two ranges collapse into one ``SpatialFilter`` (B1)
     against pandas; the same filter as one lane of a three-lane storm (one
     B2 launch) against its solo answer; and pruning by bounding box on a
@@ -3585,6 +3623,10 @@ def spatial_phase(sdt, df, S, E, CG, CW) -> dict:
     from spark_druid_olap_tpu_torch.sql.parser import parse_select
     t_phase = time.perf_counter()
     sp = sdt.Context(ENGINE_TIMED)
+    # without l_comment, which no statement here reads (its 6M distinct
+    # strings were most of this ingest's ~28 s; cut for the run's 900 s
+    # when the server and cluster phases came)
+    df = df.drop(columns="l_comment")
     t0 = time.perf_counter()
     ds = sp.ingest_dataframe("lineitem", df, time_column="l_shipdate",
                              spatial_dims=SPATIAL_DIMS)
@@ -5321,7 +5363,8 @@ def kill9_leg(sdt, S, E, tmp, spies) -> dict:
                 recovery_ms=recover_ms, recovery=info)
 
 
-def persist_phase(sdt, S, E, lineitem_ds, df, append, CG, CW, smi) -> dict:
+def persist_phase(sdt, S, E, lineitem_ds, df, append, CG, CW, smi,
+                  keep_root=None) -> dict:
     """Phase ``persist``: (a) CHECKPOINT of SF1 lineitem raw and encoded
     (seconds, bytes, codecs, the largest dictionary's JSON encode alone,
     disk space); (b) a fresh context over each root (recovery and
@@ -5399,6 +5442,10 @@ def persist_phase(sdt, S, E, lineitem_ds, df, append, CG, CW, smi) -> dict:
         out["checkpoint"] = ck
         out["disk_free_gb_after_checkpoints"] = \
             shutil.disk_usage(tmp).free / 1e9
+        if keep_root is not None:
+            # phase cluster's deep storage: the raw root as checkpointed
+            # (blobs linked, the still empty WAL copied)
+            link_root(roots["raw"], keep_root)
         step("checkpoint")
         # (b) recovery
         rec = {}
@@ -5726,7 +5773,645 @@ def modules_phase(sdt, S, E, lineitem_ds, df, CG, CW, smi) -> dict:
     return out
 
 
-NEW_PHASES = ("ssb", "rollup", "append", "persist", "modules")
+# -- the serving layer (phase "server") ---------------------------------------
+
+SERVER_JSON_POSTS = 3            # JSON posts per statement (round trip ms)
+SERVER_INPROCESS_REPEATS = 3     # in-process warm runs per statement
+SERVER_FLIGHT_SQL = ["q1", "q6"]
+SERVER_SHED_CONFIG = {**ENGINE_TIMED, "sdot.wlm.lanes": "only:slots=1,queue=0",
+                      "sdot.wlm.default.lane": "only"}
+
+
+def http_call(port, path, payload=None, headers=None, timeout=300):
+    """One request to a loopback server -> (status, headers, body bytes);
+    an HTTP error status is returned, not raised."""
+    import urllib.error
+    import urllib.request
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=data,
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def arrow_frame(body):
+    import io
+    import pyarrow as pa
+    return pa.ipc.open_stream(io.BytesIO(body)).read_all().to_pandas()
+
+
+def json_frame(body, like):
+    """A ``POST /sql`` JSON body as a frame with ``like``'s dtypes."""
+    import pandas as pd
+    doc = json.loads(body.decode())
+    rows = doc["rows"]
+    return pd.DataFrame({c: pd.Series([r[c] for r in rows],
+                                      dtype=like[c].dtype)
+                         for c in doc["columns"]})
+
+
+class Gate:
+    """Replaces an engine's ``_execute_admitted`` while installed: each
+    statement that reaches it (its WLM slot held) waits for ``release``,
+    then runs on the real method."""
+
+    def __init__(self, engine):
+        import threading
+        self.engine, self.real = engine, engine._execute_admitted
+        self.entered, self.release = threading.Event(), threading.Event()
+
+    def __enter__(self):
+        def gated(q, t0):
+            self.entered.set()
+            if not self.release.wait(120):
+                raise AssertionError("gate never released")
+            return self.real(q, t0)
+        self.engine._execute_admitted = gated
+        return self
+
+    def __exit__(self, *exc):
+        self.release.set()
+        del self.engine._execute_admitted
+
+
+def server_phase(sdt, flat_ds, lineitem_ds, S, E, df, CG, CW, smi) -> dict:
+    """Phase ``server``: the port's ``SqlServer`` on a loopback port over
+    phase sql's SF1 flat star (nothing new ingested). Phase sql's 8
+    statements posted as JSON and as Arrow, each response byte for byte
+    the in-process ``Context.sql`` answer encoded by the server's own
+    encoders (a statement on the scatter tier, whose float sums follow
+    the atomics' order, decoded and held within rtol 1e-9); Q1's QuerySpec
+    posted raw to ``/query``; 8 statements posted at once from 8 client
+    threads into a one-slot lane (one B2 launch, as phase serving's
+    handoff storm); one statement cancelled mid-flight (499) and one shed
+    under a one-slot lane (429 with ``Retry-After``); two statements over
+    Arrow Flight ``do_get``."""
+    import threading
+
+    from spark_druid_olap_tpu_torch.ir import serde
+    from spark_druid_olap_tpu_torch.server import flight as F
+    from spark_druid_olap_tpu_torch.server import http as H
+    from spark_druid_olap_tpu_torch.tools import tpch
+    t_phase = time.perf_counter()
+    spies = KernelSpies(CG, CW)
+    star = tpch.star_schema("tpch_flat")
+    ctx = serving_context(sdt, flat_ds, star, ENGINE_TIMED)
+    ctx.store.register(lineitem_ds)
+    srv = H.SqlServer(ctx, "127.0.0.1", 0).start()
+    out = {"card": smi}
+    servers = [srv]
+    try:
+        # (a) phase sql's statements: JSON and Arrow vs in-process
+        stmts = {}
+        for name in SQL_MAIN:
+            sql = tpch.QUERIES[name]
+            want = ctx.sql(sql).to_pandas()           # plans, columns warm
+            route = ctx.history.entries()[-1].stats.get("route")
+            warm = []
+            for _ in range(SERVER_INPROCESS_REPEATS):
+                t = time.perf_counter()
+                want = ctx.sql(sql).to_pandas()
+                warm.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            want_json = H._df_to_json_rows(want)
+            enc_json_ms = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            want_arrow = H._df_to_arrow(want)
+            enc_arrow_ms = (time.perf_counter() - t) * 1e3
+            exact = route != "scatter"
+            rt = []
+            for i in range(SERVER_JSON_POSTS):
+                qid = f"server-{name}-{i}"
+                t = time.perf_counter()
+                code, _, body = spies.run(lambda: http_call(
+                    srv.port, "/sql", {"sql": sql, "queryId": qid}))
+                rt.append((time.perf_counter() - t) * 1e3)
+                if code != 200:
+                    raise AssertionError(f"server {name}: http {code} "
+                                         f"{body[:200]}")
+                if exact:
+                    if body != want_json[:-1] + \
+                            b', "queryId": "%s"}' % qid.encode():
+                        raise AssertionError(f"server {name}: JSON differs "
+                                             f"from the in-process answer")
+                else:
+                    check_frame(f"server {name} json", json_frame(body, want),
+                                want, None, FLOAT_SUM_RTOL_KERNEL)
+            t = time.perf_counter()
+            code, hdrs, abody = spies.run(lambda: http_call(
+                srv.port, "/sql", {"sql": sql, "format": "arrow"}))
+            arrow_ms = (time.perf_counter() - t) * 1e3
+            if code != 200 or hdrs.get("Content-Type") != \
+                    "application/vnd.apache.arrow.stream":
+                raise AssertionError(f"server {name} arrow: http {code}")
+            if exact:
+                if abody != want_arrow:
+                    raise AssertionError(f"server {name}: Arrow differs from "
+                                         f"the in-process answer")
+            else:
+                check_frame(f"server {name} arrow", arrow_frame(abody), want,
+                            None, FLOAT_SUM_RTOL_KERNEL)
+            stmts[name] = dict(
+                route=route, exact_bytes=exact, rows=len(want),
+                http_json_ms=statistics.median(rt), http_json_all_ms=rt,
+                http_arrow_ms=arrow_ms,
+                inprocess_warm_ms=statistics.median(warm),
+                overhead_ms=statistics.median(rt) - statistics.median(warm),
+                encode_json_ms=enc_json_ms, encode_arrow_ms=enc_arrow_ms,
+                json_bytes=len(want_json), arrow_bytes=len(want_arrow))
+        out["statements"] = stmts
+        if spies.b1_launches < len(SQL_MAIN) - len(SQL_MEDIUM_K):
+            raise AssertionError(f"server: {spies.b1_launches} B1 launches "
+                                 f"for phase sql's statements")
+        # (b) Q1's QuerySpec on the raw wire
+        q1 = q1_spec(S, E)
+        want = ctx.execute(q1).to_pandas()
+        t = time.perf_counter()
+        code, _, body = spies.run(lambda: http_call(
+            srv.port, "/query", serde.query_to_dict(q1)))
+        raw_ms = (time.perf_counter() - t) * 1e3
+        if code != 200 or body != H._df_to_json_rows(want):
+            raise AssertionError(f"server /query: http {code}, or not the "
+                                 f"in-process answer")
+        check_q1(json_frame(body, want), q1_oracle(df))
+        out["raw_query"] = {"ms": raw_ms, "bytes": len(body)}
+        # (c) 8 client threads into a one-slot lane: one shared-scan group
+        sctx = serving_context(sdt, flat_ds, star,
+                               {**ENGINE_TIMED, **HANDOFF_CONFIG})
+        ssrv = H.SqlServer(sctx, "127.0.0.1", 0).start()
+        servers.append(ssrv)
+        queries = [tpch.QUERIES[n] for n in HANDOFF_SQL]
+        solo = {n: ctx.sql(tpch.QUERIES[n]).to_pandas() for n in HANDOFF_SQL}
+        for sql in dict.fromkeys(queries):            # plans and columns warm
+            sctx.sql(sql)
+        lane0 = next(ln for ln in sctx.engine.wlm.stats()["lanes"]
+                     if ln["lane"] == "interactive")
+        ss0 = sctx.engine.sharedscan.stats()
+        res, ends = [None] * len(queries), [0.0] * len(queries)
+        bar = threading.Barrier(len(queries))
+
+        def client(i):
+            bar.wait()
+            res[i] = http_call(ssrv.port, "/sql",
+                               {"sql": queries[i], "format": "arrow"})
+            ends[i] = time.perf_counter()
+
+        def storm():
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(len(queries))]
+            t = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(300)
+            return (max(ends) - t) * 1e3
+        storm_ms = spies.run(storm)
+        for name, (code, _, body) in zip(HANDOFF_SQL, res):
+            if code != 200:
+                raise AssertionError(f"server storm {name}: http {code}")
+            check_frame(f"server storm {name} vs solo", arrow_frame(body),
+                        solo[name], None, FLOAT_SUM_RTOL_KERNEL)
+        lane = next(ln for ln in sctx.engine.wlm.stats()["lanes"]
+                    if ln["lane"] == "interactive")
+        ss = sctx.engine.sharedscan.stats()
+        st = {"clients": len(queries), "wall_ms": storm_ms,
+              "admitted": lane["admitted"] - lane0["admitted"],
+              "wlm_handoffs": ss["wlm_handoffs"] - ss0["wlm_handoffs"],
+              "queries_coalesced": ss["queries_coalesced"]
+              - ss0["queries_coalesced"],
+              "wave_launches": ss["wave_launches"] - ss0["wave_launches"],
+              "max_active_seen": lane["max_active_seen"]}
+        if st["max_active_seen"] != 1 or st["wlm_handoffs"] < 1 \
+                or st["wave_launches"] < 1 \
+                or st["admitted"] != len(queries):
+            raise AssertionError(f"server storm: {st}")
+        lanes_idle("server storm", sctx)
+        out["storm"] = st
+        # (d) a shed (429) and a cancel (499) under a one-slot lane
+        shed_ctx = serving_context(sdt, flat_ds, star, SERVER_SHED_CONFIG)
+        qsrv = H.SqlServer(shed_ctx, "127.0.0.1", 0).start()
+        servers.append(qsrv)
+        q6_sql = tpch.QUERIES["q6"]
+        want6 = ctx.sql(q6_sql).to_pandas()
+        held = {}
+
+        def holder(qid, key):
+            held[key] = http_call(qsrv.port, "/sql",
+                                  {"sql": q6_sql, "queryId": qid})
+
+        with Gate(shed_ctx.engine) as gate:
+            th = threading.Thread(target=holder, args=("server-held", "held"))
+            th.start()
+            if not gate.entered.wait(60):
+                raise AssertionError("server shed: the holder never ran")
+            code, hdrs, body = http_call(qsrv.port, "/sql", {"sql": q6_sql})
+            gate.release.set()
+            spies.run(lambda: th.join(120))
+        shed = json.loads(body.decode())
+        if code != 429 or int(hdrs.get("Retry-After", 0)) < 1 \
+                or shed.get("error") != "LaneFullError":
+            raise AssertionError(f"server shed: http {code} {shed}")
+        hcode, _, hbody = held["held"]
+        if hcode != 200:
+            raise AssertionError(f"server shed holder: http {hcode}")
+        check_frame("server shed holder", json_frame(hbody, want6), want6,
+                    None, 0.0)
+        with Gate(shed_ctx.engine) as gate:
+            th = threading.Thread(target=holder,
+                                  args=("server-cancel", "cancel"))
+            th.start()
+            if not gate.entered.wait(60):
+                raise AssertionError("server cancel: the victim never ran")
+            t = time.perf_counter()
+            code, _, body = http_call(qsrv.port, "/sql/cancel",
+                                      {"queryId": "server-cancel"})
+            gate.release.set()
+            spies.run(lambda: th.join(120))
+            cancel_ms = (time.perf_counter() - t) * 1e3
+        vcode, _, vbody = held["cancel"]
+        if code != 200 or not json.loads(body)["cancelled"] or vcode != 499 \
+                or json.loads(vbody)["error"] != "QueryCancelled":
+            raise AssertionError(f"server cancel: cancel http {code} "
+                                 f"{body[:100]}, victim http {vcode} "
+                                 f"{vbody[:200]}")
+        code, _, body = spies.run(lambda: http_call(
+            qsrv.port, "/sql", {"sql": q6_sql}))
+        check_frame("server after cancel", json_frame(body, want6), want6,
+                    None, 0.0)
+        lanes_idle("server shed / cancel", shed_ctx)
+        out["shed"] = {"status": 429, "retry_after_s":
+                       int(hdrs.get("Retry-After", 0))}
+        out["cancel"] = {"status": vcode, "ms_to_answer": cancel_ms}
+        # (e) Arrow Flight do_get
+        import pyarrow.flight as flight
+        fsrv = F.SdotFlightServer(ctx, "grpc://127.0.0.1:0")
+        client = flight.connect(f"grpc://127.0.0.1:{fsrv.port}")
+        try:
+            fl = {}
+            for name in SERVER_FLIGHT_SQL:
+                sql = tpch.QUERIES[name]
+                want = ctx.sql(sql).to_pandas()
+                cmd = F.encode_statement_query(sql)
+                t = time.perf_counter()
+                table = spies.run(lambda: client.do_get(
+                    flight.Ticket(cmd)).read_all())
+                fl[name] = {"ms": (time.perf_counter() - t) * 1e3,
+                            "rows": table.num_rows,
+                            "bytes": table.nbytes}
+                bit_equal(f"server flight {name}", table.to_pandas(), want)
+            out["flight"] = fl
+        finally:
+            client.close()
+            fsrv.shutdown()
+        code, _, body = http_call(srv.port, "/metadata/wlm")
+        out["metadata_wlm_lanes"] = len(json.loads(body)["lanes"])
+    finally:
+        for x in servers:
+            x.stop()
+    timed = set()
+    out["kernels"] = {"b1": b1_checked(CG, "server", spies.b1, timed),
+                      "b2": [wave_timed(CW, f"server b2[{i}]", *w)
+                             for i, w in enumerate(spies.b2)]}
+    out["b1_launches"], out["b2_launches"] = spies.b1_launches, \
+        spies.b2_launches
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# -- the broker / historical cluster (phase "cluster") ------------------------
+
+CLUSTER_NODES = 3
+CLUSTER_WARM = 3                 # warm runs per statement, broker and single
+CLUSTER_INGEST_ROWS = 10_000
+# docs/DISTRIBUTED.md's storm serving config on every historical
+# (shared scan, single-slot lanes), plus the storm's monthly-lane key tier
+CLUSTER_HIST_CONFIG = {
+    **ENGINE_TIMED, "sdot.sharedscan.enabled": True,
+    "sdot.sharedscan.max.queries": 64, "sdot.wlm.batch.window.ms": 25.0,
+    "sdot.wlm.lanes": ("interactive:slots=1,queue=256;"
+                       "reporting:slots=1,queue=64;batch:slots=1,queue=32"),
+    "sdot.engine.groupby.pallas.max.keys": 128}
+# the broker passes the storm's concurrency through (DISTRIBUTED.md:
+# scatter threads ~ users x shards, lanes at least as wide as the users)
+CLUSTER_BROKER_CONFIG = {
+    **ENGINE_TIMED, "sdot.cluster.role": "broker",
+    "sdot.cluster.replication": 2,
+    "sdot.cluster.probe.interval.seconds": 0.2,
+    "sdot.cluster.retry.backoff.start.seconds": 0.01,
+    "sdot.cluster.scatter.threads": 32,
+    "sdot.wlm.lanes": ("interactive:slots=16,queue=256;"
+                       "reporting:slots=16,queue=64;batch:slots=16,queue=64"),
+    "sdot.engine.groupby.pallas.max.keys": 128}
+CLUSTER_SQL = {
+    "q1": None,          # tpch.QUERIES, over lineitem
+    "q6": None,
+    "topn": ("select l_shipmode, sum(l_extendedprice) as rev, "
+             "count(*) as n from lineitem group by l_shipmode "
+             "order by rev desc limit 3"),
+    "sketch": ("select l_returnflag, l_linestatus, count(*) as n, "
+               "approx_count_distinct(l_orderkey) as u_order, "
+               "approx_count_distinct_theta(l_suppkey) as t_supp, "
+               "percentile_approx(l_extendedprice, 0.5) as p50 "
+               "from lineitem group by l_returnflag, l_linestatus "
+               "order by l_returnflag, l_linestatus"),
+}
+
+
+def link_root(src, dst):
+    """A copy of a persist root whose snapshot blobs are hard links (a
+    snapshot version never changes once written) and whose other files
+    (the WAL, pointers, manifests, dictionaries) are copies."""
+    import os
+    import shutil
+
+    def copy(a, b):
+        if a.endswith(".bin"):
+            os.link(a, b)
+        else:
+            shutil.copy2(a, b)
+    shutil.copytree(src, dst, copy_function=copy)
+
+
+def free_ports(n):
+    import socket
+    socks = []
+    for _ in range(n):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+class RpcLog:
+    """Wraps a broker client's ``_rpc``: each subquery RPC's node, ms and
+    response bytes, while installed."""
+
+    def __init__(self, client):
+        self.client, self.real, self.calls = client, client._rpc, []
+
+    def __enter__(self):
+        def rpc(st, node_id, payload, deadline, path="/cluster/subquery"):
+            t = time.perf_counter()
+            status, body = self.real(st, node_id, payload, deadline,
+                                     path=path)
+            self.calls.append((node_id, (time.perf_counter() - t) * 1e3,
+                               len(body), status))
+            return status, body
+        self.client._rpc = rpc
+        return self
+
+    def __exit__(self, *exc):
+        del self.client._rpc
+
+    def summary(self, since=0) -> dict:
+        out = {}
+        for nid, ms, nbytes, status in self.calls[since:]:
+            d = out.setdefault(str(nid), {"rpcs": 0, "ms": [], "bytes": 0})
+            d["rpcs"] += 1
+            d["ms"].append(ms)
+            d["bytes"] += nbytes
+        for d in out.values():
+            d["median_ms"] = statistics.median(d.pop("ms"))
+        return out
+
+
+def cluster_phase(sdt, root, S, E, df, CG, CW, smi, device="cuda") -> dict:
+    """Phase ``cluster``: 3 in-process historicals and a broker on the
+    card over phase persist's raw SF1 lineitem root (6 segments; shards at
+    their default, one per node; replication 2; shared scan on with the
+    storm serving config of docs/DISTRIBUTED.md). Q1, Q6, a TopN and an
+    HLL + theta + KLL statement through the broker against the
+    single-process context over the same root (ints, dims and sketch
+    estimates exact, floats rtol 1e-9); the 8-spec storm from 8 threads
+    (the B2 launches per historical); a historical stopped mid-storm with
+    zero mismatches; its restart, probed back up; a 10,000-row
+    ``stream_ingest`` pushed to the shard's owners and read back through
+    the broker (read-your-writes)."""
+    import threading
+
+    from spark_druid_olap_tpu_torch.cluster.historical import HistoricalNode
+    from spark_druid_olap_tpu_torch.tools import tpch
+    t_phase = time.perf_counter()
+    spies = KernelSpies(CG, CW)
+    out = {"card": smi, "nodes": CLUSTER_NODES}
+    nodes_csv = ",".join(f"127.0.0.1:{p}" for p in free_ports(CLUSTER_NODES))
+    common = {**CLUSTER_HIST_CONFIG, "sdot.persist.path": root,
+              "sdot.cluster.nodes": nodes_csv,
+              "sdot.cluster.replication": 2}
+    hist, broker, single = [], None, None
+    try:
+        boot_ms = []
+        for i in range(CLUSTER_NODES):
+            t = time.perf_counter()
+            hist.append(HistoricalNode(dict(common), node_id=i,
+                                       device=device).start())
+            boot_ms.append((time.perf_counter() - t) * 1e3)
+        out["boot_ms"] = boot_ms
+        out["shards"] = {str(h.node_id): h.ctx.store.names() for h in hist}
+        t = time.perf_counter()
+        broker = sdt.Context({**CLUSTER_BROKER_CONFIG,
+                              "sdot.persist.path": root,
+                              "sdot.cluster.nodes": nodes_csv}, device=device)
+        out["broker_boot_ms"] = (time.perf_counter() - t) * 1e3
+        single = sdt.Context({**ENGINE_TIMED, "sdot.persist.path": root},
+                             device=device)
+        cl = broker.cluster
+        plan = cl.plan.datasources["lineitem"]
+        out["plan"] = {"shards": plan.n_shards, "segments": plan.num_segments,
+                       "rows": plan.num_rows,
+                       "owners": {str(sh.index): list(sh.owners)
+                                  for sh in plan.shards}}
+        if plan.n_shards != CLUSTER_NODES:
+            raise AssertionError(f"cluster: {plan.n_shards} shards")
+        rpc = RpcLog(cl)
+        stmts = {}
+        with rpc:
+            for name, sql in CLUSTER_SQL.items():
+                sql = sql or tpch.QUERIES[name]
+                want = single.sql(sql).to_pandas()
+                since = len(rpc.calls)
+                t = time.perf_counter()
+                got = spies.run(lambda: broker.sql(sql).to_pandas())
+                cold_ms = (time.perf_counter() - t) * 1e3
+                st = dict(broker.engine.last_stats.get("cluster") or {})
+                if st.get("mode") != "scatter":
+                    raise AssertionError(f"cluster {name}: {st}")
+                if name == "sketch":
+                    bit_equal("cluster sketch vs single", got, want)
+                else:
+                    check_frame(f"cluster {name} vs single", got, want, None,
+                                FLOAT_SUM_RTOL_KERNEL)
+                rpc_cold, mid = rpc.summary(since), len(rpc.calls)
+                warm, swarm, merge = [], [], []
+                for _ in range(CLUSTER_WARM):
+                    t = time.perf_counter()
+                    spies.run(lambda: broker.sql(sql).to_pandas())
+                    warm.append((time.perf_counter() - t) * 1e3)
+                    merge.append(broker.engine.last_stats["cluster"]
+                                 ["merge_ms"])
+                    t = time.perf_counter()
+                    single.sql(sql).to_pandas()
+                    swarm.append((time.perf_counter() - t) * 1e3)
+                stmts[name] = dict(
+                    rows=len(got), cold_ms=cold_ms,
+                    scatter_ms=statistics.median(warm), merge_ms=statistics
+                    .median(merge), single_warm_ms=statistics.median(swarm),
+                    broker_over_single=statistics.median(warm)
+                    / statistics.median(swarm),
+                    shards=st.get("shards"), nodes=st.get("nodes"),
+                    rpc_cold=rpc_cold, rpc_warm=rpc.summary(mid))
+        out["statements"] = stmts
+        # (b) the 8-spec storm from 8 threads: per-node coalescing (B2)
+        specs = storm_specs(S, E)
+        names, slist = list(specs), list(specs.values())
+        solo = {n: single.execute(q).to_pandas() for n, q in specs.items()}
+        ss0 = [h.ctx.engine.sharedscan.stats() for h in hist]
+        res, storm_ms, _ = spies.run(lambda: run_storm(broker, slist))
+        ss1 = [h.ctx.engine.sharedscan.stats() for h in hist]
+        for n, got in zip(names, res):
+            check_frame(f"cluster storm {n} vs single", got, solo[n], None,
+                        FLOAT_SUM_RTOL_KERNEL)
+        per_node = {str(h.node_id): {
+            k: ss1[i][k] - ss0[i][k] for k in
+            ("queries_coalesced", "wave_launches", "wave_fallbacks",
+             "solo_groups")} for i, h in enumerate(hist)}
+        for i, h in enumerate(hist):
+            per_node[str(h.node_id)]["wave_fallback_reasons"] = {
+                k: v - ss0[i]["wave_fallback_reasons"].get(k, 0)
+                for k, v in ss1[i]["wave_fallback_reasons"].items()
+                if v != ss0[i]["wave_fallback_reasons"].get(k, 0)}
+        if any(d["wave_launches"] < 1 for d in per_node.values()):
+            raise AssertionError(f"cluster storm: a historical launched no "
+                                 f"B2: {per_node}")
+        # the same storm again, every node's lane programs built
+        res, warm_storm_ms, _ = spies.run(lambda: run_storm(broker, slist))
+        for n, got in zip(names, res):
+            check_frame(f"cluster warm storm {n} vs single", got, solo[n],
+                        None, FLOAT_SUM_RTOL_KERNEL)
+        out["storm"] = {"queries": names, "cold_wall_ms": storm_ms,
+                        "warm_wall_ms": warm_storm_ms, "per_node": per_node}
+        # (c) one historical stopped mid-storm: zero mismatches
+        victim = 1
+        lock = threading.Lock()
+        done, ends, errors, mismatches = threading.Event(), [], [], []
+        failovers0 = cl.counters["failovers"]
+
+        def worker(i):
+            for k in range(2):
+                try:
+                    got = broker.execute(slist[(i + k) % len(slist)]) \
+                        .to_pandas()
+                    check_frame("failover", got,
+                                solo[names[(i + k) % len(slist)]], None,
+                                FLOAT_SUM_RTOL_KERNEL)
+                except AssertionError as e:
+                    mismatches.append(str(e)[:200])
+                except Exception as e:  # noqa: BLE001 — raised below
+                    errors.append(repr(e)[:200])
+                with lock:
+                    ends.append(time.perf_counter())
+                done.set()
+
+        def failover_storm():
+            threads = [threading.Thread(target=worker, args=(i,))
+                       for i in range(len(slist))]
+            for th in threads:
+                th.start()
+            if not done.wait(120):
+                raise AssertionError("cluster failover: no first answer")
+            t_stop = time.perf_counter()
+            hist[victim].ready = False
+            hist[victim].server.stop(join_timeout_s=0.2)
+            for th in threads:
+                th.join(300)
+            return t_stop
+        t_stop = spies.run(failover_storm)
+        if errors or mismatches:
+            raise AssertionError(f"cluster failover: errors {errors[:2]}, "
+                                 f"mismatches {mismatches[:2]}")
+        after = sorted(e for e in ends if e > t_stop)
+        out["failover"] = {
+            "victim": victim, "answers": len(ends), "mismatches": 0,
+            "answers_after_stop": len(after),
+            "stop_to_first_answer_ms": (after[0] - t_stop) * 1e3
+            if after else None,
+            "failovers": cl.counters["failovers"] - failovers0}
+        # (d) the restart, probed back up, then Q1 through it
+        hist[victim].stop()
+        t = time.perf_counter()
+        hist[victim] = HistoricalNode(dict(common), node_id=victim,
+                                      device=device).start()
+        restart_ms = (time.perf_counter() - t) * 1e3
+        deadline = time.monotonic() + 30
+        while cl.stats()["nodes"][victim]["state"] != "up":
+            if time.monotonic() > deadline:
+                raise AssertionError("cluster: restarted node never up")
+            time.sleep(0.02)
+        up_ms = (time.perf_counter() - t) * 1e3 - restart_ms
+        q1 = q1_spec(S, E)
+        got = spies.run(lambda: broker.execute(q1).to_pandas())
+        st = broker.engine.last_stats.get("cluster") or {}
+        if victim not in (st.get("nodes") or ()):
+            raise AssertionError(f"cluster restart: node {victim} unused "
+                                 f"{st}")
+        check_frame("cluster restart q1", got, solo["q1"], None,
+                    FLOAT_SUM_RTOL_KERNEL)
+        out["restart"] = {"boot_ms": restart_ms, "probe_up_ms": up_ms,
+                          "breaker_resets": cl.counters["breaker_resets"]}
+        # (e) stream_ingest pushed to the owners, read back (RYW)
+        batch = df.iloc[:CLUSTER_INGEST_ROWS].reset_index(drop=True)
+        single.close()
+        expect = sdt.Context(ENGINE_TIMED, device=device)
+        expect.store.register(single.store.get("lineitem"))
+        expect.stream_ingest("lineitem", batch, time_column="l_shipdate")
+        want = expect.execute(q1).to_pandas()
+        pushes0 = cl.counters["ingest_pushes"]
+        t = time.perf_counter()
+        broker.stream_ingest("lineitem", batch, time_column="l_shipdate")
+        ingest_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        got = spies.run(lambda: broker.execute(q1).to_pandas())
+        ryw_ms = (time.perf_counter() - t) * 1e3
+        st = broker.engine.last_stats.get("cluster") or {}
+        if st.get("mode") != "scatter" or cl.counters["ryw_scatters"] < 1:
+            raise AssertionError(f"cluster ingest: not a read-your-writes "
+                                 f"scatter: {st}")
+        check_frame("cluster ingest q1", got, want, None,
+                    FLOAT_SUM_RTOL_KERNEL)
+        ing = cl.stats()["ingest"]
+        out["ingest"] = {"rows": CLUSTER_INGEST_ROWS, "ms": ingest_ms,
+                         "q1_after_ms": ryw_ms,
+                         "pushes": cl.counters["ingest_pushes"] - pushes0,
+                         "push_failures": cl.counters["ingest_push_failures"],
+                         "state": ing["datasources"].get("lineitem")}
+        out["broker"] = {k: cl.counters[k] for k in (
+            "queries", "scatters", "subqueries", "retries", "failovers",
+            "local_fallbacks", "probe_marks_down", "probe_marks_up",
+            "ryw_scatters", "ingest_pushes")}
+    finally:
+        for h in hist:
+            h.stop()
+        if broker is not None:
+            broker.close()
+    timed = set()
+    out["kernels"] = {"b1": b1_checked(CG, "cluster", spies.b1, timed),
+                      "b2": [wave_timed(CW, f"cluster b2[{i}]", *w, timed)
+                             for i, w in enumerate(spies.b2)]}
+    out["b1_launches"], out["b2_launches"] = spies.b1_launches, \
+        spies.b2_launches
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+NEW_PHASES = ("ssb", "rollup", "append", "persist", "modules", "server",
+              "cluster")
 
 
 def main() -> int:
@@ -5893,7 +6578,8 @@ def main() -> int:
 
     # 4a''. the result cache, WLM and cancellation around the engine, with
     # the defaults, on phase sql's flat star
-    serving = serving_phase(sdt, S, E, extra.pop("flat_ds"),
+    flat_ds = extra.pop("flat_ds")
+    serving = serving_phase(sdt, S, E, flat_ds,
                             ctx.store.get("lineitem"), df, tables, CG, CW)
     emit("serving", card=smi, **serving,
          oracle="each hit bit for bit the frame of the miss that put it; "
@@ -5913,6 +6599,27 @@ def main() -> int:
               "cache_lookup: the statement's utils/phases host phases; "
               "kernels: timed as in phase timing (the plain version and "
               "the library call medians of 3)")
+
+    # 4b'. the HTTP SQL server and Arrow Flight over the same flat star
+    server = server_phase(sdt, flat_ds, ctx.store.get("lineitem"), S, E, df,
+                          CG, CW, smi)
+    del flat_ds
+    emit("server", **server,
+         oracle="each JSON and Arrow response byte for byte the in-process "
+                "Context.sql answer through the server's own encoders (a "
+                "statement on the scatter tier decoded, floats rtol 1e-9); "
+                "/query's Q1 byte for byte ctx.execute's and vs pandas "
+                "(floats rtol 1e-6); the 8-client storm's answers vs the "
+                "in-process ones (floats rtol 1e-9) in one shared-scan "
+                "group; the shed holder's and the post-cancel Q6 exact; "
+                "Flight tables bit for bit; each B1 call and B2 launch "
+                "inside the server vs its plain version (kernels)",
+         note="ms: host wall clock; http_json_ms: median of 3 POSTs (urllib "
+              "client, a new connection each, loopback), inprocess_warm_ms: "
+              "median of 3 ctx.sql calls; overhead_ms = their difference; "
+              "encode_*_ms: the server's encoder on the answer frame; "
+              "bytes: the response body; kernels: a B1 call of a shape "
+              "already timed in the phase is checked, not timed again")
 
     # 4c. rollups over lineitem and ssb_flat, stream appends, modules
     rollup = rollup_phase(sdt, ctx.store.get("lineitem"), df, CG, CW, smi)
@@ -5940,8 +6647,11 @@ def main() -> int:
               "dictionary merge and code remap of every column, O(rows)); "
               "q1_ms: the first Q1 after it (a result-cache miss, the new "
               "columns uploaded)")
+    import tempfile
+    cluster_tmp = tempfile.TemporaryDirectory(prefix="sdot_cluster_")
+    cluster_root = str(pathlib.Path(cluster_tmp.name) / "root")
     persist = persist_phase(sdt, S, E, ctx.store.get("lineitem"), df, append,
-                            CG, CW, smi)
+                            CG, CW, smi, keep_root=cluster_root)
     emit("persist", **persist,
          oracle="recovered stores vs the ingested store column by column, "
                 "bit for bit (dictionaries included); Q1 / Q6 / the storm "
@@ -5992,7 +6702,37 @@ def main() -> int:
                 "through SQL (floats rtol 1e-9) and pandas; each B1 call "
                 "vs its plain version (kernels)",
          note="ms: host wall clock to the frame")
-    new_phases = (ssb, rollup, append, persist, modules)
+    # 4d. the broker / historical cluster over phase persist's raw root
+    cluster = cluster_phase(sdt, cluster_root, S, E, df, CG, CW, smi)
+    cluster_tmp.cleanup()
+    emit("cluster", **cluster,
+         oracle="each broker answer vs the single-process context over the "
+                "same root (ints and dims exact, floats rtol 1e-9; the "
+                "sketch statement bit for bit); the storm's and the "
+                "failover storm's answers vs the single context's (floats "
+                "rtol 1e-9), zero mismatches; Q1 after the restart vs the "
+                "single context; Q1 after the 10,000-row stream_ingest vs "
+                "an in-memory context holding the same rows (floats rtol "
+                "1e-9), served by a read-your-writes scatter; each B1 call "
+                "and B2 launch inside the historicals vs its plain version "
+                "(kernels)",
+         note="ms: host wall clock; boot_ms: HistoricalNode.start (the "
+              "server, recovery of the root, the owned shards sliced); "
+              "scatter_ms: the broker's statement, median of 3 warm runs "
+              "(merge_ms inside it), single_warm_ms: the same statement on "
+              "the single context, median of 3; rpc_*: per node, subquery "
+              "RPCs (http.client, loopback) with their median ms and "
+              "response bytes, cold = the first run (shard columns "
+              "uploaded); storm cold_wall_ms: the first storm (each "
+              "node traces and builds its lane programs), warm_wall_ms: "
+              "the second; per_node: each historical's shared-scan "
+              "counters over the first; stop_to_first_answer_ms: from the "
+              "stop to the first broker answer completed after it; "
+              "probe_up_ms: from the restarted node's start returning to "
+              "the broker's prober marking it up; kernels: a call of a "
+              "shape already timed in the phase is checked, not timed "
+              "again")
+    new_phases = (ssb, rollup, append, persist, modules, server, cluster)
 
     captured = {}
     real_kernel = CG.dense_groupby_kernel
@@ -6287,7 +7027,8 @@ def main() -> int:
         worst = max(worst, k["max_abs_err"])
         for f in ("ms", "plain_ms", "bound_ms", "library_ms"):
             total[f] += k[f]
-        bound_by.update(c["bound_by"] for c in k["calls"])
+        bound_by.update(c["bound_by"] for c in k["calls"]
+                        if "bound_by" in c)
     sw, kw, ww = sql_k["wave"]["storm"], sketch["wave"], waves["b2"]
     pw = spatial["b2"]
     vw = serving["kernels"]["b2"] \

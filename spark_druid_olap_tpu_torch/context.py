@@ -12,8 +12,12 @@ running on the CPU. Tests pass ``device="cpu"``. With
 ``sdot.persist.path`` set, the context builds a persist manager
 (``persist/``) and recovers the root at construction; ``stream_ingest``
 then journals every batch before it is queryable, and ``checkpoint`` /
-``close`` publish and stop. The cluster tier is not ported (ROADMAP A.9):
-``stream_ingest`` raises when ``sdot.cluster.nodes`` is set.
+``close`` publish and stop. With ``sdot.cluster.nodes`` set and
+``sdot.cluster.role`` ``broker``, the context attaches the cluster client
+(``cluster/broker.py``) to its engine: eligible queries scatter to the
+historicals and merge, and ``stream_ingest`` pushes each acknowledged
+batch to its time-matched shard's owners. Historicals are built by
+``cluster/historical.py``.
 """
 
 from __future__ import annotations
@@ -35,6 +39,8 @@ from spark_druid_olap_tpu_torch.segment.ingest import (
 from spark_druid_olap_tpu_torch.segment.store import SegmentStore
 from spark_druid_olap_tpu_torch.utils import host_eval as _he
 from spark_druid_olap_tpu_torch.utils.config import (
+    CLUSTER_NODES,
+    CLUSTER_ROLE,
     Config,
     MODULES,
     PERSIST_PATH,
@@ -88,6 +94,17 @@ class Context:
             self.persist = PersistManager(self, ppath)
             self.persist.recover()
             self.persist.start_background()
+        # distributed serving tier (cluster/): a broker attaches the
+        # scatter/merge client to its engine; historicals are built by
+        # cluster/historical.py (they set sdot.cluster.role=historical
+        # and never attach a client — no recursive scatter)
+        self.cluster = None
+        if self.config.get(CLUSTER_NODES) \
+                and self.config.get(CLUSTER_ROLE) == "broker":
+            from spark_druid_olap_tpu_torch.cluster.broker import (
+                ClusterClient)
+            self.cluster = ClusterClient(self)
+            self.engine.cluster = self.cluster
         # the host tier runs uncorrelated sub-statements through the
         # engine when they push down (planner/host_exec.try_engine);
         # differential oracles turn it off to stay engine-free
@@ -149,22 +166,28 @@ class Context:
 
         When an ``ingest`` WLM lane is configured, each batch takes a lane
         slot for its apply, so producers share the admission fabric with
-        queries. The push to a cluster's historicals is not ported
-        (ROADMAP A.9)."""
-        if self.config.get("sdot.cluster.nodes"):
-            raise NotImplementedError(
-                "stream_ingest's push to cluster historicals not ported yet "
-                "(ROADMAP A.9)")
+        queries. On a broker, an acked batch is additionally pushed to the
+        time-matched shard's owners (``cluster/broker.py``) so distributed
+        reads keep read-your-writes; the push is an optimization, never
+        part of the durability or ACK path."""
         from spark_druid_olap_tpu_torch.segment.append import (
             apply_stream_ingest)
         kwargs = self._ingest_kwargs(kwargs)
         wlm = self.engine.wlm
         ticket = wlm.admit_ingest()
+        cl = self.cluster
+        token = cl.ingest_begin(name) if cl is not None else None
+        acked_df = None
         try:
             if self.persist is not None:
-                return self.persist.stream_ingest(name, df, kwargs)
-            return apply_stream_ingest(self, name, df, kwargs)
+                ds = self.persist.stream_ingest(name, df, kwargs)
+            else:
+                ds = apply_stream_ingest(self, name, df, kwargs)
+            acked_df = df
+            return ds
         finally:
+            if token is not None:
+                cl.ingest_finish(token, name, acked_df, kwargs)
             if ticket is not None:
                 wlm.release(ticket)
 
@@ -181,10 +204,15 @@ class Context:
 
     def close(self) -> None:
         """Stop background machinery (the persist checkpointer and
-        compactor) and close the journals. Safe to call more than once;
-        the context remains usable for queries."""
+        compactor, the cluster client's prober and scatter pool) and
+        close the journals. Safe to call more than once; the context
+        remains usable for queries."""
         if self.persist is not None:
             self.persist.stop()
+        if self.cluster is not None:
+            self.cluster.close()
+            self.cluster = None
+            self.engine.cluster = None
 
     def register_star_schema(self, star_schema) -> None:
         """Declare a star schema (``metadata/star.py``): joins over its

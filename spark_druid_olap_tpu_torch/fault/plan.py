@@ -5,8 +5,10 @@ inside the PyTorch package, which imports nothing of the JAX package.
 ``LaneFullError`` comes from the port's ``wlm/admit.py``. The port's
 sites are the WAL's, the snapshot publish's, compaction's, WLM
 admission's and the cold tier's (``tier.read`` before a cold load,
-``tier.verify`` over the bytes a first fault checksums); the cluster
-sites come with ROADMAP A.9.
+``tier.verify`` over the bytes a first fault checksums) and the
+cluster's (``rpc.connect``, ``rpc.request``, ``rpc.response``,
+``rpc.ingest``, ``hist.handle``, ``hist.ingest``, ``node.drain``,
+``epoch.publish``).
 
 A :class:`FaultPlan` is a seeded schedule of :class:`FaultRule`\\ s parsed
 from the ``sdot.fault.plan`` config key (JSON). Each rule names an

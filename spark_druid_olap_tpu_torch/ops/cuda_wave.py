@@ -154,6 +154,8 @@ build_info: Dict[str, object] = {}
 
 _lib = None
 _lib_lock = threading.Lock()
+# one lane trace at a time in the process (see ``compile_wave``)
+_trace_lock = threading.Lock()
 
 
 class WaveFallback(Exception):
@@ -711,7 +713,11 @@ def compile_wave(ds, lanes, min_day: int, max_day: int, fplan, *,
 
     tiles = [torch.zeros(PROBE_SHAPE, dtype=d) for d in dtypes]
     try:
-        gm = make_fx(probe, tracing_mode="fake")(*tiles)
+        # make_fx patches process-wide tracer state (torch.fx's current
+        # patcher): two engines of one process (a cluster's in-process
+        # historicals) tracing at once would corrupt each other's trace
+        with _trace_lock:
+            gm = make_fx(probe, tracing_mode="fake")(*tiles)
     except WaveFallback:
         raise
     except Exception as e:  # noqa: BLE001 — the reason names what failed

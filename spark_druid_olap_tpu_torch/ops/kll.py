@@ -18,8 +18,8 @@ over the rows whose ``t`` won their lane) and one integer count.
 
 Registers equal the JAX package's bit for bit; the uint32 hash runs on
 int64 tensors as in ``ops/hll.py``. ``merge``, ``identity_registers``,
-``estimate`` and ``rank_bound`` are copied (numpy). ``to_bytes`` /
-``from_bytes`` (the cluster wire) wait for ROADMAP A.9.
+``estimate``, ``to_bytes`` / ``from_bytes`` (the cluster's SDW1 register
+wire) and ``rank_bound`` are copied (numpy).
 """
 
 from __future__ import annotations
@@ -155,6 +155,17 @@ def estimate(regs: np.ndarray, fraction: float) -> np.ndarray:
                      max(lk - 1, 0))
     out = np.take_along_axis(vals_s, idx[:, None], axis=1)[:, 0]
     return np.where(total > 0, out, np.nan)
+
+
+def to_bytes(regs: np.ndarray) -> bytes:
+    """Serialize registers (little-endian int32) for the SDW1 wire."""
+    return np.ascontiguousarray(
+        np.asarray(regs, dtype="<i4")).tobytes()
+
+
+def from_bytes(buf: bytes, w: int) -> np.ndarray:
+    """Inverse of :func:`to_bytes`; reshapes to ``[-1, w]``."""
+    return np.frombuffer(buf, dtype="<i4").reshape(-1, w).astype(np.int32)
 
 
 def rank_bound(config) -> float:

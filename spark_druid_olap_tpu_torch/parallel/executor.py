@@ -4,7 +4,9 @@ tiers.
 Port of ``spark_druid_olap_tpu/parallel/executor.py``: ``QueryEngine.execute``
 (query-id registration, the in-flight registry and WLM admission,
 ``wlm/``) -> ``_execute_admitted`` (the semantic result cache,
-``cache/``, in front of the shared-scan coalescer) -> ``_execute_inner``
+``cache/``, then, on a cluster broker, the scatter of ``cluster``, the
+``cluster/broker.ClusterClient`` a broker's ``Context`` attaches, then
+the shared-scan coalescer) -> ``_execute_inner``
 -> ``_run_agg`` for GroupBy, Timeseries and TopN specs, ``_run_select``
 and ``_run_search`` for raw-row and dictionary searches, on one device.
 A cancel (``cancel``) or a deadline (``QueryContext.timeout_millis``)
@@ -37,7 +39,9 @@ the dictionary-functional lookup / regex / expression extractions.
 Sketch aggregates (HLL ``cardinality``, theta ``thetasketch``, KLL
 ``quantile``) run on the dense route as register ops after the dense
 group-by (``ops/hll.py``, ``ops/theta.py``, ``ops/kll.py``); their
-registers travel with the finals and are estimated on the host.
+registers travel with the finals and are estimated on the host, or, on a
+cluster historical (``partial_sketches``), ship raw for the broker's
+register merge.
 
 A scan whose bound arrays pass the per-device wave budget
 (``parallel/cost.wave_budget_bytes``, ``sdot.engine.wave.max.bytes``)
@@ -719,6 +723,15 @@ class QueryEngine:
         from spark_druid_olap_tpu_torch.fault import FaultInjector
         self.fault = FaultInjector.from_config(self.config)
         self.wlm.fault = self.fault
+        # distributed serving tier (cluster/): on a broker this is the
+        # scatter/merge client (cluster/broker.py:ClusterClient) wired
+        # in by Context; None on single-process engines and historicals
+        self.cluster = None
+        # historical-node mode (cluster/historical.py): sketch
+        # aggregates emit RAW register blocks instead of finalized
+        # estimates, so the broker can merge registers across shards
+        # and finalize the estimate exactly once
+        self.partial_sketches = False
 
     @property
     def last_stats(self) -> Dict[str, object]:
@@ -873,6 +886,23 @@ class QueryEngine:
                     self.last_stats["total_ms"] = \
                         (_time.perf_counter() - t0) * 1000
                     return served
+            if self.cluster is not None and self.cluster.should_distribute(q):
+                # broker path: scatter per-shard subqueries to the
+                # historicals and merge partials. Sits UNDER the cache
+                # (hits never leave this process) and ABOVE the
+                # device-loss gate (the scatter needs no local device).
+                # None = the client declined mid-flight (serde gap, node
+                # EngineFallback, replicas exhausted with local fallback
+                # enabled) — fall through to ordinary local execution.
+                r = self.cluster.execute(q, t0)
+                if r is not None:
+                    # degraded (partial-results) answers must NEVER enter
+                    # the result cache: a later healthy run would serve
+                    # the hole forever
+                    if use_cache and r.degraded is None:
+                        cache.put(q, ds_version, r)
+                        self.last_stats["cache"] = "miss"
+                    return r
             if self._backend_lost_at is not None \
                     and not self._try_reattach():
                 self.last_stats["backend_lost"] = {
@@ -1148,7 +1178,8 @@ class QueryEngine:
         for p in agg_plans:
             name = p.spec.name
             data[name] = _decode_agg_value(ds, p, routes.get(name),
-                                           finals[name][sel])
+                                           finals[name][sel],
+                                           self.partial_sketches)
             columns.append(name)
         if global_empty:
             data.update(_identity_row(
@@ -2136,6 +2167,12 @@ def _is_backend_loss(e: BaseException) -> bool:
     if isinstance(e, (EngineFallback, torch.cuda.OutOfMemoryError)) \
             or not isinstance(e, RuntimeError):
         return False
+    from spark_druid_olap_tpu_torch.cluster.broker import ClusterError
+    if isinstance(e, ClusterError):
+        # a shard unreachable over the NETWORK says nothing about the
+        # local device — strict mode must surface it, not demote it to
+        # the host tier
+        return False
     s = str(e).lower()
     if "cuda error" not in s and "cuda-capable" not in s \
             and "cuda driver" not in s:
@@ -2607,12 +2644,16 @@ def _torch_dtype(np_dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, np_dtype)).dtype
 
 
-def _decode_agg_value(ds, p, r, v) -> np.ndarray:
+def _decode_agg_value(ds, p, r, v, partial_sketches=False) -> np.ndarray:
     """Final per-group route values -> output column (dtype-faithful; min/max
     empty-group sentinels become nulls); a sketch's selected registers ->
-    its estimates."""
+    its estimates, or, on a cluster historical (``partial_sketches``), the
+    raw ``[G, m]`` register block: the broker merges registers across
+    shards (max / min / minsum) and finalizes the estimate once
+    (cluster/merge.py), which makes the distributed estimate EQUAL the
+    single-engine one."""
     if p.kind in SKETCH_KINDS:
-        return decode_sketch(p, v)
+        return np.asarray(v) if partial_sketches else decode_sketch(p, v)
     if p.kind in ("min", "max"):
         if r.tag == "i64":
             sent = G.I64_MAX if p.kind == "min" else G.I64_MIN

@@ -729,7 +729,8 @@ class SharedScanCoalescer:
         for p in lp.agg_plans:
             name = p.spec.name
             data[name] = X._decode_agg_value(ds, p, lp.routes.get(name),
-                                             finals[name][sel])
+                                             finals[name][sel],
+                                             eng.partial_sketches)
             columns.append(name)
         if global_empty:
             data.update(X._identity_row(

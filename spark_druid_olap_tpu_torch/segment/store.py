@@ -4,7 +4,8 @@ Port of ``spark_druid_olap_tpu/segment/store.py``: ``Segment``,
 ``Datasource`` (stacked tensors, interval and zone-map pruning) and
 ``SegmentStore``, without the multi-host partial-store machinery, plus
 :func:`datasource_from_arrays`, which rebuilds a datasource from a plain
-numpy layout so that two engines can query one identical store.
+numpy layout so that two engines can query one identical store, and
+:func:`slice_segments`, the owned-shard slice a cluster historical serves.
 
 A **datasource** holds its columns time-sorted end-to-end; a **segment** is
 a contiguous row-range over that order. The executable layout is the
@@ -342,6 +343,52 @@ def datasource_from_arrays(name: str, arrays: dict) -> Datasource:
         segments.append(Segment(f"{name}_{i:05d}", s, e, lo, hi))
     return Datasource(name=name, time=time_col, dims=dims, metrics=mets,
                       segments=segments)
+
+
+def slice_segments(ds: Datasource, segment_indexes,
+                   name: Optional[str] = None) -> Datasource:
+    """COMPLETE datasource holding only the given segments' rows,
+    renumbered to contiguous row ranges (ascending source order).
+
+    A cluster historical registers one slice per assigned shard
+    (cluster/historical.py) and every engine path — device tiers, host
+    fallback, shared-scan — serves it as an ordinary datasource. Dim
+    dictionaries are shared with the source; codes keep referencing the
+    full dictionary, so decode stays exact on every node. Metric bounds
+    are NOT inherited: a shard's local min/max is correct for its own
+    rows and recomputes lazily."""
+    ds.require_complete("segment slicing")
+    ids = sorted(int(i) for i in segment_indexes)
+    ranges = [(ds.segments[i].start_row, ds.segments[i].end_row)
+              for i in ids]
+
+    def _slice(arr):
+        if arr is None:
+            return None
+        if not ranges:
+            return arr[:0]
+        return np.concatenate([arr[s:e] for s, e in ranges])
+
+    dims = {}
+    for k, d in ds.dims.items():
+        dims[k] = dataclasses.replace(d, codes=_slice(d.codes),
+                                      validity=_slice(d.validity))
+    mets = {}
+    for k, m in ds.metrics.items():
+        mets[k] = dataclasses.replace(m, values=_slice(m.values),
+                                      validity=_slice(m.validity))
+    time = None
+    if ds.time is not None:
+        time = dataclasses.replace(ds.time, days=_slice(ds.time.days),
+                                   ms_in_day=_slice(ds.time.ms_in_day))
+    segs, row = [], 0
+    for i in ids:
+        s = ds.segments[i]
+        n = s.end_row - s.start_row
+        segs.append(Segment(s.id, row, row + n, s.min_millis, s.max_millis))
+        row += n
+    return Datasource(name=name or ds.name, time=time, dims=dims,
+                      metrics=mets, segments=segs, spatial=dict(ds.spatial))
 
 
 class SegmentStore:

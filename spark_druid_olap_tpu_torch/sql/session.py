@@ -625,8 +625,16 @@ def _run_select_planned(ctx, stmt, sql: str, ph_tok, memo,
     if phases is not None:
         stats["phases"] = {k: round(v, 3) for k, v in phases.items()}
     ctx.history.record(stmt, stats, sql=sql)
-    return QueryResult(list(df.columns),
-                       {c: df[c].to_numpy() for c in df.columns})
+    res = QueryResult(list(df.columns),
+                      {c: df[c].to_numpy() for c in df.columns})
+    # partial-results mode: the degraded annotation survives the
+    # DataFrame round trip (callers check r.degraded; degraded answers
+    # are never cached, enforced engine-side). Host-mode statements
+    # never scattered, so their stats snapshot may carry a STALE
+    # cluster entry from the previous engine query — gate on mode.
+    res.degraded = (stats.get("cluster") or {}).get("degraded") \
+        if mode == "engine" else None
+    return res
 
 
 def _maybe_windows(ctx, stmt):
@@ -664,8 +672,10 @@ def _run_windowed(ctx, wp, sql: str, ph_tok=None) -> QueryResult:
     if phases is not None:
         stats["phases"] = {k: round(v, 3) for k, v in phases.items()}
     ctx.history.record(base_stmt, stats, sql=sql)
-    return QueryResult(list(df.columns),
-                       {c: df[c].to_numpy() for c in df.columns})
+    res = QueryResult(list(df.columns),
+                      {c: df[c].to_numpy() for c in df.columns})
+    res.degraded = base.degraded
+    return res
 
 
 def _run_union(ctx, u: A.UnionAll, sql: str) -> QueryResult:
@@ -690,11 +700,15 @@ def execute_planned(ctx, pq: PlannedQuery) -> pd.DataFrame:
     import dataclasses as _dc
     qid = getattr(host_exec.ctx_tls(ctx), "query_id", None)
     frames: List[pd.DataFrame] = []
+    degraded: List[dict] = []
     for q, set_dims in zip(pq.specs, pq.spec_dims):
         if qid is not None and getattr(q.context, "query_id", None) is None:
             qctx = q.context or S.QueryContext()
             q = _dc.replace(q, context=_dc.replace(qctx, query_id=qid))
-        df = ctx.engine.execute(q).to_pandas()
+        r = ctx.engine.execute(q)
+        if r.degraded is not None:
+            degraded.append(r.degraded)
+        df = r.to_pandas()
         if "__count__" in df.columns and "__count__" not in pq.output_columns:
             df = df.drop(columns=["__count__"])
         # null-fill dims missing from this grouping set
@@ -736,6 +750,17 @@ def execute_planned(ctx, pq: PlannedQuery) -> pd.DataFrame:
     missing = [c for c in pq.output_columns if c not in df.columns]
     if missing:
         raise EngineFallback(f"planned outputs missing: {missing}")
+    if degraded:
+        # engine.execute clears last_stats per spec, so a degraded
+        # (partial-results) annotation from an earlier grouping set
+        # would be lost — re-merge them where run_sql's stats snapshot
+        # (and the final QueryResult) can see them
+        merged = degraded[0] if len(degraded) == 1 else {
+            "missing_shards": sorted(
+                {s for d in degraded for s in d["missing_shards"]}),
+            "coverage_rows": min(d["coverage_rows"] for d in degraded),
+            "total_rows": max(d["total_rows"] for d in degraded)}
+        ctx.engine.last_stats.setdefault("cluster", {})["degraded"] = merged
     return df[pq.output_columns].reset_index(drop=True)
 
 

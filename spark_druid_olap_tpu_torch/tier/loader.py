@@ -1,9 +1,9 @@
 """Build tiered datasources from persist/ snapshots.
 
 Port of ``spark_druid_olap_tpu/tier/loader.py``: a copy kept inside the
-PyTorch package, which imports nothing of the JAX package, less
-``slice_tiered``: its caller, the cluster historical's tiered boot, is
-not ported, and :func:`slice_tiered` raises (ROADMAP A.9).
+PyTorch package, which imports nothing of the JAX package.
+:func:`slice_tiered` serves a cluster historical's tiered boot
+(``cluster/historical.py``).
 
 ``load_tiered_snapshot`` is the cold-tier counterpart of
 ``persist/snapshot.py:load_snapshot``: instead of reading every blob
@@ -191,9 +191,51 @@ def load_tiered_snapshot(ds_root: str, version: int,
 
 def slice_tiered(ds: TieredDatasource, segment_indexes,
                  name: Optional[str] = None) -> TieredDatasource:
-    """A tiered datasource over some segments of another (the JAX
-    package's ``slice_tiered``, which only a cluster historical's
-    owned-shard boot calls)."""
-    raise NotImplementedError(
-        "tiered shard slices for cluster historicals not ported yet "
-        "(ROADMAP A.9)")
+    """Tiered counterpart of ``segment/store.py:slice_segments``: a
+    complete tiered datasource over only the given segments, SHARING the
+    parent's blob files (the refs simply select the member segments'
+    element ranges — no bytes move). Used by cluster historicals so an
+    owned-shard boot stays O(manifest): the shard's data loads on first
+    query, within this node's budget."""
+    ids = sorted(int(i) for i in segment_indexes)
+
+    def _sel(ra: Optional[RefArray]) -> Optional[RefArray]:
+        if ra is None:
+            return None
+        return RefArray(refs=tuple(ra.refs[i] for i in ids),
+                        dtype=ra.dtype)
+
+    new_name = name or ds.name
+    time_col = None
+    if ds.time is not None:
+        time_col = TieredTimeColumn(
+            name=ds.time.name, tier=ds.tier, ns=new_name,
+            days_ra=_sel(ds.time._days_ra), ms_ra=_sel(ds.time._ms_ra))
+    dims = {}
+    for k, d in ds.dims.items():
+        dims[k] = TieredDimColumn(
+            name=k, dictionary=d.dictionary, tier=ds.tier, ns=new_name,
+            codes_ra=_sel(d._codes_ra), valid_ra=_sel(d._valid_ra))
+    mets = {}
+    for k, m in ds.metrics.items():
+        mm = TieredMetricColumn(
+            name=k, kind=m.kind, tier=ds.tier, ns=new_name,
+            values_ra=_sel(m._values_ra), valid_ra=_sel(m._valid_ra))
+        # parent (global) bounds carry over: min/max feed cost-model
+        # selectivity only — exact pruning uses per-segment zone maps,
+        # which recompute on the shard's own chunks
+        b = getattr(m, "_bounds_cache", None)
+        if b is not None:
+            mm._bounds_cache = b
+        mets[k] = mm
+    segs, row = [], 0
+    for i in ids:
+        s = ds.segments[i]
+        n = s.end_row - s.start_row
+        segs.append(Segment(s.id, row, row + n, s.min_millis,
+                            s.max_millis))
+        row += n
+    out = TieredDatasource(new_name, time_col, dims, mets, segs,
+                           spatial=dict(ds.spatial), tier=ds.tier)
+    out._index_refs()
+    return out

@@ -500,12 +500,206 @@ ENCODE_ENABLED = _entry(
     "RLE runs, frame-of-reference+delta time columns, encode/codecs.py) "
     "with a per-column chooser at checkpoint/compaction time. Decoded "
     "arrays are bit-identical to the raw path.", semantic=False)
+# --- distributed serving tier (cluster/) --------------------------------------
+CLUSTER_NODES = _entry(
+    "sdot.cluster.nodes", "",
+    "Comma-separated host:port list of historical nodes, index order = "
+    "node id. Empty disables the cluster tier (single-process engine). "
+    "Every process of one cluster — broker and historicals — must be "
+    "given the identical list: the deterministic shard assignment "
+    "(cluster/assign.py) is a pure function of this list plus the deep "
+    "storage manifests.", semantic=False)
+CLUSTER_ROLE = _entry(
+    "sdot.cluster.role", "",
+    "Role of THIS process in the cluster: 'broker' attaches the "
+    "scatter/merge client to the engine; 'historical' is set by the "
+    "cluster entrypoint on serving nodes; empty = not clustered.",
+    semantic=False)
+CLUSTER_NODE_ID = _entry(
+    "sdot.cluster.node.id", 0,
+    "This historical's index into sdot.cluster.nodes (which address it "
+    "serves on and which shards it owns).", int, semantic=False)
+CLUSTER_REPLICATION = _entry(
+    "sdot.cluster.replication", 2,
+    "Copies of each segment shard across historicals (clamped to the "
+    "node count). The broker retries a failed shard on each replica "
+    "before declaring the shard unreachable.", int, semantic=False)
+CLUSTER_SHARDS = _entry(
+    "sdot.cluster.shards", 0,
+    "Segment shards per datasource the broker scatters over; 0 = one "
+    "per node. Semantic: the shard composition fixes the partial-merge "
+    "grouping (float accumulation order), so cached results are keyed "
+    "on it.", int)
+CLUSTER_RPC_TIMEOUT_SECONDS = _entry(
+    "sdot.cluster.rpc.timeout.seconds", 30.0,
+    "Socket timeout for one broker->historical subquery RPC. A timeout "
+    "marks the node down and fails the attempt over to a replica.",
+    float, semantic=False)
+CLUSTER_RETRY_TRIES = _entry(
+    "sdot.cluster.retry.tries", 3,
+    "Full passes over a shard's replica set before the broker gives up "
+    "on remote execution (then: local fallback if enabled, else fail). "
+    "Between passes it sleeps with decorrelated-jitter backoff "
+    "(utils/retry.py).", int, semantic=False)
+CLUSTER_RETRY_BACKOFF_START_SECONDS = _entry(
+    "sdot.cluster.retry.backoff.start.seconds", 0.05,
+    "Base delay of the decorrelated-jitter backoff between replica-set "
+    "passes.", float, semantic=False)
+CLUSTER_RETRY_BACKOFF_CAP_SECONDS = _entry(
+    "sdot.cluster.retry.backoff.cap.seconds", 2.0,
+    "Delay ceiling of the decorrelated-jitter backoff between "
+    "replica-set passes.", float, semantic=False)
+CLUSTER_PROBE_INTERVAL_SECONDS = _entry(
+    "sdot.cluster.probe.interval.seconds", 1.0,
+    "Cadence of the broker's background health prober (GET /readyz on "
+    "every node). A failing probe marks the node down — its shards "
+    "route to replicas — and a passing one marks it back up. "
+    "0 disables probing (nodes are still marked down reactively on "
+    "RPC failure).", float, semantic=False)
+CLUSTER_SCATTER_THREADS = _entry(
+    "sdot.cluster.scatter.threads", 16,
+    "Worker threads in the broker's scatter pool (concurrent subquery "
+    "RPCs across all in-flight queries).", int, semantic=False)
+CLUSTER_LOCAL_FALLBACK = _entry(
+    "sdot.cluster.local.fallback", True,
+    "When every replica of some shard is unreachable, execute the whole "
+    "query on the broker's own engine (it holds a full recovered copy) "
+    "instead of failing. Answers are identical; only placement changes.",
+    semantic=False)
+CLUSTER_PARTIAL_RESULTS = _entry(
+    "sdot.cluster.partial.results", False,
+    "Degraded mode: when every replica of some shard is unreachable, "
+    "answer from the surviving shards and annotate the result with "
+    "degraded={missing_shards, coverage_rows} instead of raising "
+    "ShardUnavailable / falling back whole-query (this takes precedence "
+    "over sdot.cluster.local.fallback for unreachable shards). Degraded "
+    "answers are NEVER cached, so cached entries stay exact full "
+    "answers and the key needs no new term.", semantic=False)
+CLUSTER_BREAKER_FAILURES = _entry(
+    "sdot.cluster.breaker.failures", 3,
+    "Consecutive subquery failures against one node that open its "
+    "circuit breaker (the broker then skips the node without an RPC "
+    "until the cooldown elapses). 0 disables breakers.",
+    int, semantic=False)
+CLUSTER_BREAKER_COOLDOWN_SECONDS = _entry(
+    "sdot.cluster.breaker.cooldown.seconds", 5.0,
+    "How long an open breaker rejects attempts before letting ONE "
+    "half-open probe RPC through; that probe's outcome closes or "
+    "re-opens the breaker.", float, semantic=False)
+CLUSTER_HEDGE_ENABLED = _entry(
+    "sdot.cluster.hedge.enabled", False,
+    "Hedged scatter: when a subquery RPC has not answered within the "
+    "hedge delay, race a duplicate request to the next replica and take "
+    "whichever answers first (the loser is discarded; replicas are "
+    "exact copies, so answers are identical either way).",
+    semantic=False)
+CLUSTER_HEDGE_AFTER_MS = _entry(
+    "sdot.cluster.hedge.after.ms", 0.0,
+    "Fixed hedge delay in milliseconds; 0 = automatic (the observed "
+    "subquery-latency quantile below, once enough samples exist).",
+    float, semantic=False)
+CLUSTER_HEDGE_QUANTILE = _entry(
+    "sdot.cluster.hedge.quantile", 0.95,
+    "Latency quantile of recent subquery RPCs used as the automatic "
+    "hedge delay when sdot.cluster.hedge.after.ms is 0.",
+    float, semantic=False)
+CLUSTER_HEDGE_MIN_MS = _entry(
+    "sdot.cluster.hedge.min.ms", 10.0,
+    "Floor for the automatic hedge delay (keeps the quantile estimate "
+    "from hedging every RPC while the sample window is still cold).",
+    float, semantic=False)
+CLUSTER_PROBE_JITTER = _entry(
+    "sdot.cluster.probe.jitter", True,
+    "Decorrelated jitter (utils/retry.backoff) on the background "
+    "readyz prober's interval so N brokers don't probe a rejoining "
+    "historical in lockstep; each tick lands in [0.5x, 1.5x] of "
+    "sdot.cluster.probe.interval.seconds.", semantic=False)
+# --- elastic topology: plan epochs (cluster/epoch.py) -------------------------
+CLUSTER_EPOCH_POLL_SECONDS = _entry(
+    "sdot.cluster.epoch.poll.seconds", 1.0,
+    "Cadence at which a HISTORICAL polls deep storage for a newer plan "
+    "epoch (cluster/epoch.py) and runs its side of the handover — warm "
+    "newly owned shards before advertising, or drain-then-fence when "
+    "the new epoch drops it. 0 disables the watcher thread (tests "
+    "drive node.check_epoch() manually). The broker piggybacks its "
+    "epoch check on the readyz prober interval.", float, semantic=False)
+CLUSTER_EPOCH_DRAIN_GRACE_SECONDS = _entry(
+    "sdot.cluster.epoch.drain.grace.seconds", 0.5,
+    "How long a leaving historical keeps serving AFTER it observes the "
+    "new epoch fully warm, before it starts draining — absorbs the "
+    "window where the broker has not yet polled the same readiness and "
+    "still scatters against the old epoch.", float, semantic=False)
+CLUSTER_EPOCH_DRAIN_TIMEOUT_SECONDS = _entry(
+    "sdot.cluster.epoch.drain.timeout.seconds", 10.0,
+    "Upper bound a leaving historical waits for its in-flight "
+    "subqueries to finish before fencing anyway (a stuck query must "
+    "not pin a retired node forever).", float, semantic=False)
+CLUSTER_REBALANCE_STRATEGY = _entry(
+    "sdot.cluster.rebalance.strategy", "stable",
+    "Shard owner placement: 'stable' (rendezvous hashing over logical "
+    "node ids — an N->N+1 epoch moves ~1/(N+1) of the assignments, see "
+    "cluster/assign.py) or 'modular' (the legacy CRC rotation, kept as "
+    "a kill switch; nearly every owner moves on any topology change). "
+    "Placement never changes answers, only which node serves a shard.",
+    semantic=False)
+CLUSTER_SUBQ_CACHE_ENABLED = _entry(
+    "sdot.cluster.subq.cache.enabled", False,
+    "Broker-side shard-level subquery result cache: partial results "
+    "are cached per (subquery shape, shard identity, ingest version), "
+    "so a repeated dashboard storm skips unchanged shards entirely. "
+    "Keys carry shard identity — not node identity — so entries "
+    "survive epoch transitions; the ingest-version term makes staleness "
+    "impossible, so answers are bit-identical with the cache off. "
+    "Opt-in: identical repeated queries are already absorbed by the "
+    "broker's semantic result cache, and chaos/failover tests rely on "
+    "repeats actually exercising the RPC path — enable it for mixed "
+    "dashboard workloads whose queries share subquery shapes.",
+    semantic=False)
+CLUSTER_SUBQ_CACHE_MAX_BYTES = _entry(
+    "sdot.cluster.subq.cache.max.bytes", 64 << 20,
+    "Byte budget of the broker's shard-level subquery cache (LRU "
+    "eviction).", int, semantic=False)
+CLUSTER_INGEST_PUSH = _entry(
+    "sdot.cluster.ingest.push", True,
+    "Distributed ingest: after a stream-ingest batch is journaled and "
+    "acknowledged on the broker (durability is ALWAYS local), push it "
+    "to the time-matched shard's owners so distributed queries keep "
+    "read-your-writes instead of falling back to broker-local serving "
+    "until the next checkpoint. Off, or when any owner push fails, the "
+    "broker's ingest-version check simply serves the datasource locally "
+    "— never a correctness difference, only where the scan runs.",
+    semantic=False)
+CLUSTER_AUTOSCALE_ENABLED = _entry(
+    "sdot.cluster.autoscale.enabled", False,
+    "Autoscale hook (cluster/autoscale.py): the broker samples every "
+    "historical's WLM queue depth on the prober cadence and calls the "
+    "registered spawn/retire callbacks — which publish a new plan "
+    "epoch — when the fleet-mean depth crosses the high/low marks. "
+    "Without registered callbacks, decisions only increment counters "
+    "(dry run).", semantic=False)
+CLUSTER_AUTOSCALE_QUEUE_HIGH = _entry(
+    "sdot.cluster.autoscale.queue.high", 8.0,
+    "Fleet-mean WLM queued-query depth above which the autoscale hook "
+    "signals scale-out (spawn a historical, publish an epoch adding "
+    "it).", float, semantic=False)
+CLUSTER_AUTOSCALE_QUEUE_LOW = _entry(
+    "sdot.cluster.autoscale.queue.low", 0.5,
+    "Fleet-mean WLM queued-query depth below which the autoscale hook "
+    "signals scale-in (drain and retire one historical via a new "
+    "epoch). Must be well under the high mark or the fleet flaps.",
+    float, semantic=False)
+CLUSTER_AUTOSCALE_COOLDOWN_SECONDS = _entry(
+    "sdot.cluster.autoscale.cooldown.seconds", 30.0,
+    "Minimum wall-clock spacing between autoscale decisions; epoch "
+    "handovers in progress also suppress new signals.",
+    float, semantic=False)
 # --- deterministic fault injection (fault/) -----------------------------------
 FAULT_PLAN = _entry(
     "sdot.fault.plan", "",
     "JSON FaultPlan ({\"seed\": S, \"rules\": [...]}) activating named "
-    "injection sites in persist I/O, the cold tier's reads and WLM "
-    "admission. Empty (default) = every site is a zero-cost no-op.",
+    "injection sites in cluster RPC, persist I/O, the cold tier's reads "
+    "and WLM admission. Empty (default) = every site is a zero-cost "
+    "no-op.",
     semantic=False)
 # --- out-of-core tiered storage (tier/) ---------------------------------------
 TIER_ENABLED = _entry(

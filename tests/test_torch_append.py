@@ -419,9 +419,16 @@ def test_ingest_lane_admits_each_batch():
 @pytest.mark.parametrize("key,value", [
     ("sdot.cluster.nodes", "localhost:1")])
 def test_unported_stream_ingest_branches_raise(key, value):
-    ctx = tsdot.Context({key: value}, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9"):
-        ctx.stream_ingest("sales", _batch(10, 60), **INGEST)
+    """The branch that raised ROADMAP A.9 before the cluster tier was
+    ported: with a node list but no broker role no cluster client
+    attaches, and ``stream_ingest`` appends locally in both packages
+    alike (the broker's push is in ``tests/test_torch_ingest_pipeline.py``
+    and ``tests/test_torch_cluster.py``)."""
+    pair = _pair(**{key: value})
+    assert all(c.cluster is None for c in pair)
+    _ingest_both(pair, "sales", _batch(10, 60), **INGEST)
+    _ingest_both(pair, "sales", _batch(20, 61), **INGEST)
+    _sql_both(pair, QS[0])
 
 
 def test_journaled_stream_ingest_answers_and_recovers(tmp_path):

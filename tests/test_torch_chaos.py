@@ -10,7 +10,14 @@ and the injectors' stats are equal, and the journals both packages leave
 are byte-identical. Its two cold-tier cases (a CRC flip injected at a
 first fault quarantines the version and recovery falls back; a slowed
 cold read still answers exactly) run in both packages, each over a root
-written by a package. The cluster and wire cases wait for ROADMAP A.9.
+written by a package. Its wire CRC and circuit-breaker cases run in both
+packages (the frames byte for byte alike), and its cluster legs run over
+two port historicals (replication 2, and 1 for the partial-results legs):
+a corrupt frame, a refused connect, a slow replica, a node's 500s, an
+open breaker and its half-open probe, a hedge, every replica down
+(strict: ``ClusterError``; partial: a shape-exact degraded answer), a
+degraded answer covering exactly the surviving shards and never cached;
+every exact answer equal to a single port context's.
 """
 
 import test_torch_cache_pin  # noqa: F401 (the port's result cache off)
@@ -368,3 +375,365 @@ def test_wlm_admit_shed_and_starvation():
         st = ctx.engine.last_stats["fault"]
         assert st["by_site"] == {"wlm.admit": 2} and st["seed"] == 6
         ctx.close()
+
+
+# -- the wire CRC, breakers and hedging (tests/test_chaos.py :167-:225,
+# :539, :569) -----------------------------------------------------------------
+
+def _wire(pkg):
+    if pkg == "jax":
+        from spark_druid_olap_tpu.cluster import wire
+    else:
+        from spark_druid_olap_tpu_torch.cluster import wire
+    return wire
+
+
+def _board(pkg):
+    if pkg == "jax":
+        from spark_druid_olap_tpu.cluster.breaker import BreakerBoard
+    else:
+        from spark_druid_olap_tpu_torch.cluster.breaker import BreakerBoard
+    return BreakerBoard
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_wire_crc_rejects_corruption(pkg):
+    import numpy as np
+    WIRE = _wire(pkg)
+    data = {"k": np.array(["a", "b"], dtype=object),
+            "v": np.array([1, 2], dtype=np.int64)}
+    payload = WIRE.encode_result(["k", "v"], data, {"node": 0})
+    assert payload == _wire("jax").encode_result(["k", "v"], data,
+                                                  {"node": 0})
+    cols, out, stats = WIRE.decode_result(payload)
+    assert cols == ["k", "v"] and stats == {"node": 0}
+    # flip any single byte (header, body, or trailer): CRC must reject
+    for j in (4, len(payload) // 2, len(payload) - 1):
+        bad = payload[:j] + bytes([payload[j] ^ 0xFF]) + payload[j + 1:]
+        with pytest.raises(ValueError):
+            WIRE.decode_result(bad)
+    # truncation (a torn frame) must reject too, at any cut point
+    with pytest.raises(ValueError):
+        WIRE.decode_result(payload[:-3])
+    with pytest.raises(ValueError):
+        WIRE.decode_result(payload[:8])
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_breaker_state_machine(pkg):
+    bb = _board(pkg)(2, failures=2, cooldown_s=30.0)
+    assert bb.enabled
+    # two consecutive failures open node 0
+    for _ in range(2):
+        tok = bb.before_attempt(0)
+        assert tok is not None
+        bb.settle(tok, False)
+    assert bb.is_open(0) and not bb.is_open(1)
+    assert bb.counters["opens"] == 1
+    # open + cooling: attempts are refused without an RPC
+    assert bb.before_attempt(0) is None
+    assert bb.counters["skips"] == 1
+    # a success on the OTHER node is independent state
+    tok = bb.before_attempt(1)
+    bb.settle(tok, True)
+    assert not bb.is_open(1)
+    assert bb.snapshot()["states"] == ["open", "closed"]
+    bb.reset(0)
+    assert not bb.is_open(0) and bb.counters["opens"] == 1
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_breaker_half_open_probe_closes_or_reopens(pkg):
+    bb = _board(pkg)(1, failures=1, cooldown_s=0.0)
+    tok = bb.before_attempt(0)
+    bb.settle(tok, False)                       # -> open
+    # cooldown 0: next attempt is the single half-open probe
+    probe = bb.before_attempt(0)
+    assert probe is not None and probe.probe
+    # while the probe is in flight, everything else is refused
+    assert bb.before_attempt(0) is None
+    bb.settle(probe, False)                     # failed probe re-opens
+    assert bb.is_open(0)
+    probe = bb.before_attempt(0)
+    bb.settle(probe, True)                      # successful probe closes
+    assert not bb.is_open(0)
+    assert bb.counters["closes"] == 1 and bb.counters["probes"] == 2
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_breaker_disabled_admits_everything(pkg):
+    bb = _board(pkg)(1, failures=0, cooldown_s=1.0)
+    assert not bb.enabled
+    for _ in range(10):
+        tok = bb.before_attempt(0)
+        assert tok is not None
+        bb.settle(tok, False)
+    assert not bb.is_open(0)
+
+
+_HIST_PLAN = _plan(5, {"site": "hist.handle", "action": "error",
+                       "scope": "hist500"})
+
+Q_SALES = ("select region, sum(qty) as q, count(*) as c from sales "
+           "group by region order by region")
+
+
+@pytest.fixture(scope="module")
+def chaos(tmp_path_factory):
+    """Two port historicals (replication 2) over the sales frame, each
+    with the ``hist500`` scoped rule, and a single port context over the
+    same root."""
+    from conftest import make_sales_df
+    from test_torch_cluster import start_historicals
+    root = str(tmp_path_factory.mktemp("chaos-deep-storage"))
+    single = tsdot.Context({"sdot.persist.path": root}, device="cpu")
+    single.ingest_dataframe("sales", make_sales_df(), time_column="ts",
+                            target_rows=2048)
+    single.checkpoint()
+    nodes_csv, hist = start_historicals(
+        {"sdot.persist.path": root, "sdot.cluster.replication": 2,
+         "sdot.fault.plan": _HIST_PLAN})
+    yield root, nodes_csv, hist, single
+    for h in hist:
+        h.stop()
+    single.close()
+
+
+def _broker(chaos, plan=None, **over):
+    from test_torch_cluster import port_broker
+    root, nodes_csv, _, _ = chaos
+    cfg = {
+        "sdot.cluster.replication": 2,
+        # deterministic: no background prober, fast retry backoff, and
+        # no result cache (each sql() must actually scatter)
+        "sdot.cluster.probe.interval.seconds": 0,
+        "sdot.cluster.retry.backoff.start.seconds": 0.01,
+        "sdot.cluster.retry.backoff.cap.seconds": 0.05,
+        "sdot.cache.enabled": False,
+    }
+    if plan:
+        cfg["sdot.fault.plan"] = plan
+    cfg.update(over)
+    return port_broker(root, nodes_csv, **cfg)
+
+
+def _exact(got, want):
+    from conftest import assert_frames_equal
+    assert_frames_equal(got, want, rtol=1e-9, atol=1e-9)
+
+
+def test_chaos_breaker_opens_then_half_open_probe_recovers(chaos):
+    _, _, hist, single = chaos
+    f0 = hist[0].ctx.engine.fault
+    f1 = hist[1].ctx.engine.fault
+    br = _broker(chaos, None, **{
+        "sdot.cluster.breaker.failures": 2,
+        "sdot.cluster.breaker.cooldown.seconds": 0.05})
+    try:
+        want = single.sql(Q_SALES).to_pandas()
+        # node 0 answers every subquery 500: after 2 consecutive
+        # failures its breaker opens — answers stay exact via node 1
+        with f0.scope("hist500"):
+            for _ in range(3):
+                _exact(br.sql(Q_SALES).to_pandas(), want)
+        snap = br.cluster.breakers.snapshot()
+        assert snap["opens"] == 1 and snap["states"][0] == "open"
+        # past the cooldown, failing node 1 forces the chain down to
+        # node 0, whose single half-open probe succeeds and closes it
+        time.sleep(0.08)
+        with f1.scope("hist500"):
+            _exact(br.sql(Q_SALES).to_pandas(), want)
+        snap = br.cluster.breakers.snapshot()
+        assert snap["states"][0] == "closed"
+        assert snap["probes"] >= 1 and snap["closes"] >= 1
+        assert br.cluster.stats()["breakers"]["states"][0] == "closed"
+    finally:
+        br.close()
+
+
+def test_chaos_hedge_launches_once_and_wins(chaos):
+    # one primary leg stalls well past the fixed hedge delay: exactly
+    # one hedge launches, wins, and the answer is exact — deterministic
+    # counters under the fixed plan
+    _, _, _, single = chaos
+    br = _broker(chaos, _plan(
+        24, {"site": "rpc.request", "action": "delay", "arg": 0.8,
+             "count": 1}),
+        **{"sdot.cluster.hedge.enabled": True,
+           "sdot.cluster.hedge.after.ms": 100})
+    try:
+        t0 = time.perf_counter()
+        got = br.sql(Q_SALES).to_pandas()
+        elapsed = time.perf_counter() - t0
+        _exact(got, single.sql(Q_SALES).to_pandas())
+        c = br.cluster.counters
+        assert c["hedges_launched"] == 1
+        assert c["hedges_won"] == 1
+        # the hedge answered ~0.1s in; without it the stalled primary
+        # would have pinned the query to >= 0.8s
+        assert elapsed < 0.75
+    finally:
+        br.close()
+
+
+# -- the other cluster legs of tests/test_chaos.py ----------------------------
+
+@pytest.fixture(scope="module")
+def chaos_r1(chaos):
+    """Replication-1 port historicals over the same deep storage: each
+    shard has exactly one owner, so losing a node loses exactly its
+    shards."""
+    from test_torch_cluster import start_historicals
+    root, _, _, single = chaos
+    nodes_csv, hist = start_historicals(
+        {"sdot.persist.path": root, "sdot.cluster.replication": 1,
+         "sdot.fault.plan": _HIST_PLAN})
+    yield root, nodes_csv, hist, single
+    for h in hist:
+        h.stop()
+
+
+def test_chaos_corrupt_frame_rejected_and_retried(chaos):
+    _, _, _, single = chaos
+    br = _broker(chaos, _plan(
+        21, {"site": "rpc.response", "action": "flip", "count": 1}))
+    try:
+        _exact(br.sql(Q_SALES).to_pandas(), single.sql(Q_SALES).to_pandas())
+        c = br.cluster.counters
+        # exactly the planned single flip: one CRC reject, one retry
+        assert c["wire_corrupt"] == 1
+        assert c["retries"] >= 1
+        assert br.engine.last_stats["fault"]["by_site"] \
+            == {"rpc.response": 1}
+    finally:
+        br.close()
+
+
+def test_chaos_connect_refused_fails_over(chaos):
+    _, _, _, single = chaos
+    br = _broker(chaos, _plan(
+        22, {"site": "rpc.connect", "match": "node:0", "action": "error",
+             "arg": "ConnectionRefusedError", "count": 2}))
+    try:
+        _exact(br.sql(Q_SALES).to_pandas(), single.sql(Q_SALES).to_pandas())
+        assert br.cluster.counters["failovers"] >= 1
+    finally:
+        br.close()
+
+
+def test_chaos_slow_replica_delay_still_exact(chaos):
+    # a slow-reply delay on one node: the query rides it out (no hedge
+    # configured) and stays exact
+    _, _, _, single = chaos
+    br = _broker(chaos, _plan(
+        23, {"site": "rpc.request", "match": "node:1", "action": "delay",
+             "arg": 0.1, "count": 1}))
+    try:
+        _exact(br.sql(Q_SALES).to_pandas(), single.sql(Q_SALES).to_pandas())
+        assert br.engine.last_stats["fault"]["fired"] == 1
+    finally:
+        br.close()
+
+
+def test_chaos_hist_500_retries_on_replica(chaos):
+    _, _, hist, single = chaos
+    f1 = hist[1].ctx.engine.fault
+    br = _broker(chaos)
+    try:
+        want = single.sql(Q_SALES).to_pandas()
+        with f1.scope("hist500"):
+            got = br.sql(Q_SALES).to_pandas()
+        _exact(got, want)
+        assert br.cluster.counters["retries"] >= 1
+    finally:
+        br.close()
+
+
+ALL_DOWN = {"site": "rpc.connect", "action": "error",
+            "arg": "ConnectionRefusedError"}
+
+
+def test_chaos_all_replicas_down_strict_raises(chaos):
+    from spark_druid_olap_tpu_torch.cluster.broker import ClusterError
+    br = _broker(chaos, _plan(25, ALL_DOWN), **{
+        "sdot.cluster.local.fallback": False,
+        "sdot.cluster.retry.tries": 2})
+    try:
+        # a shard unreachable over the network is not a device loss: it
+        # raises as itself, never demoted to the host tier
+        with pytest.raises(ClusterError):
+            br.sql(Q_SALES)
+    finally:
+        br.close()
+
+
+def test_chaos_all_replicas_down_partial_degrades(chaos):
+    br = _broker(chaos, _plan(26, ALL_DOWN), **{
+        "sdot.cluster.partial.results": True,
+        "sdot.cluster.retry.tries": 1})
+    try:
+        r = br.sql(Q_SALES)
+        n_shards = br.cluster.plan.datasources["sales"].n_shards
+        total = br.cluster.plan.datasources["sales"].num_rows
+        assert r.degraded == {"missing_shards": list(range(n_shards)),
+                              "coverage_rows": 0, "total_rows": total}
+        assert len(r.to_pandas()) == 0          # shape-exact empty answer
+        st = br.engine.last_stats["cluster"]
+        assert st["degraded"]["coverage_rows"] == 0
+        assert br.cluster.counters["degraded_queries"] == 1
+    finally:
+        br.close()
+
+
+def test_chaos_partial_covers_exactly_the_survivors(chaos_r1):
+    # replication 1: killing node 1 loses exactly node 1's shards; the
+    # degraded count(*) equals the surviving shards' row count
+    br = _broker(chaos_r1, _plan(
+        27, {"site": "rpc.connect", "match": "node:1", "action": "error",
+             "arg": "ConnectionRefusedError"}),
+        **{"sdot.cluster.replication": 1,
+           "sdot.cluster.partial.results": True,
+           "sdot.cluster.retry.tries": 1})
+    try:
+        r = br.sql("select count(*) as c from sales")
+        dp = br.cluster.plan.datasources["sales"]
+        lost = sorted(sh.index for sh in dp.shards if sh.owners == (1,))
+        kept_rows = sum(sh.rows for sh in dp.shards if sh.owners != (1,))
+        assert lost and kept_rows > 0           # both sides non-trivial
+        assert r.degraded["missing_shards"] == lost
+        assert r.degraded["coverage_rows"] == kept_rows
+        assert r.degraded["total_rows"] == dp.num_rows
+        assert int(r.data["c"][0]) == kept_rows
+    finally:
+        br.close()
+
+
+def test_chaos_degraded_answers_never_cached(chaos_r1):
+    _, _, _, single = chaos_r1
+    br = _broker(chaos_r1, _plan(
+        28, {"site": "rpc.connect", "match": "node:1", "action": "error",
+             "arg": "ConnectionRefusedError", "scope": "down1"}),
+        **{"sdot.cluster.replication": 1,
+           "sdot.cluster.partial.results": True,
+           "sdot.cluster.retry.tries": 1,
+           "sdot.cache.enabled": True})
+    try:
+        want = single.sql(Q_SALES).to_pandas()
+        inj = br.engine.fault
+        with inj.scope("down1"):
+            r1 = br.sql(Q_SALES)
+        assert r1.degraded is not None
+        assert not r1.to_pandas().equals(want)  # visibly partial
+        # faults cleared: the SAME query must re-scatter, not serve the
+        # degraded answer from the result cache
+        r2 = br.sql(Q_SALES)
+        assert r2.degraded is None
+        _exact(r2.to_pandas(), want)
+        # ...and the healthy answer IS cached: a third run doesn't scatter
+        scatters = br.cluster.counters["queries"]
+        r3 = br.sql(Q_SALES)
+        assert r3.degraded is None
+        assert br.cluster.counters["queries"] == scatters
+        _exact(r3.to_pandas(), want)
+    finally:
+        br.close()

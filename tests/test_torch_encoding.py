@@ -1,8 +1,9 @@
 """The port's compressed snapshot columns against the JAX package's.
 
-The codec, chooser, predicate, snapshot, star and tiered cases of
-``tests/test_encoding.py`` (not its wire and cluster cases, which wait for
-ROADMAP A.9) run through both packages on the CPU; the tiered ones read
+The codec, chooser, predicate, snapshot, star, wire, cluster and tiered
+cases of ``tests/test_encoding.py`` run through both packages on the CPU
+(the cluster case over port historicals, its wire frames byte for byte
+the JAX package's); the tiered ones read
 roots that each package wrote, in both packages, and ``encode/exec.py``'s
 helpers are held against the JAX package's. Codecs: the
 port's ``encode_array`` / ``encode_chunk`` give the JAX package's payload
@@ -471,6 +472,65 @@ def test_star_schema_encoded_vs_raw(star_pair, suite, name):
     sql = (tpch if suite == "tpch" else ssb).QUERIES[name]
     assert_answers_equal(star_pair["port"].sql(sql).to_pandas(),
                          star_pair["jax"].sql(sql).to_pandas(), True)
+
+
+def test_cluster_scatter_over_encoded_snapshots(star_roots):
+    """Port historicals recover the port's ENCODED snapshots, a port
+    broker scatters, and the replies match a single port context over the
+    JAX package's raw snapshots (rtol 1e-9 / atol 1e-9: the broker
+    re-associates float sums)."""
+    from conftest import assert_frames_equal
+    from spark_druid_olap_tpu_torch.tools import tpch
+    from test_torch_cluster import port_broker, start_historicals
+    nodes_csv, hist = start_historicals(
+        {"sdot.persist.path": star_roots["port"]})
+    broker = port_broker(star_roots["port"], nodes_csv,
+                         **{"sdot.cluster.probe.interval.seconds": 0})
+    single = open_ctx("port", star_roots["jax"],
+                      **{"sdot.cache.enabled": False})
+    for c in (broker, single):
+        c.register_star_schema(tpch.star_schema("tpch_flat"))
+    try:
+        for name in ("basic_agg", "q1", "q6"):
+            got = broker.sql(tpch.QUERIES[name]).to_pandas()
+            assert (broker.engine.last_stats.get("cluster") or {}) \
+                .get("mode") == "scatter", name
+            want = single.sql(tpch.QUERIES[name]).to_pandas()
+            assert_frames_equal(got, want, rtol=1e-9, atol=1e-9)
+    finally:
+        for h in hist:
+            h.stop()
+        broker.close()
+        single.close()
+
+
+# -- wire format --------------------------------------------------------------
+
+def test_wire_rle_column_roundtrip_and_shrink():
+    """The SDW1 wire RLE-encodes long-run integer columns, identically in
+    both packages, and its CRC rejects a flipped byte."""
+    from spark_druid_olap_tpu.cluster import wire as JW
+    from spark_druid_olap_tpu_torch.cluster import wire as W
+    n = 4000
+    data = {
+        "bucket": np.repeat(np.arange(8, dtype=np.int64), n // 8),
+        "rev": _R.uniform(size=n),                      # floats stay raw
+        "rand": _R.integers(0, 1 << 60, n),             # no shrink -> raw
+    }
+    frame = W.encode_result(list(data), data, stats={"s": 1})
+    assert frame == JW.encode_result(list(data), data, stats={"s": 1})
+    raw_frame_floor = data["bucket"].nbytes
+    assert len(frame) < raw_frame_floor + data["rev"].nbytes \
+        + data["rand"].nbytes                           # bucket RLE'd away
+    cols, out, stats = W.decode_result(frame)
+    assert cols == list(data) and stats == {"s": 1}
+    for k in data:
+        np.testing.assert_array_equal(out[k], data[k])
+        assert out[k].dtype == data[k].dtype
+    corrupt = bytearray(frame)
+    corrupt[len(frame) // 2] ^= 0xFF
+    with pytest.raises(ValueError):
+        W.decode_result(bytes(corrupt))
 
 
 # -- tiered execution over encoded chunks -------------------------------------

@@ -1,9 +1,10 @@
 """The port's crash-safe ingest pipeline against the JAX package's.
 
-Cases :46, :106 and :170 of ``tests/test_ingest_pipeline.py`` (its cluster
-case waits for ROADMAP A.9): a group-committed WAL under torn frames and
-failed covering fsyncs, compaction racing live stream ingest, and rollup
-staleness across a generation swap. The bar is the reference's: the
+Cases :46, :106, :170 and :217 of ``tests/test_ingest_pipeline.py``: a
+group-committed WAL under torn frames and failed covering fsyncs,
+compaction racing live stream ingest, rollup staleness across a
+generation swap, and a port broker's stream ingest across an epoch swap
+to a third port historical. The bar is the reference's: the
 served rows are exactly the acknowledged batches, live and after recovery
 — an acked batch is never lost, an un-acked one never surfaces.
 
@@ -260,3 +261,115 @@ def test_compaction_padded_rows_drop(tmp_path):
     assert ds2.num_segments * ds2.padded_rows < before
     assert _count(ctx) == 5800
     ctx.close()
+
+
+# -- (d) cluster ingest across an epoch swap mid-write ------------------------
+
+def test_cluster_ingest_survives_epoch_swap(tmp_path):
+    """Broker-side stream ingest keeps acking while the topology rolls to
+    a new epoch; every acked batch is servable afterwards (the swap voids
+    owner confirmations, never the broker's own journal). Port members
+    throughout. The JAX case waits on sleeps and fails now and then;
+    here nothing waits on time: the watcher and the prober are off, the
+    test runs every member's ``check_epoch`` itself, and every wait is a
+    poll of a condition with a deadline."""
+    import time
+
+    from spark_druid_olap_tpu_torch.cluster import epoch as EPO
+    from test_torch_cluster import (free_port, port_broker,
+                                    restart_on_same_port, start_historicals,
+                                    wait_until)
+
+    root = str(tmp_path / "p")
+    seed = open_ctx("port", root)
+    for b in range(4):
+        seed.stream_ingest("ev", _batch(f"seed{b}",
+                                        day=f"2024-01-{b + 1:02d}"),
+                           time_column="t", target_rows=32)
+    seed.checkpoint()
+    seed.close()
+
+    common = {"sdot.persist.path": root,
+              "sdot.cluster.replication": 2,
+              "sdot.cluster.shards": 2,
+              "sdot.cluster.epoch.poll.seconds": 0,
+              "sdot.cluster.epoch.drain.grace.seconds": 0.05,
+              "sdot.cluster.retry.backoff.start.seconds": 0.01,
+              "sdot.cache.enabled": False}
+    csv2, hists = start_historicals(common, n=2, list_size=2)
+    broker = None
+    try:
+        broker = port_broker(root, csv2, **{
+            **common, "sdot.cluster.probe.interval.seconds": 0})
+        # the third member's address is picked now; it starts once the
+        # epoch that adds it is published
+        addr3 = f"127.0.0.1:{free_port()}"
+
+        acked, lock = [], threading.Lock()
+        stop = threading.Event()
+        errors = []
+
+        def producer():
+            b = 0
+            try:
+                while (not stop.is_set() or b < 6) and b < 40:
+                    key = f"live{b}"
+                    broker.stream_ingest(
+                        "ev", _batch(key,
+                                     day=f"2024-02-{(b % 27) + 1:02d}"),
+                        time_column="t", target_rows=32)
+                    with lock:
+                        acked.append(key)
+                    b += 1
+            except Exception as e:  # noqa: BLE001 — asserted below
+                errors.append(e)
+
+        th = threading.Thread(target=producer)
+        th.start()
+        try:
+            # a few pre-swap batches land (and get pushed to owners)
+            assert wait_until(lambda: len(acked) >= 3, 30.0)
+            rec = EPO.publish_epoch(root, csv2.split(",") + [addr3],
+                                    note="scale-out")
+            hists.append(restart_on_same_port(
+                "port", {**common, "sdot.cluster.nodes": ",".join(
+                    rec.nodes)}, 2))
+
+            def swapped():
+                for h in hists:
+                    h.check_epoch()
+                broker.cluster.check_epoch()
+                return broker.cluster.stats()["epoch"]["active"] \
+                    == rec.epoch
+            assert wait_until(swapped, 30.0)
+            # batches keep landing after the swap too
+            n_swap = len(acked)
+            assert wait_until(lambda: len(acked) >= n_swap + 2 or
+                              not th.is_alive(), 30.0)
+        finally:
+            stop.set()
+            th.join(60)
+        assert not errors, errors[:1]
+        assert not th.is_alive()
+
+        # every acked batch — before, during, and after the swap — is
+        # servable with exact aggregates
+        q = ("select k, sum(v) as s, count(*) as n from ev "
+             "group by k order by k")
+        keys = sorted([f"seed{b}" for b in range(4)] + sorted(set(acked)))
+        want = pd.DataFrame({
+            "k": keys,
+            "s": np.int64(np.arange(40).sum()),
+            "n": np.int64(40)})
+        assert_frames_equal(broker.sql(q).to_pandas(), want)
+        st = broker.engine.last_stats.get("cluster") or {}
+        assert st.get("mode") in ("scatter", "local"), st
+        ing = broker.cluster.stats()["ingest"]
+        assert ing["push_enabled"]
+        assert broker.cluster.counters["ingest_pushes"] >= 1
+        assert broker.cluster.counters["epoch_swaps"] == 1
+    finally:
+        for h in hists:
+            h.stop()
+        if broker is not None:
+            broker.close()

@@ -114,11 +114,22 @@ TIER_MODULES = ["tier", "tier.store", "tier.handles", "tier.loader",
                 "encode.exec", "utils.retry", "tools.calibrate"]
 
 
+# the serving layer and the cluster tier, by exact name (``server`` and
+# ``cluster`` are package names in the JAX package too)
+SERVER_CLUSTER_MODULES = ["server", "server.http", "server.flight",
+                          "server.__main__", "cluster", "cluster.wire",
+                          "cluster.merge", "cluster.assign", "cluster.epoch",
+                          "cluster.breaker", "cluster.subqcache",
+                          "cluster.autoscale", "cluster.historical",
+                          "cluster.broker", "cluster.__main__",
+                          "ops.agg_registry", "parallel.multihost"]
+
+
 @pytest.mark.parametrize("module",
                          SHAREDSCAN_MODULES + SQL_MODULES + HASHED_MODULES
                          + JOIN_WINDOW_MODULES + SERVING_MODULES
                          + INGEST_ROLLUP_MODULES + PERSIST_MODULES
-                         + TIER_MODULES)
+                         + TIER_MODULES + SERVER_CLUSTER_MODULES)
 def test_sharedscan_slice_modules_are_checked(module):
     import pkgutil
     prefix = "spark_druid_olap_tpu_torch."

@@ -629,10 +629,13 @@ def test_snapshot_blobs_byte_identical(tmp_path, encode):
 def test_unported_branches_raise_a9(tmp_path):
     """The tiered store (with a persist path) recovers tiered
     datasources and ``tier_io_budget`` reads ``sdot.tier.wave.io.bytes``
-    over them, as in the JAX package; a tiered shard slice (a cluster
-    historical's boot) and the cluster push still raise, naming ROADMAP
-    A.9."""
+    over them, as in the JAX package. The branches that raised ROADMAP A.9
+    before the cluster tier was ported now answer as the JAX package's
+    do: a tiered shard slice (a cluster historical's boot) holds the
+    JAX package's slice's rows, and ``stream_ingest`` with
+    ``sdot.cluster.nodes`` set but no broker role journals locally."""
     from spark_druid_olap_tpu.parallel import cost as jcost
+    from spark_druid_olap_tpu.tier.loader import slice_tiered as jslice
     from spark_druid_olap_tpu_torch.parallel import cost
     from spark_druid_olap_tpu_torch.tier.handles import TieredDatasource
     from spark_druid_olap_tpu_torch.tier.loader import slice_tiered
@@ -655,14 +658,72 @@ def test_unported_branches_raise_a9(tmp_path):
                 c.store.get("events"), c.config)
         assert got["port"] == got["jax"] \
             == {None: 256 << 20, 0: None, 4096: 4096}[io]
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9"):
-        slice_tiered(ds, [0])
+    shard = slice_tiered(ds, [0], name="events::shard0of1")
+    jshard = jslice(tiered["jax"].store.get("events"), [0],
+                    name="events::shard0of1")
+    assert isinstance(shard, TieredDatasource)
+    assert shard.name == jshard.name and shard.num_rows == jshard.num_rows
+    assert [(g.id, g.start_row, g.end_row) for g in shard.segments] \
+        == [(g.id, g.start_row, g.end_row) for g in jshard.segments]
+    for k in shard.dims:
+        np.testing.assert_array_equal(shard.dims[k].codes,
+                                      jshard.dims[k].codes)
+    for k in shard.metrics:
+        np.testing.assert_array_equal(shard.metrics[k].values,
+                                      jshard.metrics[k].values)
     for c in tiered.values():
         c.close()
-    ctx = open_ctx("port", tmp_path, **{"sdot.cluster.nodes": "localhost:1"})
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9"):
-        ctx.stream_ingest("events", _events(10), **INGEST)
-    ctx.close()
+    pair = {pkg: open_ctx(pkg, tmp_path / pkg,
+                          **{"sdot.cluster.nodes": "localhost:1"})
+            for pkg in ("jax", "port")}
+    for c in pair.values():
+        assert c.cluster is None                # no broker role, no client
+        c.stream_ingest("events", _events(10), **INGEST)
+    assert_same_store(pair["port"].store.get("events"),
+                      pair["jax"].store.get("events"))
+    for c in pair.values():
+        assert c.persist.counters["wal_appends"] == 1
+        c.close()
+
+
+def test_http_metadata_persist_endpoint(tmp_path):
+    """``GET /metadata/persist`` (``tests/test_persist.py``'s HTTP case)
+    through both packages' ``SqlServer``: the same document but for
+    timings and paths; ``{"enabled": false}`` without a persist path."""
+    import urllib.request
+
+    from spark_druid_olap_tpu.server.http import SqlServer as JServer
+    from spark_druid_olap_tpu_torch.server.http import SqlServer as TServer
+    servers = {"jax": JServer, "port": TServer}
+
+    def fetch(ctx, pkg):
+        srv = servers[pkg](ctx, "127.0.0.1", 0).start()
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{srv.port}/metadata/persist") as r:
+                return json.loads(r.read())
+        finally:
+            srv.stop()
+
+    docs = {}
+    for pkg in ("jax", "port"):
+        ctx = open_ctx(pkg, tmp_path / pkg)
+        ctx.stream_ingest("events", _events(30), **INGEST)
+        ctx.checkpoint("events")
+        docs[pkg] = fetch(ctx, pkg)
+        ctx.close()
+        bare = jsdot.Context() if pkg == "jax" \
+            else tsdot.Context(device="cpu")
+        assert fetch(bare, pkg) == {"enabled": False}
+    for doc in docs.values():
+        assert doc["enabled"] is True
+        assert "events" in doc["datasources"]
+        assert doc["datasources"]["events"]["currentVersion"] >= 1
+        assert doc["counters"]["checkpoints"] >= 1
+    assert set(docs["port"]) == set(docs["jax"])
+    assert docs["port"]["counters"] == docs["jax"]["counters"]
+    assert set(docs["port"]["datasources"]["events"]) \
+        == set(docs["jax"]["datasources"]["events"])
 
 
 @pytest.mark.parametrize("key", [

@@ -474,3 +474,31 @@ def test_host_grouped_frame_holds_order_helpers_by_reference():
     helpers = frame.attrs["order_helpers"]
     assert frame["n"].attrs["order_helpers"] is helpers
     assert set(helpers.grp_cols) and set(helpers.agg_cols)
+
+
+def test_http_metadata_rollups_endpoint():
+    """``GET /metadata/rollups`` (``tests/test_rollup.py``'s HTTP case)
+    through both packages' ``SqlServer``: the same rows."""
+    import json
+    import urllib.request
+
+    from spark_druid_olap_tpu.server.http import SqlServer as JServer
+    from spark_druid_olap_tpu_torch.server.http import SqlServer as TServer
+    docs = []
+    for ctx, server_cls in zip(_sales_pair(), (JServer, TServer)):
+        ctx.sql("create rollup cube1 on sales dimensions (region) "
+                "aggregations (count(*))")
+        server = server_cls(ctx, "127.0.0.1", 0).start()
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{server.port}/metadata/rollups",
+                    timeout=30) as r:
+                docs.append(json.loads(r.read().decode()))
+        finally:
+            server.stop()
+    jdoc, tdoc = docs
+    for doc in docs:
+        assert doc["numRows"] == 1
+        assert doc["rows"][0]["name"] == "cube1"
+        assert doc["rows"][0]["datasource"] == "__rollup_cube1"
+    assert tdoc == jdoc

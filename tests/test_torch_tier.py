@@ -20,13 +20,15 @@ rows (``ops/scan.build_wave_array`` over a tiered datasource, into a
 reused buffer) equals, wave by wave, ``build_wave_array`` over the eager
 store, on a raw and an encoded root; ``build_array`` too.
 
-The JAX case of a cluster historical booting its owned shards tiered
-(``test_historical_boots_owned_shards_within_budget``) waits for the
-cluster (ROADMAP A.9).
+A port cluster historical boots its owned shards tiered over a root each
+package wrote (``test_historical_boots_owned_shards_within_budget``):
+no byte faulted at boot, one shard's subquery within the budget and equal
+to the writer's rows, sliced eagerly.
 """
 
 import test_torch_cache_pin  # noqa: F401 (the port's result cache off)
 
+import dataclasses
 import os
 import shutil
 import zlib
@@ -383,3 +385,63 @@ def test_wave_fault_into_staging_equals_eager(tmp_path, encoded):
     st = ds.tier.stats_snapshot()
     assert st["faults"] > 0 and st["pinned_entries"] == 0
     ctx.close()
+
+
+# -- (e) historical boots tiered shards within budget -------------------------
+
+@pytest.mark.parametrize("writer", PKGS)
+def test_historical_boots_owned_shards_within_budget(sales_roots, tmp_path,
+                                                     writer):
+    """A port historical over a root either package wrote boots its owned
+    shards as tiered slices without faulting a byte, then answers one
+    shard's subquery through the hot set, within the budget, as the
+    writer's eager context answers that shard's rows."""
+    from spark_druid_olap_tpu_torch.ir import spec as TS
+    from spark_druid_olap_tpu_torch.tier.handles import TieredDatasource
+    from test_torch_cluster import start_historicals
+    roots, _ = sales_roots
+    root = _copy(roots[writer], tmp_path, "hist")
+    budget = 256 * 1024
+    # node 0 of a two-node list; only node 0 runs
+    _, (node,) = start_historicals({
+        "sdot.persist.path": str(root),
+        "sdot.tier.enabled": True,
+        "sdot.tier.budget.bytes": budget,
+    }, n=1, list_size=2)
+    eager = open_ctx("port", _copy(roots[writer], tmp_path, "eager"))
+    try:
+        names = node.ctx.store.names()
+        assert names and all("::shard" in n for n in names)
+        for n in names:
+            assert isinstance(node.ctx.store.get(n), TieredDatasource)
+        # boot sliced handles without faulting data: the hot set is
+        # empty until a query arrives, so a node whose owned shards
+        # exceed RAM still comes up
+        st = node.ctx.persist.tier.stats_snapshot()
+        assert st["budget_bytes"] == budget
+        assert st["hot_bytes"] == 0 and st["faults"] == 0
+        # one shard answers through the tier, faulting only its bytes
+        q = TS.GroupByQuerySpec(
+            datasource=names[0],
+            dimensions=(TS.DimensionSpec(dimension="region",
+                                         output_name="region"),),
+            aggregations=(TS.AggregationSpec(kind="longsum", name="q",
+                                             field="qty"),
+                          TS.AggregationSpec(kind="count", name="n")))
+        got = node.ctx.engine.execute(q).to_pandas()
+        assert got["q"].sum() > 0
+        st = node.ctx.persist.tier.stats_snapshot()
+        assert 0 < st["hot_bytes"] <= budget
+        # the same rows, eager: slice the writer's store by the plan
+        from spark_druid_olap_tpu_torch.segment.store import slice_segments
+        dp = node.plan.datasources["sales"]
+        sh = next(sh for sh in dp.shards
+                  if f"::shard{sh.index}of" in names[0])
+        eager.store.register(slice_segments(
+            eager.store.get("sales"), sh.segment_indexes, name="slice"))
+        want = eager.engine.execute(
+            dataclasses.replace(q, datasource="slice")).to_pandas()
+        assert got.equals(want)
+    finally:
+        node.stop()
+        eager.close()

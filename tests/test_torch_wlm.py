@@ -11,7 +11,9 @@ and ``::test_query_cancel_flag``, and ``tests/test_sharedscan.py::
 test_cancel_one_of_the_batch`` and ``::test_wlm_queue_hands_off_into_open_group``.
 ``parallel/cost.estimate``, the demotion signal, is held equal to the JAX
 package's on the sales frame and the TPC-H statements, and so are the lane
-decisions it drives. The HTTP cases wait for the port's server.
+decisions it drives. The HTTP cases (the 429 shed with ``Retry-After``,
+the lane and tenant headers, ``/metadata/wlm``, stop and restart) run
+through both packages' ``SqlServer``.
 
 Tolerance: lane decisions, counters, states and errors exactly; the cost
 estimate's rows, selectivity, groups and single-device cost exactly (the
@@ -827,3 +829,134 @@ def test_wlm_queue_hands_off_into_open_group():
         out[name] = res
     for t, j in zip(out["torch"], out["jax"]):
         assert_answers_equal(t, j, ordered=True)
+
+
+# -- the HTTP cases of tests/test_wlm.py --------------------------------------
+
+def _http(P):
+    """One package's HTTP server module."""
+    if P.name == "jax":
+        from spark_druid_olap_tpu.server import http
+    else:
+        from spark_druid_olap_tpu_torch.server import http
+    return http
+
+
+@pytest.fixture
+def wlm_server(P):
+    ctx = _ctx(P, "only:slots=1,queue=0", **{"sdot.wlm.default.lane": "only"})
+    s = _http(P).SqlServer(ctx, "127.0.0.1", 0).start()
+    yield s
+    s.stop()
+
+
+def _post(server, path, payload, headers=None):
+    import json
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{server.port}{path}",
+        data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    with urllib.request.urlopen(req, timeout=30) as r:
+        return r.status, dict(r.headers), json.loads(r.read().decode())
+
+
+@BOTH
+def test_http_shed_gets_429_with_retry_after(P, wlm_server):
+    import json
+    import urllib.error
+    ctx = wlm_server.ctx
+    gate = threading.Event()
+    fake = _FakeExec(P, gate=gate)
+    ctx.engine._execute_admitted = fake
+    results = []
+
+    def slow():
+        results.append(_post(wlm_server, "/sql",
+                             {"sql": "SELECT COUNT(*) FROM sales"}))
+
+    holder = threading.Thread(target=slow)
+    holder.start()
+    deadline = time.monotonic() + 10
+    while fake.active != 1 and time.monotonic() < deadline:
+        time.sleep(0.005)
+    assert fake.active == 1
+    with pytest.raises(urllib.error.HTTPError) as ei:
+        _post(wlm_server, "/sql", {"sql": "SELECT COUNT(*) FROM sales"})
+    assert ei.value.code == 429
+    assert int(ei.value.headers["Retry-After"]) >= 1
+    body = json.loads(ei.value.read().decode())
+    assert body["error"] == "LaneFullError"
+    assert body["retryAfterSeconds"] >= 1
+    assert "queryId" in body
+    gate.set()
+    holder.join(10.0)
+    assert results and results[0][0] == 200
+    assert fake.calls == 1                    # shed request never executed
+    _lanes_idle(ctx)
+
+
+@BOTH
+def test_http_lane_and_tenant_headers(P, wlm_server):
+    ctx = wlm_server.ctx
+    ctx.config.set("sdot.wlm.lanes", "only:slots=1,queue=0;vip:slots=4")
+    code, headers, body = _post(
+        wlm_server, "/sql", {"sql": "SELECT COUNT(*) FROM sales"},
+        headers={"X-Sdot-Lane": "vip", "X-Sdot-Tenant": "acme"})
+    assert code == 200
+    vip = next(ln for ln in ctx.engine.wlm.stats()["lanes"]
+               if ln["lane"] == "vip")
+    assert vip["admitted"] >= 1
+    assert any(t["tenant"] == "acme"
+               for t in ctx.engine.wlm.stats()["tenants"])
+    # the raw-query wire takes the lane from the spec's context
+    code, _, body = _post(wlm_server, "/query", {
+        "queryType": "timeseries", "dataSource": "sales",
+        "aggregations": [{"type": "count", "name": "c"}],
+        "context": {"lane": "vip", "tenant": "acme"}})
+    assert code == 200 and body["rows"][0]["c"] == 2000
+    vip2 = next(ln for ln in ctx.engine.wlm.stats()["lanes"]
+                if ln["lane"] == "vip")
+    assert vip2["admitted"] == vip["admitted"] + 1
+
+
+def test_metadata_wlm_endpoint_equal_jax():
+    import json
+    import urllib.request
+    docs = {}
+    for name, P in PKGS.items():
+        ctx = _ctx(P, "only:slots=1,queue=0",
+                   **{"sdot.wlm.default.lane": "only"})
+        s = _http(P).SqlServer(ctx, "127.0.0.1", 0).start()
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{s.port}/metadata/wlm") as r:
+                docs[name] = json.loads(r.read().decode())
+        finally:
+            s.stop()
+    for body in docs.values():
+        assert body["enabled"] is True
+        assert {ln["lane"] for ln in body["lanes"]} >= {"only"}
+        assert {"slots", "active", "queued", "shed",
+                "max_active_seen"} <= set(body["lanes"][0])
+    assert docs["torch"]["lanes"] == docs["jax"]["lanes"]
+    assert docs["torch"]["tenants"] == docs["jax"]["tenants"]
+    assert set(docs["torch"]) == set(docs["jax"])
+
+
+@BOTH
+def test_server_stop_is_idempotent_and_restartable(P):
+    import urllib.request
+    ctx = _ctx(P, "only:slots=4")
+    http = _http(P)
+    for _ in range(3):
+        s = http.SqlServer(ctx, "127.0.0.1", 0).start()
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{s.port}/healthz") as r:
+            assert r.status == 200
+        code, _, body = _post(s, "/sql",
+                              {"sql": "SELECT COUNT(*) FROM sales"})
+        assert code == 200 and body["numRows"] == 1
+        s.stop()
+        s.stop()                              # second stop is a no-op
+        assert s._httpd is None
