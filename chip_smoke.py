@@ -74,9 +74,9 @@ both roots again as tiered datasources (Q1, Q6 and the storm cold and
 warm under a hot-set budget, bit for bit against the eager store in the
 same waves; Q1 cold again under a budget of two waves, where the
 prefetcher's chunks are hit), journals
-phase ``append``'s batches and 4 producers' 16 small batches through the
+phase ``append``'s batches and 4 producers' 8 small batches through the
 write-ahead log (group commit), recovers that root in a fresh context
-(the snapshot plus all 20 frames replayed, the store bit for bit),
+(the snapshot plus all 12 frames replayed, the store bit for bit),
 recovers a child process's root after a kill -9, poisons another child's
 CUDA context (its Q1 and Q6 then answer on the host tier, mode ``host
 (backend_lost ...)``) and restarts over that child's root on the card,
@@ -97,8 +97,12 @@ an HLL + theta + KLL statement through the broker against the single
 context over the same root, the 8-spec storm twice (wave launches per
 historical), a historical stopped mid-storm with zero mismatches, its
 restart and a 10,000-row ``stream_ingest`` read back through the
-broker. Every B1 and B2 call of these phases is held against its plain
-version. Its last phase,
+broker; with phase ``sql``'s SF1 orders and customer checkpointed into
+that root before the nodes boot, it runs J1, J2 and lineitem x orders as
+partitioned joins (two hops through the historicals, each node's probe
+on the card) against the single context's broadcast join and pandas,
+and J1 once in auto mode. Every B1 and B2 call of these phases is held
+against its plain version. Its last phase,
 ``waves``, ingests the run's SF1 lineitem again without ``l_comment``
 (cut from SF10, whose run passed 1,000 s, then from SF5, SF3 and SF2 for
 the phases above) and runs Q1, the
@@ -1610,7 +1614,8 @@ def sql_phase(sdt, tables, lineitem_ds, CG, CW, smi):
     extra = {"join": join_phase(sdt, ctx, tables, CG),
              "window": window_phase(ctx, tables),
              "flat_ingest_s": t_ingest, "base_tables_ingest_s": t_base,
-             "flat_ds": ctx.store.get("tpch_flat")}
+             "flat_ds": ctx.store.get("tpch_flat"),
+             "join_ds": {n: ctx.store.get(n) for n in ("orders", "customer")}}
     sketch = sketch_phase(ctx, tables, CG, CW)
     emit("sql", card=smi, sf=SF, flat_rows=rows, flat_columns=flat_cols,
          flatten_s=t_flat, ingest_s=t_ingest, base_tables_ingest_s=t_base,
@@ -2020,7 +2025,7 @@ def serving_phase(sdt, S, E, flat_ds, lineitem_ds, df, tables, CG,
     handoff = handoff_storm(sdt, flat_ds, star, tpch, solo, spies)
     cancel = cancel_on_card(sdt, S, E, flat_ds, star, lineitem_ds, df, tpch,
                             solo, spies)
-    kernels = {"b1": b1_checked(CG, "serving", spies.b1),
+    kernels = {"b1": b1_checked(CG, "serving", spies.b1, set()),
                "b2": [wave_timed(CW, f"serving b2[{i}]", *w)
                       for i, w in enumerate(spies.b2)]}
     return dict(statements=stmts, subsumption=subsumed,
@@ -2034,7 +2039,9 @@ def serving_phase(sdt, S, E, flat_ds, lineitem_ds, df, tables, CG,
 
 # Q1's 6 keys are above this dense ceiling: the QuerySpec goes hashed
 HASH_FORCED = {"sdot.engine.groupby.dense.max.keys": 4}
-HOST_ORACLE_BUDGET_S = 40.0      # host-tier checks of the full-star top-k
+# host-tier checks of the full-star top-k: q3 only (a 40 s budget checked
+# q10 and q21 too, ~48 s at SF1), cut for phase cluster's join leg
+HOST_ORACLE_BUDGET_S = 5.0
 HOST_CHECKED = ["q3", "q10", "q21"]
 
 
@@ -3767,6 +3774,7 @@ JOIN_SQL = {
 JOIN_SQL["J4"] = JOIN_SQL["J1"].replace("from orders o", "from orders_w o")
 JOIN_WAVE_SEGMENT_ROWS = 1 << 18
 JOIN_WAVES_MIN = 3
+JOIN_WARM = 3       # warm runs per statement (7 before, cut for the 900 s)
 
 
 def _f32(s):
@@ -3879,7 +3887,7 @@ def join_phase(sdt, ctx, tables, CG) -> dict:
             keys = [c_ for c_ in got.columns if got[c_].dtype.kind != "f"]
             check_frame(f"join {name} vs pandas", got, oracles[name], keys,
                         FLOAT_SUM_RTOL_ORACLE)
-            warm = [timed_sql(ctx, sql)[0] for _ in range(REPEATS)]
+            warm = [timed_sql(ctx, sql)[0] for _ in range(JOIN_WARM)]
             steps = timed_steps(ctx, sql, {
                 "canonical_key_ms": (HJ, "canonical_key"),
                 "probe_ms": (HJ, "probe"), "expand_ms": (HJ, "expand"),
@@ -4303,11 +4311,10 @@ def ssb_phase(sdt, CG, CW, smi, sf=SSB_SF, ingest_kw=None) -> dict:
         out["ingest_rss_gb"] = {"before": rss.before, "peak": rss.peak,
                                 "after": rss.after, "method": rss.method}
         if rss.method == "poll":
-            # the poller's thread shares the GIL with the ingest: the
-            # seconds are taken again from an ingest with nothing beside it
+            # the poller's thread shares the GIL with the ingest, but an
+            # ingest again without it took as long on the card (10.58-14.93
+            # s polled against 11.40-14.48 s alone): one ingest, for the 900 s
             out["ingest_polled_s"] = out["ingest_s"]
-            ds = None
-            ds, out["ingest_s"] = ingest()
         out["store_gb"] = sum(
             c.codes.nbytes for c in ds.dims.values()) / 1e9 + sum(
             m.values.nbytes for m in ds.metrics.values()) / 1e9
@@ -4513,7 +4520,7 @@ def rollup_phase(sdt, lineitem_ds, df, CG, CW, smi,
                     ROLLUP_RTOL)
         ssb_stmts[name] = {"warm_ms": ms, "rewrite_off_warm_ms": base_ms}
     out["ssb"] = ssb_stmts
-    out["kernels"] = {"b1": b1_checked(CG, "rollup", spies.b1),
+    out["kernels"] = {"b1": b1_checked(CG, "rollup", spies.b1, set()),
                       "b2": [wave_timed(CW, f"rollup b2[{i}]", *w)
                              for i, w in enumerate(spies.b2)]}
     out["b1_launches"], out["b2_launches"] = spies.b1_launches, \
@@ -4612,7 +4619,7 @@ def append_phase(sdt, S, E, lineitem_ds, df, CG, CW, smi) -> dict:
             stream_ingest_ms=ingest_ms, q1_ms=q1_ms, q1_cache=st["cache"],
             storm_ms=storm_ms, flags=flags,
             widened={col: str(ds.metrics[col].values.dtype)}))
-    out["kernels"] = {"b1": b1_checked(CG, "append", spies.b1),
+    out["kernels"] = {"b1": b1_checked(CG, "append", spies.b1, set()),
                       "b2": [wave_timed(CW, f"append b2[{i}]", *w)
                              for i, w in enumerate(spies.b2)]}
     out["b1_launches"], out["b2_launches"] = spies.b1_launches, \
@@ -4626,7 +4633,7 @@ def append_phase(sdt, S, E, lineitem_ds, df, CG, CW, smi) -> dict:
 # SQL surface, each statement over recovered, replayed or compacted data
 PERSIST_SMALL_ROWS = 10_000      # each producer thread's batches
 PERSIST_PRODUCERS = 4
-PERSIST_PRODUCER_BATCHES = 4    # 8 in PR 13: cut for the run's 900 s
+PERSIST_PRODUCER_BATCHES = 2    # 8, then 4, before: cut for the run's 900 s
 CRASH_SF = 0.05                  # the kill -9 child's frame
 CRASH_BATCH_ROWS = 1_000
 CRASH_PRODUCERS = 2
@@ -5372,9 +5379,9 @@ def persist_phase(sdt, S, E, lineitem_ds, df, append, CG, CW, smi,
     and bit for bit against the answers before the checkpoint, cold and
     warm); (b') each root recovered as tiered datasources
     (:func:`tier_leg`); (c) phase append's 4 batches through the journaled
-    ``stream_ingest``, then 4 producer threads x 4 batches (group
+    ``stream_ingest``, then 4 producer threads x 2 batches (group
     commits), Q1 and the storm against pandas, and a fresh context over
-    that root replaying all 20 frames onto the snapshot (its ms, the
+    that root replaying all 12 frames onto the snapshot (its ms, the
     store bit for bit, Q1 bit for bit); (d) a kill -9 of a child
     streaming into its own root; (d') a real device loss in a child
     started beside (d) (:func:`device_loss_leg`); (e) ``persist.compact``
@@ -5635,7 +5642,7 @@ def persist_phase(sdt, S, E, lineitem_ds, df, append, CG, CW, smi,
         out["disk_free_gb_after"] = shutil.disk_usage(tmp).free / 1e9
         del ctxs, ctx, fresh, storm
         step("sql")
-    out["kernels"] = {"b1": b1_checked(CG, "persist", spies.b1),
+    out["kernels"] = {"b1": b1_checked(CG, "persist", spies.b1, set()),
                       "b2": [wave_timed(CW, f"persist b2[{i}]", *w)
                              for i, w in enumerate(spies.b2)]}
     out["compaction"]["b2_kernel_ms"] = [
@@ -6150,8 +6157,8 @@ def free_ports(n):
 
 
 class RpcLog:
-    """Wraps a broker client's ``_rpc``: each subquery RPC's node, ms and
-    response bytes, while installed."""
+    """Wraps a broker client's ``_rpc``: each RPC's node, ms, response
+    bytes, status, route and request bytes, while installed."""
 
     def __init__(self, client):
         self.client, self.real, self.calls = client, client._rpc, []
@@ -6162,7 +6169,7 @@ class RpcLog:
             status, body = self.real(st, node_id, payload, deadline,
                                      path=path)
             self.calls.append((node_id, (time.perf_counter() - t) * 1e3,
-                               len(body), status))
+                               len(body), status, path, len(payload)))
             return status, body
         self.client._rpc = rpc
         return self
@@ -6172,7 +6179,7 @@ class RpcLog:
 
     def summary(self, since=0) -> dict:
         out = {}
-        for nid, ms, nbytes, status in self.calls[since:]:
+        for nid, ms, nbytes, status, _, _ in self.calls[since:]:
             d = out.setdefault(str(nid), {"rpcs": 0, "ms": [], "bytes": 0})
             d["rpcs"] += 1
             d["ms"].append(ms)
@@ -6181,19 +6188,273 @@ class RpcLog:
             d["median_ms"] = statistics.median(d.pop("ms"))
         return out
 
+    def routes(self, since=0) -> dict:
+        """Per route: RPCs, their summed and median ms, request and
+        response bytes."""
+        out = {}
+        for _, ms, nbytes, _, path, sent in self.calls[since:]:
+            d = out.setdefault(path, {"rpcs": 0, "ms": [], "sent_bytes": 0,
+                                      "received_bytes": 0})
+            d["rpcs"] += 1
+            d["ms"].append(ms)
+            d["sent_bytes"] += sent
+            d["received_bytes"] += nbytes
+        for d in out.values():
+            ms = d.pop("ms")
+            d["sum_ms"], d["median_ms"] = sum(ms), statistics.median(ms)
+        return out
 
-def cluster_phase(sdt, root, S, E, df, CG, CW, smi, device="cuda") -> dict:
+
+# the partitioned join over the cluster (phase cluster's join leg): phase
+# join's J1 and J2 over orders and customer, and lineitem x orders
+CLUSTER_JOIN_SQL = {
+    "J1": JOIN_SQL["J1"], "J2": JOIN_SQL["J2"],
+    "LO": ("select o_orderpriority, count(*) as n, sum(l_extendedprice) as s "
+           "from lineitem l join orders o on l.l_orderkey = o.o_orderkey "
+           "where l.l_shipmode = 'MAIL' group by o_orderpriority"),
+}
+CLUSTER_JOIN_WARM = 2            # warm runs per statement after the cold one
+JOIN_ROUTES = ("/cluster/join/partition", "/cluster/join/exec")
+
+
+def lo_oracle(li, orders):
+    """LO on pandas: MAIL lines joined to their order, by priority (the
+    price as stored, float32)."""
+    m = li.loc[li.l_shipmode == "MAIL", ["l_orderkey", "l_extendedprice"]] \
+        .merge(orders[["o_orderkey", "o_orderpriority"]],
+               left_on="l_orderkey", right_on="o_orderkey")
+    m["p"] = _f32(m.l_extendedprice)
+    return m.groupby("o_orderpriority").agg(
+        n=("p", "size"), s=("p", "sum")).reset_index()
+
+
+def check_join_answer(name, got, want, rtol):
+    """``check_frame`` keyed on the text columns, except that an integer
+    column against a float one (a partitioned integer sum, int64, against
+    the broadcast tier's float64) compares exactly."""
+    keys = [c for c in want.columns if want[c].dtype.kind in "OUS"]
+    got = got.sort_values(keys).reset_index(drop=True)
+    want = want.sort_values(keys).reset_index(drop=True)
+    for c in want.columns:
+        if c in got.columns and {got[c].dtype.kind, want[c].dtype.kind} \
+                == {"i", "f"}:
+            g = got[c].to_numpy(np.float64)
+            w = want[c].to_numpy(np.float64)
+            if not np.array_equal(g, w):
+                raise AssertionError(f"{name} {c}: {g[:5]} vs {w[:5]}")
+    check_frame(name, got, want, None, rtol)
+
+
+class ExecSpy:
+    """Each exec hop a historical answers while installed: the node, the
+    rows of its probe and build partitions, its local join's host ms, and
+    the device of every ``HJ.probe`` it ran (with the probe's device ms,
+    CUDA events, on a cuda tensor). ``device_type`` is the nodes'."""
+
+    def __init__(self, hist, JPT, HJ, device_type):
+        import threading
+        self.hist, self.JPT, self.HJ = hist, JPT, HJ
+        self.device_type = device_type
+        self.tls, self.calls = threading.local(), []
+        self.lock = threading.Lock()
+
+    def __enter__(self):
+        tls, JPT, HJ = self.tls, self.JPT, self.HJ
+        self.real = (JPT.local_join, HJ.probe)
+        real_join, real_probe = self.real
+        for h in self.hist:
+            def handle(raw, _h=h, _real=h.handle_join_exec):
+                tls.node = _h.node_id
+                try:
+                    return _real(raw)
+                finally:
+                    tls.node = None
+            h.handle_join_exec = handle
+
+        def local_join(spec, probe, build, device=None):
+            rows = [len(next(iter(side[1].values()), ()))
+                    for side in (probe, build)]
+            tls.probes = []
+            t = time.perf_counter()
+            try:
+                out = real_join(spec, probe, build, device=device)
+            finally:
+                probes, tls.probes = tls.probes, None
+            with self.lock:
+                self.calls.append({
+                    "node": getattr(tls, "node", None),
+                    "probe_rows": rows[0], "build_rows": rows[1],
+                    "ms": (time.perf_counter() - t) * 1e3,
+                    "probes": probes})
+            return out
+
+        def probe(tdev, key, valid, **kw):
+            if getattr(tls, "probes", None) is None:
+                return real_probe(tdev, key, valid, **kw)   # not a hop
+            ev = None
+            if key.is_cuda:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+                ev[0].record()
+            out = real_probe(tdev, key, valid, **kw)
+            if ev is not None:
+                ev[1].record()
+                ev[1].synchronize()
+            tls.probes.append((key.device.type, ev[0].elapsed_time(ev[1])
+                               if ev else None))
+            return out
+        JPT.local_join, HJ.probe = local_join, probe
+        return self
+
+    def __exit__(self, *exc):
+        self.JPT.local_join, self.HJ.probe = self.real
+        for h in self.hist:
+            del h.handle_join_exec
+
+    def check(self, name, since=0) -> dict:
+        """Every node sent a non-empty partition probed it on the nodes'
+        device; per node: exec hops, rows, local join ms, probe device
+        ms."""
+        calls = self.calls[since:]
+        out = {}
+        for c in calls:
+            d = out.setdefault(str(c["node"]), {
+                "exec_hops": 0, "probe_rows": 0, "build_rows": 0,
+                "local_join_ms": 0.0, "probe_device_ms": 0.0, "probes": 0})
+            d["exec_hops"] += 1
+            d["probe_rows"] += c["probe_rows"]
+            d["build_rows"] += c["build_rows"]
+            d["local_join_ms"] += c["ms"]
+            for dev, ms in c["probes"]:
+                d["probes"] += 1
+                d["probe_device_ms"] += ms or 0.0
+            if c["probe_rows"] and c["build_rows"] and (
+                    not c["probes"] or any(dev != self.device_type
+                                           for dev, _ in c["probes"])):
+                raise AssertionError(f"{name}: node {c['node']}'s exec hop "
+                                     f"probed on {c['probes']}")
+        if not calls or None in (c["node"] for c in calls):
+            raise AssertionError(f"{name}: exec hops {calls}")
+        return out
+
+
+def cluster_join_leg(broker, single, hist, rpc, tables, df, spies,
+                     device) -> dict:
+    """Phase cluster's partitioned join: ``CLUSTER_JOIN_SQL`` through the
+    broker with ``sdot.join.mode`` partitioned, each once cold and
+    ``CLUSTER_JOIN_WARM`` times warm, against the single context's
+    broadcast answer (ints and dims exact, floats rtol 1e-9) and pandas
+    (floats rtol 1e-6); per run the routes' RPC ms and bytes, the broker's
+    split and merge ms, the shuffle bytes; then J1 once in auto mode."""
+    from spark_druid_olap_tpu_torch.join import partitioned as JPT
+    from spark_druid_olap_tpu_torch.ops import hash_join as HJ
+    from spark_druid_olap_tpu_torch.parallel import cost as C
+    oracles = join_oracles(tables)
+    oracles["LO"] = lo_oracle(df, tables["orders"])
+    cl = broker.cluster
+    n_nodes = len(cl.nodes)
+    out = {}
+    broker.config.set("sdot.join.mode", "partitioned")
+    with ExecSpy(hist, JPT, HJ, torch.device(device).type) as ex:
+        for name, sql in CLUSTER_JOIN_SQL.items():
+            t = time.perf_counter()
+            want = spies.run(lambda: single.sql(sql).to_pandas())
+            single_cold = (time.perf_counter() - t) * 1e3
+            sjs = dict(single.engine.last_stats.get("join") or {})
+            if sjs.get("mode") != "broadcast":
+                raise AssertionError(f"cluster join {name}: single {sjs}")
+            t = time.perf_counter()
+            spies.run(lambda: single.sql(sql).to_pandas())
+            single_warm = (time.perf_counter() - t) * 1e3
+            check_join_answer(f"cluster join {name} single vs pandas",
+                              want, oracles[name], FLOAT_SUM_RTOL_ORACLE)
+            runs = []
+            for i in range(1 + CLUSTER_JOIN_WARM):
+                since, ex0 = len(rpc.calls), len(ex.calls)
+                t = time.perf_counter()
+                got = broker.sql(sql).to_pandas()
+                ms = (time.perf_counter() - t) * 1e3
+                js = dict(broker.engine.last_stats.get("join") or {})
+                if js.get("mode") != "partitioned" \
+                        or js.get("partitions") != n_nodes \
+                        or not js.get("shuffle_bytes", 0) > 0:
+                    raise AssertionError(f"cluster join {name}: {js}")
+                check_join_answer(f"cluster join {name} vs single", got,
+                                  want, FLOAT_SUM_RTOL_KERNEL)
+                check_join_answer(f"cluster join {name} vs pandas", got,
+                                  oracles[name], FLOAT_SUM_RTOL_ORACLE)
+                routes = rpc.routes(since)
+                if set(routes) != set(JOIN_ROUTES):
+                    raise AssertionError(f"cluster join {name}: routes "
+                                         f"{sorted(routes)}")
+                runs.append({"ms": ms, "split_ms": js["split_ms"],
+                             "merge_ms": js["merge_ms"],
+                             "shuffle_bytes": js["shuffle_bytes"],
+                             "scatters": js["scatters"],
+                             "build_rows": js["build_rows"],
+                             "routes": routes,
+                             "nodes": ex.check(f"cluster join {name}", ex0)})
+            warm = [r["ms"] for r in runs[1:]]
+            out[name] = dict(
+                rows=len(got), partitions=js["partitions"],
+                cold_ms=runs[0]["ms"], warm_ms=warm,
+                warm_median_ms=statistics.median(warm),
+                single_cold_ms=single_cold, single_warm_ms=single_warm,
+                broker_over_single=statistics.median(warm) / single_warm,
+                single_join={k: sjs.get(k) for k in (
+                    "build_rows", "table_slots", "match_width", "waves")},
+                runs=runs)
+    # auto mode: the estimate's choice between the two tiers, and both costs
+    ests, real_est = [], C.join_estimate
+
+    def spy_est(*a, **k):
+        e = real_est(*a, **k)
+        ests.append(e)
+        return e
+    broker.config.set("sdot.join.mode", "auto")
+    C.join_estimate = spy_est
+    try:
+        t = time.perf_counter()
+        got = spies.run(lambda: broker.sql(CLUSTER_JOIN_SQL["J1"])
+                        .to_pandas())
+        auto_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        C.join_estimate = real_est
+        broker.config.set("sdot.join.mode", "partitioned")
+    js = broker.engine.last_stats.get("join") or {}
+    if js.get("mode") != ests[-1].mode or js.get("mode") not in (
+            "broadcast", "partitioned"):
+        raise AssertionError(f"cluster join auto: ran {js.get('mode')}, "
+                             f"estimated {ests[-1].mode}")
+    check_join_answer("cluster join J1 auto vs pandas", got, oracles["J1"],
+                      FLOAT_SUM_RTOL_ORACLE)
+    out["auto_J1"] = {
+        "ms": auto_ms, "ran": js.get("mode"),
+        "estimates": [dict(mode=e.mode, reason=e.reason,
+                           broadcast_cost=e.broadcast_cost,
+                           partitioned_cost=e.partitioned_cost,
+                           probe_bytes=e.probe_bytes,
+                           build_bytes=e.build_bytes,
+                           shuffle_bytes=e.shuffle_bytes) for e in ests]}
+    out["counters"] = {k: cl.counters[k] for k in (
+        "join_scatters", "join_shuffle_bytes")}
+    return out
+
+
+def cluster_phase(sdt, root, S, E, df, tables, join_ds, CG, CW, smi,
+                  device="cuda") -> dict:
     """Phase ``cluster``: 3 in-process historicals and a broker on the
     card over phase persist's raw SF1 lineitem root (6 segments; shards at
     their default, one per node; replication 2; shared scan on with the
-    storm serving config of docs/DISTRIBUTED.md). Q1, Q6, a TopN and an
-    HLL + theta + KLL statement through the broker against the
-    single-process context over the same root (ints, dims and sketch
-    estimates exact, floats rtol 1e-9); the 8-spec storm from 8 threads
-    (the B2 launches per historical); a historical stopped mid-storm with
-    zero mismatches; its restart, probed back up; a 10,000-row
-    ``stream_ingest`` pushed to the shard's owners and read back through
-    the broker (read-your-writes)."""
+    storm serving config of docs/DISTRIBUTED.md), into which ``join_ds``
+    (phase sql's SF1 orders and customer datasources) are checkpointed
+    before the nodes boot. Q1, Q6, a TopN and an HLL + theta + KLL
+    statement through the broker against the single-process context over
+    the same root (ints, dims and sketch estimates exact, floats rtol
+    1e-9); the partitioned join (:func:`cluster_join_leg`); the 8-spec
+    storm from 8 threads (the B2 launches per historical); a historical
+    stopped mid-storm with zero mismatches; its restart, probed back up; a
+    10,000-row ``stream_ingest`` pushed to the shard's owners and read back
+    through the broker (read-your-writes)."""
     import threading
 
     from spark_druid_olap_tpu_torch.cluster.historical import HistoricalNode
@@ -6201,6 +6462,16 @@ def cluster_phase(sdt, root, S, E, df, CG, CW, smi, device="cuda") -> dict:
     t_phase = time.perf_counter()
     spies = KernelSpies(CG, CW)
     out = {"card": smi, "nodes": CLUSTER_NODES}
+    # the join leg's tables beside lineitem in deep storage
+    t = time.perf_counter()
+    seed = sdt.Context({**ENGINE_TIMED, "sdot.persist.path": root},
+                       device=device)
+    for name, ds in join_ds.items():
+        seed.store.register(ds)
+        seed.checkpoint(name)
+    seed.close()
+    del seed
+    out["join_checkpoint_s"] = time.perf_counter() - t
     nodes_csv = ",".join(f"127.0.0.1:{p}" for p in free_ports(CLUSTER_NODES))
     common = {**CLUSTER_HIST_CONFIG, "sdot.persist.path": root,
               "sdot.cluster.nodes": nodes_csv,
@@ -6267,6 +6538,11 @@ def cluster_phase(sdt, root, S, E, df, CG, CW, smi, device="cuda") -> dict:
                     / statistics.median(swarm),
                     shards=st.get("shards"), nodes=st.get("nodes"),
                     rpc_cold=rpc_cold, rpc_warm=rpc.summary(mid))
+            # (a') the partitioned join over the cluster
+            t = time.perf_counter()
+            out["join"] = cluster_join_leg(broker, single, hist, rpc, tables,
+                                           df, spies, device)
+            out["join"]["seconds"] = time.perf_counter() - t
         out["statements"] = stmts
         # (b) the 8-spec storm from 8 threads: per-node coalescing (B2)
         specs = storm_specs(S, E)
@@ -6495,8 +6771,8 @@ def main() -> int:
               "lost device records); ingest_rss_gb: the process's VmRSS "
               "before, after and at its largest during the streamed "
               "ingest (method hwm: VmHWM reset on entry; poll: VmRSS "
-              "read every 5 ms, and ingest_s then from a second ingest "
-              "without the poller, ingest_polled_s from the first)")
+              "read every 5 ms, ingest_s and ingest_polled_s then the "
+              "one ingest with the poller beside it)")
 
     # 4. the main path at SF1; every ingest from here on encodes its
     # string columns with the native encoder where it loaded
@@ -6535,7 +6811,7 @@ def main() -> int:
                 "statement on the host tier (sdot.join.enabled false); J4 "
                 "(>= 3 probe waves) equal to J1 exactly; each B1 call vs "
                 "its plain version (b1)",
-         note="ms: host wall clock to the frame, warm = median of 7; "
+         note="ms: host wall clock to the frame, warm = median of 3; "
               "stream_ms: one warm run, CUDA events around each call of "
               "the step, summed over its calls (stream ms: an upper bound "
               "on device time, since the span also holds the host's "
@@ -6579,6 +6855,7 @@ def main() -> int:
     # 4a''. the result cache, WLM and cancellation around the engine, with
     # the defaults, on phase sql's flat star
     flat_ds = extra.pop("flat_ds")
+    join_ds = extra.pop("join_ds")      # phase cluster's join leg
     serving = serving_phase(sdt, S, E, flat_ds,
                             ctx.store.get("lineitem"), df, tables, CG, CW)
     emit("serving", card=smi, **serving,
@@ -6678,7 +6955,7 @@ def main() -> int:
                 "version (kernels)",
          note="ms / s: host wall clock; recovery_ms: the manager's "
               "recovery report (snapshot load, checksums, WAL replay; "
-              "replay: the SF1 snapshot plus the 20 journaled frames); "
+              "replay: the SF1 snapshot plus the 12 journaled frames); "
               "checksum_verify_ms: stats['persist'] of the first "
               "statement; cold = the first statement over the recovered "
               "store (columns uploaded); the WAL's fsync and group commit "
@@ -6703,7 +6980,8 @@ def main() -> int:
                 "vs its plain version (kernels)",
          note="ms: host wall clock to the frame")
     # 4d. the broker / historical cluster over phase persist's raw root
-    cluster = cluster_phase(sdt, cluster_root, S, E, df, CG, CW, smi)
+    cluster = cluster_phase(sdt, cluster_root, S, E, df, tables, join_ds,
+                            CG, CW, smi)
     cluster_tmp.cleanup()
     emit("cluster", **cluster,
          oracle="each broker answer vs the single-process context over the "
@@ -6713,9 +6991,14 @@ def main() -> int:
                 "rtol 1e-9), zero mismatches; Q1 after the restart vs the "
                 "single context; Q1 after the 10,000-row stream_ingest vs "
                 "an in-memory context holding the same rows (floats rtol "
-                "1e-9), served by a read-your-writes scatter; each B1 call "
-                "and B2 launch inside the historicals vs its plain version "
-                "(kernels)",
+                "1e-9), served by a read-your-writes scatter; join: J1, J2 "
+                "and LO partitioned (mode partitioned, 3 partitions, "
+                "shuffle bytes > 0, every exec hop with rows on both sides "
+                "probed on cuda) vs the single context's broadcast answer "
+                "(ints and dims exact, floats rtol 1e-9) and vs pandas "
+                "(floats rtol 1e-6), the auto-mode J1 vs pandas; each B1 "
+                "call and B2 launch inside the historicals, the broker and "
+                "the single context's joins vs its plain version (kernels)",
          note="ms: host wall clock; boot_ms: HistoricalNode.start (the "
               "server, recovery of the root, the owned shards sliced); "
               "scatter_ms: the broker's statement, median of 3 warm runs "
@@ -6729,7 +7012,15 @@ def main() -> int:
               "counters over the first; stop_to_first_answer_ms: from the "
               "stop to the first broker answer completed after it; "
               "probe_up_ms: from the restarted node's start returning to "
-              "the broker's prober marking it up; kernels: a call of a "
+              "the broker's prober marking it up; join: per statement "
+              "cold_ms, warm_ms (2 runs) and the single context's cold / "
+              "warm broadcast ms, host wall clock; per run the routes' "
+              "RPCs (sum and median ms, request and response bytes), the "
+              "broker's split_ms / merge_ms, shuffle_bytes, per node the "
+              "exec hop's partition rows, local_join host ms and HJ.probe "
+              "device ms (CUDA events); auto_J1: the estimates with both "
+              "costs; join_checkpoint_s: orders and customer checkpointed "
+              "into the root before the nodes boot; kernels: a call of a "
               "shape already timed in the phase is checked, not timed "
               "again")
     new_phases = (ssb, rollup, append, persist, modules, server, cluster)
@@ -6786,7 +7077,8 @@ def main() -> int:
          oracle="q3 (flat) and basic_agg vs pandas (ints exact, floats "
                 "rtol 1e-6); q7 sorted vs scatter tier and Q1 hashed vs "
                 "dense (floats rtol 1e-9); q3 / q10 / q21 (full star) vs "
-                "the engine-free host tier while its budget lasts",
+                "the engine-free host tier while its budget lasts (5 s: "
+                "q3 only at SF1)",
          note="steps: device ms by CUDA events as in phase timing; "
               "bound = bytes the step must move / 3.35 TB/s (the copy to "
               "the host: / 64 GB/s, PCIe Gen5 x16); unit costs: s per row "

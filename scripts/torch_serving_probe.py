@@ -1,11 +1,13 @@
 """Run ``chip_smoke.py``'s phases ``cluster`` and ``server`` alone.
 
-    python3 scripts/torch_serving_probe.py [--flat-sf SF]
+    python3 scripts/torch_serving_probe.py [--flat-sf SF] [--no-server]
 
-Builds the two kernels, generates TPC-H SF1 lineitem, ingests it and
+Builds the two kernels, generates TPC-H SF1, ingests lineitem and
 checkpoints it raw into a temporary persist root (as phase ``persist``'s
-step (a) does), then runs phase ``cluster`` (3 historicals and a broker
-on the card over that root) exactly as ``chip_smoke.py`` runs it; then
+step (a) does), ingests orders and customer as phase ``sql`` does, then
+runs phase ``cluster`` (3 historicals and a broker on the card over that
+root, its partitioned join leg over orders and customer included)
+exactly as ``chip_smoke.py`` runs it; then, unless ``--no-server``,
 flattens the TPC-H star at ``--flat-sf`` (1.0 as in ``chip_smoke.py``;
 smaller is quicker) and runs phase ``server`` over it. Prints the card's
 name and power limit, then each phase's JSON line (also appended to
@@ -32,6 +34,7 @@ import chip_smoke as CS  # noqa: E402
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--flat-sf", type=float, default=CS.SF)
+    ap.add_argument("--no-server", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_serving_probe: no CUDA device", file=sys.stderr)
@@ -52,6 +55,11 @@ def main() -> int:
     ctx = sdt.Context(CS.ENGINE_TIMED)
     ctx.ingest_dataframe("lineitem", df, time_column="l_shipdate")
     ds = ctx.store.get("lineitem")
+    # phase sql's base tables of the join leg, ingested as it ingests them
+    ctx.ingest_dataframe("orders", tables["orders"],
+                         time_column="o_orderdate", target_rows=1 << 20)
+    ctx.ingest_dataframe("customer", tables["customer"], target_rows=1 << 20)
+    join_ds = {n: ctx.store.get(n) for n in ("orders", "customer")}
     with tempfile.TemporaryDirectory(prefix="sdot_serving_probe_") as tmp:
         root = str(pathlib.Path(tmp) / "raw")
         c = sdt.Context({**CS.ENGINE_TIMED, "sdot.persist.path": root})
@@ -59,8 +67,12 @@ def main() -> int:
         c.checkpoint("lineitem")
         c.close()
         CS.say(json.dumps({"setup_s": time.perf_counter() - t0}))
-        cluster = CS.cluster_phase(sdt, root, S, E, df, CG, CW, smi)
+        cluster = CS.cluster_phase(sdt, root, S, E, df, tables, join_ds,
+                                   CG, CW, smi)
         CS.emit("cluster", **cluster)
+    if args.no_server:
+        CS.say(json.dumps({"total_s": time.perf_counter() - t0}))
+        return 0
     flat_tables = tables if args.flat_sf == CS.SF \
         else tpch.generate(args.flat_sf, seed=CS.SEED)
     fctx = sdt.Context(CS.ENGINE_TIMED)

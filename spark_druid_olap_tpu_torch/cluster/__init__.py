@@ -7,7 +7,9 @@ with one device per node. Historicals answer through the port's ordinary
 shard, B2 where a node coalesces a storm) runs there. Frames on the wire
 are the JAX package's byte for byte, so a broker of either package can
 scatter to historicals of the other. The partitioned join's exchange
-routes (``/cluster/join/*``) are ROADMAP A.9.
+routes (``/cluster/join/partition``, ``/cluster/join/exec``) serve
+``join/partitioned.py``, whose probe runs on the node's device; the
+broker counts them in ``join_scatters`` and ``join_shuffle_bytes``.
 
 The reference system's L1/L2 plane — a broker that scatters per-segment
 subqueries to historical servers (``DruidMetadataCache.assignHistoricalServers``)

@@ -1,8 +1,9 @@
 """Broker: scatter per-shard subqueries, merge partials, survive nodes.
 
 Port of ``spark_druid_olap_tpu/cluster/broker.py``: a copy kept inside
-the PyTorch package. The partitioned join's scatter (``join_scatters``,
-``join_shuffle_bytes`` stay in the counters at 0) is ROADMAP A.9.
+the PyTorch package. The partitioned join (``join/partitioned.py``) sends
+its two hops through :meth:`ClusterClient._guarded_rpc` and counts them in
+``join_scatters`` and ``join_shuffle_bytes``.
 
 The client hangs off the broker engine's ``cluster`` attribute and is
 consulted by ``QueryEngine._execute_admitted`` after the result-cache

@@ -6,7 +6,8 @@ inside the PyTorch package, with one device per node.
 ``Context``: ``cuda`` by default, and with no CUDA device the node raises
 at construction instead of serving from the CPU (tests pass ``"cpu"``).
 The partitioned join's exchange routes (``/cluster/join/partition``,
-``/cluster/join/exec``) are ROADMAP A.9 and answer 404 here.
+``/cluster/join/exec``) run ``join/partitioned.py``; the exec hop's probe
+runs on the node's device.
 
 Boot sequence (order matters for the health contract):
 
@@ -163,6 +164,18 @@ class HistoricalServer(SqlServer):
             n = int(h.headers.get("Content-Length", "0"))
             raw = h.rfile.read(n) if n else b""
             code, body, ctype = self.node.handle_ingest(raw)
+            h._send(code, body, ctype)
+            return
+        if path == "/cluster/join/partition":
+            n = int(h.headers.get("Content-Length", "0"))
+            raw = h.rfile.read(n) if n else b"{}"
+            code, body, ctype = self.node.handle_join_partition(raw)
+            h._send(code, body, ctype)
+            return
+        if path == "/cluster/join/exec":
+            n = int(h.headers.get("Content-Length", "0"))
+            raw = h.rfile.read(n) if n else b""
+            code, body, ctype = self.node.handle_join_exec(raw)
             h._send(code, body, ctype)
             return
         super()._handle_post(h)
@@ -553,6 +566,64 @@ class HistoricalNode:
                     "Draining", "node draining for epoch handover"), \
                     "application/json"
             return self._subquery_admitted(raw)
+        finally:
+            self.drain.end_subquery(tok)
+
+    def handle_join_partition(self, raw: bytes):
+        """Partitioned-join hop 1: filter one owned shard, tag rows with
+        their join-key partition id (join/partitioned.py). Same
+        admission contract as subqueries: readiness gate + drain token,
+        so epoch fences cover join exchanges too."""
+        if not self.ready:
+            return 503, WIRE.encode_error(
+                "NotReady", "recovery / shard load in progress"), \
+                "application/json"
+        tok = self.drain.begin_subquery()
+        try:
+            if tok is None:
+                return 503, WIRE.encode_error(
+                    "Draining", "node draining for epoch handover"), \
+                    "application/json"
+            from spark_druid_olap_tpu_torch.join import partitioned as JP
+            try:
+                req = json.loads(raw.decode("utf-8"))
+                if self.ctx.store._datasources.get(
+                        str(req.get("store"))) is None:
+                    return 404, WIRE.encode_error(
+                        "UnknownShard",
+                        f"shard {req.get('store')!r} not loaded"), \
+                        "application/json"
+                body = JP.partition_request(self.ctx, req)
+            except (ValueError, KeyError, TypeError,
+                    JP.JoinUnsupported) as e:
+                return 400, WIRE.encode_error("BadJoin", str(e)), \
+                    "application/json"
+            return 200, body, "application/octet-stream"
+        finally:
+            self.drain.end_subquery(tok)
+
+    def handle_join_exec(self, raw: bytes):
+        """Partitioned-join hop 2: join one aligned partition pair on
+        this node's device and return per-group partials
+        (join/partitioned.py)."""
+        if not self.ready:
+            return 503, WIRE.encode_error(
+                "NotReady", "recovery / shard load in progress"), \
+                "application/json"
+        tok = self.drain.begin_subquery()
+        try:
+            if tok is None:
+                return 503, WIRE.encode_error(
+                    "Draining", "node draining for epoch handover"), \
+                    "application/json"
+            from spark_druid_olap_tpu_torch.join import partitioned as JP
+            try:
+                body = JP.exec_request(self.ctx, raw)
+            except (ValueError, KeyError, TypeError,
+                    JP.JoinUnsupported) as e:
+                return 400, WIRE.encode_error("BadJoin", str(e)), \
+                    "application/json"
+            return 200, body, "application/octet-stream"
         finally:
             self.drain.end_subquery(tok)
 

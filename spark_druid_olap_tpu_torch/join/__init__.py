@@ -9,9 +9,13 @@ above ``ops/hash_join.py``:
   built once on the host, moved to the device, and probed inside the
   engine's segment wave loop.
 
-The partitioned tier (``join/partitioned.py``, a broker re-sharding both
-sides through the historicals) needs the cluster and waits for it (ROADMAP
-A.9). ``planner/joinplan.py`` recognizes join statements, picks the tier
+- :mod:`spark_druid_olap_tpu_torch.join.partitioned`: shard-aligned
+  partitioned join. A broker re-shards both sides on the join key through
+  the historicals (a hash-partition exchange over the SDW1 wire, its
+  shuffle bytes counted exactly) and each node joins its aligned
+  partitions on its own device.
+
+``planner/joinplan.py`` recognizes join statements, picks the tier
 through ``parallel/cost.py:join_estimate``, and applies the shared
 epilogue.
 """

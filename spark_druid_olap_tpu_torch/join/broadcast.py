@@ -18,9 +18,16 @@ its Pallas bound): a deliberate departure with the same answers (ROADMAP
 §C).
 
 The JAX package's mesh branch (the table replicated, probe waves sharded,
-``shard_map`` merges) waits for multi-GPU (ROADMAP A.8), and its cold-tier
-pins for the tiered store (A.9); on one device both reduce to what the JAX
-package does there: ``devices`` 1, no pins.
+``shard_map`` merges) waits for multi-GPU (ROADMAP A.8); on one device it
+reduces to what the JAX package does there: ``devices`` 1.
+
+Cold-tier pins (a side that is a tiered datasource, ``tier/``): every
+chunk the join faults on its thread is held out of eviction's reach while
+the join reads it. The build side is pinned for the whole build, from its
+materialization until its tensors are on the device; a one-wave probe for
+its bind; a waved probe one wave at a time, through the ``wave_pins`` scope
+the wave binder opens around each wave's build. The JAX package pins both
+sides from the build's upload to the end of the wave loop (ROADMAP §C).
 
 Device residency of the build table is a checked acquire / release pair
 (``BuildLedger``): no decline or exception leaves phantom build bytes in
@@ -29,6 +36,7 @@ the gauge.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Dict, List, Optional, Tuple
 
@@ -226,13 +234,41 @@ def combine_wave(acc: Dict[str, np.ndarray], wave_out: Dict[str, object],
 # the broadcast executor
 # =============================================================================
 
+@contextlib.contextmanager
+def _pinned(tier):
+    """Pin scope on this thread over one side's hot set: every chunk the
+    thread faults inside it stays out of eviction's reach until it ends
+    (nothing for a side held in memory)."""
+    if tier is None:
+        yield
+        return
+    tok = tier.acquire_pins()
+    try:
+        yield
+    finally:
+        tier.release_pins(tok)
+
+
 def execute_broadcast(ctx, plan) -> Tuple[Dict[str, np.ndarray], dict]:
     """Run ``plan`` (planner/joinplan.JoinPlan) on the broadcast tier.
 
     Returns ``(grouped data, join stats dict)``: group columns keyed by
     query name, agg columns keyed by output name, all finalized; the
     planner's shared epilogue does HAVING / ORDER BY / LIMIT / projection.
+    The build side's chunks stay pinned until the build is on the device
+    (``build_pins``, closed there) or the call ends.
     """
+    with contextlib.ExitStack() as build_pins:
+        build_pins.enter_context(_pinned(_tier(ctx, plan.build.ds)))
+        return _execute_broadcast(ctx, plan, build_pins)
+
+
+def _tier(ctx, name: str):
+    """The hot set a tiered datasource faults through, else None."""
+    return getattr(ctx.store._datasources.get(name), "tier", None)
+
+
+def _execute_broadcast(ctx, plan, build_pins: contextlib.ExitStack):
     from spark_druid_olap_tpu_torch.parallel.executor import (
         EngineFallback, _WaveBinder, _to_host)
     from spark_druid_olap_tpu_torch.planner import fusion as FU
@@ -489,10 +525,12 @@ def execute_broadcast(ctx, plan) -> Tuple[Dict[str, np.ndarray], dict]:
     btok = LEDGER.acquire_build(build_bytes)
     try:
         tdev = _to_device(tree, device)
+        build_pins.close()      # the build is on the device
         seg_idx = np.arange(n_segments, dtype=np.int64)
         try:
             if n_waves == 1:
-                arrays = eng._bind_arrays(ds, names, seg_idx)
+                with _pinned(_tier(ctx, plan.probe.ds)):
+                    arrays = eng._bind_arrays(ds, names, seg_idx)
                 combine_wave(acc, _to_host(core(arrays, tdev)), routes,
                              n_keys)
             else:

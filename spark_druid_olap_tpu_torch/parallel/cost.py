@@ -5,13 +5,15 @@ that the executor's gates read: ``unit_cost``, the filter-selectivity
 estimate (``_filter_selectivity`` with ``_bound_overlap_fraction`` and
 ``_pattern_fraction``), ``bytes_per_segment`` and the wave plan
 (``wave_budget_bytes``, ``tier_io_budget``, ``tier_io_seg_bytes``,
-``plan_waves``), the join tier's pricing (``JoinEstimate``,
-``join_estimate``) and the one-device part of ``estimate``
-(``CostEstimate`` with its ``table``, ``_output_groups``), the cost units
-WLM demotes to its batch lane and charges tenant quotas in, with
-``explain_cost`` and ``_explain_scan_plan``, the lines EXPLAIN prints
-under each spec. On one device the JAX package's cross-host and
-interconnect terms are zero and are left out; its mesh pricing
+``plan_waves``), the join tiers' pricing (``JoinEstimate``,
+``join_estimate``: broadcast against the cluster's partitioned exchange,
+whose bytes it prices at ``sdot.querycostmodel.interconnect.cost``) and
+the one-device part of ``estimate`` (``CostEstimate`` with its ``table``,
+``_output_groups``), the cost units WLM demotes to its batch lane and
+charges tenant quotas in, with ``explain_cost`` and
+``_explain_scan_plan``, the lines EXPLAIN prints under each spec. On one
+device the JAX package's cross-host and interconnect terms of
+``estimate`` are zero and are left out; its mesh pricing
 (``mesh_estimate``) waits for ROADMAP A.8.
 
 A unit cost is the configured value when the key is set explicitly;
@@ -53,6 +55,7 @@ import torch
 from spark_druid_olap_tpu_torch.ir import spec as S
 from spark_druid_olap_tpu_torch.utils.config import (
     COST_COMPILE,
+    COST_PER_BYTE_INTERCONNECT,
     COST_PER_BYTE_TRANSPORT,
     COST_PER_ROW_SCAN,
 )
@@ -621,19 +624,28 @@ def _device_ms(fn, reps: int) -> float:
 
 @dataclasses.dataclass
 class JoinEstimate:
-    """Tier placement for one recognized join (the JAX package's
-    ``JoinEstimate`` without its cost fields: with no cluster the port
-    never prices the partitioned tier against the broadcast one, ROADMAP
-    A.9).
+    """Broadcast-vs-partitioned pricing for one recognized join.
 
-    ``build_bytes`` / ``probe_bytes`` are host-row upper bounds over the
-    columns the join touches; ``shuffle_bytes`` is the partition exchange
-    the partitioned tier would make (both sides cross the wire twice)."""
+    ``build_bytes``/``probe_bytes`` are host-row upper bounds over the
+    columns the join actually touches; ``shuffle_bytes`` estimates the
+    partition exchange (both sides cross the wire twice: shard -> broker
+    -> aligned node), priced at the interconnect byte rate like the mesh
+    tier's merge traffic."""
     mode: str                  # 'broadcast' | 'partitioned' | 'host'
     probe_bytes: int
     build_bytes: int
     shuffle_bytes: int
+    broadcast_cost: float
+    partitioned_cost: float
     reason: str
+
+    def table(self) -> str:
+        return (f"join: build_bytes={self.build_bytes:,} "
+                f"probe_bytes={self.probe_bytes:,} "
+                f"shuffle_bytes={self.shuffle_bytes:,} "
+                f"broadcast={self.broadcast_cost:.4g} "
+                f"partitioned={self.partitioned_cost:.4g} "
+                f"-> {self.mode.upper()} ({self.reason})")
 
 
 def join_side_bytes(ds, cols) -> int:
@@ -641,23 +653,44 @@ def join_side_bytes(ds, cols) -> int:
     return int(ds.num_rows) * int(sum(array_itemsize(ds, c) for c in cols))
 
 
-def join_estimate(config, *, probe_ds, build_ds, probe_cols,
-                  build_cols) -> JoinEstimate:
-    """Pick the join tier (the JAX package's ``join_estimate`` with no
-    cluster attached). ``sdot.join.mode`` forces a tier; in auto mode the
-    broadcast byte cap decides between broadcast and the host fallback."""
+def join_estimate(config, *, probe_ds, build_ds, probe_cols, build_cols,
+                  cluster_nodes: int = 0) -> JoinEstimate:
+    """Pick the join tier. ``sdot.join.mode`` forces a tier; in auto
+    mode the broadcast byte cap gates eligibility and the cheaper
+    estimate wins when both tiers are available."""
     from spark_druid_olap_tpu_torch.utils.config import (
         JOIN_BROADCAST_MAX_BYTES, JOIN_MODE)
     build_bytes = join_side_bytes(build_ds, build_cols)
     probe_bytes = join_side_bytes(probe_ds, probe_cols)
     cap = int(config.get(JOIN_BROADCAST_MAX_BYTES))
+    scan_c = config.get(COST_PER_ROW_SCAN)
+    byte_c = config.get(COST_PER_BYTE_TRANSPORT)
+    icx_c = config.get(COST_PER_BYTE_INTERCONNECT)
+    # broadcast: replicate the build table once, stream the probe scan
+    bc_cost = build_bytes * byte_c + probe_ds.num_rows * scan_c
+    # partitioned: both sides ship twice over the exchange; each node
+    # scans 1/N of the probe rows
     shuffle = 2 * (probe_bytes + build_bytes)
+    n = max(1, int(cluster_nodes))
+    pt_cost = shuffle * icx_c + (probe_ds.num_rows / n) * scan_c
     forced = str(config.get(JOIN_MODE)).lower()
     if forced in ("broadcast", "partitioned", "host"):
         return JoinEstimate(forced, probe_bytes, build_bytes, shuffle,
-                            "forced by sdot.join.mode")
-    if build_bytes <= cap:
-        return JoinEstimate("broadcast", probe_bytes, build_bytes, shuffle,
+                            bc_cost, pt_cost, "forced by sdot.join.mode")
+    can_bc = build_bytes <= cap
+    can_pt = cluster_nodes > 1
+    if can_bc and (not can_pt or bc_cost <= pt_cost):
+        return JoinEstimate("broadcast", probe_bytes, build_bytes,
+                            shuffle, bc_cost, pt_cost,
                             f"build fits cap ({build_bytes:,} <= {cap:,})")
+    if can_pt:
+        why = "build exceeds broadcast cap" if not can_bc \
+            else "exchange prices cheaper"
+        return JoinEstimate("partitioned", probe_bytes, build_bytes,
+                            shuffle, bc_cost, pt_cost, why)
+    if can_bc:
+        return JoinEstimate("broadcast", probe_bytes, build_bytes,
+                            shuffle, bc_cost, pt_cost, "no cluster")
     return JoinEstimate("host", probe_bytes, build_bytes, shuffle,
+                        bc_cost, pt_cost,
                         "build exceeds broadcast cap; no cluster")

@@ -2,12 +2,20 @@
 
 Port of ``spark_druid_olap_tpu/planner/joinplan.py``: the recognizer
 :func:`try_plan` and its :class:`JoinPlan` are copies; :func:`try_execute`
-prices the plan with ``parallel/cost.join_estimate``, orients the smaller
-side as build, runs the broadcast tier (``join/broadcast.py``) and applies
-:func:`_epilogue`. The partitioned tier needs a cluster (ROADMAP A.9): the
-port's contexts have none, so the estimate places a join there only when
-``sdot.join.mode`` forces it, and then it runs broadcast, as the JAX
-package does when no cluster is attached.
+prices the plan with ``parallel/cost.join_estimate`` against the nodes of
+the context's cluster, orients the smaller side as build for the
+broadcast tier, and runs one of the device join tiers:
+
+- ``join/broadcast.py`` when the build side fits
+  ``sdot.join.broadcast.max.bytes`` (device-resident hash table probed
+  inside the segment wave loop);
+- ``join/partitioned.py`` when a cluster is attached and the exchange
+  prices cheaper (or the build side exceeds the broadcast cap), with
+  :func:`plan_to_dict` as its exec hop's spec. Any cluster failure falls
+  back to the broker's local broadcast join; with no cluster attached a
+  forced ``partitioned`` runs broadcast the same way.
+
+:func:`_epilogue` is shared by both tiers.
 
 Column attribution: the alias-scoping pass has already rewritten
 duplicate self-join legs into rename projections (``__sj<i>_<col>``),
@@ -107,6 +115,23 @@ class JoinPlan:
                      for q, (s, c) in self.colside.items()},
             group_by=self.group_by, aggs=self.aggs, having=self.having,
             order_by=self.order_by, limit=self.limit, items=self.items)
+
+
+def plan_to_dict(plan: JoinPlan, max_matches: int) -> dict:
+    """JSON-safe lowered spec for the partitioned tier's exec hop."""
+    from spark_druid_olap_tpu_torch.ir import serde as SERDE
+    return {
+        "keys": [[p, b] for p, b in plan.keys],
+        "colside": {q: [s, c] for q, (s, c) in plan.colside.items()},
+        "group_by": list(plan.group_by),
+        "aggs": [{"out": s.out, "fn": s.fn,
+                  "arg": SERDE.expr_to_dict(s.arg)
+                  if s.arg is not None else None}
+                 for s in plan.aggs],
+        "residual": SERDE.expr_to_dict(plan.residual)
+        if plan.residual is not None else None,
+        "max_matches": int(max_matches),
+    }
 
 
 # =============================================================================
@@ -413,42 +438,49 @@ def try_execute(ctx, stmt: A.SelectStmt,
     # statement: clear here, or the previous statement's stats leak
     ctx.engine.last_stats.clear()
     from spark_druid_olap_tpu_torch.join import broadcast as JB
+    from spark_druid_olap_tpu_torch.join import partitioned as JPT
     from spark_druid_olap_tpu_torch.parallel import cost as C
-    from spark_druid_olap_tpu_torch.parallel.executor import not_ported
 
     store = ctx.store
     probe_ds = store.get(plan.probe.ds)
     build_ds = store.get(plan.build.ds)
+    cl = ctx.cluster
+    n_nodes = len(cl.nodes) if cl is not None else 0
     est = C.join_estimate(
         conf, probe_ds=probe_ds, build_ds=build_ds,
         probe_cols=sorted(plan.probe_cols()),
-        build_cols=sorted(plan.build_cols()))
+        build_cols=sorted(plan.build_cols()),
+        cluster_nodes=n_nodes)
     if est.mode == "host":
         raise JoinUnsupported(est.reason)
-    if est.mode == "partitioned" and getattr(ctx, "cluster", None) \
-            is not None:
-        raise not_ported("partitioned device join", "A.9")
-    # a partitioned estimate with no cluster (only ``sdot.join.mode``
-    # forces one) runs broadcast, as the JAX package's tier falls back
-    # when its exchange finds no cluster attached
-
     # orient the smaller side as build (the estimate is orientation-
-    # symmetric in bytes; swap before executing, not inside the tier)
+    # symmetric in bytes; swap before executing, not inside the tiers)
     if est.mode == "broadcast" and est.probe_bytes < est.build_bytes:
         sw = plan.swapped()
         sw_est = C.join_estimate(
             conf, probe_ds=build_ds, build_ds=probe_ds,
             probe_cols=sorted(sw.probe_cols()),
-            build_cols=sorted(sw.build_cols()))
+            build_cols=sorted(sw.build_cols()),
+            cluster_nodes=n_nodes)
         if sw_est.mode == "broadcast":
             plan, est = sw, sw_est
 
-    try:
-        data, js = JB.execute_broadcast(ctx, plan)
-    except JoinUnsupported:
-        sw = plan.swapped()
-        data, js = JB.execute_broadcast(ctx, sw)
-        plan = sw
+    data = None
+    if est.mode == "partitioned":
+        spec = plan_to_dict(plan, max_matches=1 << 20)
+        try:
+            data, js = JPT.execute_partitioned(ctx, plan, spec)
+        except JoinUnsupported:
+            # the broker holds the full store: local broadcast is the
+            # fallback (mirrors the scatter path's local_fallbacks)
+            data = None
+    if data is None:
+        try:
+            data, js = JB.execute_broadcast(ctx, plan)
+        except JoinUnsupported:
+            sw = plan.swapped()
+            data, js = JB.execute_broadcast(ctx, sw)
+            plan = sw
     js["estimate"] = {
         "mode": est.mode, "reason": est.reason,
         "build_bytes": est.build_bytes, "probe_bytes": est.probe_bytes,

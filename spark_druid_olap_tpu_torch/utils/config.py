@@ -327,6 +327,14 @@ COST_PER_BYTE_TRANSPORT = _entry(
     "sdot.querycostmodel.transport.cost", 2.5e-9,
     "Abstract cost to move one byte of the result from the device to the "
     "host (parallel/cost.estimate).", float)
+COST_PER_BYTE_INTERCONNECT = _entry(
+    "sdot.querycostmodel.interconnect.cost", 5e-10,
+    "Abstract cost to move one byte across the device interconnect (ICI) "
+    "during the cross-chip merge of per-device partial aggregates — the "
+    "mesh tier's analog of the reference's broker-merge transport term. "
+    "Prices the reduction payload (merged partial bytes x (n_dev - 1)) "
+    "so wide outputs on small scans correctly prefer single-device "
+    "execution.", float)
 COST_COMPILE = _entry(
     "sdot.querycostmodel.compile.cost", 0.05,
     "Fixed abstract cost charged per distinct program in explain's "
@@ -361,21 +369,28 @@ DATABASE_DEFAULT = _entry(
 JOIN_ENABLED = _entry(
     "sdot.join.enabled", True,
     "General (non-star) joins execute on the device join tier "
-    "(join/broadcast.py) when the statement shape qualifies; False routes "
-    "every non-star join to the host pandas fallback (kill switch: "
-    "answers are identical, only placement changes).")
+    "(join/broadcast.py, join/partitioned.py) when the statement shape "
+    "qualifies; False routes every non-star join to the host pandas "
+    "fallback (kill switch: answers are identical, only placement "
+    "changes).")
 JOIN_BROADCAST_MAX_BYTES = _entry(
     "sdot.join.broadcast.max.bytes", 64 << 20,
     "Build-side byte ceiling for the broadcast hash-join tier: when the "
     "smaller side's estimated bytes fit, its hash table is built once, "
-    "device-resident, and probed inside the segment wave loop. A bigger "
-    "build goes to the host fallback.", int)
+    "device-resident, and probed inside the segment wave loop. Bigger "
+    "builds go to the cluster partitioned tier (when a broker is "
+    "attached) or the host fallback.", int)
 JOIN_MAX_MATCHES = _entry(
     "sdot.join.max.matches", 64,
     "Widest per-key duplicate group the device probe expands (the static "
     "match-expansion width C). A build side with a hotter key declines "
     "to the host fallback instead of materializing an oversized "
     "expansion.", int)
+JOIN_PARTITIONS = _entry(
+    "sdot.join.partitions", 0,
+    "Hash-partition count for the cluster partitioned-join exchange "
+    "(both sides re-shard on the join key through the historicals). "
+    "0 = one partition per cluster node.", int)
 JOIN_MODE = _entry(
     "sdot.join.mode", "auto",
     "Join-tier placement override: 'auto' (cost model picks), "

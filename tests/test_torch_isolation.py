@@ -83,6 +83,7 @@ HASHED_MODULES = ["ops.hash_groupby", "ops.sorted_groupby", "parallel.cost"]
 # the native encoder, the join and the window tiers, by exact name (``join``
 # and ``window`` are package names in the JAX package too)
 JOIN_WINDOW_MODULES = ["segment.native", "ops.hash_join", "join.broadcast",
+                       "join.partitioned",
                        "window.plan", "window.exec"]
 
 

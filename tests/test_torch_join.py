@@ -237,6 +237,142 @@ def test_probe_in_three_waves(pair):
     assert_answers_equal(waved, one, ordered=True)
 
 
+# -- cold-tier pins (a broadcast join over tiered sides) ------------------------
+
+TIER_CFG = {"sdot.tier.enabled": True, "sdot.tier.budget.bytes": 4096,
+            "sdot.tier.prefetch.enabled": False}
+EVICTOR = "SELECT sum(amount) AS a, sum(value) AS v FROM fact, events"
+
+
+@pytest.fixture(scope="module")
+def tier_root(tmp_path_factory):
+    """fact, users and events checkpointed raw by the port."""
+    root = str(tmp_path_factory.mktemp("join-tier-root"))
+    seed = tsdot.Context({"sdot.persist.path": root}, device="cpu")
+    _ingest(seed)
+    seed.checkpoint()
+    seed.close()
+    return root
+
+
+def _tiered(root, **extra):
+    ctx = tsdot.Context({"sdot.persist.path": root, **TIER_CFG, **extra},
+                        device="cpu")
+    assert getattr(ctx.store.get("fact"), "tier", None) is not None
+    return ctx
+
+
+class _FaultSpy:
+    """Wraps a hot set's stored-chunk fault: per fault on the join's
+    thread, the chunk's key, whether it is pinned as it returns, and the
+    bytes pinned then; ``at`` runs once, on the join's thread, at the
+    ``n``-th fault of a chunk of ``ds``."""
+
+    def __init__(self, tier, ds=None, n=0, at=None):
+        import threading
+        self.tier, self.real = tier, tier._fault_stored
+        self.thread = threading.get_ident()
+        self.ds, self.n, self.at = ds, n, at
+        self.faults = []
+        tier._fault_stored = self
+
+    def __call__(self, ds_name, column, ref, prefetch):
+        import threading
+        arr = self.real(ds_name, column, ref, prefetch)
+        if threading.get_ident() != self.thread:
+            return arr
+        key = (ds_name, ref.path, int(ref.start), int(ref.count))
+        t = self.tier
+        with t._lock:
+            self.faults.append((key, bool(t._pins.get(key)), sum(
+                e.nbytes for k, e in t._hot.items() if t._pins.get(k))))
+        if self.at is not None and ds_name == self.ds \
+                and sum(f[0][0] == self.ds for f in self.faults) == self.n:
+            at, self.at = self.at, None
+            at()
+        return arr
+
+    def undo(self):
+        del self.tier._fault_stored
+
+
+def _evict_from_another_thread(ctx, tier, held):
+    """Run ``EVICTOR`` on another thread of the same context and wait for
+    it: under the 4 KiB budget it evicts every chunk no pin holds. Every
+    chunk ``held`` names must still be hot after it."""
+    import threading
+    out, ev0 = {}, tier.counters["evictions"]
+    th = threading.Thread(target=lambda: out.setdefault(
+        "df", ctx.sql(EVICTOR).to_pandas()))
+    th.start()
+    th.join(60)
+    assert not th.is_alive() and "df" in out
+    with tier._lock:
+        assert tier.counters["evictions"] > ev0
+        assert held and all(k in tier._hot for k in held)
+
+
+@pytest.mark.parametrize("side", ["build", "probe"])
+def test_tier_pins_hold_while_another_statement_evicts(pair, tier_root,
+                                                        side):
+    """Mid-join, a statement on another thread evicts under a 4 KiB
+    budget: every chunk the join faulted on its side so far was pinned as
+    it returned and is still hot after the eviction; the answer equals
+    the eager context's, and no pin is left when the join returns."""
+    ctx = _tiered(tier_root)
+    tier = ctx.store.get("fact").tier
+    ds = "users" if side == "build" else "fact"
+
+    def evict():
+        held = {f[0] for f in spy.faults if f[0][0] == ds}
+        _evict_from_another_thread(ctx, tier, held)
+
+    spy = _FaultSpy(tier, ds=ds, n=2, at=evict)
+    try:
+        got = ctx.sql(EQUI).to_pandas()
+    finally:
+        spy.undo()
+    js = ctx.engine.last_stats["join"]
+    assert js["mode"] == "broadcast" and js["waves"] == 1
+    assert spy.at is None, "the eviction never ran mid-join"
+    mine = [f for f in spy.faults if f[0][0] in ("fact", "users")]
+    assert mine and all(pinned for _, pinned, _ in mine)
+    assert_answers_equal(got, pair[1].sql(EQUI).to_pandas(), ordered=True)
+    st = tier.stats_snapshot()
+    assert st["pinned_entries"] == 0 and not tier._pins
+    ctx.close()
+
+
+def test_waved_tiered_join_pins_one_wave(pair, tier_root):
+    """A probe in waves over a tiered side pins one wave's chunks at a
+    time (the binder's ``wave_pins``): the peak of the probe's pinned
+    bytes stays within one wave's arrays, while the probe faults more
+    than that in all; the answer equals the eager one-wave answer."""
+    from spark_druid_olap_tpu_torch.ops.scan import array_names
+    from spark_druid_olap_tpu_torch.parallel import cost as C
+    eager = pair[1].store.get("fact")
+    names = array_names(eager, ["amount", "qty", "user_id"],
+                        need_time_ms=False)
+    seg = C.bytes_per_segment(eager, names)
+    ctx = _tiered(tier_root, **{"sdot.engine.wave.max.bytes": 3 * seg})
+    tier = ctx.store.get("fact").tier
+    spy = _FaultSpy(tier)
+    try:
+        got = ctx.sql(EQUI).to_pandas()
+    finally:
+        spy.undo()
+    js = ctx.engine.last_stats["join"]
+    assert js["mode"] == "broadcast" and js["waves"] == 3
+    wave = js["segments_per_wave"] * seg
+    probe = [f for f in spy.faults if f[0][0] == "fact"]
+    assert probe and all(pinned for _, pinned, _ in probe)
+    assert max(b for _, _, b in probe) <= wave
+    assert tier.stats_snapshot()["bytes_faulted"] > wave
+    assert_answers_equal(got, pair[1].sql(EQUI).to_pandas(), ordered=True)
+    assert tier.stats_snapshot()["pinned_entries"] == 0 and not tier._pins
+    ctx.close()
+
+
 # -- the kernel layer ---------------------------------------------------------
 
 def _tdev(table):
