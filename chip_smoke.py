@@ -101,8 +101,15 @@ broker; with phase ``sql``'s SF1 orders and customer checkpointed into
 that root before the nodes boot, it runs J1, J2 and lineitem x orders as
 partitioned joins (two hops through the historicals, each node's probe
 on the card) against the single context's broadcast join and pandas,
-and J1 once in auto mode. Every B1 and B2 call of these phases is held
-against its plain version. Its last phase,
+and J1 once in auto mode. Phase ``mesh`` (after ``spatial``) runs the
+single-process mesh over phase sql's SF1 lineitem: every card, else two
+slots on the one card; Q1 (also in waves), Q6, wide, Q1 and a TopN on
+the hashed tier (the TopN through the candidate exchange), a device
+HAVING over revenue by part, the sketch statement, a broadcast join of
+lineitem with phase sql's supplier and the 8-spec storm, each sharded
+and equal to the one-device context's answer, then a
+reshard to one slot and back. Every B1 and B2 call of these phases is
+held against its plain version. Its last phase,
 ``waves``, ingests the run's SF1 lineitem again without ``l_comment``
 (cut from SF10, whose run passed 1,000 s, then from SF5, SF3 and SF2 for
 the phases above) and runs Q1, the
@@ -1615,7 +1622,8 @@ def sql_phase(sdt, tables, lineitem_ds, CG, CW, smi):
              "window": window_phase(ctx, tables),
              "flat_ingest_s": t_ingest, "base_tables_ingest_s": t_base,
              "flat_ds": ctx.store.get("tpch_flat"),
-             "join_ds": {n: ctx.store.get(n) for n in ("orders", "customer")}}
+             "join_ds": {n: ctx.store.get(n) for n in ("orders", "customer")},
+             "supplier_ds": ctx.store.get("supplier")}
     sketch = sketch_phase(ctx, tables, CG, CW)
     emit("sql", card=smi, sf=SF, flat_rows=rows, flat_columns=flat_cols,
          flatten_s=t_flat, ingest_s=t_ingest, base_tables_ingest_s=t_base,
@@ -6686,8 +6694,305 @@ def cluster_phase(sdt, root, S, E, df, tables, join_ds, CG, CW, smi,
     return out
 
 
+# -- the single-process mesh (phase "mesh") ------------------------------------
+
+MESH_WARM = 3            # warm runs per statement on the mesh and one device
+MESH_TOPN = 10
+# the device HAVING's literal: revenue by part above this quantile of the
+# parts' revenues (the device passes a tenth of 200,000 parts at SF1)
+MESH_HAVING_QUANTILE = 0.9
+MESH_HAVING = {"sdot.engine.having.device.min.keys": 1 << 14,
+               "sdot.engine.groupby.sorted.min.keys": 0}
+
+
+def mesh_devices():
+    """Every card when there are more; else two slots on the one card."""
+    n = torch.cuda.device_count()
+    if n > 1:
+        return tuple(f"cuda:{i}" for i in range(n))
+    return ("cuda:0", "cuda:0")
+
+
+def mesh_specs(S, E, df):
+    """The phase's statements: ``(spec, config for both engines, what the
+    mesh must launch per slot: b1 / b2 / none)``."""
+    C = E.Column
+    rev = E.BinaryOp("*", C("l_extendedprice"),
+                     E.BinaryOp("-", E.Literal(1), C("l_discount")))
+    by_part = (df["l_extendedprice"] * (1 - df["l_discount"])) \
+        .groupby(df["l_partkey"]).sum()
+    lit = int(by_part.quantile(MESH_HAVING_QUANTILE))
+    waves = waves_specs(S, E)
+    return {
+        "q1": (q1_spec(S, E), {}, "b1"),
+        # one segment per slot per wave: the mesh's wave binder (each
+        # slot's share copied on its card's copy stream)
+        "q1_waves": (q1_spec(S, E), {"sdot.engine.wave.max.bytes": 1},
+                     "b1"),
+        "q6": (q6_spec(S, E), {}, "b1"),
+        "wide": (wide_spec(S, E), {}, "b1"),
+        "q1_hashed": (q1_spec(S, E), HASH_FORCED, None),
+        "topn_hashed": (S.TopNQuerySpec(
+            "lineitem", S.DimensionSpec("l_suppkey", "l_suppkey"),
+            "revenue", MESH_TOPN,
+            (S.AggregationSpec("doublesum", "revenue", expr=rev),
+             S.AggregationSpec("count", "n"))), HASH_FORCED, None),
+        "having_part": (S.GroupByQuerySpec(
+            "lineitem", (S.DimensionSpec("l_partkey", "l_partkey"),),
+            (S.AggregationSpec("doublesum", "revenue", expr=rev),
+             S.AggregationSpec("count", "n")),
+            having=S.HavingSpec(E.Comparison(">", C("revenue"),
+                                             E.Literal(lit)))),
+            MESH_HAVING, None),
+        "sketch": (waves["sketch"], {}, "b1"),
+    }
+
+
+def sketch_blocks(ctx, spec):
+    """A statement's answer with the sketch columns as raw registers
+    (``partial_sketches``, the historicals' mode), then restored."""
+    ctx.engine.partial_sketches = True
+    try:
+        return ctx.execute(spec)
+    finally:
+        ctx.engine.partial_sketches = False
+
+
+def same_registers(name, got, want):
+    for c in want.columns:
+        g, w = np.asarray(got.data[c]), np.asarray(want.data[c])
+        if g.dtype == object or g.ndim > 1:
+            g, w = np.stack(list(g)), np.stack(list(w))
+            if g.shape != w.shape or g.dtype != w.dtype \
+                    or not np.array_equal(g.view(np.uint8),
+                                          w.view(np.uint8)):
+                raise AssertionError(f"{name} {c}: registers differ from "
+                                     f"one device's")
+
+
+MESH_JOIN_SQL = ("select s_nationkey, count(*) as n, "
+                 "sum(l_extendedprice) as s from lineitem l join supplier s "
+                 "on l.l_suppkey = s.s_suppkey group by s_nationkey")
+
+
+def mesh_join(sdt, mctx, mesh, lineitem_ds, supplier_ds, df, spies,
+              warm_spies) -> dict:
+    """Phase mesh's broadcast join: ``MESH_JOIN_SQL`` on the mesh context
+    (the supplier table on every slot's device, lineitem's probe sharded,
+    B1 once per slot), cold once and warm ``MESH_WARM`` times, against a
+    one-device context over the same two datasources (ints exact, float
+    sums rtol 1e-9); the counts sum to lineitem's rows."""
+    mctx.store.register(supplier_ds)
+    one = sdt.Context(ENGINE_TIMED)
+    for ds in (lineitem_ds, supplier_ds):
+        one.store.register(ds)
+    n1 = len(spies.b1)
+    t = time.perf_counter()
+    got = spies.run(lambda: mctx.sql(MESH_JOIN_SQL).to_pandas())
+    cold = (time.perf_counter() - t) * 1e3
+    js = dict(mctx.engine.last_stats.get("join") or {})
+    calls = spies.b1[n1:]
+    if js.get("mode") != "broadcast" or js.get("mesh") != "sharded" \
+            or js.get("devices") != len(mesh):
+        raise AssertionError(f"mesh join: not sharded: {js}")
+    if len(calls) < len(mesh) \
+            or any(c[0].device.type != mesh[0].type for c in calls):
+        raise AssertionError(f"mesh join: {len(calls)} B1 calls over "
+                             f"{len(mesh)} slots")
+    warm = []
+    for _ in range(MESH_WARM):
+        t = time.perf_counter()
+        warm_spies.run(lambda: mctx.sql(MESH_JOIN_SQL).to_pandas())
+        warm.append((time.perf_counter() - t) * 1e3)
+    want = one.sql(MESH_JOIN_SQL).to_pandas()
+    single_warm = []
+    for _ in range(MESH_WARM):
+        t = time.perf_counter()
+        one.sql(MESH_JOIN_SQL).to_pandas()
+        single_warm.append((time.perf_counter() - t) * 1e3)
+    if one.engine.last_stats["join"].get("devices") != 1:
+        raise AssertionError("mesh join: the one-device context sharded")
+    check_frame("mesh join vs one device", got, want, ["s_nationkey"],
+                FLOAT_SUM_RTOL_KERNEL)
+    if int(got["n"].sum()) != len(df):
+        raise AssertionError(f"mesh join: {int(got['n'].sum())} rows "
+                             f"joined of {len(df)}")
+    return {"join": {k: js.get(k) for k in (
+                "mode", "mesh", "devices", "build_rows", "waves",
+                "segments_per_wave", "groups")},
+            "rows": len(got), "b1_calls": len(calls), "cold_ms": cold,
+            "warm_ms": statistics.median(warm),
+            "single_warm_ms": statistics.median(single_warm)}
+
+
+def mesh_phase(sdt, S, E, lineitem_ds, single, df, CG, CW, smi,
+               supplier_ds, devices=None) -> dict:
+    """Phase ``mesh``: the single-process mesh over phase sql's SF1
+    lineitem store (no new ingest): every card, else two slots on the
+    one card (3 of the 6 segments each). Q1, Q6 and wide on the sharded
+    dense route (B1 once per slot), the 8-spec storm (B2 once per slot
+    per wave), Q1 and a TopN on the hashed tier (the TopN through the
+    candidate exchange), a device HAVING over revenue by part, the
+    HLL + theta + KLL statement and a broadcast join of lineitem with
+    ``supplier_ds`` (:func:`mesh_join`): each cold once and warm ``MESH_WARM``
+    times, sharded (the cost model's ``cost:sharded``, or
+    ``prefer_sharded`` where it declines), its answer equal to
+    ``single``'s (the one-device context over the same store: ints,
+    counts, min / max, dimensions and registers exact, float sums rtol
+    1e-9); every B1 / B2 call of a cold run held against its plain
+    version. Then ``reshard`` to one slot and back (the same answers),
+    and the partial ledger at 0 bytes."""
+    from spark_druid_olap_tpu_torch.parallel import cost as C
+    from spark_druid_olap_tpu_torch.parallel import meshexec as MX
+    from spark_druid_olap_tpu_torch.parallel.mesh import make_mesh
+    import dataclasses
+    t_phase = time.perf_counter()
+    mesh = make_mesh(devices=devices or mesh_devices())
+    cards = len(set(mesh))
+    say(f"mesh: {[str(d) for d in mesh]}, {cards} distinct card(s)")
+    mctx = sdt.Context(ENGINE_TIMED, mesh=mesh)
+    mctx.store.register(lineitem_ds)
+    spies, warm_spies = KernelSpies(CG, CW), KernelSpies(CG, CW)
+    out = {"card": smi, "mesh": [str(d) for d in mesh], "cards": cards,
+           "slots": len(mesh), "statements": {}}
+    answers, ran = {}, {}
+    for name, (spec, cfg, kernel) in mesh_specs(S, E, df).items():
+        with settings(mctx, cfg), settings(single, cfg):
+            est = C.estimate(mctx.engine, spec)
+            if not est.recommend_sharded:
+                spec = dataclasses.replace(spec, context=S.QueryContext(
+                    prefer_sharded=True))
+            n1, n2 = len(spies.b1), len(spies.b2)
+            t = time.perf_counter()
+            res = spies.run(lambda: mctx.execute(spec))
+            cold = (time.perf_counter() - t) * 1e3
+            st = dict(mctx.engine.last_stats)
+            calls1, calls2 = spies.b1[n1:], spies.b2[n2:]
+            if st.get("sharded") is not True \
+                    or st.get("devices") != len(mesh):
+                raise AssertionError(f"mesh {name}: ran on one device: {st}")
+            if kernel == "b1" and len(calls1) < len(mesh):
+                raise AssertionError(f"mesh {name}: {len(calls1)} B1 "
+                                     f"calls over {len(mesh)} slots")
+            if any(c[0].device.type != mesh[0].type for c in calls1):
+                raise AssertionError(f"mesh {name}: a slot computed off "
+                                     f"the mesh's devices")
+            if name == "topn_hashed" and not st.get("topk_exchange"):
+                raise AssertionError(f"mesh {name}: no exchange: {st}")
+            if name == "having_part" and not st.get("having_device"):
+                raise AssertionError(f"mesh {name}: no device HAVING")
+            if name == "q1_waves" and st.get("waves", 1) < 2:
+                raise AssertionError(f"mesh {name}: one wave: {st}")
+            warm = []
+            for _ in range(MESH_WARM):
+                t = time.perf_counter()
+                warm_spies.run(lambda: mctx.execute(spec).to_pandas())
+                warm.append((time.perf_counter() - t) * 1e3)
+            got = res.to_pandas()
+            one = single.execute(dataclasses.replace(spec, context=None))
+            single_warm = []
+            for _ in range(MESH_WARM):
+                t = time.perf_counter()
+                single.execute(spec).to_pandas()
+                torch.cuda.synchronize()
+                single_warm.append((time.perf_counter() - t) * 1e3)
+            # both engines give the rows in key (or metric) order
+            check_frame(f"mesh {name} vs one device", got, one.to_pandas(),
+                        None, FLOAT_SUM_RTOL_KERNEL)
+            if name == "sketch":
+                same_registers(f"mesh {name}", sketch_blocks(mctx, spec),
+                               sketch_blocks(single, spec))
+            answers[name], ran[name] = got, spec
+        out["statements"][name] = {
+            "decision": st.get("shard_decision"),
+            "cost_sharded": bool(est.recommend_sharded),
+            "devices": st.get("devices"), "rows": len(got),
+            "route": st.get("route"), "hashed": bool(st.get("hashed")),
+            "topk_exchange": bool(st.get("topk_exchange")),
+            "having_device": st.get("having_device", 0),
+            "waves": st.get("waves"),
+            "b1_calls": len(calls1), "b2_calls": len(calls2),
+            "cold_ms": cold, "warm_ms": statistics.median(warm),
+            "single_warm_ms": statistics.median(single_warm)}
+
+    out["join"] = mesh_join(sdt, mctx, mesh, lineitem_ds, supplier_ds, df,
+                            spies, warm_spies)
+
+    # the storm over the mesh: B2 once per slot per wave
+    storm_cfg = dict(STORM_CONFIG)
+    sspecs = storm_specs(S, E)
+    snames, slist = list(sspecs), list(sspecs.values())
+    solo = {n: single.execute(q).to_pandas() for n, q in sspecs.items()}
+    decisions = []
+    for model in (True, False):
+        sctx = sdt.Context({**storm_cfg,
+                            "sdot.querycostmodel.enabled": model},
+                           mesh=mesh)
+        sctx.store.register(lineitem_ds)
+        n2 = len(spies.b2)
+        stats = []
+        sres, cold_ms, cold_phases = spies.run(
+            lambda: run_storm(sctx, slist, stats_out=stats))
+        decisions.append(stats[0]["mesh"]["decision"])
+        if all(s.get("sharded") for s in stats):
+            break
+    if not all(s.get("sharded") for s in stats):
+        raise AssertionError(f"mesh storm: not sharded: {decisions}")
+    mst = sctx.engine.sharedscan.stats()
+    storm_calls = spies.b2[n2:]
+    if len(storm_calls) != len(mesh) * mst["mesh"]["dispatches"] \
+            or mst["wave_launches"] != len(storm_calls):
+        raise AssertionError(f"mesh storm: {len(storm_calls)} B2 calls, "
+                             f"{mst['mesh']}")
+    for n, got in zip(snames, sres):
+        check_frame(f"mesh storm {n} vs one device", got, solo[n], None,
+                    FLOAT_SUM_RTOL_KERNEL)
+    warm = [warm_spies.run(lambda: run_storm(sctx, slist))[1]
+            for _ in range(MESH_WARM)]
+    single_storm = sdt.Context(storm_cfg)
+    single_storm.store.register(lineitem_ds)
+    run_storm(single_storm, slist)
+    single_warm = [run_storm(single_storm, slist)[1]
+                   for _ in range(MESH_WARM)]
+    out["storm"] = {"decisions": decisions, "queries": len(slist),
+                    "b2_calls": len(storm_calls), "mesh": mst["mesh"],
+                    "cold_ms": cold_ms, "cold_phases_ms": cold_phases,
+                    "warm_ms": statistics.median(warm),
+                    "single_warm_ms": statistics.median(single_warm)}
+
+    # reshard down to one slot and back: the same answers
+    q1 = ran["q1"]
+    mctx.reshard([mesh[0]])
+    one_slot = mctx.execute(q1).to_pandas()
+    down = dict(mctx.engine.last_stats)
+    mctx.reshard(mesh)
+    back = spies.run(lambda: mctx.execute(q1).to_pandas())
+    up = dict(mctx.engine.last_stats)
+    if down.get("sharded") or up.get("sharded") is not True \
+            or mctx.engine.mesh != mesh:
+        raise AssertionError(f"mesh reshard: {down} / {up}")
+    for what, frame in (("one slot", one_slot), ("back", back)):
+        check_frame(f"mesh reshard {what}", frame, answers["q1"], None,
+                    FLOAT_SUM_RTOL_KERNEL)
+    out["reshard"] = {"down_sharded": bool(down.get("sharded")),
+                      "back_sharded": bool(up.get("sharded")),
+                      "slots_back": len(mctx.engine.mesh)}
+    ledger = MX.LEDGER.stats()
+    if ledger["outstanding_bytes"] != 0:
+        raise AssertionError(f"mesh: partial ledger at {ledger}")
+    out["ledger"] = ledger
+    timed = set()
+    out["kernels"] = {"b1": b1_checked(CG, "mesh", spies.b1, timed),
+                      "b2": [wave_timed(CW, f"mesh b2[{i}]", *w, timed)
+                             for i, w in enumerate(spies.b2)]}
+    out["b1_launches"] = spies.b1_launches + warm_spies.b1_launches
+    out["b2_launches"] = spies.b2_launches + warm_spies.b2_launches
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 NEW_PHASES = ("ssb", "rollup", "append", "persist", "modules", "server",
-              "cluster")
+              "cluster", "mesh")
 
 
 def main() -> int:
@@ -6856,6 +7161,7 @@ def main() -> int:
     # the defaults, on phase sql's flat star
     flat_ds = extra.pop("flat_ds")
     join_ds = extra.pop("join_ds")      # phase cluster's join leg
+    supplier_ds = extra.pop("supplier_ds")  # phase mesh's join
     serving = serving_phase(sdt, S, E, flat_ds,
                             ctx.store.get("lineitem"), df, tables, CG, CW)
     emit("serving", card=smi, **serving,
@@ -7275,6 +7581,30 @@ def main() -> int:
                 "unpruned answer (floats rtol 1e-9); each B1 call and the "
                 "B2 launch vs their plain versions (b1, b2)",
          note="ms: host wall clock to the frame, warm = median of 7")
+
+    # 6c. the single-process mesh over the same SF1 lineitem store
+    mesh = mesh_phase(sdt, S, E, ctx.store.get("lineitem"), ctx, df, CG,
+                      CW, smi, supplier_ds)
+    emit("mesh", **mesh,
+         oracle="each statement sharded (shard_decision cost:sharded or "
+                "context) against the one-device context over the same "
+                "store: ints, counts, min/max and dims exact, float sums "
+                "rtol 1e-9; the sketch statement's HLL / theta / KLL "
+                "registers bit for bit; the storm's 8 answers against the "
+                "one device's solo answers; the broadcast join (lineitem x "
+                "supplier) on the mesh against a one-device context "
+                "(floats rtol 1e-9), its counts summing to lineitem's rows; "
+                "Q1 after reshard to one slot "
+                "and back equal; the partial ledger at 0 bytes; each B1 / "
+                "B2 call of a cold run (every slot's) vs its plain version "
+                "(kernels)",
+         note="ms: host wall clock to the frame; cold = the statement's "
+              "first run on the mesh context (columns bound per slot "
+              "unless an earlier statement bound them), warm = median of "
+              "3, single_warm_ms the same statement on the one-device "
+              "context; slots that share one card move no bytes between "
+              "cards, so no peer copy is measured")
+    new_phases = new_phases + (mesh,)
 
     # 7. multi-wave binding at WAVES_SF, after the SF1 state leaves host
     # and card

@@ -1,14 +1,19 @@
 """Session context — the port's entry point.
 
-Port of ``spark_druid_olap_tpu/context.py``: ``Context(config, device)``
-wires the SQL front end (``sql``, ``explain``), the planner's catalog of
+Port of ``spark_druid_olap_tpu/context.py``: ``Context(config, device,
+mesh, auto_mesh)`` wires the SQL front end (``sql``, ``explain``), the planner's catalog of
 star schemas, the query history, the named lookups, the materialized
 rollups, the extension modules (``sdot.modules``, ``install_module``), the
 ingest entry points (``ingest_dataframe`` / ``_parquet`` / ``_csv`` /
 ``_parquet_stream`` and ``stream_ingest``) and the engine over the segment
 store. The device is explicit and passed down to the engine: the default is
 ``"cuda"``, and with no CUDA device the constructor raises instead of
-running on the CPU. Tests pass ``device="cpu"``. With
+running on the CPU. Tests pass ``device="cpu"``. A ``mesh``
+(``parallel/mesh.make_mesh``: one device per slot, a device may repeat)
+lets the engine shard a scan over its slots (``parallel/meshexec.py``);
+its first device is then the default device. ``auto_mesh=True`` or
+``sdot.mesh.auto`` builds a mesh over every card when more than one is
+visible, and ``reshard`` rebuilds the mesh over other devices. With
 ``sdot.persist.path`` set, the context builds a persist manager
 (``persist/``) and recovers the root at construction; ``stream_ingest``
 then journals every batch before it is queryable, and ``checkpoint`` /
@@ -42,6 +47,7 @@ from spark_druid_olap_tpu_torch.utils.config import (
     CLUSTER_NODES,
     CLUSTER_ROLE,
     Config,
+    MESH_AUTO,
     MODULES,
     PERSIST_PATH,
     QUERY_HISTORY,
@@ -51,16 +57,27 @@ from spark_druid_olap_tpu_torch.utils.config import (
 
 
 class Context:
-    def __init__(self, config: Optional[Dict] = None, device=None):
-        device = torch.device("cuda" if device is None else device)
+    def __init__(self, config: Optional[Dict] = None, device=None,
+                 mesh=None, auto_mesh: bool = False):
+        if device is None:
+            device = mesh[0] if mesh else "cuda"
+        device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "spark_druid_olap_tpu_torch.Context: no CUDA device is "
                 "available; pass device='cpu' to run on the CPU")
         self.device = device
         self.config = Config(config)
+        if mesh is None and device.type == "cuda" \
+                and (auto_mesh or bool(self.config.get(MESH_AUTO))) \
+                and torch.cuda.device_count() > 1:
+            from spark_druid_olap_tpu_torch.parallel.mesh import make_mesh
+            mesh = make_mesh()
+            self.device = device = mesh[0]
+        self.mesh = tuple(torch.device(d) for d in mesh) if mesh else None
         self.store = SegmentStore()
-        self.engine = QueryEngine(self.store, self.config, device)
+        self.engine = QueryEngine(self.store, self.config, device,
+                                  self.mesh)
         self.catalog = Catalog(self.store)
         # disabled history keeps the registry but records nothing
         self.history = QueryHistory(
@@ -109,6 +126,14 @@ class Context:
         # engine when they push down (planner/host_exec.try_engine);
         # differential oracles turn it off to stay engine-free
         self.host_engine_assist = True
+
+    def reshard(self, devices=None) -> None:
+        """Rebuild the engine's mesh over ``devices`` (default: the
+        mesh's slots whose device still answers); one device leaves no
+        mesh (``QueryEngine.reshard``)."""
+        self.engine.reshard(devices)
+        self.mesh = self.engine.mesh
+        self.device = self.engine.device
 
     def install_module(self, module) -> None:
         """Install an extension module programmatically (≈ adding to

@@ -17,9 +17,15 @@ where the JAX package always scatters (it plans the join's routes without
 its Pallas bound): a deliberate departure with the same answers (ROADMAP
 §C).
 
-The JAX package's mesh branch (the table replicated, probe waves sharded,
-``shard_map`` merges) waits for multi-GPU (ROADMAP A.8); on one device it
-reduces to what the JAX package does there: ``devices`` 1.
+On an engine with a mesh (``parallel/mesh.py``) the join takes the JAX
+package's mesh branch when ``sdot.mesh.enabled`` holds, one process runs
+and the probe side has at least one segment per slot: the table goes to
+every slot's device, the probe waves are sharded (the engine's sharded
+bind, or its wave binder per slot), each slot probes and aggregates its
+share, and the slots' partials merge on the root device
+(``parallel/meshexec.py``). ``last_stats["join"]`` reports ``devices``
+and ``mesh`` (``sharded``, or the reason it declined: ``no-mesh``,
+``disabled``, ``multihost``, ``few-segments``).
 
 Cold-tier pins (a side that is a tiered datasource, ``tier/``): every
 chunk the join faults on its thread is held out of eviction's reach while
@@ -55,8 +61,12 @@ from spark_druid_olap_tpu_torch.ops.scan import (
     array_names,
 )
 from spark_druid_olap_tpu_torch.parallel import cost as C
+from spark_druid_olap_tpu_torch.parallel import meshexec as MX
+from spark_druid_olap_tpu_torch.parallel import multihost as MH
+from spark_druid_olap_tpu_torch.parallel.mesh import mesh_size
 from spark_druid_olap_tpu_torch.utils.config import (
     GROUPBY_PALLAS_MAX_KEYS,
+    MESH_ENABLED,
     JOIN_MAX_MATCHES,
 )
 
@@ -381,13 +391,26 @@ def _execute_broadcast(ctx, plan, build_pins: contextlib.ExitStack):
                "build_ledger": LEDGER.stats()}
         return data0, js0
 
-    # ---- probe plan: columns, waves -----------------------------------------
+    # ---- probe plan: columns, waves, mesh decision --------------------------
     pcols = sorted(plan.probe_cols())
     names = array_names(ds, pcols, need_time_ms=False)
     n_segments = ds.num_segments
+    mesh_reason = "no-mesh"
+    n_dev = 1
+    if mesh_size(eng.mesh) > 1:
+        n = mesh_size(eng.mesh)
+        if not bool(conf.get(MESH_ENABLED)):
+            mesh_reason = "disabled"
+        elif MH.is_multihost():
+            mesh_reason = "multihost"
+        elif n_segments < n:
+            mesh_reason = "few-segments"
+        else:
+            n_dev, mesh_reason = n, "sharded"
+    mesh = eng.mesh if n_dev > 1 else None
     spw, n_waves = C.plan_waves(
-        n_segments, 1, C.bytes_per_segment(ds, names),
-        C.wave_budget_bytes(conf, device), conf,
+        n_segments, n_dev, C.bytes_per_segment(ds, names),
+        C.wave_budget_bytes(conf, device, mesh), conf,
         output_groups=n_keys, n_aggs=len(plan.aggs),
         io_budget=C.tier_io_budget(ds, conf),
         io_seg_bytes=C.tier_io_seg_bytes(ds, names))
@@ -429,6 +452,7 @@ def _execute_broadcast(ctx, plan, build_pins: contextlib.ExitStack):
 
     def core(arrays, tdev):
         rowv = arrays[ROW_VALID_KEY]
+        device = rowv.device
 
         def pget(phys):
             v = arrays[phys]
@@ -522,22 +546,35 @@ def _execute_broadcast(ctx, plan, build_pins: contextlib.ExitStack):
     build_bytes = int(sum(a.nbytes for sub in tree.values()
                           for a in _leaves(sub)))
     acc: Dict[str, np.ndarray] = {}
-    btok = LEDGER.acquire_build(build_bytes)
+    # the table once on every device a slot sits on
+    table_devices = list(dict.fromkeys(mesh or (device,)))
+    btok = LEDGER.acquire_build(build_bytes * len(table_devices))
     try:
-        tdev = _to_device(tree, device)
+        tdevs = {d: _to_device(tree, d) for d in table_devices}
         build_pins.close()      # the build is on the device
         seg_idx = np.arange(n_segments, dtype=np.int64)
+        if mesh is None:
+            def prog(slot_arrays):
+                return core(slot_arrays[0], tdevs[device])
+        else:
+            # each slot probes its share; the partials merge on the root
+            lane = MX.Lane(routes, [], n_keys)
+            prog_sharded = MX.build_sharded_program(
+                eng, lambda a: [core(a, tdevs[a[ROW_VALID_KEY].device])],
+                [lane])
+
+            def prog(slot_arrays):
+                return prog_sharded(slot_arrays)[0]
         try:
             if n_waves == 1:
                 with _pinned(_tier(ctx, plan.probe.ds)):
-                    arrays = eng._bind_arrays(ds, names, seg_idx)
-                combine_wave(acc, _to_host(core(arrays, tdev)), routes,
-                             n_keys)
+                    arrays = eng._bind_arrays(ds, names, seg_idx, n_dev)
+                combine_wave(acc, _to_host(prog(
+                    arrays if mesh else [arrays])), routes, n_keys)
             else:
-                binder = _WaveBinder(ds, names, spw, device)
+                binder = _WaveBinder(ds, names, spw, device, mesh)
                 for out in binder.stream(
-                        lambda arrays: core(arrays, tdev),
-                        FU.plan_device_waves(seg_idx, spw, 1)):
+                        prog, FU.plan_device_waves(seg_idx, spw, 1)):
                     combine_wave(acc, _to_host(out), routes, n_keys)
         except EngineFallback as e:
             raise JoinUnsupported(str(e)) from e
@@ -564,8 +601,8 @@ def _execute_broadcast(ctx, plan, build_pins: contextlib.ExitStack):
         "match_width": int(C_w),
         "waves": int(n_waves),
         "segments_per_wave": int(spw),
-        "devices": 1,
-        "mesh": "no-mesh",
+        "devices": int(n_dev),
+        "mesh": mesh_reason,
         "groups": int(len(idx)),
         "build_ledger": LEDGER.stats(),
     }

@@ -20,6 +20,10 @@ are not ported.
   the assigned slot as the key.
 - :func:`route_score` / :func:`route_null_mask` read a route's outputs on
   the device for the top-k epilogues.
+- :func:`merge_partials` / :func:`merge_lane_partials` merge the per-slot
+  partials of a sharded program (``parallel/meshexec.py``) on the mesh's
+  first device, in slot order: what the JAX package's ``psum`` / ``pmin``
+  / ``pmax`` over the mesh axis compute.
 """
 
 from __future__ import annotations
@@ -178,6 +182,62 @@ def scatter_groupby(key: torch.Tensor, n_keys: int, inputs: List[AggInput],
             acc.index_add_(0, k, v)
         out[a.name] = acc
     return out
+
+
+def _fold(parts, op):
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = op(acc, p)
+    return acc
+
+
+def merge_partials(parts: Sequence[Dict[str, torch.Tensor]],
+                   routes: Dict[str, Route]) -> Dict[str, torch.Tensor]:
+    """Merge per-slot partials (each on the same device): a ``min`` route
+    takes the elementwise minimum, a ``max`` route the maximum, every
+    other output, counts and sums and the outputs of no route (an
+    overflow count), the sum; folded in slot order, so two runs are bit
+    for bit the same. Every port route is exact on one slot (int64 /
+    float64), so every output merges here; the JAX package's unmerged
+    ``ff`` / ``lanes`` pairs have no counterpart."""
+    out = {}
+    for name in parts[0]:
+        r = routes.get(name.split(".")[0])
+        vals = [p[name] for p in parts]
+        if r is not None and r.kind == "min":
+            out[name] = _fold(vals, torch.minimum)
+        elif r is not None and r.kind == "max":
+            out[name] = _fold(vals, torch.maximum)
+        else:
+            out[name] = _fold(vals, torch.add)
+    return out
+
+
+# the register algebra of each sketch family's merge
+SKETCH_MERGE_OPS = {"hll": "max", "theta": "min", "kll": "minsum"}
+
+
+def merge_lane_partials(parts: Sequence[Dict[str, torch.Tensor]],
+                        routes: Dict[str, Route],
+                        sketch_kinds: Dict[str, str]
+                        ) -> Dict[str, torch.Tensor]:
+    """Merge of ONE lane's per-slot output dicts, the layout every sharded
+    program folds with (solo cores and the fused tier alike): dense
+    routes through :func:`merge_partials`, sketch registers through their
+    own algebra (``ops/hll``, ``ops/theta``, ``ops/kll``
+    ``merge_registers``), never plain addition. ``sketch_kinds`` maps an
+    output name to ``hll`` / ``theta`` / ``kll``."""
+    from spark_druid_olap_tpu_torch.ops import hll as _hll
+    from spark_druid_olap_tpu_torch.ops import kll as _kll
+    from spark_druid_olap_tpu_torch.ops import theta as _theta
+    folds = {"hll": _hll.merge_registers, "theta": _theta.merge_registers,
+             "kll": _kll.merge_registers}
+    dense = [{k: v for k, v in p.items() if k not in sketch_kinds}
+             for p in parts]
+    merged = merge_partials(dense, routes)
+    for name, kind in sketch_kinds.items():
+        merged[name] = folds[kind]([p[name] for p in parts])
+    return merged
 
 
 def route_score(route: Route, out: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -25,8 +25,10 @@ of ``T`` slots sized by the number of groups the scan can hold.
 - **62-bit keys**: the fused key splits into two parts, each a product of
   dimension cardinalities below 2^31 (:func:`split_parts`).
 
-``probe_slots`` (the multi-chip candidate lookup) is not ported: it serves
-only the multi-chip exchange (ROADMAP A.8).
+- **Lookups** (:func:`probe_slots`): the sharded top-k exchange looks
+  candidate keys up in each slot's table; the table is sorted, so one
+  ``torch.searchsorted`` over the packed keys finds them (the JAX
+  package's pair binary search).
 """
 
 from __future__ import annotations
@@ -151,6 +153,22 @@ def build_slots(khi, klo, valid, n_slots: int):
     unresolved = (occupied & (gid >= T)).sum()
     return (slot.reshape(khi.shape), (table >> 31).to(torch.int32),
             (table & EMPTY).to(torch.int32), unresolved)
+
+
+def probe_slots(tk_hi, tk_lo, khi_q, klo_q):
+    """Look query keys up in a built table: ``(slot, found)``, ``slot``
+    0 where not found. The whole table is sorted by packed key (EMPTY
+    pads the end), so the lower bound of each query's packed key is its
+    slot when the key is there. A key absent from the table never
+    matches (both parts must), and an EMPTY query key (the padding of an
+    underfull candidate list) is a miss."""
+    T = int(tk_hi.shape[0])
+    table = (tk_hi.to(torch.int64) << 31) | tk_lo.to(torch.int64)
+    kh = khi_q.to(torch.int64)
+    kl = klo_q.to(torch.int64)
+    idx = torch.searchsorted(table, (kh << 31) | kl).clamp_(max=T - 1)
+    found = (tk_hi[idx] == kh) & (tk_lo[idx] == kl) & (kh != EMPTY)
+    return torch.where(found, idx, 0), found
 
 
 def pack_key(khi: np.ndarray, klo: np.ndarray) -> np.ndarray:

@@ -23,6 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from spark_druid_olap_tpu_torch.ops.groupby import _fold
+
 M32 = 0xFFFFFFFF
 
 
@@ -76,6 +78,13 @@ def hll_registers(key, mask, values, n_keys: int, log2m: int = 11):
                        device=h.device)
     regs.scatter_reduce_(0, k_eff * m + reg, rho.to(torch.int32), "amax")
     return regs[: n_keys * m].reshape(n_keys, m)
+
+
+def merge_registers(parts):
+    """Merge of per-slot ``[K, m]`` register blocks (the JAX package's
+    ``merge_registers``, a ``pmax`` over the mesh): the elementwise
+    maximum, folded in slot order."""
+    return _fold(parts, torch.maximum)
 
 
 def estimate(regs: np.ndarray) -> np.ndarray:

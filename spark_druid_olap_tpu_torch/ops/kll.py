@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from spark_druid_olap_tpu_torch.ops.groupby import _fold
 from spark_druid_olap_tpu_torch.ops.hll import mul_u32, u32
 
 N_LEVELS = 4                    # fixed; lane count K is the size knob
@@ -99,6 +100,22 @@ def kll_registers(key, mask, values, times, n_keys: int,
         t_regs[: n_keys * lk].reshape(n_keys, lk),
         v_regs[: n_keys * lk].reshape(n_keys, lk),
         c_regs[: n_keys * N_LEVELS].reshape(n_keys, N_LEVELS)], dim=1)
+
+
+def merge_registers(parts):
+    """Merge of per-slot ``[K, W]`` registers on the device (the JAX
+    package's ``merge_registers``): per lane the lexicographically
+    smallest ``(t, v)`` pair, the level counts summed exactly; the same
+    algebra as :func:`merge`, folded in slot order."""
+    lk = (parts[0].shape[-1] - N_LEVELS) // 2
+
+    def pair(a, b):
+        ta, va, ca = a[..., :lk], a[..., lk:2 * lk], a[..., 2 * lk:]
+        tb, vb, cb = b[..., :lk], b[..., lk:2 * lk], b[..., 2 * lk:]
+        v = torch.where(ta < tb, va,
+                        torch.where(tb < ta, vb, torch.minimum(va, vb)))
+        return torch.cat([torch.minimum(ta, tb), v, ca + cb], dim=-1)
+    return _fold(parts, pair)
 
 
 def merge(a: np.ndarray, b: np.ndarray) -> np.ndarray:

@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from spark_druid_olap_tpu_torch.ops.groupby import _fold
 from spark_druid_olap_tpu_torch.ops.hll import mul_u32, u32
 
 K_LANES = 64
@@ -92,6 +93,15 @@ def theta_registers(key, mask, values, n_keys: int, k: int = K_LANES,
         regs.scatter_reduce_(0, idx.reshape(-1),
                              hv.view(torch.int32).reshape(-1), "amin")
     return regs[: n_keys * k].view(torch.float32).reshape(n_keys, k)
+
+
+def merge_registers(parts):
+    """Merge of per-slot ``[K, k]`` lane minima (the JAX package's
+    ``merge_registers``, a ``pmin`` over the mesh): the elementwise
+    minimum, folded in slot order. A lane no row reached keeps its empty
+    value (+inf from :func:`theta_registers`, 2.0 from the wave kernel's
+    stripe); both estimate as 1.0 after the clip."""
+    return _fold(parts, torch.minimum)
 
 
 def estimate(regs: np.ndarray) -> np.ndarray:

@@ -7,14 +7,16 @@ estimate (``_filter_selectivity`` with ``_bound_overlap_fraction`` and
 (``wave_budget_bytes``, ``tier_io_budget``, ``tier_io_seg_bytes``,
 ``plan_waves``), the join tiers' pricing (``JoinEstimate``,
 ``join_estimate``: broadcast against the cluster's partitioned exchange,
-whose bytes it prices at ``sdot.querycostmodel.interconnect.cost``) and
-the one-device part of ``estimate`` (``CostEstimate`` with its ``table``,
-``_output_groups``), the cost units WLM demotes to its batch lane and
-charges tenant quotas in, with ``explain_cost`` and
-``_explain_scan_plan``, the lines EXPLAIN prints under each spec. On one
-device the JAX package's cross-host and interconnect terms of
-``estimate`` are zero and are left out; its mesh pricing
-(``mesh_estimate``) waits for ROADMAP A.8.
+whose bytes it prices at ``sdot.querycostmodel.interconnect.cost``),
+``estimate`` (``CostEstimate`` with its ``table``, ``_output_groups``),
+the cost units WLM demotes to its batch lane and charges tenant quotas
+in and the single-device or sharded decision of a solo statement over
+the engine's mesh (``parallel/mesh.py``), with ``explain_cost`` and
+``_explain_scan_plan``, the lines EXPLAIN prints under each spec, and
+``mesh_estimate`` (``MeshEstimate``), the same decision for one fused
+shared-scan group (``parallel/meshexec.decide``). The mesh is one
+process's, so the cross-host term ``xhost_bytes`` is zero until the
+multi-process mesh (ROADMAP A.8.2).
 
 A unit cost is the configured value when the key is set explicitly;
 otherwise the measured table of the engine's device type.
@@ -55,18 +57,13 @@ import torch
 from spark_druid_olap_tpu_torch.ir import spec as S
 from spark_druid_olap_tpu_torch.utils.config import (
     COST_COMPILE,
+    COST_MODEL_ENABLED,
     COST_PER_BYTE_INTERCONNECT,
     COST_PER_BYTE_TRANSPORT,
+    COST_PER_ROW_MERGE,
     COST_PER_ROW_SCAN,
+    COST_SHARD_EFFICIENCY,
 )
-
-# the merge term and the scan split's efficiency of explain's sharded
-# price, at the JAX package's defaults of its
-# sdot.querycostmodel.historical.merge.cost and shard.efficiency: on one
-# device the price decides nothing, and only a mesh (ROADMAP A.8) would
-# fit them
-MERGE_COST_PER_ROW = 7e-8
-SHARD_EFFICIENCY = 1.0
 
 _CPU_MEASURED = {
     "sdot.querycostmodel.sort.seconds.per.row": 3.0e-7,
@@ -267,19 +264,18 @@ def _bound_overlap_fraction(f: S.BoundFilter, ds) -> Optional[float]:
 
 @dataclasses.dataclass
 class CostEstimate:
-    """The JAX package's estimate on one device: ``sharded_cost`` prices
-    the scan split over ``n_devices`` (1) with the merge and compile
-    terms, so nothing recommends sharding."""
     rows: int                      # rows scanned after interval pruning
     selectivity: float             # estimated filter selectivity
     output_groups: int             # estimated result cardinality
     single_cost: float
     sharded_cost: float
-    n_devices: int = 1
+    n_devices: int = 1             # slots of the engine's mesh
     recommend_sharded: bool = False
     scan_bytes: int = 0            # est. device bytes the scan binds
     segments_per_wave: int = 0     # 0 = everything in one wave
     n_waves: Optional[int] = 1     # None = the engine could not plan it
+    xhost_bytes: int = 0           # cross-process result replication
+    ici_bytes: int = 0             # the merge's bytes between the slots
 
     def table(self) -> str:
         if self.n_waves is None:
@@ -287,9 +283,11 @@ class CostEstimate:
         else:
             wave = "" if self.n_waves <= 1 else \
                 f"  waves={self.n_waves}x{self.segments_per_wave}seg"
+        xh = "" if not self.xhost_bytes else \
+            f" xhost_bytes={self.xhost_bytes:,}"
         return (f"rows={self.rows:,} sel={self.selectivity:.3f} "
                 f"est_groups={self.output_groups:,} "
-                f"scan_bytes={self.scan_bytes:,}\n"
+                f"scan_bytes={self.scan_bytes:,}{xh}\n"
                 f"single-chip cost={self.single_cost:.4g}  "
                 f"sharded({self.n_devices})={self.sharded_cost:.4g}  "
                 f"-> {'SHARDED' if self.recommend_sharded else 'SINGLE'}"
@@ -317,13 +315,17 @@ def _output_groups(q: S.QuerySpec, ds) -> int:
 
 
 def estimate(ctx_or_engine, q: S.QuerySpec) -> CostEstimate:
-    """Cost units of one spec on the engine's one device (the JAX
-    package's ``estimate`` with no mesh and one process): the scan of the
-    rows its intervals keep plus the decode of its estimated groups
-    (``single_cost``, what WLM reads), the same split over one device
-    with the merge and compile terms (``sharded_cost``), the scan's bytes
-    and its wave plan under ``wave_budget_bytes``, both over the spec's
-    named columns."""
+    """Cost units of one spec (the JAX package's ``estimate``): the scan
+    of the rows its intervals keep plus the decode of its estimated
+    groups on one device (``single_cost``, what WLM reads), against the
+    engine's mesh as :func:`mesh_estimate` prices it (``sharded_cost``);
+    the scan's bytes and its wave plan under ``wave_budget_bytes``, both
+    over the spec's named columns. With no mesh ``n_devices`` is 1 and
+    nothing recommends sharding."""
+    from spark_druid_olap_tpu_torch.parallel.mesh import (
+        mesh_size,
+        scan_devices,
+    )
     engine = getattr(ctx_or_engine, "engine", ctx_or_engine)
     ds = engine.store.get(q.datasource)
     conf = engine.config
@@ -334,14 +336,18 @@ def estimate(ctx_or_engine, q: S.QuerySpec) -> CostEstimate:
         rows = 0
     sel = _filter_selectivity(getattr(q, "filter", None), ds)
     groups = min(_output_groups(q, ds), max(1, int(rows * sel)) or 1)
-    scan_c = conf.get(COST_PER_ROW_SCAN)
-    byte_c = conf.get(COST_PER_BYTE_TRANSPORT)
+    mesh = getattr(engine, "mesh", None)
+    n_dev = mesh_size(mesh)
     n_aggs = max(1, len(S.query_aggregations(q)))
-    single = rows * scan_c + groups * byte_c * 16
-    sharded = (rows / SHARD_EFFICIENCY) * scan_c \
-        + groups * n_aggs * MERGE_COST_PER_ROW \
-        + groups * byte_c * 16 \
-        + conf.get(COST_COMPILE) * 0.1
+    # the merge's bytes between the slots: each slot contributes its
+    # [groups x n_aggs] partial, (n_dev - 1) times over (ring
+    # convention; parallel/meshexec.py accounts the fused tier alike)
+    ici_bytes = groups * n_aggs * 8 * max(0, n_dev - 1)
+    m = mesh_estimate(conf, n_dev=n_dev, rows=rows, groups=groups,
+                      n_aggs=n_aggs, merge_bytes=ici_bytes,
+                      scan_devices=scan_devices(mesh))
+    single, sharded, recommend = \
+        m.single_cost, m.sharded_cost, m.recommend_sharded
     # approximate scan footprint + wave plan (exact names are
     # executor-side; this mirrors them closely enough for explain)
     names = set()
@@ -356,12 +362,58 @@ def estimate(ctx_or_engine, q: S.QuerySpec) -> CostEstimate:
              or (ds.time is not None and c == ds.time.name)}
     seg_bytes = bytes_per_segment(
         ds, list(names) + ["__rows__"]) if ds.num_segments else 0
-    spw, waves = plan_waves(len(seg_idx), 1, seg_bytes,
-                            wave_budget_bytes(conf, engine.device), conf,
-                            groups, n_aggs)
-    return CostEstimate(rows, sel, groups, single, sharded,
-                        scan_bytes=seg_bytes * len(seg_idx),
-                        segments_per_wave=spw, n_waves=waves)
+    eff_dev = n_dev if recommend else 1
+    spw, waves = plan_waves(
+        len(seg_idx), eff_dev, seg_bytes,
+        wave_budget_bytes(conf, engine.device,
+                          mesh if recommend else None),
+        conf, groups, n_aggs)
+    return CostEstimate(rows, sel, groups, single, sharded, n_dev,
+                        recommend, scan_bytes=seg_bytes * len(seg_idx),
+                        segments_per_wave=spw, n_waves=waves,
+                        ici_bytes=int(ici_bytes))
+
+
+@dataclasses.dataclass
+class MeshEstimate:
+    """Mesh-or-single pricing for one fused shared-scan group
+    (``parallel/meshexec.decide``): the planned lanes' quantities and the
+    exact bytes their merge moves between the slots."""
+    single_cost: float
+    sharded_cost: float
+    n_devices: int
+    merge_bytes: int
+    recommend_sharded: bool
+
+
+def mesh_estimate(conf, *, n_dev: int, rows: int, groups: int,
+                  n_aggs: int, merge_bytes: int,
+                  scan_devices: Optional[int] = None) -> MeshEstimate:
+    """Price one scan on one device against ``n_dev`` slots (the JAX
+    package's ``mesh_estimate``): the scan splits across the mesh's
+    ``scan_devices`` (``parallel/mesh.scan_devices``: its distinct cards;
+    ``n_dev`` when not given) at the calibrated parallel efficiency; the
+    merge adds a per-row term and the interconnect bytes of the merged
+    partials (``merge_bytes``, already times ``n_dev - 1``). Slots that
+    share one card never price below one device while the cost model
+    runs (a departure from the JAX package, whose devices are never
+    shared: ROADMAP §C)."""
+    scan_c = conf.get(COST_PER_ROW_SCAN)
+    byte_c = conf.get(COST_PER_BYTE_TRANSPORT)
+    eff = max(1e-3, min(1.0, float(conf.get(COST_SHARD_EFFICIENCY))))
+    n_dev = max(1, int(n_dev))
+    split = max(1, int(scan_devices if scan_devices is not None else n_dev))
+    single = rows * scan_c + groups * byte_c * 16
+    sharded = (rows / max(split * eff, 1e-9)) * scan_c \
+        + groups * n_aggs * conf.get(COST_PER_ROW_MERGE) \
+        + groups * byte_c * 16 \
+        + merge_bytes * conf.get(COST_PER_BYTE_INTERCONNECT) \
+        + conf.get(COST_COMPILE) * 0.1
+    recommend = n_dev > 1 and sharded < single
+    if not conf.get(COST_MODEL_ENABLED):
+        recommend = n_dev > 1
+    return MeshEstimate(single, sharded, n_dev, int(merge_bytes),
+                        recommend)
 
 
 def explain_cost(ctx, q: S.QuerySpec) -> str:
@@ -449,21 +501,25 @@ def bytes_per_segment(ds, names) -> int:
 CUDA_WAVE_MEMORY_SHARE = 0.3
 
 
-def wave_budget_bytes(conf, device) -> Optional[int]:
-    """Per-device byte budget for one wave's scan arrays (the JAX
-    package's ``wave_budget_bytes``). The configured
-    ``sdot.engine.wave.max.bytes`` wins; else, on a cuda device,
-    ``CUDA_WAVE_MEMORY_SHARE`` of its memory; else None (one wave), as the
-    JAX package reads a CPU backend."""
+def wave_budget_bytes(conf, device, mesh=None) -> Optional[int]:
+    """Byte budget of one wave's scan arrays for one slot (the JAX
+    package's ``wave_budget_bytes``). The card's budget is the configured
+    ``sdot.engine.wave.max.bytes``, else, on a cuda device,
+    ``CUDA_WAVE_MEMORY_SHARE`` of its memory, else None (one wave), as
+    the JAX package reads a CPU backend. The slots of ``mesh`` that share
+    ``device`` split its budget between them, so two resident waves of
+    every slot on one card stay within twice the card's share."""
+    from spark_druid_olap_tpu_torch.parallel.mesh import slots_on
     from spark_druid_olap_tpu_torch.utils.config import WAVE_MAX_BYTES
+    n = slots_on(mesh, device)
     b = conf.get(WAVE_MAX_BYTES)
     if b:
-        return int(b)
+        return int(b) // n
     device = torch.device(device)
     if device.type != "cuda":
         return None
     total = torch.cuda.get_device_properties(device).total_memory
-    return int(total * CUDA_WAVE_MEMORY_SHARE)
+    return int(total * CUDA_WAVE_MEMORY_SHARE) // n
 
 
 def tier_io_budget(ds, conf) -> Optional[int]:

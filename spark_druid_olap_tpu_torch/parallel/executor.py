@@ -8,7 +8,8 @@ Port of ``spark_druid_olap_tpu/parallel/executor.py``: ``QueryEngine.execute``
 ``cluster/broker.ClusterClient`` a broker's ``Context`` attaches, then
 the shared-scan coalescer) -> ``_execute_inner``
 -> ``_run_agg`` for GroupBy, Timeseries and TopN specs, ``_run_select``
-and ``_run_search`` for raw-row and dictionary searches, on one device.
+and ``_run_search`` for raw-row and dictionary searches, on one device
+or over the slots of a mesh (below).
 A cancel (``cancel``) or a deadline (``QueryContext.timeout_millis``)
 takes effect at the host's stage boundaries (``_stage_check``): before
 each dispatch, after the device round trip, and at every wave; a
@@ -58,15 +59,29 @@ wave's chunks only while it copies them into its staging
 (``TieredDatasource.wave_pins``), and each wave enqueues the chunks of the
 wave after next on the tier's prefetcher.
 
+With a mesh (``QueryEngine(..., mesh=)``, ``parallel/mesh.py``) a solo
+aggregation shards when ``_should_shard`` says so (the query context's
+``prefer_sharded``, else ``parallel/cost.estimate``): the bind pads the
+segment selection to a multiple of the mesh and puts each slot's share on
+its device (``_bind_arrays`` with ``n_dev``), each slot runs the unchanged
+core over its share (B1 once per slot on the dense route), and the slots'
+partials merge on the root device (``parallel/meshexec.py``) before the
+device top-k, device HAVING and the copy to the host. On the hashed tier
+each slot keeps its own table; the partials merge by key on the host, and
+an ordered limit over a min / max metric (or a TopN) exchanges only
+candidates (``_hash_topk_exchange``). ``reshard`` rebuilds the mesh and
+drops everything it shaped; a re-attach reshards when slots were lost.
+
 A device loss demotes the statement and every later one to the host tier
 (``EngineFallback`` ``backend_lost``), with at most one bounded re-attach
 probe per cooldown (``_try_reattach``). An error is a loss when its text
 reads as a sticky CUDA error (``_is_backend_loss``) and a probe of the
 device then fails (``_probe_device_alive``); where it surfaced
 (``_loss_site``) goes into ``last_stats["backend_lost"]``. Every path the
-JAX engine would take outside the port so far — multi-host partial stores —
-raises ``NotImplementedError`` naming its ROADMAP item; the engine never
-changes an answer to stay inside the port.
+JAX engine would take outside the port so far — select and search over a
+multi-host partial store (the multi-process mesh) — raises
+``NotImplementedError`` naming its ROADMAP item; the engine never changes
+an answer to stay inside the port.
 """
 
 from __future__ import annotations
@@ -106,7 +121,9 @@ from spark_druid_olap_tpu_torch.ops.sketch import (
     sketch_registers,
 )
 from spark_druid_olap_tpu_torch.parallel import cost as C
+from spark_druid_olap_tpu_torch.parallel import meshexec as MX
 from spark_druid_olap_tpu_torch.parallel.cost import unit_cost
+from spark_druid_olap_tpu_torch.parallel.mesh import mesh_size
 from spark_druid_olap_tpu_torch.planner import fusion as FU
 from spark_druid_olap_tpu_torch.result import QueryResult
 from spark_druid_olap_tpu_torch.segment.column import ColumnKind
@@ -674,7 +691,7 @@ def _topk_slack(limit: S.LimitSpec) -> int:
 
 class QueryEngine:
     def __init__(self, store: SegmentStore, config: Optional[Config] = None,
-                 device="cuda"):
+                 device=None, mesh=None):
         from spark_druid_olap_tpu_torch.cache.result_cache import (
             SemanticResultCache)
         from spark_druid_olap_tpu_torch.metadata.history import (
@@ -684,7 +701,13 @@ class QueryEngine:
         from spark_druid_olap_tpu_torch.wlm.admit import WorkloadManager
         self.store = store
         self.config = config or Config()
-        self.device = torch.device(device)
+        # the mesh (parallel/mesh.py): a tuple of devices, one per slot;
+        # its first device is the root, where merged results land and
+        # where unsharded statements run
+        self.mesh = tuple(torch.device(d) for d in mesh) if mesh else None
+        self.device = torch.device(
+            device if device is not None
+            else self.mesh[0] if self.mesh else "cuda")
         self._device_arrays: Dict[tuple, torch.Tensor] = {}
         self._device_bytes = 0
         self._bind_lock = threading.Lock()
@@ -975,14 +998,60 @@ class QueryEngine:
         if _probe_device_alive(self.device):
             with self._compile_lock:
                 self._backend_lost_at = None
+            if self.mesh is not None:
+                # the mesh's slots whose device answers: a lost card
+                # drops out, and the mesh rebuilds over the rest
+                live = _live_devices(self.mesh)
+                if len(live) != mesh_size(self.mesh):
+                    self.reshard(live)
             return True
         return False
 
     def reshard(self, devices=None) -> None:
-        """Rebuild the engine over the live device set (the JAX engine's
-        ``reshard``, which a re-attach runs when the mesh's size
-        changed)."""
-        raise not_ported("resharding onto the live devices", "A.8")
+        """Rebuild the mesh over ``devices`` (default: the mesh's slots
+        whose device still answers, ``_live_devices``) and drop
+        everything the old mesh shaped: programs, the device-resident
+        arrays and the late-materialization overflow memo. The store is
+        on the host, so the next statement binds onto the new mesh. One
+        device leaves no mesh; it becomes the engine's device."""
+        from spark_druid_olap_tpu_torch.parallel.mesh import make_mesh
+        devs = [torch.device(d) for d in devices] if devices is not None \
+            else _live_devices(self.mesh or (self.device,))
+        if not devs:
+            raise ValueError("reshard: no device to run on")
+        with self._compile_lock:
+            self.mesh = make_mesh(devices=devs) if len(devs) > 1 else None
+            self.device = devs[0]
+            self._programs.clear()
+            self._compact_overflowed.clear()
+        with self._bind_lock:
+            self._device_arrays.clear()
+            self._device_bytes = 0
+        self.last_stats["resharded_to"] = len(devs)
+
+    def _should_shard(self, q, ds, seg_idx) -> bool:
+        """Whether a solo statement runs over the mesh's slots: never
+        without a mesh of more than one slot; else the query context's
+        ``prefer_sharded`` when set, else the cost model
+        (``parallel/cost.estimate``). The decision and its prices go
+        into ``last_stats`` (``shard_decision``, ``cost_single``,
+        ``cost_sharded``)."""
+        if self.mesh is None or mesh_size(self.mesh) <= 1:
+            return False
+        pref = getattr(getattr(q, "context", None), "prefer_sharded", None)
+        if pref is not None:
+            self.last_stats["shard_decision"] = "context"
+            return bool(pref)
+        try:
+            est = C.estimate(self, q)
+        except Exception:   # noqa: BLE001 — cost must never fail a query
+            self.last_stats["shard_decision"] = "default"
+            return len(seg_idx) >= 1
+        self.last_stats["shard_decision"] = (
+            f"cost:{'sharded' if est.recommend_sharded else 'single'}")
+        self.last_stats["cost_single"] = est.single_cost
+        self.last_stats["cost_sharded"] = est.sharded_cost
+        return est.recommend_sharded
 
     def _execute_inner(self, q: S.QuerySpec, t0: float) -> QueryResult:
         self._stage_check(q, t0)
@@ -1051,13 +1120,15 @@ class QueryEngine:
             self._plan_agg(ds, seg_idx, dimensions, aggregations,
                            granularity, filter_spec, intervals)
         cards = [p.card for p in all_dim_plans]
+        sharded = self._should_shard(q, ds, seg_idx)
+        n_dev = mesh_size(self.mesh) if sharded else 1
         route_hashed, spw, n_waves = self._scan_wave_plan(
-            ds, seg_idx, all_dim_plans, agg_plans, n_keys, names)
+            ds, seg_idx, all_dim_plans, agg_plans, n_keys, names, n_dev)
         if route_hashed:
             return self._run_agg_hashed(
                 q, ds, seg_idx, all_dim_plans, agg_plans, names, min_day,
                 max_day, post_aggregations, having, limit, filter_spec,
-                intervals, check, spw, n_waves, no_topk=no_topk)
+                intervals, check, spw, n_waves, sharded, no_topk=no_topk)
         topk = None if no_topk or n_waves > 1 else \
             self._plan_device_topk(limit, having, agg_plans, n_keys)
         having_dev = self._plan_device_having(having, routes, n_keys,
@@ -1066,18 +1137,23 @@ class QueryEngine:
         sketch_plans = [p for p in agg_plans if p.kind in SKETCH_KINDS]
         shape = (ds.name, ds.serial, _cache_repr(q), len(seg_idx),
                  ds.padded_rows, min_day, max_day, tuple(names),
-                 self.config.get(TZ_ID))
+                 self.config.get(TZ_ID), sharded, n_dev)
+        # sharded: the core runs on every slot over its share of the
+        # segments, and the slots' partials merge on the root device
+        # (parallel/meshexec.py) before the top-k and HAVING epilogues
+        run = self._solo_program(MX.Lane(routes, agg_plans, n_keys),
+                                 sharded)
         host = {}
         t = _time.perf_counter()
         if having_dev:
             # two dispatches: the finals stay on the device; the passing
             # count travels, then only the passing groups
-            dev_arrays = self._bind_arrays(ds, names, seg_idx)
+            dev_arrays = self._bind_arrays(ds, names, seg_idx, n_dev)
             t = _phase("bind", t)
             check()
-            table = self._make_core(ds, all_dim_plans, agg_plans,
-                                    filter_spec, intervals, min_day,
-                                    max_day, n_keys, routes)(dev_arrays)
+            table = run(self._make_core(
+                ds, all_dim_plans, agg_plans, filter_spec, intervals,
+                min_day, max_day, n_keys, routes), dev_arrays)
             mask = _having_mask(having_dev, table, routes)
             cnt = int(_to_host({"__stats__": mask.sum().reshape(1)})
                       ["__stats__"][0])
@@ -1096,18 +1172,21 @@ class QueryEngine:
             # after compaction and do not shrink what the prefix must hold
             cheap_f0, _ = self._split_filter_staged(filter_spec)
             compact_m = self._plan_compact_m(ds, seg_idx, cheap_f0,
-                                             routes=routes, n_keys=n_keys)
+                                             routes=routes, n_keys=n_keys,
+                                             n_dev=n_dev)
             memo = ("agg", shape, topk)
             if compact_m and memo in self._compact_overflowed:
                 compact_m = None     # this shape overflowed before
-            dev_arrays = self._bind_arrays(ds, names, seg_idx)
+            dev_arrays = self._bind_arrays(ds, names, seg_idx, n_dev)
             t = _phase("bind", t)
             for cm in ((compact_m, None) if compact_m else (None,)):
                 check()      # pre-dispatch boundary
-                out = self._make_core(ds, all_dim_plans, agg_plans,
-                                      filter_spec, intervals, min_day,
-                                      max_day, n_keys, routes,
-                                      compact_m=cm)(dev_arrays)
+                # sharded: a slot's overflow sums into the merged
+                # '__over__', so any slot over its budget re-runs all
+                out = run(self._make_core(
+                    ds, all_dim_plans, agg_plans, filter_spec, intervals,
+                    min_day, max_day, n_keys, routes, compact_m=cm),
+                    dev_arrays)
                 over = out.pop("__over__", None)
                 if topk:
                     out = _topk_gather(out, routes, topk, n_keys)
@@ -1132,7 +1211,8 @@ class QueryEngine:
             # budget ends the run, and the whole scan re-runs uncompacted
             cheap_f0, _ = self._split_filter_staged(filter_spec)
             compact_m = self._plan_compact_m(ds, seg_idx[:spw], cheap_f0,
-                                             routes=routes, n_keys=n_keys)
+                                             routes=routes, n_keys=n_keys,
+                                             n_dev=n_dev)
             memo = ("aggw", shape, spw)
             if compact_m and memo in self._compact_overflowed:
                 compact_m = None
@@ -1142,8 +1222,9 @@ class QueryEngine:
                                        max_day, n_keys, routes,
                                        compact_m=cm)
                 finals, wave_over = self._run_waves(
-                    ds, names, seg_idx, spw, core, routes, n_keys,
-                    sketch_plans, check)
+                    ds, names, seg_idx, spw,
+                    lambda arrays, core=core: run(core, arrays), routes,
+                    n_keys, sketch_plans, check, sharded)
                 if not wave_over:
                     if cm:
                         self.last_stats["compact_m"] = int(cm)
@@ -1200,6 +1281,7 @@ class QueryEngine:
                                      t0, no_topk=True)
         self.last_stats.update({
             "datasource": ds.name, "segments": int(len(seg_idx)),
+            "sharded": sharded, "devices": int(n_dev),
             "groups": int(len(sel)), "rows_scanned": int(ds.num_rows),
             "waves": int(n_waves), "segments_per_wave": int(spw),
             "route": "kernel" if G.use_kernel(
@@ -1290,7 +1372,7 @@ class QueryEngine:
         return rejoin(cheap), rejoin(exp)
 
     def _plan_compact_m(self, ds, seg_idx, filter_spec, routes=None,
-                        n_keys=None, n_ops=None):
+                        n_keys=None, n_ops=None, n_dev: int = 1):
         """Static survivor budget for late materialization (None = do
         not compact): the filter-selectivity estimate
         (``cost._filter_selectivity``) with a 2x margin, rounded up to a
@@ -1299,11 +1381,13 @@ class QueryEngine:
         test and config override). Otherwise the compaction costs
         ``rows * sort + M * n_ops * gather`` and must cost less than what
         the removed rows would cost downstream
-        (:meth:`_compaction_saving`)."""
+        (:meth:`_compaction_saving`). Sharded (``n_dev`` slots) the
+        budget is each slot's: the compaction runs in every slot's core
+        over its share of the rows."""
         if filter_spec is None or not self.config.get(SCAN_COMPACT):
             return None
         min_rows = int(self.config.get(SCAN_COMPACT_MIN_ROWS))
-        rows = _rows_of(ds, seg_idx)
+        rows = _rows_of(ds, seg_idx) // max(int(n_dev), 1)
         if min_rows > 0 and rows < min_rows:
             return None                  # small scans: the pass wins nothing
         sel = C._filter_selectivity(filter_spec, ds)
@@ -1407,15 +1491,18 @@ class QueryEngine:
         dim_plans, agg_plans, _, _, n_keys, names, _ = self._plan_agg(
             ds, seg_idx, dims, q.aggregations, q.granularity, q.filter,
             q.intervals)
+        n_dev = mesh_size(self.mesh) if self._should_shard(q, ds, seg_idx) \
+            else 1
         return self._scan_wave_plan(ds, seg_idx, dim_plans, agg_plans,
-                                    n_keys, names)[1:]
+                                    n_keys, names, n_dev)[1:]
 
     def _scan_wave_plan(self, ds, seg_idx, dim_plans, agg_plans, n_keys,
-                        names):
-        """``(hashed, segments per wave, waves)`` of an aggregation scan:
-        the hashed route above the dense key-space ceiling and for the
-        medium-K reroute, else the dense one; the wave plan prices the
-        dense route's key space, the hashed route's first table."""
+                        names, n_dev: int = 1):
+        """``(hashed, segments per wave, waves)`` of an aggregation scan
+        over ``n_dev`` slots: the hashed route above the dense key-space
+        ceiling and for the medium-K reroute, else the dense one; the
+        wave plan prices the dense route's key space, the hashed route's
+        first table."""
         hashed = n_keys > self.config.get(GROUPBY_DENSE_MAX_KEYS)
         if not hashed:
             # medium-K reroute: the same gate as the sorted-run tier, so
@@ -1433,7 +1520,7 @@ class QueryEngine:
             groups = min(rows_sel, self._hash_slots(
                 rows_sel, _key_space(dim_plans)))
         spw, n_waves = self._plan_waves(ds, names, seg_idx, groups,
-                                        len(agg_plans))
+                                        len(agg_plans), n_dev)
         return hashed, spw, n_waves
 
     def _hash_max_slots(self) -> int:
@@ -1455,14 +1542,21 @@ class QueryEngine:
     def _run_agg_hashed(self, q, ds, seg_idx, dim_plans, agg_plans, names,
                         min_day, max_day, post_aggregations, having, limit,
                         filter_spec, intervals, check, spw, n_waves,
-                        no_topk: bool = False):
+                        sharded: bool = False, no_topk: bool = False):
         """Group-by above the dense key-space ceiling (and the medium-K
         reroute): a table of ``T`` slots on the device per wave
         (``ops/hash_groupby.py``), the waves' partials merged by key on
         the host, in the waves ``_scan_wave_plan`` planned. Overflow in
         any wave retries the scan at 4x slots, then falls back. ``check``
         is the statement's stage boundary (before each dispatch and wave,
-        and after the last)."""
+        and after the last).
+
+        ``sharded``: every slot of the mesh builds its own table over its
+        share of the segments (the JAX package's per-chip tables); the
+        tables stay on their devices and their partials merge by key on
+        the host, or, for an ordered limit the exchange takes
+        (:meth:`_plan_hash_topk_exchange`), only the globally best
+        candidates' rows travel (:func:`_hash_topk_exchange`)."""
         if any(p.kind in SKETCH_KINDS for p in agg_plans):
             raise EngineFallback("sketch aggregation over hashed group-by")
         cards = [p.card for p in dim_plans]
@@ -1470,6 +1564,7 @@ class QueryEngine:
             parts = H.split_parts(cards)
         except H.KeySpaceTooWide as e:
             raise EngineFallback(str(e)) from e
+        n_dev = mesh_size(self.mesh) if sharded else 1
         rows_sel = _rows_of(ds, seg_idx)
         n_keys_total = _key_space(dim_plans)
         max_slots = self._hash_max_slots()
@@ -1477,18 +1572,23 @@ class QueryEngine:
         wave_segs = FU.plan_device_waves(seg_idx, spw, 1)
         metas = [G.AggInput(p.spec.name, p.kind, is_int=p.is_int)
                  for p in agg_plans]
-        topk_plan = None if no_topk else \
+        topk_plan = None if no_topk or n_dev > 1 else \
             self._plan_device_topk_hashed(limit, having, agg_plans, n_waves)
+        exch_plan = None
+        if topk_plan is None and n_dev > 1 and n_waves == 1:
+            exch_plan = self._plan_hash_topk_exchange(q, limit, having,
+                                                      agg_plans)
         kg_used = 0
         tk_scores = None
         # late materialization (shared with the dense path), in one wave
-        # only: the key build and the aggregation shrink to the survivors;
-        # a budget overflow folds into '__unres__' and the first retry
-        # turns it off at the same T
+        # on one device only (as in the JAX package): the key build and
+        # the aggregation shrink to the survivors; a budget overflow
+        # folds into '__unres__' and the first retry turns it off at the
+        # same T
         cheap_f0, _ = self._split_filter_staged(filter_spec)
         lm = self._plan_compact_m(ds, seg_idx, cheap_f0, n_keys=T,
                                   n_ops=len(agg_plans) + 2) \
-            if n_waves == 1 else None
+            if n_waves == 1 and not sharded else None
         memo = ("hashlm", ds.name, _cache_repr(q))
         if lm and memo in self._compact_overflowed:
             lm = None
@@ -1496,7 +1596,9 @@ class QueryEngine:
             # k_sel * 4 <= T also bounds k_sel < T
             topk = topk_plan if topk_plan and topk_plan[1] * 4 <= T \
                 else None
-            compact = topk is None \
+            exch = exch_plan if exch_plan and exch_plan[1] * 4 <= T \
+                else None
+            compact = topk is None and exch is None \
                 and T >= self.config.get(GROUPBY_HASH_COMPACT_MIN)
             sorted_run = self._sorted_run_wanted(rows_sel, n_keys_total)
             routes = SG.plan_sorted_routes(metas) if sorted_run \
@@ -1504,48 +1606,72 @@ class QueryEngine:
             core = self._hash_core(ds, dim_plans, parts, agg_plans,
                                    filter_spec, intervals, min_day, max_day,
                                    T, routes, sorted_run, compact_m=lm)
+            # one table per slot (one on one device), each on its device
+            chips_of = (lambda a: MX.run_slots(self.mesh, core, a)) \
+                if sharded else (lambda a: [core(a[0])])
             t = _time.perf_counter()
             if n_waves == 1:
-                arrays = self._bind_arrays(ds, names, seg_idx)
+                arrays = self._bind_arrays(ds, names, seg_idx, n_dev)
                 t = _phase("bind", t)
                 check()
-                outs = [core(arrays)]
+                waves = [chips_of(arrays if sharded else [arrays])]
             else:
-                binder = _WaveBinder(ds, names, spw, self.device)
-                outs = binder.stream(core, wave_segs, check)
+                binder = _WaveBinder(ds, names, spw, self.device,
+                                     self.mesh if sharded else None)
+                waves = binder.stream(chips_of, wave_segs, check)
             partials, unresolved = [], 0
-            # each wave's outputs; under waves the next wave's bind is
+            # each wave's tables; under waves the next wave's bind is
             # already issued when the host syncs on this one's
-            for out in outs:
-                if compact:
-                    # dispatch 1 of 2: the table stays on the device; only
-                    # [unresolved, occupied] travel
-                    occ = (out["__tkhi__"] != H.EMPTY).sum()
-                    unres, occupied = (int(x) for x in torch.stack(
-                        [out.pop("__unres__")[0], occ]).cpu())
-                    unresolved += unres
+            for chips in waves:
+                if compact or exch:
+                    # dispatch 1 of 2: the tables stay on the devices;
+                    # only [unresolved, occupied] of each travel
+                    stats = torch.stack([torch.stack(
+                        [c.pop("__unres__")[0].to(torch.int64),
+                         (c["__tkhi__"] != H.EMPTY).sum()]).to(self.device)
+                        for c in chips]).cpu().numpy()
+                    unresolved += int(stats[:, 0].sum())
                     if unresolved:
                         break
-                    # dispatch 2 of 2: the occupied slots are the table's
+                    if exch:
+                        metric, k_sel, ascending = exch
+                        # sums need wider candidate lists per slot (a key
+                        # large in total can rank lower on each slot);
+                        # min / max are exact with k_sel alone
+                        mplan = next(p for p in agg_plans
+                                     if p.spec.name == metric)
+                        k_cand = k_sel if mplan.kind in ("min", "max") \
+                            else min(T, max(4 * k_sel, 1024))
+                        kg_used = max(kg_used, k_sel)
+                        raws = _hash_topk_exchange(
+                            chips, routes, metric, ascending, k_cand,
+                            k_sel, T, self.device)
+                        partials += _hash_chip_partials(raws, routes, k_sel)
+                        continue
+                    # dispatch 2 of 2: the occupied slots are a table's
                     # prefix [0, G); copy a power of two of them
-                    kg = min(T, 1 << max(6, (max(1, occupied) - 1)
-                                         .bit_length()))
+                    kg = min(T, 1 << max(6, (max(1, int(stats[:, 1].max()))
+                                             - 1).bit_length()))
                     kg_used = max(kg_used, kg)
-                    raw = _to_host({k: v[:kg] for k, v in out.items()})
-                    k_out = kg
-                else:
+                    raws = [_to_host({k: v[:kg] for k, v in c.items()})
+                            for c in chips]
+                    partials += _hash_chip_partials(raws, routes, kg)
+                    continue
+                raws = []
+                for out in chips:
                     if topk:
                         unres = out.pop("__unres__")
                         out = _hash_topk_gather(out, routes, topk, T)
                         out["__unres__"] = unres
                     raw = _to_host(out)
                     unresolved += int(raw.pop("__unres__")[0])
-                    if unresolved:
-                        break
-                    k_out = topk[1] if topk else T
-                    if topk:
-                        tk_scores = raw.pop("__topk_score__")
-                partials += _hash_partial(raw, routes, k_out)
+                    raws.append(raw)
+                if unresolved:
+                    break
+                if topk:
+                    tk_scores = raws[0].pop("__topk_score__")
+                partials += _hash_chip_partials(
+                    raws, routes, topk[1] if topk else T)
             if n_waves > 1:
                 # the waves charged their own bind and dispatch phases
                 self.last_stats["wave_steps"] = binder.steps()
@@ -1594,15 +1720,39 @@ class QueryEngine:
                 return self._run_agg_hashed(
                     q, ds, seg_idx, dim_plans, agg_plans, names, min_day,
                     max_day, post_aggregations, having, limit, filter_spec,
-                    intervals, check, spw, n_waves, no_topk=True)
+                    intervals, check, spw, n_waves, sharded, no_topk=True)
         self.last_stats.update({
             "datasource": ds.name, "segments": int(len(seg_idx)),
+            "sharded": sharded, "devices": int(n_dev),
             "groups": int(len(keys)), "rows_scanned": int(ds.num_rows),
             "waves": len(wave_segs), "segments_per_wave": int(spw),
             "route": "sorted" if sorted_run else "scatter", "hashed": True,
             "hash_slots": int(T), "hash_compact_k": int(kg_used),
-            "topk_device": int(topk[1]) if topk else 0})
+            "topk_device": int(topk[1]) if topk
+            else int(exch[1]) if exch else 0,
+            "topk_exchange": bool(exch)})
         return QueryResult(columns, data)
+
+    def _plan_hash_topk_exchange(self, q, limit, having, agg_plans):
+        """``(metric, k_sel, ascending)`` when a sharded hashed statement's
+        ordered limit takes the candidate exchange, else None. A min /
+        max metric is exact under the exchange (a key's global extremum
+        is its extremum on some slot, where it ranks at least as high);
+        a sum or count carries Druid's topN union skew, so it takes the
+        exchange only for a TopN spec, whose contract is approximate, and
+        an exact GroupBy keeps the full merge by key."""
+        if having is not None or limit is None or limit.limit is None:
+            return None
+        if not limit.columns:
+            return None
+        oc = limit.columns[0]
+        plan = next((p for p in agg_plans if p.spec.name == oc.name), None)
+        if plan is None:
+            return None
+        if plan.kind not in ("min", "max") \
+                and not isinstance(q, S.TopNQuerySpec):
+            return None
+        return (oc.name, _topk_slack(limit), bool(oc.ascending))
 
     def _plan_device_topk_hashed(self, limit, having, agg_plans, n_waves):
         """Device top-k over the hash table: only the best ``k_sel`` slots
@@ -1826,29 +1976,49 @@ class QueryEngine:
             prog = self._programs.get(sig)
         return prog
 
-    def _plan_waves(self, ds, names, seg_idx, output_groups, n_aggs):
+    def _plan_waves(self, ds, names, seg_idx, output_groups, n_aggs,
+                    n_dev: int = 1):
         """``(segments per wave, waves)`` of one scan on this engine's
-        device (``parallel/cost.plan_waves`` under
-        ``cost.wave_budget_bytes``)."""
+        device, or over the mesh's ``n_dev`` slots
+        (``parallel/cost.plan_waves`` under ``cost.wave_budget_bytes``,
+        which the slots sharing a card split)."""
         return C.plan_waves(
-            len(seg_idx), 1, C.bytes_per_segment(ds, names),
-            C.wave_budget_bytes(self.config, self.device), self.config,
-            output_groups, n_aggs, io_budget=C.tier_io_budget(ds, self.config),
+            len(seg_idx), n_dev, C.bytes_per_segment(ds, names),
+            C.wave_budget_bytes(self.config, self.device,
+                                self.mesh if n_dev > 1 else None),
+            self.config, output_groups, n_aggs,
+            io_budget=C.tier_io_budget(ds, self.config),
             io_seg_bytes=C.tier_io_seg_bytes(ds, names))
 
+    def _solo_program(self, lane, sharded: bool):
+        """``run(core, arrays)``: the core over one device's bind, or,
+        sharded, over every slot of the mesh's bind (a list of per-slot
+        dicts), the slots' outputs merged on the root
+        (``parallel/meshexec.build_sharded_program``)."""
+        if not sharded:
+            return lambda core, arrays: core(arrays)
+
+        def run(core, slot_arrays):
+            return MX.build_sharded_program(
+                self, lambda a: [core(a)], [lane])(slot_arrays)[0]
+        return run
+
     def _run_waves(self, ds, names, seg_idx, spw, core, routes, n_keys,
-                   sketch_plans, check=None):
+                   sketch_plans, check=None, sharded: bool = False):
         """Execute the scan in bounded segment waves (double-buffered:
         wave i+1's copy to the device overlaps wave i's compute), merging
         each wave's [K] finals on the host; ``check`` runs at every wave
         boundary. Returns ``(finals, 0)``, or ``(None, overflow)`` when a
         wave's late-materialization budget overflowed: the caller re-runs
-        the scan uncompacted."""
-        binder = _WaveBinder(ds, names, spw, self.device)
+        the scan uncompacted. ``sharded``: each wave binds per slot of the
+        mesh and ``core`` is the sharded program."""
+        binder = _WaveBinder(ds, names, spw, self.device,
+                             self.mesh if sharded else None)
+        prog = core if sharded else (lambda a: core(a[0]))
         finals = None
         try:
             for out in binder.stream(
-                    core, FU.plan_device_waves(seg_idx, spw, 1), check):
+                    prog, FU.plan_device_waves(seg_idx, spw, 1), check):
                 host = _to_host(out)
                 over = host.pop("__over__", None)
                 if over is not None and int(over[0]):
@@ -1861,34 +2031,61 @@ class QueryEngine:
             self.last_stats["wave_steps"] = binder.steps()
         return finals, 0
 
-    def _bind_arrays(self, ds, names, seg_idx):
+    def _bind_arrays(self, ds, names, seg_idx, n_dev: int = 1):
         """Fetch-or-build the device tensors a scan binds, cached per
-        (datasource, array, segment selection) so repeated queries never
-        re-upload host data. ``sdot.engine.device.cache.bytes`` bounds the
-        cache, not the scan: an upload that would pass it drops the whole
-        cache first, so residency peaks at the cap plus one array."""
+        (datasource, array, segment selection, mesh layout) so repeated
+        queries never re-upload host data. ``sdot.engine.device.cache.bytes``
+        bounds the cache, not the scan: an upload that would pass it drops
+        the whole cache first, so residency peaks at the cap plus one
+        array.
+
+        ``n_dev`` > 1 is the sharded bind: the selection pads with empty
+        segments to a multiple of the mesh (:func:`_pad_segments`) and
+        slot ``i`` gets the ``i``-th ``[S / n, R]`` share on its device,
+        so the bind returns one dict per slot. On a tiered datasource it
+        opens a mesh pin scope (``acquire_pins(devices=n)``) while the
+        shares fault."""
         seg_sig = (len(seg_idx), hash(np.asarray(seg_idx).tobytes()))
         cap = int(self.config.get(DEVICE_CACHE_BYTES))
-        with self._bind_lock:
-            return self._bind_locked(ds, names, seg_idx, seg_sig, cap)
+        if n_dev <= 1:
+            with self._bind_lock:
+                return self._bind_locked(ds, names, seg_idx, seg_sig, cap,
+                                         (self.device,))[0]
+        tier = getattr(ds, "tier", None)
+        tok = tier.acquire_pins(devices=n_dev) if tier is not None else None
+        try:
+            with self._bind_lock:
+                return self._bind_locked(ds, names, seg_idx, seg_sig, cap,
+                                         self.mesh[:n_dev])
+        finally:
+            if tok is not None:
+                tier.release_pins(tok)
 
-    def _bind_locked(self, ds, names, seg_idx, seg_sig, cap):
-        out = {}
+    def _bind_locked(self, ds, names, seg_idx, seg_sig, cap, slots):
+        """One dict per slot of ``slots``: slot ``i`` holds the ``i``-th
+        ``[S / n, R]`` share of each array on its device (one slot holds
+        the whole selection)."""
+        n = len(slots)
+        per = _pad_segments(len(seg_idx), n) // n
+        out = [{} for _ in slots]
         for k in names:
-            key = (ds.serial, k, seg_sig)
-            dev = self._device_arrays.get(key)
-            if dev is None:
-                host = build_array(ds, k, seg_idx)
+            key = (ds.serial, k, seg_sig, tuple(slots))
+            devs = self._device_arrays.get(key)
+            if devs is None:
+                host = _pad_host(build_array(ds, k, seg_idx), per * n)
                 if self._device_bytes + host.nbytes > cap:
                     # evict BEFORE the upload so peak residency never
                     # exceeds cap + one array
                     self._device_arrays.clear()
                     self._device_bytes = 0
                 src = torch.from_numpy(np.ascontiguousarray(host))
-                dev = _device_copy_retry(lambda: src.to(self.device))
-                self._device_arrays[key] = dev
+                devs = [_device_copy_retry(
+                    lambda i=i, d=d: src[i * per:(i + 1) * per].to(d))
+                    for i, d in enumerate(slots)]
+                self._device_arrays[key] = devs
                 self._device_bytes += int(host.nbytes)
-            out[k] = dev
+            for i, t in enumerate(devs):
+                out[i][k] = t
         return out
 
     # -- select and search ----------------------------------------------------
@@ -2238,6 +2435,34 @@ def _device_copy_retry(fn):
         retryable=lambda e: isinstance(e, torch.cuda.OutOfMemoryError))
 
 
+def _pad_segments(s: int, n_dev: int) -> int:
+    """Segments of a bind over ``n_dev`` slots: ``s`` rounded up to a
+    multiple of the mesh (the JAX package's ``_pad_segments``, less its
+    power-of-two round, which keeps its compiled shapes few; the port
+    binds the selected segments exactly, :func:`build_array`)."""
+    n = max(1, int(n_dev))
+    return -(-int(s) // n) * n
+
+
+def _pad_host(arr: np.ndarray, s_pad: int) -> np.ndarray:
+    """``arr`` ([S, R]) with zero segments appended up to ``s_pad``: their
+    ``row_valid`` is false, so they add no rows, no registers and no
+    survivors to any slot."""
+    if arr.shape[0] >= s_pad:
+        return arr
+    pad = np.zeros((s_pad - arr.shape[0],) + arr.shape[1:], arr.dtype)
+    return np.concatenate([arr, pad])
+
+
+def _live_devices(mesh) -> list:
+    """The slots of ``mesh`` whose device answers a probe (one probe per
+    device): a card lost for good drops out, a card its slots share keeps
+    them all; a CPU slot always answers."""
+    alive = {d: d.type != "cuda" or _probe_device_alive(d)
+             for d in dict.fromkeys(mesh)}
+    return [d for d in mesh if alive[d]]
+
+
 def _key_space(dim_plans) -> int:
     """The product of the dimensions' cardinalities (a Python int)."""
     n = 1
@@ -2424,19 +2649,92 @@ def _topk_selection_exact(limit, topk, route, scores, data) -> bool:
     return (s_k - cutoff) > 64.0 * eps
 
 
-def _hash_partial(raw, routes, T) -> list:
-    """One hash table's host outputs -> ``[(packed keys, finals)]`` of its
-    occupied slots, or ``[]`` when none is occupied (the JAX package's
-    ``_hash_chip_partials`` for one device)."""
-    out = dict(raw)
-    khi = out.pop("__tkhi__")
-    klo = out.pop("__tklo__")
-    occ = khi != H.EMPTY
-    if not occ.any():
-        return []
-    return [(H.pack_key(khi[occ], klo[occ]),
-             {name: np.asarray(G.combine_route(r, out, T))[occ]
-              for name, r in routes.items()})]
+def _hash_chip_partials(raws, routes, T) -> list:
+    """The tables of every slot (or the one device) of one wave, as host
+    outputs -> ``[(packed keys, finals)]`` of their occupied slots, a
+    table with none left out (the JAX package's ``_hash_chip_partials``,
+    one host dict per slot here)."""
+    parts = []
+    for raw in raws:
+        out = dict(raw)
+        khi = out.pop("__tkhi__")
+        klo = out.pop("__tklo__")
+        occ = khi != H.EMPTY
+        if occ.any():
+            parts.append((H.pack_key(khi[occ], klo[occ]),
+                          {name: np.asarray(G.combine_route(r, out, T))[occ]
+                           for name, r in routes.items()}))
+    return parts
+
+
+def _hash_topk_exchange(chips, routes, metric, ascending, k_cand, k_sel, T,
+                        root) -> list:
+    """The sharded hashed ordered limit without moving the tables (the
+    JAX package's ``_build_hash_topk_exchange_program``): each slot
+    nominates its local top ``k_cand`` keys; the candidate lists gather
+    on ``root``; every slot looks every candidate up in its OWN table
+    (``ops/hash_groupby.probe_slots``); the slots' contributions to the
+    metric combine (sum, min or max, the absent slots at the identity)
+    into exact global scores; the global top ``k_sel`` candidates' rows
+    then travel from each slot, a slot that lacks a key sending an EMPTY
+    row that the host merge drops. Duplicated nominations keep their
+    first occurrence; a min / max group is NULL when every slot holding
+    it holds the sentinel, read off the raw values before the float
+    score, and ranks last. Returns one host dict per slot."""
+    r = routes[metric]
+    cand = []
+    for c in chips:
+        tkhi, tklo = c["__tkhi__"], c["__tklo__"]
+        occ = tkhi != H.EMPTY
+        _, lidx = _top_k(_topk_score(r, c, ascending, occ), k_cand)
+        cand.append([torch.where(occ[lidx], t[lidx], H.EMPTY).to(root)
+                     for t in (tkhi, tklo)])
+    cand_hi = torch.cat([h for h, _ in cand])
+    cand_lo = torch.cat([lo for _, lo in cand])
+    ident = {"min": float("inf"), "max": float("-inf")}.get(r.kind, 0.0)
+    fold = {"min": torch.minimum, "max": torch.maximum}.get(r.kind,
+                                                           torch.add)
+    probes, v, n_found, n_real = [], None, None, None
+    for c in chips:
+        dev = c["__tkhi__"].device
+        slot, found = H.probe_slots(c["__tkhi__"], c["__tklo__"],
+                                    cand_hi.to(dev), cand_lo.to(dev))
+        probes.append((slot, found))
+        raw = {r.name: c[r.name][slot]}
+        vi = torch.where(found, G.route_score(r, raw),
+                         torch.tensor(ident, dtype=torch.float64,
+                                      device=dev)).to(root)
+        nm = G.route_null_mask(r, raw)
+        real = found if nm is None else found & ~nm
+        fi, ri = found.to(root).long(), real.to(root).long()
+        v = vi if v is None else fold(v, vi)
+        n_found = fi if n_found is None else n_found + fi
+        n_real = ri if n_real is None else n_real + ri
+    sc = -v if ascending else v
+    if r.kind in ("min", "max"):
+        sc = torch.where(n_real > 0, sc, -torch.finfo(sc.dtype).max)
+    packed = (cand_hi.long() << 31) | cand_lo.long()
+    order = torch.sort(packed, stable=True).indices
+    sp = packed[order]
+    dup_sorted = torch.cat([torch.zeros(1, dtype=torch.bool, device=root),
+                            sp[1:] == sp[:-1]])
+    dup = torch.zeros_like(dup_sorted).scatter(0, order, dup_sorted)
+    sc = torch.where(dup | (n_found == 0) | (cand_hi == H.EMPTY),
+                     float("-inf"), sc)
+    _, cidx = _top_k(sc, k_sel)
+    raws = []
+    for c, (slot, found) in zip(chips, probes):
+        dev = slot.device
+        ci = cidx.to(dev)
+        sel_slot, sel_found = slot[ci], found[ci]
+        out = {name: t[sel_slot] for name, t in c.items()
+               if name not in ("__tkhi__", "__tklo__", "__unres__")}
+        out["__tkhi__"] = torch.where(sel_found, cand_hi.to(dev)[ci],
+                                      H.EMPTY)
+        out["__tklo__"] = torch.where(sel_found, cand_lo.to(dev)[ci],
+                                      H.EMPTY)
+        raws.append(_to_host(out))
+    return raws
 
 
 def _merge_hash_partials(parts, routes):
@@ -2507,25 +2805,36 @@ class _WaveBinder:
     on the compute stream, so the allocator never hands its memory out
     while the compute stream may still read it. Each wave keeps its
     timings (``steps``): host bind ms, bytes copied, and on cuda the
-    copy's and the compute span's device ms (CUDA events)."""
+    copy's and the compute span's device ms (CUDA events, on the root
+    device).
 
-    def __init__(self, ds, names, spw, device):
+    A wave is one dict per slot (``device`` alone, or each slot of a
+    ``mesh``, a sharded scan): slot ``i`` gets the ``i``-th
+    ``[spw / n, R]`` share of the staging, copied on its device's copy
+    stream, and the program takes the list (a one-device caller unwraps
+    it; a sharded program is ``parallel/meshexec.py``'s). A tiered
+    datasource's wave pins its chunks in a pin scope over the slots
+    (``wave_pins(devices=n)``)."""
+
+    def __init__(self, ds, names, spw, device, mesh=None):
         self.ds, self.names, self.spw = ds, list(names), int(spw)
         self.device = torch.device(device)
+        self.slots = tuple(mesh) if mesh is not None else (self.device,)
         self.cuda = self.device.type == "cuda"
         self._steps: List[dict] = []
         self._staging: List[Optional[Dict[str, torch.Tensor]]] = [None, None]
-        self._copied: List[Optional[torch.cuda.Event]] = [None, None]
+        self._copied: List[list] = [[], []]
         if self.cuda:
-            self.copy_stream = torch.cuda.Stream(self.device)
+            self.copy_streams = {d: torch.cuda.Stream(d)
+                                 for d in dict.fromkeys(self.slots)}
 
     def _host_buffers(self, slot):
         """The host arrays a wave builds into: staging set ``slot`` of
         two, allocated once per loop and reused every other wave (pinned
         on cuda; on the CPU the wave's program reads it directly, and has
         finished with it before the set's next wave is built)."""
-        if self._copied[slot] is not None:
-            self._copied[slot].synchronize()  # its last copy is done
+        for ev in self._copied[slot]:
+            ev.synchronize()                 # its last copy is done
         if self._staging[slot] is None:
             shape = (self.spw, self.ds.padded_rows)
             self._staging[slot] = {
@@ -2533,35 +2842,54 @@ class _WaveBinder:
                     self.ds, k)), pin_memory=self.cuda) for k in self.names}
         return self._staging[slot]
 
+    def _shares(self, bufs):
+        """Per slot, its share of each staged array."""
+        per = self.spw // len(self.slots)
+        return [{k: b[i * per:(i + 1) * per] for k, b in bufs.items()}
+                for i in range(len(self.slots))]
+
     def bind_wave(self, segs):
         """Build one wave on the host and start its copy to the device:
-        ``(device tensors by array name, the wave's step record)``."""
+        ``(per slot, its device tensors by array name; the wave's step
+        record)``."""
         t0 = _time.perf_counter()
         slot = len(self._steps) % 2
         bufs = self._host_buffers(slot)
         # a tiered datasource's chunks are copied into the staging as
         # they fault: pinned for this wave's build only
         pins = getattr(self.ds, "wave_pins", None)
-        with pins() if pins is not None else contextlib.nullcontext():
+        scope = contextlib.nullcontext() if pins is None \
+            else pins(devices=len(self.slots))
+        with scope:
             for k, b in bufs.items():
                 build_wave_array(self.ds, k, segs, b.numpy())
         step = {"segments": int(len(segs)),
                 "h2d_bytes": int(sum(b.nbytes for b in bufs.values()))}
+        shares = self._shares(bufs)
         if self.cuda:
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            with torch.cuda.stream(self.copy_stream):
-                arrays = _device_copy_retry(lambda: {
-                    k: torch.empty_like(b, device=self.device)
-                    for k, b in bufs.items()})
-                # the events span the copies only, not the allocation
-                ev[0].record()
-                for k, b in bufs.items():
-                    arrays[k].copy_(b, non_blocking=True)
-                ev[1].record()
-            self._copied[slot] = step["_copy"] = ev[1]
-            step["_copy_start"] = ev[0]
+            root = self.slots[0]
+            arrays = []
+            for d, share in zip(self.slots, shares):
+                with torch.cuda.stream(self.copy_streams[d]):
+                    arrays.append(_device_copy_retry(
+                        lambda d=d, share=share: {
+                            k: torch.empty_like(b, device=d)
+                            for k, b in share.items()}))
+            # the events span the copies only, not the allocations
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(self.copy_streams[root])
+            for d, share, a in zip(self.slots, shares, arrays):
+                with torch.cuda.stream(self.copy_streams[d]):
+                    for k, b in share.items():
+                        a[k].copy_(b, non_blocking=True)
+            ends = {}
+            for d, cs in self.copy_streams.items():
+                ends[d] = torch.cuda.Event(enable_timing=d == root)
+                ends[d].record(cs)
+            self._copied[slot] = list(ends.values())
+            step["_copy"], step["_copy_start"] = ends, start
         else:
-            arrays = bufs
+            arrays = shares
         step["bind_ms"] = (_time.perf_counter() - t0) * 1e3
         PH.add("bind", step["bind_ms"] / 1e3)
         self._steps.append(step)
@@ -2571,10 +2899,12 @@ class _WaveBinder:
         arrays, step = wave
         if not self.cuda:
             return prog(arrays)
-        cs = torch.cuda.current_stream(self.device)
-        cs.wait_event(step["_copy"])
-        for a in arrays.values():
-            a.record_stream(cs)
+        for d, ev in step["_copy"].items():
+            torch.cuda.current_stream(d).wait_event(ev)
+        for a in arrays:
+            for t in a.values():
+                t.record_stream(torch.cuda.current_stream(t.device))
+        cs = torch.cuda.current_stream(self.slots[0])
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record(cs)
         out = prog(arrays)
@@ -2618,8 +2948,8 @@ class _WaveBinder:
                     # the bind above charged its own phase
                     PH.add("dispatch", _time.perf_counter() - t0 - bind_s)
         finally:
-            for ev in self._copied:
-                if ev is not None:
+            for evs in self._copied:
+                for ev in evs:
                     ev.synchronize()
 
     def steps(self) -> List[dict]:
@@ -2630,8 +2960,10 @@ class _WaveBinder:
         for st in self._steps:
             d = {k: v for k, v in st.items() if not k.startswith("_")}
             if self.cuda:
-                st["_copy"].synchronize()
-                d["h2d_ms"] = st["_copy_start"].elapsed_time(st["_copy"])
+                for ev in st["_copy"].values():
+                    ev.synchronize()
+                d["h2d_ms"] = st["_copy_start"].elapsed_time(
+                    st["_copy"][self.slots[0]])
                 ev = st.get("_compute")
                 if ev:
                     ev[1].synchronize()

@@ -1,15 +1,26 @@
 """Multi-host segment ownership.
 
-Port of the one pure function of ``spark_druid_olap_tpu/parallel/
-multihost.py`` that the cluster tier needs: :func:`assign_segments_to_hosts`,
-the contiguous, row-balanced cut ``cluster/assign.py`` shards a datasource
-with. The rest of that module (one process per host, one global mesh) is
-ROADMAP A.8.
+Port of two parts of ``spark_druid_olap_tpu/parallel/multihost.py``:
+:func:`assign_segments_to_hosts`, the contiguous, row-balanced cut
+``cluster/assign.py`` shards a datasource with, and :func:`is_multihost`,
+which the single-process mesh's fallback matrix reads
+(``parallel/meshexec.decide``). The rest of that module (one process per
+host over ``torch.distributed``, one mesh across processes) is ROADMAP
+A.8.2.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def is_multihost() -> bool:
+    """Whether this process is one of several of an initialized
+    ``torch.distributed`` group (the JAX package's
+    ``jax.process_count() > 1``)."""
+    import torch.distributed as dist
+    return bool(dist.is_available() and dist.is_initialized()
+                and dist.get_world_size() > 1)
 
 
 def assign_segments_to_hosts(row_counts: np.ndarray,

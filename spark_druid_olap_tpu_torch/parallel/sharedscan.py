@@ -48,7 +48,17 @@ package. WLM hands queued statements into an open group
 ``run``, so each constituent populates its own key. The solo path counts
 no CSE, so the JAX package's ``note_solo_cse`` has no counterpart.
 
-Not ported yet: mesh-sharded waves (A.8).
+With a mesh on the engine (``parallel/mesh.py``) each fused group runs
+the mesh tier's static precheck (``parallel/meshexec.decide``: every
+disqualifying condition keeps the group on one device with a named
+reason). A sharded group binds its union per slot, each slot runs the
+group's program (one launch of the wave kernel per slot per wave, or the
+lane-by-lane program) over its share of the wave, and the lanes' partials
+merge on the mesh's first device (``meshexec.build_sharded_program``).
+The per-slot partials a wave loop holds are accounted in
+``meshexec.LEDGER`` (acquired and released around the wave loop), and
+``stats()["mesh"]`` reports the groups, dispatches, merge bytes,
+fallbacks by reason and the ledger.
 """
 
 from __future__ import annotations
@@ -75,6 +85,8 @@ from spark_druid_olap_tpu_torch.ops.sketch import (
     SKETCH_KINDS,
     sketch_registers,
 )
+from spark_druid_olap_tpu_torch.parallel import meshexec as MX
+from spark_druid_olap_tpu_torch.parallel.mesh import mesh_size
 from spark_druid_olap_tpu_torch.planner import fusion as FU
 from spark_druid_olap_tpu_torch.result import QueryResult
 from spark_druid_olap_tpu_torch.utils.config import (
@@ -192,6 +204,13 @@ class SharedScanCoalescer:
         self.wave_fallbacks = 0
         self.wave_fallback_reasons: Dict[str, int] = {}
         self.wave_smem_peak = 0
+        # the mesh tier (parallel/meshexec.py): groups dispatched over the
+        # mesh's slots, their dispatches and merge bytes (from route
+        # metadata), and the groups kept on one device, by reason
+        self.mesh_groups = 0
+        self.mesh_dispatches = 0
+        self.mesh_collective_bytes = 0
+        self.mesh_fallbacks: Dict[str, int] = {}
 
     # -- eligibility ----------------------------------------------------------
     def enabled(self) -> bool:
@@ -364,11 +383,16 @@ class SharedScanCoalescer:
         lane_idx = {s: i for i, s in enumerate(sigs)}
 
         union_cols, union_names = self._union(ds, lanes)
+        # the mesh tier's static precheck: it shapes the program and the
+        # wave plan (each slot's budget, spw a multiple of the mesh)
+        dec = MX.decide(eng, ds, lanes, len(seg_u))
+        n_dev = dec.n_dev
         spw, n_waves = eng._plan_waves(
             ds, union_names, seg_u, max(lp.n_keys for lp in lanes),
-            sum(len(lp.agg_plans) for lp in lanes))
-        # the rows of one launch: every wave is padded to spw segments
-        n_rows = spw * ds.padded_rows
+            sum(len(lp.agg_plans) for lp in lanes), n_dev)
+        # the rows of one launch: every wave is padded to spw segments,
+        # of which each slot launches over its share
+        n_rows = spw // n_dev * ds.padded_rows
 
         # 5. fusion planning is advisory: an error lowers the unfused way
         fplan = None
@@ -402,25 +426,35 @@ class SharedScanCoalescer:
                bool(eng.config.get(SHAREDSCAN_FUSION_ENABLED)),
                int(eng.config.get(SHAREDSCAN_FUSION_MAX_NODES)),
                fplan.token() if fplan is not None else None,
-               wave_on, wave_ok, max_lanes, scratch)
+               wave_on, wave_ok, max_lanes, scratch,
+               # the mesh decision, re-derived on every run: a flip of
+               # sdot.mesh.* or a new mesh re-keys the program
+               dec.sig_fields())
 
         def _build():
             reason = decline
+            fn = info = None
             if wave_ok:
                 try:
-                    return self._build_wave_program(
+                    fn, info = self._build_wave_program(
                         ds, lanes, min_day, max_day, fplan,
                         union_names=union_names, n_rows=n_rows,
                         max_lanes=max_lanes, scratch=scratch)
                 except CW.WaveFallback as e:
                     reason = str(e)
-            if reason is not None:
-                with self._lock:
-                    self.wave_fallbacks += 1
-                    self.wave_fallback_reasons[reason] = \
-                        self.wave_fallback_reasons.get(reason, 0) + 1
-            return self._build_fused_program(ds, lanes, min_day, max_day,
-                                             fplan), None
+            if fn is None:
+                if reason is not None:
+                    with self._lock:
+                        self.wave_fallbacks += 1
+                        self.wave_fallback_reasons[reason] = \
+                            self.wave_fallback_reasons.get(reason, 0) + 1
+                fn = self._build_fused_program(ds, lanes, min_day,
+                                               max_day, fplan)
+            if dec.sharded:
+                # one program, traced once, run by every slot over its
+                # share; the lanes merge on the root device
+                fn = MX.build_sharded_program(eng, fn, lanes)
+            return fn, info
 
         t_program = _time.perf_counter()
         prog_fn, wave_info = eng._cached_program(sig, _build)
@@ -431,7 +465,7 @@ class SharedScanCoalescer:
         pilot = planned[0][0]
         try:
             per_lane_finals, wave_steps = self._dispatch(
-                ds, union_names, seg_u, spw, n_waves, prog_fn, lanes,
+                ds, union_names, seg_u, spw, n_waves, prog_fn, lanes, dec,
                 lambda: eng._stage_check(pilot.q, pilot.t0))
         except (X.QueryCancelled, X.QueryTimeout) as e:
             # the pilot's own cancel or deadline: it raises, the other
@@ -453,10 +487,21 @@ class SharedScanCoalescer:
                          for _, lp in planned)
         saved_bytes = max(0, solo_bytes - bind_bytes)
         saved_disp = (len(planned) - 1) * n_waves
+        # each slot launches the wave kernel once per wave
+        launches = n_waves * n_dev
+        cbytes = MX.collective_bytes(eng, lanes, n_dev) * n_waves \
+            if dec.sharded else 0
         with self._lock:
             self.groups_coalesced += 1
+            if dec.sharded:
+                self.mesh_groups += 1
+                self.mesh_dispatches += n_waves
+                self.mesh_collective_bytes += cbytes
+            else:
+                self.mesh_fallbacks[dec.reason] = \
+                    self.mesh_fallbacks.get(dec.reason, 0) + 1
             if wave_info is not None:
-                self.wave_launches += n_waves
+                self.wave_launches += launches
                 self.wave_smem_peak = max(self.wave_smem_peak,
                                           wave_info["smem_bytes"])
             self.queries_coalesced += len(planned)
@@ -476,11 +521,14 @@ class SharedScanCoalescer:
             fin = per_lane_finals[li]
             m.stats = {
                 "datasource": ds.name, "segments": int(len(lp.seg)),
+                "sharded": bool(dec.sharded),
                 "rows_scanned": int(ds.num_rows),
                 "groups": int(np.count_nonzero(fin["__rows__"] > 0)),
                 "waves": int(n_waves), "segments_per_wave": int(spw),
                 "bytes_scanned": int(bind_bytes),
                 "route": "wave" if wave_info is not None else "lanes",
+                "mesh": {"devices": int(n_dev), "decision": dec.reason,
+                         "collective_bytes": int(cbytes)},
                 "sharedscan": {
                     "group": g.gid, "queries": len(planned),
                     "lanes": len(lanes),
@@ -491,7 +539,7 @@ class SharedScanCoalescer:
                     "dispatches_saved": saved_disp,
                     "fusion": (fplan.counters()
                                if fplan is not None else None),
-                    "wave": dict(wave_info, launches=n_waves)
+                    "wave": dict(wave_info, launches=launches)
                     if wave_info is not None else None}}
             if wave_steps is not None:
                 m.stats["wave_steps"] = wave_steps
@@ -674,15 +722,30 @@ class SharedScanCoalescer:
             kll_lanes=cfg.get(QUANTILE_LANES))
 
     def _dispatch(self, ds, union_names, seg_u, spw, n_waves, prog_fn,
-                  lanes: List[_LanePlan], check):
+                  lanes: List[_LanePlan], dec, check):
         """One shared bind and ONE program dispatch per wave (the JAX
         package's ``_dispatch``; double-buffered like the engine's
         ``_run_waves``), ``check`` before each; per-lane finals merged
-        across the waves. Returns ``(per-lane finals, the waves' steps or
-        None in one wave)``."""
-        from spark_druid_olap_tpu_torch.parallel import executor as X
+        across the waves. Sharded (``dec``): the bind is per slot, the
+        waves' segments are balanced by rows across the slots
+        (``planner/fusion.plan_device_waves``) and the slots' partials
+        are held in ``meshexec.LEDGER`` while the loop runs. Returns
+        ``(per-lane finals, the waves' steps or None in one wave)``."""
+        eng = self.engine
         sketch = [[p for p in lp.agg_plans if p.kind in SKETCH_KINDS]
                   for lp in lanes]
+        n_dev = dec.n_dev if dec.sharded else 1
+        tok = MX.LEDGER.acquire_partials(
+            MX.merged_payload_bytes(eng, lanes) * n_dev)
+        try:
+            return self._waves(ds, union_names, seg_u, spw, n_waves,
+                               prog_fn, lanes, check, sketch, n_dev)
+        finally:
+            MX.LEDGER.release_partials(tok)
+
+    def _waves(self, ds, union_names, seg_u, spw, n_waves, prog_fn, lanes,
+               check, sketch, n_dev):
+        from spark_druid_olap_tpu_torch.parallel import executor as X
 
         def lane_finals(outs):
             # every lane's outputs in one device-to-host copy
@@ -692,14 +755,20 @@ class SharedScanCoalescer:
                 {k: v for (j, k), v in host.items() if j == i}, lp.routes,
                 lp.n_keys, sketch[i]) for i, lp in enumerate(lanes)]
 
+        eng = self.engine
         if n_waves == 1:
-            arrays = self.engine._bind_arrays(ds, union_names, seg_u)
+            arrays = eng._bind_arrays(ds, union_names, seg_u, n_dev)
             check()
             return lane_finals(prog_fn(arrays)), None
-        binder = X._WaveBinder(ds, union_names, spw, self.engine.device)
+        seg_rows = {int(si): int(ds.segments[int(si)].num_rows)
+                    for si in seg_u} if n_dev > 1 else None
+        binder = X._WaveBinder(ds, union_names, spw, eng.device,
+                               eng.mesh if n_dev > 1 else None)
+        prog = prog_fn if n_dev > 1 else (lambda a: prog_fn(a[0]))
         finals = None
         for outs in binder.stream(
-                prog_fn, FU.plan_device_waves(seg_u, spw, 1), check):
+                prog, FU.plan_device_waves(seg_u, spw, n_dev, seg_rows),
+                check):
             f = lane_finals(outs)
             finals = f if finals is None else [
                 X._merge_wave_finals(a, b, lp.routes, sketch[i])
@@ -756,6 +825,13 @@ class SharedScanCoalescer:
                     "wave_fallback_reasons":
                         dict(self.wave_fallback_reasons),
                     "wave_smem_bytes_peak": self.wave_smem_peak,
+                    "mesh": {
+                        "devices": mesh_size(self.engine.mesh),
+                        "groups": self.mesh_groups,
+                        "dispatches": self.mesh_dispatches,
+                        "collective_bytes": self.mesh_collective_bytes,
+                        "fallbacks": dict(self.mesh_fallbacks),
+                        "partials": MX.LEDGER.stats()},
                     "fusion": {
                         "groups": self.fusion_groups,
                         "plan_fallbacks": self.fusion_fallbacks,

@@ -260,10 +260,10 @@ class TieredDatasource(Datasource):
             out[row, r.count:] = 0
         return out
 
-    def wave_pins(self):
+    def wave_pins(self, devices: int = 1):
         """The hot set's pin scope for one wave's build
         (``TieredColumnStore.wave_pins``)."""
-        return self.tier.wave_pins()
+        return self.tier.wave_pins(devices)
 
     def tier_prefetch(self, names, segment_indices) -> None:
         """Enqueue the chunks a future wave will bind (best-effort)."""

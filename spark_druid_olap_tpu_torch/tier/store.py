@@ -213,8 +213,8 @@ class TieredColumnStore:
     def acquire_pins(self, devices: int = 1) -> PinToken:
         """Open a pin scope on THIS thread: every chunk faulted until the
         matching release is held out of eviction's reach. ``devices`` > 1
-        marks a mesh-parallel scope (the JAX package's
-        parallel/meshexec.py; ROADMAP A.8 in the port): the wave
+        marks a mesh-parallel scope (the sharded bind and the sharded
+        waves, ``parallel/executor.py``): the wave
         being pinned spans the whole device mesh, so its chunks are
         additionally tracked in the mesh-pin gauge the stats surface
         reports (eviction itself treats every pin identically)."""
@@ -247,16 +247,17 @@ class TieredColumnStore:
             self._evict_locked()   # deferred evictions land here
 
     @contextlib.contextmanager
-    def wave_pins(self):
+    def wave_pins(self, devices: int = 1):
         """Pin scope of one wave's build on THIS thread: chunks faulted
         inside it register into this scope's token only, not into the
         statement's, and become evictable when the wave is built. For a
         caller that copies every chunk out before the scope ends (the
-        wave binder's staging)."""
+        wave binder's staging). ``devices`` > 1: a sharded wave, which
+        the mesh-pin gauge tracks (:meth:`acquire_pins`)."""
         s = self._token_stack()
         outer = list(s)
         s.clear()
-        tok = self.acquire_pins()
+        tok = self.acquire_pins(devices)
         try:
             yield tok
         finally:

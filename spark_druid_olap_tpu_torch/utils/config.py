@@ -254,6 +254,25 @@ PALLAS_WAVE_MAX_LANES = _entry(
     "sdot.pallas.wave.max.lanes", 16,
     "Max fused lanes (distinct constituent plans) one wave kernel "
     "launch accumulates; wider groups run lane by lane.", int)
+MESH_ENABLED = _entry(
+    "sdot.mesh.enabled", True,
+    "Shared-scan fused groups (parallel/sharedscan.py) shard their "
+    "segment waves across the engine's mesh (parallel/meshexec.py): each "
+    "slot scans its segment share, through the wave kernel when the "
+    "group is wave-eligible, and the lanes' partials merge on the mesh's "
+    "first device (sums add, extrema and HLL registers take the max or "
+    "min, theta minima the min, KLL survivors the lex-min). False pins "
+    "the fused tier and the broadcast join to one device (kill switch); "
+    "solo statements keep their own cost-model decision either way.")
+MESH_AUTO = _entry(
+    "sdot.mesh.auto", False,
+    "Build a mesh over every visible card at Context startup when more "
+    "than one is visible (the in-process equivalent is "
+    "Context(auto_mesh=True)).")
+MESH_MIN_SEGMENTS = _entry(
+    "sdot.mesh.min.segments", 2,
+    "Minimum selected segments before the fused tier shards a group "
+    "across the mesh; below it one device owns the whole scan.", int)
 CUDA_WAVE_SCRATCH_BYTES = _entry(
     "sdot.cuda.wave.scratch.bytes", 227 * 1024 - 1024,
     "Shared-memory budget (bytes) of one wave kernel block: the lane "
@@ -318,11 +337,28 @@ WLM_BATCH_COST = _entry(
     "'sdot.wlm.quota.<tenant>' = 'concurrent=N,budget=F,refill=F' "
     "('default' is the template for tenants without an explicit entry).",
     float, semantic=False)
+COST_MODEL_ENABLED = _entry(
+    "sdot.querycostmodel.enabled", True,
+    "Use the cost model to pick single-device or sharded execution over "
+    "the engine's mesh (parallel/cost.estimate, mesh_estimate); false "
+    "always shards when a mesh of more than one slot is attached.")
 COST_PER_ROW_SCAN = _entry(
     "sdot.querycostmodel.historical.processing.cost", 1e-8,
     "Abstract cost to scan and filter one row on one device "
     "(parallel/cost.estimate; the cost units WLM demotes and charges "
     "quotas in).", float)
+COST_PER_ROW_MERGE = _entry(
+    "sdot.querycostmodel.historical.merge.cost", 7e-8,
+    "Abstract cost to merge one output row of one aggregate across the "
+    "mesh's slots (parallel/cost.estimate and mesh_estimate); "
+    "tools/calibrate.fit measures it from a mesh context's timings.",
+    float)
+COST_SHARD_EFFICIENCY = _entry(
+    "sdot.querycostmodel.shard.efficiency", 1.0,
+    "Parallel efficiency of the mesh's scan split in (0, 1]: 1.0 = N "
+    "slots scan N-fold faster (N cards); slots that share one card "
+    "split no bandwidth and measure far lower. Fit by "
+    "tools/calibrate.fit from measured wall times.", float)
 COST_PER_BYTE_TRANSPORT = _entry(
     "sdot.querycostmodel.transport.cost", 2.5e-9,
     "Abstract cost to move one byte of the result from the device to the "

@@ -16,8 +16,11 @@ error that leaves the context usable are not. The port demotes only when
 a probe of the device fails after the classifier said loss: on a device
 that answers, the error raises as itself; the site of a loss (B1, B2, a
 copy) is in ``last_stats["backend_lost"]``. The copy retry retries a
-device out-of-memory error and nothing else. The sharded case waits for
-ROADMAP A.8, and the re-attach's reshard raises it.
+device out-of-memory error and nothing else. On a mesh (JAX's emulated 8
+devices, the port's ``("cpu",) * 8``) a loss during a sharded statement
+demotes and recovers the same way; a re-attach whose probe fails leaves
+the mesh as it was, and ``reshard`` rebuilds it over the slots that
+answer.
 """
 
 import test_torch_cache_pin  # noqa: F401 (the port's result cache off)
@@ -165,8 +168,11 @@ def test_reattach_probe_failure_keeps_demoting(frame, monkeypatch):
     _check(ctx.sql(SQL).to_pandas(), frame)
     assert _mode(ctx).startswith("host (backend_lost")
     assert ctx.engine._backend_retry_at > 0.0
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.8"):
-        ctx.engine.reshard()
+    # the CPU answers: a reshard over the live devices keeps the engine
+    # on its one device, with no mesh
+    ctx.engine.reshard()
+    assert ctx.engine.mesh is None and ctx.engine.device.type == "cpu"
+    assert ctx.engine.last_stats["resharded_to"] == 1
 
 
 @pytest.mark.parametrize("msg", [
@@ -307,3 +313,48 @@ def test_copy_retry_retries_oom_only(monkeypatch):
     with pytest.raises(torch.cuda.OutOfMemoryError):
         _device_copy_retry(oom)
     assert len(calls) == 3
+
+
+def test_backend_loss_on_sharded_mesh(monkeypatch):
+    """A loss during a sharded statement demotes to the host tier and
+    recovers the same way, in both packages."""
+    from spark_druid_olap_tpu.parallel.mesh import make_mesh as jmesh
+    from spark_druid_olap_tpu_torch.parallel.mesh import make_mesh
+    rng = np.random.default_rng(3)
+    n = 10_000
+    df = pd.DataFrame({
+        "ts": np.repeat(np.datetime64("2021-01-01"), n)
+        .astype("datetime64[ns]"),
+        "region": rng.choice(["a", "b", "c"], n),
+        "qty": rng.integers(1, 50, n).astype(np.int64)})
+    cfg = {"sdot.querycostmodel.enabled": False,
+           "sdot.engine.backend.retry.seconds": 3600.0}
+    sql = ("select region, sum(qty) as s from m group by region "
+           "order by region")
+    want = df.groupby("region")["qty"].sum().tolist()
+    for pkg in ("jax", "port"):
+        ctx = jsdot.Context(cfg, mesh=jmesh()) if pkg == "jax" else \
+            tsdot.Context(cfg, mesh=make_mesh(devices=("cpu",) * 8))
+        # many segments: every slot holds rows
+        ctx.ingest_dataframe("m", df, time_column="ts", target_rows=1024)
+        assert ctx.sql(sql).to_pandas()["s"].tolist() == want
+        assert ctx.history.entries()[-1].stats.get("sharded") is True
+        eng = ENGINE[pkg]
+        orig = eng._bind_arrays
+        monkeypatch.setattr(eng, "_bind_arrays",
+                            lambda self, *a, _p=pkg, **k: (_ for _ in ())
+                            .throw(_loss(_p)))
+        if pkg == "port":
+            monkeypatch.setattr(TX, "_probe_device_alive",
+                                lambda *a, **k: False)
+        assert ctx.sql(sql).to_pandas()["s"].tolist() == want
+        assert _mode(ctx).startswith("host (backend_lost")
+        monkeypatch.setattr(eng, "_bind_arrays", orig)
+        if pkg == "port":
+            monkeypatch.setattr(TX, "_probe_device_alive",
+                                lambda *a, **k: True)
+        ctx.engine._backend_retry_at = 0.0
+        assert ctx.sql(sql).to_pandas()["s"].tolist() == want
+        assert _mode(ctx) == "engine"
+        assert ctx.history.entries()[-1].stats.get("sharded") is True
+        monkeypatch.undo()

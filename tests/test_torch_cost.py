@@ -15,11 +15,15 @@ over the arrays it binds, which the test holds against the executed
 statements' waves; the JAX package prints its estimate's.
 
 From JAX ``tests/test_cost.py``: the least-squares fit recovers known
-constants and equals the JAX package's fit on the same samples
-(``test_fit_recovers_known_constants``); ``calibrate`` on the CPU fits
-positive single-device constants and applies them; its sharded side
-(``mesh_ctx``) raises ROADMAP A.8. The JAX cases of the sharded decision
-and of the mesh pricing wait for A.8.
+constants and equals the JAX package's fit on the same samples, the
+sharded terms included (``test_fit_recovers_known_constants``);
+``calibrate`` on the CPU fits positive constants and applies them, with a
+mesh context the sharded ones too. The sharded decision over a mesh (the
+JAX engine's emulated 8 devices, the port's ``("cpu",) * 8``): the
+estimate's fields and interconnect bytes equal JAX's; ``plan_waves``
+keeps waves a multiple of the mesh; a sharded scan in waves answers as
+one device. The mesh pricing of a fused group (``mesh_estimate``)
+equals JAX's in every case of its tests.
 """
 
 import test_torch_cache_pin  # noqa: F401 (the port's result cache off)
@@ -27,6 +31,7 @@ import test_torch_cache_pin  # noqa: F401 (the port's result cache off)
 import dataclasses
 import re
 
+import pandas as pd
 import pytest
 
 from spark_druid_olap_tpu.parallel import cost as JC
@@ -39,8 +44,10 @@ from spark_druid_olap_tpu_torch.parallel import cost as TC
 from spark_druid_olap_tpu_torch.planner.plans import PlanUnsupported as TUnsup
 from spark_druid_olap_tpu_torch.tools import calibrate as TCAL
 from spark_druid_olap_tpu_torch.utils.config import (
-    COST_PER_BYTE_TRANSPORT, COST_PER_ROW_SCAN)
+    COST_PER_BYTE_TRANSPORT, COST_PER_ROW_MERGE, COST_PER_ROW_SCAN,
+    COST_SHARD_EFFICIENCY)
 
+from conftest import make_sales_df
 from test_torch_sql import _jax_plan, _port_plan, flat_pair  # noqa: F401
 
 FIELDS = ("rows", "selectivity", "output_groups", "single_cost",
@@ -216,9 +223,9 @@ def test_explain_shows_a_wave_plan_it_cannot_make(flat_pair, monkeypatch):
 def test_fit_recovers_known_constants():
     """The least-squares fit inverts the model: synthetic timings built
     FROM known constants fit back to those constants, in both packages
-    alike, on one device; samples with sharded timings fit the same there
-    (the JAX fit reads them only for ``n_dev`` > 1), and the port's
-    sharded fit raises ROADMAP A.8."""
+    alike, on one device (samples with sharded timings fit the same
+    there: the fit reads them only for ``n_dev`` > 1) and over 8 slots,
+    where the merge cost and the parallel efficiency come back too."""
     scan_c, byte_c, merge_c, eff, n_dev = 2e-9, 5e-10, 4e-8, 0.25, 8
     samples = []
     for rows, groups, naggs in ((6_000_000, 10, 2), (1_500_000, 5000, 3),
@@ -238,8 +245,10 @@ def test_fit_recovers_known_constants():
     assert set(got) == {
         COST_PER_ROW_SCAN.key, COST_PER_BYTE_TRANSPORT.key,
         "sdot.querycostmodel.compile.cost"}
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.8"):
-        TCAL.fit(samples, n_dev)
+    got8 = TCAL.fit(samples, n_dev)
+    assert got8 == JCAL.fit(samples, n_dev)
+    assert abs(got8[COST_PER_ROW_MERGE.key] - merge_c) / merge_c < 1e-4
+    assert abs(got8[COST_SHARD_EFFICIENCY.key] - eff) / eff < 1e-4
 
 
 def test_default_shapes_equal_the_jax_shapes(flat_pair):
@@ -270,10 +279,23 @@ def test_calibrate_fits_single_device_terms(flat_pair):
     finally:
         for k, v in old.items():
             tctx.config.set(k, v)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.8"):
-        TCAL.calibrate(tctx, "sales", mesh_ctx=tctx)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.8"):
-        TCAL.measure_samples(tctx.engine, tctx.engine, [], reps=1)
+    # the sharded side: a mesh context's probes really shard (its cost
+    # model is off while they run), and the sharded terms fit
+    from spark_druid_olap_tpu_torch import Context
+    from spark_druid_olap_tpu_torch.parallel.mesh import make_mesh
+    mctx = Context(mesh=make_mesh(devices=("cpu",) * 8))
+    mctx.ingest_dataframe("sales", make_sales_df(), time_column="ts",
+                          target_rows=2048)
+    fitted = TCAL.calibrate(tctx, "sales", reps=1, mesh_ctx=mctx,
+                            apply=False)
+    assert fitted[COST_PER_ROW_MERGE.key] > 0
+    assert 0.01 <= fitted[COST_SHARD_EFFICIENCY.key] <= 1.0
+    assert mctx.config.get("sdot.querycostmodel.enabled") is True
+    mctx.config.set("sdot.querycostmodel.enabled", False)
+    samples = TCAL.measure_samples(
+        tctx.engine, mctx.engine,
+        TCAL.default_shapes("sales", tctx.store.get("sales")), reps=1)
+    assert all(s["sharded_really"] and s["sharded_s"] > 0 for s in samples)
 
 
 def test_estimate_of_a_spec_built_by_hand(flat_pair):
@@ -295,3 +317,173 @@ def test_estimate_of_a_spec_built_by_hand(flat_pair):
         assert getattr(te, f) == getattr(je, f), f
     assert te.rows < 20_000 and te.n_devices == 1
     assert not te.recommend_sharded
+
+
+# -- the sharded decision and the mesh pricing ----------------------------------
+
+def _mesh_pair():
+    from spark_druid_olap_tpu.parallel.mesh import make_mesh as jmesh
+    from spark_druid_olap_tpu.parallel.executor import QueryEngine as JQE
+    from spark_druid_olap_tpu.segment.ingest import \
+        ingest_dataframe as jingest
+    from spark_druid_olap_tpu.segment.store import SegmentStore as JStore
+    from spark_druid_olap_tpu.utils.config import Config as JConfig
+    from spark_druid_olap_tpu_torch.parallel.executor import \
+        QueryEngine as TQE
+    from spark_druid_olap_tpu_torch.parallel.mesh import make_mesh
+    from spark_druid_olap_tpu_torch.segment.ingest import \
+        ingest_dataframe as tingest
+    from spark_druid_olap_tpu_torch.segment.store import \
+        SegmentStore as TStore
+    from spark_druid_olap_tpu_torch.utils.config import Config as TConfig
+    df = make_sales_df()
+    js, ts = JStore(), TStore()
+    js.register(jingest("sales", df, time_column="ts", target_rows=4096))
+    ts.register(tingest("sales", df, time_column="ts", target_rows=4096))
+
+    def engines(cfg):
+        return (JQE(js, config=JConfig(dict(cfg)), mesh=jmesh()),
+                TQE(ts, config=TConfig(dict(cfg)), device="cpu",
+                    mesh=make_mesh(devices=("cpu",) * 8)))
+    return engines
+
+
+def _sales_q(S):
+    return S.GroupByQuerySpec(
+        datasource="sales",
+        dimensions=(S.DimensionSpec("region", "region"),),
+        aggregations=(S.AggregationSpec("longsum", "s", field="qty"),
+                      S.AggregationSpec("count", "n")))
+
+
+@pytest.mark.parametrize("cfg", [
+    {}, {"sdot.querycostmodel.compile.cost": 0.0},
+    {"sdot.querycostmodel.enabled": False}],
+    ids=["small_scan_single", "steady_state_sharded", "model_off"])
+def test_sharded_decision_equals_the_jax_engine(cfg):
+    """Over a mesh the estimate prices the scan split, the merge and the
+    interconnect bytes as JAX's does, and the decision is the same."""
+    from spark_druid_olap_tpu.ir import spec as JS
+    jeng, teng = _mesh_pair()(cfg)
+    je, te = JC.estimate(jeng, _sales_q(JS)), TC.estimate(teng, _sales_q(TS))
+    for f in FIELDS + ("ici_bytes", "xhost_bytes"):
+        assert getattr(te, f) == getattr(je, f), f
+    assert te.table() == je.table()
+    assert te.n_devices == 8
+    assert te.ici_bytes == te.output_groups * 2 * 8 * 7
+    assert te.recommend_sharded == (cfg != {})
+    # the engine takes the decision the estimate makes
+    teng.execute(_sales_q(TS))
+    st = teng.last_stats
+    assert st["sharded"] is te.recommend_sharded
+    verdict = "sharded" if te.recommend_sharded else "single"
+    assert st["shard_decision"] == f"cost:{verdict}"
+
+
+def test_plan_waves_multiple_of_mesh():
+    from spark_druid_olap_tpu_torch.utils.config import Config as TConfig
+    conf = TConfig()
+    for args in ((16, 4, 1000, 2500), (9, 8, 1000, None),
+                 (8, 1, 1000, 2500), (32, 1, 1000, 1_000_000)):
+        got = TC.plan_waves(*args, conf, 100, 2)
+        assert got == JC.plan_waves(*args, conf, 100, 2)
+        assert got[0] % args[1] == 0
+    assert TC.plan_waves(9, 8, 1000, None, conf, 100, 2) == (16, 1)
+
+
+def test_wave_execution_sharded():
+    """A sharded scan in waves (one segment per slot per wave) answers
+    as one device; a wave is a multiple of the mesh."""
+    from spark_druid_olap_tpu_torch.parallel.executor import \
+        QueryEngine as TQE
+    from spark_druid_olap_tpu_torch.parallel.mesh import make_mesh
+    from spark_druid_olap_tpu_torch.segment.ingest import \
+        ingest_dataframe as tingest
+    from spark_druid_olap_tpu_torch.segment.store import \
+        SegmentStore as TStore
+    from spark_druid_olap_tpu_torch.utils.config import Config as TConfig
+    st = TStore()
+    st.register(tingest("sales", make_sales_df(), time_column="ts",
+                        target_rows=512))
+    assert st.get("sales").num_segments > 16
+    engw = TQE(st, config=TConfig({"sdot.querycostmodel.enabled": False,
+                                   "sdot.engine.wave.max.bytes": 1}),
+               device="cpu", mesh=make_mesh(devices=("cpu",) * 8))
+    got = engw.execute(_sales_q(TS)).to_pandas()
+    assert engw.last_stats["sharded"] is True
+    assert engw.last_stats["waves"] > 1
+    assert engw.last_stats["segments_per_wave"] % 8 == 0
+    want = TQE(st, device="cpu").execute(_sales_q(TS)).to_pandas()
+    pd.testing.assert_frame_equal(got, want, check_dtype=False)
+
+
+MESH_ESTIMATES = [
+    ({"sdot.querycostmodel.compile.cost": 0.0},
+     dict(n_dev=8, rows=50_000_000, groups=64, n_aggs=4,
+          merge_bytes=64 * 4 * 8 * 7)),
+    ({}, dict(n_dev=8, rows=20_000, groups=8, n_aggs=2,
+              merge_bytes=8 * 2 * 8 * 7)),
+    ({"sdot.querycostmodel.compile.cost": 0.0},
+     dict(n_dev=1, rows=50_000_000, groups=8, n_aggs=2, merge_bytes=0)),
+    ({"sdot.querycostmodel.enabled": False},
+     dict(n_dev=8, rows=100, groups=8, n_aggs=2, merge_bytes=1 << 20)),
+]
+
+
+@pytest.mark.parametrize("cfg,kw", MESH_ESTIMATES,
+                         ids=["large_sharded", "small_single", "one_device",
+                              "model_off"])
+def test_mesh_estimate_equals_jax(cfg, kw):
+    from spark_druid_olap_tpu.utils.config import Config as JConfig
+    from spark_druid_olap_tpu_torch.utils.config import Config as TConfig
+    got = TC.mesh_estimate(TConfig(dict(cfg)), **kw)
+    want = JC.mesh_estimate(JConfig(dict(cfg)), **kw)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+def test_mesh_estimate_interconnect_term_is_linear_and_can_flip():
+    from spark_druid_olap_tpu_torch.utils.config import Config as TConfig
+    cfg = TConfig({"sdot.querycostmodel.compile.cost": 0.0})
+    icx = float(cfg.get("sdot.querycostmodel.interconnect.cost"))
+    base = TC.mesh_estimate(cfg, n_dev=8, rows=1_000_000, groups=64,
+                            n_aggs=2, merge_bytes=0)
+    assert base.recommend_sharded
+    extra = 2 * int((base.single_cost - base.sharded_cost) / icx)
+    wide = TC.mesh_estimate(cfg, n_dev=8, rows=1_000_000, groups=64,
+                            n_aggs=2, merge_bytes=extra)
+    assert wide.sharded_cost == pytest.approx(base.sharded_cost + extra * icx)
+    assert not wide.recommend_sharded
+    assert wide.single_cost == base.single_cost
+
+
+@pytest.mark.parametrize("devices,cards", [
+    (("cpu",) * 8, 8), (("cuda:0", "cuda:0"), 1),
+    (("cuda:0", "cuda:1"), 2), (("cuda:0", "cuda:1", "cuda:0", "cuda:1"), 2),
+    (None, 1)],
+    ids=["cpu_slots", "two_slots_one_card", "two_cards",
+         "four_slots_two_cards", "no_mesh"])
+def test_scan_devices_counts_cards(devices, cards):
+    """A scan splits across distinct cards; a CPU slot counts as one
+    device, as the JAX package's emulated host devices do."""
+    import torch
+    from spark_druid_olap_tpu_torch.parallel.mesh import scan_devices
+    mesh = None if devices is None else tuple(map(torch.device, devices))
+    assert scan_devices(mesh) == cards
+
+
+def test_slots_sharing_one_card_never_price_below_one_device():
+    """Two slots on one card split no scan: with the cost model on, the
+    estimate never recommends them, however large the scan; on two cards
+    the same scan shards, and with the model off both shard."""
+    from spark_druid_olap_tpu_torch.utils.config import Config as TConfig
+    kw = dict(n_dev=2, rows=500_000_000, groups=8, n_aggs=2,
+              merge_bytes=8 * 2 * 8)
+    cfg = TConfig({"sdot.querycostmodel.compile.cost": 0.0})
+    one_card = TC.mesh_estimate(cfg, scan_devices=1, **kw)
+    two_cards = TC.mesh_estimate(cfg, scan_devices=2, **kw)
+    assert not one_card.recommend_sharded
+    assert one_card.sharded_cost > one_card.single_cost
+    assert two_cards.recommend_sharded
+    assert two_cards == TC.mesh_estimate(cfg, **kw)
+    off = TConfig({"sdot.querycostmodel.enabled": False})
+    assert TC.mesh_estimate(off, scan_devices=1, **kw).recommend_sharded

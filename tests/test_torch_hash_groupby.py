@@ -595,3 +595,165 @@ def test_medium_k_member_of_a_storm_runs_solo(frame):
         solo[key] = res
     for g, w in zip(solo["port"], solo["jax"]):
         _frames_equal(g, w, ordered=False)
+
+
+# -- the mesh: per-slot tables, the merge by key, the top-k exchange -----------
+
+def test_probe_slots_matches_jax():
+    rng = np.random.default_rng(21)
+    khi = rng.integers(0, 300, 5000).astype(np.int32)
+    klo = rng.integers(0, 40, 5000).astype(np.int32)
+    valid = rng.random(5000) < 0.9
+    _, tk_hi, tk_lo, _ = TH.build_slots(torch.from_numpy(khi),
+                                        torch.from_numpy(klo),
+                                        torch.from_numpy(valid), 1 << 14)
+    qh = np.concatenate([khi[:300], rng.integers(0, 400, 200),
+                         [TH.EMPTY] * 5]).astype(np.int32)
+    ql = np.concatenate([klo[:300], rng.integers(0, 50, 200),
+                         [TH.EMPTY] * 5]).astype(np.int32)
+    got = TH.probe_slots(tk_hi, tk_lo, torch.from_numpy(qh),
+                         torch.from_numpy(ql))
+    want = JH.probe_slots(jnp.asarray(tk_hi.numpy()),
+                          jnp.asarray(tk_lo.numpy()), jnp.asarray(qh),
+                          jnp.asarray(ql))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    found = got[1].numpy()
+    assert found[:300][valid[:300]].all() and not found[-5:].any()
+
+
+MESH_OFF = {**HASHED, "sdot.querycostmodel.enabled": False}
+
+
+def _mesh_pair(frame, conf):
+    """The JAX engine on its emulated 8-device mesh, the port's on
+    ``("cpu",) * 8``: 10 segments pad to 16 in both, 2 per slot."""
+    from spark_druid_olap_tpu.parallel.mesh import make_mesh as jmesh
+    from spark_druid_olap_tpu_torch.parallel.mesh import make_mesh
+    jctx = jsdot.Context(config=dict(conf), mesh=jmesh())
+    tctx = tsdot.Context(config=dict(conf),
+                         mesh=make_mesh(devices=("cpu",) * 8))
+    for c in (jctx, tctx):
+        c.ingest_dataframe("fact", frame, time_column="ts",
+                           target_rows=4096)
+    return jctx, tctx
+
+
+def _both_mesh(frame, conf, make, ordered=False):
+    jctx, tctx = _mesh_pair(frame, conf)
+    want = jctx.execute(make(JS)).to_pandas()
+    got = tctx.execute(make(TS)).to_pandas()
+    jst, tst = jctx.engine.last_stats, tctx.engine.last_stats
+    for k in STATS + ("sharded",):
+        assert jst.get(k) == tst.get(k), (k, jst, tst)
+    assert bool(jst.get("topk_exchange")) == bool(tst.get("topk_exchange"))
+    assert tst["sharded"] is True and tst["hashed"] is True
+    _frames_equal(got, want, ordered)
+    return got, tst
+
+
+def _limit(S, metric, k, ascending=False):
+    return S.LimitSpec((S.OrderByColumn(metric, ascending=ascending),), k)
+
+
+@pytest.mark.parametrize("sortedrun", TIERS)
+def test_hashed_sharded_matches_single(frame, sortedrun):
+    conf = {**MESH_OFF, "sdot.engine.groupby.hash.sortedrun": sortedrun}
+    got, st = _both_mesh(frame, conf, lambda S: _spec(S, ["cust"]))
+    assert st["devices"] == 8 and st["groups"] == frame.cust.nunique()
+    single = tsdot.Context(config=dict(conf), device="cpu")
+    single.ingest_dataframe("fact", frame, time_column="ts",
+                            target_rows=4096)
+    _frames_equal(got, single.execute(_spec(TS, ["cust"])).to_pandas(),
+                  ordered=False)
+
+
+def test_hashed_sharded_groupby_keeps_full_table(frame):
+    """A sharded GroupBy (exact contract) takes no per-slot top-k."""
+    got, st = _both_mesh(
+        frame, {**MESH_OFF, "sdot.engine.groupby.hash.slots": 1 << 14},
+        lambda S: _spec(S, ["cust"], limit=_limit(S, "s_qty", 7)),
+        ordered=True)
+    assert st["topk_device"] == 0 and not st["topk_exchange"]
+
+
+def test_hashed_sharded_topn_exchange(frame):
+    """A sharded TopN spec takes the candidate exchange; the values of
+    the keys it returns are exact."""
+    def make(S):
+        return S.TopNQuerySpec(
+            datasource="fact", dimension=S.DimensionSpec("cust", "cust"),
+            metric="s_qty", threshold=7,
+            aggregations=(S.AggregationSpec("longsum", "s_qty",
+                                            field="qty"),))
+    got, st = _both_mesh(
+        frame, {**MESH_OFF, "sdot.engine.groupby.hash.slots": 1 << 14},
+        make, ordered=True)
+    assert st["topk_exchange"] is True and st["topk_device"] > 0
+    want = frame.groupby("cust", as_index=False).agg(s_qty=("qty", "sum"))
+    exact = dict(zip(want.cust, want.s_qty))
+    assert [exact[c] for c in got.cust] == list(got.s_qty)
+
+
+def test_hashed_sharded_minmax_limit_exchange_exact(frame):
+    """Ordered by a MAX metric the exchange is exact, so a GroupBy takes
+    it too."""
+    got, st = _both_mesh(
+        frame, {**MESH_OFF, "sdot.engine.groupby.hash.slots": 1 << 14},
+        lambda S: _spec(S, ["cust"], limit=_limit(S, "mx_big", 9)),
+        ordered=True)
+    assert st["topk_exchange"] is True
+    g = frame.groupby("cust", as_index=False).agg(
+        mx_big=("big", "max"), s_big=("big", "sum"))
+    want = g.sort_values("mx_big", ascending=False).head(9)
+    np.testing.assert_array_equal(got["mx_big"].to_numpy(),
+                                  want["mx_big"].to_numpy())
+    np.testing.assert_array_equal(got["s_big"].to_numpy(),
+                                  want["s_big"].to_numpy())
+
+
+def test_hashed_exchange_null_metrics_rank_last(frame):
+    """ORDER BY MIN(x) DESC over a filtered aggregate: groups it leaves
+    empty (NULL) rank last, however the slots that lack a key fill in."""
+    def make(S):
+        filt = S.SelectorFilter("region", "east")
+        return S.GroupByQuerySpec(
+            "fact", (S.DimensionSpec("cust", "cust"),),
+            (S.AggregationSpec("doublemin", "mn_e", field="price",
+                               filter=filt),
+             S.AggregationSpec("count", "n")),
+            limit=_limit(S, "mn_e", 10))
+    got, st = _both_mesh(
+        frame, {**MESH_OFF, "sdot.engine.groupby.hash.slots": 1 << 14},
+        make, ordered=True)
+    assert st["topk_exchange"] is True
+    vals = got["mn_e"].to_numpy().astype(np.float64)
+    assert not np.isnan(vals).any(), "NULL groups displaced candidates"
+    want = frame[frame.region == "east"].groupby("cust")["price"].min() \
+        .sort_values(ascending=False).head(10)
+    # float metrics are stored float32 (the JAX test's rtol 1e-6)
+    np.testing.assert_allclose(np.sort(vals), np.sort(want.to_numpy()),
+                               rtol=1e-6)
+
+
+def test_hashed_sharded_sum_groupby_keeps_full_merge(frame):
+    """A GroupBy ordered by a SUM stays on the exact merge by key."""
+    got, st = _both_mesh(
+        frame, {**MESH_OFF, "sdot.engine.groupby.hash.slots": 1 << 14},
+        lambda S: _spec(S, ["cust"], limit=_limit(S, "s_big", 7)),
+        ordered=True)
+    assert not st["topk_exchange"]
+    want = frame.groupby("cust")["big"].sum().sort_values(
+        ascending=False).head(7)
+    np.testing.assert_array_equal(got["s_big"].to_numpy(), want.to_numpy())
+
+
+def test_hashed_device_compaction_sharded(frame):
+    """Each slot's table stays on its device; only its occupied prefix
+    travels, sized by the fullest slot."""
+    got, st = _both_mesh(
+        frame, {**MESH_OFF,
+                "sdot.engine.groupby.hash.compact.min.slots": 1,
+                "sdot.engine.groupby.hash.slots": 1 << 16},
+        lambda S: _spec(S, ["cust"]))
+    assert 0 < st["hash_compact_k"] < (1 << 16)

@@ -165,3 +165,24 @@ def test_having_device_gather_modes(stores, lit, full):
     n_keys = stores[0]["cust"].nunique()        # the dictionary's size
     assert (tst["having_device"] == n_keys) == full
     assert_answers_equal(got, want, ordered=True)
+
+
+def test_having_device_sharded(stores):
+    """Over a mesh (JAX's emulated 8 devices, the port's ``("cpu",) *
+    8``): every slot's finals merge on the root device, then the HAVING
+    mask and the gather run there; the rows that travel equal JAX's."""
+    from spark_druid_olap_tpu.parallel.mesh import make_mesh as jmesh
+    from spark_druid_olap_tpu_torch.parallel.mesh import make_mesh
+    df, js, ts = stores
+    cfg = {**DEVICE, "sdot.querycostmodel.enabled": False}
+    jeng = JQE(js, config=JConfig(dict(cfg)), mesh=jmesh())
+    teng = TQE(ts, config=TConfig(dict(cfg)), device="cpu",
+               mesh=make_mesh(devices=("cpu",) * 8))
+    want = jeng.execute(_q(JS, JE, "s_qty", ">", 200)).to_pandas()
+    got = teng.execute(_q(TS, TE, "s_qty", ">", 200)).to_pandas()
+    tst, jst = teng.last_stats, jeng.last_stats
+    assert tst["sharded"] is True and jst["sharded"] is True
+    assert tst["having_device"] == jst["having_device"] > 0
+    assert_answers_equal(got, want, ordered=False)
+    g = df.groupby("cust").qty.sum()
+    assert len(got) == int((g > 200).sum())

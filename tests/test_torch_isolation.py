@@ -124,13 +124,16 @@ SERVER_CLUSTER_MODULES = ["server", "server.http", "server.flight",
                           "cluster.autoscale", "cluster.historical",
                           "cluster.broker", "cluster.__main__",
                           "ops.agg_registry", "parallel.multihost"]
+# the single-process mesh
+MESH_MODULES = ["parallel.mesh", "parallel.meshexec"]
 
 
 @pytest.mark.parametrize("module",
                          SHAREDSCAN_MODULES + SQL_MODULES + HASHED_MODULES
                          + JOIN_WINDOW_MODULES + SERVING_MODULES
                          + INGEST_ROLLUP_MODULES + PERSIST_MODULES
-                         + TIER_MODULES + SERVER_CLUSTER_MODULES)
+                         + TIER_MODULES + SERVER_CLUSTER_MODULES
+                         + MESH_MODULES)
 def test_sharedscan_slice_modules_are_checked(module):
     import pkgutil
     prefix = "spark_druid_olap_tpu_torch."

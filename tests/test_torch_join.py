@@ -15,6 +15,11 @@ same keys (a key of -1, keys near 2^31), ``canonical_key`` and the Kleene
 predicate lowering against JAX's on NULL-bearing inputs, and a probe in 3
 waves. The JAX context runs with ``sdot.mesh.enabled`` false, so both
 packages plan one device and the same waves.
+
+The mesh branch: the port on a ``("cpu",) * n`` mesh against the JAX
+package on its emulated n-device mesh, both with ``sdot.mesh.enabled``,
+and against the port on one device, in one wave (8 slots) and in waves
+(2 slots, ``sdot.engine.wave.max.bytes`` 1); the same tolerance.
 """
 
 import test_torch_cache_pin  # noqa: F401 (the port's result cache off)
@@ -27,11 +32,13 @@ import jax.numpy as jnp
 
 import spark_druid_olap_tpu as jsdot
 from spark_druid_olap_tpu.ops import hash_join as JHJ
+from spark_druid_olap_tpu.parallel.mesh import make_mesh as jmake_mesh
 
 import torch
 
 import spark_druid_olap_tpu_torch as tsdot
 from spark_druid_olap_tpu_torch.ops import hash_join as THJ
+from spark_druid_olap_tpu_torch.parallel.mesh import make_mesh
 
 from conftest import assert_frames_equal
 from test_join import _events_df, _fact_df, _promos_df, _users_df
@@ -235,6 +242,79 @@ def test_probe_in_three_waves(pair):
         _set(pair, "sdot.engine.wave.max.bytes", 0)
     assert js["waves"] == 3 and js["segments_per_wave"] == 3
     assert_answers_equal(waved, one, ordered=True)
+
+
+# -- the mesh branch --------------------------------------------------------------
+
+MESH_CASES = ("equi_groupby", "global_aggregate", "non_equi_residual",
+              "side_filters", "build_group_with_int_minmax")
+
+
+@pytest.fixture(scope="module")
+def mesh_contexts():
+    """Per slot count (8, 2): (JAX on its emulated mesh, the port on a
+    mesh of CPU slots), both with ``sdot.mesh.enabled``; and the port on
+    one device."""
+    on = {"sdot.mesh.enabled": True}
+    meshes = {n: (jsdot.Context(on, mesh=jmake_mesh(n)),
+                  tsdot.Context(on, mesh=make_mesh(devices=("cpu",) * n)))
+              for n in (8, 2)}
+    one = tsdot.Context(device="cpu")
+    for c in [one] + [c for m in meshes.values() for c in m]:
+        _ingest(c)
+    yield meshes, one
+    for jctx, _ in meshes.values():
+        jctx.close()
+
+
+@pytest.mark.parametrize("slots,waved", [(8, False), (2, True)],
+                         ids=["8_slots_one_wave", "2_slots_waves"])
+@pytest.mark.parametrize("name", MESH_CASES)
+def test_mesh_join_equals_jax_mesh_and_one_device(mesh_contexts, name,
+                                                  slots, waved):
+    """Each slot probes its share of the fact segments against the table
+    on its device, and the slots' partials merge: the answer and the
+    join's decisions equal the JAX package's mesh branch, and the answer
+    equals the port's one device."""
+    meshes, one = mesh_contexts
+    jctx, tctx = meshes[slots]
+    sql, ordered = CASES[name]
+    if waved:
+        for c in (jctx, tctx):
+            c.config.set("sdot.engine.wave.max.bytes", 1)
+    try:
+        want = jctx.sql(sql).to_pandas()
+        jjs = jctx.engine.last_stats["join"]
+        got = tctx.sql(sql).to_pandas()
+        tjs = tctx.engine.last_stats["join"]
+    finally:
+        for c in (jctx, tctx):
+            c.config.set("sdot.engine.wave.max.bytes", 0)
+    assert tjs["mesh"] == jjs["mesh"] == "sharded", (tjs, jjs)
+    assert tjs["devices"] == jjs["devices"] == slots
+    for k in JS_KEYS:
+        assert tjs[k] == jjs[k], (k, tjs, jjs)
+    assert (tjs["waves"] > 1) == waved, tjs
+    assert tjs["segments_per_wave"] % slots == 0
+    assert tjs["build_ledger"]["outstanding_bytes"] == 0
+    assert_answers_equal(got, want, ordered)
+    assert_answers_equal(got, one.sql(sql).to_pandas(), ordered)
+
+
+def test_mesh_join_with_fewer_segments_than_slots_runs_one_device(
+        mesh_contexts):
+    """events has 6 segments: on 8 slots both packages decline the mesh
+    (``few-segments``) and probe on one device."""
+    meshes, one = mesh_contexts
+    jctx, tctx = meshes[8]
+    sql, ordered = CASES["dim_string_key"]
+    want = jctx.sql(sql).to_pandas()
+    got = tctx.sql(sql).to_pandas()
+    tjs, jjs = (c.engine.last_stats["join"] for c in (tctx, jctx))
+    assert tjs["mesh"] == jjs["mesh"] == "few-segments"
+    assert tjs["devices"] == jjs["devices"] == 1
+    assert_answers_equal(got, want, ordered)
+    assert_answers_equal(got, one.sql(sql).to_pandas(), ordered)
 
 
 # -- cold-tier pins (a broadcast join over tiered sides) ------------------------

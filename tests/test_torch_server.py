@@ -189,14 +189,14 @@ def test_raw_query_equal_jax(servers):
 
 
 # per-engine counters the two engines keep apart (the JAX engine's XLA
-# dispatch and mesh counters, the port's kernel route and wave counters):
-# every other key is common
+# dispatch and Pallas counters, the port's kernel route and wave
+# counters): every other key is common, the mesh tier's included
 ENGINE_ONLY = {
-    "sharedscan": ({"mesh", "pallas"},
+    "sharedscan": ({"pallas"},
                    {"wave_launches", "wave_fallbacks",
                     "wave_fallback_reasons", "wave_smem_bytes_peak"}),
     "history": ({"bytes_scanned", "kernel_launches", "n_dispatch",
-                 "n_transfer", "sharded"}, {"cache", "route"}),
+                 "n_transfer", "sharded"}, {"cache", "route", "devices"}),
 }
 
 

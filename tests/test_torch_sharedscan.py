@@ -486,3 +486,47 @@ def test_union_over_the_device_budget_is_not_ported(sales):
     st = ctx.engine.sharedscan.stats()
     assert st["queries_coalesced"] == 2 and st["wave_launches"] == 1, st
     assert len(ctx.engine._device_arrays) == 1
+
+
+# -- the mesh: sharded fused groups --------------------------------------------
+
+MESH_BATCHES = {"sales": ("sales", sales_batch),
+                "split_sketch": ("sales", split_sketch_batch),
+                "tpch": ("tpch_flat", tpch_batch)}
+
+
+@pytest.mark.parametrize("name", sorted(MESH_BATCHES))
+def test_batches_on_a_mesh_match_jax(request, name):
+    """A storm over a mesh (the port's ``("cpu",) * 8``, JAX's emulated 8
+    devices; the cost model off, so each group shards): every slot runs
+    the group's wave program over its share of the segments and the
+    lanes merge on the root; the answers equal JAX's sharded storm (its
+    jaxpr-fused program), JAX's solo answers and the port's solo ones."""
+    from spark_druid_olap_tpu.parallel.mesh import make_mesh as jmesh
+    from spark_druid_olap_tpu_torch.parallel.mesh import make_mesh
+    fixture, batch = MESH_BATCHES[name]
+    pair = request.getfixturevalue(fixture)
+    cfg = {"sdot.sharedscan.enabled": True,
+           "sdot.wlm.batch.window.ms": WINDOW_MS, "sdot.wlm.enabled": False,
+           "sdot.querycostmodel.enabled": False}
+    jspecs, tspecs = batch(JS), batch(TS)
+    jstorm_eng = JQueryEngine(pair.jstore, config=JConfig(
+        {**cfg, "sdot.pallas.wave.enabled": False}), mesh=jmesh())
+    jstorm, jerrs = run_concurrent(jstorm_eng.execute, jspecs)
+    assert not any(jerrs), jerrs
+    assert jstorm_eng.sharedscan.stats()["mesh"]["groups"] >= 1
+    jsolo = [pair.jsolo.execute(q).to_pandas() for q in jspecs]
+    tsolo = [pair.solo.execute(q).to_pandas() for q in tspecs]
+    ctx = tsdot.Context(cfg, mesh=make_mesh(devices=("cpu",) * 8))
+    ctx.store.register(pair.ds)
+    tstorm, terrs = run_concurrent(ctx.execute, tspecs)
+    assert not any(terrs), terrs
+    for i, got in enumerate(tstorm):
+        assert_frames_match(got, jstorm[i], f"q{i} vs JAX mesh storm")
+        assert_frames_match(got, jsolo[i], f"q{i} vs JAX solo")
+        assert_frames_match(got, tsolo[i], f"q{i} vs port solo")
+    st = ctx.engine.sharedscan.stats()
+    assert st["mesh"]["groups"] >= 1 and st["mesh"]["devices"] == 8, st
+    assert st["mesh"]["partials"]["outstanding_bytes"] == 0
+    # one launch of the wave program per slot
+    assert st["wave_launches"] == 8 * st["mesh"]["dispatches"], st

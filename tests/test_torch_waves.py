@@ -307,7 +307,7 @@ def test_wave_pads_with_dead_segments(pair):
     segments whose rows are all dead."""
     ds = pair[1].store.get("sales")
     binder = TX._WaveBinder(ds, ["qty", "__rows__"], 3, "cpu")
-    arrays, step = binder.bind_wave(np.array([4]))
+    (arrays,), step = binder.bind_wave(np.array([4]))
     assert arrays["qty"].shape == (3, ds.padded_rows)
     assert np.array_equal(arrays["qty"][0].numpy(), ds.stacked("qty")[4])
     assert not arrays["__rows__"][1:].any() and not arrays["qty"][1:].any()
