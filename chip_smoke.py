@@ -847,7 +847,7 @@ def compile_specs(eng, ds, specs, CW, FU):
     if layout.file is None:
         raise AssertionError("a synthetic group needs more shared memory "
                              "than the wave kernel has")
-    arrays = eng._bind_arrays(ds, names, seg_u)
+    arrays = eng._bind_arrays(ds, names, seg_u)[0]
     return program, layout, [arrays[k].reshape(-1) for k in program.columns]
 
 
@@ -4010,7 +4010,8 @@ def window_phase(ctx, tables) -> dict:
         else:
             check_frame(f"window {name} vs pandas", got, oracles[name],
                         ["o_orderkey"], FLOAT_SUM_RTOL_ORACLE)
-        warm = [timed_sql(ctx, sql)[0] for _ in range(REPEATS)]
+        warm_runs = [timed_sql(ctx, sql) for _ in range(REPEATS)]
+        warm = [ms for ms, _ in warm_runs]
         out[name] = dict(
             cold_ms=cold_ms, warm_median_ms=statistics.median(warm),
             warm_min_ms=min(warm), rows=len(got),
@@ -4019,7 +4020,11 @@ def window_phase(ctx, tables) -> dict:
                 "rank_ms": (WX, "_rank_kernel"),
                 "offset_ms": (WX, "_offset_kernel"),
                 "agg_ms": (WX, "_agg_kernel")}),
-            window_ms=st["window"]["window_ms"])
+            # the window post-pass of the cold run, and the median over
+            # the warm runs, which warm_median_ms sits beside
+            window_ms_cold=st["window"]["window_ms"],
+            window_ms_warm=statistics.median(
+                w["window"]["window_ms"] for _, w in warm_runs))
     return {"statements": out, "seconds": time.perf_counter() - t_phase}
 
 
@@ -6713,15 +6718,22 @@ def mesh_devices():
     return ("cuda:0", "cuda:0")
 
 
-def mesh_specs(S, E, df):
+def having_literal(df) -> int:
+    """The device HAVING's literal over ``df``: revenue by part at
+    ``MESH_HAVING_QUANTILE`` of the parts' revenues."""
+    by_part = (df["l_extendedprice"] * (1 - df["l_discount"])) \
+        .groupby(df["l_partkey"]).sum()
+    return int(by_part.quantile(MESH_HAVING_QUANTILE))
+
+
+def mesh_specs(S, E, df, lit=None):
     """The phase's statements: ``(spec, config for both engines, what the
-    mesh must launch per slot: b1 / b2 / none)``."""
+    mesh must launch per slot: b1 / b2 / none)``; ``lit`` the HAVING's
+    literal (else :func:`having_literal` of ``df``)."""
     C = E.Column
     rev = E.BinaryOp("*", C("l_extendedprice"),
                      E.BinaryOp("-", E.Literal(1), C("l_discount")))
-    by_part = (df["l_extendedprice"] * (1 - df["l_discount"])) \
-        .groupby(df["l_partkey"]).sum()
-    lit = int(by_part.quantile(MESH_HAVING_QUANTILE))
+    lit = having_literal(df) if lit is None else lit
     waves = waves_specs(S, E)
     return {
         "q1": (q1_spec(S, E), {}, "b1"),
@@ -6991,8 +7003,248 @@ def mesh_phase(sdt, S, E, lineitem_ds, single, df, CG, CW, smi,
     return out
 
 
+# -- the multi-process mesh (phase "multihost") -------------------------------
+
+MH_RANKS = 2
+MH_WARM = 3              # warm runs per statement on the ranks and one device
+MH_TIMEOUT_S = 420.0     # the two ranks' wall limit, ingest included
+MH_SEARCH = ("AI", ("l_shipmode", "l_returnflag"))
+MH_SELECT = (45.0, 7)    # l_quantity lower bound, page offset
+
+
+def multihost_specs(S, E, lit):
+    """The phase's statements: phase mesh's (Q1, Q1 in waves, Q6, wide,
+    Q1 and a TopN on the hashed tier, revenue by part with HAVING, the
+    sketch statement), a select page and a search, each with its config."""
+    specs = {n: (spec, cfg) for n, (spec, cfg, _) in
+             mesh_specs(S, E, None, lit).items()}
+    specs["select_page"] = (S.SelectQuerySpec(
+        "lineitem", SELECT_COLUMNS,
+        filter=S.BoundFilter("l_quantity", lower=MH_SELECT[0],
+                             numeric=True),
+        page_offset=MH_SELECT[1], page_size=SELECT_PAGE), {})
+    specs["search"] = (S.SearchQuerySpec("lineitem", MH_SEARCH[1],
+                                         MH_SEARCH[0]), {})
+    return specs
+
+
+class OutputSpies(KernelSpies):
+    """:class:`KernelSpies` that also keep each B1 call's outputs: a warm
+    run's calls are held bit for bit against the cold run's same calls
+    (the same inputs; the cold calls are held against the plain
+    version)."""
+
+    def __init__(self, CG, CW):
+        super().__init__(CG, CW)
+        self.outs = []
+
+    def run(self, fn):
+        CG = self.CG
+        real = CG.dense_groupby_kernel
+
+        def spy(key, n_keys, inputs, max_keys):
+            out = real(key, n_keys, inputs, max_keys)
+            self.outs.append(out)
+            return out
+        CG.dense_groupby_kernel = spy
+        try:
+            return super().run(fn)
+        finally:
+            CG.dense_groupby_kernel = real
+
+
+def multihost_rank(rank, world, slots, arg):
+    """One rank of phase ``multihost`` (run through
+    ``spark_druid_olap_tpu_torch/tools/multihost_worker.py``, mode
+    ``call=chip_smoke:multihost_rank:<parquet>:<HAVING literal>``):
+    streams its hosts' half of the lineitem file into a partial store
+    (``ingest_parquet_stream(n_hosts=world, host_id=rank)``), runs each of
+    :func:`multihost_specs` cold once and warm ``MH_WARM`` times over the
+    multi-process mesh, and holds its B1 calls against the plain version
+    (the cold calls through :func:`b1_checked`, one rank at a time, each
+    warm call's outputs bit for bit the cold call's). Returns the
+    answers, times, the collectives each statement issued and the kernel
+    summary."""
+    import spark_druid_olap_tpu_torch as sdt
+    from spark_druid_olap_tpu_torch.ir import expr as E
+    from spark_druid_olap_tpu_torch.ir import spec as S
+    from spark_druid_olap_tpu_torch.ops import cuda_groupby as CG
+    from spark_druid_olap_tpu_torch.ops import cuda_wave as CW
+    from spark_druid_olap_tpu_torch.tools.multihost_worker import (
+        context_args, frame_answer, store_meta)
+    path, lit = arg.rsplit(":", 1)
+    t0 = time.perf_counter()
+    device, mesh = context_args(slots)
+    ctx = sdt.Context(ENGINE_TIMED, device=device, mesh=mesh)
+    ds = ctx.ingest_parquet_stream("lineitem", path,
+                                   time_column="l_shipdate",
+                                   n_hosts=world, host_id=rank)
+    out = {"ingest_s": time.perf_counter() - t0, "store": store_meta(ds),
+           "statements": {}}
+    spies, warm_spies = OutputSpies(CG, CW), OutputSpies(CG, CW)
+    for name, (spec, cfg) in multihost_specs(S, E, int(lit)).items():
+        with settings(ctx, cfg):
+            n1 = len(spies.b1)
+            t = time.perf_counter()
+            got = spies.run(lambda: ctx.execute(spec).to_pandas())
+            cold = (time.perf_counter() - t) * 1e3
+            st = dict(ctx.engine.last_stats)
+            cold_outs = spies.outs[n1:]
+            warm = []
+            for _ in range(MH_WARM):
+                t = time.perf_counter()
+                warm_spies.run(lambda: ctx.execute(spec).to_pandas())
+                warm.append((time.perf_counter() - t) * 1e3)
+                outs, warm_spies.outs = warm_spies.outs, []
+                if len(outs) != len(cold_outs) or not all(
+                        same_bits(o, c) for o, c in zip(outs, cold_outs)):
+                    raise AssertionError(f"multihost {name}: a warm run's "
+                                         f"B1 calls differ from the "
+                                         f"cold run's")
+        mh = st.get("multihost") or {}
+        out["statements"][name] = {
+            **frame_answer(got), "sharded": st.get("sharded"),
+            "devices": st.get("devices"), "waves": st.get("waves"),
+            "hashed": bool(st.get("hashed")),
+            "topk_exchange": bool(st.get("topk_exchange")),
+            "select_filter": st.get("select_filter"),
+            "shard_decision": st.get("shard_decision"),
+            "b1_calls": len(spies.b1) - n1, "cold_ms": cold,
+            "warm_ms": statistics.median(warm), "collectives":
+            mh.get("collectives"), "collective_bytes":
+            mh.get("collective_bytes"), "collective_ms":
+            mh.get("collective_ms"), "turn_ms": mh.get("turn_ms")}
+    # the ranks check and time their B1 calls one after another: CUDA
+    # events of two processes that share a card would time each other's
+    # kernels too
+    from spark_druid_olap_tpu_torch.parallel import multihost as MH
+    for r in range(world):
+        if r == rank:
+            out["kernels"] = {"b1": b1_checked(
+                CG, f"multihost rank {rank}", spies.b1, set())}
+        MH.exchange_block(np.zeros(0, np.int64))
+    out["b1_launches"] = spies.b1_launches + warm_spies.b1_launches
+    out["b2_launches"] = spies.b2_launches + warm_spies.b2_launches
+    return out
+
+
+def multihost_phase(sdt, S, E, single, df, smi, device="cuda:0",
+                    backend="gloo") -> dict:
+    """Phase ``multihost``: the multi-process mesh on the one card. The
+    parent writes ``df`` (lineitem without ``l_comment``, in
+    ``l_shipdate`` order, so the streamed store's rows come in the order
+    ``single``'s ingest gave them) to one Parquet file; ``MH_RANKS``
+    processes on ``device`` (``multihost_worker``'s device argument;
+    ``backend`` gloo on one card: NCCL refuses two ranks on one card) each
+    stream their half into a partial store and run
+    :func:`multihost_rank`. Every
+    rank's answers must be byte for byte rank 0's, and rank 0's equal to
+    ``single``'s (the one-device context over the same rows: ints,
+    counts, min / max, dimensions, pages and search counts exact, float
+    sums rtol 1e-9); every B1 call of a rank held against its plain
+    version; a rank that fails fails the phase."""
+    import tempfile
+
+    from spark_druid_olap_tpu_torch.tools import multihost_worker as W
+    t_phase = time.perf_counter()
+    lit = having_literal(df)
+    out = {"card": smi, "ranks": MH_RANKS, "backend": backend,
+           "device": device, "statements": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/lineitem.parquet"
+        t = time.perf_counter()
+        df.drop(columns=[c for c in ("l_comment",) if c in df.columns]) \
+            .sort_values("l_shipdate", kind="stable") \
+            .to_parquet(path, index=False)
+        out["write_parquet_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        res = W.spawn(MH_RANKS, f"{tmp}/mh",
+                      f"call=chip_smoke:multihost_rank:{path}:{lit}",
+                      device=device, backend=backend,
+                      timeout_s=MH_TIMEOUT_S,
+                      cwd=str(pathlib.Path(__file__).resolve().parent))
+        out["ranks_wall_s"] = time.perf_counter() - t
+    specs = multihost_specs(S, E, lit)
+    on_card = torch.device(W.slots_of(device, 0)[0]).type == "cuda"
+    for name, (spec, cfg) in specs.items():
+        r0 = res[0]["statements"][name]
+        for r in res[1:]:
+            if r["statements"][name]["digest"] != r0["digest"]:
+                raise AssertionError(f"multihost {name}: the ranks' "
+                                     f"answers differ")
+        if name not in ("select_page", "search") and (
+                r0["sharded"] is not True
+                or r0["devices"] != MH_RANKS * len(W.slots_of(device, 0))):
+            raise AssertionError(f"multihost {name}: not over the ranks: "
+                                 f"{r0}")
+        if name == "q1_waves" and (r0["waves"] or 1) < 2:
+            raise AssertionError(f"multihost {name}: one wave: {r0}")
+        if on_card and name in ("q1", "q6", "wide", "q1_waves", "sketch") \
+                and r0["b1_calls"] < 1:
+            raise AssertionError(f"multihost {name}: no B1 call")
+        with settings(single, cfg):
+            want = single.execute(spec).to_pandas()
+            warm = []
+            for _ in range(MH_WARM):
+                t = time.perf_counter()
+                single.execute(spec).to_pandas()
+                torch.cuda.synchronize()
+                warm.append((time.perf_counter() - t) * 1e3)
+        got = pd_frame(r0, want)
+        check_frame(f"multihost {name} vs one device", got, want, None,
+                    FLOAT_SUM_RTOL_KERNEL)
+        single_ms = statistics.median(warm)
+        out["statements"][name] = {
+            "rows": len(got), "waves": r0["waves"],
+            "hashed": r0["hashed"], "topk_exchange": r0["topk_exchange"],
+            "select_filter": r0["select_filter"],
+            "b1_calls_per_rank": [r["statements"][name]["b1_calls"]
+                                  for r in res],
+            "cold_ms": [r["statements"][name]["cold_ms"] for r in res],
+            "warm_ms": [r["statements"][name]["warm_ms"] for r in res],
+            "single_warm_ms": single_ms,
+            "warm_vs_single": max(r["statements"][name]["warm_ms"]
+                                  for r in res) / single_ms,
+            "collectives": r0["collectives"],
+            "merge_bytes": r0["collective_bytes"],
+            "collective_ms": [r["statements"][name]["collective_ms"]
+                              for r in res],
+            "turn_ms": [r["statements"][name]["turn_ms"] for r in res]}
+    out["rows_held"] = [r["store"]["local_rows"] for r in res]
+    out["segments_held"] = [r["store"]["local_segments"] for r in res]
+    out["rows"] = res[0]["store"]["rows"]
+    if sum(out["rows_held"]) != out["rows"] \
+            or max(out["rows_held"]) >= out["rows"]:
+        raise AssertionError(f"multihost: rows held {out['rows_held']} of "
+                             f"{out['rows']}")
+    out["ingest_s"] = [r["ingest_s"] for r in res]
+    out["rank_seconds"] = [r["_meta"]["seconds"] for r in res]
+    b1 = {"max_abs_err": max(r["kernels"]["b1"]["max_abs_err"]
+                             for r in res), "calls": []}
+    for f in ("ms", "plain_ms", "bound_ms", "library_ms"):
+        b1[f] = sum(r["kernels"]["b1"][f] for r in res)
+    for r in res:
+        b1["calls"] += r["kernels"]["b1"]["calls"]
+    out["kernels"] = {"b1": b1, "b2": []}
+    out["b1_launches"] = sum(r["b1_launches"] for r in res)
+    out["b2_launches"] = sum(r["b2_launches"] for r in res)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def pd_frame(answer, like):
+    """A rank's answer (``multihost_worker.frame_answer``) as a frame, its
+    time columns parsed where ``like`` has them."""
+    import pandas as pd
+    frame = pd.DataFrame(answer["rows"], columns=answer["columns"])
+    for c in like.columns:
+        if like[c].dtype.kind == "M":
+            frame[c] = pd.to_datetime(frame[c])
+    return frame
+
+
 NEW_PHASES = ("ssb", "rollup", "append", "persist", "modules", "server",
-              "cluster", "mesh")
+              "cluster", "mesh", "multihost")
 
 
 def main() -> int:
@@ -7605,6 +7857,29 @@ def main() -> int:
               "context; slots that share one card move no bytes between "
               "cards, so no peer copy is measured")
     new_phases = new_phases + (mesh,)
+
+    # 6d. the multi-process mesh: two ranks on the card, each holding half
+    # of the same SF1 lineitem rows
+    multihost = multihost_phase(sdt, S, E, ctx, df, smi)
+    emit("multihost", **multihost,
+         oracle="each statement over the two ranks' partial stores: every "
+                "rank's answer byte for byte rank 0's (a digest of the "
+                "frame's bytes), rank 0's against the one-device context "
+                "over the same rows (ints, counts, min/max, dims, the "
+                "select page and search counts exact, float sums rtol "
+                "1e-9); each rank's cold B1 calls vs the plain version, "
+                "each warm call's outputs bit for bit the cold call's "
+                "(kernels)",
+         note="gloo between the ranks (NCCL refuses two ranks on one "
+              "card): every merge goes through a host copy; ms: host wall "
+              "clock to the frame on each rank, warm = median of 3; "
+              "single_warm_ms the statement on the one-device context; "
+              "merge_bytes / collective_ms: what rank 0's collectives "
+              "moved (sent + received) and their host wall ms, from "
+              "parallel/multihost's counters, in the last warm run; "
+              "turn_ms: that run's wait for its turn (the ranks agreeing "
+              "on the statement, multihost.SEQUENCER)")
+    new_phases = new_phases + (multihost,)
 
     # 7. multi-wave binding at WAVES_SF, after the SF1 state leaves host
     # and card

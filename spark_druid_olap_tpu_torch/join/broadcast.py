@@ -569,8 +569,7 @@ def _execute_broadcast(ctx, plan, build_pins: contextlib.ExitStack):
             if n_waves == 1:
                 with _pinned(_tier(ctx, plan.probe.ds)):
                     arrays = eng._bind_arrays(ds, names, seg_idx, n_dev)
-                combine_wave(acc, _to_host(prog(
-                    arrays if mesh else [arrays])), routes, n_keys)
+                combine_wave(acc, _to_host(prog(arrays)), routes, n_keys)
             else:
                 binder = _WaveBinder(ds, names, spw, device, mesh)
                 for out in binder.stream(

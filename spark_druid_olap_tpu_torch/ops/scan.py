@@ -5,7 +5,8 @@ Port of ``spark_druid_olap_tpu/ops/scan.py`` (``ScanContext``, the
 late-materialization view ``CompactScanContext``, ``array_names``,
 ``array_dtype``, ``build_array`` and, for a wave, ``build_wave_array``,
 both of which fault a tiered datasource's chunks through its
-``_tier_build``; no multi-host builders). The
+``_tier_build``, and ``build_array_blocks``, the host block of a
+multi-process layout, whose ``-1`` ids are padding). The
 tensors it holds live on the engine's device; the dictionaries and
 cardinalities it consults stay on the host, so no string ever reaches the
 device.
@@ -162,7 +163,8 @@ def array_dtype(ds: Datasource, key: str):
 
 
 def _stacked_by_key(ds: Datasource, key: str) -> np.ndarray:
-    """The [S, R] stacked array behind one array key."""
+    """The [S, R] stacked array behind one array key (S = the local
+    segments on a multi-process partial store)."""
     if key == ROW_VALID_KEY:
         return ds.stacked_row_validity()
     if key == TIME_MS_KEY:
@@ -178,7 +180,9 @@ def build_array(ds: Datasource, key: str,
     ``segment_indices``. Unlike the JAX engine, which pads the segment
     axis to a power of two for its compile cache, the port binds exactly
     the selected segments: eager PyTorch has no compiled shape to keep
-    stable."""
+    stable. On a partial store the ids are global and must be local
+    (``build_array_blocks``); ``None`` means the local segments, the only
+    ones this process can materialize."""
     tb = getattr(ds, "_tier_build", None)
     if tb is not None:
         # tiered store: fault only the requested segments' chunks into
@@ -190,6 +194,10 @@ def build_array(ds: Datasource, key: str,
         out = tb(key, segment_indices)
         if out is not None:
             return out
+    if ds.is_partial:
+        return build_array_blocks(
+            ds, key, ds.local_seg_ids if segment_indices is None
+            else segment_indices)
     arr = _stacked_by_key(ds, key)
     if segment_indices is not None and (
             len(segment_indices) != ds.num_segments
@@ -207,12 +215,46 @@ def build_wave_array(ds: Datasource, key: str, segment_indices,
     ``build_array(ds, key, segs, pad_segments_to=spw)``). Every wave thus
     has the shape its program was built for, and ``out`` may be a pinned
     staging buffer that the copy to the device reads. A tiered datasource
-    faults the segments' chunks straight into ``out``."""
+    faults the segments' chunks straight into ``out``. A multi-process
+    wave (a partial store, or ``-1`` padding ids) builds through
+    ``build_array_blocks``."""
     tb = getattr(ds, "_tier_build", None)
     if tb is not None and tb(key, segment_indices, out) is not None:
         return out
     n = len(segment_indices)
+    if ds.is_partial or (np.asarray(segment_indices) < 0).any():
+        out[:n] = build_array_blocks(ds, key, segment_indices)
+        out[n:] = 0
+        return out
     np.take(_stacked_by_key(ds, key), segment_indices, axis=0, out=out[:n],
             mode="clip")
     out[n:] = 0
+    return out
+
+
+def build_array_blocks(ds: Datasource, key: str,
+                       seg_ids: np.ndarray) -> np.ndarray:
+    """[len(seg_ids), R] host block of a multi-process layout slice
+    (``parallel/multihost.layout_segments``): global segment ids, ``-1``
+    entries padding (zero rows, row validity false). On a partial store a
+    non-padding id this process does not hold is a layout bug and raises:
+    a block never fabricates another host's rows."""
+    seg_ids = np.asarray(seg_ids, np.int64)
+    arr = _stacked_by_key(ds, key)
+    if ds.is_partial:
+        pos = np.where(
+            seg_ids >= 0,
+            ds._local_pos[np.clip(seg_ids, 0, max(ds.num_segments - 1, 0))],
+            -1)
+        missing = (seg_ids >= 0) & (pos < 0)
+        if missing.any():
+            raise RuntimeError(
+                f"host {ds.host_id} asked for non-local segments "
+                f"{seg_ids[missing][:8].tolist()} of {ds.name!r}")
+    else:
+        pos = seg_ids
+    out = np.zeros((len(seg_ids),) + arr.shape[1:], dtype=arr.dtype)
+    ok = pos >= 0
+    if ok.any():
+        out[ok] = arr[pos[ok]]
     return out

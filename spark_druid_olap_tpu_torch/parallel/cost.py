@@ -14,9 +14,11 @@ in and the single-device or sharded decision of a solo statement over
 the engine's mesh (``parallel/mesh.py``), with ``explain_cost`` and
 ``_explain_scan_plan``, the lines EXPLAIN prints under each spec, and
 ``mesh_estimate`` (``MeshEstimate``), the same decision for one fused
-shared-scan group (``parallel/meshexec.decide``). The mesh is one
-process's, so the cross-host term ``xhost_bytes`` is zero until the
-multi-process mesh (ROADMAP A.8.2).
+shared-scan group (``parallel/meshexec.decide``). Over the multi-process
+mesh (``parallel/multihost.py``) ``estimate`` adds the cross-process
+term ``xhost_bytes`` (the merged result's bytes, once per peer rank) and,
+on a partial store, ``host_xhost_bytes``: what the host tier's gather of
+the needed columns would move (``Datasource.complete``).
 
 A unit cost is the configured value when the key is set explicitly;
 otherwise the measured table of the engine's device type.
@@ -276,6 +278,7 @@ class CostEstimate:
     n_waves: Optional[int] = 1     # None = the engine could not plan it
     xhost_bytes: int = 0           # cross-process result replication
     ici_bytes: int = 0             # the merge's bytes between the slots
+    host_xhost_bytes: int = 0      # the host tier's gather of a partial store
 
     def table(self) -> str:
         if self.n_waves is None:
@@ -285,6 +288,8 @@ class CostEstimate:
                 f"  waves={self.n_waves}x{self.segments_per_wave}seg"
         xh = "" if not self.xhost_bytes else \
             f" xhost_bytes={self.xhost_bytes:,}"
+        if self.host_xhost_bytes:
+            xh += f" host_xhost_bytes={self.host_xhost_bytes:,}"
         return (f"rows={self.rows:,} sel={self.selectivity:.3f} "
                 f"est_groups={self.output_groups:,} "
                 f"scan_bytes={self.scan_bytes:,}{xh}\n"
@@ -322,6 +327,7 @@ def estimate(ctx_or_engine, q: S.QuerySpec) -> CostEstimate:
     the scan's bytes and its wave plan under ``wave_budget_bytes``, both
     over the spec's named columns. With no mesh ``n_devices`` is 1 and
     nothing recommends sharding."""
+    from spark_druid_olap_tpu_torch.parallel import multihost as MH
     from spark_druid_olap_tpu_torch.parallel.mesh import (
         mesh_size,
         scan_devices,
@@ -343,6 +349,12 @@ def estimate(ctx_or_engine, q: S.QuerySpec) -> CostEstimate:
     # [groups x n_aggs] partial, (n_dev - 1) times over (ring
     # convention; parallel/meshexec.py accounts the fused tier alike)
     ici_bytes = groups * n_aggs * 8 * max(0, n_dev - 1)
+    # cross-process replication over the multi-process mesh: a partial
+    # store's merged partial travels once per peer rank, so every rank
+    # holds it (a complete store runs in its own process; a partial store
+    # shards whatever the prices, so the term informs explain only)
+    xhost_bytes = groups * n_aggs * 8 * (MH.process_count() - 1) \
+        if getattr(ds, "is_partial", False) else 0
     m = mesh_estimate(conf, n_dev=n_dev, rows=rows, groups=groups,
                       n_aggs=n_aggs, merge_bytes=ici_bytes,
                       scan_devices=scan_devices(mesh))
@@ -362,6 +374,14 @@ def estimate(ctx_or_engine, q: S.QuerySpec) -> CostEstimate:
              or (ds.time is not None and c == ds.time.name)}
     seg_bytes = bytes_per_segment(
         ds, list(names) + ["__rows__"]) if ds.num_segments else 0
+    # the host tier's reassembly of a partial store (the paged gather of
+    # every needed column, O(rows x column bytes)): what falling off the
+    # engine path would move, shown so explain says why it is kept
+    host_xhost = 0
+    if getattr(ds, "is_partial", False) and len(ds.host_assignment) \
+            and int(ds.host_assignment.max()) + 1 > 1:
+        host_xhost = int(ds.num_rows) * sum(array_itemsize(ds, k)
+                                            for k in names)
     eff_dev = n_dev if recommend else 1
     spw, waves = plan_waves(
         len(seg_idx), eff_dev, seg_bytes,
@@ -371,6 +391,8 @@ def estimate(ctx_or_engine, q: S.QuerySpec) -> CostEstimate:
     return CostEstimate(rows, sel, groups, single, sharded, n_dev,
                         recommend, scan_bytes=seg_bytes * len(seg_idx),
                         segments_per_wave=spw, n_waves=waves,
+                        xhost_bytes=int(xhost_bytes),
+                        host_xhost_bytes=int(host_xhost),
                         ici_bytes=int(ici_bytes))
 
 
@@ -508,17 +530,23 @@ def wave_budget_bytes(conf, device, mesh=None) -> Optional[int]:
     ``CUDA_WAVE_MEMORY_SHARE`` of its memory, else None (one wave), as
     the JAX package reads a CPU backend. The slots of ``mesh`` that share
     ``device`` split its budget between them, so two resident waves of
-    every slot on one card stay within twice the card's share."""
+    every slot on one card stay within twice the card's share; so do the
+    ranks of the multi-process mesh that share a card, and there every
+    rank reads the smallest card of the group
+    (``multihost.ranks_per_card`` / ``card_bytes``), so every rank plans
+    the same waves."""
+    from spark_druid_olap_tpu_torch.parallel import multihost as MH
     from spark_druid_olap_tpu_torch.parallel.mesh import slots_on
     from spark_druid_olap_tpu_torch.utils.config import WAVE_MAX_BYTES
-    n = slots_on(mesh, device)
+    n = slots_on(mesh, device) * MH.ranks_per_card()
     b = conf.get(WAVE_MAX_BYTES)
     if b:
         return int(b) // n
     device = torch.device(device)
     if device.type != "cuda":
         return None
-    total = torch.cuda.get_device_properties(device).total_memory
+    total = MH.card_bytes() or \
+        torch.cuda.get_device_properties(device).total_memory
     return int(total * CUDA_WAVE_MEMORY_SHARE) // n
 
 

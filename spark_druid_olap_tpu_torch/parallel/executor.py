@@ -72,16 +72,30 @@ an ordered limit over a min / max metric (or a TopN) exchanges only
 candidates (``_hash_topk_exchange``). ``reshard`` rebuilds the mesh and
 drops everything it shaped; a re-attach reshards when slots were lost.
 
+Over the multi-process mesh (``parallel/multihost.py``: one process per
+host under ``torch.distributed``, each holding only its own segments'
+rows, a *partial store*) every statement over a partial store shards:
+the selection is laid out in host blocks (``_multihost_layout``;
+``multihost.layout_segments`` / ``layout_segments_waves``), each process
+binds its own block over its local slots (``ops/scan.build_array_blocks``,
+``-1`` ids padding), the local slots merge on the root slot, then every
+rank's merged partial is gathered (``multihost.gather_partials``) and
+folded in rank order, so every rank holds the same bytes. The hashed tier
+gathers its per-slot tables (or, for the candidate exchange, its
+candidates, their scores and the chosen rows) across the ranks; select
+exchanges the surviving global row ids and the page's rows
+(``_run_select_multihost``), search sums its per-code counts across the
+ranks. Device HAVING is off there, as in the JAX engine. Every decision
+reads global metadata, and statements over a partial store take their
+turns in an order every rank agrees on (``multihost.SEQUENCER``); the
+result cache is not consulted for them (its state is per process).
+
 A device loss demotes the statement and every later one to the host tier
 (``EngineFallback`` ``backend_lost``), with at most one bounded re-attach
 probe per cooldown (``_try_reattach``). An error is a loss when its text
 reads as a sticky CUDA error (``_is_backend_loss``) and a probe of the
 device then fails (``_probe_device_alive``); where it surfaced
-(``_loss_site``) goes into ``last_stats["backend_lost"]``. Every path the
-JAX engine would take outside the port so far — select and search over a
-multi-host partial store (the multi-process mesh) — raises
-``NotImplementedError`` naming its ROADMAP item; the engine never changes
-an answer to stay inside the port.
+(``_loss_site``) goes into ``last_stats["backend_lost"]``.
 """
 
 from __future__ import annotations
@@ -122,12 +136,17 @@ from spark_druid_olap_tpu_torch.ops.sketch import (
 )
 from spark_druid_olap_tpu_torch.parallel import cost as C
 from spark_druid_olap_tpu_torch.parallel import meshexec as MX
+from spark_druid_olap_tpu_torch.parallel import multihost as MH
 from spark_druid_olap_tpu_torch.parallel.cost import unit_cost
 from spark_druid_olap_tpu_torch.parallel.mesh import mesh_size
 from spark_druid_olap_tpu_torch.planner import fusion as FU
 from spark_druid_olap_tpu_torch.result import QueryResult
 from spark_druid_olap_tpu_torch.segment.column import ColumnKind
-from spark_druid_olap_tpu_torch.segment.store import Datasource, SegmentStore
+from spark_druid_olap_tpu_torch.segment.store import (
+    Datasource,
+    Segment,
+    SegmentStore,
+)
 from spark_druid_olap_tpu_torch.utils import host_eval
 from spark_druid_olap_tpu_torch.utils import phases as PH
 from spark_druid_olap_tpu_torch.utils.config import (
@@ -175,10 +194,6 @@ class QueryCancelled(RuntimeError):
 
 class QueryTimeout(RuntimeError):
     """Raised when QueryContext.timeout_millis elapses at a stage boundary."""
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} not ported yet (ROADMAP {item})")
 
 
 # =============================================================================
@@ -896,7 +911,8 @@ class QueryEngine:
                 # both) and what checksum verification cost
                 self.last_stats["persist"] = dict(pinfo)
             cache = self.result_cache
-            use_cache = cache.enabled and cache.cacheable(q)
+            use_cache = cache.enabled and cache.cacheable(q) \
+                and not self._over_ranks(q)
             if use_cache:
                 # the lookup precedes the device-loss gate on purpose: a
                 # cached answer needs no device, so hits keep serving
@@ -1035,7 +1051,14 @@ class QueryEngine:
         ``prefer_sharded`` when set, else the cost model
         (``parallel/cost.estimate``). The decision and its prices go
         into ``last_stats`` (``shard_decision``, ``cost_single``,
-        ``cost_sharded``)."""
+        ``cost_sharded``). A partial store shards always: its rows live
+        across the processes of the multi-process mesh, and nothing else
+        can scan it."""
+        if ds.is_partial:
+            if not MH.is_multihost():
+                ds.require_complete("a scan outside the multi-process mesh")
+            self.last_stats["shard_decision"] = "partial-store"
+            return True
         if self.mesh is None or mesh_size(self.mesh) <= 1:
             return False
         pref = getattr(getattr(q, "context", None), "prefer_sharded", None)
@@ -1053,7 +1076,46 @@ class QueryEngine:
         self.last_stats["cost_sharded"] = est.sharded_cost
         return est.recommend_sharded
 
+    def _slots(self) -> tuple:
+        """This process's mesh slots (its one device without a mesh)."""
+        return self.mesh if self.mesh else (self.device,)
+
+    def _over_ranks(self, q) -> bool:
+        """Whether ``q`` scans a partial store over the multi-process
+        mesh (the statement then issues collectives)."""
+        ds = self.store._datasources.get(getattr(q, "datasource", None))
+        return ds is not None and ds.is_partial and MH.is_multihost()
+
+    def _shard_count(self, ds, sharded: bool) -> int:
+        """The shards a scan splits into: 1, the mesh's slots, or over the
+        multi-process mesh every rank's slots."""
+        if not sharded:
+            return 1
+        if ds.is_partial:
+            return MH.process_count() * len(self._slots())
+        return mesh_size(self.mesh)
+
     def _execute_inner(self, q: S.QuerySpec, t0: float) -> QueryResult:
+        if not self._over_ranks(q):
+            return self._execute_local(q, t0)
+        # every rank issues this statement's collectives at the same point
+        # of its order (multihost.SEQUENCER); the counters' difference is
+        # what the statement moved between the ranks
+        t_wait = _time.perf_counter()
+        with MH.SEQUENCER.turn(MH.statement_key(_cache_repr(q))):
+            turn_ms = (_time.perf_counter() - t_wait) * 1e3
+            c0 = MH.stats_snapshot()
+            r = self._execute_local(q, t0)
+            c1 = MH.stats_snapshot()
+        self.last_stats["multihost"] = {
+            "ranks": MH.process_count(), "rank": MH.process_index(),
+            "turn_ms": turn_ms,
+            "collectives": c1["collectives"] - c0["collectives"],
+            "collective_bytes": c1["bytes"] - c0["bytes"],
+            "collective_ms": c1["ms"] - c0["ms"]}
+        return r
+
+    def _execute_local(self, q: S.QuerySpec, t0: float) -> QueryResult:
         self._stage_check(q, t0)
         if isinstance(q, S.GroupByQuerySpec):
             r = self._run_agg(q, list(q.dimensions), q.aggregations,
@@ -1121,18 +1183,32 @@ class QueryEngine:
                            granularity, filter_spec, intervals)
         cards = [p.card for p in all_dim_plans]
         sharded = self._should_shard(q, ds, seg_idx)
-        n_dev = mesh_size(self.mesh) if sharded else 1
+        n_dev = self._shard_count(ds, sharded)
         route_hashed, spw, n_waves = self._scan_wave_plan(
             ds, seg_idx, all_dim_plans, agg_plans, n_keys, names, n_dev)
+        # over the multi-process mesh the planning reads the global
+        # host-blocked layout (``seg_idx``, ``plan_spw``) and this process
+        # binds its own blocks (``bind``) over its local slots
+        ranks = sharded and ds.is_partial
+        bind = _Bind(seg_idx, n_dev)
+        plan_spw = spw
+        if ranks:
+            seg_idx, plan_spw, n_waves, bind = self._multihost_layout(
+                ds, seg_idx, n_waves, names)
+            spw = bind.spw
         if route_hashed:
             return self._run_agg_hashed(
                 q, ds, seg_idx, all_dim_plans, agg_plans, names, min_day,
                 max_day, post_aggregations, having, limit, filter_spec,
-                intervals, check, spw, n_waves, sharded, no_topk=no_topk)
+                intervals, check, spw, n_waves, sharded, no_topk=no_topk,
+                bind=bind)
         topk = None if no_topk or n_waves > 1 else \
             self._plan_device_topk(limit, having, agg_plans, n_keys)
-        having_dev = self._plan_device_having(having, routes, n_keys,
-                                              n_waves)
+        # device HAVING keeps the finals on the devices between its two
+        # dispatches; over the ranks the host epilogue filters the merged
+        # finals instead, as in the JAX engine
+        having_dev = None if ranks else self._plan_device_having(
+            having, routes, n_keys, n_waves)
         n_out = topk[1] if topk else n_keys
         sketch_plans = [p for p in agg_plans if p.kind in SKETCH_KINDS]
         shape = (ds.name, ds.serial, _cache_repr(q), len(seg_idx),
@@ -1142,7 +1218,7 @@ class QueryEngine:
         # segments, and the slots' partials merge on the root device
         # (parallel/meshexec.py) before the top-k and HAVING epilogues
         run = self._solo_program(MX.Lane(routes, agg_plans, n_keys),
-                                 sharded)
+                                 sharded, ranks)
         host = {}
         t = _time.perf_counter()
         if having_dev:
@@ -1177,7 +1253,7 @@ class QueryEngine:
             memo = ("agg", shape, topk)
             if compact_m and memo in self._compact_overflowed:
                 compact_m = None     # this shape overflowed before
-            dev_arrays = self._bind_arrays(ds, names, seg_idx, n_dev)
+            dev_arrays = self._bind_arrays(ds, names, bind.idx, bind.n)
             t = _phase("bind", t)
             for cm in ((compact_m, None) if compact_m else (None,)):
                 check()      # pre-dispatch boundary
@@ -1210,9 +1286,9 @@ class QueryEngine:
             # for all: waves are equal splits); a wave that overflows its
             # budget ends the run, and the whole scan re-runs uncompacted
             cheap_f0, _ = self._split_filter_staged(filter_spec)
-            compact_m = self._plan_compact_m(ds, seg_idx[:spw], cheap_f0,
-                                             routes=routes, n_keys=n_keys,
-                                             n_dev=n_dev)
+            compact_m = self._plan_compact_m(ds, seg_idx[:plan_spw],
+                                             cheap_f0, routes=routes,
+                                             n_keys=n_keys, n_dev=n_dev)
             memo = ("aggw", shape, spw)
             if compact_m and memo in self._compact_overflowed:
                 compact_m = None
@@ -1222,7 +1298,7 @@ class QueryEngine:
                                        max_day, n_keys, routes,
                                        compact_m=cm)
                 finals, wave_over = self._run_waves(
-                    ds, names, seg_idx, spw,
+                    ds, names, bind.idx, spw,
                     lambda arrays, core=core: run(core, arrays), routes,
                     n_keys, sketch_plans, check, sharded)
                 if not wave_over:
@@ -1280,7 +1356,7 @@ class QueryEngine:
                                      granularity, filter_spec, intervals,
                                      t0, no_topk=True)
         self.last_stats.update({
-            "datasource": ds.name, "segments": int(len(seg_idx)),
+            "datasource": ds.name, "segments": _n_real(seg_idx),
             "sharded": sharded, "devices": int(n_dev),
             "groups": int(len(sel)), "rows_scanned": int(ds.num_rows),
             "waves": int(n_waves), "segments_per_wave": int(spw),
@@ -1491,10 +1567,14 @@ class QueryEngine:
         dim_plans, agg_plans, _, _, n_keys, names, _ = self._plan_agg(
             ds, seg_idx, dims, q.aggregations, q.granularity, q.filter,
             q.intervals)
-        n_dev = mesh_size(self.mesh) if self._should_shard(q, ds, seg_idx) \
-            else 1
-        return self._scan_wave_plan(ds, seg_idx, dim_plans, agg_plans,
-                                    n_keys, names, n_dev)[1:]
+        sharded = self._should_shard(q, ds, seg_idx)
+        _, spw, n_waves = self._scan_wave_plan(
+            ds, seg_idx, dim_plans, agg_plans, n_keys, names,
+            self._shard_count(ds, sharded))
+        if sharded and ds.is_partial:
+            _, spw, n_waves, _ = self._multihost_layout(ds, seg_idx,
+                                                        n_waves, names)
+        return spw, n_waves
 
     def _scan_wave_plan(self, ds, seg_idx, dim_plans, agg_plans, n_keys,
                         names, n_dev: int = 1):
@@ -1542,7 +1622,8 @@ class QueryEngine:
     def _run_agg_hashed(self, q, ds, seg_idx, dim_plans, agg_plans, names,
                         min_day, max_day, post_aggregations, having, limit,
                         filter_spec, intervals, check, spw, n_waves,
-                        sharded: bool = False, no_topk: bool = False):
+                        sharded: bool = False, no_topk: bool = False,
+                        bind: Optional["_Bind"] = None):
         """Group-by above the dense key-space ceiling (and the medium-K
         reroute): a table of ``T`` slots on the device per wave
         (``ops/hash_groupby.py``), the waves' partials merged by key on
@@ -1556,7 +1637,15 @@ class QueryEngine:
         tables stay on their devices and their partials merge by key on
         the host, or, for an ordered limit the exchange takes
         (:meth:`_plan_hash_topk_exchange`), only the globally best
-        candidates' rows travel (:func:`_hash_topk_exchange`)."""
+        candidates' rows travel (:func:`_hash_topk_exchange`).
+
+        Over the multi-process mesh (a partial store; ``bind`` holds this
+        process's blocks) each rank's slots build their tables, and the
+        host dicts the single process would merge, the occupancy stats
+        that pick the retry and the transfer, and the exchange's
+        candidates and scores, are gathered across the ranks
+        (``multihost.gather_partials``), so every rank merges every
+        slot's partial in global slot order."""
         if any(p.kind in SKETCH_KINDS for p in agg_plans):
             raise EngineFallback("sketch aggregation over hashed group-by")
         cards = [p.card for p in dim_plans]
@@ -1564,12 +1653,14 @@ class QueryEngine:
             parts = H.split_parts(cards)
         except H.KeySpaceTooWide as e:
             raise EngineFallback(str(e)) from e
-        n_dev = mesh_size(self.mesh) if sharded else 1
+        n_dev = self._shard_count(ds, sharded)
+        ranks = sharded and ds.is_partial
+        bind = bind or _Bind(seg_idx, n_dev)
         rows_sel = _rows_of(ds, seg_idx)
         n_keys_total = _key_space(dim_plans)
         max_slots = self._hash_max_slots()
         T = self._hash_slots(rows_sel, n_keys_total)
-        wave_segs = FU.plan_device_waves(seg_idx, spw, 1)
+        wave_segs = FU.plan_device_waves(bind.idx, spw, 1)
         metas = [G.AggInput(p.spec.name, p.kind, is_int=p.is_int)
                  for p in agg_plans]
         topk_plan = None if no_topk or n_dev > 1 else \
@@ -1607,17 +1698,17 @@ class QueryEngine:
                                    filter_spec, intervals, min_day, max_day,
                                    T, routes, sorted_run, compact_m=lm)
             # one table per slot (one on one device), each on its device
-            chips_of = (lambda a: MX.run_slots(self.mesh, core, a)) \
+            chips_of = (lambda a: MX.run_slots(self._slots(), core, a)) \
                 if sharded else (lambda a: [core(a[0])])
             t = _time.perf_counter()
             if n_waves == 1:
-                arrays = self._bind_arrays(ds, names, seg_idx, n_dev)
+                arrays = self._bind_arrays(ds, names, bind.idx, bind.n)
                 t = _phase("bind", t)
                 check()
-                waves = [chips_of(arrays if sharded else [arrays])]
+                waves = [chips_of(arrays)]
             else:
                 binder = _WaveBinder(ds, names, spw, self.device,
-                                     self.mesh if sharded else None)
+                                     self._slots() if sharded else None)
                 waves = binder.stream(chips_of, wave_segs, check)
             partials, unresolved = [], 0
             # each wave's tables; under waves the next wave's bind is
@@ -1630,6 +1721,9 @@ class QueryEngine:
                         [c.pop("__unres__")[0].to(torch.int64),
                          (c["__tkhi__"] != H.EMPTY).sum()]).to(self.device)
                         for c in chips]).cpu().numpy()
+                    if ranks:
+                        stats = np.concatenate(
+                            [r["s"] for r in _gather_host([{"s": stats}])])
                     unresolved += int(stats[:, 0].sum())
                     if unresolved:
                         break
@@ -1645,7 +1739,9 @@ class QueryEngine:
                         kg_used = max(kg_used, k_sel)
                         raws = _hash_topk_exchange(
                             chips, routes, metric, ascending, k_cand,
-                            k_sel, T, self.device)
+                            k_sel, T, self.device, ranks)
+                        if ranks:
+                            raws = _gather_host(raws)
                         partials += _hash_chip_partials(raws, routes, k_sel)
                         continue
                     # dispatch 2 of 2: the occupied slots are a table's
@@ -1655,6 +1751,8 @@ class QueryEngine:
                     kg_used = max(kg_used, kg)
                     raws = [_to_host({k: v[:kg] for k, v in c.items()})
                             for c in chips]
+                    if ranks:
+                        raws = _gather_host(raws)
                     partials += _hash_chip_partials(raws, routes, kg)
                     continue
                 raws = []
@@ -1663,9 +1761,11 @@ class QueryEngine:
                         unres = out.pop("__unres__")
                         out = _hash_topk_gather(out, routes, topk, T)
                         out["__unres__"] = unres
-                    raw = _to_host(out)
+                    raws.append(_to_host(out))
+                if ranks:
+                    raws = _gather_host(raws)
+                for raw in raws:
                     unresolved += int(raw.pop("__unres__")[0])
-                    raws.append(raw)
                 if unresolved:
                     break
                 if topk:
@@ -1720,9 +1820,10 @@ class QueryEngine:
                 return self._run_agg_hashed(
                     q, ds, seg_idx, dim_plans, agg_plans, names, min_day,
                     max_day, post_aggregations, having, limit, filter_spec,
-                    intervals, check, spw, n_waves, sharded, no_topk=True)
+                    intervals, check, spw, n_waves, sharded, no_topk=True,
+                    bind=bind)
         self.last_stats.update({
-            "datasource": ds.name, "segments": int(len(seg_idx)),
+            "datasource": ds.name, "segments": _n_real(seg_idx),
             "sharded": sharded, "devices": int(n_dev),
             "groups": int(len(keys)), "rows_scanned": int(ds.num_rows),
             "waves": len(wave_segs), "segments_per_wave": int(spw),
@@ -1990,18 +2091,53 @@ class QueryEngine:
             io_budget=C.tier_io_budget(ds, self.config),
             io_seg_bytes=C.tier_io_seg_bytes(ds, names))
 
-    def _solo_program(self, lane, sharded: bool):
-        """``run(core, arrays)``: the core over one device's bind, or,
-        sharded, over every slot of the mesh's bind (a list of per-slot
-        dicts), the slots' outputs merged on the root
-        (``parallel/meshexec.build_sharded_program``)."""
+    def _solo_program(self, lane, sharded: bool, ranks: bool = False):
+        """``run(core, arrays)`` over a bind's per-slot dicts: the core over
+        the one device's, or, sharded, over every slot's, the slots'
+        outputs merged on the root
+        (``parallel/meshexec.build_sharded_program``) and, over the
+        multi-process mesh (``ranks``), across the ranks."""
         if not sharded:
-            return lambda core, arrays: core(arrays)
+            return lambda core, arrays: core(arrays[0])
 
         def run(core, slot_arrays):
             return MX.build_sharded_program(
-                self, lambda a: [core(a)], [lane])(slot_arrays)[0]
+                self, lambda a: [core(a)], [lane], ranks=ranks)(
+                    slot_arrays)[0]
         return run
+
+    def _multihost_layout(self, ds, seg_idx, n_waves, names):
+        """Re-order a (pruned) selection of a partial store into per-host
+        blocks, so each process's slots scan exactly the segments it holds
+        (the JAX engine's ``_multihost_layout``;
+        ``multihost.layout_segments``, with waves
+        ``multihost.layout_segments_waves``, whose every ``spw``-slice is
+        itself host-blocked). Returns ``(ordered, spw, n_waves, bind)``:
+        the global layout (``-1`` padding) and its segments per wave, what
+        planning reads, and :class:`_Bind`, this process's blocks of every
+        wave over its local slots."""
+        slots = self._slots()
+        n_hosts, dph = MH.host_blocks(slots)
+        assignment = ds.host_assignment
+        if n_waves > 1:
+            # the byte budget caps a host's share of a wave directly: a
+            # host owning more than its share of the pruned segments must
+            # not bind past the per-slot budget the wave plan assumed
+            ordered, spw = MH.layout_segments_waves(
+                assignment, seg_idx, n_hosts, dph, n_waves,
+                seg_bytes=int(C.bytes_per_segment(ds, names)),
+                wave_budget=int(C.wave_budget_bytes(
+                    self.config, self.device, self.mesh) or 0))
+        else:
+            ordered, _ = MH.layout_segments(assignment, seg_idx, n_hosts,
+                                            dph)
+            spw = len(ordered)
+        per, h = spw // n_hosts, MH.process_index()
+        waves = len(ordered) // spw
+        local = np.concatenate([ordered[w * spw + h * per:
+                                        w * spw + (h + 1) * per]
+                                for w in range(waves)])
+        return ordered, spw, waves, _Bind(local, len(slots), per)
 
     def _run_waves(self, ds, names, seg_idx, spw, core, routes, n_keys,
                    sketch_plans, check=None, sharded: bool = False):
@@ -2010,15 +2146,15 @@ class QueryEngine:
         each wave's [K] finals on the host; ``check`` runs at every wave
         boundary. Returns ``(finals, 0)``, or ``(None, overflow)`` when a
         wave's late-materialization budget overflowed: the caller re-runs
-        the scan uncompacted. ``sharded``: each wave binds per slot of the
-        mesh and ``core`` is the sharded program."""
+        the scan uncompacted. ``core`` takes a wave's per-slot binds;
+        ``sharded``: each wave binds per slot of the mesh and ``core`` is
+        the sharded program."""
         binder = _WaveBinder(ds, names, spw, self.device,
-                             self.mesh if sharded else None)
-        prog = core if sharded else (lambda a: core(a[0]))
+                             self._slots() if sharded else None)
         finals = None
         try:
             for out in binder.stream(
-                    prog, FU.plan_device_waves(seg_idx, spw, 1), check):
+                    core, FU.plan_device_waves(seg_idx, spw, 1), check):
                 host = _to_host(out)
                 over = host.pop("__over__", None)
                 if over is not None and int(over[0]):
@@ -2039,24 +2175,26 @@ class QueryEngine:
         the whole cache first, so residency peaks at the cap plus one
         array.
 
-        ``n_dev`` > 1 is the sharded bind: the selection pads with empty
-        segments to a multiple of the mesh (:func:`_pad_segments`) and
-        slot ``i`` gets the ``i``-th ``[S / n, R]`` share on its device,
-        so the bind returns one dict per slot. On a tiered datasource it
-        opens a mesh pin scope (``acquire_pins(devices=n)``) while the
-        shares fault."""
+        Returns one dict per slot: ``n_dev`` 1 binds the whole selection
+        on the engine's device; ``n_dev``
+        > 1 is the sharded bind: the selection pads with empty segments to
+        a multiple of the mesh (:func:`_pad_segments`) and slot ``i`` gets
+        the ``i``-th ``[S / n, R]`` share on its device. On a tiered
+        datasource a sharded bind opens a mesh pin scope
+        (``acquire_pins(devices=n)``) while the shares fault. ``-1`` ids
+        bind empty segments (``ops/scan.build_array_blocks``)."""
         seg_sig = (len(seg_idx), hash(np.asarray(seg_idx).tobytes()))
         cap = int(self.config.get(DEVICE_CACHE_BYTES))
         if n_dev <= 1:
             with self._bind_lock:
                 return self._bind_locked(ds, names, seg_idx, seg_sig, cap,
-                                         (self.device,))[0]
+                                         (self.device,))
         tier = getattr(ds, "tier", None)
         tok = tier.acquire_pins(devices=n_dev) if tier is not None else None
         try:
             with self._bind_lock:
                 return self._bind_locked(ds, names, seg_idx, seg_sig, cap,
-                                         self.mesh[:n_dev])
+                                         self._slots()[:n_dev])
         finally:
             if tok is not None:
                 tier.release_pins(tok)
@@ -2096,8 +2234,9 @@ class QueryEngine:
         from the store's host copies."""
         ds = self.store.get(q.datasource)
         if ds.is_partial:
-            raise not_ported("select over a multi-host partial store",
-                             "A.8")
+            # a partial store: each host's mask, then the survivors' and
+            # the page's exchange, never the columns
+            return self._run_select_multihost(q, ds)
         cols = list(q.columns) or ds.column_names()
         seg_idx = ds.prune_segments(q.intervals, q.filter)
         if len(seg_idx) == 0:
@@ -2131,15 +2270,90 @@ class QueryEngine:
                     * int(len(seg_idx))
         return QueryResult(cols, data)
 
+    def _run_select_multihost(self, q: S.SelectQuerySpec,
+                              ds: Datasource) -> QueryResult:
+        """Select paging over a partial store (the JAX engine's
+        ``_run_select_multihost``): every rank runs the same statement;
+        each evaluates the filter over ITS local rows, the ranks exchange
+        the surviving GLOBAL row ids (O(survivors)), every rank slices the
+        same page, and only the page's raw values travel — dimensions as
+        dictionary codes, decoded against the replicated global dictionary
+        (≈ Druid Select paging through the broker across historicals). A
+        partial store in one process has no peers: it raises
+        ``require_complete``'s error."""
+        if not MH.is_multihost():
+            ds.require_complete("select scan")
+        cols = list(q.columns) or ds.column_names()
+        seg_idx = ds.prune_segments(q.intervals, q.filter)
+        if len(seg_idx) == 0:
+            # metadata-deterministic: every rank returns here together
+            return QueryResult.empty(cols)
+        t = _time.perf_counter()
+        mask_local = self._host_mask(ds, q.filter, q.intervals, local=True)
+        self.last_stats["select_filter"] = "host-local"
+        gsur = ds.local_to_global_rows()[np.nonzero(mask_local)[0]]
+        all_ids = np.sort(np.concatenate(MH.exchange_block(gsur)))
+        if q.descending:
+            all_ids = all_ids[::-1]
+        page = all_ids[q.page_offset: q.page_offset + q.page_size]
+        owner = ds.owner_of_rows(page)
+        mine = np.nonzero(owner == ds.host_id)[0].astype(np.int64)
+        lidx = ds.global_to_local_rows(page[mine])
+        n_page = len(page)
+        pos_blocks = MH.exchange_block(mine)
+
+        def assemble(local_vals):
+            """Each rank's page rows, placed at their page positions."""
+            out = np.zeros((n_page,) + local_vals.shape[1:],
+                           local_vals.dtype)
+            for pb, blk in zip(pos_blocks, MH.exchange_block(local_vals)):
+                out[pb] = blk
+            return out
+
+        # a page-sized COMPLETE datasource: the raw storage arrays travel,
+        # then the standard host decode runs unchanged
+        dims, mets, time = {}, {}, None
+        for c in cols:
+            if c in ds.dims:
+                col = ds.dims[c]
+                dims[c] = dataclasses.replace(
+                    col, codes=assemble(col.codes[lidx]),
+                    validity=(assemble(col.validity[lidx])
+                              if col.validity is not None else None))
+            elif c in ds.metrics:
+                m = ds.metrics[c]
+                mm = dataclasses.replace(
+                    m, values=assemble(m.values[lidx]),
+                    validity=(assemble(m.validity[lidx])
+                              if m.validity is not None else None))
+                mm._bounds_cache = (m.min, m.max)
+                mets[c] = mm
+            elif ds.time is not None and c == ds.time.name:
+                time = dataclasses.replace(
+                    ds.time, days=assemble(ds.time.days[lidx]),
+                    ms_in_day=assemble(ds.time.ms_in_day[lidx]))
+        page_ds = Datasource(name=ds.name, time=time, dims=dims,
+                             metrics=mets,
+                             segments=[Segment("page", 0, n_page, 0, 0)])
+        data = {c: _host_column_values(page_ds, c, None) for c in cols}
+        _phase("epilogue", t)
+        self.last_stats.update({"datasource": ds.name,
+                                "rows": int(n_page),
+                                "rows_scanned": int(ds.num_rows),
+                                "n_transfer": int(len(all_ids) + n_page)})
+        return QueryResult(cols, data)
+
     def _run_search(self, q: S.SearchQuerySpec) -> QueryResult:
         """Dictionary values of each dimension that contain the needle,
         with their row counts under the filter (host-side occurrence
-        counting; NULL rows count for no value)."""
+        counting; NULL rows count for no value). On a partial store each
+        rank counts ITS rows and the per-code counts are summed across
+        the ranks (O(cardinality) transfer, never the columns)."""
         ds = self.store.get(q.datasource)
-        if ds.is_partial:
-            raise not_ported("search over a multi-host partial store",
-                             "A.8")
-        mask = self._host_mask(ds, q.filter, q.intervals)
+        partial = ds.is_partial
+        if partial and not MH.is_multihost():
+            ds.require_complete("search scan")
+        mask = self._host_mask(ds, q.filter, q.intervals, local=partial)
         needle = q.query if q.case_sensitive else q.query.lower()
         dims_out, vals_out, counts_out = [], [], []
         for dname in q.dimensions:
@@ -2154,6 +2368,9 @@ class QueryEngine:
                 # of dictionary[0]
                 eff = eff & dim.validity
             counts = np.bincount(dim.codes[eff], minlength=dim.cardinality)
+            if partial:
+                counts = np.sum(MH.exchange_block(counts.astype(np.int64)),
+                                axis=0)
             for c in cand:
                 if counts[c] > 0:
                     dims_out.append(dname)
@@ -2198,7 +2415,7 @@ class QueryEngine:
             needed.add(ds.time.name)
         names = array_names(ds, sorted(needed), time_in_play)
         try:
-            arrays = self._bind_arrays(ds, names, seg_idx)
+            arrays = self._bind_arrays(ds, names, seg_idx)[0]
             ctx = ScanContext(ds, arrays, min_day, max_day,
                               tz=self.config.get(TZ_ID))
             _, base = _scan_base(ctx, filter_spec, intervals, False)
@@ -2215,9 +2432,14 @@ class QueryEngine:
         self.last_stats["select_filter"] = "device"
         return mask
 
-    def _host_mask(self, ds: Datasource, filter_spec, intervals):
-        """The row mask evaluated on the host from the store's copies."""
-        n = ds.num_rows
+    def _host_mask(self, ds: Datasource, filter_spec, intervals,
+                   local: bool = False):
+        """The row mask evaluated on the host from the store's copies;
+        ``local``: over this process's rows of a partial store (a mask of
+        ``local_num_rows``), which a whole-store mask refuses."""
+        if not local:
+            ds.require_complete("a host row mask")
+        n = ds.local_num_rows
         mask = np.ones(n, dtype=bool)
         if intervals is not None and ds.time is not None:
             ms = ds.time.millis
@@ -2226,7 +2448,7 @@ class QueryEngine:
                 im |= (ms >= lo) & (ms < hi)
             mask &= im
         if filter_spec is not None:
-            env = {c: _host_column_values(ds, c, None)
+            env = {c: _host_column_values(ds, c, None, local_ok=local)
                    for c in sorted(F.columns_of_filter(filter_spec))}
             mask &= host_eval.eval_pred3(filter_to_expr(filter_spec), env)
         return mask
@@ -2472,8 +2694,35 @@ def _key_space(dim_plans) -> int:
 
 
 def _rows_of(ds, seg_idx) -> int:
-    """Rows of the selected segments: what a scan can select at most."""
-    return int(sum(ds.segments[int(si)].num_rows for si in seg_idx))
+    """Rows of the selected segments: what a scan can select at most
+    (``-1``, a multi-process layout's padding, holds none)."""
+    return int(sum(ds.segments[int(si)].num_rows for si in seg_idx
+                   if si >= 0))
+
+
+def _n_real(seg_idx) -> int:
+    """The segments of a selection that are not padding (``-1``)."""
+    return int((np.asarray(seg_idx) >= 0).sum())
+
+
+@dataclasses.dataclass
+class _Bind:
+    """What this process binds of a scan: ``idx`` its segment ids (``-1``
+    padding over the multi-process mesh), over ``n`` slots, in waves of
+    ``spw`` segments."""
+    idx: np.ndarray
+    n: int
+    spw: int = 0
+
+
+def _gather_host(raws: List[Dict[str, np.ndarray]]) -> list:
+    """Every rank's host dicts (one per local slot, the same shapes on
+    every rank), rank-major: the slots of the multi-process mesh in
+    global order (``multihost.gather_partials``)."""
+    got = MH.gather_partials([{k: torch.from_numpy(np.ascontiguousarray(v))
+                               for k, v in r.items()} for r in raws])
+    return [{k: v.numpy() for k, v in r.items()} for rank in got
+            for r in rank]
 
 
 def _phase(name: str, t0: float) -> float:
@@ -2668,7 +2917,7 @@ def _hash_chip_partials(raws, routes, T) -> list:
 
 
 def _hash_topk_exchange(chips, routes, metric, ascending, k_cand, k_sel, T,
-                        root) -> list:
+                        root, ranks: bool = False) -> list:
     """The sharded hashed ordered limit without moving the tables (the
     JAX package's ``_build_hash_topk_exchange_program``): each slot
     nominates its local top ``k_cand`` keys; the candidate lists gather
@@ -2680,7 +2929,13 @@ def _hash_topk_exchange(chips, routes, metric, ascending, k_cand, k_sel, T,
     row that the host merge drops. Duplicated nominations keep their
     first occurrence; a min / max group is NULL when every slot holding
     it holds the sentinel, read off the raw values before the float
-    score, and ranks last. Returns one host dict per slot."""
+    score, and ranks last. Returns one host dict per slot.
+
+    ``ranks``: the slots are this process's of the multi-process mesh;
+    the candidate lists and each rank's folded contributions are gathered
+    across the ranks (rank order, ``multihost.gather_partials``), so every
+    rank picks the same global candidates and returns its own slots'
+    rows of them."""
     r = routes[metric]
     cand = []
     for c in chips:
@@ -2691,6 +2946,10 @@ def _hash_topk_exchange(chips, routes, metric, ascending, k_cand, k_sel, T,
                      for t in (tkhi, tklo)])
     cand_hi = torch.cat([h for h, _ in cand])
     cand_lo = torch.cat([lo for _, lo in cand])
+    if ranks:
+        got = MH.gather_partials([cand_hi, cand_lo])
+        cand_hi = torch.cat([g[0] for g in got])
+        cand_lo = torch.cat([g[1] for g in got])
     ident = {"min": float("inf"), "max": float("-inf")}.get(r.kind, 0.0)
     fold = {"min": torch.minimum, "max": torch.maximum}.get(r.kind,
                                                            torch.add)
@@ -2710,6 +2969,13 @@ def _hash_topk_exchange(chips, routes, metric, ascending, k_cand, k_sel, T,
         v = vi if v is None else fold(v, vi)
         n_found = fi if n_found is None else n_found + fi
         n_real = ri if n_real is None else n_real + ri
+    if ranks:
+        got = MH.gather_partials([v, n_found, n_real])
+        v = got[0][0]
+        n_found, n_real = got[0][1], got[0][2]
+        for g in got[1:]:
+            v = fold(v, g[0])
+            n_found, n_real = n_found + g[1], n_real + g[2]
     sc = -v if ascending else v
     if r.kind in ("min", "max"):
         sc = torch.where(n_real > 0, sc, -torch.finfo(sc.dtype).max)
@@ -3040,10 +3306,17 @@ def _decode_anyvalue(ds: Datasource, field: str, v: np.ndarray,
 
 
 def _host_column_values(ds: Datasource, name: str,
-                        idx: Optional[np.ndarray]):
+                        idx: Optional[np.ndarray], *,
+                        local_ok: bool = False):
     """Decoded host values of a column (optionally a row subset), read
     from the store's host copies and never from the device cache (the
-    JAX executor's ``_host_column_values`` on a complete store)."""
+    JAX executor's ``_host_column_values``). On a partial store only
+    ``local_ok`` reads are allowed: THIS host's rows (local row indices),
+    for the select and search paths that exchange results instead of
+    columns; the host tier reads a gathered complete view
+    (``Datasource.complete``)."""
+    if not local_ok:
+        ds.require_complete(f"a host read of column {name!r}")
     if name in ds.dims:
         col = ds.dims[name]
         codes = col.codes if idx is None else col.codes[idx]

@@ -10,6 +10,10 @@ is one slot, and a tuple may repeat a device:
 - ``cuda:0 ... cuda:N-1`` on a host with N cards, the default of
   :func:`make_mesh`.
 
+Over the multi-process mesh (``parallel/multihost.py``) a process's mesh
+is its own slots, and a scan splits into ``process_count() x slots``
+shards.
+
 A sharded array is a list of per-slot ``[S / n, R]`` tensors, each on its
 slot's device (``parallel/executor.py``'s sharded bind); nothing is laid
 out across devices behind the caller's back. JAX's ``shard_map``,

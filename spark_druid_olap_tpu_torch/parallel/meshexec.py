@@ -22,9 +22,14 @@ device:
    for bit the same. The result stays on the root device, which the one
    process reads; JAX's replicated ``P()`` has no other reader here.
 
-No NCCL: ``torch.cuda.nccl`` cannot take one device twice, and
-``torch.distributed`` belongs to the multi-process mesh (ROADMAP A.8.2).
-Each slot launches the same hand-written kernel as one device does (B1
+Within a process no NCCL: ``torch.cuda.nccl`` cannot take one device
+twice. Over the multi-process mesh (``parallel/multihost.py``) a solo
+program's merged partial then travels once more: every rank's is
+gathered (``multihost.gather_partials``: NCCL on the cards, or gloo
+through a host copy) and folded in rank order with the same
+``merge_lane_partials``, so every rank holds the same bytes; no
+``all_reduce``, whose float sums depend on the transport's order. Each
+slot launches the same hand-written kernel as one device does (B1
 through ``ops/groupby.dense_groupby``, B2 through ``ops/cuda_wave``), and
 its wrapper raises on failure as it does there.
 
@@ -97,9 +102,12 @@ def decide(eng, ds, lanes, n_segments: int) -> MeshDecision:
 
     - ``no-mesh``       the engine has no mesh, or one slot
     - ``disabled``      ``sdot.mesh.enabled`` is false (kill switch)
-    - ``multihost``     ``torch.distributed`` runs more than one process;
-                        the mesh across processes is ROADMAP A.8.2
-    - ``partial-store`` the datasource's rows live across processes
+    - ``multihost``     ``torch.distributed`` runs more than one process:
+                        the fused tier stays in one process, as in the
+                        JAX package
+    - ``partial-store`` the datasource's rows live across processes (the
+                        coalescer declines it before this check, and each
+                        statement runs solo over the multi-process mesh)
     - ``few-segments``  fewer selected segments than
                         ``sdot.mesh.min.segments`` (at least 2)
     - ``cost-single``   the cost model priced the merge above the scan
@@ -239,22 +247,29 @@ def to_root(mesh, obj):
     return obj
 
 
-def build_sharded_program(eng, lane_outs_fn: Callable, lanes):
+def build_sharded_program(eng, lane_outs_fn: Callable, lanes,
+                          ranks: bool = False):
     """Wrap ``lane_outs_fn`` (one slot's arrays -> one route-conformant
     output dict per lane: the fused lane program, the wave kernel's
-    ``wave_fn`` or a solo core) for the engine's mesh. The returned
-    callable takes the per-slot arrays (the sharded bind: one dict per
-    slot) and returns the lanes' merged outputs on the root device, the
-    same dicts the single-device program returns, so the copy to the
-    host and the decode are shared."""
-    mesh = eng.mesh
+    ``wave_fn`` or a solo core) for the engine's mesh (its one device
+    without one). The returned callable takes the per-slot arrays (the
+    sharded bind: one dict per slot) and returns the lanes' merged
+    outputs on the root device, the same dicts the single-device program
+    returns, so the copy to the host and the decode are shared. ``ranks``:
+    the merged outputs are then every rank's of the multi-process mesh,
+    gathered and folded in rank order."""
+    mesh = eng.mesh or (eng.device,)
     kinds = [sketch_kinds(lp.agg_plans) for lp in lanes]
 
-    def run(slot_arrays):
-        outs = to_root(mesh, run_slots(mesh, lane_outs_fn, slot_arrays))
-        return [G.merge_lane_partials([o[i] for o in outs], lp.routes,
+    def fold(parts):
+        return [G.merge_lane_partials([o[i] for o in parts], lp.routes,
                                       kinds[i])
                 for i, lp in enumerate(lanes)]
+
+    def run(slot_arrays):
+        merged = fold(to_root(mesh, run_slots(mesh, lane_outs_fn,
+                                              slot_arrays)))
+        return fold(MH.gather_partials(merged)) if ranks else merged
 
     return run
 

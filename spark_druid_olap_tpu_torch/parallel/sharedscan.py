@@ -358,7 +358,9 @@ class SharedScanCoalescer:
             ds = eng.store.get(live[0].q.datasource)
         except Exception:  # noqa: BLE001 — the solo path reports the error
             return solo(live)
-        if ds.num_rows == 0:
+        if ds.is_partial or ds.num_rows == 0:
+            # a partial store is never coalesced: each member runs solo
+            # over the multi-process mesh, in the order the ranks agree on
             return solo(live)
 
         # 1-3. shape and prune, the union's day basis, plan the lanes
@@ -756,15 +758,15 @@ class SharedScanCoalescer:
                 lp.n_keys, sketch[i]) for i, lp in enumerate(lanes)]
 
         eng = self.engine
+        prog = prog_fn if n_dev > 1 else (lambda a: prog_fn(a[0]))
         if n_waves == 1:
             arrays = eng._bind_arrays(ds, union_names, seg_u, n_dev)
             check()
-            return lane_finals(prog_fn(arrays)), None
+            return lane_finals(prog(arrays)), None
         seg_rows = {int(si): int(ds.segments[int(si)].num_rows)
                     for si in seg_u} if n_dev > 1 else None
         binder = X._WaveBinder(ds, union_names, spw, eng.device,
                                eng.mesh if n_dev > 1 else None)
-        prog = prog_fn if n_dev > 1 else (lambda a: prog_fn(a[0]))
         finals = None
         for outs in binder.stream(
                 prog, FU.plan_device_waves(seg_u, spw, n_dev, seg_rows),

@@ -128,6 +128,20 @@ def datasource_frame(ctx, name: str, columns=None) -> pd.DataFrame:
     names = ds.column_names()
     if columns is not None:
         names = [c for c in names if c in columns]
+    # a partial store of the multi-process mesh: a complete view of the
+    # NEEDED columns, gathered across the processes in bounded pages and
+    # cached per column, so the host tier serves any statement shape over
+    # it (≈ DruidRelation.scala:111's Spark-side fallback scan)
+    src = ds
+    from spark_druid_olap_tpu_torch.utils.config import (
+        HOST_GATHER_PAGE_BYTES)
+    ds = ds.complete(columns=names,
+                     page_bytes=ctx.config.get(HOST_GATHER_PAGE_BYTES))
+    if getattr(ds, "gathered_from_partial", False):
+        # the byte-bounded gather cache, per statement as the engine's
+        # counters are
+        ctx.engine.last_stats["gathered_bytes"] = int(
+            src._gathered_cols.bytes)
     data = {c: _host_column_values(ds, c, None) for c in names}
     out = pd.DataFrame(data)
     if len(out.columns) == 0:

@@ -66,6 +66,8 @@ def ingest_dataframe(
     metric_kinds: Optional[Dict[str, ColumnKind]] = None,
     spatial_dims: Optional[Dict[str, Iterable[str]]] = None,
     drop_columns: Optional[Iterable[str]] = None,
+    n_hosts: Optional[int] = None,
+    host_id: Optional[int] = None,
 ) -> Datasource:
     """Ingest a DataFrame as a datasource.
 
@@ -77,6 +79,14 @@ def ingest_dataframe(
     ingest-time spatialDimensions. Axis columns stay queryable as plain
     metrics; conjunctive range predicates on them collapse into one
     rectangular ``SpatialFilter`` with segment bounding-box pruning.
+
+    ``n_hosts`` > 1 with ``host_id`` builds this process's *partial
+    store* of the multi-process mesh (``parallel/multihost.py``): every
+    process ingests the same frame deterministically, then keeps only its
+    host's segment rows (``segment/store.restrict_to_host``). The streamed
+    path (``stream_ingest.ingest_parquet_stream``) never materializes the
+    other hosts' rows; this one trades that for simplicity at in-memory
+    scale.
     """
     df = df.reset_index(drop=True)
     n = len(df)
@@ -168,8 +178,17 @@ def ingest_dataframe(
                     f"column of {name!r}")
         spatial[sname] = axes
 
-    return Datasource(name=name, time=time_col, dims=dims, metrics=mets,
-                      segments=segments, spatial=spatial)
+    ds = Datasource(name=name, time=time_col, dims=dims, metrics=mets,
+                    segments=segments, spatial=spatial)
+    if n_hosts is not None and int(n_hosts) > 1:
+        from spark_druid_olap_tpu_torch.parallel.multihost import (
+            assign_segments_to_hosts)
+        from spark_druid_olap_tpu_torch.segment.store import (
+            restrict_to_host)
+        rows = np.array([s.num_rows for s in segments], np.int64)
+        ds = restrict_to_host(ds, assign_segments_to_hosts(
+            rows, int(n_hosts)), int(host_id or 0))
+    return ds
 
 
 def ingest_parquet(name: str, path: str, **kwargs) -> Datasource:

@@ -1,11 +1,13 @@
 """Datasource / segment store.
 
 Port of ``spark_druid_olap_tpu/segment/store.py``: ``Segment``,
-``Datasource`` (stacked tensors, interval and zone-map pruning) and
-``SegmentStore``, without the multi-host partial-store machinery, plus
-:func:`datasource_from_arrays`, which rebuilds a datasource from a plain
-numpy layout so that two engines can query one identical store, and
-:func:`slice_segments`, the owned-shard slice a cluster historical serves.
+``Datasource`` (stacked tensors, interval and zone-map pruning, the
+multi-process mesh's *partial store* with its paged ``complete()``
+gather), ``restrict_to_host`` and ``SegmentStore``, plus
+:func:`datasource_from_arrays`, which rebuilds a datasource (complete or
+partial) from a plain numpy layout so that two engines can query one
+identical store, and :func:`slice_segments`, the owned-shard slice a
+cluster historical serves.
 
 A **datasource** holds its columns time-sorted end-to-end; a **segment** is
 a contiguous row-range over that order. The executable layout is the
@@ -31,6 +33,12 @@ from spark_druid_olap_tpu_torch.segment.column import (
 )
 
 ROW_ALIGN = 1024  # pad segment rows to a multiple of this
+
+# the host tier's gather of a partial store (Datasource.complete): the
+# cache of gathered columns, and one exchange page when the session's
+# sdot.host.gather.page.bytes does not say
+GATHERED_CACHE_MAX_BYTES = 4 << 30
+DEFAULT_GATHER_PAGE_BYTES = 32 << 20
 
 # Datasource.serial: a number no other Datasource of this process takes
 _SERIALS = itertools.count(1)
@@ -59,7 +67,8 @@ class Datasource:
     def __init__(self, name: str, time: Optional[TimeColumn],
                  dims: Dict[str, DimColumn], metrics: Dict[str, MetricColumn],
                  segments: List[Segment],
-                 spatial: Optional[Dict[str, Tuple[str, ...]]] = None):
+                 spatial: Optional[Dict[str, Tuple[str, ...]]] = None,
+                 host_assignment=None, host_id: int = 0):
         self.name = name
         # the identity every cache of derived device state keys on (bound
         # columns, programs, lowerability): unlike id(), a datasource that
@@ -76,20 +85,214 @@ class Datasource:
             k: tuple(v) for k, v in (spatial or {}).items()}
         self._stacked_cache: Dict[str, np.ndarray] = {}
         self._bounds_cache: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
+        # multi-process partial store (parallel/multihost.py):
+        # ``segments`` stays the GLOBAL metadata list (planning must be the
+        # same on every process); the column arrays cover only the rows of
+        # the segments assigned to ``host_id``, concatenated in ascending
+        # global order. ``host_assignment`` is the global [S] -> host map
+        # (≈ Druid's segment -> historical assignment,
+        # DruidMetadataCache.scala:105-148).
+        self.host_id = int(host_id)
+        if host_assignment is None:
+            self.host_assignment = None
+            self.local_seg_ids = None
+            self._local_pos = None
+        else:
+            self.host_assignment = np.asarray(host_assignment, np.int32)
+            if len(self.host_assignment) != len(segments):
+                raise ValueError("host_assignment length != num segments")
+            self.local_seg_ids = np.nonzero(
+                self.host_assignment == self.host_id)[0].astype(np.int64)
+            pos = np.full(len(segments), -1, dtype=np.int64)
+            pos[self.local_seg_ids] = np.arange(len(self.local_seg_ids))
+            self._local_pos = pos
+        # padded_rows from GLOBAL metadata: the same on every process
         n = max((s.num_rows for s in segments), default=0)
         self.padded_rows = max(ROW_ALIGN, -(-n // ROW_ALIGN) * ROW_ALIGN)
-        # the port builds complete stores only; a multi-host partial store
-        # (its rows spread over processes) is ROADMAP A.8, and the
-        # executor refuses select and search over one
-        self.is_partial = False
+
+    # -- multi-process partial stores ----------------------------------------
+    @property
+    def is_partial(self) -> bool:
+        """True when this process holds only its host's segment rows."""
+        return self.local_seg_ids is not None
 
     def require_complete(self, what: str = "this operation") -> None:
-        """Host paths (a checkpoint, an append) read full columns; on a
-        partial store that would silently cover one host's rows."""
+        """Host paths materialize full columns; on a partial store that
+        would silently compute over ONE host's rows."""
         if self.is_partial:
             raise RuntimeError(
                 f"{what} requires the complete datasource, but "
-                f"{self.name!r} is a multi-host partial store")
+                f"{self.name!r} holds only host {self.host_id}'s "
+                f"{len(self.local_seg_ids)}/{self.num_segments} segments "
+                f"(multi-host partial store)")
+
+    @property
+    def local_num_rows(self) -> int:
+        """Rows THIS process holds (``num_rows`` on a complete store)."""
+        if not self.is_partial:
+            return self.num_rows
+        return int(sum(self.segments[int(i)].num_rows
+                       for i in self.local_seg_ids))
+
+    def local_to_global_rows(self) -> np.ndarray:
+        """[local_num_rows] -> global row id (ascending: the local columns
+        hold the local segments' rows in ascending global order)."""
+        if not self.is_partial:
+            return np.arange(self.num_rows, dtype=np.int64)
+        parts = [np.arange(self.segments[int(i)].start_row,
+                           self.segments[int(i)].end_row, dtype=np.int64)
+                 for i in self.local_seg_ids]
+        return np.concatenate(parts) if parts \
+            else np.empty(0, dtype=np.int64)
+
+    def global_to_local_rows(self, gids: np.ndarray) -> np.ndarray:
+        """Global row ids (all owned by this host) -> local row offsets."""
+        gids = np.asarray(gids, dtype=np.int64)
+        if not self.is_partial:
+            return gids
+        starts = np.array([s.start_row for s in self.segments],
+                          dtype=np.int64)
+        seg_of = np.searchsorted(starts, gids, side="right") - 1
+        local_rows = np.array(
+            [self.segments[int(i)].num_rows for i in self.local_seg_ids],
+            dtype=np.int64)
+        base = np.concatenate([[0], np.cumsum(local_rows)[:-1]]) \
+            if len(local_rows) else np.empty(0, np.int64)
+        lpos = self._local_pos[seg_of]
+        if (lpos < 0).any():
+            raise ValueError("global_to_local_rows: row not owned by "
+                             f"host {self.host_id}")
+        return base[lpos] + (gids - starts[seg_of])
+
+    def owner_of_rows(self, gids: np.ndarray) -> np.ndarray:
+        """Global row ids -> owning host id (through the segments'
+        assignment)."""
+        gids = np.asarray(gids, dtype=np.int64)
+        starts = np.array([s.start_row for s in self.segments],
+                          dtype=np.int64)
+        seg_of = np.searchsorted(starts, gids, side="right") - 1
+        if self.host_assignment is None:
+            return np.zeros(len(gids), dtype=np.int32)
+        return self.host_assignment[seg_of]
+
+    def complete(self, columns=None, page_bytes=None) -> "Datasource":
+        """A COMPLETE view of this datasource: itself when complete; on a
+        partial store, a clone whose column arrays are assembled by a
+        cross-process exchange (``parallel/multihost.exchange_block``), the
+        safety valve that lets the host tier serve ANY statement shape
+        over a partial store (≈ the reference's Spark-side fallback scan
+        pulling rows off the historicals, ``DruidRelation.scala:111``).
+        Engine paths never call this.
+
+        ``columns`` prunes the gather to the needed columns (plus the time
+        column, always); gathered arrays are cached per column (a
+        byte-budgeted LRU of ``GATHERED_CACHE_MAX_BYTES``), so repeated
+        host-tier statements exchange each column once. Gathers run in
+        SORTED column order: every process must issue the same collectives
+        in the same order. ``page_bytes`` (``sdot.host.gather.page.bytes``
+        at the session layer) bounds ONE exchange page; page row counts
+        derive from the column's per-row bytes and GLOBAL metadata, so
+        every process pages the same way. The whole gather is one turn of
+        ``multihost.SEQUENCER``."""
+        if not self.is_partial:
+            return self
+        from spark_druid_olap_tpu_torch.parallel import multihost as MH
+        if not MH.is_multihost():
+            # a partial store in one process: nothing to gather from
+            self.require_complete("cross-host gather")
+        sel = sorted(k for k in list(self.dims) + list(self.metrics)
+                     if columns is None or k in columns)
+        key = MH.statement_key(f"complete\x00{self.name}\x00"
+                               + "\x00".join(sel))
+        with MH.SEQUENCER.turn(key):
+            return self._complete_locked(sel, page_bytes)
+
+    def _complete_locked(self, sel, page_bytes) -> "Datasource":
+        from spark_druid_olap_tpu_torch.cache.result_cache import (
+            ByteBudgetLRU)
+        from spark_druid_olap_tpu_torch.parallel import multihost as MH
+        cache = getattr(self, "_gathered_cols", None)
+        if cache is None:
+            cache = self._gathered_cols = \
+                ByteBudgetLRU(GATHERED_CACHE_MAX_BYTES)
+        n_rows = self.num_rows
+
+        def plan():
+            """(per-host global row ids, hosts, most local rows), from
+            GLOBAL metadata only; built on the first cache miss."""
+            p = getattr(self, "_gather_plan", None)
+            if p is None:
+                a = self.host_assignment
+                n_hosts = (int(a.max()) + 1) if len(a) else 1
+                gids = {}
+                for h in range(n_hosts):
+                    rs = [np.arange(self.segments[int(i)].start_row,
+                                    self.segments[int(i)].end_row,
+                                    dtype=np.int64)
+                          for i in np.nonzero(a == h)[0]]
+                    gids[h] = np.concatenate(rs) if rs \
+                        else np.empty(0, np.int64)
+                max_local = max((len(g) for g in gids.values()), default=0)
+                p = self._gather_plan = (gids, n_hosts, max_local)
+            return p
+
+        budget = int(page_bytes) if page_bytes else DEFAULT_GATHER_PAGE_BYTES
+
+        def gather(arr):
+            if arr is None:
+                return None
+            gids, n_hosts, max_local = plan()
+            # byte-budgeted paging: page rows from the column's per-row
+            # bytes (schema, the same on every host), not a fixed count
+            row_bytes = int(arr.dtype.itemsize) * int(
+                np.prod(arr.shape[1:], dtype=np.int64))
+            page = max(1, budget // max(1, row_bytes))
+            n_pages = max(1, -(-max_local // page))
+            out = np.empty((n_rows,) + arr.shape[1:], arr.dtype)
+            offs = {h: 0 for h in range(n_hosts)}
+            for c in range(n_pages):
+                blocks = MH.exchange_block(arr[c * page: (c + 1) * page])
+                for h, blk in enumerate(blocks):
+                    if len(blk):
+                        out[gids[h][offs[h]: offs[h] + len(blk)]] = blk
+                        offs[h] += len(blk)
+            return out
+
+        def col(name, build):
+            hit = cache.get(name)
+            if hit is None:
+                hit = build()
+                cache.put(name, hit)
+            return hit
+
+        time = None
+        if self.time is not None:
+            days, ms = col("\x00time", lambda: (
+                gather(self.time.days), gather(self.time.ms_in_day)))
+            time = dataclasses.replace(self.time, days=days, ms_in_day=ms)
+        dims, mets = {}, {}
+        for k in sel:
+            if k in self.dims:
+                d = self.dims[k]
+                codes, valid = col(k, lambda d=d: (
+                    gather(d.codes), gather(d.validity)))
+                dims[k] = dataclasses.replace(d, codes=codes, validity=valid)
+            else:
+                m = self.metrics[k]
+                bounds = (m.min, m.max)
+                values, valid = col(k, lambda m=m: (
+                    gather(m.values), gather(m.validity)))
+                mm = dataclasses.replace(m, values=values, validity=valid)
+                mm._bounds_cache = bounds
+                mets[k] = mm
+        # dict order mirrors the source store (column_names contract)
+        dims = {k: dims[k] for k in self.dims if k in dims}
+        mets = {k: mets[k] for k in self.metrics if k in mets}
+        ds = Datasource(name=self.name, time=time, dims=dims, metrics=mets,
+                        segments=list(self.segments),
+                        spatial=dict(self.spatial))
+        ds.gathered_from_partial = True
+        return ds
 
     # -- basic shape ----------------------------------------------------------
     @property
@@ -159,11 +362,25 @@ class Datasource:
         raise KeyError(f"{self.name} has no column {name!r}")
 
     # -- stacked arrays -------------------------------------------------------
+    def _boundaries(self):
+        """Per stacked row, its (start, end) in the column arrays: one
+        global row range per segment on a complete store; on a partial
+        store one LOCAL range per local segment (the columns hold only
+        local rows), derived from the global segment sizes."""
+        if not self.is_partial:
+            return [(s.start_row, s.end_row) for s in self.segments]
+        sizes = np.asarray([self.segments[int(i)].num_rows
+                            for i in self.local_seg_ids], dtype=np.int64)
+        starts = np.concatenate([[0], np.cumsum(sizes)[:-1]]) \
+            if len(sizes) else np.zeros(0, np.int64)
+        return [(int(s), int(s + n)) for s, n in zip(starts, sizes)]
+
     def _stack(self, values: np.ndarray, fill=0) -> np.ndarray:
-        out = np.full((self.num_segments, self.padded_rows), fill,
+        bounds = self._boundaries()
+        out = np.full((len(bounds), self.padded_rows), fill,
                       dtype=values.dtype)
-        for i, s in enumerate(self.segments):
-            out[i, : s.num_rows] = values[s.start_row:s.end_row]
+        for i, (s, e) in enumerate(bounds):
+            out[i, : e - s] = values[s:e]
         return out
 
     def stacked(self, name: str) -> np.ndarray:
@@ -191,12 +408,14 @@ class Datasource:
         return self._stacked_cache[key]
 
     def stacked_row_validity(self) -> np.ndarray:
-        """[S, R] bool: True for real rows, False for padding."""
+        """[S, R] bool: True for real rows, False for padding (S = the
+        local segments on a partial store)."""
         key = "__rows__"
         if key not in self._stacked_cache:
-            out = np.zeros((self.num_segments, self.padded_rows), dtype=bool)
-            for i, s in enumerate(self.segments):
-                out[i, : s.num_rows] = True
+            bounds = self._boundaries()
+            out = np.zeros((len(bounds), self.padded_rows), dtype=bool)
+            for i, (s, e) in enumerate(bounds):
+                out[i, : e - s] = True
             self._stacked_cache[key] = out
         return self._stacked_cache[key]
 
@@ -219,7 +438,9 @@ class Datasource:
 
     def segment_metric_bounds(self, name: str):
         """([S] min, [S] max) of a numeric metric column per segment (NaNs /
-        null rows ignored) — zone-map pruning metadata."""
+        null rows ignored) — zone-map pruning metadata. A partial store
+        has no per-segment bounds of other hosts' rows: it raises."""
+        self.require_complete("zone-map bounds")
         hit = self._bounds_cache.get(name)
         if hit is not None:
             return hit
@@ -244,7 +465,10 @@ class Datasource:
         not provably excluded by the filter's numeric or spatial bounds
         (zone maps; a spatial filter prunes by each segment's bounding box).
         Conservative: only top-level AND conjuncts prune; the full
-        row-level filter still runs on the device."""
+        row-level filter still runs on the device. Zone maps read column
+        data, which differs per process on a partial store, and a
+        divergent pruning deadlocks the collectives: a partial store
+        prunes by time (metadata) only."""
         if intervals is None:
             keep = np.ones(self.num_segments, dtype=bool)
         else:
@@ -252,7 +476,7 @@ class Datasource:
             keep = np.zeros(self.num_segments, dtype=bool)
             for lo, hi in intervals:
                 keep |= (maxs >= lo) & (mins < hi)
-        if filter_spec is not None and keep.any():
+        if filter_spec is not None and keep.any() and not self.is_partial:
             keep &= self._filter_keep_mask(filter_spec)
         return np.nonzero(keep)[0]
 
@@ -306,9 +530,18 @@ def datasource_from_arrays(name: str, arrays: dict) -> Datasource:
       dimension's ``values`` are its dictionary codes; a date column's
       are days since the epoch.
 
-    Segment time bounds are recomputed from the time column, so a store
-    carried across this way is identical, column by column, to its
-    source.
+    A multi-process partial store (``Datasource.is_partial``) also takes
+    ``"host_assignment"`` (the global [S] segment -> host map),
+    ``"host_id"``, ``"segment_millis"`` (the global ``(min, max)`` time
+    bounds of every segment, which the local rows cannot give) and
+    ``"metric_bounds"`` (``{column: (min, max)}``, the global bounds the
+    cost model reads); ``segments`` stays the global row bounds, and the
+    time column and ``columns`` hold the local segments' rows only, in
+    ascending global order.
+
+    Segment time bounds are recomputed from the time column where
+    ``segment_millis`` is not given, so a store carried across this way
+    is identical, column by column, to its source.
     """
     tinfo = arrays.get("time")
     time_col = None
@@ -332,17 +565,61 @@ def datasource_from_arrays(name: str, arrays: dict) -> Datasource:
         else:
             mets[col] = MetricColumn(name=col, values=values,
                                      validity=validity, kind=kind)
+    seg_ms = arrays.get("segment_millis")
     segments = []
     for i, (s, e) in enumerate(arrays["segments"]):
         s, e = int(s), int(e)
-        if time_col is not None and e > s:
+        if seg_ms is not None:
+            lo, hi = (int(v) for v in seg_ms[i])
+        elif time_col is not None and e > s:
             t = time_col.millis[s:e]
             lo, hi = int(t.min()), int(t.max())
         else:
             lo = hi = 0
         segments.append(Segment(f"{name}_{i:05d}", s, e, lo, hi))
+    for col, bounds in (arrays.get("metric_bounds") or {}).items():
+        mets[col]._bounds_cache = tuple(bounds)
     return Datasource(name=name, time=time_col, dims=dims, metrics=mets,
-                      segments=segments)
+                      segments=segments,
+                      host_assignment=arrays.get("host_assignment"),
+                      host_id=int(arrays.get("host_id", 0)))
+
+
+def restrict_to_host(ds: Datasource, host_assignment,
+                     host_id: int) -> Datasource:
+    """Partial copy of a complete datasource holding only ``host_id``'s
+    segment rows (the in-memory counterpart of the per-host streamed
+    ingest: each process ingests the same frame deterministically, then
+    drops the rows it does not own). Metric min / max bounds are taken
+    GLOBALLY before slicing and injected, so the cost model's
+    selectivity is the same on every process."""
+    assignment = np.asarray(host_assignment, np.int32)
+    local = np.nonzero(assignment == int(host_id))[0]
+    ranges = [(ds.segments[int(i)].start_row, ds.segments[int(i)].end_row)
+              for i in local]
+
+    def _slice(arr):
+        if arr is None or not ranges:
+            return None if arr is None else arr[:0]
+        return np.concatenate([arr[s:e] for s, e in ranges])
+
+    dims = {k: dataclasses.replace(d, codes=_slice(d.codes),
+                                   validity=_slice(d.validity))
+            for k, d in ds.dims.items()}
+    mets = {}
+    for k, m in ds.metrics.items():
+        bounds = (m.min, m.max)              # global, before the slice
+        mm = dataclasses.replace(m, values=_slice(m.values),
+                                 validity=_slice(m.validity))
+        mm._bounds_cache = bounds
+        mets[k] = mm
+    time = None
+    if ds.time is not None:
+        time = dataclasses.replace(ds.time, days=_slice(ds.time.days),
+                                   ms_in_day=_slice(ds.time.ms_in_day))
+    return Datasource(name=ds.name, time=time, dims=dims, metrics=mets,
+                      segments=list(ds.segments), spatial=dict(ds.spatial),
+                      host_assignment=assignment, host_id=int(host_id))
 
 
 def slice_segments(ds: Datasource, segment_indexes,

@@ -3,8 +3,8 @@ footprint.
 
 Port counterpart of ``spark_druid_olap_tpu/segment/stream_ingest.py``: a
 copy kept inside the PyTorch package, which imports nothing of the JAX
-package, less the multi-host per-process branch (``n_hosts`` > 1 raises,
-ROADMAP A.8). One part differs: an Arrow string column that becomes a
+package, with its multi-host per-process branch (``n_hosts`` > 1: this
+process allocates only its own segments' rows). One part differs: an Arrow string column that becomes a
 dimension is read with Arrow's compute kernels (``unique`` in pass A,
 ``index_in`` against the sorted global dictionary in pass B) instead of
 through pandas object arrays; the dictionaries, codes and validity are the
@@ -122,14 +122,13 @@ def ingest_parquet_stream(
 ) -> Datasource:
     """Stream a Parquet file into a datasource without materializing it.
 
-    ``n_hosts`` / ``host_id`` name the JAX package's multi-host
-    per-process ingest, where each process scatters only its own
-    segments' rows. The port builds complete stores only: ``n_hosts`` > 1,
-    or a ``host_id`` other than 0, raises (ROADMAP A.8)."""
-    if (n_hosts is not None and int(n_hosts) > 1) or host_id not in (None, 0):
-        raise NotImplementedError(
-            f"multi-host streamed Parquet ingest (n_hosts={n_hosts}, "
-            f"host_id={host_id}) not ported yet (ROADMAP A.8)")
+    With ``n_hosts``/``host_id`` this becomes the multi-process
+    per-host ingest (≈ each Druid middle-manager indexing only its own
+    time chunks): pass A (dictionaries, ranges, histogram) still streams
+    the whole file — its products are the GLOBAL metadata every process
+    must agree on and they are tiny — but pass B allocates and scatters
+    ONLY the rows of this host's segments, so a process's peak memory is
+    ~1/n_hosts of the dataset (plus one in-flight batch)."""
     dim_names = set(dimensions) if dimensions is not None else None
     metric_names = set(metrics) if metrics is not None else None
     metric_kinds = metric_kinds or {}
@@ -143,6 +142,10 @@ def ingest_parquet_stream(
     has_null: Dict[str, bool] = {c: False for c in cols}
     int_min: Dict[str, int] = {}
     int_max: Dict[str, int] = {}
+    # global float ranges: injected as a partial store's metric bounds so
+    # the cost model's selectivity is the same on every host
+    flt_min: Dict[str, float] = {}
+    flt_max: Dict[str, float] = {}
     day_counts: Dict[int, int] = {}
     first = True
     for batch in batches:
@@ -196,6 +199,11 @@ def ingest_parquet_stream(
             elif k == ColumnKind.DOUBLE:
                 v = s.to_numpy(np.float64, na_value=np.nan)
                 has_null[c] |= bool(np.isnan(v).any())
+                v = v[~np.isnan(v)]
+                if len(v):
+                    lo, hi = float(v.min()), float(v.max())
+                    flt_min[c] = min(flt_min.get(c, lo), lo)
+                    flt_max[c] = max(flt_max.get(c, hi), hi)
             elif k == ColumnKind.DATE:
                 d = np.floor_divide(_to_epoch_millis(s), MILLIS_PER_DAY)
                 if len(d):
@@ -226,7 +234,20 @@ def ingest_parquet_stream(
         seg_of_day = None
     seg_starts = np.concatenate([[0], np.cumsum(seg_rows)[:-1]])
 
+    # -- multi-host: this process materializes only its segments --------------
+    assignment = None
+    local_of_seg = None          # [n_seg] local row start, -1 when remote
     n_alloc = int(n_total)
+    if n_hosts is not None and int(n_hosts) > 1:
+        from spark_druid_olap_tpu_torch.parallel.multihost import (
+            assign_segments_to_hosts)
+        assignment = assign_segments_to_hosts(seg_rows, int(n_hosts))
+        is_local = assignment == int(host_id or 0)
+        local_sizes = np.where(is_local, seg_rows, 0)
+        local_starts = np.concatenate([[0], np.cumsum(local_sizes)[:-1]]) \
+            if len(local_sizes) else np.zeros(0, np.int64)
+        local_of_seg = np.where(is_local, local_starts, -1)
+        n_alloc = int(local_sizes.sum())
 
     # -- preallocate final columns -------------------------------------------
     ii = np.iinfo(np.int32)
@@ -285,6 +306,8 @@ def ingest_parquet_stream(
                 dest[order[st: st + cnt]] = cursors[s_] + np.arange(cnt)
                 cursors[s_] += cnt
                 m = ms[order[st: st + cnt]]
+                # GLOBAL segment time bounds: every process computes all
+                # of them (metadata must agree across hosts)
                 seg_min_ms[s_] = min(seg_min_ms[s_], int(m.min()))
                 seg_max_ms[s_] = max(seg_max_ms[s_], int(m.max()))
         else:
@@ -292,11 +315,20 @@ def ingest_parquet_stream(
             start = int(cursors[0])
             dest = np.arange(start, start + bn)
             cursors[0] += bn
+            seg_idx = np.searchsorted(seg_starts, dest, side="right") - 1
+
+        if local_of_seg is not None:
+            # keep only this host's rows; global dest -> local dest
+            lstart = local_of_seg[seg_idx]
+            keep = lstart >= 0
+            dest = (lstart + (dest - seg_starts[seg_idx]))[keep]
+        else:
+            keep = slice(None)
 
         if time_column is not None:
-            out["__days__"][dest] = days.astype(np.int32)
-            out["__ms__"][dest] = (ms - days * MILLIS_PER_DAY).astype(
-                np.int32)
+            out["__days__"][dest] = days[keep].astype(np.int32)
+            out["__ms__"][dest] = (ms[keep] - days[keep] * MILLIS_PER_DAY) \
+                .astype(np.int32)
         for c in cols:
             if c == time_column:
                 continue
@@ -307,13 +339,13 @@ def ingest_parquet_stream(
                     import pyarrow as pa
                     value_sets[c] = pa.array(list(dicts[c]), pa.string())
                 codes, valid = _arrow_codes(arr, value_sets[c])
-                out[c][dest] = codes
+                out[c][dest] = codes[keep]
                 if c in validity:
-                    validity[c][dest] = valid
+                    validity[c][dest] = valid[keep]
                 continue
             s = _series_of(batch, c)
             if k == ColumnKind.DIM:
-                raw = s.to_numpy(dtype=object)
+                raw = s.to_numpy(dtype=object)[keep]
                 valid = _valid_mask(raw)
                 safe = np.where(valid, raw, "").astype(str)
                 codes = np.searchsorted(dicts[c], safe)
@@ -324,11 +356,11 @@ def ingest_parquet_stream(
                 if c in validity:
                     validity[c][dest] = valid
             elif k == ColumnKind.DATE:
-                msd = _to_epoch_millis(s)
+                msd = _to_epoch_millis(s)[keep]
                 out[c][dest] = np.floor_divide(
                     msd, MILLIS_PER_DAY).astype(np.int32)
             else:
-                v = s.to_numpy()
+                v = s.to_numpy()[keep]
                 if c in validity:
                     # null-free batches surface as int dtype: still valid
                     if np.issubdtype(v.dtype, np.floating):
@@ -357,6 +389,7 @@ def ingest_parquet_stream(
                                    validity=validity.get(c),
                                    kind=kinds[c])
     segments = []
+    kept_assignment = []
     for i, (st, cnt) in enumerate(zip(seg_starts.tolist(),
                                       seg_rows.tolist())):
         if cnt <= 0:
@@ -368,8 +401,23 @@ def ingest_parquet_stream(
         segments.append(Segment(id=f"{name}_{i:05d}", start_row=int(st),
                                 end_row=int(st + cnt), min_millis=lo,
                                 max_millis=hi))
-    return Datasource(name=name, time=time_col, dims=dims, metrics=mets,
-                      segments=segments, spatial={})
+        if assignment is not None:
+            kept_assignment.append(int(assignment[i]))
+    ds = Datasource(name=name, time=time_col, dims=dims, metrics=mets,
+                    segments=segments, spatial={},
+                    host_assignment=(np.asarray(kept_assignment, np.int32)
+                                     if assignment is not None else None),
+                    host_id=int(host_id or 0))
+    if assignment is not None:
+        # inject GLOBAL metric bounds from pass A: local values would give
+        # each host a different cost-model selectivity, and so divergent
+        # plans (a deadlock of the collectives)
+        for c, m in mets.items():
+            if kinds[c] == ColumnKind.DOUBLE:
+                m._bounds_cache = (flt_min.get(c), flt_max.get(c))
+            else:
+                m._bounds_cache = (int_min.get(c), int_max.get(c))
+    return ds
 
 
 def flatten_join_stream(base_path: str, out_path: str, joins,

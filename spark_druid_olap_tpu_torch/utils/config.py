@@ -551,6 +551,13 @@ ENCODE_ENABLED = _entry(
     "RLE runs, frame-of-reference+delta time columns, encode/codecs.py) "
     "with a per-column chooser at checkpoint/compaction time. Decoded "
     "arrays are bit-identical to the raw path.", semantic=False)
+# --- host-tier safety valve ---------------------------------------------------
+HOST_GATHER_PAGE_BYTES = _entry(
+    "sdot.host.gather.page.bytes", 32 << 20,
+    "Byte budget for ONE paged cross-process gather when "
+    "Datasource.complete() reassembles a partial store's column on the "
+    "host tier; larger columns exchange in multiple bounded pages "
+    "instead of one unbounded allgather.")
 # --- distributed serving tier (cluster/) --------------------------------------
 CLUSTER_NODES = _entry(
     "sdot.cluster.nodes", "",

@@ -343,8 +343,11 @@ def _cache_spec(S, spec):
                                   "partial_search"])
 def test_paths_outside_the_slice_raise(spec, jax_ctx, port_ctx,
                                        monkeypatch):
-    """A multi-host partial store (ROADMAP A.8) raises. A scan whose bound
-    columns pass ``sdot.engine.device.cache.bytes`` (cases ``sketch`` and
+    """A multi-host partial store in ONE process raises, in both
+    packages, ``require_complete``'s error: its other rows live in
+    processes it has no group with (the multi-process mesh answers it,
+    ``tests/test_torch_multihost.py``). A scan whose bound columns pass
+    ``sdot.engine.device.cache.bytes`` (cases ``sketch`` and
     ``multi_wave``) is no longer refused: the key caps the bind cache, not
     a scan, so the cache is dropped, the scan binds in one wave and
     answers as the JAX engine does under the same setting."""
@@ -361,11 +364,25 @@ def test_paths_outside_the_slice_raise(spec, jax_ctx, port_ctx,
         # the cache holds at most the scan's last array
         assert len(port_ctx.engine._device_arrays) == 1
         return
-    # a multi-host partial store: its rows live in other processes
-    monkeypatch.setattr(port_ctx.store.get("lineitem"), "is_partial", True)
-    q = TS.SelectQuerySpec("lineitem", ("l_quantity",)) \
-        if spec == "partial_select" else TS.SearchQuerySpec(
-            "lineitem", ("l_returnflag",), "R")
-    with pytest.raises(NotImplementedError,
-                       match="not ported yet \\(ROADMAP A.8\\)"):
-        port_ctx.execute(q)
+    # host 0's partial store of two: its other rows live in a process
+    # this one has no group with
+    from spark_druid_olap_tpu.segment.store import \
+        restrict_to_host as jrestrict
+    from spark_druid_olap_tpu_torch.segment.store import restrict_to_host
+    for ctx, restrict in ((jax_ctx, jrestrict), (port_ctx, restrict_to_host)):
+        ds = ctx.store.get("lineitem")
+        assignment = np.arange(ds.num_segments) % 2
+        ds = restrict(ds, assignment, 0)
+        ds.name = "lineitem_partial"
+        ctx.store.register(ds)
+    try:
+        for S, ctx in ((JS, jax_ctx), (TS, port_ctx)):
+            q = S.SelectQuerySpec("lineitem_partial", ("l_quantity",)) \
+                if spec == "partial_select" else S.SearchQuerySpec(
+                    "lineitem_partial", ("l_returnflag",), "R")
+            with pytest.raises(RuntimeError,
+                               match="requires the complete datasource"):
+                ctx.execute(q)
+    finally:
+        for ctx in (jax_ctx, port_ctx):
+            ctx.store.drop("lineitem_partial")

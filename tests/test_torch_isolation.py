@@ -126,6 +126,9 @@ SERVER_CLUSTER_MODULES = ["server", "server.http", "server.flight",
                           "ops.agg_registry", "parallel.multihost"]
 # the single-process mesh
 MESH_MODULES = ["parallel.mesh", "parallel.meshexec"]
+# the multi-process mesh (``parallel.multihost`` is listed above): its rank
+# rig, which must not import the JAX package by the name both share
+MULTIHOST_MODULES = ["tools.multihost_worker"]
 
 
 @pytest.mark.parametrize("module",
@@ -133,7 +136,7 @@ MESH_MODULES = ["parallel.mesh", "parallel.meshexec"]
                          + JOIN_WINDOW_MODULES + SERVING_MODULES
                          + INGEST_ROLLUP_MODULES + PERSIST_MODULES
                          + TIER_MODULES + SERVER_CLUSTER_MODULES
-                         + MESH_MODULES)
+                         + MESH_MODULES + MULTIHOST_MODULES)
 def test_sharedscan_slice_modules_are_checked(module):
     import pkgutil
     prefix = "spark_druid_olap_tpu_torch."

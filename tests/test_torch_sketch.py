@@ -311,7 +311,7 @@ def _core_registers(jctx, tctx, spec_of):
         ds, seg, list(q.dimensions), q.aggregations, q.granularity,
         q.filter, q.intervals)
     tout = eng._make_core(ds, dims, aggs, q.filter, q.intervals, lo, hi,
-                          n_keys, routes)(eng._bind_arrays(ds, names, seg))
+                          n_keys, routes)(eng._bind_arrays(ds, names, seg)[0])
     return jout, tout, [p for p in aggs if p.kind in SKETCH_KINDS]
 
 

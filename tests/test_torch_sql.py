@@ -415,7 +415,7 @@ def test_window_statements_answer_as_the_jax_engine(full_pair, sql):
 
 REFUSED = [
     # (fixture, statement, ROADMAP item)
-    # a multi-host partial store: select and search exchange rows
+    # a multi-host partial store (A.8): select and search exchange rows
     ("full", "select ts, region, qty from sales where region = 'north' "
              "limit 20", "A.8"),
     ("full", "select product, count(*) as n from sales "
@@ -423,23 +423,31 @@ REFUSED = [
 ]
 
 
-def _partial_store(tctx, monkeypatch):
-    monkeypatch.setattr(tctx.store.get("sales"), "is_partial", True)
-
-
-# what a refusal needs on the port's side (the JAX engine answers as is)
-REFUSED_SETUP = {"A.8": _partial_store}
+def _partial_store(ctx, restrict, monkeypatch):
+    """Host 0's partial store of two in place of ``sales``: its other rows
+    live in a process this one has no group with."""
+    ds = ctx.store.get("sales")
+    part = restrict(ds, np.arange(ds.num_segments) % 2, 0)
+    monkeypatch.setitem(ctx.store._datasources, "sales", part)
 
 
 @pytest.mark.parametrize("where,sql,item", REFUSED)
 def test_port_refuses_what_it_has_not_ported(flat_pair, full_pair, where,
                                              sql, item, monkeypatch):
+    """What is refused: the A.8 statements over a partial store in ONE
+    process, in both packages with ``require_complete``'s error (the
+    multi-process mesh answers them, ``tests/test_torch_multihost.py``);
+    over the complete store the JAX engine answers them."""
+    from spark_druid_olap_tpu.segment.store import \
+        restrict_to_host as jrestrict
+    from spark_druid_olap_tpu_torch.segment.store import restrict_to_host
     jctx, tctx = flat_pair if where == "flat" else full_pair
     jctx.sql(sql)                      # the JAX engine answers it
-    if item in REFUSED_SETUP:
-        REFUSED_SETUP[item](tctx, monkeypatch)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}\\b"):
-        tctx.sql(sql)
+    for ctx, restrict in ((jctx, jrestrict), (tctx, restrict_to_host)):
+        _partial_store(ctx, restrict, monkeypatch)
+        with pytest.raises(RuntimeError,
+                           match="requires the complete datasource"):
+            ctx.sql(sql)
 
 
 # what earlier slices refused (device HAVING, A.4; the select path behind

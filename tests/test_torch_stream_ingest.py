@@ -236,9 +236,13 @@ def test_stream_nullable_int_across_batches(tmp_path):
 
 
 def test_stream_multi_host_is_refused(sales_parquet):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.8"):
-        tstream("sales", sales_parquet[0], time_column="ts", n_hosts=2,
-                host_id=0)
+    """The multi-host streamed ingest, once refused, now builds host 0's
+    partial store: only its segments' rows, global metadata."""
+    ds = tstream("sales", sales_parquet[0], time_column="ts", n_hosts=2,
+                 host_id=0)
+    full = tstream("sales", sales_parquet[0], time_column="ts")
+    assert ds.is_partial and ds.num_rows == full.num_rows
+    assert len(ds.metrics["qty"].values) == ds.local_num_rows < ds.num_rows
 
 
 @pytest.mark.parametrize("fmt", ["parquet", "csv", "parquet_stream"])

@@ -106,7 +106,7 @@ def plan(ctx, specs, fusion=True):
          for lp in lanes], [len(lp.needed) for lp in lanes],
         len(cols)) if fusion else None
     return ds, lanes, lo, hi, names, fplan, eng._bind_arrays(ds, names,
-                                                             seg_u)
+                                                             seg_u)[0]
 
 
 def same(a: torch.Tensor, b: torch.Tensor) -> bool:
