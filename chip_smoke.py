@@ -32,7 +32,10 @@ the register ops), its registers against the plain version and its
 estimates against pandas, then four sketch statements coalesced into one
 wave launch whose theta stripe runs inside the kernel (held against the
 plain version bit for bit) and whose HLL, KLL and wide theta run in the
-epilogue, their answers equal to the solo answers. Phases ``join`` and
+epilogue, their answers equal to the solo answers; then the same storm
+on the same context after the HLL and KLL widths are set (2^9 registers,
+64 lanes), one B2 launch through a newly built program, byte for byte a
+fresh context's storm at those widths. Phases ``join`` and
 ``window`` (inside ``sql``, over the whole star) run four joins on the
 broadcast tier (orders x customer with a residual and a build-side group,
 partsupp x supplier, and orders x customer again in 3 or more probe
@@ -2837,13 +2840,90 @@ def register_ops_checked(captured, real) -> dict:
     return out
 
 
+# the storm again on the same context at other sketch widths: the fused
+# program's signature carries both, so the storm builds a program at the
+# new widths instead of serving the one built at the defaults
+SKETCH_REKEY = {"sdot.engine.hll.log2m": 9, "sdot.quantile.lanes": 64}
+
+
+def frames_identical(a, b) -> bool:
+    """The same columns, dtypes and values byte for byte (object columns
+    value for value)."""
+    if list(a.columns) != list(b.columns) or len(a) != len(b):
+        return False
+    for c in a.columns:
+        x, y = a[c].to_numpy(), b[c].to_numpy()
+        if x.dtype != y.dtype:
+            return False
+        if x.dtype == object:
+            if list(x) != list(y):
+                return False
+        elif x.tobytes() != y.tobytes():
+            return False
+    return True
+
+
+def sketch_rekey(ctx, CW, names, queries, first) -> dict:
+    """``SKETCH_REKEY`` set on the storm's context, the storm again: one
+    B2 launch through a newly built program, every answer byte for byte a
+    fresh context's storm at those settings (also one B2 launch); the
+    settings restored after. ``first``: the storm's frames at the
+    defaults, to count the answers the new widths moved."""
+    import spark_druid_olap_tpu_torch as sdt
+    before = {k: ctx.config.get(k) for k in SKETCH_REKEY}
+    n_progs = len(ctx.engine._programs)
+    st0 = ctx.engine.sharedscan.stats()
+    ctx.config.set("sdot.sharedscan.enabled", True)
+    try:
+        for k, v in SKETCH_REKEY.items():
+            ctx.config.set(k, v)
+        CW.launches = 0
+        again, again_ms, _ = run_storm(ctx, queries, call=ctx.sql)
+        torch.cuda.synchronize()
+        b2_again = CW.launches
+        built = len(ctx.engine._programs) - n_progs
+        st1 = ctx.engine.sharedscan.stats()
+        fresh = sdt.Context({**ENGINE_TIMED, **SQL_STORM_CONFIG,
+                             **SKETCH_REKEY})
+        fresh.store.register(ctx.store.get("tpch_flat"))
+        CW.launches = 0
+        ref, fresh_ms, _ = run_storm(fresh, queries, call=fresh.sql)
+        torch.cuda.synchronize()
+        b2_fresh = CW.launches
+        st_fresh = fresh.engine.sharedscan.stats()
+    finally:
+        for k, v in before.items():
+            ctx.config.set(k, v)
+        ctx.config.set("sdot.sharedscan.enabled", False)
+    out = dict(settings=SKETCH_REKEY, restored=before,
+               wave_kernel_launches=b2_again, fresh_wave_kernel_launches=
+               b2_fresh, programs_built=built, wall_ms=again_ms,
+               fresh_wall_ms=fresh_ms,
+               wave_launches=st1["wave_launches"] - st0["wave_launches"],
+               wave_fallbacks=st1["wave_fallbacks"] - st0["wave_fallbacks"],
+               fresh_wave_fallbacks=st_fresh["wave_fallbacks"],
+               identical={n: frames_identical(a, b)
+                          for n, a, b in zip(names, again, ref)},
+               moved={n: not frames_identical(a, b)
+                      for n, a, b in zip(names, again, first)})
+    if not all(out["identical"].values()) or b2_again != 1 \
+            or b2_fresh != 1 or built != 1 or out["wave_launches"] != 1 \
+            or out["wave_fallbacks"] or out["fresh_wave_fallbacks"]:
+        raise AssertionError(f"sketch re-key: the storm at {SKETCH_REKEY} "
+                             f"on the same context is not a fresh "
+                             f"context's storm through one B2 launch: {out}")
+    return out
+
+
 def sketch_phase(ctx, tables, CG, CW) -> dict:
     """Phase ``sketch`` over the flat star: the solo statement (B1 and the
     three register ops), its registers against the plain version and its
     estimates against pandas; the four-statement storm in ONE wave launch,
     the in-kernel theta stripe against the plain version in every
     register-file layout that fits, the storm's answers equal to the solo
-    answers and its estimates against pandas; device times beside bounds."""
+    answers and its estimates against pandas; the storm again at other
+    sketch widths on the same context, byte for byte a fresh context's
+    (``sketch_rekey``); device times beside bounds."""
     from spark_druid_olap_tpu_torch.ops import hll as HLL
     from spark_druid_olap_tpu_torch.ops import kll as KLL
     from spark_druid_olap_tpu_torch.ops import theta as TH
@@ -2966,6 +3046,11 @@ def sketch_phase(ctx, tables, CG, CW) -> dict:
             f"sketch storm {n}", got[n], df, keys, cols, eps)
     out["storm"] = storm
     out["b2_launches"] = b2
+    # 3. the same storm re-keyed: other sketch widths on the same context
+    # (its launch and the fresh context's are the main path's too)
+    out["rekey"] = sketch_rekey(ctx, CW, names, queries, res)
+    out["b2_launches"] += out["rekey"]["wave_kernel_launches"] \
+        + out["rekey"]["fresh_wave_kernel_launches"]
     program, layout, cols = waves[0]
     out["wave"] = wave_timed(CW, "sketch storm", program, layout, cols)
     out["wave"]["stripes"] = [[t[0] for t in ls.thetas]
@@ -7401,7 +7486,9 @@ def main() -> int:
                 "version's (the same op on the host) bit for bit; the B2 "
                 "launch with the theta stripe equals wave_reference bit "
                 "for bit in every register-file layout that fits, launched "
-                "twice",
+                "twice; rekey: the storm at SKETCH_REKEY on the same "
+                "context equals a fresh context's storm byte for byte, "
+                "each in one B2 launch",
          note="register ops: device ms by CUDA events as in phase timing; "
               "bound = the larger of the bytes (inputs read once, registers "
               "written once) / 3.35 TB/s and the integer operations "

@@ -2454,11 +2454,18 @@ class QueryEngine:
         return mask
 
     def clear_caches(self):
-        """Drop the device-resident columns (the next query re-uploads),
-        the late-materialization overflow memo and the result cache."""
-        self._device_arrays.clear()
-        self._device_bytes = 0
-        self._compact_overflowed.clear()
+        """Drop the built programs, the device-resident columns (the next
+        query re-uploads), the late-materialization overflow memo and the
+        result cache. Each dict is cleared under the lock its other
+        writers hold: the backend-loss path and ``CLEAR METADATA`` call
+        this while query threads fill the same dicts in
+        ``_cached_program`` and ``_bind_arrays``."""
+        with self._compile_lock:
+            self._programs.clear()
+            self._compact_overflowed.clear()
+        with self._bind_lock:
+            self._device_arrays.clear()
+            self._device_bytes = 0
         self.result_cache.clear()
 
 

@@ -424,8 +424,10 @@ class SharedScanCoalescer:
         # 7. build once, cached under a signature that carries the fusion
         # token and the wave decision
         sig = ("aggmulti", ds.name, ds.serial, n_rows, min_day, max_day,
-               tuple(union_names), eng.config.get(TZ_ID), max_keys, sigs,
-               bool(eng.config.get(SHAREDSCAN_FUSION_ENABLED)),
+               tuple(union_names), eng.config.get(TZ_ID), max_keys,
+               # the sketch widths the program's registers are built at
+               eng.config.get(HLL_LOG2M), eng.config.get(QUANTILE_LANES),
+               sigs, bool(eng.config.get(SHAREDSCAN_FUSION_ENABLED)),
                int(eng.config.get(SHAREDSCAN_FUSION_MAX_NODES)),
                fplan.token() if fplan is not None else None,
                wave_on, wave_ok, max_lanes, scratch,

@@ -7,9 +7,9 @@ follow the other tables' in one random stream, so the whole generator is
 kept); ``flatten`` / ``flatten_partsupp`` denormalize them onto the
 lineitem and partsupp grains; ``star_schema`` / ``partsupp_star_schema``
 declare the stars that joins collapse onto; ``setup_context`` ingests it
-all; ``QUERIES`` are the benchmark statements. The out-of-core
-``flatten_stream`` is not copied (it needs the streaming ingest, ROADMAP
-A.9).
+all; ``QUERIES`` are the benchmark statements; ``flatten_stream`` is the
+out-of-core flatten over the port's streaming ingest
+(``segment/stream_ingest.flatten_join_stream``).
 
 The generator is a fast, deterministic, schema-faithful approximation of
 dbgen (uniform draws over real TPC-H value domains); answers are checked
@@ -221,6 +221,34 @@ def flatten(tables) -> pd.DataFrame:
                   left_on=["l_partkey", "l_suppkey"],
                   right_on=["ps_partkey", "ps_suppkey"])
     return df.reset_index(drop=True)
+
+
+def flatten_stream(tables, lineitem_path: str, out_path: str,
+                   batch_rows: int = 1 << 20,
+                   drop_columns=None) -> int:
+    """Out-of-core flatten: stream lineitem from Parquet and denormalize
+    chunk-by-chunk against the (smaller) dimension tables, writing the flat
+    index to Parquet incrementally — the full flat frame never
+    materializes (the pandas peak at SF>=10 would be several times the
+    ~25GB+ flat size). Returns rows written."""
+    from spark_druid_olap_tpu_torch.segment.stream_ingest import (
+        flatten_join_stream)
+    nr = nation_region_views(tables)
+    joins = [
+        (tables["orders"], "l_orderkey", "o_orderkey"),
+        (tables["customer"], "o_custkey", "c_custkey"),
+        (nr["custnation"], "c_nationkey", "cn_nationkey"),
+        (nr["custregion"], "cn_regionkey", "cr_regionkey"),
+        (tables["part"], "l_partkey", "p_partkey"),
+        (tables["supplier"], "l_suppkey", "s_suppkey"),
+        (nr["suppnation"], "s_nationkey", "sn_nationkey"),
+        (nr["suppregion"], "sn_regionkey", "sr_regionkey"),
+        (tables["partsupp"], ["l_partkey", "l_suppkey"],
+         ["ps_partkey", "ps_suppkey"]),
+    ]
+    return flatten_join_stream(lineitem_path, out_path, joins,
+                               batch_rows=batch_rows,
+                               drop_columns=drop_columns)
 
 
 def flatten_partsupp(tables) -> pd.DataFrame:

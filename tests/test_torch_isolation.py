@@ -172,3 +172,25 @@ def test_context_without_cuda_raises(monkeypatch):
         tsdot.Context(device="cuda")
     ctx = tsdot.Context(device="cpu")
     assert ctx.engine.device.type == "cpu"
+
+
+def test_tpch_flatten_stream_matches_jax(both_tpch, tmp_path):
+    """The port's out-of-core flatten (over its streaming ingest) writes
+    the JAX package's flat Parquet row for row, from the same lineitem
+    Parquet file streamed in several batches."""
+    from spark_druid_olap_tpu.tools.tpch import flatten_stream as jflatten
+    from spark_druid_olap_tpu_torch.tools.tpch import flatten_stream
+    jax_tables, port_tables = both_tpch
+    src = tmp_path / "lineitem.parquet"
+    port_tables["lineitem"].to_parquet(src, index=False)
+    drop = ["l_comment"]
+    n_jax = jflatten(jax_tables, str(src), str(tmp_path / "jax.parquet"),
+                     batch_rows=20000, drop_columns=drop)
+    n_port = flatten_stream(port_tables, str(src),
+                            str(tmp_path / "port.parquet"),
+                            batch_rows=20000, drop_columns=drop)
+    want = pd.read_parquet(tmp_path / "jax.parquet")
+    got = pd.read_parquet(tmp_path / "port.parquet")
+    assert n_port == n_jax == len(got) == len(port_tables["lineitem"])
+    assert "l_comment" not in got.columns
+    pd.testing.assert_frame_equal(got, want)

@@ -17,6 +17,7 @@ different orders).
 
 import test_torch_cache_pin  # noqa: F401 (the port's result cache off)
 
+import sys
 import threading
 
 import numpy as np
@@ -530,3 +531,130 @@ def test_batches_on_a_mesh_match_jax(request, name):
     assert st["mesh"]["partials"]["outstanding_bytes"] == 0
     # one launch of the wave program per slot
     assert st["wave_launches"] == 8 * st["mesh"]["dispatches"], st
+
+
+# -- a live context re-keys its storm program on a sketch width ---------------
+
+SKETCH_WIDTHS = {
+    "hll": ("sdot.engine.hll.log2m", 11, 6, sketch_batch),
+    "kll": ("sdot.quantile.lanes", 256, 8, split_sketch_batch),
+}
+
+
+def _sketch_columns(frame):
+    return [c for c in frame.columns if c in ("uprod", "tprod", "t", "u",
+                                              "p90")]
+
+
+@pytest.mark.parametrize("wave", [True, False])
+@pytest.mark.parametrize("width", sorted(SKETCH_WIDTHS))
+def test_storm_rekeys_after_a_sketch_width_is_set(sales, width, wave):
+    """A storm, a ``config.set`` of a sketch width on the same context,
+    and the same storm again: the second storm builds a program at the new
+    width (its signature carries the HLL and KLL widths) and answers as a
+    fresh context's storm at that width and as the JAX engine's storm
+    after the same set. Sketch estimates are bit-exact against the fresh
+    context; float sums rtol 1e-6."""
+    key, before, after, batch = SKETCH_WIDTHS[width]
+    tspecs, jspecs = batch(TS), batch(JS)
+    flags = {"sdot.pallas.wave.enabled": wave}
+    ctx = sales.storm_ctx(**flags)
+    assert ctx.config.get(key) == before
+    first, errs = run_concurrent(ctx.execute, tspecs)
+    assert not any(errs), errs
+    ctx.config.set(key, after)
+    again, errs = run_concurrent(ctx.execute, tspecs)
+    assert not any(errs), errs
+    fresh, errs = run_concurrent(
+        sales.storm_ctx(**flags, **{key: after}).execute, tspecs)
+    assert not any(errs), errs
+    jeng = JQueryEngine(sales.jstore, config=JConfig({
+        "sdot.sharedscan.enabled": True, "sdot.wlm.batch.window.ms":
+        WINDOW_MS, "sdot.wlm.enabled": False,
+        "sdot.pallas.wave.enabled": False}))
+    _, jerrs = run_concurrent(jeng.execute, jspecs)
+    assert not any(jerrs), jerrs
+    jeng.config.set(key, after)
+    jstorm, jerrs = run_concurrent(jeng.execute, jspecs)
+    assert not any(jerrs), jerrs
+    changed = 0
+    for i, got in enumerate(again):
+        assert_frames_match(got, fresh[i], f"q{i} vs a fresh context")
+        assert_frames_match(got, jstorm[i], f"q{i} vs the JAX storm")
+        for c in _sketch_columns(got):
+            np.testing.assert_array_equal(got[c].to_numpy(),
+                                          fresh[i][c].to_numpy(),
+                                          err_msg=f"q{i} {c}")
+            changed += not np.array_equal(got[c].to_numpy(),
+                                          first[i][c].to_numpy())
+    assert changed, "the new width moved no sketch answer"
+    st = ctx.engine.sharedscan.stats()
+    assert st["queries_coalesced"] == 2 * len(tspecs), st
+    assert st["wave_launches"] == 2 * int(wave), st
+    assert len(ctx.engine._programs) == 2
+
+
+# -- clear_caches holds the locks the caches' other writers hold --------------
+
+@pytest.mark.parametrize("lock,cache", [("_compile_lock", "_programs"),
+                                        ("_bind_lock", "_device_arrays")])
+def test_clear_caches_waits_for_the_cache_lock(sales, lock, cache):
+    """``clear_caches`` drops the built programs and the device-resident
+    columns under the lock their fill paths (``_cached_program``,
+    ``_bind``) hold: while that lock is held elsewhere the cache stays
+    whole, and it empties once the lock is free."""
+    ctx = sales.storm_ctx()
+    eng = ctx.engine
+    _, errs = run_concurrent(ctx.execute, sales_batch(TS))
+    assert not any(errs), errs
+    assert eng._programs and eng._device_arrays
+    held = getattr(eng, lock)
+    held.acquire()
+    try:
+        t = threading.Thread(target=eng.clear_caches)
+        t.start()
+        t.join(0.5)
+        assert t.is_alive(), "clear_caches did not wait for " + lock
+        assert getattr(eng, cache), cache + " cleared without its lock"
+    finally:
+        held.release()
+    t.join(30)
+    assert not t.is_alive()
+    assert not eng._programs and not eng._device_arrays
+    assert eng._device_bytes == 0 and not eng._compact_overflowed
+
+
+def test_clear_caches_beside_concurrent_statements(sales):
+    """Statements on four threads while a fifth clears the caches over
+    and over, the interpreter's switch interval shortened: every answer
+    equals the port's solo answer, and afterwards the byte count of the
+    device-resident columns equals what the cache holds."""
+    ctx = tsdot.Context(device="cpu")
+    ctx.store.register(sales.ds)
+    eng = ctx.engine
+    specs = sales_batch(TS)[:4]
+    want = [sales.solo.execute(q).to_pandas() for q in specs]
+    stop = threading.Event()
+
+    def clearer():
+        while not stop.wait(0.001):
+            eng.clear_caches()
+
+    c = threading.Thread(target=clearer)
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    c.start()
+    try:
+        for _ in range(3):
+            got, errs = run_concurrent(ctx.execute, specs)
+            assert not any(errs), errs
+            for i, g in enumerate(got):
+                assert_frames_match(g, want[i], f"q{i}")
+    finally:
+        stop.set()
+        c.join(30)
+        sys.setswitchinterval(switch)
+    assert not c.is_alive()
+    held = sum(int(t.nbytes) for devs in eng._device_arrays.values()
+               for t in devs)
+    assert eng._device_bytes == held
