@@ -126,7 +126,16 @@ version, with per-wave bind, copy and compute times and the overlap share;
 then Q1 in one wave under a bind-cache cap below its bound bytes, then
 EXPLAIN of Q1 (its printed waves against the ones it runs) and of Q6
 compacted (its printed survivor budget against its run), and the cost
-model's calibration. Any statement demoted as ``backend_lost`` outside
+model's calibration. Phase ``fuzz`` (after ``waves``) ingests the frame of
+the JAX package's fuzz test (``tests/test_fuzz_differential.py``) at 2^22
+rows in 4 segments and runs its 60 random statements one at a time with
+compaction forced, each against a vectorised pandas oracle and each B1
+call against its plain version, then its first 40 as 5 storms of 8
+threads under shared scan, each answer against its solo one, each B2
+launch against its plain version and each storm's plan (lanes that ride,
+members solo, wave fallback reasons) against ``FUZZ_STORM_PLAN``, which
+``tests/test_torch_fuzz_differential.py`` holds against the JAX package's
+decisions. Any statement demoted as ``backend_lost`` outside
 the device-loss child fails the run. Before
 that it builds every kernel of the path from the sources in this checkout and
 holds each against its plain PyTorch version on the card: the dense
@@ -7317,6 +7326,327 @@ def multihost_phase(sdt, S, E, single, df, smi, device="cuda:0",
     return out
 
 
+# -- random shapes through B1 and B2 (phase "fuzz") ---------------------------
+
+# the frame and the generator of JAX tests/test_fuzz_differential.py (:20,
+# :43), at a row count a deployment holds on one card
+FUZZ_ROWS = 1 << 22
+FUZZ_TARGET_ROWS = 1 << 20          # 4 segments
+FUZZ_SEED = 99
+FUZZ_SMALL_ROWS = 4000              # the test's frame: its IN-lists' values
+FUZZ_DIMS = ("region", "sku", "tier")
+FUZZ_METRICS = ("qty", "price")
+FUZZ_SOLO, FUZZ_HAVING = 40, 20     # seeds 1000 + i and 5000 + i
+FUZZ_RTOL, FUZZ_ATOL = 1e-5, 1e-6   # the test's own
+FUZZ_STORMS, FUZZ_STORM_SIZE = 5, 8
+FUZZ_SOLO_CONFIG = {**ENGINE_TIMED, "sdot.engine.scan.compact.min.rows": 0}
+FUZZ_STORM_CONFIG = {
+    **ENGINE_TIMED,
+    "sdot.sharedscan.enabled": True,
+    "sdot.sharedscan.max.queries": FUZZ_STORM_SIZE,
+    # closes as soon as the 8th statement joins; the window only has to
+    # outlast the threads' start skew and their planning
+    "sdot.wlm.batch.window.ms": 2000.0,
+    # region x sku groups 200 keys, sku x tier 120: above the default
+    # 64-key tier of the fused group-by kernel that wave lanes must ride
+    "sdot.engine.groupby.pallas.max.keys": 256}
+#: each storm's plan, (lanes that ride the group, members that run solo,
+#: wave fallback reasons): the fusion planner's and the coalescer's
+#: decisions on the statements of seeds 1000 + 8 s .. 1000 + 8 s + 7; held
+#: against the JAX package's decisions by
+#: tests/test_torch_fuzz_differential.py
+FUZZ_STORM_PLAN = ({"rode": FUZZ_STORM_SIZE, "solo": 0, "fallbacks": 0,
+                    "wave_fallback_reasons": {}},) * FUZZ_STORMS
+
+
+def fuzz_frame(n):
+    """The test's frame at ``n`` rows (``n`` = 4000 is the test's own)."""
+    import pandas as pd
+    rng = np.random.default_rng(FUZZ_SEED)
+    return pd.DataFrame({
+        "ts": pd.Timestamp("2022-01-01")
+        + pd.to_timedelta(rng.integers(0, 120, n), unit="D"),
+        "region": rng.choice(["ne", "nw", "se", "sw", "c"], n),
+        "sku": rng.choice([f"k{i:03d}" for i in range(40)], n),
+        "tier": rng.choice(["gold", "silver", "bronze"], n),
+        "qty": rng.integers(0, 200, n),
+        "price": np.round(rng.random(n) * 30, 2),
+    })
+
+
+def fuzz_statement(rng, values):
+    """``(sql, shape)``: the test's ``_gen_query`` draw for draw, with the
+    IN-lists drawn from ``values`` (each dimension's ``unique()`` over the
+    test's frame); ``shape`` is what :func:`fuzz_oracle` needs."""
+    import pandas as pd
+    dims = [str(d) for d in rng.choice(FUZZ_DIMS, size=rng.integers(0, 3),
+                                       replace=False)]
+    aggs = []
+    for i in range(rng.integers(1, 4)):
+        m = str(rng.choice(FUZZ_METRICS))
+        kind = str(rng.choice(["sum", "min", "max", "count", "avg"]))
+        aggs.append((f"a{i}", kind, m))
+    conds, where = [], []
+    if rng.random() < 0.8:
+        d = str(rng.choice(FUZZ_DIMS))
+        vals = sorted(set(str(v) for v in rng.choice(
+            values[d], size=rng.integers(1, 3), replace=True)))
+        where.append(f"{d} in ({', '.join(repr(v) for v in vals)})")
+        conds.append(("in", d, vals))
+    if rng.random() < 0.6:
+        lo = int(rng.integers(0, 150))
+        where.append(f"qty >= {lo}")
+        conds.append(("ge", "qty", lo))
+    if rng.random() < 0.3:
+        day = pd.Timestamp("2022-01-01") + pd.Timedelta(
+            days=int(rng.integers(20, 100)))
+        where.append(f"ts < date '{day.date()}'")
+        conds.append(("lt", "ts", day))
+    sel = list(dims)
+    for name, kind, m in aggs:
+        expr = {"sum": f"sum({m})", "min": f"min({m})", "max": f"max({m})",
+                "count": "count(*)", "avg": f"avg({m})"}[kind]
+        sel.append(f"{expr} as {name}")
+    sql = "select " + ", ".join(sel) + " from t"
+    if where:
+        sql += " where " + " and ".join(where)
+    if dims:
+        sql += " group by " + ", ".join(dims)
+        sql += " order by " + ", ".join(dims)
+    return sql, {"dims": dims, "aggs": aggs, "conds": conds}
+
+
+def fuzz_having(rng):
+    """``(sql, shape)``: the test's ordered-limit + HAVING shape."""
+    dim = str(rng.choice(FUZZ_DIMS))
+    m = str(rng.choice(FUZZ_METRICS))
+    thresh = int(rng.integers(100, 4000))
+    k = int(rng.integers(1, 8))
+    like = bool(rng.random() < 0.4)
+    cond = "sku like 'k01%'" if like else "region in ('ne','se')"
+    sql = (f"select {dim}, sum({m}) as s, count(*) as n from t "
+           f"where {cond} and qty >= 10 "
+           f"group by {dim} having count(*) > {thresh // 100} "
+           f"order by s desc, {dim} limit {k}")
+    return sql, {"having": (dim, m, thresh // 100, k, like)}
+
+
+def fuzz_statements():
+    """The 60 statements of the JAX fuzz test, in its order: seeds
+    1000 + i (i < 40), then 5000 + i (i < 20)."""
+    small = fuzz_frame(FUZZ_SMALL_ROWS)
+    values = {d: small[d].unique() for d in FUZZ_DIMS}
+    out = [fuzz_statement(np.random.default_rng(1000 + i), values)
+           for i in range(FUZZ_SOLO)]
+    return out + [fuzz_having(np.random.default_rng(5000 + i))
+                  for i in range(FUZZ_HAVING)]
+
+
+def fuzz_oracle(df, shape):
+    """The statement's answer by vectorised pandas (``groupby().agg``)."""
+    import pandas as pd
+    if "having" in shape:
+        dim, m, least, k, like = shape["having"]
+        keep = (df["sku"].str.startswith("k01") if like
+                else df["region"].isin(["ne", "se"])) & (df["qty"] >= 10)
+        g = df[keep].groupby(dim).agg(s=(m, "sum"), n=(m, "size"))
+        g = g[g["n"] > least].reset_index()
+        return g.sort_values(["s", dim], ascending=[False, True]) \
+            .head(k).reset_index(drop=True)[[dim, "s", "n"]]
+    mask = np.ones(len(df), bool)
+    for op, col, v in shape["conds"]:
+        mask &= (df[col].isin(v) if op == "in" else df[col] >= v
+                 if op == "ge" else df[col] < v).to_numpy()
+    d = df[mask]
+    pdkind = {"sum": "sum", "min": "min", "max": "max", "avg": "mean",
+              "count": "size"}
+    dims, aggs = shape["dims"], shape["aggs"]
+    if dims:
+        named = {name: (m, pdkind[kind]) for name, kind, m in aggs}
+        return d.groupby(dims, sort=True).agg(**named).reset_index()
+    row = {}
+    for name, kind, m in aggs:
+        row[name] = len(d) if kind == "count" else np.nan if not len(d) \
+            else getattr(d[m], pdkind[kind])()
+    return pd.DataFrame([row])
+
+
+def fuzz_check(name, got, want):
+    """The test's comparison: row count, then the frames at rtol 1e-5 /
+    atol 1e-6 in the statement's order (dtypes not compared)."""
+    import pandas as pd
+    if len(want) == 0:
+        if len(got):
+            raise AssertionError(f"{name}: {len(got)} rows, want none")
+        return
+    got = got.reset_index(drop=True)
+    want = want[list(got.columns)].reset_index(drop=True)
+    try:
+        pd.testing.assert_frame_equal(got, want, check_dtype=False,
+                                      rtol=FUZZ_RTOL, atol=FUZZ_ATOL)
+    except AssertionError as e:
+        raise AssertionError(f"{name}: {e}") from None
+
+
+def _route(stats) -> str:
+    """kernel / scatter / sorted / host / wave / lanes, from a run's
+    stats."""
+    if str(stats.get("mode", "engine")).startswith("host"):
+        return "host"
+    return str(stats.get("route") or stats.get("mode"))
+
+
+def b1_merge(total, part):
+    """Adds a :func:`b1_checked` result into ``total``."""
+    total["max_abs_err"] = max(total["max_abs_err"], part["max_abs_err"])
+    for f in ("ms", "plain_ms", "bound_ms", "library_ms"):
+        total[f] += part[f]
+    total["calls"] += part["calls"]
+    return total
+
+
+def fuzz_solo(ctx, statements, df, CG, spies, timed):
+    """The statements one at a time, each against pandas; each one's B1
+    calls held against the plain version right after it (their inputs
+    dropped then). Returns the answers, the routes taken and the B1
+    checks."""
+    answers, routes = [], {}
+    b1 = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+          "library_ms": 0.0, "calls": []}
+    for i, (sql, shape) in enumerate(statements):
+        got = spies.run(lambda: ctx.sql(sql).to_pandas())
+        r = _route(ctx.history.entries()[-1].stats)
+        routes[r] = routes.get(r, 0) + 1
+        fuzz_check(f"fuzz solo[{i}] {sql}", got, fuzz_oracle(df, shape))
+        b1_merge(b1, b1_checked(CG, f"fuzz solo[{i}]", spies.b1, timed))
+        spies.b1.clear()
+        answers.append(got)
+    return answers, routes, b1
+
+
+def storm_plan(stats, delta) -> dict:
+    """One storm's plan from its members' stats and the coalescer's
+    counters across it: lanes that rode the group, members that ran solo,
+    the wave fallback reasons."""
+    rode = sum(1 for s in stats if "sharedscan" in s
+               and s.get("route") in ("wave", "lanes"))
+    return {"rode": rode, "solo": len(stats) - rode,
+            "fallbacks": delta["fallbacks"],
+            "wave_fallback_reasons": delta["wave_fallback_reasons"]}
+
+
+def fuzz_storms(ctx, statements, solo, spies):
+    """The statements as storms of ``FUZZ_STORM_SIZE`` threads on ``ctx``
+    (shared scan on), each answer against its solo answer (ints bit-equal,
+    floats rtol 1e-6). Returns per storm its plan (:func:`storm_plan`),
+    its B2 launches (the spies' captures) and its ms."""
+    co = ctx.engine.sharedscan
+    out = []
+    for s in range(len(statements) // FUZZ_STORM_SIZE):
+        lo = s * FUZZ_STORM_SIZE
+        sqls = [q for q, _ in statements[lo:lo + FUZZ_STORM_SIZE]]
+        before = co.stats()
+        n_b2 = len(spies.b2)
+        stats = []
+        res, ms, _ = spies.run(lambda: run_storm(ctx, sqls, call=ctx.sql,
+                                                 stats_out=stats))
+        after = co.stats()
+        reasons = {k: v - before["wave_fallback_reasons"].get(k, 0)
+                   for k, v in after["wave_fallback_reasons"].items()
+                   if v != before["wave_fallback_reasons"].get(k, 0)}
+        delta = {k: after[k] - before[k] for k in (
+            "queries_coalesced", "fallbacks", "wave_launches",
+            "wave_fallbacks", "groups_coalesced")}
+        delta["wave_fallback_reasons"] = reasons
+        for i, (got, want) in enumerate(zip(res, solo[lo:])):
+            if list(got.columns) != list(want.columns):
+                raise AssertionError(f"fuzz storm {s}[{i}]: columns "
+                                     f"{list(got.columns)} vs solo "
+                                     f"{list(want.columns)}")
+            check_frame(f"fuzz storm {s}[{i}] vs solo", got, want, None,
+                        FLOAT_SUM_RTOL_ORACLE)
+        out.append({"plan": storm_plan(stats, delta), "coalescer": delta,
+                    "launches": spies.b2[n_b2:], "ms": ms,
+                    "routes": [_route(st) for st in stats]})
+    return out
+
+
+def fuzz_programs(CW, launches) -> dict:
+    """Distinct lane programs among ``launches`` and the specialised
+    handlers (``cuda_wave.FAST``) their instructions take."""
+    progs = {repr(p.instrs) for p, _, _ in launches}
+    fast = sorted({CW.FAST[CW.fast_code(op, dt, src)]
+                   for p, _, _ in launches
+                   for op, dt, src, *_ in p.instrs})
+    return {"programs": len(progs), "fast_handlers": fast,
+            "lanes": [len(lay.lanes) for _, lay, _ in launches]}
+
+
+def fuzz_phase(sdt, CG, CW, smi, n=FUZZ_ROWS,
+               target_rows=FUZZ_TARGET_ROWS) -> dict:
+    """Phase ``fuzz``: the JAX fuzz test's 60 random statements over its
+    frame at ``n`` rows, one at a time (compaction forced, every B1 call
+    against its plain version, every answer against pandas), then its first
+    40 as 5 storms of 8 threads under shared scan (every B2 launch against
+    its plain version, every answer against the solo one, each storm's
+    plan against ``FUZZ_STORM_PLAN``)."""
+    t_phase = time.perf_counter()
+    statements = fuzz_statements()
+    df = fuzz_frame(n)
+    ctx = sdt.Context(FUZZ_SOLO_CONFIG)
+    t = time.perf_counter()
+    ds = ctx.ingest_dataframe("t", df, time_column="ts",
+                              target_rows=target_rows)
+    out = {"card": smi, "rows": n, "segments": ds.num_segments,
+           "ingest_s": time.perf_counter() - t,
+           "statements": len(statements)}
+    spies = KernelSpies(CG, CW)
+    timed = set()
+    t = time.perf_counter()
+    solo, routes, b1 = fuzz_solo(ctx, statements, df, CG, spies, timed)
+    out["solo"] = {"statements": len(solo), "routes": routes,
+                   "b1_launches": spies.b1_launches,
+                   "b2_launches": spies.b2_launches,
+                   "b1_checked": len(b1["calls"]),
+                   "seconds": time.perf_counter() - t}
+    storm_ctx = sdt.Context(FUZZ_STORM_CONFIG)
+    storm_ctx.store.register(ds)
+    b1_before, b2_before = spies.b1_launches, spies.b2_launches
+    t = time.perf_counter()
+    storms = fuzz_storms(storm_ctx, statements[:FUZZ_STORMS
+                                               * FUZZ_STORM_SIZE],
+                         solo, spies)
+    storm_s = time.perf_counter() - t
+    plans = [st["plan"] for st in storms]
+    if plans != list(FUZZ_STORM_PLAN):
+        raise AssertionError(f"fuzz storms: plans {plans}, the CPU test "
+                             f"asserts {list(FUZZ_STORM_PLAN)}")
+    if not spies.b2:
+        raise AssertionError("fuzz storms: no storm launched B2")
+    b2, b2_timed = [], set()
+    for s, st in enumerate(storms):
+        for i, w in enumerate(st["launches"]):
+            b2.append(wave_timed(CW, f"fuzz storm {s} b2[{i}]", *w,
+                                 b2_timed))
+    b1 = b1_merge(b1, b1_checked(CG, "fuzz storms", spies.b1, timed))
+    out["storms"] = [dict(st["plan"], routes=st["routes"], ms=st["ms"],
+                          coalescer={k: v for k, v in st["coalescer"].items()
+                                     if k != "wave_fallback_reasons"},
+                          b2_launches=len(st["launches"]),
+                          **fuzz_programs(CW, st["launches"]))
+                     for st in storms]
+    out["storm_pass"] = {"statements": len(storms) * FUZZ_STORM_SIZE,
+                         "b1_launches": spies.b1_launches - b1_before,
+                         "b2_launches": spies.b2_launches - b2_before,
+                         "b2_checked": len(b2), "seconds": storm_s,
+                         **fuzz_programs(CW, spies.b2)}
+    out["kernels"] = {"b1": b1, "b2": b2}
+    out["b1_launches"], out["b2_launches"] = spies.b1_launches, \
+        spies.b2_launches
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def pd_frame(answer, like):
     """A rank's answer (``multihost_worker.frame_answer``) as a frame, its
     time columns parsed where ``like`` has them."""
@@ -7329,7 +7659,7 @@ def pd_frame(answer, like):
 
 
 NEW_PHASES = ("ssb", "rollup", "append", "persist", "modules", "server",
-              "cluster", "mesh", "multihost")
+              "cluster", "mesh", "multihost", "fuzz")
 
 
 def main() -> int:
@@ -7998,6 +8328,26 @@ def main() -> int:
               "+ copy + compute); single-wave cold = device cache "
               "dropped before each run; pinned_copy_gb_per_s: one copy "
               "of the widest wave's bytes from pinned memory")
+
+    # 7b. random shapes: the JAX fuzz test's 60 statements solo and its
+    # first 40 as 5 storms, over its frame at FUZZ_ROWS rows
+    fuzz = fuzz_phase(sdt, CG, CW, smi)
+    emit("fuzz", **fuzz,
+         oracle="each solo answer vs vectorised pandas (groupby().agg) at "
+                "the JAX test's rtol 1e-5 / atol 1e-6; each storm answer vs "
+                "its solo answer (ints exact, floats rtol 1e-6); each "
+                "storm's plan (lanes that ride, members solo, wave "
+                "fallback reasons) vs FUZZ_STORM_PLAN, which "
+                "tests/test_torch_fuzz_differential.py holds against the "
+                "JAX package's decisions; every B1 call and B2 launch vs "
+                "its plain version (kernels)",
+         note="seconds: host wall clock; storm ms: from the first thread's "
+              "start to the last answer; programs: distinct lane programs "
+              "B2 ran, fast_handlers: the specialised handlers "
+              "(cuda_wave.FAST) their instructions take; kernels: a call "
+              "of a shape already timed in the phase is checked, not timed "
+              "again")
+    new_phases = new_phases + (fuzz,)
 
     loss_guard.check("chip_smoke")
     # 8. every ported kernel with its check result: the sums over the

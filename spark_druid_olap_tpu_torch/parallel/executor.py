@@ -1181,6 +1181,18 @@ class QueryEngine:
         all_dim_plans, agg_plans, min_day, max_day, n_keys, names, routes = \
             self._plan_agg(ds, seg_idx, dimensions, aggregations,
                            granularity, filter_spec, intervals)
+        if bool(self.config.get(SHAREDSCAN_FUSION_ENABLED)):
+            # solo-path CSE accounting at plan time, as in the JAX
+            # package (the scan's CSECache does the sharing; this counts
+            # its hits)
+            try:
+                tot, distinct = FU.analyze_query(
+                    filter_spec, intervals,
+                    [a.filter for a in aggregations])
+                if tot:
+                    self.sharedscan.note_solo_cse(tot - distinct, tot)
+            except Exception:  # noqa: BLE001 — accounting never fails a query
+                pass
         cards = [p.card for p in all_dim_plans]
         sharded = self._should_shard(q, ds, seg_idx)
         n_dev = self._shard_count(ds, sharded)

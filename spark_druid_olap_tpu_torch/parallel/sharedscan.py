@@ -197,6 +197,9 @@ class SharedScanCoalescer:
         self.fusion_predicate_evals_saved = 0
         self.fusion_predicate_evals_total = 0
         self.fusion_column_streams_saved = 0
+        # the solo path's own repeated sub-predicates (note_solo_cse)
+        self.fusion_solo_evals_saved = 0
+        self.fusion_solo_evals_total = 0
         # wave kernel (ops/cuda_wave.py): one launch per fused wave when
         # the group is wave-eligible; fallbacks count programs built lane
         # by lane while the kernel was enabled, by reason
@@ -239,6 +242,13 @@ class SharedScanCoalescer:
         group's dispatch."""
         with self._lock:
             self.wlm_handoffs += 1
+
+    def note_solo_cse(self, saved: int, total: int) -> None:
+        """Called by the solo executor path's plan-time CSE accounting
+        (one query's own tree repeating sub-predicates)."""
+        with self._lock:
+            self.fusion_solo_evals_saved += int(saved)
+            self.fusion_solo_evals_total += int(total)
 
     # -- group membership -----------------------------------------------------
     def run(self, q, t0: float) -> QueryResult:
@@ -816,6 +826,10 @@ class SharedScanCoalescer:
     # -- observability --------------------------------------------------------
     def stats(self) -> dict:
         with self._lock:
+            total = self.fusion_predicate_evals_total \
+                + self.fusion_solo_evals_total
+            saved = self.fusion_predicate_evals_saved \
+                + self.fusion_solo_evals_saved
             return {"enabled": self.enabled(),
                     "groups_coalesced": self.groups_coalesced,
                     "solo_groups": self.solo_groups,
@@ -846,4 +860,8 @@ class SharedScanCoalescer:
                         "predicate_evals_total":
                             self.fusion_predicate_evals_total,
                         "column_streams_saved":
-                            self.fusion_column_streams_saved}}
+                            self.fusion_column_streams_saved,
+                        "solo_evals_saved": self.fusion_solo_evals_saved,
+                        "solo_evals_total": self.fusion_solo_evals_total,
+                        "cse_hit_rate": round(saved / total, 4)
+                        if total else 0.0}}

@@ -418,11 +418,13 @@ def free_port() -> int:
     return port
 
 
-def spawn(world: int, out: str, mode: str, device: str = "cpu",
+def spawn(world: int, out: str, mode: str, *, device: str,
           backend: str = "gloo", timeout_s: float = 600.0,
           cwd: Optional[str] = None) -> List[dict]:
     """Run ``world`` ranks to completion and return their results in rank
-    order; raises ``RuntimeError`` with every rank's log when a rank fails
+    order. ``device`` has no default: the caller names where the ranks run
+    (``cpu``, ``cuda``, ``cuda:N`` or the slot lists of ``slots_of``).
+    Raises ``RuntimeError`` with every rank's log when a rank fails
     or the wall timeout passes. Every rank still running on the way out is
     killed."""
     port = free_port()

@@ -476,6 +476,16 @@ def test_initialize_refuses_ranks_of_unequal_slots(tmp_path):
                 backend="gloo", timeout_s=120)
 
 
+def test_spawn_names_no_default_device(tmp_path):
+    """``spawn`` has no default device: a call that does not name one
+    raises before any rank starts, so no entry point of the port falls
+    back to the CPU unasked."""
+    with pytest.raises(TypeError, match="device"):
+        W.spawn(2, str(tmp_path / "nodev"), "probe", backend="gloo",
+                timeout_s=5)
+    assert not list(tmp_path.iterdir())
+
+
 def test_gather_partials_packs_views_and_dtypes(monkeypatch):
     """The device merge's packing: every tensor of a partial (views with
     odd strides, a one-element view, bool, float32, int64) travels as
